@@ -7,7 +7,8 @@
 Phases, one or more lines each; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
      versions; a CUDA card is required, there is no CPU fallback;
-  2. build: nvcc builds the kernels of ops/csrc from this checkout;
+  2. build: nvcc builds the kernels of ops/csrc from this checkout, one
+     process per source, in parallel;
   3. K1 (packed flash-attention forward) against its plain version;
   4. K4 (ragged flash-decode) against its plain version;
   5. the serving slice: Llama-3.2-1B at full width (random bf16 weights
@@ -15,9 +16,25 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      prefill; launch counts, logits against the plain-attention path,
      timings and peak memory. The plain-attention path is the same code
      with the kernels' wrappers swapped for their plain versions inside
-     this script (plain_attention); the package itself has no such switch.
+     this script (plain_kernels); the package itself has no such switch;
+  6. K2 (flash-attention backward) against autograd through the plain
+     forward, at the training shape's heads, and at phase 8's own shape
+     (B1 T16384, 10 packed documents; the plain version one kv head at a
+     time so its f32 scores fit);
+  7. K3 (fused lm-head + cross-entropy, forward and backward) against its
+     plain versions at the training shape's vocab, and at phase 8's own
+     N = 16384 rows, where the backward accumulates dw over two dl row
+     chunks (an f32 case forces four);
+  8. the training slice: bin.train.main, the port's trainer, takes 10
+     packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
+     examples/text/pretrain/fineweb-edu/run.sh:46) on TouchDataset shards
+     this script writes (seeded, learnable documents); then one step's
+     loss, grad norm and gradients of the kernel path against the plain
+     path at B1 T4096, full width and depth, in f32 and bf16.
 Then one JSON line of per-kernel results, the card line, and the last
-line {"ok": true, "device": {...}}.
+line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
+the main paths that run it (K1: serving and training; K4: serving; K2,
+K3: training), each path driven with the counts set to 0 just before it.
 
 Tolerances on the card, each against the plain version on the same inputs:
   - bf16 kernels vs the plain version run in f32 on the same bf16-rounded
@@ -26,6 +43,14 @@ Tolerances on the card, each against the plain version on the same inputs:
     2^-9 relative, ~1.6e-2 at |out| near 4), lse 1e-3 (f32 throughout;
     only summation order differs);
   - f32 kernels: 1e-4, with TF32 off for the plain version's matmuls;
+  - gradients (K2's dq, dk, dv; K3's dh, dw): the largest error relative to
+    the largest reference value, f32 1e-4 (summation order only), bf16
+    1e-2 (one bf16 rounding of each output, 2e-3 of the value, plus K2's
+    delta reading K1's bf16 out where the plain version recomputes it);
+  - K3's row statistics (lse, label logit, base-2 row max): 1e-3 absolute
+    (f32 sums of E products and of 128256 exponentials in another order;
+    |lse| ~ 12); argmax agreement >= 0.999 on random rows, and exactly the
+    smallest index on a constructed tie;
   - slice logits, per prefill and per teacher-forced decode step, by
     relative L2 error. With the weights in f32 and f32 compute, the kernel
     path against the plain-attention path: 1e-4 (only the kernels differ,
@@ -37,8 +62,23 @@ Tolerances on the card, each against the plain version on the same inputs:
     be at most 1.5x the plain path's own error. And at an absolute limit:
     the last prefill's logits of the bf16 kernel path against the bf16
     plain path, 5e-2 (that rounding noise, ~3e-2, with room; a kernel
-    fault beyond rounding moves them by far more, see PERF.md).
-Timings are the median of 7 runs after 2 warmup runs, with CUDA events.
+    fault beyond rounding moves them by far more, see PERF.md);
+  - the training step at B1 T4096 (set before the first run of phase 8),
+    kernel path against the plain path on the same weights and batch:
+    f32: loss relative 1e-5 and grad norm relative 1e-4 (only the kernels
+    differ, each held to 1e-4 alone; the norm sums 1.24e9 squares), and the
+    whole gradient (every parameter's, as one vector) relative L2 1e-4.
+    bf16, held to the f32 plain path as reference as the serving check is:
+    the bf16 kernel path's whole-gradient relative L2 error at most 1.5x
+    the bf16 plain path's own, and its loss within 2e-2 of the f32 plain
+    loss (~11.8 at init; bf16 rounding of the hidden state moves the mean
+    over 4k tokens by ~1e-3);
+  - the 10 training steps: every logged loss finite and the last below the
+    first; launches per step K1 = 2L (forward and the recompute of "full"
+    remat), K2 = L, K3 forward 1 and backward 1; no plain version called.
+Timings are the median of 7 runs after 2 warmup runs, with CUDA events;
+the training step's is the median host time of steps 3-10 (each ends in
+the logging sync).
 """
 
 import contextlib
@@ -48,6 +88,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -103,13 +144,14 @@ def compare(name, got, want, dtype, failures, valid=None):
     return mx
 
 
-def packed_segments(B, T, dev):
-    """Three documents then a padding tail (segment 0) in every row."""
+def packed_segments(B, T, dev, docs=3):
+    """`docs` documents then a padding tail (segment 0) in every row."""
     rng = np.random.default_rng(SEED + T)
     seg = np.zeros((B, T), np.int32)
     for b in range(B):
-        c = np.sort(rng.choice(np.arange(1, T - 64), 3, replace=False))
-        seg[b, :c[0]], seg[b, c[0]:c[1]], seg[b, c[1]:c[2]] = 1, 2, 3
+        ends = np.sort(rng.choice(np.arange(1, T - 64), docs, replace=False))
+        for i, (start, end) in enumerate(zip([0, *ends[:-1]], ends)):
+            seg[b, start:end] = i + 1
     return torch.from_numpy(seg).to(dev)
 
 
@@ -222,21 +264,24 @@ def rel_l2(a, b) -> float:
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """The reference route of the slice: while it is open, the kernel
-    wrappers that forward_step calls (flash_attention, which flash_prefill
-    also goes through, and decode_attention) are their plain versions,
-    which take the same arguments and run on the card."""
+def plain_kernels():
+    """The reference route of both slices: while it is open, the kernel
+    wrappers the model code calls (flash_attention, which flash_prefill also
+    goes through and whose backward is K2; decode_attention; fused_ce_rows)
+    are their plain versions, which take the same arguments, run on the
+    card and are differentiable."""
     from touchnet_tpu_torch.ops import attention as attn
     from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.ops import fused_ce
 
-    saved = attn.flash_attention, dec.decode_attention
+    saved = attn.flash_attention, dec.decode_attention, fused_ce.fused_ce_rows
     attn.flash_attention = attn.packed_attention_reference
     dec.decode_attention = dec.decode_attention_reference
+    fused_ce.fused_ce_rows = fused_ce.fused_ce_rows_reference
     try:
         yield
     finally:
-        attn.flash_attention, dec.decode_attention = saved
+        attn.flash_attention, dec.decode_attention, fused_ce.fused_ce_rows = saved
 
 
 def run_slice(dev, card, failures):
@@ -324,7 +369,7 @@ def run_slice(dev, card, failures):
 
         def forced_plain(m, dtype):
             before = (flash_attention.launches, decode_attention.launches)
-            with plain_attention():
+            with plain_kernels():
                 res = forced(m, dtype)[0]
             if (flash_attention.launches, decode_attention.launches) != before:
                 failures.append(f"{mode} plain path launched a kernel")
@@ -361,6 +406,349 @@ def run_slice(dev, card, failures):
     return main_counts
 
 
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+CE_STAT_TOL, ARGMAX_AGREE = 1e-3, 0.999
+STEP_F32_LOSS, STEP_F32_GNORM, STEP_F32_GRADS = 1e-5, 1e-4, 1e-4
+STEP_BF16_RATIO, STEP_BF16_LOSS = 1.5, 2e-2
+TRAIN_STEPS, TRAIN_T, CHECK_T, DOC_RANGE = 10, 16384, 4096, 1000
+
+
+def compare_grad(name, got, want, dtype, failures):
+    """Largest error relative to the largest reference value; returns the
+    max abs error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    finite = bool(torch.isfinite(got).all())
+    ok = finite and rel <= GRAD_TOL[dtype]
+    print(f"  {name}: max_abs_err={err:.3e} rel_to_max={rel:.3e} finite={finite} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name)
+    return err
+
+
+def check_k2(attn, dev, gen, failures, card):
+    print("[6] K2 flash_attention_bwd vs autograd through packed_attention_reference")
+    rows = {}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    def grouped_reference(q, k, v, seg, g, causal):
+        """The plain backward one kv head at a time (its G query heads
+        against it), so the f32 scores of a long sequence fit."""
+        G = q.shape[2] // k.shape[2]
+        dq, dk, dv = (torch.empty(x.shape, device=dev) for x in (q, k, v))
+        for j in range(k.shape[2]):
+            hs, ks = slice(j * G, (j + 1) * G), slice(j, j + 1)
+            dq[:, :, hs], dk[:, :, ks], dv[:, :, ks] = attn.flash_attention_bwd_reference(
+                q[:, :, hs].float(), k[:, :, ks].float(), v[:, :, ks].float(), seg, seg,
+                None, None, g[:, :, hs].float(), causal)
+        return dq, dk, dv
+
+    def case(name, B, T, H, Hkv, D, dtype, causal, packed, timed=False, docs=3,
+             grouped=False):
+        q, k, v = randn(B, T, H, D, dtype=dtype), randn(B, T, Hkv, D, dtype=dtype), \
+            randn(B, T, Hkv, D, dtype=dtype)
+        g = randn(B, T, H, D, dtype=dtype)
+        seg = packed_segments(B, T, dev, docs) if packed else None
+        out, lse = attn.flash_attention(q, k, v, seg, causal)
+        got = attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g, causal)
+        torch.cuda.synchronize()
+        if grouped:
+            want = grouped_reference(q, k, v, seg, g, causal)
+            ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
+                                                          causal), 3, 1)
+            print(f"  {name} time: kernel {ms:.3f} ms  [{card}]")
+        else:
+            want = attn.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
+                                                      seg, None, None, g.float(), causal)
+        errs = [compare_grad(f"{name} {n}", a, b, dtype, failures)
+                for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        del got, want
+        if timed:
+            ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
+                                                          causal))
+            plain = time_ms(lambda: attn.flash_attention_bwd_reference(
+                q, k, v, seg, seg, None, None, g, causal))
+            print(f"  {name} time: kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
+            rows[name] = (max(errs), ms, plain)
+
+    case("(a) B1 T4096 H32/8 D64 bf16 causal packed", 1, 4096, 32, 8, 64, torch.bfloat16,
+         True, True, timed=True)
+    case("(b) B1 T4096 H32/8 D64 f32 causal packed", 1, 4096, 32, 8, 64, torch.float32,
+         True, True)
+    case("(c) B2 T1500 H16/4 D128 bf16 non-causal", 2, 1500, 16, 4, 128, torch.bfloat16,
+         False, False)
+    case("(d) main path: B1 T16384 H32/8 D64 bf16 causal, 10 packed documents",
+         1, 16384, 32, 8, 64, torch.bfloat16, True, True, docs=10, grouped=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_k3(fused_ce, dev, gen, failures, card):
+    print("[7] K3 fused_ce fwd/bwd vs _rows_reference / _rows_backward_reference")
+    rows = {}
+
+    def case(name, N, E, V, dtype, tie=False, timed=False, chunk_rows=None, min_chunks=1):
+        saved = fused_ce.DL_SCRATCH_BYTES
+        if chunk_rows:  # a smaller dl scratch: the backward runs in row chunks
+            fused_ce.DL_SCRATCH_BYTES = chunk_rows * V * torch.finfo(dtype).bits // 8
+        chunks = -(-N // fused_ce.bwd_chunk_rows(N, V, torch.finfo(dtype).bits // 8))
+        ok = chunks >= min_chunks
+        print(f"  {name}: backward in {chunks} dl row chunk(s) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} chunks")
+        try:
+            body(name, N, E, V, dtype, tie, timed)
+        finally:
+            fused_ce.DL_SCRATCH_BYTES = saved
+
+    def body(name, N, E, V, dtype, tie, timed):
+        h = torch.randn((N, E), generator=gen, device=dev).to(dtype)
+        w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(dtype)
+        labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+        labels[::9] = -100
+        if tie:  # rows 5 and V-1 of w equal and dominant for every row
+            h[:, 0] = 4.0
+            w[5] = w[V - 1] = 0.0
+            w[5, 0] = w[V - 1, 0] = 8.0
+        lse, tl, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
+        torch.cuda.synchronize()
+        want = fused_ce._rows_reference(h, w, labels)
+        stat_err = 0.0
+        for n, a, b in zip(("lse", "true_logit", "m2"), (lse, tl, m2), want[:3]):
+            err = (a - b).abs().max().item()
+            stat_err = max(stat_err, err)
+            ok = err <= CE_STAT_TOL and bool(torch.isfinite(a).all())
+            print(f"  {name} {n}: max_abs_err={err:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{name} {n}")
+        agree = (ai == want[3]).float().mean().item()
+        ok = (ai == 5).all().item() if tie else agree >= ARGMAX_AGREE
+        print(f"  {name} argmax: agreement {agree:.5f}"
+              f"{' (tie: all rows pick index 5)' if tie else ''} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{name} argmax")
+        del want
+        valid = (labels != -100).float()
+        dlse, dtl = valid / N, -valid / N  # the mean CE's cotangents
+        dh, dw = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+        torch.cuda.synchronize()
+        wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
+        e_dh = compare_grad(f"{name} dh", dh, wdh, dtype, failures)
+        e_dw = compare_grad(f"{name} dw", dw, wdw, dtype, failures)
+        del dh, dw, wdh, wdw
+        if timed:
+            fwd = time_ms(lambda: fused_ce.fused_ce_fwd(h, w, labels))
+            fwd_p = time_ms(lambda: fused_ce._rows_reference(h, w, labels))
+            bwd = time_ms(lambda: fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl), 3, 1)
+            bwd_p = time_ms(lambda: fused_ce._rows_backward_reference(
+                h, w, labels, lse, dlse, dtl), 3, 1)
+            print(f"  {name} time: fwd kernel {fwd:.3f} ms, plain {fwd_p:.3f} ms; "
+                  f"bwd kernel {bwd:.3f} ms, plain {bwd_p:.3f} ms  [{card}]")
+            rows["fwd"] = (stat_err, fwd, fwd_p)
+            rows["bwd"] = (max(e_dh, e_dw), bwd, bwd_p)
+        del h, w
+        torch.cuda.empty_cache()
+
+    case("(a) N4096 E2048 V128256 bf16", 4096, 2048, 128256, torch.bfloat16, timed=True)
+    case("(b) N2048 E2048 V128256 f32, 576-row dl chunks", 2048, 2048, 128256,
+         torch.float32, chunk_rows=576, min_chunks=4)
+    case("(c) argmax tie N256 E2048 V128256 f32", 256, 2048, 128256, torch.float32, tie=True)
+    case("(d) main path: N16384 E2048 V128256 bf16", 16384, 2048, 128256, torch.bfloat16,
+         min_chunks=2)
+    return rows
+
+
+def write_shards(root: Path, vocab: int, seed: int) -> Path:
+    """TouchDataset texttoken shards through the port's DataBuilder: 4
+    shards of 120 documents, lengths 200-3000, each an ascending run of ids
+    mod DOC_RANGE (a learnable next-token rule over a small id range)."""
+    from touchnet_tpu_torch.bin.make_data import DataBuilder
+
+    rng = np.random.default_rng(seed)
+    lines = []
+    for s in range(4):
+        d = root / f"{s:09d}"
+        d.mkdir(parents=True)
+        b = DataBuilder(str(d / "texttoken.bin"), np.int32)
+        for _ in range(120):
+            n = int(rng.integers(200, 3001))
+            start = int(rng.integers(0, DOC_RANGE))
+            b.add_item((np.arange(n) + start) % DOC_RANGE + 3)
+            b.end_document()
+        b.finalize(str(d / "texttoken.idx"))
+        lines.append(f"{d} texttoken\n")
+    listfile = root / "data.list"
+    listfile.write_text("".join(lines))
+    return listfile
+
+
+def train_argv(listfile, exp, seqlen, steps, dtype, vocab) -> list:
+    """The recipe's flags (run.sh stage 2) where this slice runs them: one
+    card (dp 1), no checkpoints, dev set, profiling or tensorboard, remat
+    "full" for op_small (a later slice), 10 steps at lr 1e-3."""
+    args = {
+        "tokenizer_type": "RawTokenizer", "tokenizer_raw_vocab_size": vocab,
+        "datapipe_type": "causal_lm", "datalist_path": listfile,
+        "datalist_sharding": "true", "datalist_epoch": 10000,
+        "datalist_shuffling": "true", "dataset_shuffling": "true", "dataset_mmap": "true",
+        "dataset_batchsize": 1, "dataset_text_seqlen": seqlen,
+        "text_max_length_in_tokens_for_filter": seqlen - 2,
+        "text_min_length_in_tokens_for_filter": 1,
+        "dataloader_num_workers": 2, "dataloader_prefetch_factor": 2,
+        "training_seed": 2025, "training_model_name": "llama",
+        "training_model_config_path": CONFIG, "training_trace_dump_folder": exp,
+        "training_data_parallel_shard_degree": 1, "training_enable_loss_parallel": "true",
+        "training_enable_liger_kernel": "true", "training_log_freq": 1,
+        "training_mixed_precision_param": dtype, "training_mixed_precision_reduce": "float32",
+        "training_max_norm": 1.0, "training_activation_checkpoint_mode": "full",
+        "optimizer_name": "AdamW", "optimizer_lr": 1e-3, "optimizer_impl": "fused",
+        "lr_scheduler_steps": steps, "lr_scheduler_warmup_steps": 2,
+        "lr_scheduler_decay_type": "linear", "lr_scheduler_lr_min": 0.0,
+    }
+    return [x for k, v in args.items() for x in (f"--{k}", str(v))]
+
+
+@contextlib.contextmanager
+def count_plain_calls():
+    """Counts calls of every plain version while open (the training path
+    must make none)."""
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import fused_ce
+
+    calls = {}
+    targets = [(attn, "packed_attention_reference"), (attn, "flash_attention_bwd_reference"),
+               (fused_ce, "_rows_reference"), (fused_ce, "_rows_backward_reference")]
+    saved = [getattr(m, n) for m, n in targets]
+
+    def counted(fn, name):
+        def wrap(*a, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*a, **kw)
+        return wrap
+
+    for (m, n), fn in zip(targets, saved):
+        setattr(m, n, counted(fn, n))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(targets, saved):
+            setattr(m, n, fn)
+
+
+def step_grads(train, listfile, exp, dtype, plain, dev):
+    """One step's (loss, grad norm, flat f32 gradient) at B1 T4096 through
+    the port's Trainer: the first batch of the loader, loss and backward as
+    train_step runs them, no optimizer update."""
+    from touchnet_tpu_torch.bin import TrainConfig
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+    from touchnet_tpu_torch.utils.optimizer import global_grad_norm
+
+    argv = train_argv(listfile, exp, CHECK_T, 1, dtype, 128256)
+    tok, data, job = parse_args_into_dataclasses([TokenizerConfig, DataConfig, TrainConfig],
+                                                 argv)
+    trainer = train.Trainer(tok, data, job, dev)
+    it = iter(trainer.dataloader)
+    batch, num_sentence = trainer._put_batch(next(it))
+    trainer.close()
+    with plain_kernels() if plain else contextlib.nullcontext():
+        loss, _, _ = trainer._loss_and_acc(batch, num_sentence)
+        loss.backward()
+    grads = [p.grad for p in trainer.params]
+    gnorm = global_grad_norm(grads).item()
+    flat = torch.cat([g.float().flatten() for g in grads])
+    out = loss.item(), gnorm, flat
+    del trainer, grads, batch, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_training(dev, card, failures, tmp: Path):
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import fused_ce
+
+    print("[8] slice: Llama-3.2-1B training, bin.train.main")
+    cfg = LlamaConfig.from_json_file(str(CONFIG))
+    L = cfg.num_hidden_layers
+    listfile = write_shards(tmp / "shards", cfg.vocab_size, SEED)
+    argv = train_argv(listfile, tmp / "exp", TRAIN_T, TRAIN_STEPS, "bfloat16", cfg.vocab_size)
+    print(f"  {TRAIN_STEPS} steps, 1x{TRAIN_T} packed, bf16 compute over f32 masters, "
+          "remat full, fused CE, AdamW fused, WSD linear, lr 1e-3, warmup 2")
+    counters = (attn.flash_attention, attn.flash_attention_bwd, fused_ce.fused_ce_fwd,
+                fused_ce.fused_ce_bwd)
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every launch count is zeroed here and read just after
+    for c in counters:
+        c.launches = 0
+    with count_plain_calls() as plain_calls:
+        trainer = train.main(argv)
+    k1, k2, k3f, k3b = (c.launches for c in counters)
+    hist = trainer.metrics_processor.history
+    losses = [h["loss/per_sample"] for h in hist]
+    steps = trainer.step
+    want = (2 * L * steps, L * steps, steps, steps)
+    ok = (k1, k2, k3f, k3b) == want and not plain_calls and steps == TRAIN_STEPS
+    print(f"  launches over {steps} steps: K1={k1} K2={k2} K3 fwd={k3f} K3 bwd={k3b} "
+          f"(want {want}); plain versions called: {plain_calls or 'none'} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("training launch counts / plain calls")
+    ok = len(losses) == steps and all(math.isfinite(x) for x in losses) and \
+        losses[-1] < losses[0]
+    print(f"  loss per step: {[round(x, 4) for x in losses]} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("training loss")
+    timed = hist[2:]
+    step_ms = statistics.median(h["time/step_s"] for h in timed) * 1e3
+    tps = statistics.median(h["throughput/tps"] for h in timed)
+    mfu = statistics.median(h.get("throughput/mfu_pct", float("nan")) for h in timed)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  step {step_ms:.1f} ms (median of steps 3-{steps}), {tps:,.0f} tokens/s, "
+          f"MFU {mfu:.2f}% of 989 TFLOP/s bf16, peak {peak:.2f} GiB allocated  [{card}]")
+    train_counts = {"K1": k1, "K2": k2, "K3 fwd": k3f, "K3 bwd": k3b}
+    del trainer
+    torch.cuda.empty_cache()
+
+    print(f"  one step at B1 T{CHECK_T}, full width and depth: kernel vs plain path")
+    f32k = step_grads(train, listfile, tmp / "chk", "float32", plain=False, dev=dev)
+    f32p = step_grads(train, listfile, tmp / "chk", "float32", plain=True, dev=dev)
+    e_loss = abs(f32k[0] - f32p[0]) / abs(f32p[0])
+    e_gn = abs(f32k[1] - f32p[1]) / f32p[1]
+    e_g = ((f32k[2] - f32p[2]).norm() / f32p[2].norm()).item()
+    ok = e_loss <= STEP_F32_LOSS and e_gn <= STEP_F32_GNORM and e_g <= STEP_F32_GRADS
+    print(f"  f32: loss {f32k[0]:.6f} vs {f32p[0]:.6f} (rel {e_loss:.2e} <= {STEP_F32_LOSS:.0e}), "
+          f"grad norm {f32k[1]:.6f} vs {f32p[1]:.6f} (rel {e_gn:.2e} <= {STEP_F32_GNORM:.0e}), "
+          f"gradients rel L2 {e_g:.2e} (<= {STEP_F32_GRADS:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("f32 train step")
+    del f32k
+    bfk = step_grads(train, listfile, tmp / "chk", "bfloat16", plain=False, dev=dev)
+    bfp = step_grads(train, listfile, tmp / "chk", "bfloat16", plain=True, dev=dev)
+    e_k = ((bfk[2] - f32p[2]).norm() / f32p[2].norm()).item()
+    e_p = ((bfp[2] - f32p[2]).norm() / f32p[2].norm()).item()
+    e_kp = ((bfk[2] - bfp[2]).norm() / bfp[2].norm()).item()
+    d_loss = abs(bfk[0] - f32p[0])
+    ok = e_k <= STEP_BF16_RATIO * e_p and d_loss <= STEP_BF16_LOSS and \
+        math.isfinite(bfk[1])
+    print(f"  bf16: gradients rel L2 vs f32 plain: kernel {e_k:.3e}, plain {e_p:.3e} "
+          f"(kernel <= {STEP_BF16_RATIO}x plain); bf16 kernel vs bf16 plain {e_kp:.3e}; "
+          f"loss {bfk[0]:.6f} vs f32 plain {f32p[0]:.6f} (|diff| {d_loss:.2e} <= "
+          f"{STEP_BF16_LOSS:.0e}); grad norm {bfk[1]:.6f} / bf16 plain {bfp[1]:.6f} / "
+          f"f32 plain {f32p[1]:.6f} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("bf16 train step")
+    del f32p, bfk, bfp
+    torch.cuda.empty_cache()
+    return train_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -370,6 +758,7 @@ def main() -> int:
     from touchnet_tpu_torch.ops import _build
     from touchnet_tpu_torch.ops import attention as attn
     from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.ops import fused_ce
 
     if Path(touchnet_tpu_torch.__file__).resolve().parent.parent != HERE:
         raise RuntimeError(f"touchnet_tpu_torch imported from {touchnet_tpu_torch.__file__}")
@@ -391,21 +780,37 @@ def main() -> int:
     k1 = check_k1(attn, dev, gen, failures, card)
     k4 = check_k4(dec, dev, gen, failures, card)
     counts = run_slice(dev, card, failures)
-    for name in ("K1", "K4"):
-        if counts[name] == 0:
+    torch.cuda.empty_cache()
+    k2 = check_k2(attn, dev, gen, failures, card)
+    k3 = check_k3(fused_ce, dev, gen, failures, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_counts = run_training(dev, card, failures, Path(tmp))
+    counts["K1"] += train_counts.pop("K1")
+    counts.update(train_counts)
+    for name, n in counts.items():
+        if n == 0:
             failures.append(f"{name} never launched on the main path")
 
-    (k1_err, k1_ms, k1_plain), = [v for n, v in k1.items() if n.startswith("(a)")]
-    (k4_err, k4_ms, k4_plain), = [v for n, v in k4.items() if n.startswith("(a)")]
+    def row(name, source, replaces, launches, result):
+        err, ms, plain = result
+        return {"name": name, "route": "cuda", "source": f"touchnet_tpu_torch/ops/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": ms, "plain_ms": plain}
+
+    (k1_res,) = [v for n, v in k1.items() if n.startswith("(a)")]
+    (k4_res,) = [v for n, v in k4.items() if n.startswith("(a)")]
+    (k2_res,) = k2.values()
     print(json.dumps({"kernels": [
-        {"name": "flash_attention_fwd (K1)", "route": "cuda",
-         "source": "touchnet_tpu_torch/ops/csrc/flash_attention.cu",
-         "replaces": "touchnet_tpu/ops/attention.py:269", "launches": counts["K1"],
-         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain},
-        {"name": "flash_decode (K4)", "route": "cuda",
-         "source": "touchnet_tpu_torch/ops/csrc/decode_attention.cu",
-         "replaces": "touchnet_tpu/ops/decode_attention.py:85", "launches": counts["K4"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain},
+        row("flash_attention_fwd (K1)", "flash_attention.cu",
+            "touchnet_tpu/ops/attention.py:269", counts["K1"], k1_res),
+        row("flash_attention_bwd (K2: delta, dkv, dq)", "flash_attention_bwd.cu",
+            "touchnet_tpu/ops/attention.py:778", counts["K2"], k2_res),
+        row("fused_ce_fwd (K3 forward)", "fused_ce.cu",
+            "touchnet_tpu/ops/fused_ce.py:86", counts["K3 fwd"], k3["fwd"]),
+        row("fused_ce_bwd (K3 backward)", "fused_ce.cu",
+            "touchnet_tpu/ops/fused_ce.py:175", counts["K3 bwd"], k3["bwd"]),
+        row("flash_decode (K4)", "decode_attention.cu",
+            "touchnet_tpu/ops/decode_attention.py:85", counts["K4"], k4_res),
     ]}))
     if failures:
         raise SystemExit(f"chip_smoke FAILED: {failures}")

@@ -1,0 +1,97 @@
+# K3's plain version (touchnet_tpu_torch.ops.fused_ce.fused_ce_rows, which
+# CPU tensors take) against touchnet_tpu's fused_ce_rows with its Pallas
+# forward and backward kernels in interpret mode, on the same numpy inputs:
+# lse, label logit, m2 (base-2 row max) and argmax, and the gradients dh, dw
+# of a loss that weights lse and label logit. f32; atol 1e-4 on the row
+# statistics (|lse| ~ 6-7: a few f32 ulps of different summation orders)
+# and atol 1e-5 with rtol 1e-5 on the gradients (sums of 256-512 terms of
+# unit scale in another order: dw entries reach ~4, where f32 rounding of
+# the sum alone is a few 1e-6).
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from touchnet_tpu.ops import fused_ce as jce
+from touchnet_tpu_torch.ops import fused_ce as ce
+
+N, E, V = 256, 128, 512  # the smallest shape the Pallas kernel takes
+
+
+def _inputs(seed, tie=False):
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((N, E)).astype(np.float32)
+    w = (0.5 * rng.standard_normal((V, E))).astype(np.float32)
+    labels = rng.integers(0, V, N).astype(np.int32)
+    labels[::7] = -100  # ignored positions
+    labels[3] = V + 5  # outside [0, V): label logit 0
+    if tie:
+        # rows 11 and 300 of w are equal, and one feature makes them
+        # dominate every logit of the first 64 rows (100 against ~N(0, 6)):
+        # an exact tie, whose argmax must be the smaller index, 11
+        h[:64, 0] = 10.0
+        w[11] = w[300] = 0.0
+        w[11, 0] = w[300, 0] = 10.0
+    a = rng.standard_normal(N).astype(np.float32)
+    b = rng.standard_normal(N).astype(np.float32)
+    return h, w, labels, a, b
+
+
+@pytest.mark.parametrize("tie", [False, True], ids=["random", "argmax_tie"])
+def test_plain_version_matches_jax_kernel(tie):
+    h, w, labels, a, b = _inputs(7 + tie, tie)
+
+    def jloss(h_, w_):
+        lse, tl, m2, ai = jce.fused_ce_rows(h_, w_, jnp.asarray(labels), interpret=True)
+        return jnp.sum(lse * a + tl * b), (lse, tl, m2, ai)
+
+    (_, jrows), (jdh, jdw) = jax.value_and_grad(jloss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(h), jnp.asarray(w))
+
+    th = torch.from_numpy(h).requires_grad_(True)
+    tw = torch.from_numpy(w).requires_grad_(True)
+    n0 = (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches)
+    lse, tl, m2, ai = ce.fused_ce_rows(th, tw, torch.from_numpy(labels))
+    assert not m2.requires_grad and not ai.requires_grad
+    (lse * torch.from_numpy(a) + tl * torch.from_numpy(b)).sum().backward()
+    assert (ce.fused_ce_fwd.launches, ce.fused_ce_bwd.launches) == n0  # CPU: plain
+
+    for name, got, want in zip(("lse", "true_logit", "m2"), (lse, tl, m2), jrows[:3]):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), atol=1e-4,
+                                   err_msg=name)
+    np.testing.assert_array_equal(ai.numpy(), np.asarray(jrows[3]))
+    assert (tl.detach().numpy()[labels < 0] == 0).all() and tl[3].item() == 0
+    if tie:
+        assert (ai[:64] == 11).all()
+    np.testing.assert_allclose(th.grad.numpy(), np.asarray(jdh), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(tw.grad.numpy(), np.asarray(jdw), rtol=1e-5, atol=1e-5)
+
+
+def test_plain_route_on_any_device_is_the_same_function():
+    """fused_ce_rows_reference (the plain route chip_smoke swaps in on the
+    card) gives what the CPU wrapper gives, values and gradients."""
+    h, w, labels, a, _ = _inputs(3)
+    outs = []
+    for fn in (ce.fused_ce_rows, ce.fused_ce_rows_reference):
+        th = torch.from_numpy(h).requires_grad_(True)
+        tw = torch.from_numpy(w).requires_grad_(True)
+        lse, tl, m2, ai = fn(th, tw, torch.from_numpy(labels))
+        (lse * torch.from_numpy(a) - tl).sum().backward()
+        outs.append((lse, tl, m2, ai, th.grad, tw.grad))
+    for x, y in zip(*outs):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("N,itemsize,rows,chunks", [
+    (16384, 2, 8320, 2),  # the training path's 1x16384 in bf16: dW accumulates
+    (16384, 4, 4160, 4),
+    (4096, 2, 4096, 1),
+    (100, 4, 128, 1),  # one ragged row tile
+])
+def test_bwd_chunk_rows(N, itemsize, rows, chunks):
+    """The backward's dl chunk at V = 128256 under the 2 GiB scratch budget:
+    whole 64-row tiles, capped at what N needs."""
+    got = ce.bwd_chunk_rows(N, 128256, itemsize)
+    assert got == rows and got % 64 == 0 and -(-N // got) == chunks

@@ -31,6 +31,24 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.ops.attention",
         "touchnet_tpu_torch.ops.decode_attention",
         "touchnet_tpu_torch.ops._build",
+        "touchnet_tpu_torch.ops.fused_ce",
+        "touchnet_tpu_torch.ops.fused_adamw",
+        "touchnet_tpu_torch.loss.cross_entropy",
+        "touchnet_tpu_torch.parallel.loss_parallel",
+        "touchnet_tpu_torch.data.dataset",
+        "touchnet_tpu_torch.data.datapipe",
+        "touchnet_tpu_torch.data.functions",
+        "touchnet_tpu_torch.data.dataloader",
+        "touchnet_tpu_torch.models.llama.processing_llama",
+        "touchnet_tpu_torch.tokenizer.tokenizer",
+        "touchnet_tpu_torch.bin",
+        "touchnet_tpu_torch.bin.make_data",
+        "touchnet_tpu_torch.bin.train",
+        "touchnet_tpu_torch.utils.cli",
+        "touchnet_tpu_torch.utils.logging",
+        "touchnet_tpu_torch.utils.metrics",
+        "touchnet_tpu_torch.utils.optimizer",
+        "touchnet_tpu_torch.utils.train_spec",
     ):
         assert want in names
 

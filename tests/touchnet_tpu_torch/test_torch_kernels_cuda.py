@@ -1,20 +1,27 @@
-# The CUDA kernels K1 (flash-attention forward) and K4 (flash-decode)
+# The CUDA kernels K1 (flash-attention forward), K2 (its backward), K3
+# (fused lm-head + cross-entropy, forward and backward) and K4 (flash-decode)
 # against their plain PyTorch versions on the card. These tests need a CUDA
 # card and skip elsewhere; chip_smoke.py runs the same comparison at the
-# serving path's full shapes.
+# serving and training paths' full shapes.
 #
 # Tolerances: bf16 kernels are held to the plain version run in f32 on the
 # same bf16-rounded inputs (max abs 2e-2, mean abs 2e-3 on out at unit-scale
 # inputs: the kernel rounds out to bf16 once; lse 1e-3, f32 throughout).
 # f32 kernels are held to 1e-4 with TF32 off (FMA order differs from the
-# matmul's).
+# matmul's). Gradients (K2, K3 backward) are held relative to the largest
+# reference value: f32 1e-4 (summation order only), bf16 1e-2 (the kernel
+# rounds each output to bf16 once, 2^-9 = 2e-3 of the value, and K2's delta
+# reads K1's bf16 out where the plain version recomputes it in f32).
 
 import numpy as np
 import pytest
 import torch
 
+from touchnet_tpu_torch.ops import fused_ce
 from touchnet_tpu_torch.ops.attention import (
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_reference,
     flash_prefill,
     packed_attention_reference,
 )
@@ -165,3 +172,187 @@ def test_decode_kernel_skips_dead_columns(dev):
     torch.testing.assert_close(got, clean, rtol=0, atol=0)
     empty = decode_attention(q, kv, plen, 1, 0)  # row 2: no valid column
     assert torch.isfinite(empty).all() and (empty[2] == 0).all()
+
+
+def _check_grad(got, want, dtype):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    rel = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
+    assert rel <= (1e-2 if dtype == torch.bfloat16 else 1e-4), rel
+
+
+def _attention_case(dev, dtype, B, T, S, H, Hkv, D, packed, seed):
+    rng = np.random.default_rng(seed)
+    q = _randn(rng, (B, T, H, D), dtype, dev)
+    k = _randn(rng, (B, S, Hkv, D), dtype, dev)
+    v = _randn(rng, (B, S, Hkv, D), dtype, dev)
+    g = _randn(rng, (B, T, H, D), dtype, dev)
+    seg = kv_seg = None
+    if packed:
+        seg_np = _packed_segments(B, max(T, S), rng)
+        seg = torch.from_numpy(seg_np[:, :T]).to(dev)
+        kv_seg = torch.from_numpy(seg_np[:, :S]).to(dev)
+    return q, k, v, g, seg, kv_seg
+
+
+def _valid_rows(B, T, S, causal, seg, kv_seg, q_off, kv_off, dev):
+    m = torch.ones((B, T, S), dtype=torch.bool, device=dev)
+    if causal:
+        m &= (q_off + torch.arange(T, device=dev))[:, None] >= \
+            (kv_off + torch.arange(S, device=dev))[None, :]
+    if seg is not None:
+        m &= seg[:, :, None] == kv_seg[:, None, :]
+    return m.any(-1)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize(
+    "B,T,S,H,Hkv,D,causal,packed,q_off,kv_off",
+    [
+        (2, 300, 300, 8, 2, 64, True, True, 0, 0),
+        (1, 257, 257, 4, 4, 128, False, False, 0, 0),
+        (2, 100, 356, 10, 2, 64, True, False, 256, 0),
+        (1, 64, 200, 6, 3, 128, True, True, 300, 200),
+        (1, 130, 130, 32, 8, 64, True, True, 0, 0),
+    ],
+)
+def test_flash_attention_bwd_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, packed,
+                                    q_off, kv_off):
+    """K2 against autograd through the plain version, f32 math on the same
+    inputs; dout is zero on rows with no valid key."""
+    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, B, T, S, H, Hkv, D, packed,
+                                              T + S + H)
+    valid = _valid_rows(B, T, S, causal, seg, kv_seg, q_off, kv_off, dev)
+    g = g * valid[:, :, None, None].to(dtype)
+    out, lse = flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, kv_off)
+    n0 = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, causal, None, q_off, kv_off)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == n0 + 1
+    want = flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg, kv_seg, None,
+                                         None, g.float(), causal, None, q_off, kv_off)
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        _check_grad(a, b, dtype)
+
+
+def test_flash_attention_bwd_gives_zero_for_rows_without_keys(dev):
+    """A row with no live key (lse = -inf from K1) gets zero gradients, not
+    NaN, and adds nothing to dk, dv."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 64, 4, 64), torch.float32, dev)
+    k = _randn(rng, (1, 64, 2, 64), torch.float32, dev)
+    v = _randn(rng, (1, 64, 2, 64), torch.float32, dev)
+    seg = torch.ones((1, 64), dtype=torch.int32, device=dev)
+    seg[:, 32:] = 2
+    kv_seg = torch.ones((1, 64), dtype=torch.int32, device=dev)  # rows 32+ see nothing
+    out, lse = flash_attention(q, k, v, seg, False, None, kv_seg)
+    assert torch.isinf(lse[:, :, 32:]).all()
+    g = torch.ones_like(q)
+    dq, dk, dv = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, False)
+    assert torch.isfinite(dq).all() and torch.isfinite(dk).all() and torch.isfinite(dv).all()
+    assert (dq[:, 32:] == 0).all()
+    g2 = g.clone()
+    g2[:, 32:] = 0
+    _, dk2, dv2 = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g2, False)
+    torch.testing.assert_close(dk, dk2, rtol=0, atol=0)
+    torch.testing.assert_close(dv, dv2, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_autograd_goes_through_k2(dev, dtype):
+    """The repair of the forward-only wrapper: on CUDA tensors that require
+    grad, flash_attention's out has a grad_fn, and q, k, v get K2's
+    gradients, equal to the plain version's."""
+    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, 2, 200, 200, 8, 2, 64, True, 9)
+    q, k, v = (x.requires_grad_(True) for x in (q, k, v))
+    n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
+    out, lse = flash_attention(q, k, v, seg)
+    assert out.grad_fn is not None and not lse.requires_grad
+    (out.float() * g.float()).sum().backward()
+    assert flash_attention.launches == n_fwd + 1
+    assert flash_attention_bwd.launches == n_bwd + 1
+    want = flash_attention_bwd_reference(q.detach().float(), k.detach().float(),
+                                         v.detach().float(), seg, seg, None, None, g.float())
+    for x, b in zip((q, k, v), want):
+        assert x.grad is not None and x.grad.dtype == dtype
+        _check_grad(x.grad, b, dtype)
+
+
+def _ce_case(dev, dtype, N, E, V, seed, tie=False):
+    rng = np.random.default_rng(seed)
+    h = _randn(rng, (N, E), dtype, dev)
+    w = (0.1 * _randn(rng, (V, E), torch.float32, dev)).to(dtype)
+    labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).to(dev)
+    labels[::5] = -100
+    labels[1] = V + 3
+    if tie:
+        h[:64, 0] = 8.0
+        w[7] = w[V - 1] = 0.0
+        w[7, 0] = w[V - 1, 0] = 8.0  # logit 64 in both: argmax 7
+    return h.contiguous(), w.contiguous(), labels
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("N,E,V", [(300, 256, 1000), (64, 128, 64), (1000, 64, 4099)])
+def test_fused_ce_kernel(dev, dtype, N, E, V):
+    """K3 forward and backward against the plain versions on the same
+    inputs: a ragged row tile and a ragged vocab tail (V not a multiple of
+    the 64-wide tile), ignored and out-of-range labels."""
+    h, w, labels = _ce_case(dev, dtype, N, E, V, N + V)
+    n0 = (fused_ce.fused_ce_fwd.launches, fused_ce.fused_ce_bwd.launches)
+    lse, tl, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    want = fused_ce._rows_reference(h, w, labels)
+    for a, b in zip((lse, tl, m2), want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    agree = (ai == want[3]).float().mean().item()
+    assert agree >= 0.999, agree
+    rng = np.random.default_rng(1)
+    dlse = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    dtl = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    dh, dw = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+    torch.cuda.synchronize()
+    assert (fused_ce.fused_ce_fwd.launches, fused_ce.fused_ce_bwd.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+    wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
+    assert dh.dtype == dw.dtype == dtype
+    _check_grad(dh, wdh, dtype)
+    _check_grad(dw, wdw, dtype)
+    dh2, dw2 = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+    torch.testing.assert_close(dw2, dw, rtol=0, atol=0)  # no atomics: same bits
+    torch.testing.assert_close(dh2, dh, rtol=0, atol=0)
+
+
+def test_fused_ce_argmax_tie_and_small_chunks(dev, monkeypatch):
+    """Ties go to the smallest index across vocab tiles and splits; the
+    backward over several row chunks equals one chunk."""
+    h, w, labels = _ce_case(dev, torch.float32, 200, 64, 3000, 4, tie=True)
+    _, _, _, ai = fused_ce.fused_ce_rows(h, w, labels)
+    assert (ai[:64] == 7).all()
+    lse = fused_ce.fused_ce_fwd(h, w, labels)[0]
+    g = torch.ones_like(lse)
+    dh, dw = fused_ce.fused_ce_bwd(h, w, labels, lse, g, -g)
+    monkeypatch.setattr(fused_ce, "DL_SCRATCH_BYTES", 64 * 3000 * 4)  # 64-row chunks
+    dh2, dw2 = fused_ce.fused_ce_bwd(h, w, labels, lse, g, -g)
+    torch.testing.assert_close(dh2, dh, rtol=0, atol=0)
+    _check_grad(dw2, dw, torch.float32)  # the row sums split in another order
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fused_ce_chunked_bwd_matches_plain(dev, dtype, monkeypatch):
+    """The backward over several row chunks (dw accumulated across them,
+    a ragged last chunk) against the plain version, in both dtypes."""
+    N, E, V = 1000, 128, 4099
+    h, w, labels = _ce_case(dev, dtype, N, E, V, 11)
+    monkeypatch.setattr(fused_ce, "DL_SCRATCH_BYTES", 256 * V * h.element_size())
+    assert -(-N // fused_ce.bwd_chunk_rows(N, V, h.element_size())) == 4
+    lse = fused_ce.fused_ce_fwd(h, w, labels)[0]
+    rng = np.random.default_rng(2)
+    dlse = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    dtl = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
+    dh, dw = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+    torch.cuda.synchronize()
+    wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
+    _check_grad(dh, wdh, dtype)
+    _check_grad(dw, wdw, dtype)

@@ -1,0 +1,224 @@
+# Copyright (c) 2026 touchnet_tpu authors.
+# Copied from touchnet_tpu/bin/__init__.py: TrainConfig, with the same field
+# names, defaults and validate(), so the JAX recipes' flags parse as they
+# are. Which flags the port's trainer runs, and which raise as later slices,
+# is bin/train.py's check_supported.
+#
+# Entry-point configurations.
+#
+# Capability parity: reference touchnet/bin/__init__.py:7-711 (MakeDataConfig,
+# TrainConfig, CkptConverterConfig) — field names preserved so reference
+# recipes translate 1:1. Semantics are re-targeted at the TPU stack where the
+# original meaning was CUDA-specific (noted per-field).
+
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass
+class TrainConfig:
+    """Every knob of the training binary (flat namespace, prefix conventions)."""
+
+    # --- model / job ---
+    training_model_name: str = field(
+        default="llama",
+        metadata={"help": "llama | touch_audio | qwen2_audio | kimi_audio"},
+    )
+    training_model_config_path: Optional[str] = field(
+        default=None, metadata={"help": "HF-style model config JSON"}
+    )
+    training_description: str = field(default="default job")
+    training_print_args: bool = field(default=False)
+    # --- logging / observability ---
+    training_log_freq: int = field(default=100)
+    training_enable_wandb: bool = field(default=False)
+    training_enable_tensorboard: bool = field(default=False)
+    training_save_tb_folder: str = field(default="tensorboard")
+    training_tb_rank_0_only: bool = field(default=True)
+    training_trace_buf_size: int = field(
+        default=20000,
+        metadata={"help": "TPU: XLA debug dump cap (reference: NCCL flight-recorder buffer)"},
+    )
+    training_trace_dump_folder: str = field(default="./exp")
+    training_init_timeout_seconds: int = field(default=300)
+    training_train_timeout_seconds: int = field(default=100)
+    training_abort_on_timeout: bool = field(
+        default=False,
+        metadata={"help": "kill a hung step after the timeout (exit 124) so "
+                          "bin/elastic.py can restart from the last "
+                          "checkpoint (reference: tightened PG timeouts)"},
+    )
+    # --- numerics / compile ---
+    training_mixed_precision_param: str = field(
+        default="bfloat16", metadata={"help": "compute dtype; master params stay float32"}
+    )
+    training_mixed_precision_reduce: str = field(
+        default="float32", metadata={"help": "gradient reduction dtype"}
+    )
+    training_compile: bool = field(
+        default=True, metadata={"help": "TPU: everything runs under jax.jit; kept for parity"}
+    )
+    training_enable_compiled_autograd: bool = field(default=False)
+    training_enable_liger_kernel: bool = field(
+        default=False,
+        metadata={"help": "TPU: fused chunked linear+cross-entropy — the "
+                          "[B,T,V] logits never materialize "
+                          "(parallel/loss_parallel.py, liger equivalent)"},
+    )
+    training_gradient_accumulation_steps: int = field(
+        default=1,
+        metadata={"help": "microbatches summed per optimizer step inside ONE "
+                          "jitted lax.scan — grads are exact sums (each "
+                          "microbatch loss is normalized by the GLOBAL "
+                          "sentence count), so accum=G with batchsize B is "
+                          "numerically the G*B step while activation memory "
+                          "stays at B (reference train.py:322 leaves this as "
+                          "a TODO). Measured on v5e: throughput-neutral "
+                          "(G=4 within 0.1% of G=1 tok/s at 8k) — use it to "
+                          "scale global batch past the activation-memory "
+                          "ceiling, not for MFU. Requires static batch "
+                          "shapes; incompatible with pipeline parallelism, "
+                          "which has its own microbatching"},
+    )
+    training_gc_freq: int = field(default=50)
+    training_seed: int = field(default=2025)
+    training_deterministic: bool = field(default=False)
+    training_max_norm: float = field(default=1.0)
+    training_enable_cpu_offload: bool = field(
+        default=False, metadata={"help": "TPU: host-offload optimizer state (pinned_host)"}
+    )
+    # --- activation checkpointing ---
+    training_activation_checkpoint_mode: str = field(
+        default="selective",
+        metadata={"help": "none | full | selective | op | op_small | "
+                          "op_names. op = save dot outputs AND flash "
+                          "residuals; fastest when the activations fit "
+                          "(+4.7pp MFU at packed-8k/v5e, exceeds 16 GiB at "
+                          "16k+ on the 535M bench model). op_small = flash "
+                          "residuals + q/k/v/o dots only (recompute the two "
+                          "big MLP matmuls) — the long-context point that "
+                          "fits where op does not. op_names = op's save set "
+                          "via name tags (diagnostic)"},
+    )
+    training_activation_checkpoint_selective_ac_option: str = field(
+        default="2",
+        metadata={"help": "mode selective: int k = remat every k-th layer, "
+                          "'op', or 'op_every_<k>' = hybrid (op-save every "
+                          "k-th layer, selective-save the rest — the "
+                          "long-context dial between selective and op); "
+                          "mode op: 'full_every_<k>' = hybrid (op-save k-1 "
+                          "of every k layers) — a bare int is ignored under "
+                          "mode op so that mode op alone means the pure "
+                          "policy"},
+    )
+    # --- parallelism degrees ---
+    training_data_parallel_replicate_degree: int = field(default=1)
+    training_data_parallel_shard_degree: int = field(
+        default=-1, metadata={"help": "-1 = autofill leftover devices (FSDP axis)"}
+    )
+    training_tensor_parallel_degree: int = field(default=1)
+    training_context_parallel_degree: int = field(default=1)
+    training_context_parallel_rotate_method: str = field(
+        default="allgather", metadata={"help": "allgather | alltoall (ring)"}
+    )
+    training_enable_loss_parallel: bool = field(default=False)
+    training_enable_async_tensor_parallel: bool = field(
+        default=False,
+        metadata={"help": "TPU: latency-hiding collective-matmul overlap (XLA flag)"},
+    )
+    training_pipeline_parallel_degree: int = field(default=1)
+    training_pipeline_parallel_split_points: Optional[str] = field(default=None)
+    training_pipeline_parallel_schedule: str = field(default="1F1B")
+    training_pipeline_parallel_schedule_csv: Optional[str] = field(default=None)
+    training_pipeline_parallel_microbatches: Optional[int] = field(default=None)
+    training_fsdp_reshard_after_forward: str = field(
+        default="default", metadata={"help": "default | always | never"}
+    )
+    # --- profiling ---
+    training_enable_profiling: bool = field(default=False)
+    training_profiling_traces_folder: str = field(default="profile_traces")
+    training_profiling_freq: int = field(default=10)
+    training_profiling_keep_first_k: int = field(default=10)
+    training_enable_memory_snapshot: bool = field(default=False)
+    training_memory_snapshot_folder: str = field(default="memory_snapshot")
+    # --- checkpoint ---
+    training_enable_ckpt: bool = field(default=False)
+    training_ckpt_async_mode: str = field(
+        default="disabled", metadata={"help": "disabled | async (Orbax background save)"}
+    )
+    training_ckpt_folder: str = field(default="checkpoint")
+    training_ckpt_interval: int = field(default=500)
+    training_ckpt_keep_latest_k: int = field(default=10)
+    training_ckpt_model_weights_only: bool = field(default=False)
+    training_ckpt_export_dtype: str = field(default="float32")
+    training_ckpt_exclude_from_loading: str = field(default="")
+    training_ckpt_load_step: int = field(default=-1)
+    # --- optimizer / schedule ---
+    optimizer_name: str = field(default="AdamW", metadata={"help": "AdamW | Adam"})
+    optimizer_lr: float = field(default=8e-4)
+    optimizer_eps: float = field(default=1e-8)
+    optimizer_impl: str = field(
+        default="fused", metadata={"help": "TPU: optax is XLA-fused; kept for parity"}
+    )
+    lr_scheduler_steps: int = field(default=10000)
+    lr_scheduler_warmup_steps: int = field(default=200)
+    lr_scheduler_decay_ratio: Optional[float] = field(default=None)
+    lr_scheduler_decay_type: str = field(default="linear", metadata={"help": "linear|sqrt|cosine"})
+    lr_scheduler_lr_min: float = field(default=0.0)
+
+    def validate(self) -> None:
+        """Reject invalid enum values up front — every knob either drives
+        behavior or fails loudly; silently-ignored values are bugs
+        (round-1 VERDICT weak #4)."""
+        _enum = {
+            "training_mixed_precision_param": ("bfloat16", "float32", "float16"),
+            "training_mixed_precision_reduce": ("float32", "bfloat16"),
+            "training_activation_checkpoint_mode":
+                ("none", "full", "selective", "op", "op_small", "op_names"),
+            "training_context_parallel_rotate_method":
+                ("allgather", "alltoall"),
+            "training_fsdp_reshard_after_forward":
+                ("default", "always", "never"),
+            "training_pipeline_parallel_schedule":
+                ("1F1B", "GPipe", "Interleaved1F1B", "ZBVZeroBubble"),
+            "training_ckpt_async_mode": ("disabled", "async"),
+            "optimizer_name": ("AdamW", "Adam"),
+            "optimizer_impl": ("fused", "foreach", "for-loop"),
+            "lr_scheduler_decay_type": ("linear", "sqrt", "cosine"),
+        }
+        for name, allowed in _enum.items():
+            val = getattr(self, name)
+            if name == "training_activation_checkpoint_mode" and str(
+                val
+            ).startswith("save:"):
+                continue  # parameterized save-list policy (modeling_llama)
+            if val not in allowed:
+                raise ValueError(f"{name}={val!r}; must be one of {allowed}")
+        opt = str(self.training_activation_checkpoint_selective_ac_option)
+        if opt != "op":
+            body = opt
+            for prefix in ("full_every_", "op_every_"):
+                if opt.startswith(prefix):
+                    body = opt[len(prefix):]
+                    break
+            try:
+                ok = int(body) >= 1
+            except (TypeError, ValueError):
+                ok = False
+            if not ok:
+                raise ValueError(
+                    "training_activation_checkpoint_selective_ac_option "
+                    "must be 'op', a positive int, 'full_every_<k>', or "
+                    f"'op_every_<k>', got {opt!r}"
+                )
+        accum = self.training_gradient_accumulation_steps
+        if accum < 1:
+            raise ValueError(
+                f"training_gradient_accumulation_steps={accum}; must be >= 1"
+            )
+        if accum > 1 and self.training_pipeline_parallel_degree > 1:
+            raise ValueError(
+                "training_gradient_accumulation_steps > 1 is incompatible "
+                "with pipeline parallelism — PP already microbatches the "
+                "step (training_pipeline_parallel_microbatches)"
+            )

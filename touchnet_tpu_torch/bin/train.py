@@ -1,0 +1,396 @@
+# Copyright (c) 2026 touchnet_tpu authors.
+# The training binary of the port, single device.
+#
+#     python -m touchnet_tpu_torch.bin.train <the JAX trainer's flags>
+#
+# Port of touchnet_tpu/bin/train.py: Trainer (:299-481), _loss_and_acc
+# (:556-582, the fused-CE route of --training_enable_liger_kernel and the
+# full-logits route), the train step (:645-780), GlobalBatchLoader (:96-171)
+# with one data-parallel stream, DevicePrefetcher (:174-220), _put_batch
+# (:790-859), the train loop (:944-1022) and main. The flags and the batch
+# contract are the JAX trainer's (TrainConfig, DataConfig, TokenizerConfig).
+#
+# One step: forward (K1 attention) -> pack loss (K3 when fused) -> backward
+# (K2, K3) -> global-norm clip min(1, max_norm / (gnorm + 1e-6)) -> AdamW
+# with every tensor held when the norm is not finite. The clip scale, the
+# finite flag, the schedule's lr and the hold stay on the device: the loop
+# reads the device (.item()) only on logging steps.
+#
+# What this slice does not run raises a ValueError naming the flag
+# (check_supported): parallel degrees above 1, gradient accumulation,
+# checkpoints, bf16 gradient reduction, CPU offload, dev sets, profiling and
+# memory snapshots.
+
+import copy
+import os
+import queue
+import threading
+import time
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from touchnet_tpu_torch.bin import TrainConfig
+from touchnet_tpu_torch.data import DataConfig
+from touchnet_tpu_torch.models.llama import check_finite_params
+from touchnet_tpu_torch.models.llama.modeling_llama import remat_layers
+from touchnet_tpu_torch.ops.fused_adamw import fused_adamw_step
+from touchnet_tpu_torch.parallel.loss_parallel import fused_linear_cross_entropy
+from touchnet_tpu_torch.tokenizer import TokenizerConfig
+from touchnet_tpu_torch.utils.cli import dump_config_json, parse_args_into_dataclasses
+from touchnet_tpu_torch.utils.logging import init_logger, logger
+from touchnet_tpu_torch.utils.metrics import MetricsProcessor
+from touchnet_tpu_torch.utils.optimizer import build_optimizer, global_grad_norm
+from touchnet_tpu_torch.utils.train_spec import get_train_spec
+
+_BATCH_ARRAY_KEYS = (
+    "input_ids",
+    "inputs_embeds",
+    "labels",
+    "position_ids",
+    "attention_mask",
+    "sentence_lens",
+)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def check_supported(job_config: TrainConfig, data_config: DataConfig) -> None:
+    """Raise a ValueError naming the first flag this slice does not run."""
+    later = "is a later slice of touchnet_tpu_torch"
+    cfg = job_config
+    for name in ("training_data_parallel_replicate_degree",
+                 "training_tensor_parallel_degree",
+                 "training_context_parallel_degree",
+                 "training_pipeline_parallel_degree"):
+        if getattr(cfg, name) > 1:
+            raise ValueError(f"{name}={getattr(cfg, name)}: multi-device training {later}")
+    if cfg.training_data_parallel_shard_degree not in (-1, 1):
+        raise ValueError(
+            f"training_data_parallel_shard_degree={cfg.training_data_parallel_shard_degree}: "
+            f"multi-device training {later}")
+    checks = [
+        (cfg.training_gradient_accumulation_steps > 1,
+         "training_gradient_accumulation_steps > 1: gradient accumulation"),
+        (cfg.training_enable_ckpt, "training_enable_ckpt: checkpoints"),
+        (cfg.training_mixed_precision_reduce == "bfloat16",
+         "training_mixed_precision_reduce bfloat16: bf16 gradient reduction"),
+        (cfg.training_enable_cpu_offload, "training_enable_cpu_offload: CPU offload"),
+        (data_config.datalist_dev_path is not None, "datalist_dev_path: dev evaluation"),
+        (cfg.training_enable_profiling, "training_enable_profiling: profiling"),
+        (cfg.training_enable_memory_snapshot,
+         "training_enable_memory_snapshot: memory snapshots"),
+        (cfg.training_mixed_precision_param not in _DTYPES,
+         f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
+         "the kernels take bfloat16 or float32; float16"),
+    ]
+    for bad, what in checks:
+        if bad:
+            raise ValueError(f"{what} {later}")
+
+
+class GlobalBatchLoader:
+    """The global batch from the data-parallel loader streams; the port runs
+    one device, so there is one stream (dp rank 0 of 1)."""
+
+    def __init__(self, build_fn, data_config, tokenizer, split: str):
+        self.dp_degree = 1
+        self.loaders = [build_fn(data_config, tokenizer, 0, 1, split)]
+
+    def __iter__(self):
+        return iter(self.loaders[0])
+
+    def state_dict(self):
+        state = dict(self.loaders[0].state_dict())
+        state["world_size"] = self.dp_degree
+        return state
+
+    def shutdown(self):
+        self.loaders[0].shutdown()
+
+
+class DevicePrefetcher:
+    """Stages the next batches on the device while the current step runs.
+
+    A background thread pulls host batches and runs ``put_fn`` on them; on
+    a CUDA device it does so on a copy stream of its own (pinned host
+    memory, non-blocking copies) and records an event. ``__next__`` makes
+    the compute stream wait on that event and marks every staged tensor as
+    used by the compute stream (record_stream), so the allocator does not
+    hand its memory out again while the step still reads it.
+
+    Exact resume: each staged item carries the loader state taken right
+    after its pull; ``consumed_state`` is the state of the last batch handed
+    to the training loop, never of a staged but untrained one."""
+
+    def __init__(self, loader, put_fn, depth: int = 2, device=torch.device("cpu")):
+        self.put_fn = put_fn
+        self.device = device
+        self.queue = queue.Queue(maxsize=max(1, depth))
+        self.error = None
+        self._done = object()
+        self._stop = threading.Event()
+        self.consumed_state = copy.deepcopy(loader.state_dict())
+        self.stream = torch.cuda.Stream(device) if device.type == "cuda" else None
+        self.thread = threading.Thread(target=self._fill, args=(loader,), daemon=True)
+        self.thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stop.is_set():
+            try:
+                self.queue.put(item, timeout=0.5)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _fill(self, loader):
+        try:
+            for batch in loader:
+                state = copy.deepcopy(loader.state_dict())
+                event = None
+                if self.stream is not None:
+                    with torch.cuda.stream(self.stream):
+                        staged = self.put_fn(batch)
+                        event = torch.cuda.Event()
+                        event.record(self.stream)
+                else:
+                    staged = self.put_fn(batch)
+                if not self._put((staged, event, state)):
+                    return
+        except Exception as e:  # surfaced on next()
+            self.error = e
+        finally:
+            self._put(self._done)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.queue.get()
+        if item is self._done:
+            if self.error is not None:
+                raise self.error
+            raise StopIteration
+        staged, event, state = item
+        if event is not None:
+            compute = torch.cuda.current_stream(self.device)
+            compute.wait_event(event)
+            for t in staged[0].values():
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(compute)
+        self.consumed_state = state
+        return staged
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.queue.get_nowait()
+        except queue.Empty:
+            pass
+        self.thread.join(timeout=10.0)
+
+
+class Trainer:
+    def __init__(self, tokenizer_config: TokenizerConfig, data_config: DataConfig,
+                 job_config: TrainConfig, device: Optional[torch.device] = None):
+        self.job_config = job_config
+        self.data_config = data_config
+        self.tokenizer_config = tokenizer_config
+        job_config.validate()
+        check_supported(job_config, data_config)
+        init_logger(os.path.join(job_config.training_trace_dump_folder, "touchnet_train.log"))
+        if device is None:
+            device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        self.device = device
+        logger.info(f"job: {job_config.training_description}")
+        logger.info("device: " + (torch.cuda.get_device_name(device)
+                                  if device.type == "cuda" else "cpu"))
+        if job_config.training_print_args:
+            for cfg_obj in (tokenizer_config, data_config, job_config):
+                logger.info(f"{type(cfg_obj).__name__}: {cfg_obj}")
+        for flag in ("training_enable_tensorboard", "training_enable_wandb"):
+            if getattr(job_config, flag):
+                logger.warning(f"{flag}: not ported; metrics go to the log only")
+
+        self.train_spec = get_train_spec(job_config.training_model_name)
+        self.model_config = self.train_spec.config_cls.from_json_file(
+            job_config.training_model_config_path)
+        self.compute_dtype = _DTYPES[job_config.training_mixed_precision_param]
+        # rejects the remat modes this slice does not run, before any work
+        remat_layers(job_config.training_activation_checkpoint_mode,
+                     job_config.training_activation_checkpoint_selective_ac_option,
+                     self.model_config.num_hidden_layers)
+        dump_dir = job_config.training_trace_dump_folder
+        for name, cfg in (("tokenizer_config", tokenizer_config),
+                          ("data_config", data_config), ("train_config", job_config)):
+            dump_config_json(cfg, os.path.join(dump_dir, f"{name}.json"))
+
+        self.tokenizer = self.train_spec.build_tokenizer_fn(tokenizer_config)
+        self.dataloader = GlobalBatchLoader(self.train_spec.build_dataloader_fn,
+                                            data_config, self.tokenizer, "train")
+        self.metrics_processor = MetricsProcessor(job_config, device)
+
+        # f32 master weights from a seeded generator on the device
+        gen = torch.Generator(device=device).manual_seed(job_config.training_seed)
+        self.model = self.train_spec.init_params_fn(
+            self.model_config, gen, torch.float32, device, requires_grad=True, train=True)
+        check_finite_params(self.model)
+        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        num_params = self.train_spec.get_num_params_fn(self.model_config)
+        num_params_wo_emb = self.train_spec.get_num_params_fn(
+            self.model_config, exclude_embedding=True)
+        seq_len = data_config.dataset_text_seqlen
+        self.num_flop_per_token = self.train_spec.get_num_flop_per_token_fn(
+            num_params_wo_emb, self.model_config, seq_len)
+        self.metrics_processor.num_flop_per_token = self.num_flop_per_token
+        logger.info(f"model {self.train_spec.name}: {num_params / 1e6:.1f}M params, "
+                    f"{self.num_flop_per_token / 1e9:.2f} GFLOP/token")
+
+        self.opt = build_optimizer(job_config)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.count = torch.zeros((), dtype=torch.int32, device=device)
+        self.step = 0
+
+    # ------------------------------------------------------------------
+    @property
+    def _fused_ce(self) -> bool:
+        """Fused linear + CE (K3) under the liger flag, as the JAX trainer
+        (tensor parallelism, its other trigger, is not in this slice)."""
+        return (self.job_config.training_enable_liger_kernel
+                and self.train_spec.head_weight_fn is not None)
+
+    def _forward(self, batch, return_hidden: bool = False):
+        cfg = self.job_config
+        kwargs = dict(
+            segment_ids=batch.get("attention_mask"),
+            position_ids=batch.get("position_ids"),
+            config=self.model_config,
+            compute_dtype=self.compute_dtype,
+            remat_mode=cfg.training_activation_checkpoint_mode,
+            selective_ac_option=cfg.training_activation_checkpoint_selective_ac_option,
+            return_hidden=return_hidden,
+        )
+        for key in self.train_spec.forward_batch_keys:
+            if batch.get(key) is not None:
+                kwargs[key] = batch[key]
+        return self.train_spec.forward_fn(self.model, **kwargs)
+
+    def _loss_and_acc(self, batch, num_sentence):
+        """(loss_per_sample, loss_per_token, acc): the fused lm-head + CE
+        when enabled, otherwise the full-logits pack loss."""
+        if self._fused_ce:
+            hidden = self._forward(batch, return_hidden=True)
+            head_w = self.train_spec.head_weight_fn(self.model, self.model_config)
+            return fused_linear_cross_entropy(
+                hidden, head_w, batch["labels"], batch["sentence_lens"], num_sentence,
+                compute_dtype=self.compute_dtype)
+        logits = self._forward(batch)
+        loss_ps, loss_pt = self.train_spec.loss_fn(
+            logits, batch["labels"], batch["sentence_lens"], num_sentence)
+        acc = self.train_spec.acc_fn(logits, batch["labels"])
+        return loss_ps, loss_pt, acc
+
+    def train_step(self, batch: Dict[str, torch.Tensor], num_sentence: float) -> dict:
+        """One optimizer step; returns the step's metrics as device tensors.
+        Every optimizer_impl runs the same single-pass AdamW (the JAX
+        'for-loop' optax chain computes the same update)."""
+        loss_ps, loss_pt, acc = self._loss_and_acc(batch, num_sentence)
+        loss_ps.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        gnorm = global_grad_norm(grads)
+        scale = torch.clamp(self.job_config.training_max_norm / (gnorm + 1e-6), max=1.0)
+        finite = torch.isfinite(gnorm)
+        ob = self.opt
+        with torch.no_grad():
+            self.count = fused_adamw_step(
+                grads, self.params, self.mu, self.nu, self.count,
+                lr=ob.schedule(self.count), b1=ob.b1, b2=ob.b2, eps=ob.eps,
+                weight_decay=ob.weight_decay, clip_scale=scale, finite=finite)
+        for p in self.params:
+            p.grad = None
+        return {
+            "loss/per_sample": loss_ps.detach(),
+            "loss/per_token": loss_pt.detach(),
+            "acc": acc.detach(),
+            "grad_norm": gnorm,
+            "lr": ob.schedule(self.step),
+        }
+
+    # ------------------------------------------------------------------
+    def _put_batch(self, batch: Dict[str, Any]):
+        """Host batch -> device tensors (int32 buffers stay int32), after
+        the NaN guard on float arrays. Runs on the prefetcher's thread."""
+        arrays = {k: batch[k] for k in _BATCH_ARRAY_KEYS
+                  if isinstance(batch.get(k), np.ndarray)}
+        for k, a in arrays.items():
+            if np.issubdtype(a.dtype, np.floating) and not np.isfinite(a).all():
+                raise ValueError(f"NaN/inf in data batch `{k}`.")
+        cuda = self.device.type == "cuda"
+        device_batch = {}
+        for k, a in arrays.items():
+            t = torch.from_numpy(a)
+            device_batch[k] = t.pin_memory().to(self.device, non_blocking=True) if cuda else t
+        for k in _BATCH_ARRAY_KEYS:
+            device_batch.setdefault(k, None)
+        return device_batch, float(batch.get("num_sentence", 0))
+
+    def train(self):
+        cfg = self.job_config
+        total_steps = cfg.lr_scheduler_steps
+        logger.info(f"training starts at step {self.step + 1}/{total_steps}")
+
+        def stage(batch):
+            ntokens = int((batch["labels"] != -100).sum())
+            device_batch, num_sentence = self._put_batch(batch)
+            return device_batch, num_sentence, ntokens
+
+        data_iter = DevicePrefetcher(self.dataloader, stage,
+                                     depth=self.data_config.dataloader_device_prefetch,
+                                     device=self.device)
+        try:
+            self._train_loop(data_iter, total_steps)
+        finally:
+            data_iter.close()
+        logger.info("training completed")
+
+    def _train_loop(self, data_iter, total_steps):
+        mp = self.metrics_processor
+        metrics, logged = None, True
+        while self.step < total_steps:
+            t0 = time.perf_counter()
+            try:
+                device_batch, num_sentence, ntokens = next(data_iter)
+            except StopIteration:
+                logger.info("dataloader exhausted; ending training")
+                break
+            mp.data_loading_times.append(time.perf_counter() - t0)
+            mp.ntokens_since_last_log += ntokens
+            mp.steps_since_last_log += 1
+            self.step += 1
+            metrics = self.train_step(device_batch, num_sentence)
+            logged = mp.should_log(self.step)
+            if logged:
+                mp.log(self.step, metrics)
+        if not logged:
+            mp.log(self.step, metrics)
+
+    def close(self):
+        self.dataloader.shutdown()
+
+
+def main(argv: Optional[list] = None) -> Trainer:
+    tokenizer_config, data_config, job_config = parse_args_into_dataclasses(
+        [TokenizerConfig, DataConfig, TrainConfig], argv)
+    trainer = Trainer(tokenizer_config, data_config, job_config)
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
-# Llama family of the port (serving slice): configuration, the weight
-# module, the JAX-tree converter and KV-cache generation.
+# Llama family of the port: configuration, the weight module and training
+# forward, the JAX-tree converter, KV-cache generation, and the llama
+# TrainSpec the trainer looks up by name.
 #
-# check_finite_params and head_weight port touchnet_tpu/models/llama/
-# __init__.py:25-40; the JAX module's TrainSpec registration belongs to the
-# training slice.
+# check_finite_params, head_weight and the TrainSpec registration port
+# touchnet_tpu/models/llama/__init__.py:25-67. The TrainSpec's
+# pipelining_fn and param_rules (meshes) wait for the multi-device slice.
 
 import torch
 from torch import nn
@@ -23,3 +24,35 @@ def head_weight(model: nn.Module, config: LlamaConfig) -> torch.Tensor:
     if config.tie_word_embeddings:
         return model.model.embed_tokens.weight
     return model.lm_head.weight
+
+
+def _register() -> None:
+    from touchnet_tpu_torch.data.dataloader import build_dataloader
+    from touchnet_tpu_torch.loss import accuracy, cross_entropy_loss
+    from touchnet_tpu_torch.models.llama.modeling_llama import (
+        forward,
+        get_num_flop_per_token,
+        get_num_params,
+        init_params,
+    )
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.utils.train_spec import TrainSpec, register_train_spec
+
+    register_train_spec(
+        TrainSpec(
+            name="llama",
+            config_cls=LlamaConfig,
+            init_params_fn=init_params,
+            forward_fn=forward,
+            loss_fn=cross_entropy_loss,
+            acc_fn=accuracy,
+            build_dataloader_fn=build_dataloader,
+            build_tokenizer_fn=build_tokenizer,
+            get_num_flop_per_token_fn=get_num_flop_per_token,
+            get_num_params_fn=get_num_params,
+            head_weight_fn=head_weight,
+        )
+    )
+
+
+_register()

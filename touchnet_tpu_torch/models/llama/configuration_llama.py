@@ -7,9 +7,10 @@
 # touchnet_tpu/models/__init__.py, which registers every family and imports
 # jax.
 #
-# attn_implementation: "flash" (the CUDA packed flash kernel) or "eager",
-# the choice of the training forward; serving (inference_llama) does not
-# read it, as in the JAX package. The JAX package's "flash_static" and
+# attn_implementation: "flash" or "eager", kept so the JAX package's config
+# files load and round-trip. Neither the training forward nor serving reads
+# it: on the card both always go through the CUDA kernels, and for CPU
+# tensors the wrappers take their plain versions. The JAX package's "flash_static" and
 # "flash_grouped" are TPU layout variants of the same computation (static
 # grid vs dynamic trip count, and a grouped-IO layout), so both load as
 # "flash".

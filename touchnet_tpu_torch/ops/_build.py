@@ -2,8 +2,10 @@
 # Builds the port's CUDA kernels (ops/csrc/*.cu) at first use and binds them
 # with ctypes.
 #
-# nvcc compiles every source into one shared library with a plain C
-# interface (no PyTorch headers, so the build takes seconds). The library
+# nvcc compiles every source into an object, one nvcc process per source,
+# all started together, then links them into one shared library with a
+# plain C interface (no PyTorch headers, so the build takes seconds). The
+# library
 # lands in build/touchnet_tpu_torch/ under the checkout's root, named by a
 # hash of the sources and flags, so an edited kernel is rebuilt and an
 # unchanged one is loaded as it is. Nothing is built when the module is
@@ -23,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "touchnet_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 # dtype codes of csrc/common.cuh
@@ -33,6 +35,9 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "tn_flash_fwd": [_P] * 7 + [_I64] * 9 + [_I] * 10 + [_F, _P],
     "tn_flash_decode": [_P] * 7 + [_I] * 9 + [_F, _P],
+    "tn_flash_bwd": [_P] * 12 + [_I] * 10 + [_F, _P],
+    "tn_ce_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    "tn_ce_bwd": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lib = None
@@ -64,25 +69,32 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtouchnet_tpu_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds) -> None:
+    """Run the commands concurrently; raise with the output of any that fails."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(out: Path) -> None:
-    """nvcc every csrc/*.cu into ``out``; written under a temporary name
-    and renamed, so concurrent builders never load a half-written file."""
+    """nvcc every csrc/*.cu (one process each, in parallel) and link them
+    into ``out``; written under a temporary name and renamed, so concurrent
+    builders never load a half-written file."""
     cu, _ = _sources()
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmpdir:
+        objs = [os.path.join(tmpdir, f.stem + ".o") for f in cu]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(f)] for f, o in zip(cu, objs)])
+        tmp = os.path.join(tmpdir, "lib.so")
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
         os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
 
 
 def load_library() -> ctypes.CDLL:

@@ -1,15 +1,22 @@
 # Copyright (c) 2026 touchnet_tpu authors.
-# Packed-document flash attention, forward only (kernel K1).
+# Packed-document flash attention: forward (kernel K1) and backward (K2).
 #
-# Port of the forward of touchnet_tpu/ops/attention.py. The Pallas kernels
+# Port of touchnet_tpu/ops/attention.py. The Pallas forward kernels
 # _fwd_kernel_dyn (:269) and _fwd_kernel (:159) become one hand-written
-# CUDA kernel, csrc/flash_attention.cu; its source note says what bounds
-# it on Hopper and what the design does about that. Beside it:
+# CUDA kernel, csrc/flash_attention.cu; the six backward kernels (:528-1100)
+# become csrc/flash_attention_bwd.cu. Each source note says what bounds it
+# on Hopper and what the design does about that. Beside them:
 #   - packed_attention_reference: the plain PyTorch version (:75-111),
 #     which also returns the row logsumexp;
-#   - flash_attention: the wrapper. A CPU tensor goes to the plain version;
-#     a CUDA tensor launches the kernel or raises on a shape or dtype the
-#     kernel does not take. It never falls back to the plain version.
+#   - flash_attention: the wrapper. A CPU tensor goes to the plain version
+#     (differentiable by autograd); a CUDA tensor goes through
+#     _FlashAttention, an autograd Function whose forward launches K1 and
+#     whose backward launches K2 (the JAX custom_vjp, :1711-1744: only out
+#     carries a gradient, lse does not). It raises on a shape or dtype the
+#     kernels do not take and never falls back to the plain version.
+#   - flash_attention_bwd: K2's wrapper (dq, dk, dv from the forward's
+#     residuals); its plain version, flash_attention_bwd_reference, is
+#     autograd through packed_attention_reference.
 #   - flash_prefill: the chunked-prefill entry (the role of
 #     flash_prefill_grouped, :1983): a chunk's queries attend the halves of
 #     the packed KV cache, passed as strided views, never copied.
@@ -104,7 +111,8 @@ def flash_attention(
 
     CPU tensors take the plain version. CUDA tensors take the kernel, which
     needs D in HEAD_DIMS, bf16 or f32, and H / Hkv <= MAX_GROUP; anything
-    else raises. A row with no valid key gets out 0 and lse -inf."""
+    else raises. A row with no valid key gets out 0 and lse -inf. out is
+    differentiable (K2 on the card); lse carries no gradient."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -114,10 +122,11 @@ def flash_attention(
     elif kv_segment_ids is None:
         kv_segment_ids = segment_ids
     if q.device.type == "cpu":
-        return packed_attention_reference(
+        out, lse = packed_attention_reference(
             q, k, v, segment_ids, causal, scale, kv_segment_ids,
             q_offset, kv_offset,
         )
+        return out, lse.detach()
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if tuple(k.shape) != (B, S, Hkv, D) or tuple(v.shape) != (B, S, Hkv, D):
@@ -134,6 +143,14 @@ def flash_attention(
         raise ValueError("q, k and v must be on one device")
     q_seg = _segments(segment_ids, (B, T), q.device)
     kv_seg = _segments(kv_segment_ids, (B, S), q.device)
+    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, causal, float(scale),
+                                 int(q_offset), int(kv_offset))
+
+
+def _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
+    """Launch K1 on validated CUDA tensors."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     lib = _build.load_library()
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -145,7 +162,7 @@ def flash_attention(
             out.data_ptr(), lse.data_ptr(),
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             B, T, S, H, Hkv, D, _build.DTYPE_CODES[q.dtype],
-            int(causal), int(q_offset), int(kv_offset), float(scale),
+            int(causal), q_offset, kv_offset, scale,
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "flash_attention")
@@ -153,7 +170,97 @@ def flash_attention(
     return out, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """K1 forward, K2 backward. Under activation checkpointing the forward
+    runs again in the backward pass and saves that run's own residuals."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
+        out, lse = _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset)
+        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+        ctx.args = (causal, scale, q_offset, kv_offset)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+        causal, scale, q_offset, kv_offset = ctx.args
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, out, lse, dout,
+                                         causal, scale, q_offset, kv_offset)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
 flash_attention.launches = 0
+
+
+def flash_attention_bwd_reference(q, k, v, segment_ids, kv_segment_ids, out, lse,
+                                  dout, causal=True, scale=None, q_offset=0,
+                                  kv_offset=0) -> tuple:
+    """K2's plain version: (dq, dk, dv) by autograd through
+    packed_attention_reference. out and lse are K2's inputs and are not
+    read (the reference recomputes them)."""
+    with torch.enable_grad():
+        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
+        o, _ = packed_attention_reference(qq, kk, vv, segment_ids, causal, scale,
+                                          kv_segment_ids, q_offset, kv_offset)
+        dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), dout)
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
+                        causal=True, scale=None, q_offset=0, kv_offset=0) -> tuple:
+    """Backward of flash_attention (K2): (dq [B,T,H,D], dk, dv [B,S,Hkv,D])
+    in q's dtype from the forward's inputs, its (out, lse) and dout.
+
+    CPU tensors take the plain version. CUDA tensors take the kernel, with
+    flash_attention's conditions; q, k, v and out must be contiguous, and
+    dout is made contiguous here (autograd may hand it over strided). dk
+    and dv are summed over the G query heads of their kv head."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(
+            q, k, v, segment_ids, kv_segment_ids, out, lse, dout, causal, scale,
+            q_offset, kv_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
+    if q.dtype not in _build.DTYPE_CODES or any(x.dtype != q.dtype for x in (k, v, out)):
+        raise ValueError("flash_attention_bwd: q, k, v and out in one dtype, bf16 or f32")
+    if D not in HEAD_DIMS or H % Hkv or H // Hkv > MAX_GROUP:
+        raise ValueError(f"flash_attention_bwd: H={H} Hkv={Hkv} D={D}")
+    if not all(x.is_contiguous() for x in (q, k, v, out, lse)):
+        raise ValueError("flash_attention_bwd: q, k, v, out and lse must be contiguous")
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    q_seg = _segments(segment_ids, (B, T), q.device)
+    kv_seg = _segments(kv_segment_ids, (B, S), q.device)
+    dout = dout.to(q.dtype).contiguous()
+    lib = _build.load_library()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    delta = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.tn_flash_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(),
+            None if q_seg is None else q_seg.data_ptr(),
+            None if kv_seg is None else kv_seg.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, T, S, H, Hkv, D, _build.DTYPE_CODES[q.dtype],
+            int(causal), int(q_offset), int(kv_offset), float(scale),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
 
 
 def cache_halves(kv_cache: torch.Tensor, head_dim: int) -> tuple:

@@ -1,0 +1,527 @@
+// Copyright (c) 2026 touchnet_tpu authors.
+// K3: fused lm-head + cross-entropy, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the Pallas kernels of touchnet_tpu/ops/fused_ce.py: _fwd_kernel
+// (:86, launched at :144) and _bwd_kernel (:175, launched at :250). Per row n
+// of h [N, E] against the head w [V, E], without ever holding the [N, V]
+// logits t = h w^T in device memory:
+//   forward:  lse = log sum_v exp(t), true_logit = t[label] (0 when the
+//             label is outside [0, V)), the row max m (returned as m2 =
+//             m * log2(e), base 2, as the JAX kernel does) and argmax, ties
+//             to the smallest index. All statistics in f32.
+//   backward: dl = dlse * exp(t - lse) + dtl * onehot(label), in f32, then
+//             cast to the input dtype (the JAX kernel's .astype(h.dtype));
+//             dh = dl w, dw = dl^T h, both accumulated in f32. The logits
+//             tile is recomputed from h and w; the chain up to dl stays f32
+//             (fused_ce.py:191-199: a bf16 chain cost 2.5 % error).
+//
+// What bounds it on this card: the products. At N=16384, E=2048, V=128256
+// the forward is 8.6 TFLOP and the backward 26 TFLOP (recompute, dh, dw).
+// Every product is a 64x64 output tile per 256-thread block, K in chunks of
+// 32 staged through shared memory, with one loader per memory layout. bf16
+// operands go to the tensor cores (nvcuda::wmma 16x16x16 fragments, f32
+// accumulation: mma_tile_tc); f32 operands stay f32 FMAs (mma_tile, 4x4 per
+// thread), since TF32 fragments would round them. bf16 stages are filled
+// with one 16-byte load per thread; there is no cp.async/TMA pipelining and
+// no wgmma yet: later work.
+//
+// The choices the TPU kernel's sequential grid does not force on it:
+//   - Row tile x vocab tile. A block per row tile that walked the whole
+//     vocab would re-read W (525 MB in bf16) once per row tile. The forward
+//     grid is (row tiles, vocab splits), row tiles fastest, so the blocks in
+//     flight share one stretch of W through L2; each block folds its split's
+//     vocab tiles into per-row partial (max, sum-exp, label logit, argmax),
+//     and ce_fwd_combine merges the splits (K4's split-KV pattern). Splits
+//     are ordered by vocab index, so "first split holding the max" keeps
+//     argmax ties on the smallest index.
+//   - dw ownership. No atomics: the backward recomputes dl for a chunk of
+//     rows into a scratch buffer [rows, V] in the input dtype (the wrapper
+//     sizes the chunk to a memory budget), then ce_gemm_dh writes dh of
+//     those rows and ce_gemm_dw adds the chunk's dl^T h into an f32 dw, each
+//     output tile owned by one block. Chunks run in order on one stream, so
+//     two runs give the same dw bit for bit.
+//   - The vocab tail. V need not be a multiple of the tile (128256 = 2004 x
+//     64 happens to be one); every loader zero-fills beyond the edges and
+//     every epilogue masks columns >= V. No shape falls back.
+
+#include <mma.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace tn {
+namespace {
+
+constexpr int kTile = 64;     // output tile: 64 x 64
+constexpr int kKC = 32;       // K chunk per shared-memory stage
+constexpr int kLds = kTile + 1;  // padded row of a stage: s[kk * kLds + r]
+constexpr int kThreads = 256;    // thread (ty, tx) owns rows ty + 16i, cols tx + 16j
+// bf16 stages of the tensor-core path: a k-contiguous operand is stored
+// [64][kKC + 8], an r-contiguous one [kKC][64 + 8] (16-byte row padding,
+// as wmma's ldm wants a multiple of 8 halves)
+constexpr int kLdK = kKC + 8;
+constexpr int kLdR = kTile + 8;
+constexpr int kLdC = kTile + 4;  // f32 [64][68] staging of the output tile
+
+// element (r, k) of a matrix stored with k contiguous: X[r * ld + k]
+template <typename T>
+struct RowLoader {
+  const T* x;
+  int64_t ld;
+  int rows, K;
+  __device__ void load(float* s, int r0, int k0) const {
+    for (int i = threadIdx.x; i < kTile * kKC; i += kThreads) {
+      const int r = i / kKC, kk = i % kKC;
+      const int gr = r0 + r, gk = k0 + kk;
+      s[kk * kLds + r] = (gr < rows && gk < K) ? to_f32(x[gr * ld + gk]) : 0.f;
+    }
+  }
+  static constexpr bool kKContig = true;
+  // bf16 stage [64][kLdK]; one 16-byte vector per thread when the rows are
+  // 16-byte aligned (vec), element by element at the edges
+  __device__ void load_bf16(__nv_bfloat16* s, int r0, int k0, bool vec) const {
+    const int r = threadIdx.x / 4, kv = (threadIdx.x % 4) * 8;
+    const int gr = r0 + r, gk = k0 + kv;
+    if (vec && gr < rows && gk + 8 <= K) {
+      *reinterpret_cast<int4*>(s + r * kLdK + kv) =
+          *reinterpret_cast<const int4*>(x + gr * ld + gk);
+      return;
+    }
+    for (int e = 0; e < 8; ++e)
+      s[r * kLdK + kv + e] = (gr < rows && gk + e < K) ? x[gr * ld + gk + e]
+                                                       : __float2bfloat16(0.f);
+  }
+};
+
+// element (r, k) of a matrix stored with r contiguous: X[k * ld + r]
+template <typename T>
+struct ColLoader {
+  const T* x;
+  int64_t ld;
+  int rows, K;
+  __device__ void load(float* s, int r0, int k0) const {
+    for (int i = threadIdx.x; i < kTile * kKC; i += kThreads) {
+      const int kk = i / kTile, r = i % kTile;
+      const int gr = r0 + r, gk = k0 + kk;
+      s[kk * kLds + r] = (gr < rows && gk < K) ? to_f32(x[(int64_t)gk * ld + gr]) : 0.f;
+    }
+  }
+  static constexpr bool kKContig = false;
+  // bf16 stage [kKC][kLdR], vectors as RowLoader's
+  __device__ void load_bf16(__nv_bfloat16* s, int r0, int k0, bool vec) const {
+    const int kk = threadIdx.x / 8, rv = (threadIdx.x % 8) * 8;
+    const int gr = r0 + rv, gk = k0 + kk;
+    if (vec && gk < K && gr + 8 <= rows) {
+      *reinterpret_cast<int4*>(s + kk * kLdR + rv) =
+          *reinterpret_cast<const int4*>(x + (int64_t)gk * ld + gr);
+      return;
+    }
+    for (int e = 0; e < 8; ++e)
+      s[kk * kLdR + rv + e] = (gk < K && gr + e < rows) ? x[(int64_t)gk * ld + gr + e]
+                                                        : __float2bfloat16(0.f);
+  }
+};
+
+// 16-byte vector loads need 16-byte aligned rows: an aligned base and a
+// leading dimension that is a multiple of 8 halves
+__device__ __forceinline__ bool vec_ok(const void* x, int64_t ld) {
+  return ld % 8 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+}
+
+// acc[i][j] += sum_k A(m0 + ty + 16i, k) B(n0 + tx + 16j, k) over k < K,
+// f32 operands: FMAs from f32 shared-memory stages
+template <class LA, class LB>
+__device__ __forceinline__ void mma_tile(float (&acc)[4][4], const LA& a, const LB& b,
+                                         int m0, int n0, int K) {
+  __shared__ float sA[kKC * kLds];
+  __shared__ float sB[kKC * kLds];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int k0 = 0; k0 < K; k0 += kKC) {
+    a.load(sA, m0, k0);
+    b.load(sB, n0, k0);
+    __syncthreads();
+#pragma unroll 8
+    for (int kk = 0; kk < kKC; ++kk) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = sA[kk * kLds + ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = sB[kk * kLds + tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+}
+
+// The same product for bf16 operands on tensor cores: wmma 16x16x16 bf16
+// fragments with f32 accumulation (bf16 x bf16 products are exact in f32,
+// so this differs from the FMA path only in summation order). Warp w owns
+// rows 16 (w / 2) and columns 32 (w % 2) + {0, 16}; the tile goes through
+// an f32 shared staging into the same acc[i][j] layout as mma_tile.
+template <class LA, class LB>
+__device__ __forceinline__ void mma_tile_tc(float (&acc)[4][4], const LA& a, const LB& b,
+                                            int m0, int n0, int K) {
+  using namespace nvcuda;
+  constexpr int kStage = kTile * kLdK > kKC * kLdR ? kTile * kLdK : kKC * kLdR;
+  __shared__ __align__(32) __nv_bfloat16 sA[kStage];
+  __shared__ __align__(32) __nv_bfloat16 sB[kStage];
+  __shared__ __align__(32) float sC[kTile * kLdC];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
+  wmma::fill_fragment(c[0], 0.f);
+  wmma::fill_fragment(c[1], 0.f);
+  static_assert(kTile * kKC == 8 * kThreads, "one 8-element vector per thread and stage");
+  const bool vec = vec_ok(a.x, a.ld) && vec_ok(b.x, b.ld);
+  for (int k0 = 0; k0 < K; k0 += kKC) {
+    a.load_bf16(sA, m0, k0, vec);
+    b.load_bf16(sB, n0, k0, vec);
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < kKC; ks += 16) {
+      using ALayout = std::conditional_t<LA::kKContig, wmma::row_major, wmma::col_major>;
+      using BLayout = std::conditional_t<LB::kKContig, wmma::col_major, wmma::row_major>;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa;
+      if constexpr (LA::kKContig) wmma::load_matrix_sync(fa, sA + wm * 16 * kLdK + ks, kLdK);
+      else wmma::load_matrix_sync(fa, sA + ks * kLdR + wm * 16, kLdR);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int n = wn * 32 + j * 16;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb;
+        if constexpr (LB::kKContig) wmma::load_matrix_sync(fb, sB + n * kLdK + ks, kLdK);
+        else wmma::load_matrix_sync(fb, sB + ks * kLdR + n, kLdR);
+        wmma::mma_sync(c[j], fa, fb, c[j]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+    wmma::store_matrix_sync(sC + wm * 16 * kLdC + wn * 32 + j * 16, c[j], kLdC,
+                            wmma::mem_row_major);
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] += sC[(ty + 16 * i) * kLdC + tx + 16 * j];
+  __syncthreads();  // sC is read before the next tile's store
+}
+
+// the tile product for element type T: tensor cores for bf16, FMAs for f32
+template <typename T, class LA, class LB>
+__device__ __forceinline__ void tile_product(float (&acc)[4][4], const LA& a, const LB& b,
+                                             int m0, int n0, int K) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) mma_tile_tc(acc, a, b, m0, n0, K);
+  else mma_tile(acc, a, b, m0, n0, K);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+struct FwdParams {
+  const void* h;       // [N, E]
+  const void* w;       // [V, E]
+  const int* labels;   // [N]
+  float* pm;           // [splits, N] partial row max (natural units)
+  float* pl;           // [splits, N] partial sum exp(t - pm)
+  float* ptl;          // [splits, N] partial label logit
+  int* pai;            // [splits, N] partial argmax
+  float* lse;          // [N]
+  float* tl;           // [N]
+  float* m2;           // [N]
+  int* ai;             // [N]
+  int N, E, V, splits, tiles_per_split;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ce_fwd_partial(FwdParams p) {
+  __shared__ int sLab[kTile];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int r0 = blockIdx.x * kTile;
+  const int split = blockIdx.y;
+  if (threadIdx.x < kTile) {
+    const int r = r0 + threadIdx.x;
+    sLab[threadIdx.x] = r < p.N ? p.labels[r] : -1;
+  }
+  __syncthreads();
+  const RowLoader<T> a{static_cast<const T*>(p.h), p.E, p.N, p.E};
+  const RowLoader<T> b{static_cast<const T*>(p.w), p.E, p.V, p.E};
+
+  float m[4], l[4], tl[4];
+  int ai[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+    tl[i] = 0.f;
+    ai[i] = INT_MAX;
+  }
+  const int vt0 = split * p.tiles_per_split;
+  const int vt1 = min(vt0 + p.tiles_per_split, (p.V + kTile - 1) / kTile);
+  for (int vt = vt0; vt < vt1; ++vt) {
+    const int n0 = vt * kTile;
+    float acc[4][4];
+    zero(acc);
+    tile_product<T>(acc, a, b, r0, n0, p.E);
+    // online update over this thread's columns, in increasing index order:
+    // strict > keeps the first (smallest) index of a tie
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int lab = sLab[ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = n0 + tx + 16 * j;
+        if (col >= p.V) continue;
+        const float t = acc[i][j];
+        if (t > m[i]) {
+          l[i] = l[i] * exp2f((m[i] - t) * kLog2e) + 1.f;
+          m[i] = t;
+          ai[i] = col;
+        } else {
+          l[i] += exp2f((t - m[i]) * kLog2e);
+        }
+        if (col == lab) tl[i] = t;
+      }
+    }
+  }
+  // combine the 16 threads of a row (16 consecutive lanes of one warp)
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
+      const float to = __shfl_xor_sync(0xffffffffu, tl[i], off);
+      const int ao = __shfl_xor_sync(0xffffffffu, ai[i], off);
+      const float mn = fmaxf(m[i], mo);
+      const float a_self = m[i] == -INFINITY ? 0.f : l[i] * exp2f((m[i] - mn) * kLog2e);
+      const float a_other = mo == -INFINITY ? 0.f : lo * exp2f((mo - mn) * kLog2e);
+      if (mo > m[i] || (mo == m[i] && ao < ai[i])) ai[i] = ao;
+      l[i] = a_self + a_other;
+      m[i] = mn;
+      tl[i] += to;
+    }
+    const int r = r0 + ty + 16 * i;
+    if (tx == 0 && r < p.N) {
+      const int64_t o = (int64_t)split * p.N + r;
+      p.pm[o] = m[i];
+      p.pl[o] = l[i];
+      p.ptl[o] = tl[i];
+      p.pai[o] = ai[i];
+    }
+  }
+}
+
+__global__ void ce_fwd_combine(FwdParams p) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= p.N) return;
+  float mx = -INFINITY;
+  int arg = 0;
+  for (int s = 0; s < p.splits; ++s) {
+    const float ms = p.pm[(int64_t)s * p.N + r];
+    if (ms > mx) {  // the first split holding the max: the smallest index
+      mx = ms;
+      arg = p.pai[(int64_t)s * p.N + r];
+    }
+  }
+  float l = 0.f, tl = 0.f;
+  for (int s = 0; s < p.splits; ++s) {
+    const int64_t o = (int64_t)s * p.N + r;
+    const float ms = p.pm[o];
+    if (ms != -INFINITY) l += p.pl[o] * exp2f((ms - mx) * kLog2e);
+    tl += p.ptl[o];
+  }
+  p.lse[r] = mx + logf(l);
+  p.tl[r] = tl;
+  p.m2[r] = mx * kLog2e;
+  p.ai[r] = arg;
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+struct BwdParams {
+  const void* h;        // [N, E]
+  const void* w;        // [V, E]
+  const int* labels;    // [N]
+  const float* lse;     // [N]
+  const float* dlse;    // [N]
+  const float* dtl;     // [N]
+  void* dh;             // [N, E], input dtype
+  float* dw;            // [V, E] f32
+  void* dl;             // [chunk, V] scratch, input dtype
+  int N, E, V;
+  int c0, rows;         // this chunk: rows [c0, c0 + rows)
+  int accumulate;       // dw += (1) or dw = (0)
+};
+
+// dl[r, v] for the chunk's rows, grid (vocab tiles, row tiles)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ce_bwd_dlogits(BwdParams p) {
+  __shared__ int sLab[kTile];
+  __shared__ float sLse[kTile], sDlse[kTile], sDtl[kTile];
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kTile;
+  const int r0 = blockIdx.y * kTile;  // row within the chunk
+  if (threadIdx.x < kTile) {
+    const int r = r0 + threadIdx.x;
+    const bool ok = r < p.rows;
+    const int g = p.c0 + r;
+    sLab[threadIdx.x] = ok ? p.labels[g] : -1;
+    sLse[threadIdx.x] = ok ? p.lse[g] * kLog2e : 0.f;
+    sDlse[threadIdx.x] = ok ? p.dlse[g] : 0.f;
+    sDtl[threadIdx.x] = ok ? p.dtl[g] : 0.f;
+  }
+  __syncthreads();
+  const T* h = static_cast<const T*>(p.h) + (int64_t)p.c0 * p.E;
+  const RowLoader<T> a{h, p.E, p.rows, p.E};
+  const RowLoader<T> b{static_cast<const T*>(p.w), p.E, p.V, p.E};
+  float acc[4][4];
+  zero(acc);
+  tile_product<T>(acc, a, b, r0, n0, p.E);
+  T* dl = static_cast<T*>(p.dl);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int rr = ty + 16 * i;
+    const int r = r0 + rr;
+    if (r >= p.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx + 16 * j;
+      if (col >= p.V) continue;
+      float g = sDlse[rr] * exp2f(acc[i][j] * kLog2e - sLse[rr]);
+      if (col == sLab[rr]) g += sDtl[rr];
+      dl[(int64_t)r * p.V + col] = from_f32<T>(g);
+    }
+  }
+}
+
+// dh[c0 + r, e] = sum_v dl[r, v] w[v, e], grid (E tiles, row tiles)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ce_gemm_dh(BwdParams p) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kTile;
+  const int m0 = blockIdx.y * kTile;
+  const RowLoader<T> a{static_cast<const T*>(p.dl), p.V, p.rows, p.V};
+  const ColLoader<T> b{static_cast<const T*>(p.w), p.E, p.E, p.V};
+  float acc[4][4];
+  zero(acc);
+  tile_product<T>(acc, a, b, m0, n0, p.V);
+  T* dh = static_cast<T*>(p.dh) + (int64_t)p.c0 * p.E;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = m0 + ty + 16 * i;
+    if (r >= p.rows) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = n0 + tx + 16 * j;
+      if (e < p.E) dh[(int64_t)r * p.E + e] = from_f32<T>(acc[i][j]);
+    }
+  }
+}
+
+// dw[v, e] (+)= sum_r dl[r, v] h[c0 + r, e], grid (E tiles, vocab tiles)
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ce_gemm_dw(BwdParams p) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int n0 = blockIdx.x * kTile;
+  const int m0 = blockIdx.y * kTile;
+  const T* h = static_cast<const T*>(p.h) + (int64_t)p.c0 * p.E;
+  const ColLoader<T> a{static_cast<const T*>(p.dl), p.V, p.V, p.rows};
+  const ColLoader<T> b{h, p.E, p.E, p.rows};
+  float acc[4][4];
+  zero(acc);
+  tile_product<T>(acc, a, b, m0, n0, p.rows);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int v = m0 + ty + 16 * i;
+    if (v >= p.V) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = n0 + tx + 16 * j;
+      if (e >= p.E) continue;
+      float* o = p.dw + (int64_t)v * p.E + e;
+      *o = p.accumulate ? *o + acc[i][j] : acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_fwd(FwdParams& p, cudaStream_t stream) {
+  const dim3 grid((p.N + kTile - 1) / kTile, p.splits);
+  ce_fwd_partial<T><<<grid, kThreads, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ce_fwd_combine<<<(p.N + 255) / 256, 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(BwdParams p, int chunk, cudaStream_t stream) {
+  const int vtiles = (p.V + kTile - 1) / kTile;
+  const int etiles = (p.E + kTile - 1) / kTile;
+  for (int c0 = 0; c0 < p.N; c0 += chunk) {
+    p.c0 = c0;
+    p.rows = min(chunk, p.N - c0);
+    p.accumulate = c0 > 0;
+    const int rtiles = (p.rows + kTile - 1) / kTile;
+    ce_bwd_dlogits<T><<<dim3(vtiles, rtiles), kThreads, 0, stream>>>(p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ce_gemm_dh<T><<<dim3(etiles, rtiles), kThreads, 0, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    ce_gemm_dw<T><<<dim3(etiles, vtiles), kThreads, 0, stream>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+}  // namespace
+}  // namespace tn
+
+extern "C" int tn_ce_fwd(const void* h, const void* w, const int* labels,
+                         float* pm, float* pl, float* ptl, int* pai,
+                         float* lse, float* tl, float* m2, int* ai,
+                         int N, int E, int V, int splits, int dtype, void* stream) {
+  if (N <= 0 || E <= 0 || V <= 0 || splits <= 0 || V > INT_MAX - tn::kTile)
+    return (int)cudaErrorInvalidValue;
+  tn::FwdParams p{h, w, labels, pm, pl, ptl, pai, lse, tl, m2, ai, N, E, V, splits, 0};
+  const int vtiles = (V + tn::kTile - 1) / tn::kTile;
+  p.tiles_per_split = (vtiles + splits - 1) / splits;
+  if (splits > 65535 || p.tiles_per_split * (splits - 1) >= vtiles)
+    return (int)cudaErrorInvalidValue;  // an empty split would leave rows unset
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == tn::kBFloat16) return (int)tn::launch_fwd<__nv_bfloat16>(p, st);
+  if (dtype == tn::kFloat32) return (int)tn::launch_fwd<float>(p, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int tn_ce_bwd(const void* h, const void* w, const int* labels,
+                         const float* lse, const float* dlse, const float* dtl,
+                         void* dh, float* dw, void* dl_scratch,
+                         int N, int E, int V, int chunk, int dtype, void* stream) {
+  const int vtiles = (V + tn::kTile - 1) / tn::kTile;
+  if (N <= 0 || E <= 0 || V <= 0 || chunk <= 0 || vtiles > 65535 ||
+      (chunk + tn::kTile - 1) / tn::kTile > 65535)
+    return (int)cudaErrorInvalidValue;
+  tn::BwdParams p{h, w, labels, lse, dlse, dtl, dh, dw, dl_scratch, N, E, V, 0, 0, 0};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == tn::kBFloat16) return (int)tn::launch_bwd<__nv_bfloat16>(p, chunk, st);
+  if (dtype == tn::kFloat32) return (int)tn::launch_bwd<float>(p, chunk, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,197 @@
+# Copyright (c) 2026 touchnet_tpu authors.
+# Fused lm-head + cross-entropy row statistics (kernel K3).
+#
+# Port of touchnet_tpu/ops/fused_ce.py. The Pallas kernels _fwd_kernel (:86)
+# and _bwd_kernel (:175) become csrc/fused_ce.cu; its source note says what
+# bounds it on Hopper and how it tiles rows and vocab. Beside it:
+#   - _rows_reference: the plain PyTorch version (:287-301), which
+#     materialises the [N, V] f32 logits;
+#   - _rows_backward_reference: the plain backward (:337-347);
+#   - fused_ce_rows: the wrapper (:358), an autograd Function. CPU tensors
+#     take the two plain versions; CUDA tensors launch the kernels or raise
+#     on what the kernels do not take. Unlike the JAX wrapper there is no
+#     shape the kernel declines: it masks a ragged vocab tail itself.
+
+from typing import Tuple
+
+import torch
+
+from touchnet_tpu_torch.ops import _build
+
+LOG2E = 1.4426950408889634
+# the backward recomputes dl for this many rows at a time into a scratch
+# [rows, V] buffer of the input dtype; the budget bounds that buffer
+DL_SCRATCH_BYTES = 2 * 2**30
+_TILE = 64
+_sm_count = {}
+
+
+def _rows_reference(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """(lse, true_logit, m2, argmax) from the full f32 logits [N, V]
+    (the products of the input values, accumulated in f32)."""
+    logits = torch.matmul(h.float(), w.float().t())
+    m = logits.max(dim=-1).values
+    l = torch.exp(logits - m[:, None]).sum(dim=-1)
+    lse = m + torch.log(l)
+    V = w.shape[0]
+    valid = (labels >= 0) & (labels < V)
+    safe = labels.clamp(0, V - 1).long()
+    tl = torch.where(valid, logits.gather(1, safe[:, None])[:, 0],
+                     torch.zeros((), dtype=logits.dtype, device=logits.device))
+    ai = torch.argmax(logits, dim=-1).to(torch.int32)  # first index of a tie
+    return lse, tl, m * LOG2E, ai
+
+
+def _rows_backward_reference(h, w, labels, lse, dlse, dtl) -> tuple:
+    """(dh, dw) in h's / w's dtypes: dl = dlse softmax + dtl onehot in f32,
+    cast to h's dtype, then the two products accumulated in f32."""
+    logits = torch.matmul(h.float(), w.float().t())
+    p = torch.exp(logits - lse[:, None])
+    V = w.shape[0]
+    valid = ((labels >= 0) & (labels < V)).float()
+    onehot = torch.nn.functional.one_hot(labels.clamp(0, V - 1).long(), V).float()
+    onehot = onehot * valid[:, None]
+    dl = (dlse[:, None] * p + dtl[:, None] * onehot).to(h.dtype)
+    dl = dl.float()
+    dh = torch.matmul(dl, w.float())
+    dw = torch.matmul(dl.t(), h.float())
+    return dh.to(h.dtype), dw.to(w.dtype)
+
+
+def _check(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
+    if h.dim() != 2 or w.dim() != 2 or h.shape[1] != w.shape[1]:
+        raise ValueError(f"fused_ce_rows: h {tuple(h.shape)}, w {tuple(w.shape)}")
+    if labels.shape != (h.shape[0],):
+        raise ValueError(f"fused_ce_rows: labels {tuple(labels.shape)} for {h.shape[0]} rows")
+    if h.dtype not in _build.DTYPE_CODES or w.dtype != h.dtype:
+        raise ValueError(f"fused_ce_rows: dtypes h {h.dtype} w {w.dtype}: bf16 or f32, equal")
+    if not (h.is_contiguous() and w.is_contiguous()):
+        raise ValueError("fused_ce_rows: h and w must be contiguous")
+    if w.device != h.device or labels.device != h.device:
+        raise ValueError("fused_ce_rows: h, w and labels must be on one device")
+
+
+def _splits(N: int, V: int, device) -> int:
+    """Vocab splits of the forward grid: ~16 blocks per SM (several waves,
+    so the last one's tail is short), and no split left empty."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
+    row_tiles = -(-N // _TILE)
+    vtiles = -(-V // _TILE)
+    splits = max(1, min(vtiles, -(-16 * _sm_count[device] // row_tiles)))
+    per = -(-vtiles // splits)
+    return -(-vtiles // per)
+
+
+def fused_ce_fwd(h, w, labels) -> tuple:
+    """K3 forward on CUDA tensors: (lse, true_logit, m2, argmax) per row."""
+    _check(h, w, labels)
+    N, E = h.shape
+    V = w.shape[0]
+    labels = labels.to(torch.int32).contiguous()
+    splits = _splits(N, V, h.device)
+    f32 = dict(dtype=torch.float32, device=h.device)
+    part = torch.empty((3, splits, N), **f32)
+    pai = torch.empty((splits, N), dtype=torch.int32, device=h.device)
+    lse, tl, m2 = (torch.empty(N, **f32) for _ in range(3))
+    ai = torch.empty(N, dtype=torch.int32, device=h.device)
+    lib = _build.load_library()
+    with torch.cuda.device(h.device):
+        err = lib.tn_ce_fwd(
+            h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+            part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(), pai.data_ptr(),
+            lse.data_ptr(), tl.data_ptr(), m2.data_ptr(), ai.data_ptr(),
+            N, E, V, splits, _build.DTYPE_CODES[h.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "fused_ce_fwd")
+    fused_ce_fwd.launches += 1
+    return lse, tl, m2, ai
+
+
+fused_ce_fwd.launches = 0
+
+
+def bwd_chunk_rows(N: int, V: int, itemsize: int) -> int:
+    """Rows per dl chunk of the backward: the most whole row tiles whose
+    [rows, V] scratch fits DL_SCRATCH_BYTES, and no more than N needs."""
+    chunk = max(_TILE, DL_SCRATCH_BYTES // (V * itemsize) // _TILE * _TILE)
+    return min(chunk, -(-N // _TILE) * _TILE)
+
+
+def fused_ce_bwd(h, w, labels, lse, dlse, dtl) -> tuple:
+    """K3 backward on CUDA tensors: (dh in h's dtype, dw in w's dtype).
+    dw is accumulated in an f32 [V, E] buffer, one output tile per block
+    and the row chunks in order, so it is the same bit for bit across runs."""
+    _check(h, w, labels)
+    N, E = h.shape
+    V = w.shape[0]
+    labels = labels.to(torch.int32).contiguous()
+    lse, dlse, dtl = (x.float().contiguous() for x in (lse, dlse, dtl))
+    chunk = bwd_chunk_rows(N, V, h.element_size())
+    dl = torch.empty((chunk, V), dtype=h.dtype, device=h.device)
+    dh = torch.empty_like(h)
+    dw = torch.empty((V, E), dtype=torch.float32, device=h.device)
+    lib = _build.load_library()
+    with torch.cuda.device(h.device):
+        err = lib.tn_ce_bwd(
+            h.data_ptr(), w.data_ptr(), labels.data_ptr(),
+            lse.data_ptr(), dlse.data_ptr(), dtl.data_ptr(),
+            dh.data_ptr(), dw.data_ptr(), dl.data_ptr(),
+            N, E, V, chunk, _build.DTYPE_CODES[h.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _build.check(err, "fused_ce_bwd")
+    fused_ce_bwd.launches += 1
+    return dh, dw.to(w.dtype)
+
+
+fused_ce_bwd.launches = 0
+
+
+class _FusedCERows(torch.autograd.Function):
+    """lse and true_logit carry gradients to h and w; m2 and argmax do not."""
+
+    @staticmethod
+    def forward(ctx, h, w, labels, plain):
+        ctx.plain = plain or h.device.type == "cpu"
+        if ctx.plain:
+            lse, tl, m2, ai = _rows_reference(h, w, labels)
+        elif h.device.type == "cuda":
+            lse, tl, m2, ai = fused_ce_fwd(h, w, labels)
+        else:
+            raise ValueError(f"fused_ce_rows: no kernel for device {h.device}")
+        ctx.save_for_backward(h, w, labels, lse)
+        ctx.mark_non_differentiable(m2, ai)
+        return lse, tl, m2, ai
+
+    @staticmethod
+    def backward(ctx, dlse, dtl, _dm2, _dai):
+        h, w, labels, lse = ctx.saved_tensors
+        if dlse is None:
+            dlse = torch.zeros_like(lse)
+        if dtl is None:
+            dtl = torch.zeros_like(lse)
+        if ctx.plain:
+            dh, dw = _rows_backward_reference(h, w, labels, lse, dlse, dtl)
+        else:
+            dh, dw = fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+        return dh, dw, None, None
+
+
+def fused_ce_rows_reference(h: torch.Tensor, w: torch.Tensor,
+                            labels: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The plain version of fused_ce_rows on any device (the same autograd
+    Function over _rows_reference and _rows_backward_reference)."""
+    return _FusedCERows.apply(h, w, labels, True)
+
+
+def fused_ce_rows(h: torch.Tensor, w: torch.Tensor,
+                  labels: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Fused lm-head + CE row statistics without materialising logits (K3).
+
+    h [N, E] and w [V, E] in one dtype (bf16 or f32); labels [N] int, where
+    anything outside [0, V) (padding, ignore_index) gives true_logit 0.
+    Returns (lse, true_logit, m2 = row max in base 2, argmax) in f32 / int32;
+    argmax ties go to the smallest index."""
+    return _FusedCERows.apply(h, w, labels, False)

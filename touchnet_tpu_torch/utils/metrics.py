@@ -1,0 +1,92 @@
+# Copyright (c) 2026 touchnet_tpu authors.
+# Training telemetry: loss, grad norm, lr, tokens/s, MFU and device memory.
+#
+# Port of touchnet_tpu/utils/metrics.py (MetricsProcessor). The JAX module's
+# peak-flops table holds TPU generations; here it holds the one card the
+# port targets, and memory comes from torch.cuda's allocator statistics. The
+# trainer hands it device tensors and it reads them (.item(), a host sync)
+# only on logging steps. The TensorBoard and wandb backends are not ported.
+
+import time
+from typing import Dict, List, Optional
+
+import torch
+
+from touchnet_tpu_torch.utils.logging import logger
+
+# bf16 dense peak, a spec constant and not a measurement: NVIDIA H100 SXM
+# datasheet, 989 TFLOP/s at the card's 700 W limit
+GPU_PEAK_FLOPS = {"H100": 989e12}
+_GIB = 1024**3
+
+
+def get_peak_flops(device: torch.device) -> Optional[float]:
+    """bf16 dense peak of the card, or None (no MFU) off a known card."""
+    if device.type != "cuda":
+        return None
+    name = torch.cuda.get_device_name(device)
+    for key, flops in GPU_PEAK_FLOPS.items():
+        if key in name:
+            return flops
+    logger.warning(f"no peak flops for {name!r}; MFU is not reported")
+    return None
+
+
+class MetricsProcessor:
+    """Accumulates per-interval counters and logs one line per logging step:
+    loss, acc, grad norm, lr, peak memory, tokens/s, MFU, data-loading share.
+    Every logged line is also kept in ``history`` (a dict per step)."""
+
+    def __init__(self, job_config, device: torch.device):
+        self.job_config = job_config
+        self.device = device
+        self.peak_flops = get_peak_flops(device)
+        self.num_flop_per_token = 0  # set by the trainer
+        self.ntokens_since_last_log = 0
+        self.steps_since_last_log = 0
+        self.data_loading_times: List[float] = []
+        self.time_last_log = time.perf_counter()
+        self.history: List[Dict[str, float]] = []
+        if device.type == "cuda":
+            self.total_memory = torch.cuda.get_device_properties(device).total_memory
+
+    def should_log(self, step: int) -> bool:
+        return step == 1 or step % self.job_config.training_log_freq == 0
+
+    def log(self, step: int, metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """Reads the step's device metrics (the only host sync of the loop)
+        and logs them with the interval's rates."""
+        out = {k: float(v) for k, v in metrics.items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        time_delta = time.perf_counter() - self.time_last_log
+        tps = self.ntokens_since_last_log / time_delta if time_delta else 0.0
+        out["step"] = step
+        out["throughput/tps"] = tps
+        out["time/step_s"] = time_delta / max(self.steps_since_last_log, 1)
+        out["throughput/tflops"] = self.num_flop_per_token * tps / 1e12
+        if self.peak_flops:
+            out["throughput/mfu_pct"] = 100 * self.num_flop_per_token * tps / self.peak_flops
+        time_data = sum(self.data_loading_times)
+        out["time/data_loading_pct"] = 100 * time_data / time_delta if time_delta else 0.0
+        pieces = [f"step {step:6d}",
+                  f"loss {out.get('loss/per_sample', 0):.4f}/{out.get('loss/per_token', 0):.4f}",
+                  f"acc {out.get('acc', 0):.4f}", f"gnorm {out.get('grad_norm', 0):.3f}",
+                  f"lr {out.get('lr', 0):.2e}"]
+        if self.device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(self.device)
+            out["memory/peak_gib"] = peak / _GIB
+            out["memory/peak_pct"] = 100 * peak / self.total_memory
+            pieces.append(f"mem {out['memory/peak_gib']:.1f}GiB({out['memory/peak_pct']:.0f}%)")
+        pieces.append(f"tps {tps:,.0f}")
+        pieces.append(f"tflops {out['throughput/tflops']:.1f}")
+        if "throughput/mfu_pct" in out:
+            pieces.append(f"mfu {out['throughput/mfu_pct']:.2f}%")
+        pieces.append(f"data {out['time/data_loading_pct']:.1f}%")
+        logger.info("  ".join(pieces))
+        self.history.append(out)
+        self.ntokens_since_last_log = 0
+        self.steps_since_last_log = 0
+        self.data_loading_times.clear()
+        self.time_last_log = time.perf_counter()
+        return out
