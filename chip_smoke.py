@@ -2,14 +2,18 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 """End-to-end smoke run of touchnet_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py              # the phases below
+    python3 chip_smoke.py --profile    # only the step profile (profile_training)
 
 Phases, one or more lines each; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
-     versions; a CUDA card is required, there is no CPU fallback;
+     versions, the schemas of the yardstick calls; a CUDA card is
+     required, there is no CPU fallback;
   2. build: nvcc builds the kernels of ops/csrc from this checkout, one
      process per source, in parallel;
-  3. K1 (packed flash-attention forward) against its plain version;
+  3. K1 (packed flash-attention forward) against its plain version, also at
+     phase 8's own shape (B1 T16384, 10 packed documents; the plain version
+     one kv head at a time);
   4. K4 (ragged flash-decode) against its plain version;
   5. the serving slice: Llama-3.2-1B at full width (random bf16 weights
      from a seed) generates for 8 prompts, with single-shot and chunked
@@ -35,6 +39,22 @@ Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving and training; K4: serving; K2,
 K3: training), each path driven with the counts set to 0 just before it.
+Its other numbers are those of its case at the training path's shape (K4:
+the decode case), with every timed case under "cases":
+  - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
+    cores) and its bytes (each input read once, each output written once)
+    over 3.35 TB/s, and bound_by, which of the two. Attention counts the
+    live (row, column) pairs of these inputs under the causal and segment
+    mask (live_pairs, from the segment runs): K1 4·D·H·pairs, K2
+    10·D·H·pairs; K3 2·N·E·V forward, 6·N·E·V backward; K4 is bound by the
+    bytes of the live cache it reads;
+  - library_ms: one PyTorch call computing the same function, timed here
+    and used nowhere in the port: varlen flash attention over the
+    document runs (aten._flash_attention_forward / _backward) for K1 and
+    K2, the same over a copy of each row's live cache columns for K4 (the
+    copy made outside the timed window), none for K3. Before it is timed
+    its output is held to the kernel's under the bf16 limits; a mismatch
+    fails the run as the yardstick's fault.
 
 Tolerances on the card, each against the plain version on the same inputs:
   - bf16 kernels vs the plain version run in f32 on the same bf16-rounded
@@ -144,6 +164,129 @@ def compare(name, got, want, dtype, failures, valid=None):
     return mx
 
 
+# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): bf16 tensor cores and HBM3
+PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+
+
+def bound(flops, nbytes) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the bf16 peak and the bytes (each input read once, each output written
+    once) over the memory rate, and which of the two it is."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def seg_runs(row):
+    """(value, start, end) of each run of equal ids in a 1-D segment row."""
+    row = np.asarray(row)
+    cuts = [0, *(np.flatnonzero(row[1:] != row[:-1]) + 1).tolist(), len(row)]
+    return [(int(row[a]), a, b) for a, b in zip(cuts[:-1], cuts[1:])]
+
+
+def _clamped_sum(x0, x1, n):
+    """sum of min(max(x, 0), n) for x in [x0, x1]."""
+    def upto(x):  # sum over x' in [1, x]
+        if x <= 0:
+            return 0
+        if x <= n:
+            return x * (x + 1) // 2
+        return n * (n + 1) // 2 + (x - n) * n
+    return upto(x1) - upto(x0 - 1) if x1 >= x0 else 0
+
+
+def live_pairs(q_seg, kv_seg, causal, q_offset=0, kv_offset=0, T=None, S=None, B=1) -> int:
+    """Live (row, column) pairs of one head summed over the batch: q_seg
+    [B, T] and kv_seg [B, S] equal (segment 0 only matches itself) and, when
+    causal, q_offset + t >= kv_offset + s. None is one segment (give T, S
+    and B).
+    O(T + S) per row from the segment runs, never a [T, S] mask."""
+    if q_seg is None:
+        q_seg = np.ones((B, T), np.int64)
+        kv_seg = np.ones((B, S), np.int64)
+    q_seg = np.asarray(q_seg.cpu() if hasattr(q_seg, "cpu") else q_seg)
+    kv_seg = np.asarray(kv_seg.cpu() if hasattr(kv_seg, "cpu") else kv_seg)
+    total = 0
+    for qrow, krow in zip(q_seg, kv_seg):
+        kv_runs = {}
+        for val, c, d in seg_runs(krow):
+            kv_runs.setdefault(val, []).append((c, d))
+        for val, a, b in seg_runs(qrow):
+            for c, d in kv_runs.get(val, ()):
+                if not causal:
+                    total += (b - a) * (d - c)
+                else:  # row t sees q_offset + t - kv_offset - c + 1 columns of [c, d)
+                    x0 = q_offset + a - kv_offset - c + 1
+                    total += _clamped_sum(x0, x0 + (b - a) - 1, d - c)
+    return total
+
+
+def attention_library(q, k, v, q_runs, k_runs, causal, scale=None):
+    """The yardstick of K1/K2: PyTorch's varlen flash attention over the
+    document runs (q/k/v flattened to [total, heads, D], native GQA). The
+    copies into that layout are made here, outside any timed window.
+    Returns (fwd, bwd): fwd() gives the aten outputs, bwd(outs, g) the
+    gradients from them."""
+    dev = q.device
+    D = q.shape[-1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    qf = q.reshape(-1, q.shape[2], D).contiguous()
+    kf = k.reshape(-1, k.shape[2], D).contiguous()
+    vf = v.reshape(-1, v.shape[2], D).contiguous()
+    cq = torch.tensor([0, *np.cumsum(q_runs)], dtype=torch.int32, device=dev)
+    ck = torch.tensor([0, *np.cumsum(k_runs)], dtype=torch.int32, device=dev)
+    mq, mk = int(max(q_runs)), int(max(k_runs))
+    assert int(cq[-1]) == qf.shape[0] and int(ck[-1]) == kf.shape[0]
+
+    def fwd():
+        return torch.ops.aten._flash_attention_forward(
+            qf, kf, vf, cq, ck, mq, mk, 0.0, causal, False, scale=scale)
+
+    def bwd(outs, g):
+        out, lse, rng, unused = outs[:4]
+        return torch.ops.aten._flash_attention_backward(
+            g.reshape(out.shape).contiguous(), qf, kf, vf, out, lse, cq, ck, mq, mk, 0.0,
+            causal, rng, unused, scale=scale)
+
+    return fwd, bwd
+
+
+def yardstick_checkable(name, failures, n_failed) -> bool:
+    """A yardstick is held to the kernel only where the kernel passed its
+    own check (failures has not grown since n_failed); else a mismatch
+    would be the kernel's, and the yardstick is neither checked nor timed."""
+    if len(failures) > n_failed:
+        print(f"  {name} yardstick: not checked or timed, the kernel failed its own check")
+        return False
+    return True
+
+
+def check_yardstick(name, got_out, got_lse, outs, B, T, H, failures):
+    """The library call must compute the kernel's function before it is
+    timed: its out (and lse, where its layout allows) against the kernel's
+    under the bf16 limits. A mismatch is the yardstick's failure."""
+    lib_out = outs[0].view(got_out.shape)
+    yard = []
+    compare(f"{name} yardstick out vs kernel", lib_out, got_out, torch.bfloat16, yard)
+    lse = outs[1]
+    if tuple(lse.shape) != (H, B * T):  # not the varlen [H, total] layout
+        print(f"  {name} yardstick lse layout {tuple(lse.shape)}: not compared")
+    else:
+        lse = lse.view(H, B, T).permute(1, 0, 2)
+        fin = torch.isfinite(got_lse)
+        err = (lse[fin] - got_lse[fin]).abs().max().item()
+        print(f"  {name} yardstick lse vs kernel: max_abs_err={err:.3e} "
+              f"{'ok' if err <= LSE_TOL else 'FAIL'}")
+        if err > LSE_TOL:
+            yard.append(f"{name} lse")
+    failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
+    return not yard
+
+
 def packed_segments(B, T, dev, docs=3):
     """`docs` documents then a padding tail (segment 0) in every row."""
     rng = np.random.default_rng(SEED + T)
@@ -155,6 +298,32 @@ def packed_segments(B, T, dev, docs=3):
     return torch.from_numpy(seg).to(dev)
 
 
+def grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off):
+    """The plain forward one kv head at a time (its G query heads against
+    it), in f32, so the scores of a long sequence fit."""
+    G = q.shape[2] // k.shape[2]
+    outs, lses = [], []
+    for j in range(k.shape[2]):
+        o, l = attn.packed_attention_reference(
+            q[:, :, j * G:(j + 1) * G].float(), k[:, :, j:j + 1].float(),
+            v[:, :, j:j + 1].float(), seg, causal, None, kv_seg, q_off, 0)
+        outs.append(o)
+        lses.append(l)
+    return torch.cat(outs, 2), torch.cat(lses, 1)
+
+
+def timed_row(name, err, ms, plain, lib, bnd, card):
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": bnd["bound_ms"], "bound_by": bnd["bound_by"],
+           "tflops": bnd["flops"] / (ms * 1e-3) / 1e12}
+    plain_s = "n/a" if plain is None else f"{plain:.3f} ms"
+    lib_s = "none" if lib is None else f"{lib:.3f} ms"
+    print(f"  {name} time: kernel {ms:.3f} ms, plain {plain_s}, library {lib_s}, "
+          f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}), {row['tflops']:.1f} TFLOP/s, "
+          f"{100 * bnd['bound_ms'] / ms:.1f}% of bound  [{card}]")
+    return row
+
+
 def check_k1(attn, dev, gen, failures, card):
     print("[3] K1 flash_attention vs packed_attention_reference")
     rows = {}
@@ -162,12 +331,13 @@ def check_k1(attn, dev, gen, failures, card):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    def case(name, q, k, v, seg, kv_seg, causal, q_off, timed=False):
+    def case(name, q, k, v, seg, kv_seg, causal, q_off, timed=False, grouped=False,
+             runs=None):
+        n_failed = len(failures)
         out, lse = attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, 0)
         torch.cuda.synchronize()
-        want, want_lse = attn.packed_attention_reference(
-            q.float(), k.float(), v.float(), seg, causal, None, kv_seg, q_off, 0)
-        B, T, H, _ = q.shape
+        want, want_lse = grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off)
+        B, T, H, D = q.shape
         S = k.shape[1]
         m = torch.ones((B, T, S), dtype=torch.bool, device=dev)
         if causal:
@@ -185,24 +355,46 @@ def check_k1(attn, dev, gen, failures, card):
             failures.append(f"{name} lse")
         del want, want_lse
         if timed:
-            ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, 0))
-            plain = time_ms(lambda: attn.packed_attention_reference(
-                q, k, v, seg, causal, None, kv_seg, q_off, 0))
-            print(f"  {name} time: kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
-            rows[name] = (mx, ms, plain)
+            pairs = live_pairs(seg, kv_seg, causal, q_off, 0, T, S, B)
+            bnd = bound(4 * D * H * pairs, nbytes(q, k, v, out, lse, seg, kv_seg))
+            ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, causal, None, kv_seg,
+                                                      q_off, 0))
+            if grouped:
+                plain = time_ms(lambda: grouped_forward_reference(
+                    attn, q, k, v, seg, kv_seg, causal, q_off), 3, 1)
+            else:
+                plain = time_ms(lambda: attn.packed_attention_reference(
+                    q, k, v, seg, causal, None, kv_seg, q_off, 0))
+            q_runs, k_runs, kk, vv = runs(q, k, v)
+            fwd, _ = attention_library(q, kk, vv, q_runs, k_runs, causal)
+            lib = None
+            if yardstick_checkable(name, failures, n_failed) and \
+                    check_yardstick(name, out, lse, fwd(), B, T, H, failures):
+                lib = time_ms(fwd)
+            rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
+            torch.cuda.empty_cache()
         return mx
+
+    def doc_runs(seg):
+        def runs(q, k, v):
+            r = [e - a for row in seg.cpu().numpy() for _, a, e in seg_runs(row)]
+            return r, r, k, v
+        return runs
 
     bf = torch.bfloat16
     B, T, H, Hkv, D = 8, 2048, 32, 8, 64
     seg = packed_segments(B, T, dev)
     case("(a) B8 T2048 H32/8 D64 bf16 causal packed",
          randn(B, T, H, D, dtype=bf), randn(B, T, Hkv, D, dtype=bf),
-         randn(B, T, Hkv, D, dtype=bf), seg, seg, True, 0, timed=True)
+         randn(B, T, Hkv, D, dtype=bf), seg, seg, True, 0, timed=True, runs=doc_runs(seg))
     case("(b) B4 T=S=1500 H16/4 D128 bf16 non-causal",
          randn(4, 1500, 16, 128, dtype=bf), randn(4, 1500, 4, 128, dtype=bf),
-         randn(4, 1500, 4, 128, dtype=bf), None, None, False, 0, timed=True)
+         randn(4, 1500, 4, 128, dtype=bf), None, None, False, 0, timed=True,
+         runs=lambda q, k, v: ([1500] * 4, [1500] * 4, k, v))
     # (c) a 1024-row chunk at offset 2048 over the strided K/V halves of a
-    # packed cache layer: the chunked-prefill call of the slice
+    # packed cache layer: the chunked-prefill call of the slice. The library
+    # reads a contiguous copy of the live 3072 columns (made untimed); its
+    # causal mask is bottom-right aligned, which is the chunk's offset.
     Sc, C, off = 4096, 1024, 2048
     cache = randn(B, Hkv, Sc, 2 * D, dtype=bf)
     k_c, v_c = attn.cache_halves(cache, D)
@@ -211,20 +403,28 @@ def check_k1(attn, dev, gen, failures, card):
     kv_seg = (torch.arange(Sc, device=dev) < off + C).int().expand(B, Sc).contiguous()
     qc = randn(B, C, H, D, dtype=bf)
     case("(c) chunk 1024 @2048 over cache halves [8,8,4096,128] bf16",
-         qc, k_c, v_c, q_seg, kv_seg, True, off, timed=True)
+         qc, k_c, v_c, q_seg, kv_seg, True, off, timed=True,
+         runs=lambda q, k, v: ([C] * B, [off + C] * B, k[:, :off + C], v[:, :off + C]))
     out_p = attn.flash_prefill(qc, cache, q_seg, kv_seg, q_offset=off)
     out_d, _ = attn.flash_attention(qc, k_c, v_c, q_seg, True, None, kv_seg, off, 0)
     if not torch.equal(out_p, out_d):
         failures.append("(c) flash_prefill entry")
     del cache, k_c, v_c, qc, out_p, out_d
+    T = TRAIN_T
+    seg = packed_segments(1, T, dev, docs=10)
+    case(f"(d) main path: B1 T{T} H32/8 D64 bf16 causal, 10 packed documents",
+         randn(1, T, H, D, dtype=bf), randn(1, T, Hkv, D, dtype=bf),
+         randn(1, T, Hkv, D, dtype=bf), seg, seg, True, 0, timed=True, grouped=True,
+         runs=doc_runs(seg))
     f32 = torch.float32
     seg = packed_segments(2, 300, dev)
-    case("(d) B2 T300 H8/2 D64 f32 causal packed",
+    case("(e) B2 T300 H8/2 D64 f32 causal packed",
          randn(2, 300, 8, 64, dtype=f32), randn(2, 300, 2, 64, dtype=f32),
          randn(2, 300, 2, 64, dtype=f32), seg, seg, True, 0)
-    case("(d) B2 T200 H6/3 D128 f32 non-causal",
+    case("(e) B2 T200 H6/3 D128 f32 non-causal",
          randn(2, 200, 6, 128, dtype=f32), randn(2, 200, 3, 128, dtype=f32),
          randn(2, 200, 3, 128, dtype=f32), None, None, False, 0)
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -233,6 +433,7 @@ def check_k4(dec, dev, gen, failures, card):
     rows = {}
 
     def case(name, B, L, Hkv, G, D, S, plen, base, last, layer, dtype, timed=False):
+        n_failed = len(failures)
         q = torch.randn((B, Hkv * G, D), generator=gen, device=dev).to(dtype)
         kv = torch.randn((L, B, Hkv, S, 2 * D), generator=gen, device=dev, dtype=dtype)
         plen = torch.tensor(plen, dtype=torch.int32, device=dev)
@@ -244,8 +445,27 @@ def check_k4(dec, dev, gen, failures, card):
             ms = time_ms(lambda: dec.decode_attention(q, kv, plen, base, last, layer_idx=layer))
             plain = time_ms(lambda: dec.decode_attention_reference(
                 q, kv, plen, base, last, layer_idx=layer))
-            print(f"  {name} time: kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
-            rows[name] = (mx, ms, plain)
+            # the live columns of each row, gathered (untimed) into the
+            # library's varlen layout [total, Hkv, D]: it cannot skip the
+            # [prompt_len, base) gap of the cache in place
+            cols = torch.arange(S, device=dev)
+            live = (cols[None] < plen[:, None]) | ((cols >= base) & (cols <= last))[None]
+            k_runs = live.sum(1).tolist()
+            k_l = torch.cat([kv[layer, b][:, live[b], :D].transpose(0, 1) for b in range(B)])
+            v_l = torch.cat([kv[layer, b][:, live[b], D:].transpose(0, 1) for b in range(B)])
+            bnd = bound(4 * D * Hkv * G * sum(k_runs),
+                        nbytes(k_l, v_l, q, got, plen))  # the live cache, read once
+            fwd, _ = attention_library(q[:, None], k_l[None], v_l[None], [1] * B, k_runs,
+                                       False)
+            lib = None
+            if yardstick_checkable(name, failures, n_failed):
+                yard = []
+                compare(f"{name} yardstick vs kernel", fwd()[0].view(got.shape), got, dtype,
+                        yard)
+                failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
+                lib = None if yard else time_ms(fwd)
+            name += " (library on a gathered copy of the live columns)"
+            rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
         return mx
 
     plen = torch.randint(2048, 8192, (32,), generator=torch.Generator().manual_seed(SEED))
@@ -449,6 +669,7 @@ def check_k2(attn, dev, gen, failures, card):
 
     def case(name, B, T, H, Hkv, D, dtype, causal, packed, timed=False, docs=3,
              grouped=False):
+        n_failed = len(failures)
         q, k, v = randn(B, T, H, D, dtype=dtype), randn(B, T, Hkv, D, dtype=dtype), \
             randn(B, T, Hkv, D, dtype=dtype)
         g = randn(B, T, H, D, dtype=dtype)
@@ -458,22 +679,38 @@ def check_k2(attn, dev, gen, failures, card):
         torch.cuda.synchronize()
         if grouped:
             want = grouped_reference(q, k, v, seg, g, causal)
-            ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
-                                                          causal), 3, 1)
-            print(f"  {name} time: kernel {ms:.3f} ms  [{card}]")
         else:
             want = attn.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
                                                       seg, None, None, g.float(), causal)
         errs = [compare_grad(f"{name} {n}", a, b, dtype, failures)
                 for n, a, b in zip(("dq", "dk", "dv"), got, want)]
-        del got, want
+        del want
         if timed:
+            pairs = live_pairs(seg, seg, causal, 0, 0, T, T, B)
+            bnd = bound(10 * D * H * pairs, nbytes(q, k, v, out, g, lse, seg, *got))
             ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
                                                           causal))
-            plain = time_ms(lambda: attn.flash_attention_bwd_reference(
-                q, k, v, seg, seg, None, None, g, causal))
-            print(f"  {name} time: kernel {ms:.3f} ms, plain {plain:.3f} ms  [{card}]")
-            rows[name] = (max(errs), ms, plain)
+            if grouped:
+                plain = time_ms(lambda: grouped_reference(q, k, v, seg, g, causal), 3, 1)
+            else:
+                plain = time_ms(lambda: attn.flash_attention_bwd_reference(
+                    q, k, v, seg, seg, None, None, g, causal))
+            runs = [e - a for row in seg.cpu().numpy() for _, a, e in seg_runs(row)] \
+                if packed else [T] * B
+            fwd, bwd = attention_library(q, k, v, runs, runs, causal)
+            outs = fwd()
+            lib = None
+            if yardstick_checkable(name, failures, n_failed):
+                yard = []
+                for n, a, b in zip(("dq", "dk", "dv"), bwd(outs, g), got):
+                    compare_grad(f"{name} yardstick {n} vs kernel", a.view(b.shape), b, dtype,
+                                 yard)
+                failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
+                if not yard:
+                    lib = time_ms(lambda: bwd(outs, g))
+            rows[name] = timed_row(name, max(errs), ms, plain, lib, bnd, card)
+        del got
+        torch.cuda.empty_cache()
 
     case("(a) B1 T4096 H32/8 D64 bf16 causal packed", 1, 4096, 32, 8, 64, torch.bfloat16,
          True, True, timed=True)
@@ -481,8 +718,8 @@ def check_k2(attn, dev, gen, failures, card):
          True, True)
     case("(c) B2 T1500 H16/4 D128 bf16 non-causal", 2, 1500, 16, 4, 128, torch.bfloat16,
          False, False)
-    case("(d) main path: B1 T16384 H32/8 D64 bf16 causal, 10 packed documents",
-         1, 16384, 32, 8, 64, torch.bfloat16, True, True, docs=10, grouped=True)
+    case(f"(d) main path: B1 T{TRAIN_T} H32/8 D64 bf16 causal, 10 packed documents",
+         1, TRAIN_T, 32, 8, 64, torch.bfloat16, True, True, timed=True, docs=10, grouped=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -539,6 +776,7 @@ def check_k3(fused_ce, dev, gen, failures, card):
         wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
         e_dh = compare_grad(f"{name} dh", dh, wdh, dtype, failures)
         e_dw = compare_grad(f"{name} dw", dw, wdw, dtype, failures)
+        grad_bytes = nbytes(dh, dw)
         del dh, dw, wdh, wdw
         if timed:
             fwd = time_ms(lambda: fused_ce.fused_ce_fwd(h, w, labels))
@@ -546,10 +784,15 @@ def check_k3(fused_ce, dev, gen, failures, card):
             bwd = time_ms(lambda: fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl), 3, 1)
             bwd_p = time_ms(lambda: fused_ce._rows_backward_reference(
                 h, w, labels, lse, dlse, dtl), 3, 1)
-            print(f"  {name} time: fwd kernel {fwd:.3f} ms, plain {fwd_p:.3f} ms; "
-                  f"bwd kernel {bwd:.3f} ms, plain {bwd_p:.3f} ms  [{card}]")
-            rows["fwd"] = (stat_err, fwd, fwd_p)
-            rows["bwd"] = (max(e_dh, e_dw), bwd, bwd_p)
+            # no one PyTorch call gives lse, label logit and argmax without [N, V]
+            stats = nbytes(lse, tl, m2, ai)
+            rows[name] = {
+                "fwd": timed_row(f"{name} fwd", stat_err, fwd, fwd_p, None,
+                                 bound(2 * N * E * V, nbytes(h, w, labels) + stats), card),
+                "bwd": timed_row(f"{name} bwd", max(e_dh, e_dw), bwd, bwd_p, None,
+                                 bound(6 * N * E * V,
+                                       nbytes(h, w, labels, lse, dlse, dtl) + grad_bytes),
+                                 card)}
         del h, w
         torch.cuda.empty_cache()
 
@@ -558,7 +801,7 @@ def check_k3(fused_ce, dev, gen, failures, card):
          torch.float32, chunk_rows=576, min_chunks=4)
     case("(c) argmax tie N256 E2048 V128256 f32", 256, 2048, 128256, torch.float32, tie=True)
     case("(d) main path: N16384 E2048 V128256 bf16", 16384, 2048, 128256, torch.bfloat16,
-         min_chunks=2)
+         timed=True, min_chunks=2)
     return rows
 
 
@@ -749,6 +992,69 @@ def run_training(dev, card, failures, tmp: Path):
     return train_counts
 
 
+# device kernels of a step, by the part of the port that launches them
+PROFILE_GROUPS = (("K1", ("flash_fwd",)), ("K2", ("dkv_", "dq_mma", "dq_kernel", "delta_kernel")),
+                  ("K3", ("ce_",)), ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+                  ("copies", ("Memcpy", "Memset")))
+
+
+def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
+    """`python3 chip_smoke.py --profile`: torch.profiler over `steps`
+    training steps of phase 8's configuration (1x16384 bf16, remat full)
+    after `warmup` steps, through the Trainer's own train_step. Prints the
+    device time of each group of kernels per step, the device's busy share
+    of the window, and the ten largest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from touchnet_tpu_torch.bin import TrainConfig, train
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+
+    cfg = LlamaConfig.from_json_file(str(CONFIG))
+    listfile = write_shards(tmp / "shards", cfg.vocab_size, SEED)
+    argv = train_argv(listfile, tmp / "exp", TRAIN_T, steps + warmup, "bfloat16",
+                      cfg.vocab_size)
+    tok, data, job = parse_args_into_dataclasses([TokenizerConfig, DataConfig, TrainConfig],
+                                                 argv)
+    trainer = train.Trainer(tok, data, job, dev)
+    it = iter(trainer.dataloader)
+    batches = [trainer._put_batch(next(it)) for _ in range(steps + warmup)]
+    trainer.close()
+    for batch, n in batches[:warmup]:
+        trainer.train_step(batch, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch, n in batches[warmup:]:
+            trainer.train_step(batch, n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0, -math.inf
+    for a, b in spans:  # the union of the kernels' intervals
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    groups = {}
+    for name, us in by_name.items():
+        g = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
+                 "elementwise and other")
+        groups[g] = groups.get(g, 0) + us
+    print(f"[profile] {steps} steps at 1x{TRAIN_T} bf16 remat full after {warmup} warmups: "
+          f"{wall_us / steps / 1e3:.1f} ms/step under the profiler, {len(kernels) // steps} "
+          f"kernels/step, device busy {100 * busy / wall_us:.1f}% of the window  [{card}]")
+    for g, us in sorted(groups.items(), key=lambda x: -x[1]):
+        print(f"  {g}: {us / steps / 1e3:.1f} ms/step ({100 * us / total:.1f}% of device time)")
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:10]:
+        print(f"  {us / steps / 1e3:9.2f} ms/step  {name[:110]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -768,12 +1074,19 @@ def main() -> int:
     card = card_line()
     print(f"[1] device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    for op in ("_flash_attention_forward", "_flash_attention_backward"):
+        print(f"  yardstick schema: {getattr(torch.ops.aten, op).default._schema}")
 
     t0 = time.perf_counter()
     _build.build(_build.library_path())
     _build.load_library()
     print(f"[2] build: nvcc {' '.join(_build.NVCC_FLAGS)} -> "
           f"{_build.library_path().relative_to(HERE)} in {time.perf_counter() - t0:.1f} s")
+
+    if sys.argv[1:] == ["--profile"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            profile_training(dev, card, Path(tmp))
+        return 0
 
     failures = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -791,26 +1104,27 @@ def main() -> int:
         if n == 0:
             failures.append(f"{name} never launched on the main path")
 
-    def row(name, source, replaces, launches, result):
-        err, ms, plain = result
+    def row(name, source, replaces, launches, cases, main_case):
+        """The kernel's row at the main path's shape (`main_case`), with every
+        timed case of the kernel under "cases"."""
+        (main,) = [v for n, v in cases.items() if n.startswith(main_case)]
         return {"name": name, "route": "cuda", "source": f"touchnet_tpu_torch/ops/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": err,
-                "ms": ms, "plain_ms": plain}
+                "replaces": replaces, "launches": launches,
+                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "tflops")},
+                "cases": cases}
 
-    (k1_res,) = [v for n, v in k1.items() if n.startswith("(a)")]
-    (k4_res,) = [v for n, v in k4.items() if n.startswith("(a)")]
-    (k2_res,) = k2.values()
     print(json.dumps({"kernels": [
         row("flash_attention_fwd (K1)", "flash_attention.cu",
-            "touchnet_tpu/ops/attention.py:269", counts["K1"], k1_res),
+            "touchnet_tpu/ops/attention.py:269", counts["K1"], k1, "(d)"),
         row("flash_attention_bwd (K2: delta, dkv, dq)", "flash_attention_bwd.cu",
-            "touchnet_tpu/ops/attention.py:778", counts["K2"], k2_res),
-        row("fused_ce_fwd (K3 forward)", "fused_ce.cu",
-            "touchnet_tpu/ops/fused_ce.py:86", counts["K3 fwd"], k3["fwd"]),
-        row("fused_ce_bwd (K3 backward)", "fused_ce.cu",
-            "touchnet_tpu/ops/fused_ce.py:175", counts["K3 bwd"], k3["bwd"]),
+            "touchnet_tpu/ops/attention.py:778", counts["K2"], k2, "(d)"),
+        row("fused_ce_fwd (K3 forward)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
+            counts["K3 fwd"], {n: v["fwd"] for n, v in k3.items()}, "(d)"),
+        row("fused_ce_bwd (K3 backward)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:175",
+            counts["K3 bwd"], {n: v["bwd"] for n, v in k3.items()}, "(d)"),
         row("flash_decode (K4)", "decode_attention.cu",
-            "touchnet_tpu/ops/decode_attention.py:85", counts["K4"], k4_res),
+            "touchnet_tpu/ops/decode_attention.py:85", counts["K4"], k4, "(a)"),
     ]}))
     if failures:
         raise SystemExit(f"chip_smoke FAILED: {failures}")

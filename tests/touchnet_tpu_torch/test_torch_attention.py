@@ -144,3 +144,31 @@ def test_fully_masked_row_is_finite_in_the_plain_version():
     kv_seg = torch.tensor([[1, 1, 1, 1]], dtype=torch.int32)
     out, lse = attn.flash_attention(q, q, q, seg, False, kv_segment_ids=kv_seg)
     assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+
+
+@pytest.mark.parametrize("view,ok", [
+    ("contiguous", True), ("cache half K", True), ("cache half V", True),
+    ("2 bytes in", False), ("odd row stride", False), ("size-1 head dim stride", True),
+])
+def test_bf16_rows_must_be_16_byte_aligned(view, ok):
+    """The bf16 kernels copy 16-byte rows with cp.async; the wrapper's check
+    (run before any CUDA launch) accepts the layouts the port passes (the
+    strided cache halves of chunked prefill) and refuses unaligned views."""
+    D = 64
+    if view == "contiguous":
+        x = torch.zeros((2, 10, 4, D), dtype=torch.bfloat16)
+    elif view.startswith("cache half"):
+        k, v = attn.cache_halves(torch.zeros((2, 3, 10, 2 * D), dtype=torch.bfloat16), D)
+        x = k if view.endswith("K") else v
+    elif view == "2 bytes in":
+        x = torch.zeros((2 * 10 * 4 * D + 1,), dtype=torch.bfloat16)[1:].view(2, 10, 4, D)
+    elif view == "odd row stride":
+        x = torch.zeros((2, 10, 4, D + 1), dtype=torch.bfloat16)[..., :D]
+    else:  # one head: its stride is never read, whatever it is
+        x = torch.zeros((2, 10, 7, D), dtype=torch.bfloat16)[:, :, 3:4]
+        x = x.as_strided(x.shape, (x.stride(0), x.stride(1), 5, 1))
+    if ok:
+        attn._check_aligned("test", x=x)
+    else:
+        with pytest.raises(ValueError, match="16 bytes"):
+            attn._check_aligned("test", x=x)

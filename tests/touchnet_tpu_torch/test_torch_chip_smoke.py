@@ -1,0 +1,88 @@
+# The bound arithmetic of chip_smoke.py: live_pairs counts the live
+# (row, column) pairs of one head from the segment runs, and must equal the
+# sum of the dense causal + segment mask that K1 applies.
+
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+
+_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "chip_smoke.py")
+_spec = importlib.util.spec_from_file_location("chip_smoke", _PATH)
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+
+
+def _packed(B, T, docs, seed, tail=True):
+    rng = np.random.default_rng(seed)
+    seg = np.zeros((B, T), np.int32)
+    for b in range(B):
+        ends = np.sort(rng.choice(np.arange(1, T - 4 if tail else T), docs, replace=False))
+        if not tail:
+            ends[-1] = T
+        for i, (a, e) in enumerate(zip([0, *ends[:-1]], ends)):
+            seg[b, a:e] = i + 1
+    return seg
+
+
+def _dense(q_seg, kv_seg, causal, q_off, kv_off, T, S):
+    m = np.ones((1 if q_seg is None else q_seg.shape[0], T, S), bool)
+    if causal:
+        m &= (q_off + np.arange(T))[:, None] >= (kv_off + np.arange(S))[None, :]
+    if q_seg is not None:
+        m &= q_seg[:, :, None] == kv_seg[:, None, :]
+    return int(m.sum())
+
+
+def _case(name):
+    if name == "packed rows, padding tail":
+        seg = _packed(3, 97, 4, 0)
+        return seg, seg, True, 0, 0
+    if name == "packed rows, no tail":
+        seg = _packed(2, 64, 3, 1, tail=False)
+        return seg, seg, True, 0, 0
+    if name == "chunked prefill offset":
+        q = np.ones((2, 16), np.int32)
+        kv = (np.arange(80) < 48 + 16).astype(np.int32)[None].repeat(2, 0)
+        return q, kv, True, 48, 0
+    if name == "both offsets":
+        seg = _packed(2, 120, 3, 2)
+        return seg[:, 50:90], seg[:, 10:], True, 50, 10
+    if name == "non-causal, packed":
+        seg = _packed(2, 50, 2, 3)
+        return seg, seg, False, 0, 0
+    if name == "non-causal, one segment":
+        return None, None, False, 0, 0
+    if name == "causal, one segment":
+        return None, None, True, 0, 0
+    if name == "all padding":
+        seg = np.zeros((2, 33), np.int32)
+        return seg, seg, True, 0, 0
+    if name == "rows that see no key":
+        q = np.full((1, 20), 2, np.int32)
+        kv = np.ones((1, 30), np.int32)
+        return q, kv, True, 5, 0
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "packed rows, padding tail", "packed rows, no tail", "chunked prefill offset",
+    "both offsets", "non-causal, packed", "non-causal, one segment",
+    "causal, one segment", "all padding", "rows that see no key",
+])
+def test_live_pairs_equals_the_dense_mask(name):
+    q_seg, kv_seg, causal, q_off, kv_off = _case(name)
+    T = 37 if q_seg is None else q_seg.shape[1]
+    S = 41 if kv_seg is None else kv_seg.shape[1]
+    B = 3 if q_seg is None else q_seg.shape[0]  # None: one segment in each of B rows
+    got = chip_smoke.live_pairs(q_seg, kv_seg, causal, q_off, kv_off, T, S, B)
+    want = _dense(q_seg, kv_seg, causal, q_off, kv_off, T, S)
+    assert got == (B * want if q_seg is None else want)
+
+
+def test_bound_names_its_limit():
+    ops = chip_smoke.bound(989e12, 1.0)  # 1 s of bf16 operations, one byte
+    assert ops["bound_by"] == "operations" and abs(ops["bound_ms"] - 1e3) < 1e-9
+    mem = chip_smoke.bound(1.0, 3.35e9)  # 1 ms of bytes
+    assert mem["bound_by"] == "bytes" and abs(mem["bound_ms"] - 1.0) < 1e-9

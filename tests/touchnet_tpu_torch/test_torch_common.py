@@ -170,7 +170,7 @@ def test_params_from_jax_numpy(tied):
     cfg, jcfg = LlamaConfig.from_dict(d), JLlamaConfig.from_dict(d)
     params = j_init_params(jcfg, jax.random.PRNGKey(0))
     state = params_from_jax_numpy(jax.tree.map(np.asarray, params), cfg)
-    model = empty_model(cfg)
+    model = empty_model(cfg, device="cpu")
     model.load_state_dict(state, strict=True)
     lp = params["model"]["layers"]
     np.testing.assert_array_equal(

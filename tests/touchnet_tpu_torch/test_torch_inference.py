@@ -58,7 +58,7 @@ def _pair(name):
         cfg = LlamaConfig.from_dict({**d, "attn_implementation": "flash"})
         jcfg = JLlamaConfig.from_dict(d)
         params = j_init_params(jcfg, jax.random.PRNGKey(0))
-        model = empty_model(cfg)
+        model = empty_model(cfg, device="cpu")
         model.load_state_dict(
             params_from_jax_numpy(jax.tree.map(np.asarray, params), cfg)
         )
@@ -90,7 +90,7 @@ def test_prefill_matches_jax_forward_step(name, flash):
         jnp.zeros((B,), jnp.int32), jcfg, jnp.float32, **kw,
     )
     got, cache = inf.forward_step(
-        model, torch.from_numpy(emb), inf.init_cache(cfg, B, T, torch.float32),
+        model, torch.from_numpy(emb), inf.init_cache(cfg, B, T, torch.float32, "cpu"),
         torch.zeros((B,), dtype=torch.long), cfg, torch.float32, **kw,
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4, rtol=2e-4)

@@ -2,7 +2,9 @@
 # (fused lm-head + cross-entropy, forward and backward) and K4 (flash-decode)
 # against their plain PyTorch versions on the card. These tests need a CUDA
 # card and skip elsewhere; chip_smoke.py runs the same comparison at the
-# serving and training paths' full shapes.
+# serving and training paths' full shapes. bf16 K1 and K2 run on tensor
+# cores and f32 on FMA kernels; ATTENTION_CASES cover both at tile edges,
+# GQA groups, masks and offsets.
 #
 # Tolerances: bf16 kernels are held to the plain version run in f32 on the
 # same bf16-rounded inputs (max abs 2e-2, mean abs 2e-3 on out at unit-scale
@@ -68,25 +70,52 @@ def _packed_segments(B, T, rng):
     return seg
 
 
+def _segments_of(kind, B, T, rng):
+    """None (one segment), "packed" (three documents + a padding tail),
+    "boundary" (documents that end inside the 64/128-row diagonal tiles) or
+    "long" (two long documents, so most tiles are wholly live)."""
+    if kind is None:
+        return None
+    if kind == "packed":
+        return _packed_segments(B, T, rng)
+    seg = np.zeros((B, T), np.int32)
+    cuts = [0, 100, 141, T - 5] if kind == "boundary" else [0, T // 2 + 3, T]
+    for i, (a, e) in enumerate(zip(cuts[:-1], cuts[1:])):
+        seg[:, a:e] = i + 1
+    return seg
+
+
+# bf16 K1/K2 run on tensor cores in 64-row / 64-column tiles: the cases
+# below cover ragged tile edges, GQA groups 1-8 and an odd one (G 3), D 128,
+# offsets, document boundaries inside the causal diagonal tile and wholly
+# live tiles (the unmasked fast path)
+ATTENTION_CASES = [
+    (2, 300, 300, 8, 2, 64, True, "packed", 0, 0),
+    (1, 257, 257, 4, 4, 128, False, None, 0, 0),
+    (2, 100, 356, 10, 2, 64, True, None, 256, 0),
+    (1, 64, 200, 6, 3, 128, True, "packed", 300, 200),
+    (1, 200, 200, 4, 4, 64, True, "packed", 0, 0),
+    (2, 333, 333, 16, 4, 64, True, "packed", 0, 0),
+    (1, 190, 190, 16, 2, 64, True, "boundary", 0, 0),
+    (2, 150, 150, 6, 2, 64, True, "packed", 0, 0),
+    (1, 100, 100, 6, 3, 128, False, None, 0, 0),
+    (1, 77, 300, 8, 2, 128, True, None, 223, 0),
+    (1, 520, 520, 8, 2, 64, True, "long", 0, 0),
+    (1, 400, 400, 32, 8, 64, True, None, 0, 0),
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize(
-    "B,T,S,H,Hkv,D,causal,packed,q_off,kv_off",
-    [
-        (2, 300, 300, 8, 2, 64, True, True, 0, 0),
-        (1, 257, 257, 4, 4, 128, False, False, 0, 0),
-        (2, 100, 356, 10, 2, 64, True, False, 256, 0),
-        (1, 64, 200, 6, 3, 128, True, True, 300, 200),
-    ],
-)
-def test_flash_attention_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, packed,
+@pytest.mark.parametrize("B,T,S,H,Hkv,D,causal,segs,q_off,kv_off", ATTENTION_CASES)
+def test_flash_attention_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, segs,
                                 q_off, kv_off):
     rng = np.random.default_rng(T + S + H)
     q = _randn(rng, (B, T, H, D), dtype, dev)
     k = _randn(rng, (B, S, Hkv, D), dtype, dev)
     v = _randn(rng, (B, S, Hkv, D), dtype, dev)
     seg = kv_seg = None
-    if packed:
-        seg_np = _packed_segments(B, max(T, S), rng)
+    seg_np = _segments_of(segs, B, max(T, S), rng)
+    if seg_np is not None:
         seg = torch.from_numpy(seg_np[:, :T]).to(dev)
         kv_seg = torch.from_numpy(seg_np[:, :S]).to(dev)
     n0 = flash_attention.launches
@@ -112,10 +141,12 @@ def test_flash_attention_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, packed,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_flash_prefill_on_cache_halves(dev, dtype):
-    """A chunk attends the strided K/V halves of a packed cache layer."""
+@pytest.mark.parametrize("D,S,C,off", [(128, 1024, 128, 384), (64, 700, 77, 301)])
+def test_flash_prefill_on_cache_halves(dev, dtype, D, S, C, off):
+    """A chunk attends the strided K/V halves of a packed cache layer, also
+    at a length and offset that are not tile multiples."""
     rng = np.random.default_rng(5)
-    B, Hkv, H, D, S, C, off = 2, 2, 8, 128, 1024, 128, 384
+    B, Hkv, H = 2, 2, 8
     cache = _randn(rng, (B, Hkv, S, 2 * D), dtype, dev)
     q = _randn(rng, (B, C, H, D), dtype, dev)
     q_seg = torch.ones((B, C), dtype=torch.int32, device=dev)
@@ -135,6 +166,13 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
     q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    # bf16 rows move by 16-byte cp.async: a K view 2 bytes in, with a row
+    # stride of 65 elements, raises (no fallback)
+    q = torch.zeros((1, 64, 4, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.zeros((1, 64, 2, 65), device=dev, dtype=torch.bfloat16)[..., 1:]
+    assert k.stride(-1) == 1 and k.shape == (1, 64, 2, 64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention(q, k, k)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -181,15 +219,15 @@ def _check_grad(got, want, dtype):
     assert rel <= (1e-2 if dtype == torch.bfloat16 else 1e-4), rel
 
 
-def _attention_case(dev, dtype, B, T, S, H, Hkv, D, packed, seed):
+def _attention_case(dev, dtype, B, T, S, H, Hkv, D, segs, seed):
     rng = np.random.default_rng(seed)
     q = _randn(rng, (B, T, H, D), dtype, dev)
     k = _randn(rng, (B, S, Hkv, D), dtype, dev)
     v = _randn(rng, (B, S, Hkv, D), dtype, dev)
     g = _randn(rng, (B, T, H, D), dtype, dev)
     seg = kv_seg = None
-    if packed:
-        seg_np = _packed_segments(B, max(T, S), rng)
+    seg_np = _segments_of(segs, B, max(T, S), rng)
+    if seg_np is not None:
         seg = torch.from_numpy(seg_np[:, :T]).to(dev)
         kv_seg = torch.from_numpy(seg_np[:, :S]).to(dev)
     return q, k, v, g, seg, kv_seg
@@ -206,21 +244,13 @@ def _valid_rows(B, T, S, causal, seg, kv_seg, q_off, kv_off, dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize(
-    "B,T,S,H,Hkv,D,causal,packed,q_off,kv_off",
-    [
-        (2, 300, 300, 8, 2, 64, True, True, 0, 0),
-        (1, 257, 257, 4, 4, 128, False, False, 0, 0),
-        (2, 100, 356, 10, 2, 64, True, False, 256, 0),
-        (1, 64, 200, 6, 3, 128, True, True, 300, 200),
-        (1, 130, 130, 32, 8, 64, True, True, 0, 0),
-    ],
-)
-def test_flash_attention_bwd_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, packed,
+@pytest.mark.parametrize("B,T,S,H,Hkv,D,causal,segs,q_off,kv_off",
+                         ATTENTION_CASES + [(1, 130, 130, 32, 8, 64, True, "packed", 0, 0)])
+def test_flash_attention_bwd_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, segs,
                                     q_off, kv_off):
     """K2 against autograd through the plain version, f32 math on the same
     inputs; dout is zero on rows with no valid key."""
-    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, B, T, S, H, Hkv, D, packed,
+    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, B, T, S, H, Hkv, D, segs,
                                               T + S + H)
     valid = _valid_rows(B, T, S, causal, seg, kv_seg, q_off, kv_off, dev)
     g = g * valid[:, :, None, None].to(dtype)
@@ -236,25 +266,29 @@ def test_flash_attention_bwd_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, pack
         _check_grad(a, b, dtype)
 
 
-def test_flash_attention_bwd_gives_zero_for_rows_without_keys(dev):
-    """A row with no live key (lse = -inf from K1) gets zero gradients, not
-    NaN, and adds nothing to dk, dv."""
+@pytest.mark.parametrize("dtype,T,causal", [(torch.float32, 64, False),
+                                            (torch.bfloat16, 64, False),
+                                            (torch.bfloat16, 150, True)])
+def test_flash_attention_bwd_gives_zero_for_rows_without_keys(dev, dtype, T, causal):
+    """A row with no live key (lse = -inf from K1) gets out 0 and zero
+    gradients, not NaN, and adds nothing to dk, dv."""
     rng = np.random.default_rng(3)
-    q = _randn(rng, (1, 64, 4, 64), torch.float32, dev)
-    k = _randn(rng, (1, 64, 2, 64), torch.float32, dev)
-    v = _randn(rng, (1, 64, 2, 64), torch.float32, dev)
-    seg = torch.ones((1, 64), dtype=torch.int32, device=dev)
-    seg[:, 32:] = 2
-    kv_seg = torch.ones((1, 64), dtype=torch.int32, device=dev)  # rows 32+ see nothing
-    out, lse = flash_attention(q, k, v, seg, False, None, kv_seg)
-    assert torch.isinf(lse[:, :, 32:]).all()
+    q = _randn(rng, (1, T, 4, 64), dtype, dev)
+    k = _randn(rng, (1, T, 2, 64), dtype, dev)
+    v = _randn(rng, (1, T, 2, 64), dtype, dev)
+    cut = T // 2
+    seg = torch.ones((1, T), dtype=torch.int32, device=dev)
+    seg[:, cut:] = 2
+    kv_seg = torch.ones((1, T), dtype=torch.int32, device=dev)  # rows cut+ see nothing
+    out, lse = flash_attention(q, k, v, seg, causal, None, kv_seg)
+    assert torch.isinf(lse[:, :, cut:]).all() and (out[:, cut:] == 0).all()
     g = torch.ones_like(q)
-    dq, dk, dv = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, False)
+    dq, dk, dv = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, causal)
     assert torch.isfinite(dq).all() and torch.isfinite(dk).all() and torch.isfinite(dv).all()
-    assert (dq[:, 32:] == 0).all()
+    assert (dq[:, cut:] == 0).all()
     g2 = g.clone()
-    g2[:, 32:] = 0
-    _, dk2, dv2 = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g2, False)
+    g2[:, cut:] = 0
+    _, dk2, dv2 = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g2, causal)
     torch.testing.assert_close(dk, dk2, rtol=0, atol=0)
     torch.testing.assert_close(dv, dv2, rtol=0, atol=0)
 
@@ -264,7 +298,7 @@ def test_flash_attention_autograd_goes_through_k2(dev, dtype):
     """The repair of the forward-only wrapper: on CUDA tensors that require
     grad, flash_attention's out has a grad_fn, and q, k, v get K2's
     gradients, equal to the plain version's."""
-    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, 2, 200, 200, 8, 2, 64, True, 9)
+    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, 2, 200, 200, 8, 2, 64, "packed", 9)
     q, k, v = (x.requires_grad_(True) for x in (q, k, v))
     n_fwd, n_bwd = flash_attention.launches, flash_attention_bwd.launches
     out, lse = flash_attention(q, k, v, seg)
@@ -356,3 +390,14 @@ def test_fused_ce_chunked_bwd_matches_plain(dev, dtype, monkeypatch):
     wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
     _check_grad(dh, wdh, dtype)
     _check_grad(dw, wdw, dtype)
+
+
+def test_flash_attention_bwd_is_bit_stable(dev):
+    """No atomics: two K2 runs on the same inputs give the same bits."""
+    q, k, v, g, seg, kv_seg = _attention_case(dev, torch.bfloat16, 1, 700, 700, 32, 8, 64,
+                                              "packed", 21)
+    out, lse = flash_attention(q, k, v, seg, True, None, kv_seg)
+    first = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, True)
+    again = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, True)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

@@ -59,7 +59,7 @@ def _configs():
 def _weights(jcfg, tcfg):
     """JAX init from a key, converted into the port's trainable model."""
     jparams = jmodel.init_params(jcfg, jax.random.PRNGKey(0))
-    model = tmodel.empty_model(tcfg, requires_grad=True, train=True)
+    model = tmodel.empty_model(tcfg, device="cpu", requires_grad=True, train=True)
     model.load_state_dict(params_from_jax_numpy(jax.tree.map(np.asarray, jparams), tcfg))
     return jparams, model
 
@@ -156,7 +156,7 @@ def test_training_forward_ignores_attn_implementation(impl, monkeypatch):
                                        ("selective", "op_every_2"), ("op", "full_every_2")])
 def test_residual_saving_remat_modes_raise(remat, opt):
     _, tcfg = _configs()
-    model = tmodel.empty_model(tcfg)
+    model = tmodel.empty_model(tcfg, device="cpu")
     with pytest.raises(ValueError, match="custom_op"):
         tmodel.forward(model, input_ids=torch.zeros((1, 4), dtype=torch.int32),
                        config=tcfg, remat_mode=remat, selective_ac_option=opt)
@@ -302,7 +302,7 @@ def test_causal_lm_loader_matches_jax(tmp_path):
 
 def test_trainer_main_loss_drops(tmp_path):
     listfile = build_corpus(tmp_path)
-    trainer = ttrain.main(_flags(tmp_path, listfile, 8))
+    trainer = ttrain.main(_flags(tmp_path, listfile, 8), device=torch.device("cpu"))
     losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
     assert trainer.step == 8 and len(losses) == 8
     assert all(np.isfinite(losses))
@@ -326,11 +326,13 @@ def test_trainer_main_loss_drops(tmp_path):
 ])
 def test_trainer_rejects_later_slices(tmp_path, flag, value):
     with pytest.raises(ValueError, match=flag):
-        ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: value}))
+        ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: value}),
+                    device=torch.device("cpu"))
 
 
 def test_trainer_rejects_residual_saving_remat(tmp_path):
     listfile = build_corpus(tmp_path)
     with pytest.raises(ValueError, match="op_small"):
         ttrain.main(_flags(tmp_path, listfile, 2,
-                           training_activation_checkpoint_mode="op_small"))
+                           training_activation_checkpoint_mode="op_small"),
+                    device=torch.device("cpu"))

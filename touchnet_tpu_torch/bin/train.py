@@ -202,7 +202,11 @@ class Trainer:
         check_supported(job_config, data_config)
         init_logger(os.path.join(job_config.training_trace_dump_folder, "touchnet_train.log"))
         if device is None:
-            device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "Trainer: no CUDA card (torch.cuda.is_available() is False); "
+                    "pass device=torch.device('cpu') to train on the CPU")
+            device = torch.device("cuda")
         self.device = device
         logger.info(f"job: {job_config.training_description}")
         logger.info("device: " + (torch.cuda.get_device_name(device)
@@ -381,10 +385,12 @@ class Trainer:
         self.dataloader.shutdown()
 
 
-def main(argv: Optional[list] = None) -> Trainer:
+def main(argv: Optional[list] = None, device: Optional[torch.device] = None) -> Trainer:
+    """Parse the flags and train; the device is the card unless the caller
+    names another (Trainer raises when there is no card)."""
     tokenizer_config, data_config, job_config = parse_args_into_dataclasses(
         [TokenizerConfig, DataConfig, TrainConfig], argv)
-    trainer = Trainer(tokenizer_config, data_config, job_config)
+    trainer = Trainer(tokenizer_config, data_config, job_config, device)
     try:
         trainer.train()
     finally:

@@ -50,7 +50,7 @@ class KVCache(NamedTuple):
 
 
 def init_cache(config: LlamaConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device="cpu") -> KVCache:
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
     # capacity rounds up to DECODE_BLOCK as in the JAX package (whose TPU
     # kernel needs it). Harmless here: the extra slots are never valid, the
     # CUDA kernels never read them, and the shapes stay equal to JAX's.

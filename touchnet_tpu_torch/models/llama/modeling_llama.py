@@ -145,7 +145,7 @@ class LlamaForCausalLM(nn.Module):
                                      bias=False)
 
 
-def empty_model(config: LlamaConfig, dtype=torch.float32, device="cpu", *,
+def empty_model(config: LlamaConfig, dtype=torch.float32, device="cuda", *,
                 requires_grad: bool = False, train: bool = False) -> LlamaForCausalLM:
     """Model with uninitialised storage on ``device``: built on the meta
     device, so no default nn.Linear init runs over ~1B parameters. The
@@ -159,13 +159,16 @@ def empty_model(config: LlamaConfig, dtype=torch.float32, device="cpu", *,
 
 @torch.no_grad()
 def init_params(config: LlamaConfig, generator: torch.Generator,
-                dtype=torch.float32, device="cpu", *, requires_grad: bool = False,
+                dtype=torch.float32, device=None, *, requires_grad: bool = False,
                 train: bool = False) -> LlamaForCausalLM:
     """normal(0, initializer_range) weights, ones for norms, zero biases
     (HF LlamaPreTrainedModel._init_weights semantics, as the JAX
     init_params). Draws come from ``generator``, which must live on
-    ``device``; the numbers differ from jax.random's for the same seed.
-    requires_grad / train as empty_model."""
+    ``device`` (default: the generator's device, so the caller names the
+    device through it); the numbers differ from jax.random's for the same
+    seed. requires_grad / train as empty_model."""
+    if device is None:
+        device = generator.device
     model = empty_model(config, dtype, device, requires_grad=requires_grad, train=train)
     std = config.initializer_range
     for name, p in model.named_parameters():

@@ -2,10 +2,11 @@
 # Packed-document flash attention: forward (kernel K1) and backward (K2).
 #
 # Port of touchnet_tpu/ops/attention.py. The Pallas forward kernels
-# _fwd_kernel_dyn (:269) and _fwd_kernel (:159) become one hand-written
-# CUDA kernel, csrc/flash_attention.cu; the six backward kernels (:528-1100)
-# become csrc/flash_attention_bwd.cu. Each source note says what bounds it
-# on Hopper and what the design does about that. Beside them:
+# _fwd_kernel_dyn (:269) and _fwd_kernel (:159) become hand-written CUDA,
+# csrc/flash_attention.cu; the six backward kernels (:528-1100) become
+# csrc/flash_attention_bwd.cu. bf16 runs on tensor cores (mma.sync, with
+# ldmatrix and cp.async), f32 on FMA kernels. Each source note says what
+# bounds it on Hopper and what the design does about that. Beside them:
 #   - packed_attention_reference: the plain PyTorch version (:75-111),
 #     which also returns the row logsumexp;
 #   - flash_attention: the wrapper. A CPU tensor goes to the plain version
@@ -110,9 +111,10 @@ def flash_attention(
     Returns (out [B,T,H,D] in q.dtype, lse [B,H,T] f32, base e).
 
     CPU tensors take the plain version. CUDA tensors take the kernel, which
-    needs D in HEAD_DIMS, bf16 or f32, and H / Hkv <= MAX_GROUP; anything
-    else raises. A row with no valid key gets out 0 and lse -inf. out is
-    differentiable (K2 on the card); lse carries no gradient."""
+    needs D in HEAD_DIMS, bf16 or f32, H / Hkv <= MAX_GROUP and, in bf16,
+    16-byte aligned q, k, v rows (_check_aligned); anything else raises. A
+    row with no valid key gets out 0 and lse -inf. out is differentiable
+    (K2 on the card); lse carries no gradient."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -147,10 +149,28 @@ def flash_attention(
                                  int(q_offset), int(kv_offset))
 
 
+def _row_strides(x: torch.Tensor) -> tuple:
+    """Strides of the batch, sequence and head dims; 0 for a dim of size 1,
+    whose stride no index reads."""
+    return tuple(st if n > 1 else 0 for n, st in zip(x.shape[:3], x.stride()[:3]))
+
+
+def _check_aligned(what: str, **tensors) -> None:
+    """The bf16 kernels copy 16-byte rows with cp.async: every tensor's
+    start and its row strides must be 16-byte aligned. Raises otherwise
+    (the kernels take no other route)."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16 or any(st % 8 for st in _row_strides(x)):
+            raise ValueError(f"{what}: {name} must start on 16 bytes with row strides "
+                             f"in multiples of 8 elements (strides {tuple(x.stride())})")
+
+
 def _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
     """Launch K1 on validated CUDA tensors."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_attention", q=q, k=k, v=v)
     lib = _build.load_library()
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -160,7 +180,7 @@ def _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
             None if q_seg is None else q_seg.data_ptr(),
             None if kv_seg is None else kv_seg.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *_row_strides(q), *_row_strides(k), *_row_strides(v),
             B, T, S, H, Hkv, D, _build.DTYPE_CODES[q.dtype],
             int(causal), q_offset, kv_offset, scale,
             torch.cuda.current_stream().cuda_stream,
@@ -239,6 +259,8 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
     q_seg = _segments(segment_ids, (B, T), q.device)
     kv_seg = _segments(kv_segment_ids, (B, S), q.device)
     dout = dout.to(q.dtype).contiguous()
+    if q.dtype == torch.bfloat16:
+        _check_aligned("flash_attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
     lib = _build.load_library()
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)

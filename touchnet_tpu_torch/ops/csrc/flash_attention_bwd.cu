@@ -20,23 +20,56 @@
 // Inputs q, k, v, out, dout are contiguous [B, T|S, heads, D]; the wrapper
 // makes dout (which autograd may hand over strided) contiguous once.
 //
-// What bounds it on this card: the five D-deep products per (row, live
-// column) pair, done as f32 FMAs from shared memory (as K1: two shared loads
-// per four FMAs in the 4x4 register tile), not on tensor cores. The whole
-// chain is f32; the TPU kernels' bf16 p/ds chain (attention.py:561, 632) is
-// not ported.
+// Two routes, one per input type: bf16 (every bf16 call) runs the
+// tensor-core kernels dkv_mma_kernel and dq_mma_kernel; f32 keeps the
+// first version's FMA kernels dkv_kernel and dq_kernel, the exactness path
+// behind the f32 checks (1e-4). The delta kernel serves both.
 //
-// What the design does about it (blocks run in no order on Hopper, so
-// nothing carries across blocks and no atomics are needed):
-//   - dkv kernel: one block per (batch, kv head, 64-column kv tile). It holds
-//     K and V of its tile and walks the query tiles that can see it: from
-//     the causal diagonal on, each tile of 64 rows = G heads x 64/G
-//     positions, so the GQA sum happens in the block's dk/dv registers.
-//   - dq kernel: one block per (batch, kv head, query tile), K1's grid; it
-//     walks the kv tiles up to the causal diagonal.
-//   - Both recompute p from lse and skip a whole tile when no segment id of
-//     it falls in the range of the block's own segment ids
-//     (__syncthreads_or), as K1 does.
+// What bounds it on this card: the products. The gradients need five
+// D-deep products per live (row, column) pair (S, dP, dV, dK, dQ: 10·D
+// flops); the two-kernel split recomputes S and dP in the dq kernel, so
+// the kernels do seven (14·D flops), 40 % more than the bound counts. At
+// the training shape that bound is ~0.5 ms of bf16 tensor-core time
+// against ~0.1 ms of bytes: operations bound it. The FMA version ran at
+// ~12 TFLOP/s. The split is kept because it needs no atomics: every
+// gradient element is written once by one block, in a fixed order, so two
+// runs give the same bits.
+//
+// Precision (both routes): the exponentials and dP - delta stay f32; on
+// the bf16 route P and dS are rounded to bf16 only as mma operands, as
+// FlashAttention-2 does. The TPU kernels' bf16 p/ds chain, whose exp is
+// bf16 (attention.py:561, 632), is not ported.
+//
+// What the bf16 design does about it (mma.sync m16n8k16 bf16 -> f32,
+// ldmatrix and cp.async: the sm_80 instruction set; wgmma/TMA is later
+// work). Blocks run in no order on Hopper, so nothing carries across
+// blocks:
+//   - dkv kernel: one block of 4 warps per (batch, kv head, 64 kv
+//     columns), two blocks to an SM; warp w owns columns 16w..16w+15. It
+//     computes everything transposed, with its columns as the mma rows:
+//     S^T = K Q^T, dP^T = V dO^T, then P^T and dS^T in f32 in the
+//     accumulators, and dV += P^T dO, dK += dS^T Q with P^T and dS^T packed
+//     to bf16 straight from the accumulators into A fragments. So dS never
+//     goes through shared memory for a transpose. K and V stay resident in
+//     shared memory; Q and dO tiles of 64 rows (G heads x 64/G positions)
+//     arrive by cp.async in two stages, from the causal diagonal on, so the
+//     GQA sum happens in the block's dk/dv registers.
+//   - dq kernel: K1's grid and row packing (4 warps, 64 rows = G heads x
+//     64/G positions), two blocks to an SM; Q and dO fragments stay in
+//     registers, K and V tiles of 64 columns arrive by cp.async in two
+//     stages; dQ += dS K with dS packed from the accumulators and K read by
+//     ldmatrix.trans.
+//   - Registers (~210 a thread at D 64) hold two blocks of 4 warps to an
+//     SM: on an H100 80GB HBM3 (700 W) that ran the training shape ~9 %
+//     faster than one block of 8 warps (chip_smoke.py phase 6 timings).
+//   - Both walk only the span of tiles whose segment ids fall in the range
+//     of the block's own (one coalesced pass, live_span, as K1), bring each
+//     tile's segment ids and row statistics by cp.async with its data (one
+//     barrier a tile), skip the per-element mask on a tile whose pairs are
+//     all live, and give rows with lse = -inf zero gradients.
+//   - Shared rows are padded by 16 bytes so an ldmatrix's 8 rows hit 8
+//     different bank groups; cp.async needs 16-byte aligned inputs, which
+//     the wrapper checks.
 
 #include "common.cuh"
 
@@ -59,7 +92,9 @@ struct BwdParams {
   void* dq;            // [B, T, H, D]
   void* dk;            // [B, S, Hkv, D]
   void* dv;            // [B, S, Hkv, D]
-  int B, T, S, H, Hkv, G, BQ, D;
+  int B, T, S, H, Hkv, G, D;
+  int BQ;   // query positions per row tile (dq grid; both FMA kernels)
+  int BQk;  // query positions per row tile of the bf16 dkv kernel's walk
   int causal, q_offset, kv_offset;
   float scale, scale_log2;
 };
@@ -484,6 +519,496 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16: tensor cores. Fragment layouts and helpers in common.cuh.
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kDkvCols = 64;   // kv columns per dkv block: warp w owns 16w .. 16w + 15
+constexpr int kDkvRows = 64;   // query rows per tile of the dkv walk: G heads x 64/G
+constexpr int kDqRows = 64;    // query rows per dq block: warp w owns 16w .. 16w + 15
+constexpr int kDqCols = 64;    // kv columns per tile of the dq walk
+
+template <int D>
+__host__ __device__ constexpr int pitch() { return D + 8; }  // bf16 per shared row: 16 bytes of padding
+
+template <int D>
+constexpr size_t dkv_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * kDkvCols + 4 * kDkvRows) * pitch<D>() +
+         sizeof(float) * 4 * kDkvRows + sizeof(int) * (4 * kDkvRows + kDkvCols + 4);
+}
+
+// dk, dv: one block per (64 kv columns, kv head, batch). Computed
+// transposed, with the block's kv columns as the mma rows, so every
+// product takes its A operand from registers (K and V by ldmatrix from the
+// resident tile, P^T and dS^T straight from the accumulators) and its B
+// operand from the query tile in shared memory:
+//   S^T = K Q^T, dP^T = V dO^T, P^T = exp2(S^T - lse), dS^T = P^T (dP^T - delta),
+//   dV += P^T dO, dK += dS^T Q.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LDS = pitch<D>();
+  constexpr int KSTEPS = D / 16;
+  constexpr int NR = kDkvRows / 8;  // n-tiles over the query rows
+  constexpr int DT = D / 8;
+  constexpr int CHUNKS = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS]
+  bf16* sV = sK + kDkvCols * LDS;                 // [64][LDS]
+  bf16* sQ = sV + kDkvCols * LDS;                 // [2 stages][64][LDS]
+  bf16* sDO = sQ + 2 * kDkvRows * LDS;            // [2 stages][64][LDS]
+  float* sLse = reinterpret_cast<float*>(sDO + 2 * kDkvRows * LDS);  // [2][64] base e
+  float* sDelta = sLse + 2 * kDkvRows;            // [2][64]
+  int* sRowT = reinterpret_cast<int*>(sDelta + 2 * kDkvRows);  // [2][64]
+  int* sQseg = sRowT + 2 * kDkvRows;              // [2][64]
+  int* sKseg = sQseg + 2 * kDkvRows;              // [64]
+  int* sSegRange = sKseg + kDkvCols;              // [2] min, max kv segment
+  int* sSpan = sSegRange + 2;                     // [2] first, last live query position
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3, mi = lane >> 3;
+  const int kv0 = blockIdx.x * kDkvCols;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nrows = p.G * p.BQk;
+  const int64_t kv_row = (int64_t)p.Hkv * D;  // elements between two kv positions
+  const bf16* qb = static_cast<const bf16*>(p.q) + (int64_t)b * p.T * p.H * D;
+  const bf16* gb = static_cast<const bf16*>(p.dout) + (int64_t)b * p.T * p.H * D;
+  const bf16* kb = static_cast<const bf16*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
+  const bf16* vb = static_cast<const bf16*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
+
+  if (tid == 0) {
+    sSegRange[0] = INT_MAX;
+    sSegRange[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < kDkvCols) {
+    const int col = kv0 + tid;
+    int seg = INT_MIN;  // beyond S: matches no row
+    if (col < p.S) {
+      seg = p.kv_seg ? p.kv_seg[(int64_t)b * p.S + col] : 1;
+      atomicMin(&sSegRange[0], seg);
+      atomicMax(&sSegRange[1], seg);
+    }
+    sKseg[tid] = seg;
+  }
+  for (int i = tid; i < kDkvCols * CHUNKS; i += kMmaThreads) {
+    const int c = i / CHUNKS, ch = i % CHUNKS;
+    const int col = kv0 + c;
+    const bool ok = col < p.S;
+    cp_async_16(sK + c * LDS + ch * 8, ok ? kb + col * kv_row + ch * 8 : kb, ok);
+    cp_async_16(sV + c * LDS + ch * 8, ok ? vb + col * kv_row + ch * 8 : vb, ok);
+  }
+  cp_async_commit();
+  __syncthreads();
+  const int seg_lo = sSegRange[0], seg_hi = sSegRange[1];
+  const bool cols_whole = kv0 + kDkvCols <= p.S && seg_lo == seg_hi;
+
+  // the query tiles that can see the block's columns: from the causal
+  // diagonal on, within the span of positions in the columns' segments, in
+  // steps of BQk positions
+  int t_first = 0;
+  if (p.causal) t_first = max(0, p.kv_offset + kv0 - p.q_offset);
+  int first, last;
+  live_span(p.q_seg ? p.q_seg + (int64_t)b * p.T : nullptr, t_first, p.T, seg_lo, seg_hi,
+            sSpan, first, last);
+  const int t_begin = last < 0 ? 0 : (first / p.BQk) * p.BQk;
+  const int ntiles = last < 0 ? 0 : (last - t_begin) / p.BQk + 1;
+
+  // Q, dO and the row statistics (segment id, lse, delta) of a query tile,
+  // all by cp.async, zero where a row is dead (its position, from sRowT,
+  // masks it)
+  auto load_rows = [&](int tile, int stage) {
+    const int q0 = t_begin + tile * p.BQk;
+    bf16* dq_ = sQ + stage * kDkvRows * LDS;
+    bf16* dg = sDO + stage * kDkvRows * LDS;
+    for (int i = tid; i < kDkvRows * CHUNKS; i += kMmaThreads) {
+      const int r = i / CHUNKS, ch = i % CHUNKS;
+      const int t = q0 + r % p.BQk;
+      const bool ok = r < nrows && t < p.T;
+      const int64_t off = ((int64_t)t * p.H + hk * p.G + r / p.BQk) * D + ch * 8;
+      cp_async_16(dq_ + r * LDS + ch * 8, ok ? qb + off : qb, ok);
+      cp_async_16(dg + r * LDS + ch * 8, ok ? gb + off : gb, ok);
+    }
+    if (tid < kDkvRows) {
+      const int r = tid, t = q0 + r % p.BQk;
+      const bool ok = r < nrows && t < p.T;
+      const int i = stage * kDkvRows + r;
+      const int64_t o = ((int64_t)b * p.H + hk * p.G + r / p.BQk) * p.T + t;
+      sRowT[i] = ok ? t : -1;
+      cp_async_4(sLse + i, ok ? p.lse + o : p.lse, ok);
+      cp_async_4(sDelta + i, ok ? p.delta + o : p.delta, ok);
+      if (p.q_seg)
+        cp_async_4(sQseg + i, ok ? p.q_seg + (int64_t)b * p.T + t : p.q_seg, ok);
+      else
+        sQseg[i] = 1;
+    }
+  };
+
+  int stage = 0;
+  if (ntiles > 0) load_rows(0, 0);
+  cp_async_commit();
+
+  const int c_loc[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's columns
+  const int c_seg[2] = {sKseg[c_loc[0]], sKseg[c_loc[1]]};
+  float dk[DT][4], dv[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+
+  // every query tile of the live span; a tile of another segment inside it
+  // is masked whole (p = 0)
+  for (int cur = 0; cur < ntiles; ++cur) {
+    cp_async_wait<0>();  // this tile's rows (and, first time, K and V) have landed
+    const int q0 = t_begin + cur * p.BQk;
+    bool whole = true;  // this thread's row is live for every column
+    if (tid < kDkvRows)
+      whole = sRowT[stage * kDkvRows + tid] >= 0 && sQseg[stage * kDkvRows + tid] == seg_lo;
+    // the one barrier of a tile, as K1's: this tile visible, the previous
+    // one done with (its stage is refilled next), all pairs live or not
+    const bool full_cur = __syncthreads_and(whole) && cols_whole &&
+        (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kDkvCols - 1);
+    if (cur + 1 < ntiles) load_rows(cur + 1, stage ^ 1);  // overlaps this tile's products
+    cp_async_commit();
+
+    const bf16* tQ = sQ + stage * kDkvRows * LDS;
+    const bf16* tG = sDO + stage * kDkvRows * LDS;
+    const float* lse = sLse + stage * kDkvRows;  // base e
+    const float* dl = sDelta + stage * kDkvRows;
+    const int* rowt = sRowT + stage * kDkvRows;
+    const int* rseg = sQseg + stage * kDkvRows;
+
+    float st[NR][4], dpt[NR][4];
+#pragma unroll
+    for (int j = 0; j < NR; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, sK + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(va, sV + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < NR; j += 2) {
+        uint32_t qf[4], gf[4];
+        const int off = (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8;
+        ldmatrix_x4(qf, tQ + off);
+        ldmatrix_x4(gf, tG + off);
+        mma_bf16_16816(st[j], ka, qf[0], qf[1]);
+        mma_bf16_16816(st[j + 1], ka, qf[2], qf[3]);
+        mma_bf16_16816(dpt[j], va, gf[0], gf[1]);
+        mma_bf16_16816(dpt[j + 1], va, gf[2], gf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NR; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = j * 8 + 2 * tq + (e & 1);  // query row of the tile
+        const int ci = e >> 1;                   // which of this thread's columns
+        float pr = fast_exp2(fmaf(st[j][e], p.scale_log2, -lse[r] * kLog2e));
+        if (!full_cur) {
+          const int t = rowt[r];
+          const int col = kv0 + c_loc[ci];
+          const bool ok = t >= 0 && col < p.S && rseg[r] == c_seg[ci] && lse[r] != -INFINITY &&
+                          (!p.causal || p.q_offset + t >= p.kv_offset + col);
+          pr = ok ? pr : 0.f;
+        }
+        st[j][e] = pr;
+        dpt[j][e] = pr * (dpt[j][e] - dl[r]);
+      }
+    }
+    // dV += P^T dO and dK += dS^T Q: two n-tiles of rows are one k-step
+#pragma unroll
+    for (int kk = 0; kk < kDkvRows / 16; ++kk) {
+      const uint32_t pa[4] = {pack_bf16x2(st[2 * kk][0], st[2 * kk][1]),
+                              pack_bf16x2(st[2 * kk][2], st[2 * kk][3]),
+                              pack_bf16x2(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack_bf16x2(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t sa[4] = {pack_bf16x2(dpt[2 * kk][0], dpt[2 * kk][1]),
+                              pack_bf16x2(dpt[2 * kk][2], dpt[2 * kk][3]),
+                              pack_bf16x2(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                              pack_bf16x2(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+#pragma unroll
+      for (int dj = 0; dj < DT; dj += 2) {
+        uint32_t gf[4], qf[4];
+        const int off = (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 + (mi >> 1) * 8;
+        ldmatrix_x4_trans(gf, tG + off);
+        ldmatrix_x4_trans(qf, tQ + off);
+        mma_bf16_16816(dv[dj], pa, gf[0], gf[1]);
+        mma_bf16_16816(dv[dj + 1], pa, gf[2], gf[3]);
+        mma_bf16_16816(dk[dj], sa, qf[0], qf[1]);
+        mma_bf16_16816(dk[dj + 1], sa, qf[2], qf[3]);
+      }
+    }
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+  bf16* dkb = static_cast<bf16*>(p.dk) + (int64_t)b * p.S * kv_row + hk * D;
+  bf16* dvb = static_cast<bf16*>(p.dv) + (int64_t)b * p.S * kv_row + hk * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int col = kv0 + c_loc[i];
+    if (col >= p.S) continue;
+#pragma unroll
+    for (int dj = 0; dj < DT; ++dj) {
+      const int64_t off = col * kv_row + dj * 8 + 2 * tq;
+      *reinterpret_cast<uint32_t*>(dkb + off) =
+          pack_bf16x2(dk[dj][2 * i] * p.scale, dk[dj][2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvb + off) = pack_bf16x2(dv[dj][2 * i], dv[dj][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (2 * kDqRows + 4 * kDqCols) * pitch<D>() +
+         sizeof(int) * (2 * kDqCols + 2 * kDqRows + 4);
+}
+
+// dq: one block per (64 query rows, kv head, batch), K1's grid and row
+// packing. Q and dO fragments stay in registers; per kv tile it recomputes
+//   S = Q K^T, dP = dO V^T, P = exp2(S - lse), dS = P (dP - delta), dQ += dS K.
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int LDS = pitch<D>();
+  constexpr int KSTEPS = D / 16;
+  constexpr int NT = kDqCols / 8;
+  constexpr int DT = D / 8;
+  constexpr int CHUNKS = D / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS]
+  bf16* sDO = sQ + kDqRows * LDS;                 // [64][LDS]
+  bf16* sK = sDO + kDqRows * LDS;                 // [2 stages][64][LDS]
+  bf16* sV = sK + 2 * kDqCols * LDS;              // [2 stages][64][LDS]
+  int* sKseg = reinterpret_cast<int*>(sV + 2 * kDqCols * LDS);  // [2][64]
+  int* sRowT = sKseg + 2 * kDqCols;               // [64]
+  int* sQseg = sRowT + kDqRows;                   // [64]
+  int* sSegRange = sQseg + kDqRows;               // [2]
+  int* sSpan = sSegRange + 2;                     // [2] first, last live column
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, tq = lane & 3, mi = lane >> 3;
+  const int q0 = blockIdx.x * p.BQ;
+  const int hk = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nrows = p.G * p.BQ;
+  const int64_t kv_row = (int64_t)p.Hkv * D;
+  const bf16* qb = static_cast<const bf16*>(p.q) + (int64_t)b * p.T * p.H * D;
+  const bf16* gb = static_cast<const bf16*>(p.dout) + (int64_t)b * p.T * p.H * D;
+  const bf16* kb = static_cast<const bf16*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
+  const bf16* vb = static_cast<const bf16*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
+
+  if (tid == 0) {
+    sSegRange[0] = INT_MAX;
+    sSegRange[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (tid < kDqRows) {
+    int t = -1, seg = 0;
+    if (tid < nrows) {
+      const int tt = q0 + tid % p.BQ;
+      if (tt < p.T) {
+        t = tt;
+        seg = p.q_seg ? p.q_seg[(int64_t)b * p.T + t] : 1;
+        atomicMin(&sSegRange[0], seg);
+        atomicMax(&sSegRange[1], seg);
+      }
+    }
+    sRowT[tid] = t;
+    sQseg[tid] = seg;
+  }
+  for (int i = tid; i < kDqRows * CHUNKS; i += kMmaThreads) {
+    const int r = i / CHUNKS, ch = i % CHUNKS;
+    const int t = q0 + r % p.BQ;
+    const bool ok = r < nrows && t < p.T;
+    const int64_t off = ((int64_t)t * p.H + hk * p.G + r / p.BQ) * D + ch * 8;
+    cp_async_16(sQ + r * LDS + ch * 8, ok ? qb + off : qb, ok);
+    cp_async_16(sDO + r * LDS + ch * 8, ok ? gb + off : gb, ok);
+  }
+  cp_async_commit();
+  __syncthreads();
+  const int seg_lo = sSegRange[0], seg_hi = sSegRange[1];
+
+  int kv_end = p.S;
+  if (p.causal) {
+    const int t_last = min(q0 + p.BQ, p.T) - 1;
+    kv_end = min(kv_end, p.q_offset + t_last - p.kv_offset + 1);
+  }
+  int first, last;
+  live_span(p.kv_seg ? p.kv_seg + (int64_t)b * p.S : nullptr, 0, kv_end, seg_lo, seg_hi,
+            sSpan, first, last);
+  const int ntiles = last < 0 ? 0 : last / kDqCols + 1;
+
+  const int tile0 = last < 0 ? 0 : first / kDqCols;
+
+  // as K1's: K, V and the kv segment ids of a tile by cp.async
+  auto load_kv = [&](int tile, int stage) {
+    bf16* dk_ = sK + stage * kDqCols * LDS;
+    bf16* dv_ = sV + stage * kDqCols * LDS;
+    for (int i = tid; i < kDqCols * CHUNKS; i += kMmaThreads) {
+      const int c = i / CHUNKS, ch = i % CHUNKS;
+      const int col = tile * kDqCols + c;
+      const bool ok = col < kv_end;
+      cp_async_16(dk_ + c * LDS + ch * 8, ok ? kb + col * kv_row + ch * 8 : kb, ok);
+      cp_async_16(dv_ + c * LDS + ch * 8, ok ? vb + col * kv_row + ch * 8 : vb, ok);
+    }
+    if (tid < kDqCols) {
+      const int col = tile * kDqCols + tid;
+      int* dst = sKseg + stage * kDqCols + tid;
+      if (p.kv_seg)
+        cp_async_4(dst, col < kv_end ? p.kv_seg + (int64_t)b * p.S + col : p.kv_seg,
+                   col < kv_end);
+      else
+        *dst = 1;
+    }
+  };
+
+  int stage = 0;
+  if (tile0 < ntiles) load_kv(tile0, 0);
+  cp_async_commit();
+
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[KSTEPS][4], gf[KSTEPS][4];
+#pragma unroll
+  for (int ks = 0; ks < KSTEPS; ++ks) {
+    const int off = (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8;
+    ldmatrix_x4(qf[ks], sQ + off);
+    ldmatrix_x4(gf[ks], sDO + off);
+  }
+  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
+  int t_row[2], seg_row[2];
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    t_row[i] = sRowT[r];
+    seg_row[i] = sQseg[r];
+    const int64_t o = ((int64_t)b * p.H + hk * p.G + r / p.BQ) * p.T + t_row[i];
+    // a dead row gets +inf, so p = 0 even where a tile skips the mask
+    lse2[i] = t_row[i] >= 0 ? p.lse[o] * kLog2e : INFINITY;
+    dl[i] = t_row[i] >= 0 ? p.delta[o] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  for (int cur = tile0; cur < ntiles; ++cur) {
+    cp_async_wait<0>();
+    const int kv0 = cur * kDqCols;
+    const int* kseg = sKseg + stage * kDqCols;
+    bool whole = true;
+    if (tid < kDqCols) whole = kv0 + tid < kv_end && kseg[tid] == seg_lo && seg_lo == seg_hi;
+    const bool full_cur = __syncthreads_and(whole) &&  // the one barrier, as K1's
+        (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kDqCols - 1);
+    if (cur + 1 < ntiles) load_kv(cur + 1, stage ^ 1);
+    cp_async_commit();
+
+    const bf16* tK = sK + stage * kDqCols * LDS;
+    const bf16* tV = sV + stage * kDqCols * LDS;
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KSTEPS; ++ks) {
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        uint32_t kf[4], vf[4];
+        const int off = (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8;
+        ldmatrix_x4(kf, tK + off);
+        ldmatrix_x4(vf, tV + off);
+        mma_bf16_16816(s[j], qf[ks], kf[0], kf[1]);
+        mma_bf16_16816(s[j + 1], qf[ks], kf[2], kf[3]);
+        mma_bf16_16816(dp[j], gf[ks], vf[0], vf[1]);
+        mma_bf16_16816(dp[j + 1], gf[ks], vf[2], vf[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float pr = fast_exp2(fmaf(s[j][e], p.scale_log2, -lse2[i]));
+        if (!full_cur) {
+          const int c = j * 8 + 2 * tq + (e & 1);
+          const int col = kv0 + c;
+          const bool ok = t_row[i] >= 0 && col < kv_end && seg_row[i] == kseg[c] &&
+                          lse2[i] != -INFINITY &&
+                          (!p.causal || p.q_offset + t_row[i] >= p.kv_offset + col);
+          pr = ok ? pr : 0.f;
+        }
+        s[j][e] = pr * (dp[j][e] - dl[i]);  // dS
+      }
+    }
+    // dQ += dS K: two n-tiles of columns are one k-step
+#pragma unroll
+    for (int kk = 0; kk < kDqCols / 16; ++kk) {
+      const uint32_t sa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
+                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
+                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dj = 0; dj < DT; dj += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4_trans(kf, tK + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 +
+                                  (mi >> 1) * 8);
+        mma_bf16_16816(acc[dj], sa, kf[0], kf[1]);
+        mma_bf16_16816(acc[dj + 1], sa, kf[2], kf[3]);
+      }
+    }
+    stage ^= 1;
+  }
+  cp_async_wait<0>();
+
+  bf16* dqb = static_cast<bf16*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = t_row[i];
+    if (t < 0) continue;
+    const int h = hk * p.G + (r0 + 8 * i) / p.BQ;
+    bf16* row = dqb + (((int64_t)b * p.T + t) * p.H + h) * D;
+#pragma unroll
+    for (int dj = 0; dj < DT; ++dj)
+      *reinterpret_cast<uint32_t*>(row + dj * 8 + 2 * tq) =
+          pack_bf16x2(acc[dj][2 * i] * p.scale, acc[dj][2 * i + 1] * p.scale);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream) {
+  const int64_t rows = (int64_t)p.B * p.T * p.H;
+  delta_kernel<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t smem_kv = dkv_mma_smem_bytes<D>();
+  err = cudaFuncSetAttribute(dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_kv);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_kv((p.S + kDkvCols - 1) / kDkvCols, p.Hkv, p.B);
+  dkv_mma_kernel<D><<<grid_kv, kMmaThreads, smem_kv, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  constexpr size_t smem_q = dq_mma_smem_bytes<D>();
+  err = cudaFuncSetAttribute(dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_q);
+  if (err != cudaSuccess) return err;
+  const dim3 grid_q((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
+  dq_mma_kernel<D><<<grid_q, kMmaThreads, smem_q, stream>>>(p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   const int64_t rows = (int64_t)p.B * p.T * p.H;
@@ -526,13 +1051,21 @@ extern "C" int tn_flash_bwd(
   if (Hkv <= 0 || H % Hkv != 0 || H / Hkv > tn::kTile || B <= 0 || T <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   p.G = H / Hkv;
-  p.BQ = tn::kTile / p.G;
   p.causal = causal; p.q_offset = q_offset; p.kv_offset = kv_offset;
   p.scale = scale;
   p.scale_log2 = scale * tn::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == tn::kBFloat16 && D == 64) return (int)tn::launch<__nv_bfloat16, 64>(p, st);
-  if (dtype == tn::kBFloat16 && D == 128) return (int)tn::launch<__nv_bfloat16, 128>(p, st);
+  if (dtype == tn::kBFloat16) {
+    // cp.async moves 16-byte rows of the contiguous inputs
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+    p.BQ = tn::kDqRows / p.G;
+    p.BQk = tn::kDkvRows / p.G;
+    if (D == 64) return (int)tn::launch_mma<64>(p, st);
+    if (D == 128) return (int)tn::launch_mma<128>(p, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  p.BQ = p.BQk = tn::kTile / p.G;
   if (dtype == tn::kFloat32 && D == 64) return (int)tn::launch<float, 64>(p, st);
   if (dtype == tn::kFloat32 && D == 128) return (int)tn::launch<float, 128>(p, st);
   return (int)cudaErrorInvalidValue;
