@@ -4,6 +4,8 @@
 
     python3 chip_smoke.py              # the phases below
     python3 chip_smoke.py --profile    # only the step profile (profile_training)
+    python3 chip_smoke.py --faults     # faulty kernel copies must fail (check_faults)
+    python3 chip_smoke.py --tune       # K3/K4 registers, and times their design variants
 
 Phases, one or more lines each; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
@@ -14,7 +16,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
   3. K1 (packed flash-attention forward) against its plain version, also at
      phase 8's own shape (B1 T16384, 10 packed documents; the plain version
      one kv head at a time);
-  4. K4 (ragged flash-decode) against its plain version;
+  4. K4 (ragged flash-decode) against its plain version, and two launches
+     against each other bit for bit;
   5. the serving slice: Llama-3.2-1B at full width (random bf16 weights
      from a seed) generates for 8 prompts, with single-shot and chunked
      prefill; launch counts, logits against the plain-attention path,
@@ -28,7 +31,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
   7. K3 (fused lm-head + cross-entropy, forward and backward) against its
      plain versions at the training shape's vocab, and at phase 8's own
      N = 16384 rows, where the backward accumulates dw over two dl row
-     chunks (an f32 case forces four);
+     chunks (an f32 case forces four), and two backward runs against each
+     other bit for bit;
   8. the training slice: bin.train.main, the port's trainer, takes 10
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) on TouchDataset shards
@@ -54,7 +58,8 @@ the decode case), with every timed case under "cases":
     K2, the same over a copy of each row's live cache columns for K4 (the
     copy made outside the timed window), none for K3. Before it is timed
     its output is held to the kernel's under the bf16 limits; a mismatch
-    fails the run as the yardstick's fault.
+    fails the run as the yardstick's fault. K3's backward adds gemm_ms
+    (gemm_yardstick), informational.
 
 Tolerances on the card, each against the plain version on the same inputs:
   - bf16 kernels vs the plain version run in f32 on the same bf16-rounded
@@ -105,6 +110,7 @@ import contextlib
 import copy
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -428,7 +434,7 @@ def check_k1(attn, dev, gen, failures, card):
     return rows
 
 
-def check_k4(dec, dev, gen, failures, card):
+def check_k4(dec, dev, gen, failures, card, timing=True):
     print("[4] K4 decode_attention vs decode_attention_reference")
     rows = {}
 
@@ -438,10 +444,15 @@ def check_k4(dec, dev, gen, failures, card):
         kv = torch.randn((L, B, Hkv, S, 2 * D), generator=gen, device=dev, dtype=dtype)
         plen = torch.tensor(plen, dtype=torch.int32, device=dev)
         got = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
+        again = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
         torch.cuda.synchronize()
         want = dec.decode_attention_reference(q.float(), kv[layer].float(), plen, base, last)
         mx = compare(name, got, want, dtype, failures)
-        if timed:
+        same = torch.equal(got, again)
+        print(f"  {name}: two launches equal bit for bit: {same} {'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"{name} bit-stable")
+        if timed and timing:
             ms = time_ms(lambda: dec.decode_attention(q, kv, plen, base, last, layer_idx=layer))
             plain = time_ms(lambda: dec.decode_attention_reference(
                 q, kv, plen, base, last, layer_idx=layer))
@@ -476,6 +487,8 @@ def check_k4(dec, dev, gen, failures, card):
              3, 2, Hkv, 2, 128, 2048, [1500, 700, 1], 1536, 1600, 1, torch.bfloat16)
     case("(c) prompt_len 1 row, B2 Hkv8 G4 D64 S1024 f32",
          2, 1, 8, 4, 64, 1024, [1, 600], 640, 700, 0, torch.float32)
+    case("(d) G16 D128, 4x spread of prompt lengths, B4 Hkv2 S8192 bf16",
+         4, 1, 2, 16, 128, 8192, [2048, 8191, 4000, 6000], 7936, 8000, 0, torch.bfloat16)
     return rows
 
 
@@ -724,25 +737,49 @@ def check_k2(attn, dev, gen, failures, card):
     return rows
 
 
-def check_k3(fused_ce, dev, gen, failures, card):
+def gemm_yardstick(h, w, chunk):
+    """The backward's three products alone, on cuBLAS (torch.matmul, bf16 in
+    and out), at the kernel's shapes and chunks: t = h w^T, dh = t w, dw =
+    t^T h per chunk. Not a library_ms (no call computes K3's function: this
+    has no epilogue, no softmax, no f32 dw); it says how far the mainloop is
+    from a tuned GEMM. Used nowhere in the port. Returns a function to time."""
+    N = h.shape[0]
+    t = torch.empty((chunk, w.shape[0]), dtype=h.dtype, device=h.device)
+    dh = torch.empty_like(h)
+    dw = torch.empty_like(w)
+
+    def run():
+        for c0 in range(0, N, chunk):
+            hc = h[c0:c0 + chunk]
+            tc = t[:hc.shape[0]]
+            torch.matmul(hc, w.t(), out=tc)
+            torch.matmul(tc, w, out=dh[c0:c0 + chunk])
+            torch.matmul(tc.t(), hc, out=dw)
+    return run
+
+
+def check_k3(fused_ce, dev, gen, failures, card, timing=True):
     print("[7] K3 fused_ce fwd/bwd vs _rows_reference / _rows_backward_reference")
     rows = {}
 
     def case(name, N, E, V, dtype, tie=False, timed=False, chunk_rows=None, min_chunks=1):
         saved = fused_ce.DL_SCRATCH_BYTES
         if chunk_rows:  # a smaller dl scratch: the backward runs in row chunks
-            fused_ce.DL_SCRATCH_BYTES = chunk_rows * V * torch.finfo(dtype).bits // 8
-        chunks = -(-N // fused_ce.bwd_chunk_rows(N, V, torch.finfo(dtype).bits // 8))
+            fused_ce.DL_SCRATCH_BYTES = chunk_rows * fused_ce.dl_stride(V) * \
+                torch.finfo(dtype).bits // 8
+        plan = fused_ce.bwd_plan(N, E, V, dtype)
+        chunks = -(-N // plan.chunk)
         ok = chunks >= min_chunks
-        print(f"  {name}: backward in {chunks} dl row chunk(s) {'ok' if ok else 'FAIL'}")
+        print(f"  {name}: backward on the {plan.mainloop} mainloop in {chunks} dl row "
+              f"chunk(s) of {plan.chunk} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} chunks")
         try:
-            body(name, N, E, V, dtype, tie, timed)
+            body(name, N, E, V, dtype, tie, timed and timing, plan.chunk)
         finally:
             fused_ce.DL_SCRATCH_BYTES = saved
 
-    def body(name, N, E, V, dtype, tie, timed):
+    def body(name, N, E, V, dtype, tie, timed, chunk):
         h = torch.randn((N, E), generator=gen, device=dev).to(dtype)
         w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(dtype)
         labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
@@ -776,8 +813,15 @@ def check_k3(fused_ce, dev, gen, failures, card):
         wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
         e_dh = compare_grad(f"{name} dh", dh, wdh, dtype, failures)
         e_dw = compare_grad(f"{name} dw", dw, wdw, dtype, failures)
+        del wdh, wdw
+        dh2, dw2 = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+        same = torch.equal(dw, dw2) and torch.equal(dh, dh2)
+        print(f"  {name}: dh, dw of two runs equal bit for bit: {same} "
+              f"{'ok' if same else 'FAIL'}")
+        if not same:
+            failures.append(f"{name} bit-stable")
         grad_bytes = nbytes(dh, dw)
-        del dh, dw, wdh, wdw
+        del dh, dw, dh2, dw2
         if timed:
             fwd = time_ms(lambda: fused_ce.fused_ce_fwd(h, w, labels))
             fwd_p = time_ms(lambda: fused_ce._rows_reference(h, w, labels))
@@ -793,6 +837,11 @@ def check_k3(fused_ce, dev, gen, failures, card):
                                  bound(6 * N * E * V,
                                        nbytes(h, w, labels, lse, dlse, dtl) + grad_bytes),
                                  card)}
+            if dtype == torch.bfloat16:
+                gemm = time_ms(gemm_yardstick(h, w, chunk), 3, 1)
+                rows[name]["bwd"]["gemm_ms"] = gemm
+                print(f"  {name} bwd: gemm_ms {gemm:.3f} (cuBLAS bf16 on the three products' "
+                      f"shapes, no epilogue; informational, not a library_ms)  [{card}]")
         del h, w
         torch.cuda.empty_cache()
 
@@ -992,9 +1041,13 @@ def run_training(dev, card, failures, tmp: Path):
     return train_counts
 
 
-# device kernels of a step, by the part of the port that launches them
+# device kernels of a step, by the part of the port that launches them (the
+# first group whose key a kernel's name holds; K3's come before cuBLAS's)
 PROFILE_GROUPS = (("K1", ("flash_fwd",)), ("K2", ("dkv_", "dq_mma", "dq_kernel", "delta_kernel")),
-                  ("K3", ("ce_",)), ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
+                  ("K3 fwd", ("ce_fwd",)),
+                  ("K3 bwd, TMA + wgmma mainloop (ce_bwd_gemm)", ("ce_bwd_gemm",)),
+                  ("K3 bwd, 64x64 tiles", ("ce_bwd_dlogits", "ce_gemm_")),
+                  ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
                   ("copies", ("Memcpy", "Memset")))
 
 
@@ -1003,7 +1056,7 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     training steps of phase 8's configuration (1x16384 bf16, remat full)
     after `warmup` steps, through the Trainer's own train_step. Prints the
     device time of each group of kernels per step, the device's busy share
-    of the window, and the ten largest kernels."""
+    of the window, and the twenty largest kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     from touchnet_tpu_torch.bin import TrainConfig, train
@@ -1051,8 +1104,169 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
           f"kernels/step, device busy {100 * busy / wall_us:.1f}% of the window  [{card}]")
     for g, us in sorted(groups.items(), key=lambda x: -x[1]):
         print(f"  {g}: {us / steps / 1e3:.1f} ms/step ({100 * us / total:.1f}% of device time)")
-    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:10]:
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:20]:
         print(f"  {us / steps / 1e3:9.2f} ms/step  {name[:110]}")
+
+
+@contextlib.contextmanager
+def variant_library(_build, edits):
+    """While open, the kernel wrappers run a library built from a copy of
+    ops/csrc with `edits` applied, (file, text, replacement) each, in a
+    temporary directory: the checkout is never touched."""
+    csrc, build_dir = _build.CSRC, _build.BUILD_DIR
+    with tempfile.TemporaryDirectory() as tmp:
+        shutil.copytree(csrc, Path(tmp) / "csrc")
+        for fname, right, wrong in edits:
+            src = Path(tmp) / "csrc" / fname
+            text = src.read_text()
+            if right not in text:
+                raise RuntimeError(f"{right!r} not in {fname}")
+            src.write_text(text.replace(right, wrong))
+        _build.CSRC, _build.BUILD_DIR, _build._lib = Path(tmp) / "csrc", Path(tmp), None
+        try:
+            _build.load_library()  # a copy that does not build raises here, never "caught"
+            yield
+        finally:
+            _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, build_dir, None
+
+
+# faulty copies of the kernels, (name, file, right text, faulty text, which
+# check must catch it): each must fail its kernel's check
+FAULTS = (
+    ("K4 ring reads a tile before its copies land (one stage's wait skipped)",
+     "decode_attention.cu", "cp_async_wait<R::kStages - 2>();", "cp_async_wait<R::kStages - 1>();",
+     "K4"),
+    ("K3 bwd without the dtl term", "fused_ce.cu",
+     "if (col == lab) g0 += dtl;\n        if (col + 1 == lab) g1 += dtl;", "", "K3"),
+    ("K3 bwd with a wrong swizzle (TMA tiles unswizzled, wgmma reads them swizzled)",
+     "hopper.cuh", "CU_TENSOR_MAP_SWIZZLE_128B,", "CU_TENSOR_MAP_SWIZZLE_NONE,", "K3"),
+    ("K3 bwd with the MN-major descriptor's LBO and SBO swapped", "fused_ce.cu",
+     "wgmma_desc(tile + ks * 2048, 8192, 1024)", "wgmma_desc(tile + ks * 2048, 1024, 8192)", "K3"),
+)
+
+
+def check_faults(_build, dev, card) -> int:
+    """`python3 chip_smoke.py --faults`: every fault of FAULTS, built into
+    its own library (variant_library), must fail phase 4 (K4) or phase 7
+    (K3), timings skipped. Exits 1 if a fault passes."""
+    from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.ops import fused_ce
+
+    checks = {"K4": lambda f: check_k4(dec, dev, torch.Generator(device=dev).manual_seed(SEED),
+                                       f, card, timing=False),
+              "K3": lambda f: check_k3(fused_ce, dev, torch.Generator(device=dev).manual_seed(SEED),
+                                       f, card, timing=False)}
+    missed = []
+    for name, fname, right, wrong, which in FAULTS:
+        print(f"[faults] {name}: {fname} with {wrong!r}")
+        failures = []
+        with variant_library(_build, [(fname, right, wrong)]):
+            try:
+                checks[which](failures)
+            except Exception as e:  # a faulty kernel may also raise: caught
+                failures.append(f"raised {type(e).__name__}: {e}")
+            torch.cuda.synchronize()
+        print(f"[faults] {name}: {'caught' if failures else 'NOT CAUGHT'} "
+              f"({len(failures)} failed checks: {failures[:4]})")
+        if not failures:
+            missed.append(name)
+    if missed:
+        print(f"chip_smoke --faults FAILED: not caught {missed}", file=sys.stderr)
+        return 1
+    print(f"[faults] every fault caught  [{card}]")
+    return 0
+
+
+# the design choices --tune measures: K4's ring depth (with its split
+# budget) and K3 backward's ring depth, epilogue exponential and grid order
+K4_TUNE_STAGES = (3, 4, 6, 6, 4, 3)  # twice, in mirrored order: the spread shows
+K4_TUNE_BLOCKS_PER_SM = (8, 16, 32)
+K3_TUNE = {
+    "committed": [],
+    "3 stages": [("fused_ce.cu", "kGemmStages = 4;", "kGemmStages = 3;")],
+    "ex2.approx in the dlogits epilogue": [
+        ("fused_ce.cu", "float g0 = dlse * exp2f(", "float g0 = dlse * fast_exp2("),
+        ("fused_ce.cu", "float g1 = dlse * exp2f(", "float g1 = dlse * fast_exp2(")],
+    "dlogits grid with vocab tiles fastest": [
+        ("fused_ce.cu", "static void tile(int& m, int& n) { m = blockIdx.x; n = blockIdx.y; }",
+         "static void tile(int& m, int& n) { m = blockIdx.y; n = blockIdx.x; }"),
+        ("fused_ce.cu", "dim3(rt, vt_n)", "dim3(vt_n, rt)")],
+}
+
+
+def ptxas_report(_build, sources=("decode_attention.cu", "fused_ce.cu")) -> None:
+    """Registers, spills and static shared memory of every kernel of
+    `sources`, as `nvcc -Xptxas -v` reports them with the build's flags."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in sources:
+            res = subprocess.run(
+                [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                 str(Path(tmp) / "k.o"), str(_build.CSRC / src)],
+                capture_output=True, text=True, check=True, timeout=600)
+            kernel = None
+            for line in (res.stdout + res.stderr).splitlines():
+                if "Compiling entry function" in line:
+                    kernel = line.split("'")[1]
+                elif kernel and ("registers" in line or "spill" in line):
+                    print(f"[ptxas] {src} {kernel}: {line.split(':', 1)[-1].strip()}")
+
+
+def tune(_build, dev, card) -> int:
+    """`python3 chip_smoke.py --tune`: the kernels' registers (ptxas_report),
+    then times the variants above at the main paths' shapes (K4 case (a),
+    K3 backward at N16384), each built with variant_library, in one process
+    on one card; prints each variant's median ms and whether it gives the
+    committed variant's bits."""
+    from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.ops import fused_ce
+
+    ptxas_report(_build)
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    B, L, Hkv, G, D, S, base, last, layer = 32, 16, 8, 4, 64, 8192, 7936, 8000, 7
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.randn((L, B, Hkv, S, 2 * D), generator=gen, device=dev, dtype=torch.bfloat16)
+    plen = torch.randint(2048, 8192, (B,), generator=torch.Generator().manual_seed(SEED))
+    plen = plen.to(device=dev, dtype=torch.int32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = dec._SPLIT_BLOCKS_PER_SM
+    ref = None
+    for stages in K4_TUNE_STAGES:
+        edit = ("decode_attention.cu", "static constexpr int kStages = 3;",
+                f"static constexpr int kStages = {stages};")
+        with variant_library(_build, [edit]):
+            for per_sm in K4_TUNE_BLOCKS_PER_SM:
+                dec._SPLIT_BLOCKS_PER_SM = per_sm
+                out = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
+                ref = out if ref is None else ref
+                # ~0.2 ms a launch: a second of launches first, so the card
+                # is at its clocks after the variant's build, then 101 timed
+                time_ms(lambda: dec.decode_attention(q, kv, plen, base, last, layer_idx=layer),
+                        1, 5000)
+                ms = time_ms(lambda: dec.decode_attention(q, kv, plen, base, last,
+                                                          layer_idx=layer), 101, 20)
+                diff = (out.float() - ref.float()).abs().max().item()
+                print(f"[tune] K4 (a): {stages}-stage ring, splits for {per_sm} blocks/SM "
+                      f"(cols, nsplit) {dec.split_plan(B, Hkv, S, sms)}: {ms:.4f} ms; "
+                      f"max diff to the first variant {diff:.2e}  [{card}]")
+        dec._SPLIT_BLOCKS_PER_SM = saved
+    del kv
+    N, E, V = TRAIN_T, 2048, 128256
+    h = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
+    w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    lse = fused_ce.fused_ce_fwd(h, w, labels)[0]
+    dlse = torch.full((N,), 1.0 / N, device=dev)
+    ref = None
+    for name, edits in K3_TUNE.items():
+        with variant_library(_build, edits):
+            out = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, -dlse)
+            ref = out if ref is None else ref
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            ms = time_ms(lambda: fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, -dlse), 5)
+            print(f"[tune] K3 bwd N{N} E{E} V{V}, {name}: {ms:.3f} ms; same bits as the "
+                  f"committed variant: {same}  [{card}]")
+    return 0
 
 
 def main() -> int:
@@ -1087,6 +1301,10 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp:
             profile_training(dev, card, Path(tmp))
         return 0
+    if sys.argv[1:] == ["--faults"]:
+        return check_faults(_build, dev, card)
+    if sys.argv[1:] == ["--tune"]:
+        return tune(_build, dev, card)
 
     failures = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1111,7 +1329,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"touchnet_tpu_torch/ops/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "tflops")},
+                                        "bound_by", "library_ms", "tflops", "gemm_ms")
+                   if k in main},
                 "cases": cases}
 
     print(json.dumps({"kernels": [
@@ -1121,10 +1340,12 @@ def main() -> int:
             "touchnet_tpu/ops/attention.py:778", counts["K2"], k2, "(d)"),
         row("fused_ce_fwd (K3 forward)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
             counts["K3 fwd"], {n: v["fwd"] for n, v in k3.items()}, "(d)"),
-        row("fused_ce_bwd (K3 backward)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:175",
-            counts["K3 bwd"], {n: v["bwd"] for n, v in k3.items()}, "(d)"),
-        row("flash_decode (K4)", "decode_attention.cu",
-            "touchnet_tpu/ops/decode_attention.py:85", counts["K4"], k4, "(a)"),
+        row("fused_ce_bwd (K3 backward: TMA + wgmma mainloop, ce_bwd_gemm)", "fused_ce.cu",
+            "touchnet_tpu/ops/fused_ce.py:175", counts["K3 bwd"],
+            {n: v["bwd"] for n, v in k3.items()}, "(d)"),
+        row("flash_decode (K4: cp.async ring into mma.sync, decode_mma_kernel, and the "
+            "combine)", "decode_attention.cu", "touchnet_tpu/ops/decode_attention.py:85",
+            counts["K4"], k4, "(a)"),
     ]}))
     if failures:
         raise SystemExit(f"chip_smoke FAILED: {failures}")

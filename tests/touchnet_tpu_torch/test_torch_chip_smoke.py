@@ -1,6 +1,7 @@
 # The bound arithmetic of chip_smoke.py: live_pairs counts the live
 # (row, column) pairs of one head from the segment runs, and must equal the
-# sum of the dense causal + segment mask that K1 applies.
+# sum of the dense causal + segment mask that K1 applies. And the source
+# edits of its --faults and --tune modes must still find their text.
 
 import importlib.util
 import os
@@ -86,3 +87,20 @@ def test_bound_names_its_limit():
     assert ops["bound_by"] == "operations" and abs(ops["bound_ms"] - 1e3) < 1e-9
     mem = chip_smoke.bound(1.0, 3.35e9)  # 1 ms of bytes
     assert mem["bound_by"] == "bytes" and abs(mem["bound_ms"] - 1.0) < 1e-9
+
+
+def test_fault_and_tune_edits_match_the_kernel_sources():
+    """Every faulty copy (FAULTS) and tuning variant (K3_TUNE, the K4 ring
+    depth) edits text that the kernel sources still hold: a stale edit
+    would make --faults or --tune raise on the card."""
+    csrc = os.path.join(os.path.dirname(_PATH), "touchnet_tpu_torch", "ops", "csrc")
+
+    def text(name):
+        with open(os.path.join(csrc, name)) as f:
+            return f.read()
+
+    edits = [(f, right) for _, f, right, _, _ in chip_smoke.FAULTS]
+    edits += [(f, right) for v in chip_smoke.K3_TUNE.values() for f, right, _ in v]
+    edits.append(("decode_attention.cu", "static constexpr int kStages = 3;"))
+    for fname, right in edits:
+        assert right in text(fname), (fname, right)

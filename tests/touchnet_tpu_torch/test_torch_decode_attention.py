@@ -77,6 +77,49 @@ def test_dead_columns_are_masked():
 
 
 def test_num_splits():
-    assert dec.num_splits(32, 8, 8192, 132) == 3
-    assert dec.num_splits(1, 1, 100, 132) == 1
-    assert dec.num_splits(1, 8, 1024, 132) == 8  # no split under 128 columns
+    """The grid's split plan (split_plan): every split a budget of whole
+    64-column tiles, at least 256 columns, and enough splits that a full
+    cache would put 16 blocks on every SM."""
+    assert dec.split_plan(32, 8, 8192, 132) == (960, 9)  # the serving path's shape
+    assert dec.split_plan(1, 1, 100, 132) == (256, 1)
+    assert dec.split_plan(1, 8, 1024, 132) == (256, 4)  # no split under 256 columns
+    assert dec.split_plan(4, 3, 1536, 132) == (256, 6)
+
+
+def _live(plen, S, base, last):
+    """The live columns by the contract's own mask."""
+    return [c for c in range(S) if c < plen or base <= c <= last]
+
+
+# (prompt_len, S, base, last): ragged prompts, an empty prompt, a prompt
+# longer than the cache, no decode slot yet (last < base), a prompt that
+# runs past base, decode slots past the cache's end, and a lone column
+SPLIT_CASES = [
+    (2048, 8192, 7936, 8000),
+    (8191, 8192, 7936, 8000),
+    (0, 4096, 1024, 1100),
+    (9000, 4096, 1024, 1100),
+    (700, 2048, 1536, 1535),
+    (1600, 2048, 1536, 1600),
+    (300, 1024, 900, 5000),
+    (-3, 512, 0, 0),
+    (1, 512, 640, 700),
+    (0, 512, 1, 0),
+]
+
+
+@pytest.mark.parametrize("plen,S,base,last", SPLIT_CASES)
+@pytest.mark.parametrize("B,Hkv", [(32, 8), (1, 1), (4, 7)])
+def test_split_columns_cover_the_live_set(plen, S, base, last, B, Hkv):
+    """The kernel's splits (split_columns, its own arithmetic) read every
+    live column once and no other, in order, none above its budget; the
+    splits past the row's live count are empty (the combine skips them)."""
+    cols, nsplit = dec.split_plan(B, Hkv, S, 132)
+    assert cols % dec.SPLIT_ALIGN == 0 and nsplit * cols >= S
+    splits = [dec.split_columns(plen, S, base, last, cols, s) for s in range(nsplit)]
+    assert all(len(x) <= cols for x in splits)
+    read = [c for x in splits for c in x]
+    want = _live(plen, S, base, last)
+    assert read == want
+    live = -(-len(want) // cols)
+    assert all(splits[:live]) and not any(splits[live:])

@@ -95,3 +95,45 @@ def test_bwd_chunk_rows(N, itemsize, rows, chunks):
     whole 64-row tiles, capped at what N needs."""
     got = ce.bwd_chunk_rows(N, 128256, itemsize)
     assert got == rows and got % 64 == 0 and -(-N // got) == chunks
+
+
+@pytest.mark.parametrize("N,E,V,dtype,want", [
+    # the training path: TMA + wgmma in 128-row tiles, two chunks
+    (16384, 2048, 128256, torch.bfloat16, ("wgmma", 128, 8320, 128256)),
+    (16384, 2048, 128256, torch.float32, ("fma", 64, 4160, 128256)),
+    (300, 2048, 128256, torch.bfloat16, ("wgmma", 128, 384, 128256)),
+    # a ragged vocab: the dl stride pads 4099 to 4104
+    (1000, 64, 4099, torch.bfloat16, ("wgmma", 128, 1024, 4104)),
+    # E not a multiple of 8: TMA cannot describe the rows, the wmma tiles run
+    (1000, 36, 4099, torch.bfloat16, ("wmma", 64, 1024, 4104)),
+    (100, 64, 4099, torch.float32, ("fma", 64, 128, 4104)),
+])
+def test_bwd_plan(N, E, V, dtype, want):
+    """Which mainloop the backward takes for a (dtype, E, V), its row tile,
+    the dl chunk in whole row tiles and the padded dl stride."""
+    assert tuple(ce.bwd_plan(N, E, V, dtype)) == want
+
+
+def test_bwd_plan_refuses_other_dtypes():
+    with pytest.raises(ValueError):
+        ce.bwd_plan(64, 64, 64, torch.float16)
+
+
+@pytest.mark.parametrize("V", [1, 7, 8, 9, 4099, 128256, 128257])
+def test_dl_stride(V):
+    """Every dl row starts on 16 bytes: the stride is V rounded up to 8."""
+    ldl = ce.dl_stride(V)
+    assert ldl % 8 == 0 and V <= ldl < V + 8
+
+
+@pytest.mark.parametrize("N", [1, 127, 128, 129, 8320, 8321, 16384, 40000])
+def test_bwd_chunks_are_whole_row_tiles(N, monkeypatch):
+    """Under a small scratch budget the chunks are whole 128-row tiles of
+    the wgmma mainloop, fit the budget, and cover every row."""
+    V = 4099
+    monkeypatch.setattr(ce, "DL_SCRATCH_BYTES", 1000 * ce.dl_stride(V) * 2)
+    plan = ce.bwd_plan(N, 64, V, torch.bfloat16)
+    assert plan.chunk % 128 == 0 and plan.chunk <= 896
+    assert plan.chunk * plan.ldl * 2 <= ce.DL_SCRATCH_BYTES
+    assert -(-N // plan.chunk) * plan.chunk >= N
+    assert plan.chunk == min(896, -(-N // 128) * 128)

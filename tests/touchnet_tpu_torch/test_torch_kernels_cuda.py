@@ -6,6 +6,10 @@
 # cores and f32 on FMA kernels; ATTENTION_CASES cover both at tile edges,
 # GQA groups, masks and offsets.
 #
+# K4's bf16 kernel streams the cache through a cp.async ring into mma.sync;
+# K3's bf16 backward runs on a TMA + wgmma mainloop where E is a multiple
+# of 8 (the cases below cover both of its sides and the kept wmma tiles).
+#
 # Tolerances: bf16 kernels are held to the plain version run in f32 on the
 # same bf16-rounded inputs (max abs 2e-2, mean abs 2e-3 on out at unit-scale
 # inputs: the kernel rounds out to bf16 once; lse 1e-3, f32 throughout).
@@ -177,7 +181,7 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Hkv,G", [(1, 4), (3, 2), (5, 1), (7, 2), (8, 4)])
+@pytest.mark.parametrize("Hkv,G", [(1, 4), (3, 2), (5, 1), (7, 2), (8, 4), (2, 16)])
 def test_decode_kernel(dev, dtype, D, Hkv, G):
     rng = np.random.default_rng(Hkv * 10 + G)
     L, B, S = 3, 4, 1536
@@ -191,6 +195,31 @@ def test_decode_kernel(dev, dtype, D, Hkv, G):
     assert decode_attention.launches == n0 + 1
     want = decode_attention_reference(q.float(), kv.float(), plen, base, last, layer_idx=1)
     _check(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D,G", [(64, 4), (128, 1), (128, 16)])
+def test_decode_kernel_balanced_splits(dev, dtype, D, G):
+    """Prompt lengths with a 4x spread over an 8192-column cache (the split
+    plan's fixed budget of live columns per split: a long row takes more
+    splits, and splits straddle the [prompt_len, base) gap), a prompt that
+    runs past base, and, with last < base, a row with no live column (0);
+    two launches give the same bits."""
+    rng = np.random.default_rng(D + G)
+    B, Hkv, S = 5, 2, 8192
+    q = _randn(rng, (B, Hkv * G, D), dtype, dev)
+    kv = _randn(rng, (B, Hkv, S, 2 * D), dtype, dev)
+    for plen, base, last in (([2048, 8191, 4000, 5000, 3001], 7936, 8000),
+                             ([2048, 8191, 0, 6000, 2500], 7000, 6999)):
+        plen = torch.tensor(plen, dtype=torch.int32, device=dev)
+        got = decode_attention(q, kv, plen, base, last)
+        again = decode_attention(q, kv, plen, base, last)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        want = decode_attention_reference(q.float(), kv.float(), plen, base, last)
+        live = (plen > 0) | (base <= last)
+        _check(got, want, dtype, live)
+        assert (got[~live] == 0).all()
 
 
 def test_decode_kernel_skips_dead_columns(dev):
@@ -313,10 +342,10 @@ def test_flash_attention_autograd_goes_through_k2(dev, dtype):
         _check_grad(x.grad, b, dtype)
 
 
-def _ce_case(dev, dtype, N, E, V, seed, tie=False):
+def _ce_case(dev, dtype, N, E, V, seed, tie=False, w_scale=0.1):
     rng = np.random.default_rng(seed)
     h = _randn(rng, (N, E), dtype, dev)
-    w = (0.1 * _randn(rng, (V, E), torch.float32, dev)).to(dtype)
+    w = (w_scale * _randn(rng, (V, E), torch.float32, dev)).to(dtype)
     labels = torch.from_numpy(rng.integers(0, V, N).astype(np.int32)).to(dev)
     labels[::5] = -100
     labels[1] = V + 3
@@ -328,12 +357,16 @@ def _ce_case(dev, dtype, N, E, V, seed, tie=False):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("N,E,V", [(300, 256, 1000), (64, 128, 64), (1000, 64, 4099)])
+@pytest.mark.parametrize("N,E,V", [(300, 256, 1000), (64, 128, 64), (1000, 64, 4099),
+                                   (1000, 36, 4099), (300, 2048, 128256)])
 def test_fused_ce_kernel(dev, dtype, N, E, V):
     """K3 forward and backward against the plain versions on the same
-    inputs: a ragged row tile and a ragged vocab tail (V not a multiple of
-    the 64-wide tile), ignored and out-of-range labels."""
-    h, w, labels = _ce_case(dev, dtype, N, E, V, N + V)
+    inputs: ragged row tiles (N not a multiple of 64 or 128) and a ragged
+    vocab tail, ignored and out-of-range labels; bf16 takes the TMA + wgmma
+    backward where E is a multiple of 8 and the wmma tiles at E 36; the
+    training path's E and V at a few hundred rows, with w at the model's
+    init scale (0.02, as chip_smoke.py), so |lse| ~ 12 as in training."""
+    h, w, labels = _ce_case(dev, dtype, N, E, V, N + V, w_scale=0.02 if V > 10**5 else 0.1)
     n0 = (fused_ce.fused_ce_fwd.launches, fused_ce.fused_ce_bwd.launches)
     lse, tl, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
     torch.cuda.synchronize()
@@ -379,8 +412,9 @@ def test_fused_ce_chunked_bwd_matches_plain(dev, dtype, monkeypatch):
     a ragged last chunk) against the plain version, in both dtypes."""
     N, E, V = 1000, 128, 4099
     h, w, labels = _ce_case(dev, dtype, N, E, V, 11)
-    monkeypatch.setattr(fused_ce, "DL_SCRATCH_BYTES", 256 * V * h.element_size())
-    assert -(-N // fused_ce.bwd_chunk_rows(N, V, h.element_size())) == 4
+    monkeypatch.setattr(fused_ce, "DL_SCRATCH_BYTES",
+                        256 * fused_ce.dl_stride(V) * h.element_size())
+    assert -(-N // fused_ce.bwd_plan(N, E, V, dtype).chunk) == 4
     lse = fused_ce.fused_ce_fwd(h, w, labels)[0]
     rng = np.random.default_rng(2)
     dlse = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(dev)
@@ -390,6 +424,8 @@ def test_fused_ce_chunked_bwd_matches_plain(dev, dtype, monkeypatch):
     wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
     _check_grad(dh, wdh, dtype)
     _check_grad(dw, wdw, dtype)
+    dh2, dw2 = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+    assert torch.equal(dw2, dw) and torch.equal(dh2, dh)  # chunks in order: same bits
 
 
 def test_flash_attention_bwd_is_bit_stable(dev):

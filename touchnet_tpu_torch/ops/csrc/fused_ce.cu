@@ -17,13 +17,31 @@
 //
 // What bounds it on this card: the products. At N=16384, E=2048, V=128256
 // the forward is 8.6 TFLOP and the backward 26 TFLOP (recompute, dh, dw).
-// Every product is a 64x64 output tile per 256-thread block, K in chunks of
-// 32 staged through shared memory, with one loader per memory layout. bf16
-// operands go to the tensor cores (nvcuda::wmma 16x16x16 fragments, f32
-// accumulation: mma_tile_tc); f32 operands stay f32 FMAs (mma_tile, 4x4 per
-// thread), since TF32 fragments would round them. bf16 stages are filled
-// with one 16-byte load per thread; there is no cp.async/TMA pipelining and
-// no wgmma yet: later work.
+//
+// The backward's three products, bf16 operands with 16-byte aligned rows
+// (E a multiple of 8; the wrapper chooses by shape, ops/fused_ce.bwd_plan):
+// one Hopper mainloop, ce_bwd_gemm, for all three. A block owns a 128 x 256
+// output tile. Its producer warp keeps TMA loads of 64-deep K slabs in
+// flight into a ring of kGemmStages slots of 128-byte-swizzled shared
+// memory (mbarriers mark slots full and empty); two consumer warpgroups
+// each issue wgmma m64n256k16 on their 64 rows (bf16 in, f32 accumulators
+// in registers), keeping one slab's products in flight while they wait
+// for the next slab. Operands are read in place in either majorness (wgmma
+// transposes through the descriptor, hopper.cuh): the logits recompute
+// t = h w^T reads h and w K-major; dh = dl w reads dl K-major and w
+// MN-major; dw += dl^T h reads dl and h MN-major. TMA zero-fills boxes
+// past every edge, so any N, V and row count runs; each epilogue works on
+// the f32 accumulators in registers and masks rows and columns past the
+// edge: the logits epilogue forms dl in f32 and casts it to bf16 once, dh
+// stores bf16, dw adds into the f32 buffer. The mainloop is a kernel
+// template over an epilogue class (DlogitsOp, DhOp, DwOp), so the forward
+// can adopt it with an epilogue of row statistics.
+//
+// The 64x64 tile kernels stay for the other shapes: f32 operands on FMAs
+// (mma_tile, 4x4 per thread; TF32 would round them), the exactness path,
+// and bf16 with E not a multiple of 8, which TMA cannot describe, on
+// nvcuda::wmma 16x16x16 fragments (mma_tile_tc). The forward keeps them
+// for now (the mainloop above is the next step there).
 //
 // The choices the TPU kernel's sequential grid does not force on it:
 //   - Row tile x vocab tile. A block per row tile that walked the whole
@@ -35,20 +53,22 @@
 //     are ordered by vocab index, so "first split holding the max" keeps
 //     argmax ties on the smallest index.
 //   - dw ownership. No atomics: the backward recomputes dl for a chunk of
-//     rows into a scratch buffer [rows, V] in the input dtype (the wrapper
-//     sizes the chunk to a memory budget), then ce_gemm_dh writes dh of
-//     those rows and ce_gemm_dw adds the chunk's dl^T h into an f32 dw, each
-//     output tile owned by one block. Chunks run in order on one stream, so
-//     two runs give the same dw bit for bit.
-//   - The vocab tail. V need not be a multiple of the tile (128256 = 2004 x
-//     64 happens to be one); every loader zero-fills beyond the edges and
-//     every epilogue masks columns >= V. No shape falls back.
+//     rows into a scratch buffer [rows, ldl] in the input dtype (ldl = V
+//     rounded up to 8 elements, so every row starts on 16 bytes; the
+//     wrapper sizes the chunk to a memory budget, in whole row tiles), then
+//     dh of those rows is written and the chunk's dl^T h added into an f32
+//     dw, each output tile owned by one block. Chunks run in order on one
+//     stream, so two runs give the same dw bit for bit.
+//   - The vocab tail. V need not be a multiple of the tile; every loader
+//     zero-fills beyond the edges and every epilogue masks columns >= V.
+//     No shape falls back to the plain version.
 
 #include <mma.h>
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace tn {
 namespace {
@@ -362,8 +382,8 @@ struct BwdParams {
   const float* dtl;     // [N]
   void* dh;             // [N, E], input dtype
   float* dw;            // [V, E] f32
-  void* dl;             // [chunk, V] scratch, input dtype
-  int N, E, V;
+  void* dl;             // [chunk, ldl] scratch, input dtype
+  int N, E, V, ldl;
   int c0, rows;         // this chunk: rows [c0, c0 + rows)
   int accumulate;       // dw += (1) or dw = (0)
 };
@@ -404,7 +424,7 @@ __global__ void __launch_bounds__(kThreads) ce_bwd_dlogits(BwdParams p) {
       if (col >= p.V) continue;
       float g = sDlse[rr] * exp2f(acc[i][j] * kLog2e - sLse[rr]);
       if (col == sLab[rr]) g += sDtl[rr];
-      dl[(int64_t)r * p.V + col] = from_f32<T>(g);
+      dl[(int64_t)r * p.ldl + col] = from_f32<T>(g);
     }
   }
 }
@@ -415,7 +435,7 @@ __global__ void __launch_bounds__(kThreads) ce_gemm_dh(BwdParams p) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int n0 = blockIdx.x * kTile;
   const int m0 = blockIdx.y * kTile;
-  const RowLoader<T> a{static_cast<const T*>(p.dl), p.V, p.rows, p.V};
+  const RowLoader<T> a{static_cast<const T*>(p.dl), p.ldl, p.rows, p.V};
   const ColLoader<T> b{static_cast<const T*>(p.w), p.E, p.E, p.V};
   float acc[4][4];
   zero(acc);
@@ -440,7 +460,7 @@ __global__ void __launch_bounds__(kThreads) ce_gemm_dw(BwdParams p) {
   const int n0 = blockIdx.x * kTile;
   const int m0 = blockIdx.y * kTile;
   const T* h = static_cast<const T*>(p.h) + (int64_t)p.c0 * p.E;
-  const ColLoader<T> a{static_cast<const T*>(p.dl), p.V, p.V, p.rows};
+  const ColLoader<T> a{static_cast<const T*>(p.dl), p.ldl, p.V, p.rows};
   const ColLoader<T> b{h, p.E, p.E, p.rows};
   float acc[4][4];
   zero(acc);
@@ -457,6 +477,229 @@ __global__ void __launch_bounds__(kThreads) ce_gemm_dw(BwdParams p) {
       *o = p.accumulate ? *o + acc[i][j] : acc[i][j];
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// backward on Hopper: the TMA + wgmma mainloop and its three epilogues
+// ---------------------------------------------------------------------------
+
+constexpr int kGemmBM = 128, kGemmBN = 256, kGemmBK = 64, kGemmStages = 4;
+constexpr int kGemmThreads = 384;  // warpgroup 0 loads, warpgroups 1 and 2 multiply
+constexpr uint32_t kGemmABytes = kGemmBM * kGemmBK * 2;  // 16 KB
+constexpr uint32_t kGemmBBytes = kGemmBN * kGemmBK * 2;  // 32 KB
+constexpr uint32_t kGemmStageBytes = kGemmABytes + kGemmBBytes;
+constexpr size_t kGemmSmem = kGemmStages * kGemmStageBytes + 2 * kGemmStages * 8 + 1024;
+
+// one k-slab of an operand tile of `rows` M or N indices: K-major as one box
+// {64 k, rows}, MN-major as rows / 64 boxes {64 mn, 64 k}, 8 KB apart
+template <int MN>
+__device__ __forceinline__ void tma_operand(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int rows, int r0, int k0) {
+  if constexpr (MN) {
+    for (int i = 0; i < rows / 64; ++i) tma_load_2d(dst + i * 8192, map, bar, r0 + 64 * i, k0);
+  } else {
+    tma_load_2d(dst, map, bar, k0, r0);
+  }
+}
+
+// the descriptor of k-step ks (16 deep) of an operand tile (hopper.cuh)
+template <int MN>
+__device__ __forceinline__ uint64_t operand_desc(const uint8_t* tile, int ks) {
+  return MN ? wgmma_desc(tile + ks * 2048, 8192, 1024) : wgmma_desc(tile + ks * 32, 16, 1024);
+}
+
+// C[m, n] = sum_k A[m, k] B[n, k] over a 128 x 256 tile, then Op::epilogue
+// on the accumulators. Op gives the operands' majorness (kAmn, kBmn), the
+// tile of this block and the K extent.
+template <class Op>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    ce_bwd_gemm(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_b, const BwdParams p) {
+  extern __shared__ uint8_t gemm_smem[];
+  uint8_t* base = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kGemmStages * kGemmStageBytes);
+  uint64_t* empty = full + kGemmStages;
+  const int wg = threadIdx.x / 128;
+  int m_blk, n_blk;
+  Op::tile(m_blk, n_blk);
+  const int m0 = m_blk * kGemmBM, n0 = n_blk * kGemmBN;
+  const int nk = (Op::k_extent(p) + kGemmBK - 1) / kGemmBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kGemmStages; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // producer: one thread keeps the ring full
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % kGemmStages;
+        mbar_wait(&empty[s], ((k / kGemmStages) & 1) ^ 1);  // the first lap passes
+        mbar_expect_tx(&full[s], kGemmStageBytes);
+        uint8_t* a = base + s * kGemmStageBytes;
+        tma_operand<Op::kAmn>(a, &map_a, &full[s], kGemmBM, m0, k * kGemmBK);
+        tma_operand<Op::kBmn>(a + kGemmABytes, &map_b, &full[s], kGemmBN, n0, k * kGemmBK);
+      }
+    }
+  } else {  // consumers: warpgroup cw multiplies rows [64 cw, 64 cw + 64) of the tile
+    setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    fence_regs(acc);
+    for (int k = 0; k < nk; ++k) {
+      const int s = k % kGemmStages;
+      mbar_wait(&full[s], (k / kGemmStages) & 1);
+      // warpgroup cw's 64 rows: lines 64 cw.. of a K-major A, box cw of an
+      // MN-major one; 8 KB in either layout
+      const uint8_t* a = base + s * kGemmStageBytes + cw * 8192;
+      const uint8_t* b = base + s * kGemmStageBytes + kGemmABytes;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kGemmBK / 16; ++ks)
+        wgmma_m64n256k16<Op::kAmn, Op::kBmn>(acc, operand_desc<Op::kAmn>(a, ks),
+                                             operand_desc<Op::kBmn>(b, ks));
+      wgmma_commit();
+      wgmma_wait<1>();  // slab k - 1's products are done: its slot is free
+      if (k > 0 && (threadIdx.x & 31) == 0) mbar_arrive(&empty[(k - 1) % kGemmStages]);
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    // accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4
+    // (acc[4j], acc[4j + 1]) and + 8 (acc[4j + 2], acc[4j + 3]), at columns
+    // 8 j + 2 (lane % 4) and + 1
+    const int lane = threadIdx.x & 31;
+    Op::epilogue(acc, p, m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2),
+                 n0 + 2 * (lane & 3));
+  }
+}
+
+// dl[r, v] = dlse[r] exp(t[r, v] - lse[r]) + dtl[r] [v == label[r]], in f32,
+// cast to bf16 once; t = h w^T of the chunk's rows. Grid (row tiles, vocab
+// tiles): the blocks in flight share one stretch of w through L2.
+struct DlogitsOp {
+  static constexpr int kAmn = 0, kBmn = 0;
+  __device__ static void tile(int& m, int& n) { m = blockIdx.x; n = blockIdx.y; }
+  __device__ static int k_extent(const BwdParams& p) { return p.E; }
+  __device__ static void epilogue(const float (&acc)[128], const BwdParams& p, int r, int c) {
+    __nv_bfloat16* dl = static_cast<__nv_bfloat16*>(p.dl);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r + 8 * i;
+      if (row >= p.rows) continue;
+      const int gr = p.c0 + row;
+      const int lab = p.labels[gr];
+      const float lse2 = p.lse[gr] * kLog2e, dlse = p.dlse[gr], dtl = p.dtl[gr];
+      __nv_bfloat16* out = dl + (int64_t)row * p.ldl;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = c + 8 * j;  // even; col + 1 <= ldl - 1 whenever col < V
+        if (col >= p.V) continue;
+        float g0 = dlse * exp2f(acc[4 * j + 2 * i] * kLog2e - lse2);
+        float g1 = dlse * exp2f(acc[4 * j + 2 * i + 1] * kLog2e - lse2);
+        if (col == lab) g0 += dtl;
+        if (col + 1 == lab) g1 += dtl;
+        *reinterpret_cast<uint32_t*>(out + col) = pack_bf16x2(g0, g1);
+      }
+    }
+  }
+};
+
+// dh[c0 + r, e] = sum_v dl[r, v] w[v, e]. Grid (E tiles, row tiles).
+struct DhOp {
+  static constexpr int kAmn = 0, kBmn = 1;
+  __device__ static void tile(int& m, int& n) { m = blockIdx.y; n = blockIdx.x; }
+  __device__ static int k_extent(const BwdParams& p) { return p.V; }
+  __device__ static void epilogue(const float (&acc)[128], const BwdParams& p, int r, int c) {
+    __nv_bfloat16* dh = static_cast<__nv_bfloat16*>(p.dh) + (int64_t)p.c0 * p.E;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r + 8 * i;
+      if (row >= p.rows) continue;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = c + 8 * j;  // E is a multiple of 8
+        if (col < p.E)
+          *reinterpret_cast<uint32_t*>(dh + (int64_t)row * p.E + col) =
+              pack_bf16x2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      }
+    }
+  }
+};
+
+// dw[v, e] (+)= sum_r dl[r, v] h[c0 + r, e]. Grid (E tiles, vocab tiles).
+struct DwOp {
+  static constexpr int kAmn = 1, kBmn = 1;
+  __device__ static void tile(int& m, int& n) { m = blockIdx.y; n = blockIdx.x; }
+  __device__ static int k_extent(const BwdParams& p) { return p.rows; }
+  __device__ static void epilogue(const float (&acc)[128], const BwdParams& p, int r, int c) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int v = r + 8 * i;
+      if (v >= p.V) continue;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = c + 8 * j;
+        if (col >= p.E) continue;
+        float2* o = reinterpret_cast<float2*>(p.dw + (int64_t)v * p.E + col);
+        float2 x = make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+        if (p.accumulate) {
+          const float2 y = *o;
+          x.x += y.x;
+          x.y += y.y;
+        }
+        *o = x;
+      }
+    }
+  }
+};
+
+template <class Op>
+cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const BwdParams& p,
+                        dim3 grid, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(ce_bwd_gemm<Op>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kGemmSmem);
+  if (err != cudaSuccess) return err;
+  ce_bwd_gemm<Op><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, b, p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_bwd_wgmma(BwdParams p, int chunk, cudaStream_t stream) {
+  const auto* h = static_cast<const __nv_bfloat16*>(p.h);
+  CUtensorMap w_k, w_mn;  // w read K-major (logits) and MN-major (dh)
+  if (!bf16_tensor_map(&w_k, p.w, p.E, p.V, p.E, 64, kGemmBN) ||
+      !bf16_tensor_map(&w_mn, p.w, p.E, p.V, p.E, 64, 64))
+    return cudaErrorInvalidValue;
+  const int vt_m = (p.V + kGemmBM - 1) / kGemmBM, vt_n = (p.V + kGemmBN - 1) / kGemmBN;
+  const int et_n = (p.E + kGemmBN - 1) / kGemmBN;
+  for (int c0 = 0; c0 < p.N; c0 += chunk) {
+    p.c0 = c0;
+    p.rows = min(chunk, p.N - c0);
+    p.accumulate = c0 > 0;
+    // the chunk's rows only: boxes past them read zeros, never the stale
+    // dl rows of an earlier, longer chunk
+    CUtensorMap h_k, h_mn, dl_k, dl_mn;
+    const __nv_bfloat16* hc = h + (int64_t)c0 * p.E;
+    if (!bf16_tensor_map(&h_k, hc, p.E, p.rows, p.E, 64, kGemmBM) ||
+        !bf16_tensor_map(&h_mn, hc, p.E, p.rows, p.E, 64, 64) ||
+        !bf16_tensor_map(&dl_k, p.dl, p.V, p.rows, p.ldl, 64, kGemmBM) ||
+        !bf16_tensor_map(&dl_mn, p.dl, p.V, p.rows, p.ldl, 64, 64))
+      return cudaErrorInvalidValue;
+    const int rt = (p.rows + kGemmBM - 1) / kGemmBM;
+    cudaError_t err = launch_gemm<DlogitsOp>(h_k, w_k, p, dim3(rt, vt_n), stream);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm<DhOp>(dl_k, w_mn, p, dim3(et_n, rt), stream);
+    if (err != cudaSuccess) return err;
+    err = launch_gemm<DwOp>(dl_mn, h_mn, p, dim3(et_n, vt_m), stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
@@ -514,13 +757,22 @@ extern "C" int tn_ce_fwd(const void* h, const void* w, const int* labels,
 extern "C" int tn_ce_bwd(const void* h, const void* w, const int* labels,
                          const float* lse, const float* dlse, const float* dtl,
                          void* dh, float* dw, void* dl_scratch,
-                         int N, int E, int V, int chunk, int dtype, void* stream) {
+                         int N, int E, int V, int chunk, int ldl, int dtype, int mainloop,
+                         void* stream) {
   const int vtiles = (V + tn::kTile - 1) / tn::kTile;
-  if (N <= 0 || E <= 0 || V <= 0 || chunk <= 0 || vtiles > 65535 ||
+  if (N <= 0 || E <= 0 || V <= 0 || chunk <= 0 || ldl < V || vtiles > 65535 ||
       (chunk + tn::kTile - 1) / tn::kTile > 65535)
     return (int)cudaErrorInvalidValue;
-  tn::BwdParams p{h, w, labels, lse, dlse, dtl, dh, dw, dl_scratch, N, E, V, 0, 0, 0};
+  tn::BwdParams p{h, w, labels, lse, dlse, dtl, dh, dw, dl_scratch, N, E, V, ldl, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mainloop == 1) {  // TMA + wgmma: bf16, rows of h, w and dl on 16 bytes
+    const bool aligned = ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w) |
+                           reinterpret_cast<uintptr_t>(dl_scratch)) & 15) == 0;
+    if (dtype != tn::kBFloat16 || E % 8 != 0 || ldl % 8 != 0 || !aligned)
+      return (int)cudaErrorInvalidValue;
+    return (int)tn::launch_bwd_wgmma(p, chunk, st);
+  }
+  if (mainloop != 0) return (int)cudaErrorInvalidValue;
   if (dtype == tn::kBFloat16) return (int)tn::launch_bwd<__nv_bfloat16>(p, chunk, st);
   if (dtype == tn::kFloat32) return (int)tn::launch_bwd<float>(p, chunk, st);
   return (int)cudaErrorInvalidValue;

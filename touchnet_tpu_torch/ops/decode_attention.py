@@ -3,10 +3,12 @@
 #
 # Port of touchnet_tpu/ops/decode_attention.py. The Pallas kernel _kernel
 # (:85) becomes a hand-written CUDA split-KV decode, csrc/
-# decode_attention.cu; its source note says what bounds it on Hopper and
-# what the design does about that. The TPU kernel's host-side block table
-# (live_block_map, block_geometry) has no counterpart: each CUDA block maps
-# the row's live intervals onto cache columns itself.
+# decode_attention.cu (bf16: a cp.async ring feeding mma.sync; f32: FMAs);
+# its source note says what bounds it on Hopper and what the design does
+# about that. The TPU kernel's host-side block table (live_block_map,
+# block_geometry) has no counterpart: split_plan gives every split the same
+# budget of live columns, and each CUDA block maps its share of the row's
+# live intervals onto cache columns itself (split_columns says which).
 #
 # The cache is the packed [L, B, Hkv, S, 2D] buffer of
 # models/llama/inference_llama.KVCache: K in [0, D), V in [D, 2D). Column c
@@ -16,7 +18,7 @@
 
 import functools
 import math
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -27,8 +29,9 @@ NEG_INF = -1e30
 DECODE_BLOCK = 512
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16  # query heads per kv head (csrc/decode_attention.cu kMaxG)
-_BLOCKS_PER_SM = 4
-_MIN_SPLIT_COLS = 128
+SPLIT_ALIGN = 64  # the bf16 kernel's ring tile (csrc kCols): a split's budget is whole tiles
+_SPLIT_BLOCKS_PER_SM = 16  # blocks the grid would hold on each SM if every column were live
+_MIN_SPLIT_COLS = 256
 
 
 def decode_attention_reference(
@@ -61,11 +64,33 @@ def decode_attention_reference(
     return out.reshape(B, H, D).to(q.dtype)
 
 
-def num_splits(batch: int, n_kv_heads: int, seq: int, sm_count: int) -> int:
-    """KV splits per (row, kv head): enough blocks for _BLOCKS_PER_SM on
-    every SM, but no split shorter than _MIN_SPLIT_COLS cache columns."""
-    want = -(-(_BLOCKS_PER_SM * sm_count) // (batch * n_kv_heads))
-    return max(1, min(want, seq // _MIN_SPLIT_COLS))
+def split_plan(batch: int, n_kv_heads: int, seq: int, sm_count: int) -> Tuple[int, int]:
+    """(cols_per_split, nsplit) of the kernel's grid, from shapes alone (no
+    host sync on prompt_len): every split of a (row, kv head) streams at
+    most cols_per_split live columns, a multiple of SPLIT_ALIGN and at least
+    _MIN_SPLIT_COLS; nsplit splits cover a full row of `seq` columns, and
+    are enough for _SPLIT_BLOCKS_PER_SM blocks on every SM if every column
+    were live. A split that starts past its row's live count exits at once,
+    so blocks stream about the same bytes whatever the prompt lengths."""
+    want = -(-(_SPLIT_BLOCKS_PER_SM * sm_count) // (batch * n_kv_heads))
+    cols = -(-max(seq, 1) // want)
+    cols = max(_MIN_SPLIT_COLS, -(-cols // SPLIT_ALIGN) * SPLIT_ALIGN)
+    return cols, -(-max(seq, 1) // cols)
+
+
+def split_columns(prompt_len: int, seq: int, base: int, last: int,
+                  cols_per_split: int, split: int) -> List[int]:
+    """The cache columns that block `split` of a row reads, in order: the
+    kernel's own arithmetic (csrc LiveRange). The row's live set is the
+    virtual range [0, n): j < plen is column j, j >= plen is column
+    max(base, plen) + (j - plen); the split reads [split * cols_per_split,
+    (split + 1) * cols_per_split) of it."""
+    plen = min(max(prompt_len, 0), seq)
+    bstart = max(base, plen)
+    n = plen + max(min(last + 1, seq) - bstart, 0)
+    j0 = split * cols_per_split
+    return [j if j < plen else bstart + (j - plen)
+            for j in range(j0, min(n, j0 + cols_per_split))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,8 +145,10 @@ def decode_attention(
     plen = prompt_len.to(device=q.device, dtype=torch.int32).contiguous()
     if tuple(plen.shape) != (B,):
         raise ValueError(f"prompt_len of shape {tuple(plen.shape)}, expected ({B},)")
+    if (q.data_ptr() | kv_cache.data_ptr()) % 16:
+        raise ValueError("decode_attention: q and the cache must start on 16 bytes")
     lib = _build.load_library()
-    nsplit = num_splits(B, Hkv, S, _sm_count(q.device.index))
+    cols, nsplit = split_plan(B, Hkv, S, _sm_count(q.device.index))
     out = torch.empty_like(q)
     # the splits' partials, f32, as contiguous slices of one allocation:
     # acc [B, H, nsplit, D], then m and l [B, H, nsplit] each
@@ -134,7 +161,7 @@ def decode_attention(
             q.data_ptr(), layer_ptr, plen.data_ptr(), out.data_ptr(),
             part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             B, H, Hkv, S, D, _build.DTYPE_CODES[q.dtype], int(base), int(last),
-            nsplit, float(scale), torch.cuda.current_stream().cuda_stream,
+            nsplit, cols, float(scale), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "decode_attention")
     decode_attention.launches += 1

@@ -3,7 +3,9 @@
 #
 # Port of touchnet_tpu/ops/fused_ce.py. The Pallas kernels _fwd_kernel (:86)
 # and _bwd_kernel (:175) become csrc/fused_ce.cu; its source note says what
-# bounds it on Hopper and how it tiles rows and vocab. Beside it:
+# bounds it on Hopper and how it tiles rows and vocab. bwd_plan chooses the
+# backward's mainloop by shape (bf16 with E a multiple of 8: TMA + wgmma;
+# other bf16: wmma tiles; f32: FMA tiles). Beside it:
 #   - _rows_reference: the plain PyTorch version (:287-301), which
 #     materialises the [N, V] f32 logits;
 #   - _rows_backward_reference: the plain backward (:337-347);
@@ -12,7 +14,7 @@
 #     on what the kernels do not take. Unlike the JAX wrapper there is no
 #     shape the kernel declines: it masks a ragged vocab tail itself.
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -20,9 +22,10 @@ from touchnet_tpu_torch.ops import _build
 
 LOG2E = 1.4426950408889634
 # the backward recomputes dl for this many rows at a time into a scratch
-# [rows, V] buffer of the input dtype; the budget bounds that buffer
+# [rows, dl_stride(V)] buffer of the input dtype; the budget bounds that buffer
 DL_SCRATCH_BYTES = 2 * 2**30
-_TILE = 64
+_TILE = 64  # the forward's and the 64x64 backward kernels' row tile
+WGMMA_ROW_TILE = 128  # the TMA + wgmma backward's row tile (csrc kGemmBM)
 _sm_count = {}
 
 
@@ -112,11 +115,41 @@ def fused_ce_fwd(h, w, labels) -> tuple:
 fused_ce_fwd.launches = 0
 
 
-def bwd_chunk_rows(N: int, V: int, itemsize: int) -> int:
+def bwd_chunk_rows(N: int, V: int, itemsize: int, row_tile: int = _TILE) -> int:
     """Rows per dl chunk of the backward: the most whole row tiles whose
     [rows, V] scratch fits DL_SCRATCH_BYTES, and no more than N needs."""
-    chunk = max(_TILE, DL_SCRATCH_BYTES // (V * itemsize) // _TILE * _TILE)
-    return min(chunk, -(-N // _TILE) * _TILE)
+    chunk = max(row_tile, DL_SCRATCH_BYTES // (V * itemsize) // row_tile * row_tile)
+    return min(chunk, -(-N // row_tile) * row_tile)
+
+
+def dl_stride(V: int) -> int:
+    """The dl scratch's row stride: V rounded up to 8 elements, so every row
+    starts on 16 bytes (TMA's rule) whatever V is."""
+    return -(-V // 8) * 8
+
+
+class BwdPlan(NamedTuple):
+    mainloop: str  # "wgmma" (TMA + wgmma), "wmma" or "fma" (64x64 tiles)
+    row_tile: int
+    chunk: int  # rows per dl chunk, whole row tiles
+    ldl: int  # the dl scratch's row stride
+
+
+def bwd_plan(N: int, E: int, V: int, dtype: torch.dtype) -> BwdPlan:
+    """How K3's backward runs for this shape: bf16 whose rows TMA can
+    describe (E a multiple of 8 elements, so 16-byte rows) takes the TMA +
+    wgmma mainloop in 128-row tiles; other bf16 the wmma tiles and f32 the
+    FMA tiles, 64 rows each."""
+    if dtype == torch.bfloat16:
+        mainloop = "wgmma" if E % 8 == 0 else "wmma"
+    elif dtype == torch.float32:
+        mainloop = "fma"
+    else:
+        raise ValueError(f"fused_ce_bwd: dtype {dtype}: bf16 or f32")
+    row_tile = WGMMA_ROW_TILE if mainloop == "wgmma" else _TILE
+    ldl = dl_stride(V)
+    itemsize = torch.finfo(dtype).bits // 8
+    return BwdPlan(mainloop, row_tile, bwd_chunk_rows(N, ldl, itemsize, row_tile), ldl)
 
 
 def fused_ce_bwd(h, w, labels, lse, dlse, dtl) -> tuple:
@@ -128,8 +161,10 @@ def fused_ce_bwd(h, w, labels, lse, dlse, dtl) -> tuple:
     V = w.shape[0]
     labels = labels.to(torch.int32).contiguous()
     lse, dlse, dtl = (x.float().contiguous() for x in (lse, dlse, dtl))
-    chunk = bwd_chunk_rows(N, V, h.element_size())
-    dl = torch.empty((chunk, V), dtype=h.dtype, device=h.device)
+    plan = bwd_plan(N, E, V, h.dtype)
+    if plan.mainloop == "wgmma" and (h.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError("fused_ce_bwd: bf16 h and w must start on 16 bytes")
+    dl = torch.empty((plan.chunk, plan.ldl), dtype=h.dtype, device=h.device)
     dh = torch.empty_like(h)
     dw = torch.empty((V, E), dtype=torch.float32, device=h.device)
     lib = _build.load_library()
@@ -138,8 +173,8 @@ def fused_ce_bwd(h, w, labels, lse, dlse, dtl) -> tuple:
             h.data_ptr(), w.data_ptr(), labels.data_ptr(),
             lse.data_ptr(), dlse.data_ptr(), dtl.data_ptr(),
             dh.data_ptr(), dw.data_ptr(), dl.data_ptr(),
-            N, E, V, chunk, _build.DTYPE_CODES[h.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            N, E, V, plan.chunk, plan.ldl, _build.DTYPE_CODES[h.dtype],
+            int(plan.mainloop == "wgmma"), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "fused_ce_bwd")
     fused_ce_bwd.launches += 1
