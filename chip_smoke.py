@@ -6,6 +6,7 @@
     python3 chip_smoke.py --profile    # only the step profile (profile_training)
     python3 chip_smoke.py --faults     # faulty kernel copies must fail (check_faults)
     python3 chip_smoke.py --tune       # K3/K4 registers, and times their design variants
+                                       # (K3 forward: splits, raster group, ring depth)
 
 Phases, one or more lines each; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
@@ -30,9 +31,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      time so its f32 scores fit);
   7. K3 (fused lm-head + cross-entropy, forward and backward) against its
      plain versions at the training shape's vocab, and at phase 8's own
-     N = 16384 rows, where the backward accumulates dw over two dl row
-     chunks (an f32 case forces four), and two backward runs against each
-     other bit for bit;
+     N = 16384 rows, where the forward's blocks walk vocab splits of 14
+     tiles and the backward accumulates dw over two dl row chunks (an f32
+     case forces four); argmax ties in f32 and in bf16 (the TMA + wgmma
+     forward: two lanes of a quad, two tiles of a split, two splits), and
+     two backward runs against each other bit for bit;
   8. the training slice: bin.train.main, the port's trainer, takes 10
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) on TouchDataset shards
@@ -58,8 +61,9 @@ the decode case), with every timed case under "cases":
     K2, the same over a copy of each row's live cache columns for K4 (the
     copy made outside the timed window), none for K3. Before it is timed
     its output is held to the kernel's under the bf16 limits; a mismatch
-    fails the run as the yardstick's fault. K3's backward adds gemm_ms
-    (gemm_yardstick), informational.
+    fails the run as the yardstick's fault. K3 adds gemm_ms, informational:
+    cuBLAS bf16 h w^T over the same rows for the forward, the three
+    products (gemm_yardstick) for the backward.
 
 Tolerances on the card, each against the plain version on the same inputs:
   - bf16 kernels vs the plain version run in f32 on the same bf16-rounded
@@ -762,15 +766,19 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
     print("[7] K3 fused_ce fwd/bwd vs _rows_reference / _rows_backward_reference")
     rows = {}
 
-    def case(name, N, E, V, dtype, tie=False, timed=False, chunk_rows=None, min_chunks=1):
+    def case(name, N, E, V, dtype, tie=(), timed=False, chunk_rows=None, min_chunks=1):
         saved = fused_ce.DL_SCRATCH_BYTES
         if chunk_rows:  # a smaller dl scratch: the backward runs in row chunks
             fused_ce.DL_SCRATCH_BYTES = chunk_rows * fused_ce.dl_stride(V) * \
                 torch.finfo(dtype).bits // 8
         plan = fused_ce.bwd_plan(N, E, V, dtype)
+        fplan = fused_ce.fwd_plan(N, E, V, dtype, torch.cuda.get_device_properties(dev)
+                                  .multi_processor_count)
         chunks = -(-N // plan.chunk)
         ok = chunks >= min_chunks
-        print(f"  {name}: backward on the {plan.mainloop} mainloop in {chunks} dl row "
+        print(f"  {name}: forward on the {fplan.mainloop} mainloop, {fplan.splits} vocab "
+              f"splits of {fused_ce.split_run(fplan, V, 0)[1]} {fplan.col_tile}-column tiles; "
+              f"backward on the {plan.mainloop} mainloop in {chunks} dl row "
               f"chunk(s) of {plan.chunk} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} chunks")
@@ -784,10 +792,10 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
         w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(dtype)
         labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
         labels[::9] = -100
-        if tie:  # rows 5 and V-1 of w equal and dominant for every row
+        if tie:  # the rows of w in `tie` equal and dominant for every row
             h[:, 0] = 4.0
-            w[5] = w[V - 1] = 0.0
-            w[5, 0] = w[V - 1, 0] = 8.0
+            w[list(tie)] = 0.0
+            w[list(tie), 0] = 8.0
         lse, tl, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
         torch.cuda.synchronize()
         want = fused_ce._rows_reference(h, w, labels)
@@ -800,9 +808,10 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
             if not ok:
                 failures.append(f"{name} {n}")
         agree = (ai == want[3]).float().mean().item()
-        ok = (ai == 5).all().item() if tie else agree >= ARGMAX_AGREE
+        ok = (ai == min(tie)).all().item() if tie else agree >= ARGMAX_AGREE
         print(f"  {name} argmax: agreement {agree:.5f}"
-              f"{' (tie: all rows pick index 5)' if tie else ''} {'ok' if ok else 'FAIL'}")
+              f"{f' (tie of {tie}: all rows pick {min(tie)})' if tie else ''} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} argmax")
         del want
@@ -838,6 +847,12 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
                                        nbytes(h, w, labels, lse, dlse, dtl) + grad_bytes),
                                  card)}
             if dtype == torch.bfloat16:
+                t = torch.empty((N, V), dtype=dtype, device=dev)
+                gemm = time_ms(lambda: torch.matmul(h, w.t(), out=t))
+                del t
+                rows[name]["fwd"]["gemm_ms"] = gemm
+                print(f"  {name} fwd: gemm_ms {gemm:.3f} (cuBLAS bf16 h w^T over the same rows, "
+                      f"no epilogue; informational, not a library_ms)  [{card}]")
                 gemm = time_ms(gemm_yardstick(h, w, chunk), 3, 1)
                 rows[name]["bwd"]["gemm_ms"] = gemm
                 print(f"  {name} bwd: gemm_ms {gemm:.3f} (cuBLAS bf16 on the three products' "
@@ -848,7 +863,12 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
     case("(a) N4096 E2048 V128256 bf16", 4096, 2048, 128256, torch.bfloat16, timed=True)
     case("(b) N2048 E2048 V128256 f32, 576-row dl chunks", 2048, 2048, 128256,
          torch.float32, chunk_rows=576, min_chunks=4)
-    case("(c) argmax tie N256 E2048 V128256 f32", 256, 2048, 128256, torch.float32, tie=True)
+    case("(c) argmax tie N256 E2048 V128256 f32", 256, 2048, 128256, torch.float32,
+         tie=(5, 128255))
+    # columns 5 and 7 lie in two lanes of a quad, 261 in the next tile of
+    # the same split, 128255 in the last split
+    case("(c) argmax tie N256 E2048 V128256 bf16", 256, 2048, 128256, torch.bfloat16,
+         tie=(7, 5, 261, 128255))
     case("(d) main path: N16384 E2048 V128256 bf16", 16384, 2048, 128256, torch.bfloat16,
          timed=True, min_chunks=2)
     return rows
@@ -1042,13 +1062,20 @@ def run_training(dev, card, failures, tmp: Path):
 
 
 # device kernels of a step, by the part of the port that launches them (the
-# first group whose key a kernel's name holds; K3's come before cuBLAS's)
+# first group whose key a kernel's name holds; K3's come before cuBLAS's).
+# Both directions of K3 run the mainloop ce_gemm<Op>: its epilogue class,
+# which the demangled name holds, says which.
 PROFILE_GROUPS = (("K1", ("flash_fwd",)), ("K2", ("dkv_", "dq_mma", "dq_kernel", "delta_kernel")),
-                  ("K3 fwd", ("ce_fwd",)),
-                  ("K3 bwd, TMA + wgmma mainloop (ce_bwd_gemm)", ("ce_bwd_gemm",)),
+                  ("K3 fwd", ("ce_fwd", "RowStatsOp")),
+                  ("K3 bwd, TMA + wgmma mainloop (ce_gemm)", ("DlogitsOp", "DhOp", "DwOp")),
                   ("K3 bwd, 64x64 tiles", ("ce_bwd_dlogits", "ce_gemm_")),
                   ("cuBLAS", ("gemm", "nvjet", "cutlass", "xmma", "sm90_")),
                   ("copies", ("Memcpy", "Memset")))
+
+
+def profile_group(kernel: str) -> str:
+    return next((g for g, keys in PROFILE_GROUPS if any(k in kernel for k in keys)),
+                "elementwise and other")
 
 
 def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
@@ -1096,8 +1123,7 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     total = sum(by_name.values())
     groups = {}
     for name, us in by_name.items():
-        g = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)),
-                 "elementwise and other")
+        g = profile_group(name)
         groups[g] = groups.get(g, 0) + us
     print(f"[profile] {steps} steps at 1x{TRAIN_T} bf16 remat full after {warmup} warmups: "
           f"{wall_us / steps / 1e3:.1f} ms/step under the profiler, {len(kernels) // steps} "
@@ -1138,10 +1164,14 @@ FAULTS = (
      "K4"),
     ("K3 bwd without the dtl term", "fused_ce.cu",
      "if (col == lab) g0 += dtl;\n        if (col + 1 == lab) g1 += dtl;", "", "K3"),
-    ("K3 bwd with a wrong swizzle (TMA tiles unswizzled, wgmma reads them swizzled)",
+    ("K3 fwd and bwd with a wrong swizzle (TMA tiles unswizzled, wgmma reads them swizzled)",
      "hopper.cuh", "CU_TENSOR_MAP_SWIZZLE_128B,", "CU_TENSOR_MAP_SWIZZLE_NONE,", "K3"),
     ("K3 bwd with the MN-major descriptor's LBO and SBO swapped", "fused_ce.cu",
      "wgmma_desc(tile + ks * 2048, 8192, 1024)", "wgmma_desc(tile + ks * 2048, 1024, 8192)", "K3"),
+    ("K3 fwd whose lane merge takes the larger index on a tie", "fused_ce.cu",
+     "(mo == m && ao < ai)", "(mo == m && ao > ai)", "K3"),
+    ("K3 fwd without the rescale of the running sum to a new max", "fused_ce.cu",
+     "l[i] = l[i] * exp2f((m[i] - mn) * kLog2e) + sum;", "l[i] = l[i] + sum;", "K3"),
 )
 
 
@@ -1178,7 +1208,9 @@ def check_faults(_build, dev, card) -> int:
 
 
 # the design choices --tune measures: K4's ring depth (with its split
-# budget) and K3 backward's ring depth, epilogue exponential and grid order
+# budget); K3's mainloop ring depth (both directions), the dlogits
+# epilogue's exponential and grid order (source edits); and K3 forward's
+# vocab splits and raster group at N16384 (plan fields, no rebuild)
 K4_TUNE_STAGES = (3, 4, 6, 6, 4, 3)  # twice, in mirrored order: the spread shows
 K4_TUNE_BLOCKS_PER_SM = (8, 16, 32)
 K3_TUNE = {
@@ -1188,9 +1220,17 @@ K3_TUNE = {
         ("fused_ce.cu", "float g0 = dlse * exp2f(", "float g0 = dlse * fast_exp2("),
         ("fused_ce.cu", "float g1 = dlse * exp2f(", "float g1 = dlse * fast_exp2(")],
     "dlogits grid with vocab tiles fastest": [
-        ("fused_ce.cu", "static void tile(int& m, int& n) { m = blockIdx.x; n = blockIdx.y; }",
-         "static void tile(int& m, int& n) { m = blockIdx.y; n = blockIdx.x; }"),
+        ("fused_ce.cu", "return {(int)blockIdx.x, (int)blockIdx.y, 1}; }",
+         "return {(int)blockIdx.y, (int)blockIdx.x, 1}; }"),
         ("fused_ce.cu", "dim3(rt, vt_n)", "dim3(vt_n, rt)")],
+}
+K3_FWD_PLANS = {  # fields of fused_ce.FwdPlan replaced in the committed plan
+    "committed plan": {},
+    "32 splits of 16 tiles": {"splits": 32},
+    "9 splits of 56 tiles": {"splits": 9},
+    "72 splits of 7 tiles": {"splits": 72},
+    "raster group 128 (row tiles fastest over the whole grid)": {"group": 128},
+    "raster group 8": {"group": 8},
 }
 
 
@@ -1214,9 +1254,9 @@ def ptxas_report(_build, sources=("decode_attention.cu", "fused_ce.cu")) -> None
 def tune(_build, dev, card) -> int:
     """`python3 chip_smoke.py --tune`: the kernels' registers (ptxas_report),
     then times the variants above at the main paths' shapes (K4 case (a),
-    K3 backward at N16384), each built with variant_library, in one process
-    on one card; prints each variant's median ms and whether it gives the
-    committed variant's bits."""
+    K3 forward and backward at N16384), each source variant built with
+    variant_library, in one process on one card; prints each variant's
+    median ms and whether it gives the committed variant's bits."""
     from touchnet_tpu_torch.ops import decode_attention as dec
     from touchnet_tpu_torch.ops import fused_ce
 
@@ -1261,11 +1301,30 @@ def tune(_build, dev, card) -> int:
     for name, edits in K3_TUNE.items():
         with variant_library(_build, edits):
             out = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, -dlse)
-            ref = out if ref is None else ref
-            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            fwd = fused_ce.fused_ce_fwd(h, w, labels)
+            ref = (out, fwd) if ref is None else ref
+            same = all(torch.equal(a, b) for a, b in zip(out, ref[0]))
+            same_f = all(torch.equal(a, b) for a, b in zip(fwd, ref[1]))
             ms = time_ms(lambda: fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, -dlse), 5)
-            print(f"[tune] K3 bwd N{N} E{E} V{V}, {name}: {ms:.3f} ms; same bits as the "
-                  f"committed variant: {same}  [{card}]")
+            fms = time_ms(lambda: fused_ce.fused_ce_fwd(h, w, labels))
+            print(f"[tune] K3 N{N} E{E} V{V}, {name}: bwd {ms:.3f} ms, fwd {fms:.3f} ms; same "
+                  f"bits as the committed variant: bwd {same}, fwd {same_f}  [{card}]")
+    real = fused_ce.fwd_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = list(K3_FWD_PLANS.items())
+    for name, fields in plans + plans[::-1]:  # twice, in mirrored order
+        plan = real(N, E, V, torch.bfloat16, sms)._replace(**fields)
+        fused_ce.fwd_plan = lambda *a: plan
+        try:
+            out = fused_ce.fused_ce_fwd(h, w, labels)
+            ms = time_ms(lambda: fused_ce.fused_ce_fwd(h, w, labels))
+        finally:
+            fused_ce.fwd_plan = real
+        diff = max((a - b).abs().max().item() for a, b in zip(out[:3], ref[1][:3]))
+        print(f"[tune] K3 fwd N{N} E{E} V{V}, {name} ({plan.splits} splits of "
+              f"{fused_ce.split_run(plan, V, 0)[1]} tiles, raster group {plan.group}): "
+              f"{ms:.3f} ms; statistics within {diff:.2e} of the committed plan's, argmax "
+              f"equal: {torch.equal(out[3], ref[1][3])}  [{card}]")
     return 0
 
 
@@ -1338,9 +1397,10 @@ def main() -> int:
             "touchnet_tpu/ops/attention.py:269", counts["K1"], k1, "(d)"),
         row("flash_attention_bwd (K2: delta, dkv, dq)", "flash_attention_bwd.cu",
             "touchnet_tpu/ops/attention.py:778", counts["K2"], k2, "(d)"),
-        row("fused_ce_fwd (K3 forward)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
+        row("fused_ce_fwd (K3 forward: TMA + wgmma mainloop, ce_gemm<RowStatsOp>, and the "
+            "combine)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
             counts["K3 fwd"], {n: v["fwd"] for n, v in k3.items()}, "(d)"),
-        row("fused_ce_bwd (K3 backward: TMA + wgmma mainloop, ce_bwd_gemm)", "fused_ce.cu",
+        row("fused_ce_bwd (K3 backward: TMA + wgmma mainloop, ce_gemm)", "fused_ce.cu",
             "touchnet_tpu/ops/fused_ce.py:175", counts["K3 bwd"],
             {n: v["bwd"] for n, v in k3.items()}, "(d)"),
         row("flash_decode (K4: cp.async ring into mma.sync, decode_mma_kernel, and the "

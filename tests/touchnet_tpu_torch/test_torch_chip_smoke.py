@@ -104,3 +104,29 @@ def test_fault_and_tune_edits_match_the_kernel_sources():
     edits.append(("decode_attention.cu", "static constexpr int kStages = 3;"))
     for fname, right in edits:
         assert right in text(fname), (fname, right)
+
+
+_NS = "tn::(anonymous namespace)::"
+
+
+@pytest.mark.parametrize("kernel,group", [
+    (f"void {_NS}ce_gemm<{_NS}RowStatsOp>(CUtensorMap_st, CUtensorMap_st, {_NS}FwdParams)",
+     "K3 fwd"),
+    (f"void {_NS}ce_fwd_combine({_NS}FwdParams)", "K3 fwd"),
+    (f"void {_NS}ce_fwd_partial<__nv_bfloat16>({_NS}FwdParams)", "K3 fwd"),
+    (f"void {_NS}ce_gemm<{_NS}DlogitsOp>(CUtensorMap_st, CUtensorMap_st, {_NS}BwdParams)",
+     "K3 bwd, TMA + wgmma mainloop (ce_gemm)"),
+    (f"void {_NS}ce_gemm<{_NS}DhOp>(CUtensorMap_st, CUtensorMap_st, {_NS}BwdParams)",
+     "K3 bwd, TMA + wgmma mainloop (ce_gemm)"),
+    (f"void {_NS}ce_gemm<{_NS}DwOp>(CUtensorMap_st, CUtensorMap_st, {_NS}BwdParams)",
+     "K3 bwd, TMA + wgmma mainloop (ce_gemm)"),
+    (f"void {_NS}ce_bwd_dlogits<float>({_NS}BwdParams)", "K3 bwd, 64x64 tiles"),
+    (f"void {_NS}ce_gemm_dw<__nv_bfloat16>({_NS}BwdParams)", "K3 bwd, 64x64 tiles"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_TNT", "cuBLAS"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "elementwise and other"),
+])
+def test_profile_groups_of_the_k3_kernels(kernel, group):
+    """--profile's groups by demangled kernel name: both directions of K3
+    run ce_gemm<Op>, so the epilogue class decides, ahead of cuBLAS's
+    "gemm"."""
+    assert chip_smoke.profile_group(kernel) == group

@@ -137,3 +137,47 @@ def test_bwd_chunks_are_whole_row_tiles(N, monkeypatch):
     assert plan.chunk * plan.ldl * 2 <= ce.DL_SCRATCH_BYTES
     assert -(-N // plan.chunk) * plan.chunk >= N
     assert plan.chunk == min(896, -(-N // 128) * 128)
+
+
+@pytest.mark.parametrize("N,E,V,dtype,want", [
+    # the training path: TMA + wgmma, 128 x 256 tiles, 36 splits of 14 tiles
+    # (35 waves of 132 blocks), raster groups of 32 row tiles (16 MB of h)
+    (16384, 2048, 128256, torch.bfloat16, ("wgmma", 128, 256, 36, 32)),
+    (300, 2048, 128256, torch.bfloat16, ("wgmma", 128, 256, 84, 3)),
+    (1000, 64, 4099, torch.bfloat16, ("wgmma", 128, 256, 17, 8)),
+    # E not a multiple of 8: TMA cannot describe the rows, the wmma tiles run
+    (1000, 36, 4099, torch.bfloat16, ("wmma", 64, 64, 65, 16)),
+    (100, 64, 4099, torch.float32, ("fma", 64, 64, 65, 2)),
+    (16384, 2048, 128256, torch.float32, ("fma", 64, 64, 9, 256)),
+])
+def test_fwd_plan(N, E, V, dtype, want):
+    """Which mainloop the forward takes for a (dtype, E), its tile, its
+    vocab splits and raster group on a 132-SM card."""
+    assert tuple(ce.fwd_plan(N, E, V, dtype, 132)) == want
+
+
+def test_fwd_plan_refuses_other_dtypes():
+    with pytest.raises(ValueError):
+        ce.fwd_plan(64, 64, 64, torch.float16, 132)
+
+
+@pytest.mark.parametrize("V", [64, 4099, 128256, 151936])
+@pytest.mark.parametrize("N", [1, 300, 16384])
+def test_fwd_splits_cover_the_vocab(N, V):
+    """The TMA + wgmma forward's grid as the kernel computes it (split_run,
+    fwd_block): every (row tile, split) has one block, no split is empty,
+    every 256-column tile lies in exactly one split, and the columns left
+    after masking those >= V are exactly [0, V)."""
+    plan = ce.fwd_plan(N, 2048, V, torch.bfloat16, 132)
+    row_tiles, tiles = -(-N // 128), -(-V // 256)
+    runs = [ce.split_run(plan, V, s) for s in range(plan.splits)]
+    assert all(count >= 1 for _, count in runs)
+    walked = [t for first, count in runs for t in range(first, first + count)]
+    assert walked == list(range(tiles))  # once each, splits in vocab order
+    cols = [c for t in walked for c in range(t * 256, (t + 1) * 256) if c < V]
+    assert cols == list(range(V)) and 0 < V - (tiles - 1) * 256 <= 256
+    blocks = [ce.fwd_block(plan, N, b) for b in range(row_tiles * plan.splits)]
+    assert sorted(blocks) == [(r, s) for r in range(row_tiles) for s in range(plan.splits)]
+    # the blocks in flight (one per SM) hold one raster group's rows, unless
+    # the vocab has fewer tiles than that takes splits
+    assert len({r for r, _ in blocks[:132]}) <= max(plan.group, -(-132 // tiles))

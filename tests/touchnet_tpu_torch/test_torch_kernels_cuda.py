@@ -7,8 +7,10 @@
 # GQA groups, masks and offsets.
 #
 # K4's bf16 kernel streams the cache through a cp.async ring into mma.sync;
-# K3's bf16 backward runs on a TMA + wgmma mainloop where E is a multiple
-# of 8 (the cases below cover both of its sides and the kept wmma tiles).
+# K3's bf16 forward and backward run on a TMA + wgmma mainloop where E is a
+# multiple of 8 (the cases below cover both of its sides and the kept wmma
+# tiles); the forward's blocks walk vocab splits of several tiles, which
+# the tests force at small shapes.
 #
 # Tolerances: bf16 kernels are held to the plain version run in f32 on the
 # same bf16-rounded inputs (max abs 2e-2, mean abs 2e-3 on out at unit-scale
@@ -363,7 +365,8 @@ def test_fused_ce_kernel(dev, dtype, N, E, V):
     """K3 forward and backward against the plain versions on the same
     inputs: ragged row tiles (N not a multiple of 64 or 128) and a ragged
     vocab tail, ignored and out-of-range labels; bf16 takes the TMA + wgmma
-    backward where E is a multiple of 8 and the wmma tiles at E 36; the
+    forward and backward where E is a multiple of 8 and the wmma tiles at
+    E 36; the
     training path's E and V at a few hundred rows, with w at the model's
     init scale (0.02, as chip_smoke.py), so |lse| ~ 12 as in training."""
     h, w, labels = _ce_case(dev, dtype, N, E, V, N + V, w_scale=0.02 if V > 10**5 else 0.1)
@@ -437,3 +440,90 @@ def test_flash_attention_bwd_is_bit_stable(dev):
     again = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, True)
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+def _force_fwd_plan(monkeypatch, **fields):
+    """The forward's plan with some fields replaced (splits, group)."""
+    real = fused_ce.fwd_plan
+    monkeypatch.setattr(fused_ce, "fwd_plan", lambda *a: real(*a)._replace(**fields))
+
+
+@pytest.mark.parametrize("splits,group", [(1, 8), (3, 1), (5, 3), (17, 8)])
+def test_fused_ce_fwd_walks_vocab_splits(dev, monkeypatch, splits, group):
+    """The TMA + wgmma forward with blocks that walk several vocab tiles
+    (the ring runs across tiles; the last tile is the ragged tail) in other
+    raster orders: the same statistics as the plain version."""
+    N, E, V = 1000, 64, 4099
+    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 5)
+    _force_fwd_plan(monkeypatch, splits=splits, group=group)
+    assert fused_ce.fwd_plan(N, E, V, torch.bfloat16, 132).mainloop == "wgmma"
+    lse, tl, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    want = fused_ce._rows_reference(h, w, labels)
+    for a, b in zip((lse, tl, m2), want[:3]):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+    assert (ai == want[3]).float().mean().item() >= 0.999
+
+
+# exact ties of the TMA + wgmma forward, each set of columns dominant in its
+# own rows. A consumer thread holds columns 8 j + 2 (lane % 4) + {0, 1} of a
+# 256-wide tile, so 4 and 12 are one thread's; 1 and 3 lie in lanes that
+# merge first (shfl_xor 1), 2 and 7 in lanes that merge second (xor 2); 100
+# and 300 lie in tiles 0 and 1; with two splits of 9 tiles, 40 and 2400 lie
+# in splits 0 and 1; 4096 and 4098 in the tail tile; the last set has all
+# of these at once.
+CE_TIES = ((4, 12), (3, 1), (7, 2), (300, 100), (2400, 40), (4098, 4096), (15, 10, 600, 2500))
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2])
+def test_fused_ce_fwd_ties_go_to_the_smallest_index(dev, monkeypatch, splits):
+    """bf16 argmax ties inside one thread's columns, across the lanes of a
+    quad, across two tiles of one split, across two splits and in the
+    tail: every tie gives the smallest index (None: the plan's own 17
+    one-tile splits)."""
+    N, E, V = 256, 64, 4099
+    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 9)
+    for g, cols in enumerate(CE_TIES):  # rows 32 g.. against columns `cols`
+        h[32 * g:32 * (g + 1), g + 1] = 8.0
+        w[list(cols)] = 0.0
+        w[list(cols), g + 1] = 8.0  # logit 64, exactly, in each column of the set
+    if splits is not None:
+        _force_fwd_plan(monkeypatch, splits=splits)
+    _, _, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
+    torch.cuda.synchronize()
+    want = fused_ce._rows_reference(h, w, labels)
+    for g, cols in enumerate(CE_TIES):
+        rows = slice(32 * g, 32 * (g + 1))
+        assert (ai[rows] == min(cols)).all(), (cols, ai[rows].unique().tolist())
+    torch.testing.assert_close(m2, want[2], rtol=0, atol=1e-4)
+    assert torch.equal(ai, want[3])
+
+
+@pytest.mark.parametrize("N,E,V", [(1000, 64, 4099), (300, 2048, 128256)])
+def test_fused_ce_fwd_is_bit_stable(dev, N, E, V):
+    """The TMA + wgmma forward gives the same bits in two runs."""
+    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 13, w_scale=0.02)
+    first = fused_ce.fused_ce_fwd(h, w, labels)
+    again = fused_ce.fused_ce_fwd(h, w, labels)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+@pytest.mark.parametrize("which", ["h", "w"])
+def test_fused_ce_refuses_unaligned_bf16(dev, which, direction):
+    """A bf16 h or w that does not start on 16 bytes cannot be a TMA
+    tensor: both directions raise instead of launching."""
+    N, E, V = 128, 64, 512
+    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 3)
+    x = h if which == "h" else w
+    moved = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
+    moved.copy_(x)
+    assert moved.is_contiguous() and moved.data_ptr() % 16
+    h, w = (moved, w) if which == "h" else (h, moved)
+    with pytest.raises(ValueError, match="16 bytes"):
+        if direction == "fwd":
+            fused_ce.fused_ce_fwd(h, w, labels)
+        else:
+            g = torch.ones(N, device=dev)
+            fused_ce.fused_ce_bwd(h, w, labels, g, g, g)

@@ -36,7 +36,7 @@ _SIGNATURES = {
     "tn_flash_fwd": [_P] * 7 + [_I64] * 9 + [_I] * 10 + [_F, _P],
     "tn_flash_decode": [_P] * 7 + [_I] * 10 + [_F, _P],
     "tn_flash_bwd": [_P] * 12 + [_I] * 10 + [_F, _P],
-    "tn_ce_fwd": [_P] * 11 + [_I] * 5 + [_P],
+    "tn_ce_fwd": [_P] * 11 + [_I] * 7 + [_P],
     "tn_ce_bwd": [_P] * 9 + [_I] * 7 + [_P],
 }
 

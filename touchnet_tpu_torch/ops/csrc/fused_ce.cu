@@ -18,36 +18,43 @@
 // What bounds it on this card: the products. At N=16384, E=2048, V=128256
 // the forward is 8.6 TFLOP and the backward 26 TFLOP (recompute, dh, dw).
 //
-// The backward's three products, bf16 operands with 16-byte aligned rows
-// (E a multiple of 8; the wrapper chooses by shape, ops/fused_ce.bwd_plan):
-// one Hopper mainloop, ce_bwd_gemm, for all three. A block owns a 128 x 256
-// output tile. Its producer warp keeps TMA loads of 64-deep K slabs in
-// flight into a ring of kGemmStages slots of 128-byte-swizzled shared
-// memory (mbarriers mark slots full and empty); two consumer warpgroups
-// each issue wgmma m64n256k16 on their 64 rows (bf16 in, f32 accumulators
-// in registers), keeping one slab's products in flight while they wait
-// for the next slab. Operands are read in place in either majorness (wgmma
-// transposes through the descriptor, hopper.cuh): the logits recompute
-// t = h w^T reads h and w K-major; dh = dl w reads dl K-major and w
-// MN-major; dw += dl^T h reads dl and h MN-major. TMA zero-fills boxes
-// past every edge, so any N, V and row count runs; each epilogue works on
-// the f32 accumulators in registers and masks rows and columns past the
-// edge: the logits epilogue forms dl in f32 and casts it to bf16 once, dh
-// stores bf16, dw adds into the f32 buffer. The mainloop is a kernel
-// template over an epilogue class (DlogitsOp, DhOp, DwOp), so the forward
-// can adopt it with an epilogue of row statistics.
+// bf16 operands with 16-byte aligned rows (E a multiple of 8; the wrapper
+// chooses by shape, ops/fused_ce.fwd_plan and bwd_plan) run on one Hopper
+// mainloop, ce_gemm, in both directions. A block owns a 128-row tile and a
+// run of 256-column tiles (one tile in the backward, a vocab split in the
+// forward). Its producer warp keeps TMA loads of 64-deep K slabs in flight
+// into a ring of kGemmStages slots of 128-byte-swizzled shared memory
+// (mbarriers mark slots full and empty; the ring's position and phase
+// follow a slab counter over the block's whole run, so the next tile's
+// first slabs load while the consumers run the last tile's epilogue); two
+// consumer warpgroups each issue wgmma m64n256k16 on their 64 rows (bf16
+// in, f32 accumulators in registers), keeping one slab's products in
+// flight while they wait for the next slab. Operands are read in place in
+// either majorness (wgmma transposes through the descriptor, hopper.cuh):
+// the logits t = h w^T read h and w K-major; dh = dl w reads dl K-major and
+// w MN-major; dw += dl^T h reads dl and h MN-major. TMA zero-fills boxes
+// past every edge, so any N, V and row count runs. The mainloop is a kernel
+// template over an epilogue class, which works on the f32 accumulators in
+// registers after each tile and masks rows and columns past the edge:
+//   - RowStatsOp (forward): per row, the tile's max and its first column,
+//     one rescale of the running sum-exp to the new max, the tile's exp2
+//     sum and the label logit; the running (max, sum, label logit, argmax)
+//     of the thread's two rows stay in registers across the split's tiles,
+//     and the four lanes holding a row merge once at the end;
+//   - DlogitsOp forms dl in f32 and casts it to bf16 once, DhOp stores
+//     bf16 dh, DwOp adds into the f32 dw.
 //
 // The 64x64 tile kernels stay for the other shapes: f32 operands on FMAs
 // (mma_tile, 4x4 per thread; TF32 would round them), the exactness path,
 // and bf16 with E not a multiple of 8, which TMA cannot describe, on
-// nvcuda::wmma 16x16x16 fragments (mma_tile_tc). The forward keeps them
-// for now (the mainloop above is the next step there).
+// nvcuda::wmma 16x16x16 fragments (mma_tile_tc).
 //
 // The choices the TPU kernel's sequential grid does not force on it:
-//   - Row tile x vocab tile. A block per row tile that walked the whole
+//   - Row tile x vocab split. A block per row tile that walked the whole
 //     vocab would re-read W (525 MB in bf16) once per row tile. The forward
-//     grid is (row tiles, vocab splits), row tiles fastest, so the blocks in
-//     flight share one stretch of W through L2; each block folds its split's
+//     grid is (row tiles, vocab splits), row tiles fastest within a raster
+//     group of row tiles, so the blocks in flight share a few stretches of
+//     W and a few megabytes of h through L2; each block folds its split's
 //     vocab tiles into per-row partial (max, sum-exp, label logit, argmax),
 //     and ce_fwd_combine merges the splits (K4's split-KV pattern). Splits
 //     are ordered by vocab index, so "first split holding the max" keeps
@@ -263,7 +270,27 @@ struct FwdParams {
   float* m2;           // [N]
   int* ai;             // [N]
   int N, E, V, splits, tiles_per_split;
+  int group;           // row tiles of one raster group of the mainloop's grid
 };
+
+// fold the row statistics of lane `lane ^ off` into this lane's: the larger
+// max, both sums rescaled to it (a side still at -inf adds 0), the label
+// logits added (one side holds it, the other 0), and on an equal max the
+// smaller index
+__device__ __forceinline__ void merge_lane_stats(float& m, float& l, float& tl, int& ai,
+                                                 int off) {
+  const float mo = __shfl_xor_sync(0xffffffffu, m, off);
+  const float lo = __shfl_xor_sync(0xffffffffu, l, off);
+  const float to = __shfl_xor_sync(0xffffffffu, tl, off);
+  const int ao = __shfl_xor_sync(0xffffffffu, ai, off);
+  const float mn = fmaxf(m, mo);
+  const float a_self = m == -INFINITY ? 0.f : l * exp2f((m - mn) * kLog2e);
+  const float a_other = mo == -INFINITY ? 0.f : lo * exp2f((mo - mn) * kLog2e);
+  if (mo > m || (mo == m && ao < ai)) ai = ao;
+  l = a_self + a_other;
+  m = mn;
+  tl += to;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ce_fwd_partial(FwdParams p) {
@@ -320,19 +347,7 @@ __global__ void __launch_bounds__(kThreads) ce_fwd_partial(FwdParams p) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) {
-      const float mo = __shfl_xor_sync(0xffffffffu, m[i], off);
-      const float lo = __shfl_xor_sync(0xffffffffu, l[i], off);
-      const float to = __shfl_xor_sync(0xffffffffu, tl[i], off);
-      const int ao = __shfl_xor_sync(0xffffffffu, ai[i], off);
-      const float mn = fmaxf(m[i], mo);
-      const float a_self = m[i] == -INFINITY ? 0.f : l[i] * exp2f((m[i] - mn) * kLog2e);
-      const float a_other = mo == -INFINITY ? 0.f : lo * exp2f((mo - mn) * kLog2e);
-      if (mo > m[i] || (mo == m[i] && ao < ai[i])) ai[i] = ao;
-      l[i] = a_self + a_other;
-      m[i] = mn;
-      tl[i] += to;
-    }
+    for (int off = 8; off > 0; off >>= 1) merge_lane_stats(m[i], l[i], tl[i], ai[i], off);
     const int r = r0 + ty + 16 * i;
     if (tx == 0 && r < p.N) {
       const int64_t o = (int64_t)split * p.N + r;
@@ -480,7 +495,7 @@ __global__ void __launch_bounds__(kThreads) ce_gemm_dw(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// backward on Hopper: the TMA + wgmma mainloop and its three epilogues
+// Hopper: the TMA + wgmma mainloop and its epilogues
 // ---------------------------------------------------------------------------
 
 constexpr int kGemmBM = 128, kGemmBN = 256, kGemmBK = 64, kGemmStages = 4;
@@ -508,21 +523,28 @@ __device__ __forceinline__ uint64_t operand_desc(const uint8_t* tile, int ks) {
   return MN ? wgmma_desc(tile + ks * 2048, 8192, 1024) : wgmma_desc(tile + ks * 32, 16, 1024);
 }
 
-// C[m, n] = sum_k A[m, k] B[n, k] over a 128 x 256 tile, then Op::epilogue
-// on the accumulators. Op gives the operands' majorness (kAmn, kBmn), the
-// tile of this block and the K extent.
+// a block's work: output row tile m and the column tiles [n, n + count)
+struct TileRun {
+  int m, n, count;
+};
+
+// For each column tile of the block's run: C[m, n] = sum_k A[m, k] B[n, k]
+// over 128 x 256, then the epilogue on the accumulators. Op gives the
+// operands' majorness (kAmn, kBmn), the block's run (tiles), the K extent,
+// and an epilogue object per consumer thread: constructed with the thread's
+// first row, called after every tile (epilogue) and once after the last
+// (finish).
 template <class Op>
 __global__ void __launch_bounds__(kGemmThreads, 1)
-    ce_bwd_gemm(const __grid_constant__ CUtensorMap map_a,
-                const __grid_constant__ CUtensorMap map_b, const BwdParams p) {
+    ce_gemm(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+            const __grid_constant__ typename Op::Params p) {
   extern __shared__ uint8_t gemm_smem[];
   uint8_t* base = gemm_smem + ((1024 - (smem_u32(gemm_smem) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + kGemmStages * kGemmStageBytes);
   uint64_t* empty = full + kGemmStages;
   const int wg = threadIdx.x / 128;
-  int m_blk, n_blk;
-  Op::tile(m_blk, n_blk);
-  const int m0 = m_blk * kGemmBM, n0 = n_blk * kGemmBN;
+  const TileRun run = Op::tiles(p);
+  const int m0 = run.m * kGemmBM;
   const int nk = (Op::k_extent(p) + kGemmBK - 1) / kGemmBK;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kGemmStages; ++s) {
@@ -533,60 +555,178 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
   }
   __syncthreads();
 
-  if (wg == 0) {  // producer: one thread keeps the ring full
+  // `it` counts slabs over the whole run: slot it % kGemmStages, lap
+  // it / kGemmStages, whose parity each barrier wait names
+  if (wg == 0) {  // producer: one thread keeps the ring full, across tiles
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      for (int k = 0; k < nk; ++k) {
-        const int s = k % kGemmStages;
-        mbar_wait(&empty[s], ((k / kGemmStages) & 1) ^ 1);  // the first lap passes
-        mbar_expect_tx(&full[s], kGemmStageBytes);
-        uint8_t* a = base + s * kGemmStageBytes;
-        tma_operand<Op::kAmn>(a, &map_a, &full[s], kGemmBM, m0, k * kGemmBK);
-        tma_operand<Op::kBmn>(a + kGemmABytes, &map_b, &full[s], kGemmBN, n0, k * kGemmBK);
+      int it = 0;
+      for (int t = 0; t < run.count; ++t) {
+        const int n0 = (run.n + t) * kGemmBN;
+        for (int k = 0; k < nk; ++k, ++it) {
+          const int s = it % kGemmStages;
+          mbar_wait(&empty[s], ((it / kGemmStages) & 1) ^ 1);  // the first lap passes
+          mbar_expect_tx(&full[s], kGemmStageBytes);
+          uint8_t* a = base + s * kGemmStageBytes;
+          tma_operand<Op::kAmn>(a, &map_a, &full[s], kGemmBM, m0, k * kGemmBK);
+          tma_operand<Op::kBmn>(a + kGemmABytes, &map_b, &full[s], kGemmBN, n0, k * kGemmBK);
+        }
       }
     }
   } else {  // consumers: warpgroup cw multiplies rows [64 cw, 64 cw + 64) of the tile
     setmaxnreg_inc<232>();
     const int cw = wg - 1;
-    float acc[128];
-#pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    fence_regs(acc);
-    for (int k = 0; k < nk; ++k) {
-      const int s = k % kGemmStages;
-      mbar_wait(&full[s], (k / kGemmStages) & 1);
-      // warpgroup cw's 64 rows: lines 64 cw.. of a K-major A, box cw of an
-      // MN-major one; 8 KB in either layout
-      const uint8_t* a = base + s * kGemmStageBytes + cw * 8192;
-      const uint8_t* b = base + s * kGemmStageBytes + kGemmABytes;
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kGemmBK / 16; ++ks)
-        wgmma_m64n256k16<Op::kAmn, Op::kBmn>(acc, operand_desc<Op::kAmn>(a, ks),
-                                             operand_desc<Op::kBmn>(b, ks));
-      wgmma_commit();
-      wgmma_wait<1>();  // slab k - 1's products are done: its slot is free
-      if (k > 0 && (threadIdx.x & 31) == 0) mbar_arrive(&empty[(k - 1) % kGemmStages]);
-    }
-    wgmma_wait<0>();
-    fence_regs(acc);
+    const int lane = threadIdx.x & 31;
     // accumulator layout: warp w of the warpgroup holds rows 16 w + lane / 4
     // (acc[4j], acc[4j + 1]) and + 8 (acc[4j + 2], acc[4j + 3]), at columns
     // 8 j + 2 (lane % 4) and + 1
-    const int lane = threadIdx.x & 31;
-    Op::epilogue(acc, p, m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2),
-                 n0 + 2 * (lane & 3));
+    Op op(p, run, m0 + cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2));
+    float acc[128];
+    int it = 0;
+    for (int t = 0; t < run.count; ++t) {
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      fence_regs(acc);
+      for (int k = 0; k < nk; ++k, ++it) {
+        const int s = it % kGemmStages;
+        mbar_wait(&full[s], (it / kGemmStages) & 1);
+        // warpgroup cw's 64 rows: lines 64 cw.. of a K-major A, box cw of an
+        // MN-major one; 8 KB in either layout
+        const uint8_t* a = base + s * kGemmStageBytes + cw * 8192;
+        const uint8_t* b = base + s * kGemmStageBytes + kGemmABytes;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kGemmBK / 16; ++ks)
+          wgmma_m64n256k16<Op::kAmn, Op::kBmn>(acc, operand_desc<Op::kAmn>(a, ks),
+                                               operand_desc<Op::kBmn>(b, ks));
+        wgmma_commit();
+        wgmma_wait<1>();  // slab it - 1's products are done: its slot is free
+        if (k > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kGemmStages]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      // the tile's last slab is free too: the producer fills it with the
+      // next tile's slabs while this epilogue runs
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % kGemmStages]);
+      op.epilogue(acc, p, (run.n + t) * kGemmBN + 2 * (lane & 3));
+    }
+    op.finish(p);
   }
 }
+
+// Per row of h: the running (max, sum exp, label logit, argmax) over a
+// vocab split's tiles, t = h w^T in f32, partials to [splits, N]. The grid
+// is one block per (row tile, split): raster groups of `group` row tiles,
+// row tiles fastest within a group, so the blocks in flight share a few
+// stretches of w and the h rows of one group through L2.
+struct RowStatsOp {
+  using Params = FwdParams;
+  static constexpr int kAmn = 0, kBmn = 0;
+  __device__ static TileRun tiles(const Params& p) {
+    const int row_tiles = (p.N + kGemmBM - 1) / kGemmBM;
+    const int per_group = p.group * p.splits;
+    const int g = blockIdx.x / per_group, in_group = blockIdx.x % per_group;
+    const int rows = min(p.group, row_tiles - g * p.group);
+    const int split = in_group / rows;
+    const int n = split * p.tiles_per_split;
+    return {g * p.group + in_group % rows, n,
+            min(p.tiles_per_split, (p.V + kGemmBN - 1) / kGemmBN - n)};
+  }
+  __device__ static int k_extent(const Params& p) { return p.E; }
+
+  int r, split;
+  int lab[2];  // the label column, or -1 outside [0, V)
+  float m[2], l[2], tl[2];
+  int ai[2];
+
+  __device__ RowStatsOp(const Params& p, const TileRun& run, int row)
+      : r(row), split(run.n / p.tiles_per_split) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int lb = row + 8 * i < p.N ? p.labels[row + 8 * i] : -1;
+      lab[i] = lb >= 0 && lb < p.V ? lb : -1;
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+      tl[i] = 0.f;
+      ai[i] = INT_MAX;
+    }
+  }
+
+  // the thread's 64 columns c + 8 j + {0, 1} of rows r and r + 8
+  __device__ void epilogue(const float (&acc)[128], const Params& p, int c) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // the tile's max over the thread's columns and its first index: the
+      // scan runs in increasing column order, and strict > keeps the first
+      float tmax = -INFINITY;
+      int targ = INT_MAX;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = c + 8 * j;
+        const float t0 = acc[4 * j + 2 * i], t1 = acc[4 * j + 2 * i + 1];
+        if (col < p.V && t0 > tmax) {
+          tmax = t0;
+          targ = col;
+        }
+        if (col + 1 < p.V && t1 > tmax) {
+          tmax = t1;
+          targ = col + 1;
+        }
+        if (col == lab[i]) tl[i] = t0;
+        if (col + 1 == lab[i]) tl[i] = t1;
+      }
+      if (tmax > m[i]) ai[i] = targ;  // an equal max keeps the earlier tile's index
+      const float mn = fmaxf(m[i], tmax);
+      if (mn == -INFINITY) continue;  // none of the thread's columns is < V yet
+      const float mn2 = mn * kLog2e;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = c + 8 * j;
+        if (col < p.V) sum += exp2f(fmaf(acc[4 * j + 2 * i], kLog2e, -mn2));
+        if (col + 1 < p.V) sum += exp2f(fmaf(acc[4 * j + 2 * i + 1], kLog2e, -mn2));
+      }
+      l[i] = l[i] * exp2f((m[i] - mn) * kLog2e) + sum;  // m = -inf: 0 * 0
+      m[i] = mn;
+    }
+  }
+
+  // the four lanes of a quad hold one row's columns: merge them, then the
+  // quad's first lane writes the row's partials of this split
+  __device__ void finish(const Params& p) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      merge_lane_stats(m[i], l[i], tl[i], ai[i], 1);
+      merge_lane_stats(m[i], l[i], tl[i], ai[i], 2);
+      const int row = r + 8 * i;
+      if ((threadIdx.x & 3) == 0 && row < p.N) {
+        const int64_t o = (int64_t)split * p.N + row;
+        p.pm[o] = m[i];
+        p.pl[o] = l[i];
+        p.ptl[o] = tl[i];
+        p.pai[o] = ai[i];
+      }
+    }
+  }
+};
+
+// One output tile per block for the backward's three products.
+struct BwdTileOp {
+  using Params = BwdParams;
+  int r;
+  __device__ BwdTileOp(const Params&, const TileRun&, int row) : r(row) {}
+  __device__ void finish(const Params&) {}
+};
 
 // dl[r, v] = dlse[r] exp(t[r, v] - lse[r]) + dtl[r] [v == label[r]], in f32,
 // cast to bf16 once; t = h w^T of the chunk's rows. Grid (row tiles, vocab
 // tiles): the blocks in flight share one stretch of w through L2.
-struct DlogitsOp {
+struct DlogitsOp : BwdTileOp {
   static constexpr int kAmn = 0, kBmn = 0;
-  __device__ static void tile(int& m, int& n) { m = blockIdx.x; n = blockIdx.y; }
-  __device__ static int k_extent(const BwdParams& p) { return p.E; }
-  __device__ static void epilogue(const float (&acc)[128], const BwdParams& p, int r, int c) {
+  using BwdTileOp::BwdTileOp;
+  __device__ static TileRun tiles(const Params&) { return {(int)blockIdx.x, (int)blockIdx.y, 1}; }
+  __device__ static int k_extent(const Params& p) { return p.E; }
+  __device__ void epilogue(const float (&acc)[128], const Params& p, int c) const {
     __nv_bfloat16* dl = static_cast<__nv_bfloat16*>(p.dl);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -611,11 +751,12 @@ struct DlogitsOp {
 };
 
 // dh[c0 + r, e] = sum_v dl[r, v] w[v, e]. Grid (E tiles, row tiles).
-struct DhOp {
+struct DhOp : BwdTileOp {
   static constexpr int kAmn = 0, kBmn = 1;
-  __device__ static void tile(int& m, int& n) { m = blockIdx.y; n = blockIdx.x; }
-  __device__ static int k_extent(const BwdParams& p) { return p.V; }
-  __device__ static void epilogue(const float (&acc)[128], const BwdParams& p, int r, int c) {
+  using BwdTileOp::BwdTileOp;
+  __device__ static TileRun tiles(const Params&) { return {(int)blockIdx.y, (int)blockIdx.x, 1}; }
+  __device__ static int k_extent(const Params& p) { return p.V; }
+  __device__ void epilogue(const float (&acc)[128], const Params& p, int c) const {
     __nv_bfloat16* dh = static_cast<__nv_bfloat16*>(p.dh) + (int64_t)p.c0 * p.E;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -633,11 +774,12 @@ struct DhOp {
 };
 
 // dw[v, e] (+)= sum_r dl[r, v] h[c0 + r, e]. Grid (E tiles, vocab tiles).
-struct DwOp {
+struct DwOp : BwdTileOp {
   static constexpr int kAmn = 1, kBmn = 1;
-  __device__ static void tile(int& m, int& n) { m = blockIdx.y; n = blockIdx.x; }
-  __device__ static int k_extent(const BwdParams& p) { return p.rows; }
-  __device__ static void epilogue(const float (&acc)[128], const BwdParams& p, int r, int c) {
+  using BwdTileOp::BwdTileOp;
+  __device__ static TileRun tiles(const Params&) { return {(int)blockIdx.y, (int)blockIdx.x, 1}; }
+  __device__ static int k_extent(const Params& p) { return p.rows; }
+  __device__ void epilogue(const float (&acc)[128], const Params& p, int c) const {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int v = r + 8 * i;
@@ -660,13 +802,12 @@ struct DwOp {
 };
 
 template <class Op>
-cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const BwdParams& p,
+cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const typename Op::Params& p,
                         dim3 grid, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(ce_bwd_gemm<Op>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(ce_gemm<Op>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kGemmSmem);
   if (err != cudaSuccess) return err;
-  ce_bwd_gemm<Op><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, b, p);
+  ce_gemm<Op><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, b, p);
   return cudaGetLastError();
 }
 
@@ -702,14 +843,29 @@ cudaError_t launch_bwd_wgmma(BwdParams p, int chunk, cudaStream_t stream) {
   return cudaSuccess;
 }
 
+cudaError_t launch_fwd_combine(const FwdParams& p, cudaStream_t stream) {
+  ce_fwd_combine<<<(p.N + 255) / 256, 256, 0, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_wgmma(const FwdParams& p, cudaStream_t stream) {
+  CUtensorMap h_k, w_k;
+  if (!bf16_tensor_map(&h_k, p.h, p.E, p.N, p.E, 64, kGemmBM) ||
+      !bf16_tensor_map(&w_k, p.w, p.E, p.V, p.E, 64, kGemmBN))
+    return cudaErrorInvalidValue;
+  const int row_tiles = (p.N + kGemmBM - 1) / kGemmBM;
+  cudaError_t err = launch_gemm<RowStatsOp>(h_k, w_k, p, dim3(row_tiles * p.splits), stream);
+  if (err != cudaSuccess) return err;
+  return launch_fwd_combine(p, stream);
+}
+
 template <typename T>
-cudaError_t launch_fwd(FwdParams& p, cudaStream_t stream) {
+cudaError_t launch_fwd(const FwdParams& p, cudaStream_t stream) {
   const dim3 grid((p.N + kTile - 1) / kTile, p.splits);
   ce_fwd_partial<T><<<grid, kThreads, 0, stream>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  ce_fwd_combine<<<(p.N + 255) / 256, 256, 0, stream>>>(p);
-  return cudaGetLastError();
+  return launch_fwd_combine(p, stream);
 }
 
 template <typename T>
@@ -740,15 +896,27 @@ cudaError_t launch_bwd(BwdParams p, int chunk, cudaStream_t stream) {
 extern "C" int tn_ce_fwd(const void* h, const void* w, const int* labels,
                          float* pm, float* pl, float* ptl, int* pai,
                          float* lse, float* tl, float* m2, int* ai,
-                         int N, int E, int V, int splits, int dtype, void* stream) {
-  if (N <= 0 || E <= 0 || V <= 0 || splits <= 0 || V > INT_MAX - tn::kTile)
+                         int N, int E, int V, int splits, int group, int dtype, int mainloop,
+                         void* stream) {
+  if (N <= 0 || E <= 0 || V <= 0 || splits <= 0 || group <= 0 || V > INT_MAX - tn::kGemmBN)
     return (int)cudaErrorInvalidValue;
-  tn::FwdParams p{h, w, labels, pm, pl, ptl, pai, lse, tl, m2, ai, N, E, V, splits, 0};
-  const int vtiles = (V + tn::kTile - 1) / tn::kTile;
+  tn::FwdParams p{h, w, labels, pm, pl, ptl, pai, lse, tl, m2, ai, N, E, V, splits, 0, group};
+  const int col_tile = mainloop == 1 ? tn::kGemmBN : tn::kTile;
+  const int vtiles = (V + col_tile - 1) / col_tile;
   p.tiles_per_split = (vtiles + splits - 1) / splits;
-  if (splits > 65535 || p.tiles_per_split * (splits - 1) >= vtiles)
+  if (p.tiles_per_split * (splits - 1) >= vtiles)
     return (int)cudaErrorInvalidValue;  // an empty split would leave rows unset
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (mainloop == 1) {  // TMA + wgmma: bf16, rows of h and w on 16 bytes
+    const bool aligned =
+        ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
+    const int row_tiles = (N + tn::kGemmBM - 1) / tn::kGemmBM;
+    if (dtype != tn::kBFloat16 || E % 8 != 0 || !aligned || (int64_t)row_tiles * splits > INT_MAX)
+      return (int)cudaErrorInvalidValue;
+    p.group = min(group, row_tiles);
+    return (int)tn::launch_fwd_wgmma(p, st);
+  }
+  if (mainloop != 0 || splits > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == tn::kBFloat16) return (int)tn::launch_fwd<__nv_bfloat16>(p, st);
   if (dtype == tn::kFloat32) return (int)tn::launch_fwd<float>(p, st);
   return (int)cudaErrorInvalidValue;

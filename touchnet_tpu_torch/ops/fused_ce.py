@@ -3,9 +3,10 @@
 #
 # Port of touchnet_tpu/ops/fused_ce.py. The Pallas kernels _fwd_kernel (:86)
 # and _bwd_kernel (:175) become csrc/fused_ce.cu; its source note says what
-# bounds it on Hopper and how it tiles rows and vocab. bwd_plan chooses the
-# backward's mainloop by shape (bf16 with E a multiple of 8: TMA + wgmma;
-# other bf16: wmma tiles; f32: FMA tiles). Beside it:
+# bounds it on Hopper and how it tiles rows and vocab. fwd_plan and bwd_plan
+# choose each direction's mainloop by shape (bf16 with E a multiple of 8:
+# TMA + wgmma; other bf16: wmma tiles; f32: FMA tiles) and the forward's
+# grid. Beside them:
 #   - _rows_reference: the plain PyTorch version (:287-301), which
 #     materialises the [N, V] f32 logits;
 #   - _rows_backward_reference: the plain backward (:337-347);
@@ -24,8 +25,15 @@ LOG2E = 1.4426950408889634
 # the backward recomputes dl for this many rows at a time into a scratch
 # [rows, dl_stride(V)] buffer of the input dtype; the budget bounds that buffer
 DL_SCRATCH_BYTES = 2 * 2**30
-_TILE = 64  # the forward's and the 64x64 backward kernels' row tile
-WGMMA_ROW_TILE = 128  # the TMA + wgmma backward's row tile (csrc kGemmBM)
+_TILE = 64  # the 64x64 kernels' row and column tile
+# the TMA + wgmma mainloop's tile (csrc kGemmBM, kGemmBN)
+WGMMA_ROW_TILE, WGMMA_COL_TILE = 128, 256
+# the forward's raster group of row tiles holds at most this much of h, so
+# the blocks in flight keep their rows in L2 (50 MB) beside the tiles of w
+FWD_GROUP_BYTES = 16 * 2**20
+# a block's set-up (ring fill, partial writes) in the forward's wave model,
+# in tiles of work
+_BLOCK_SETUP_TILES = 0.25
 _sm_count = {}
 
 
@@ -74,16 +82,82 @@ def _check(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
         raise ValueError("fused_ce_rows: h, w and labels must be on one device")
 
 
-def _splits(N: int, V: int, device) -> int:
-    """Vocab splits of the forward grid: ~16 blocks per SM (several waves,
-    so the last one's tail is short), and no split left empty."""
+def _sms(device) -> int:
     if device not in _sm_count:
         _sm_count[device] = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles = -(-N // _TILE)
-    vtiles = -(-V // _TILE)
-    splits = max(1, min(vtiles, -(-16 * _sm_count[device] // row_tiles)))
-    per = -(-vtiles // splits)
-    return -(-vtiles // per)
+    return _sm_count[device]
+
+
+def _mainloop(E: int, dtype: torch.dtype, what: str) -> str:
+    """bf16 whose rows TMA can describe (E a multiple of 8 elements, so
+    16-byte rows): the TMA + wgmma mainloop; other bf16 the wmma tiles; f32
+    the FMA tiles."""
+    if dtype == torch.bfloat16:
+        return "wgmma" if E % 8 == 0 else "wmma"
+    if dtype == torch.float32:
+        return "fma"
+    raise ValueError(f"{what}: dtype {dtype}: bf16 or f32")
+
+
+def split_tiles(tiles: int, splits: int) -> int:
+    """Vocab tiles of every split but the last (the kernel's arithmetic)."""
+    return -(-tiles // splits)
+
+
+class FwdPlan(NamedTuple):
+    mainloop: str  # "wgmma" (TMA + wgmma), "wmma" or "fma" (64x64 tiles)
+    row_tile: int
+    col_tile: int  # vocab columns of a tile
+    splits: int  # vocab splits, each a run of whole tiles, none empty
+    group: int  # row tiles of one raster group of the grid
+
+
+def fwd_plan(N: int, E: int, V: int, dtype: torch.dtype, sms: int) -> FwdPlan:
+    """How K3's forward runs for this shape on a card of `sms` SMs.
+
+    The TMA + wgmma mainloop runs one 128 x 256 tile at a time and one block
+    per SM. Its grid is row tiles x vocab splits in raster groups of `group`
+    row tiles (row tiles fastest inside a group), a group's h within
+    FWD_GROUP_BYTES. There are at least sms / group splits, so the blocks in
+    flight hold one group's rows; among those counts, the one whose blocks
+    fill whole waves best: the fewest waves x (tiles per split + a block's
+    set-up), ties to fewer splits. The 64x64 tiles aim at ~16 blocks per SM,
+    row tiles fastest."""
+    mainloop = _mainloop(E, dtype, "fused_ce_fwd")
+    if mainloop != "wgmma":
+        row_tiles, tiles = -(-N // _TILE), -(-V // _TILE)
+        splits = max(1, min(tiles, -(-16 * sms // row_tiles)))
+        return FwdPlan(mainloop, _TILE, _TILE, -(-tiles // split_tiles(tiles, splits)),
+                       row_tiles)
+    row_tiles, tiles = -(-N // WGMMA_ROW_TILE), -(-V // WGMMA_COL_TILE)
+    group = max(1, min(row_tiles, FWD_GROUP_BYTES // (WGMMA_ROW_TILE * E * 2)))
+    best = None
+    for splits in range(min(tiles, -(-sms // group)), tiles + 1):
+        per = split_tiles(tiles, splits)
+        if per * (splits - 1) >= tiles:
+            continue  # an empty split
+        cost = -(-row_tiles * splits // sms) * (per + _BLOCK_SETUP_TILES)
+        if best is None or cost < best[0]:
+            best = (cost, splits)
+    return FwdPlan(mainloop, WGMMA_ROW_TILE, WGMMA_COL_TILE, best[1], group)
+
+
+def split_run(plan: FwdPlan, V: int, split: int) -> Tuple[int, int]:
+    """(first vocab tile, tiles) that split `split` walks, as the kernels
+    compute them: whole tiles of plan.col_tile, the last one's columns >= V
+    masked."""
+    tiles = -(-V // plan.col_tile)
+    per = split_tiles(tiles, plan.splits)
+    return split * per, min(per, tiles - split * per)
+
+
+def fwd_block(plan: FwdPlan, N: int, block: int) -> Tuple[int, int]:
+    """(row tile, split) of one block of the TMA + wgmma forward's grid, as
+    csrc RowStatsOp::tiles computes them."""
+    row_tiles = -(-N // plan.row_tile)
+    g, in_group = divmod(block, plan.group * plan.splits)
+    rows = min(plan.group, row_tiles - g * plan.group)
+    return g * plan.group + in_group % rows, in_group // rows
 
 
 def fused_ce_fwd(h, w, labels) -> tuple:
@@ -92,10 +166,12 @@ def fused_ce_fwd(h, w, labels) -> tuple:
     N, E = h.shape
     V = w.shape[0]
     labels = labels.to(torch.int32).contiguous()
-    splits = _splits(N, V, h.device)
+    plan = fwd_plan(N, E, V, h.dtype, _sms(h.device))
+    if plan.mainloop == "wgmma" and (h.data_ptr() | w.data_ptr()) % 16:
+        raise ValueError("fused_ce_fwd: bf16 h and w must start on 16 bytes")
     f32 = dict(dtype=torch.float32, device=h.device)
-    part = torch.empty((3, splits, N), **f32)
-    pai = torch.empty((splits, N), dtype=torch.int32, device=h.device)
+    part = torch.empty((3, plan.splits, N), **f32)
+    pai = torch.empty((plan.splits, N), dtype=torch.int32, device=h.device)
     lse, tl, m2 = (torch.empty(N, **f32) for _ in range(3))
     ai = torch.empty(N, dtype=torch.int32, device=h.device)
     lib = _build.load_library()
@@ -104,8 +180,8 @@ def fused_ce_fwd(h, w, labels) -> tuple:
             h.data_ptr(), w.data_ptr(), labels.data_ptr(),
             part[0].data_ptr(), part[1].data_ptr(), part[2].data_ptr(), pai.data_ptr(),
             lse.data_ptr(), tl.data_ptr(), m2.data_ptr(), ai.data_ptr(),
-            N, E, V, splits, _build.DTYPE_CODES[h.dtype],
-            torch.cuda.current_stream().cuda_stream,
+            N, E, V, plan.splits, plan.group, _build.DTYPE_CODES[h.dtype],
+            int(plan.mainloop == "wgmma"), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "fused_ce_fwd")
     fused_ce_fwd.launches += 1
@@ -140,12 +216,7 @@ def bwd_plan(N: int, E: int, V: int, dtype: torch.dtype) -> BwdPlan:
     describe (E a multiple of 8 elements, so 16-byte rows) takes the TMA +
     wgmma mainloop in 128-row tiles; other bf16 the wmma tiles and f32 the
     FMA tiles, 64 rows each."""
-    if dtype == torch.bfloat16:
-        mainloop = "wgmma" if E % 8 == 0 else "wmma"
-    elif dtype == torch.float32:
-        mainloop = "fma"
-    else:
-        raise ValueError(f"fused_ce_bwd: dtype {dtype}: bf16 or f32")
+    mainloop = _mainloop(E, dtype, "fused_ce_bwd")
     row_tile = WGMMA_ROW_TILE if mainloop == "wgmma" else _TILE
     ldl = dl_stride(V)
     itemsize = torch.finfo(dtype).bits // 8
