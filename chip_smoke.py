@@ -3,7 +3,8 @@
 """End-to-end smoke run of touchnet_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py              # the phases below
-    python3 chip_smoke.py --profile    # only the step profile (profile_training)
+    python3 chip_smoke.py --profile    # only the step profile, op_small beside full
+                                       # (profile_training)
     python3 chip_smoke.py --faults     # faulty kernel copies must fail (check_faults)
     python3 chip_smoke.py --tune       # K3/K4 registers, and times their design variants
                                        # (K3 forward: splits, raster group, ring depth)
@@ -28,7 +29,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
   6. K2 (flash-attention backward) against autograd through the plain
      forward, at the training shape's heads, and at phase 8's own shape
      (B1 T16384, 10 packed documents; the plain version one kv head at a
-     time so its f32 scores fit);
+     time so its f32 scores fit); at the timed shapes also each of its
+     three kernels (delta, dkv, dq) per launch, by CUDA events the
+     launcher records between them, each against its own bound;
   7. K3 (fused lm-head + cross-entropy, forward and backward) against its
      plain versions at the training shape's vocab, and at phase 8's own
      N = 16384 rows, where the forward's blocks walk vocab splits of 14
@@ -38,14 +41,33 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      two backward runs against each other bit for bit;
   8. the training slice: bin.train.main, the port's trainer, takes 10
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
-     examples/text/pretrain/fineweb-edu/run.sh:46) on TouchDataset shards
-     this script writes (seeded, learnable documents); then one step's
-     loss, grad norm and gradients of the kernel path against the plain
-     path at B1 T4096, full width and depth, in f32 and bf16.
+     examples/text/pretrain/fineweb-edu/run.sh:46) under the recipe's
+     remat op_small on TouchDataset shards this script writes (seeded,
+     learnable documents); then the remat sweep: the same 10 steps under
+     none, op_small and full, each with its step time, tokens/s, MFU, peak
+     memory and K1 launches per step, and op_small once more under
+     --training_deterministic true (no op may raise); then one step's loss, grad norm and
+     gradients of the kernel path against the plain path at B1 T4096, full
+     width and depth, in f32 and bf16;
+  9. the recipe's stage 2 on one card (run.sh:97-165, cut to dp 1):
+     bin.train.main, 10 steps at 1x16384 with its checkpoint flags
+     (interval 5 here, keep 2, async), a dev list of seeded shards,
+     profiling (freq 5, keep 1) and memory snapshots; then a fresh main
+     with --training_ckpt_load_step 5 (and sync saves, to time one) runs
+     steps 6-10. Checks the saves at 1, 5 and 10 with a finite dev line
+     after each, a trace naming K1, K2 and K3 kernels, the snapshot files,
+     and that the resumed run's losses and its final params, mu, nu and
+     count (integer checksums of their bits, per tensor, on the card)
+     equal the first run's bit for bit. Prints the bytes of a checkpoint
+     and how long the loop blocked in each save. The temp directory's free
+     space is printed first; without room for three checkpoints (two kept,
+     one being written) the phase runs fewer layers at full width, and
+     says so.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
-the main paths that run it (K1: serving and training; K4: serving; K2,
-K3: training), each path driven with the counts set to 0 just before it.
+the main paths that run it (K1: serving, training and the recipe run; K4:
+serving; K2, K3: training and the recipe run), each path driven with the
+counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -53,8 +75,11 @@ the decode case), with every timed case under "cases":
     over 3.35 TB/s, and bound_by, which of the two. Attention counts the
     live (row, column) pairs of these inputs under the causal and segment
     mask (live_pairs, from the segment runs): K1 4·D·H·pairs, K2
-    10·D·H·pairs; K3 2·N·E·V forward, 6·N·E·V backward; K4 is bound by the
-    bytes of the live cache it reads;
+    10·D·H·pairs (the work of one fused pass; K2's "parts" count what its
+    split design does: dkv 8·D·H·pairs for S, dP, dV and dK, dq
+    6·D·H·pairs for S, dP and dQ, delta the bytes of out, dout and delta);
+    K3 2·N·E·V forward, 6·N·E·V backward; K4 is bound by the bytes of the
+    live cache it reads;
   - library_ms: one PyTorch call computing the same function, timed here
     and used nowhere in the port: varlen flash attention over the
     document runs (aten._flash_attention_forward / _backward) for K1 and
@@ -103,8 +128,15 @@ Tolerances on the card, each against the plain version on the same inputs:
     loss (~11.8 at init; bf16 rounding of the hidden state moves the mean
     over 4k tokens by ~1e-3);
   - the 10 training steps: every logged loss finite and the last below the
-    first; launches per step K1 = 2L (forward and the recompute of "full"
-    remat), K2 = L, K3 forward 1 and backward 1; no plain version called.
+    first; launches per step K1 = L (op_small saves K1's out and lse, so
+    the backward never re-runs it), K2 = L, K3 forward 1 and backward 1; no
+    plain version called. The sweep: K1 = L per step under none and
+    op_small, 2L under full, and the three modes' losses equal bit for bit
+    (remat changes no value: the recompute runs the same kernels on the
+    same inputs);
+  - the recipe run: its resumed steps' losses and final state equal the
+    straight run's bit for bit (every kernel of the step gives the same
+    bits twice), and the dev line at step 10 equal in both runs.
 Timings are the median of 7 runs after 2 warmup runs, with CUDA events;
 the training step's is the median host time of steps 3-10 (each ends in
 the logging sync).
@@ -665,6 +697,46 @@ def compare_grad(name, got, want, dtype, failures):
     return err
 
 
+K2_PARTS = ("delta", "dkv", "dq")
+
+
+def k2_part_bounds(D, H, pairs, q, k, v, out, g, lse, seg, dq, dk, dv) -> dict:
+    """The bound of each of K2's three kernels: delta reads out and dout
+    and writes delta (lse's size); dkv does S, dP, dV and dK on each live
+    pair (8·D·H·pairs) and writes dk, dv; dq does S, dP and dQ
+    (6·D·H·pairs) and writes dq. Both read q, k, v, dout, lse, delta and
+    the segment ids once."""
+    reads = nbytes(q, k, v, g, lse, lse, seg)
+    return {"delta": bound(2 * out.numel(), nbytes(out, g, lse)),
+            "dkv": bound(8 * D * H * pairs, reads + nbytes(dk, dv)),
+            "dq": bound(6 * D * H * pairs, reads + nbytes(dq))}
+
+
+def k2_parts(attn, q, k, v, seg, out, lse, g, causal, got, pairs, name, card,
+             iters=7, warmup=2) -> dict:
+    """Each of K2's kernels per launch: the launcher records four CUDA
+    events (before delta, after it, after dkv, after dq); the median of
+    `iters` launches after `warmup`, each part against its bound."""
+    def once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g, causal, events=ev)
+        ev[3].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+    for _ in range(warmup):
+        once()
+    runs = [once() for _ in range(iters)]
+    bounds = k2_part_bounds(q.shape[3], q.shape[2], pairs, q, k, v, out, g, lse, seg, *got)
+    parts = {}
+    for i, part in enumerate(K2_PARTS):
+        ms = statistics.median(r[i] for r in runs)
+        b = bounds[part]
+        parts[part] = {"ms": ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"]}
+        print(f"  {name} {part}: {ms:.3f} ms per launch, bound {b['bound_ms']:.4f} ms "
+              f"({b['bound_by']}), {100 * b['bound_ms'] / ms:.1f}% of bound  [{card}]")
+    return parts
+
+
 def check_k2(attn, dev, gen, failures, card):
     print("[6] K2 flash_attention_bwd vs autograd through packed_attention_reference")
     rows = {}
@@ -707,6 +779,7 @@ def check_k2(attn, dev, gen, failures, card):
             bnd = bound(10 * D * H * pairs, nbytes(q, k, v, out, g, lse, seg, *got))
             ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
                                                           causal))
+            parts = k2_parts(attn, q, k, v, seg, out, lse, g, causal, got, pairs, name, card)
             if grouped:
                 plain = time_ms(lambda: grouped_reference(q, k, v, seg, g, causal), 3, 1)
             else:
@@ -726,6 +799,7 @@ def check_k2(attn, dev, gen, failures, card):
                 if not yard:
                     lib = time_ms(lambda: bwd(outs, g))
             rows[name] = timed_row(name, max(errs), ms, plain, lib, bnd, card)
+            rows[name]["parts"] = parts
         del got
         torch.cuda.empty_cache()
 
@@ -874,19 +948,20 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
     return rows
 
 
-def write_shards(root: Path, vocab: int, seed: int) -> Path:
-    """TouchDataset texttoken shards through the port's DataBuilder: 4
-    shards of 120 documents, lengths 200-3000, each an ascending run of ids
-    mod DOC_RANGE (a learnable next-token rule over a small id range)."""
+def write_shards(root: Path, vocab: int, seed: int, shards: int = 4, docs: int = 120) -> Path:
+    """TouchDataset texttoken shards through the port's DataBuilder:
+    `shards` shards of `docs` documents, lengths 200-3000, each an
+    ascending run of ids mod DOC_RANGE (a learnable next-token rule over a
+    small id range)."""
     from touchnet_tpu_torch.bin.make_data import DataBuilder
 
     rng = np.random.default_rng(seed)
     lines = []
-    for s in range(4):
+    for s in range(shards):
         d = root / f"{s:09d}"
         d.mkdir(parents=True)
         b = DataBuilder(str(d / "texttoken.bin"), np.int32)
-        for _ in range(120):
+        for _ in range(docs):
             n = int(rng.integers(200, 3001))
             start = int(rng.integers(0, DOC_RANGE))
             b.add_item((np.arange(n) + start) % DOC_RANGE + 3)
@@ -898,10 +973,10 @@ def write_shards(root: Path, vocab: int, seed: int) -> Path:
     return listfile
 
 
-def train_argv(listfile, exp, seqlen, steps, dtype, vocab) -> list:
-    """The recipe's flags (run.sh stage 2) where this slice runs them: one
-    card (dp 1), no checkpoints, dev set, profiling or tensorboard, remat
-    "full" for op_small (a later slice), 10 steps at lr 1e-3."""
+def train_argv(listfile, exp, seqlen, steps, dtype, vocab, remat="op_small", **extra) -> list:
+    """The recipe's flags (run.sh stage 2) on one card (dp 1): its remat
+    op_small (or `remat`), 10 steps at lr 1e-3, no checkpoints, dev set,
+    profiling or tensorboard unless `extra` (flag: value) adds them."""
     args = {
         "tokenizer_type": "RawTokenizer", "tokenizer_raw_vocab_size": vocab,
         "datapipe_type": "causal_lm", "datalist_path": listfile,
@@ -916,10 +991,11 @@ def train_argv(listfile, exp, seqlen, steps, dtype, vocab) -> list:
         "training_data_parallel_shard_degree": 1, "training_enable_loss_parallel": "true",
         "training_enable_liger_kernel": "true", "training_log_freq": 1,
         "training_mixed_precision_param": dtype, "training_mixed_precision_reduce": "float32",
-        "training_max_norm": 1.0, "training_activation_checkpoint_mode": "full",
+        "training_max_norm": 1.0, "training_activation_checkpoint_mode": remat,
+        "training_activation_checkpoint_selective_ac_option": "op",
         "optimizer_name": "AdamW", "optimizer_lr": 1e-3, "optimizer_impl": "fused",
         "lr_scheduler_steps": steps, "lr_scheduler_warmup_steps": 2,
-        "lr_scheduler_decay_type": "linear", "lr_scheduler_lr_min": 0.0,
+        "lr_scheduler_decay_type": "linear", "lr_scheduler_lr_min": 0.0, **extra,
     }
     return [x for k, v in args.items() for x in (f"--{k}", str(v))]
 
@@ -980,6 +1056,72 @@ def step_grads(train, listfile, exp, dtype, plain, dev):
     return out
 
 
+SWEEP_MODES = ("none", "op_small", "full")
+
+
+def step_stats(trainer) -> tuple:
+    """(step ms, tokens/s, MFU %) as medians of steps 3-10 of a run's
+    logged metrics."""
+    timed = trainer.metrics_processor.history[2:]
+    return (statistics.median(h["time/step_s"] for h in timed) * 1e3,
+            statistics.median(h["throughput/tps"] for h in timed),
+            statistics.median(h.get("throughput/mfu_pct", float("nan")) for h in timed))
+
+
+def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
+    """Phase 8's 10 steps under each remat mode of SWEEP_MODES, in this
+    order, one process: step ms, tokens/s, MFU, peak memory and K1 launches
+    per step (none and op_small L, full 2L); the modes' losses must be
+    equal bit for bit."""
+    print(f"  remat sweep: {TRAIN_STEPS} steps at 1x{TRAIN_T} bf16 each, full width and depth")
+    losses = {}
+    for mode in SWEEP_MODES:
+        argv = train_argv(listfile, tmp / f"sweep_{mode}", TRAIN_T, TRAIN_STEPS, "bfloat16",
+                          128256, remat=mode)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = attn.flash_attention.launches
+        trainer = train.main(argv)
+        k1 = (attn.flash_attention.launches - before) / trainer.step
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        step_ms, tps, mfu = step_stats(trainer)
+        losses[mode] = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+        want = 2 * L if mode == "full" else L
+        ok = k1 == want and trainer.step == TRAIN_STEPS
+        print(f"  {mode}: step {step_ms:.1f} ms (median of steps 3-{trainer.step}), "
+              f"{tps:,.0f} tokens/s, MFU {mfu:.2f}%, peak {peak:.2f} GiB allocated, "
+              f"K1 {k1:g} launches/step (want {want}) {'ok' if ok else 'FAIL'}  [{card}]")
+        if not ok:
+            failures.append(f"remat sweep {mode}")
+        del trainer
+        torch.cuda.empty_cache()
+    same = all(v == losses[SWEEP_MODES[0]] for v in losses.values())
+    print(f"  remat sweep: the modes' losses equal bit for bit: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("remat sweep losses differ")
+
+    # --training_deterministic true: PyTorch's deterministic algorithms only
+    # (an op without one raises, which fails this run) and cuBLAS's fixed
+    # workspace; process-wide, so switched off again after the run
+    argv = train_argv(listfile, tmp / "sweep_det", TRAIN_T, TRAIN_STEPS, "bfloat16", 128256,
+                      training_deterministic="true")
+    torch.cuda.empty_cache()
+    try:
+        trainer = train.main(argv)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    step_ms, tps, mfu = step_stats(trainer)
+    det = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+    ok = trainer.step == TRAIN_STEPS and all(math.isfinite(x) for x in det)
+    print(f"  op_small under --training_deterministic true: no op raised; step {step_ms:.1f} ms, "
+          f"{tps:,.0f} tokens/s, MFU {mfu:.2f}%; losses equal the default run's bit for bit: "
+          f"{det == losses['op_small']} {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("deterministic run")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def run_training(dev, card, failures, tmp: Path):
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
@@ -992,7 +1134,7 @@ def run_training(dev, card, failures, tmp: Path):
     listfile = write_shards(tmp / "shards", cfg.vocab_size, SEED)
     argv = train_argv(listfile, tmp / "exp", TRAIN_T, TRAIN_STEPS, "bfloat16", cfg.vocab_size)
     print(f"  {TRAIN_STEPS} steps, 1x{TRAIN_T} packed, bf16 compute over f32 masters, "
-          "remat full, fused CE, AdamW fused, WSD linear, lr 1e-3, warmup 2")
+          "remat op_small, fused CE, AdamW fused, WSD linear, lr 1e-3, warmup 2")
     counters = (attn.flash_attention, attn.flash_attention_bwd, fused_ce.fused_ce_fwd,
                 fused_ce.fused_ce_bwd)
     torch.cuda.reset_peak_memory_stats()
@@ -1005,7 +1147,7 @@ def run_training(dev, card, failures, tmp: Path):
     hist = trainer.metrics_processor.history
     losses = [h["loss/per_sample"] for h in hist]
     steps = trainer.step
-    want = (2 * L * steps, L * steps, steps, steps)
+    want = (L * steps, L * steps, steps, steps)
     ok = (k1, k2, k3f, k3b) == want and not plain_calls and steps == TRAIN_STEPS
     print(f"  launches over {steps} steps: K1={k1} K2={k2} K3 fwd={k3f} K3 bwd={k3b} "
           f"(want {want}); plain versions called: {plain_calls or 'none'} "
@@ -1017,16 +1159,14 @@ def run_training(dev, card, failures, tmp: Path):
     print(f"  loss per step: {[round(x, 4) for x in losses]} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("training loss")
-    timed = hist[2:]
-    step_ms = statistics.median(h["time/step_s"] for h in timed) * 1e3
-    tps = statistics.median(h["throughput/tps"] for h in timed)
-    mfu = statistics.median(h.get("throughput/mfu_pct", float("nan")) for h in timed)
+    step_ms, tps, mfu = step_stats(trainer)
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"  step {step_ms:.1f} ms (median of steps 3-{steps}), {tps:,.0f} tokens/s, "
           f"MFU {mfu:.2f}% of 989 TFLOP/s bf16, peak {peak:.2f} GiB allocated  [{card}]")
     train_counts = {"K1": k1, "K2": k2, "K3 fwd": k3f, "K3 bwd": k3b}
     del trainer
     torch.cuda.empty_cache()
+    remat_sweep(train, attn, listfile, tmp, L, card, failures)
 
     print(f"  one step at B1 T{CHECK_T}, full width and depth: kernel vs plain path")
     f32k = step_grads(train, listfile, tmp / "chk", "float32", plain=False, dev=dev)
@@ -1061,6 +1201,226 @@ def run_training(dev, card, failures, tmp: Path):
     return train_counts
 
 
+RECIPE_STEPS, RECIPE_INTERVAL, RESUME_STEP = 10, 5, 5
+# the kernel groups (PROFILE_GROUPS) the recipe run's trace must name
+RECIPE_TRACE_GROUPS = ("K1", "K2", "K3 fwd", "K3 bwd, TMA + wgmma mainloop (ce_gemm)")
+
+
+def bits_checksums(tensors: dict) -> dict:
+    """Per tensor of 4-byte elements, two integer checksums of its raw bits,
+    computed where the tensor lies: the sum of its 32-bit words, and their
+    sum weighted by position mod 65521 plus 1 (a reordering moves the
+    second), both mod 2^64."""
+    out = {}
+    for name, t in tensors.items():
+        words = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
+        out[name] = (int(words.sum()), int((words * weights).sum()))
+        del words, weights
+    return out
+
+
+def recipe_depth(cfg, free: int) -> tuple:
+    """(layers, bytes of one checkpoint, bytes needed) for phase 9: the
+    full depth when `free` holds three checkpoints (two kept, one being
+    written: f32 params, mu and nu) and 2 GiB of traces and snapshots, else
+    the most layers that fit, at full width (0 when none do)."""
+    from touchnet_tpu_torch.models.llama.modeling_llama import get_num_params
+
+    c = copy.copy(cfg)
+    for layers in range(cfg.num_hidden_layers, 0, -1):
+        c.num_hidden_layers = layers
+        ckpt = 3 * 4 * get_num_params(c)
+        need = 3 * ckpt + 2**31
+        if need <= free:
+            return layers, ckpt, need
+    return 0, ckpt, need
+
+
+def run_recipe(dev, card, failures, tmp: Path) -> dict:
+    """Phase 9: the recipe's stage 2 through bin.train.main at full width,
+    with checkpoints, dev eval, profiling and memory snapshots, then a
+    resume from step 5 held to the straight run bit for bit. Returns the
+    kernels' launches over both runs."""
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import fused_ce
+    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    print("[9] the recipe's stage 2 on one card (run.sh:97-165, dp 1): bin.train.main with "
+          "checkpoints, dev eval, profiling and memory snapshots, then a resume")
+    cfg = LlamaConfig.from_json_file(str(CONFIG))
+    free = shutil.disk_usage(tmp).free
+    L, ckpt_bytes, need = recipe_depth(cfg, free)
+    config = CONFIG
+    depth = "full depth" if L == cfg.num_hidden_layers else \
+        f"CUT to {L} of {cfg.num_hidden_layers} layers at full width (too little room)"
+    print(f"  temp dir: {free / 1e9:.2f} GB free; a checkpoint ~{ckpt_bytes / 1e9:.2f} GB, "
+          f"{need / 1e9:.2f} GB needed: {depth}")
+    if L == 0:
+        failures.append("recipe run: no room for its checkpoints")
+        return {}
+    if L != cfg.num_hidden_layers:
+        raw = json.loads(CONFIG.read_text())
+        raw["num_hidden_layers"] = L
+        config = tmp / "config.json"
+        config.write_text(json.dumps(raw))
+    listfile = write_shards(tmp / "shards", cfg.vocab_size, SEED)
+    devlist = write_shards(tmp / "dev", cfg.vocab_size, SEED + 1, shards=2, docs=20)
+    exp = tmp / "exp"
+    flags = dict(training_model_config_path=config, datalist_dev_path=devlist,
+                 training_enable_ckpt="true", training_ckpt_load_step=-1,
+                 training_ckpt_interval=RECIPE_INTERVAL, training_ckpt_keep_latest_k=2,
+                 training_ckpt_async_mode="async", training_enable_profiling="true",
+                 training_profiling_freq=5, training_profiling_keep_first_k=1,
+                 training_enable_memory_snapshot="true", training_enable_tensorboard="true",
+                 training_gc_freq=1000, training_deterministic="false")
+    print(f"  {RECIPE_STEPS} steps at 1x{TRAIN_T}, remat op_small, checkpoints every "
+          f"{RECIPE_INTERVAL} (keep 2, async), dev list of 2 seeded shards, profiling freq 5 "
+          "keep 1, memory snapshots, tensorboard (a warning)")
+
+    # host time of each saving Trainer.save call (ms), the part of it spent
+    # waiting for the previous write, and each write's own time (s; in the
+    # background thread under async)
+    save_ms, write_s, waited = {}, {}, [0.0]
+    real_save, real_wait, real_write = (train.Trainer.save, CheckpointManager.wait_until_finished,
+                                        CheckpointManager._write)
+
+    def timed_save(self, force=False):
+        t0, w0 = time.perf_counter(), waited[0]
+        saved = real_save(self, force)
+        if saved:
+            save_ms[self.step] = ((time.perf_counter() - t0) * 1e3, (waited[0] - w0) * 1e3)
+        return saved
+
+    def timed_wait(self):
+        t0 = time.perf_counter()
+        try:
+            real_wait(self)
+        finally:
+            waited[0] += time.perf_counter() - t0
+
+    def timed_write(self, step, host, items):
+        t0 = time.perf_counter()
+        real_write(self, step, host, items)
+        write_s[step] = time.perf_counter() - t0
+
+    counters = (attn.flash_attention, attn.flash_attention_bwd, fused_ce.fused_ce_fwd,
+                fused_ce.fused_ce_bwd)
+    train.Trainer.save = timed_save
+    CheckpointManager.wait_until_finished = timed_wait
+    CheckpointManager._write = timed_write
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # the main path (both runs): every launch count is zeroed here and
+        # read after the resumed run
+        for c in counters:
+            c.launches = 0
+        first = train.main(train_argv(listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16",
+                                      cfg.vocab_size, **flags))
+        async_ms, async_write_s = dict(save_ms), dict(write_s)
+        peak1 = torch.cuda.max_memory_allocated() / 2**30
+        hist1 = first.metrics_processor.history
+        dev1 = first.metrics_processor.dev_history
+        state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
+        del first
+        torch.cuda.empty_cache()
+        save_ms.clear()
+        write_s.clear()
+        resumed = train.main(train_argv(
+            listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16", cfg.vocab_size,
+            **{**flags, "training_ckpt_load_step": RESUME_STEP,
+               "training_ckpt_async_mode": "disabled", "training_enable_profiling": "false",
+               "training_enable_memory_snapshot": "false"}))
+    finally:
+        train.Trainer.save = real_save
+        CheckpointManager.wait_until_finished = real_wait
+        CheckpointManager._write = real_write
+    k1, k2, k3f, k3b = (c.launches for c in counters)
+    hist2 = resumed.metrics_processor.history
+    dev2 = resumed.metrics_processor.dev_history
+    state2 = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
+    del resumed
+    torch.cuda.empty_cache()
+
+    losses1 = [h["loss/per_sample"] for h in hist1]
+    ckpt = exp / "checkpoint"
+    kept = {p.name for p in ckpt.iterdir() if p.name.startswith("step_")}
+    ok = (sorted(async_ms) == [1, RECIPE_INTERVAL, RECIPE_STEPS] and len(losses1) == RECIPE_STEPS
+          and all(math.isfinite(x) for x in losses1) and kept == {"step_5", "step_10"})
+    print(f"  run 1: losses {[round(x, 4) for x in losses1]}; saves at steps {sorted(async_ms)}, "
+          f"kept {sorted(kept)} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: saves")
+    ok = [d["step"] for d in dev1] == [1, RECIPE_INTERVAL, RECIPE_STEPS] and \
+        all(math.isfinite(v) for d in dev1 for v in d.values())
+    print("  dev lines: " + "; ".join(
+        f"step {d['step']} loss {d['loss_per_sample']:.4f}/{d['loss_per_token']:.4f} "
+        f"acc {d['acc']:.4f}" for d in dev1) + f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: dev lines")
+    files = [f for f in (ckpt / "step_10").rglob("*") if f.is_file()]
+    size = sum(f.stat().st_size for f in files)
+    print(f"  checkpoint step_10: {size} bytes ({size / 1e9:.3f} GB) in {len(files)} files")
+
+    def blocked(times):
+        return ", ".join(f"step {s} {ms:.1f} ms ({w:.1f} waiting for the previous write)"
+                         for s, (ms, w) in sorted(times.items()))
+
+    print(f"  the loop blocked in save(): async {blocked(async_ms)}; sync (the resumed run) "
+          f"{blocked(save_ms)}. Step 1 also allocates the pinned staging buffers  [{card}]")
+    print("  each write to disk: async (a background thread) " + ", ".join(
+        f"step {s} {t:.2f} s" for s, t in sorted(async_write_s.items())) + "; sync " + ", ".join(
+        f"step {s} {t:.2f} s ({size / t / 1e9:.2f} GB/s)" for s, t in sorted(write_s.items())))
+    print(f"  step times of run 1, ms (each includes the save, trace and dev pass after the "
+          f"step before it): {[round(h['time/step_s'] * 1e3, 1) for h in hist1]}; peak "
+          f"{peak1:.2f} GiB allocated (memory history recording on)")
+
+    trace = exp / "profile_traces" / f"iteration_{RECIPE_INTERVAL}" / "trace.json"
+    traces = sorted(p.name for p in (exp / "profile_traces").iterdir())
+    with open(trace) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    named = {profile_group(n) for n in kernels}
+    missing = [g for g in RECIPE_TRACE_GROUPS if g not in named]
+    ok = traces == [f"iteration_{RECIPE_INTERVAL}"] and not missing
+    print(f"  profiler traces {traces}: {len(kernels)} kernel names, groups "
+          f"{sorted(named)}; missing {missing or 'none'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: trace")
+    snaps = sorted((exp / "memory_snapshot").glob("*.pickle"))
+    ok = [p.name for p in snaps] == ["step_10.pickle", "step_5.pickle"]
+    print("  memory snapshots: " + ", ".join(f"{p.name} {p.stat().st_size} bytes" for p in snaps) +
+          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: memory snapshots")
+
+    losses2 = [h["loss/per_sample"] for h in hist2]
+    same_loss = [h["step"] for h in hist2] == list(range(RESUME_STEP + 1, RECIPE_STEPS + 1)) \
+        and losses2 == losses1[RESUME_STEP:]
+    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
+        sorted(set(state2) - set(state1))
+    same_dev = len(dev2) == 1 and dev2[0] == dev1[-1]
+    ok = same_loss and not differ and same_dev
+    print(f"  resumed from step {RESUME_STEP}: steps {[h['step'] for h in hist2]}, losses equal "
+          f"run 1's bit for bit: {same_loss}; final params, mu, nu, count ({len(state1)} "
+          f"tensors, checksums of their bits on the card) differ in {differ[:5] or 'none'}; "
+          f"dev line at step 10 equal: {same_dev} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: resume not bit-equal")
+
+    steps = RECIPE_STEPS + RECIPE_STEPS - RESUME_STEP
+    dev_fwd = k3f - steps  # each dev batch runs K3's forward once and K1 L times
+    ok = k2 == L * steps and k3b == steps and dev_fwd > 0 and k1 == L * (steps + dev_fwd)
+    print(f"  launches over both runs ({steps} steps, {dev_fwd} dev batches over 4 dev passes): "
+          f"K1={k1} K2={k2} K3 fwd={k3f} K3 bwd={k3b} (want K1 = {L}x(steps + dev batches), "
+          f"K2 = {L}x steps, K3 bwd = steps; no backward kernel in dev) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: launch counts")
+    return {"K1": k1, "K2": k2, "K3 fwd": k3f, "K3 bwd": k3b}
+
+
 # device kernels of a step, by the part of the port that launches them (the
 # first group whose key a kernel's name holds; K3's come before cuBLAS's).
 # Both directions of K3 run the mainloop ce_gemm<Op>: its epilogue class,
@@ -1078,12 +1438,18 @@ def profile_group(kernel: str) -> str:
                 "elementwise and other")
 
 
+PROFILE_MODES = ("op_small", "full")  # the recipe's remat, then the one it replaced
+
+
 def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     """`python3 chip_smoke.py --profile`: torch.profiler over `steps`
-    training steps of phase 8's configuration (1x16384 bf16, remat full)
-    after `warmup` steps, through the Trainer's own train_step. Prints the
+    training steps of phase 8's configuration (1x16384 bf16) under each
+    remat mode of PROFILE_MODES, each after `warmup` steps, through the
+    Trainer's own train_step on the same batches. Prints, per mode, the
     device time of each group of kernels per step, the device's busy share
-    of the window, and the twenty largest kernels."""
+    of the window and the peak memory of forward + backward alone and of
+    the whole step, side by side, then the twenty largest kernels of the
+    first mode."""
     from torch.profiler import ProfilerActivity, profile
 
     from touchnet_tpu_torch.bin import TrainConfig, train
@@ -1102,35 +1468,65 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     it = iter(trainer.dataloader)
     batches = [trainer._put_batch(next(it)) for _ in range(steps + warmup)]
     trainer.close()
-    for batch, n in batches[:warmup]:
-        trainer.train_step(batch, n)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for batch, n in batches[warmup:]:
+    results = {}
+    for mode in PROFILE_MODES:
+        # the step reads the mode from the job config at every forward
+        trainer.job_config.training_activation_checkpoint_mode = mode
+        for batch, n in batches[:warmup]:
             trainer.train_step(batch, n)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0, -math.inf
-    for a, b in spans:  # the union of the kernels' intervals
-        busy += max(0, b - max(a, end))
-        end = max(end, b)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    total = sum(by_name.values())
-    groups = {}
-    for name, us in by_name.items():
-        g = profile_group(name)
-        groups[g] = groups.get(g, 0) + us
-    print(f"[profile] {steps} steps at 1x{TRAIN_T} bf16 remat full after {warmup} warmups: "
-          f"{wall_us / steps / 1e3:.1f} ms/step under the profiler, {len(kernels) // steps} "
-          f"kernels/step, device busy {100 * busy / wall_us:.1f}% of the window  [{card}]")
-    for g, us in sorted(groups.items(), key=lambda x: -x[1]):
-        print(f"  {g}: {us / steps / 1e3:.1f} ms/step ({100 * us / total:.1f}% of device time)")
-    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:20]:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for batch, n in batches[warmup:]:
+                trainer.train_step(batch, n)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+        busy, end = 0, -math.inf
+        for a, b in spans:  # the union of the kernels' intervals
+            busy += max(0, b - max(a, end))
+            end = max(end, b)
+        by_name = {}
+        for e in kernels:
+            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+        groups = {}
+        for name, us in by_name.items():
+            g = profile_group(name)
+            groups[g] = groups.get(g, 0) + us
+        # where the step's peak memory is set: forward + backward alone,
+        # then the whole step (the same, plus clipping and AdamW)
+        batch, n = batches[-1]
+        torch.cuda.reset_peak_memory_stats()
+        trainer._loss_and_acc(batch, n)[0].backward()
+        torch.cuda.synchronize()
+        fb_peak = torch.cuda.max_memory_allocated() / 2**30
+        for p in trainer.params:
+            p.grad = None
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train_step(batch, n)
+        torch.cuda.synchronize()
+        results[mode] = dict(wall_us=wall_us, busy=busy, n=len(kernels), by_name=by_name,
+                             groups=groups, total=sum(by_name.values()), fb_peak=fb_peak,
+                             step_peak=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[profile] {steps} steps at 1x{TRAIN_T} bf16 after {warmup} warmups, remat "
+          f"{' | '.join(PROFILE_MODES)}  [{card}]")
+    print("  ms/step under the profiler: " + " | ".join(
+        f"{r['wall_us'] / steps / 1e3:.1f}" for r in results.values()) +
+        "; kernels/step: " + " | ".join(f"{r['n'] // steps}" for r in results.values()) +
+        "; device busy: " + " | ".join(
+            f"{100 * r['busy'] / r['wall_us']:.1f}%" for r in results.values()))
+    print("  peak GiB allocated, forward + backward alone: " + " | ".join(
+        f"{r['fb_peak']:.2f}" for r in results.values()) + "; the whole step: " + " | ".join(
+        f"{r['step_peak']:.2f}" for r in results.values()))
+    first = results[PROFILE_MODES[0]]
+    names = sorted({g for r in results.values() for g in r["groups"]},
+                   key=lambda g: -first["groups"].get(g, 0))
+    for g in names:
+        print(f"  {g}: " + " | ".join(
+            f"{r['groups'].get(g, 0) / steps / 1e3:.1f} ms/step "
+            f"({100 * r['groups'].get(g, 0) / r['total']:.1f}%)" for r in results.values()))
+    for name, us in sorted(first["by_name"].items(), key=lambda x: -x[1])[:20]:
         print(f"  {us / steps / 1e3:9.2f} ms/step  {name[:110]}")
 
 
@@ -1375,8 +1771,15 @@ def main() -> int:
     k3 = check_k3(fused_ce, dev, gen, failures, card)
     with tempfile.TemporaryDirectory() as tmp:
         train_counts = run_training(dev, card, failures, Path(tmp))
-    counts["K1"] += train_counts.pop("K1")
-    counts.update(train_counts)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        recipe_counts = run_recipe(dev, card, failures, Path(tmp))
+    for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
+        for path, got in (("training", train_counts), ("recipe run", recipe_counts)):
+            if not got.get(name):
+                failures.append(f"{name} never launched on the {path} path")
+        counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
+            recipe_counts.get(name, 0)
     for name, n in counts.items():
         if n == 0:
             failures.append(f"{name} never launched on the main path")
@@ -1388,7 +1791,7 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"touchnet_tpu_torch/ops/csrc/{source}",
                 "replaces": replaces, "launches": launches,
                 **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "tflops", "gemm_ms")
+                                        "bound_by", "library_ms", "tflops", "gemm_ms", "parts")
                    if k in main},
                 "cases": cases}
 

@@ -1,13 +1,16 @@
 # The bound arithmetic of chip_smoke.py: live_pairs counts the live
 # (row, column) pairs of one head from the segment runs, and must equal the
-# sum of the dense causal + segment mask that K1 applies. And the source
-# edits of its --faults and --tune modes must still find their text.
+# sum of the dense causal + segment mask that K1 applies; K2's per-kernel
+# bounds. The bit checksums and the depth choice of the recipe phase. And
+# the source edits of its --faults and --tune modes must still find their
+# text.
 
 import importlib.util
 import os
 
 import numpy as np
 import pytest
+import torch
 
 _PATH = os.path.join(os.path.dirname(__file__), "..", "..", "chip_smoke.py")
 _spec = importlib.util.spec_from_file_location("chip_smoke", _PATH)
@@ -104,6 +107,49 @@ def test_fault_and_tune_edits_match_the_kernel_sources():
     edits.append(("decode_attention.cu", "static constexpr int kStages = 3;"))
     for fname, right in edits:
         assert right in text(fname), (fname, right)
+
+
+def test_k2_part_bounds_count_the_split_design():
+    """dkv does S, dP, dV, dK (8·D·H per live pair), dq S, dP, dQ (6):
+    14 in all against the fused pass's 10; delta is bound by its bytes."""
+    B, T, H, Hkv, D = 1, 64, 4, 2, 16
+    q, g, out = (torch.zeros(B, T, H, D, dtype=torch.bfloat16) for _ in range(3))
+    k, v = (torch.zeros(B, T, Hkv, D, dtype=torch.bfloat16) for _ in range(2))
+    lse = torch.zeros(B, H, T)
+    seg = torch.ones(B, T, dtype=torch.int32)
+    pairs = chip_smoke.live_pairs(seg, seg, True)
+    got = chip_smoke.k2_part_bounds(D, H, pairs, q, k, v, out, g, lse, seg, q, k, v)
+    assert got["dkv"]["flops"] == 8 * D * H * pairs == 8 * D * H * T * (T + 1) // 2
+    assert got["dq"]["flops"] == 6 * D * H * pairs
+    assert got["delta"]["bound_by"] == "bytes"
+
+
+def test_bits_checksums_see_a_flipped_bit_and_a_swap():
+    t = torch.arange(12, dtype=torch.float32)
+    base = chip_smoke.bits_checksums({"t": t})["t"]
+    flipped = t.clone()
+    flipped.view(torch.int32)[3] ^= 1
+    swapped = t[[0, 1, 5, 3, 4, 2, 6, 7, 8, 9, 10, 11]]
+    assert chip_smoke.bits_checksums({"t": flipped})["t"][0] != base[0]
+    s = chip_smoke.bits_checksums({"t": swapped})["t"]
+    assert s[0] == base[0] and s[1] != base[1]
+    assert chip_smoke.bits_checksums({"c": torch.tensor(7, dtype=torch.int32)})["c"] == (7, 7)
+
+
+def test_recipe_depth_cuts_layers_only_without_room():
+    """Phase 9 keeps full depth when the temp directory holds three
+    checkpoints (~14.8 GB each for Llama-3.2-1B: f32 params, mu, nu), and
+    otherwise cuts layers, never width."""
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+
+    cfg = LlamaConfig.from_json_file(str(chip_smoke.CONFIG))
+    L, ckpt, need = chip_smoke.recipe_depth(cfg, 10**12)
+    assert L == cfg.num_hidden_layers == 16 and 14.7e9 < ckpt < 14.9e9
+    assert need == 3 * ckpt + 2**31
+    cut, _, cut_need = chip_smoke.recipe_depth(cfg, need - 1)
+    assert 0 < cut < 16 and cut_need < need
+    assert chip_smoke.recipe_depth(cfg, 0)[0] == 0
+    assert cfg.num_hidden_layers == 16  # the config itself is untouched
 
 
 _NS = "tn::(anonymous namespace)::"

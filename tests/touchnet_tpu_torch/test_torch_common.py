@@ -20,6 +20,7 @@ from touchnet_tpu_torch.models.llama import check_finite_params, head_weight
 from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from touchnet_tpu_torch.models.llama.convert import params_from_jax_numpy
 from touchnet_tpu_torch.models.llama.modeling_llama import (
+    LlamaMLP,
     empty_model,
     get_num_params,
     init_params,
@@ -88,17 +89,24 @@ def test_apply_rope_short_positions():
 
 
 def test_linear_and_swiglu():
+    """common.linear, and the port's SwiGLU (LlamaMLP, which runs each
+    projection under its residual name) against the JAX swiglu."""
     rng = np.random.default_rng(3)
-    x = _np(rng, (2, 3, 32))
-    g, u, d = _np(rng, (48, 32)) * 0.2, _np(rng, (48, 32)) * 0.2, _np(rng, (32, 48)) * 0.2
-    b = _np(rng, (48,))
+    cfg = LlamaConfig.from_json_file(TINY)
+    E, inter = cfg.hidden_size, cfg.intermediate_size
+    x = _np(rng, (2, 3, E))
+    g, u, d = _np(rng, (inter, E)) * 0.2, _np(rng, (inter, E)) * 0.2, _np(rng, (E, inter)) * 0.2
+    b = _np(rng, (inter,))
     np.testing.assert_allclose(
         common.linear(torch.from_numpy(x), torch.from_numpy(g), torch.from_numpy(b)).numpy(),
         np.asarray(jcommon.linear(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b))),
         atol=ATOL,
     )
     want = jcommon.swiglu(*(jnp.asarray(a) for a in (x, g, u, d)))
-    got = common.swiglu(*(torch.from_numpy(a) for a in (x, g, u, d)))
+    mlp = LlamaMLP(cfg)
+    mlp.load_state_dict({f"{n}_proj.weight": torch.from_numpy(w)
+                         for n, w in (("gate", g), ("up", u), ("down", d))})
+    got = mlp(torch.from_numpy(x)).detach()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 

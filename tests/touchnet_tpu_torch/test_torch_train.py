@@ -1,9 +1,11 @@
 # The port's training slice against the JAX package on the CPU, tiny Llama
 # (tests/assets/config/tiny_llama.json), f32 throughout:
 #   - the training forward (logits and final hidden) against JAX forward for
-#     every remat mode the port runs (remat must not change values: atol
-#     2e-5, float rounding of two frameworks' matmuls over 2 layers at unit
-#     scale); the JAX-only modes raise;
+#     every remat mode (remat must not change values: atol 2e-5, float
+#     rounding of two frameworks' matmuls over 2 layers at unit scale); for
+#     the modes that save named residuals also the gradients against
+#     jax.grad of the same mode, and what the backward re-runs (K1's op,
+#     the named projections);
 #   - one train step (forward + fused linear CE + backward + clip + AdamW)
 #     against a JAX step assembled from the JAX functions on the same weights
 #     and batch: loss and grad norm rtol 1e-5; params after the step: 99.9 %
@@ -15,8 +17,9 @@
 #     lr moves every entry by more than 1e-6;
 #   - the causal_lm loader: the first 3 batches identical to the JAX
 #     loader's on the same DataBuilder shards;
-#   - bin.train.main on the tiny config: the loss drops over 8 steps, and
-#     each flag of a later slice raises.
+#   - bin.train.main on the tiny config: the loss drops over 8 steps,
+#     op_small gives the losses of no remat, and each flag of a later slice
+#     raises.
 
 import os
 
@@ -26,6 +29,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from touchnet_tpu.bin import TrainConfig as JTrainConfig
 from touchnet_tpu.data import DataConfig as JDataConfig
@@ -151,15 +155,93 @@ def test_training_forward_ignores_attn_implementation(impl, monkeypatch):
     assert len(calls) == cfg.num_hidden_layers
 
 
-@pytest.mark.parametrize("remat,opt", [("op", "2"), ("op_small", "2"), ("op_names", "2"),
-                                       ("save:flash_out,dot_q", "2"), ("selective", "op"),
-                                       ("selective", "op_every_2"), ("op", "full_every_2")])
-def test_residual_saving_remat_modes_raise(remat, opt):
+RESIDUAL_MODES = [("op", "2"), ("op_small", "2"), ("op_names", "2"),
+                  ("save:flash_out,dot_q", "2"), ("selective", "op"),
+                  ("selective", "op_every_2"), ("op", "full_every_2")]
+
+
+@pytest.mark.parametrize("remat,opt", RESIDUAL_MODES)
+def test_residual_saving_remat_matches_jax(remat, opt):
+    """Each mode that saves named residuals against JAX's same mode on the
+    same weights: the f32 forward at atol 2e-5 (as test_forward_matches_jax),
+    and the gradients of sum(logits * r) per tensor within 1e-5 of the
+    tensor's largest gradient (remat changes no value; only the two
+    frameworks' summation orders differ)."""
+    jcfg, tcfg = _configs()
+    jparams, model = _weights(jcfg, tcfg)
+    batch, _ = _packed_batch(3, tcfg.vocab_size)
+    r = np.random.default_rng(4).standard_normal((B, T, tcfg.vocab_size)).astype(np.float32)
+    jkw = dict(input_ids=jnp.asarray(batch["input_ids"]),
+               segment_ids=jnp.asarray(batch["attention_mask"]),
+               position_ids=jnp.asarray(batch["position_ids"]), config=jcfg,
+               compute_dtype=jnp.float32, remat_mode=remat, selective_ac_option=opt)
+
+    def jloss(params):
+        logits = jmodel.forward(params, **jkw)
+        return (logits * jnp.asarray(r)).sum(), logits
+
+    (_, want), jgrads = jax.value_and_grad(jloss, has_aux=True)(jparams)
+    logits = tmodel.forward(
+        model, input_ids=torch.from_numpy(batch["input_ids"]),
+        segment_ids=torch.from_numpy(batch["attention_mask"]),
+        position_ids=torch.from_numpy(batch["position_ids"]), config=tcfg,
+        compute_dtype=torch.float32, remat_mode=remat, selective_ac_option=opt)
+    np.testing.assert_allclose(logits.detach().numpy(), np.asarray(want), atol=2e-5)
+    (logits * torch.from_numpy(r)).sum().backward()
+    jg = params_from_jax_numpy(jax.tree.map(np.asarray, jgrads), tcfg)
+    for name, p in model.named_parameters():
+        ref = jg[name].numpy()
+        err = np.abs(p.grad.numpy() - ref).max()
+        assert err <= 1e-5 * np.abs(ref).max(), (name, err, np.abs(ref).max())
+
+
+class _CountRecompute(TorchDispatchMode):
+    """Counts, while open, the K1 op calls and the tagged projection
+    matmuls that run. Opened around backward(): a residual the checkpoint
+    policy saved is handed back by the checkpoint's own mode, above this
+    one, and never reaches it."""
+
+    def __init__(self):
+        super().__init__()
+        self.flash = 0
+        self.dots = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is tmodel.attn_ops.FLASH_FWD_OP:
+            self.flash += 1
+        elif func in tmodel._MATMULS and tmodel._TAG.name:
+            self.dots[tmodel._TAG.name] = self.dots.get(tmodel._TAG.name, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("remat,opt", [("op_small", "2"), ("op", "2"), ("full", "2"),
+                                       ("selective", "op"), ("op", "full_every_2")])
+def test_remat_recompute_counts(remat, opt):
+    """What the backward re-runs: K1's op never under op_small, op and
+    selective + "op" (its (out, lse) are saved), once per layer under full,
+    on the full-every-2 layers only under op + full_every_2; op_small
+    re-runs the gate and up matmuls but no q/k/v/o projection, op none."""
     _, tcfg = _configs()
-    model = tmodel.empty_model(tcfg, device="cpu")
-    with pytest.raises(ValueError, match="custom_op"):
-        tmodel.forward(model, input_ids=torch.zeros((1, 4), dtype=torch.int32),
-                       config=tcfg, remat_mode=remat, selective_ac_option=opt)
+    L = tcfg.num_hidden_layers
+    model = tmodel.init_params(tcfg, torch.Generator().manual_seed(0), requires_grad=True,
+                               train=True)
+    batch, _ = _packed_batch(5, tcfg.vocab_size)
+    logits = tmodel.forward(
+        model, input_ids=torch.from_numpy(batch["input_ids"]),
+        segment_ids=torch.from_numpy(batch["attention_mask"]),
+        position_ids=torch.from_numpy(batch["position_ids"]), config=tcfg,
+        compute_dtype=torch.float32, remat_mode=remat, selective_ac_option=opt)
+    with _CountRecompute() as counts:
+        logits.square().mean().backward()
+    want_flash = {"full": L, "op": -(-L // 2) if opt == "full_every_2" else 0}.get(remat, 0)
+    assert counts.flash == want_flash, counts.flash
+    attn_dots = sum(counts.dots.get(n, 0) for n in tmodel.ATTN_DOTS)
+    if remat == "op_small":
+        assert attn_dots == 0 and counts.dots["dot_gate"] == counts.dots["dot_up"] == L
+    if remat == "op" and opt == "2":
+        assert not counts.dots, counts.dots
+    if remat == "full":
+        assert attn_dots == 4 * L, counts.dots
 
 
 @pytest.mark.parametrize("remat,opt,layers,want", [
@@ -172,8 +254,9 @@ def test_residual_saving_remat_modes_raise(remat, opt):
 def test_remat_layer_choice(remat, opt, layers, want):
     """The checkpointed layers are scan_layers' choice: every layer under
     "full", those with index % k == 0 under "selective" + k (the JAX
-    _selective_layer_freq gives the same k)."""
-    assert tmodel.remat_layers(remat, opt, layers) == want
+    _selective_layer_freq gives the same k), each recomputed whole."""
+    assert tmodel.remat_layers(remat, opt, layers) == [tmodel.FULL if w else None
+                                                       for w in want]
     if remat == "selective":
         assert jmodel._selective_layer_freq(remat, opt) == int(opt)
 
@@ -317,12 +400,8 @@ def test_trainer_main_loss_drops(tmp_path):
     ("training_pipeline_parallel_degree", 2),
     ("training_data_parallel_replicate_degree", 2),
     ("training_gradient_accumulation_steps", 2),
-    ("training_enable_ckpt", "true"),
     ("training_mixed_precision_reduce", "bfloat16"),
     ("training_enable_cpu_offload", "true"),
-    ("datalist_dev_path", "dev.list"),
-    ("training_enable_profiling", "true"),
-    ("training_enable_memory_snapshot", "true"),
 ])
 def test_trainer_rejects_later_slices(tmp_path, flag, value):
     with pytest.raises(ValueError, match=flag):
@@ -330,9 +409,16 @@ def test_trainer_rejects_later_slices(tmp_path, flag, value):
                     device=torch.device("cpu"))
 
 
-def test_trainer_rejects_residual_saving_remat(tmp_path):
+def test_trainer_op_small_equals_none(tmp_path):
+    """bin.train.main under the recipe's op_small: the losses of 3 steps
+    equal those without remat bit for bit (the recompute gives the same
+    values on the CPU)."""
     listfile = build_corpus(tmp_path)
-    with pytest.raises(ValueError, match="op_small"):
-        ttrain.main(_flags(tmp_path, listfile, 2,
-                           training_activation_checkpoint_mode="op_small"),
-                    device=torch.device("cpu"))
+    losses = {}
+    for mode in ("op_small", "none"):
+        trainer = ttrain.main(_flags(tmp_path / mode, listfile, 3,
+                                     training_activation_checkpoint_mode=mode),
+                              device=torch.device("cpu"))
+        losses[mode] = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+    assert len(losses["none"]) == 3
+    assert losses["op_small"] == losses["none"]

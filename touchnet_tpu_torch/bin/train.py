@@ -5,10 +5,14 @@
 #
 # Port of touchnet_tpu/bin/train.py: Trainer (:299-481), _loss_and_acc
 # (:556-582, the fused-CE route of --training_enable_liger_kernel and the
-# full-logits route), the train step (:645-780), GlobalBatchLoader (:96-171)
-# with one data-parallel stream, DevicePrefetcher (:174-220), _put_batch
-# (:790-859), the train loop (:944-1022) and main. The flags and the batch
-# contract are the JAX trainer's (TrainConfig, DataConfig, TokenizerConfig).
+# full-logits route), the train step (:645-780) and the eval step
+# (:782-787), GlobalBatchLoader (:96-171) with one data-parallel stream,
+# DevicePrefetcher (:174-220), _PrefetchStateView (:284), _put_batch
+# (:790-859), train with its SIGTERM preemption and watchdogs (:884-942),
+# the train loop (:944-1022) with checkpoints, dev evaluation, profiling,
+# memory snapshots and GC, dev (:1024-1072) and main. The flags and the
+# batch contract are the JAX trainer's (TrainConfig, DataConfig,
+# TokenizerConfig).
 #
 # One step: forward (K1 attention) -> pack loss (K3 when fused) -> backward
 # (K2, K3) -> global-norm clip min(1, max_norm / (gnorm + 1e-6)) -> AdamW
@@ -16,14 +20,19 @@
 # finite flag, the schedule's lr and the hold stay on the device: the loop
 # reads the device (.item()) only on logging steps.
 #
+# Resume: with --training_enable_ckpt true a Trainer loads the latest
+# step_<N> of <trace_dump_folder>/<ckpt_folder> (or --training_ckpt_load_step
+# N) at init: params, AdamW moments and count, the step and the loader
+# state, so the run goes on with the batch after the last trained one.
+#
 # What this slice does not run raises a ValueError naming the flag
-# (check_supported): parallel degrees above 1, gradient accumulation,
-# checkpoints, bf16 gradient reduction, CPU offload, dev sets, profiling and
-# memory snapshots.
+# (check_supported): parallel degrees above 1, gradient accumulation, bf16
+# gradient reduction and CPU offload. TensorBoard and wandb are a warning.
 
 import copy
 import os
 import queue
+import signal
 import threading
 import time
 from typing import Any, Dict, Optional
@@ -38,10 +47,16 @@ from touchnet_tpu_torch.models.llama.modeling_llama import remat_layers
 from touchnet_tpu_torch.ops.fused_adamw import fused_adamw_step
 from touchnet_tpu_torch.parallel.loss_parallel import fused_linear_cross_entropy
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
+from touchnet_tpu_torch.utils.checkpoint import CheckpointManager, export_weights_only
 from touchnet_tpu_torch.utils.cli import dump_config_json, parse_args_into_dataclasses
+from touchnet_tpu_torch.utils.distributed import GarbageCollection, StepWatchdog, set_determinism
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 from touchnet_tpu_torch.utils.metrics import MetricsProcessor
 from touchnet_tpu_torch.utils.optimizer import build_optimizer, global_grad_norm
+from touchnet_tpu_torch.utils.profiling import (
+    maybe_enable_memory_snapshot,
+    maybe_enable_profiling,
+)
 from touchnet_tpu_torch.utils.train_spec import get_train_spec
 
 _BATCH_ARRAY_KEYS = (
@@ -55,7 +70,7 @@ _BATCH_ARRAY_KEYS = (
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def check_supported(job_config: TrainConfig, data_config: DataConfig) -> None:
+def check_supported(job_config: TrainConfig) -> None:
     """Raise a ValueError naming the first flag this slice does not run."""
     later = "is a later slice of touchnet_tpu_torch"
     cfg = job_config
@@ -72,14 +87,9 @@ def check_supported(job_config: TrainConfig, data_config: DataConfig) -> None:
     checks = [
         (cfg.training_gradient_accumulation_steps > 1,
          "training_gradient_accumulation_steps > 1: gradient accumulation"),
-        (cfg.training_enable_ckpt, "training_enable_ckpt: checkpoints"),
         (cfg.training_mixed_precision_reduce == "bfloat16",
          "training_mixed_precision_reduce bfloat16: bf16 gradient reduction"),
         (cfg.training_enable_cpu_offload, "training_enable_cpu_offload: CPU offload"),
-        (data_config.datalist_dev_path is not None, "datalist_dev_path: dev evaluation"),
-        (cfg.training_enable_profiling, "training_enable_profiling: profiling"),
-        (cfg.training_enable_memory_snapshot,
-         "training_enable_memory_snapshot: memory snapshots"),
         (cfg.training_mixed_precision_param not in _DTYPES,
          f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
          "the kernels take bfloat16 or float32; float16"),
@@ -104,6 +114,9 @@ class GlobalBatchLoader:
         state = dict(self.loaders[0].state_dict())
         state["world_size"] = self.dp_degree
         return state
+
+    def load_state_dict(self, state):
+        self.loaders[0].load_state_dict(state)
 
     def shutdown(self):
         self.loaders[0].shutdown()
@@ -192,6 +205,22 @@ class DevicePrefetcher:
         self.thread.join(timeout=10.0)
 
 
+class _PrefetchStateView:
+    """The loader as the CheckpointManager sees it during training: its
+    state is the prefetcher's consumed_state (the last trained batch, never
+    a staged one); a loaded state goes to the real loader."""
+
+    def __init__(self, prefetcher, loader):
+        self.prefetcher = prefetcher
+        self.loader = loader
+
+    def state_dict(self):
+        return self.prefetcher.consumed_state
+
+    def load_state_dict(self, state):
+        self.loader.load_state_dict(state)
+
+
 class Trainer:
     def __init__(self, tokenizer_config: TokenizerConfig, data_config: DataConfig,
                  job_config: TrainConfig, device: Optional[torch.device] = None):
@@ -199,8 +228,9 @@ class Trainer:
         self.data_config = data_config
         self.tokenizer_config = tokenizer_config
         job_config.validate()
-        check_supported(job_config, data_config)
+        check_supported(job_config)
         init_logger(os.path.join(job_config.training_trace_dump_folder, "touchnet_train.log"))
+        self.gc_handler = GarbageCollection(job_config.training_gc_freq)
         if device is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
@@ -217,12 +247,13 @@ class Trainer:
         for flag in ("training_enable_tensorboard", "training_enable_wandb"):
             if getattr(job_config, flag):
                 logger.warning(f"{flag}: not ported; metrics go to the log only")
+        set_determinism(job_config.training_seed, job_config.training_deterministic)
 
         self.train_spec = get_train_spec(job_config.training_model_name)
         self.model_config = self.train_spec.config_cls.from_json_file(
             job_config.training_model_config_path)
         self.compute_dtype = _DTYPES[job_config.training_mixed_precision_param]
-        # rejects the remat modes this slice does not run, before any work
+        # an unknown remat mode or option raises here, before any work
         remat_layers(job_config.training_activation_checkpoint_mode,
                      job_config.training_activation_checkpoint_selective_ac_option,
                      self.model_config.num_hidden_layers)
@@ -234,6 +265,7 @@ class Trainer:
         self.tokenizer = self.train_spec.build_tokenizer_fn(tokenizer_config)
         self.dataloader = GlobalBatchLoader(self.train_spec.build_dataloader_fn,
                                             data_config, self.tokenizer, "train")
+        self.has_dev = data_config.datalist_dev_path is not None
         self.metrics_processor = MetricsProcessor(job_config, device)
 
         # f32 master weights from a seeded generator on the device
@@ -257,6 +289,20 @@ class Trainer:
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.step = 0
+
+        self.checkpointer = CheckpointManager(self.dataloader, job_config)
+        loaded = self.checkpointer.load(self.model.state_dict(), self._opt_state())
+        self.step = loaded["step"]
+        if loaded["loaded"]:
+            check_finite_params(self.model)
+
+    def _opt_state(self) -> Dict[str, torch.Tensor]:
+        """The AdamW state by name, as the checkpoint holds it."""
+        names = [n for n, p in self.model.named_parameters() if p.requires_grad]
+        state = {f"mu.{n}": m for n, m in zip(names, self.mu)}
+        state.update({f"nu.{n}": v for n, v in zip(names, self.nu)})
+        state["count"] = self.count
+        return state
 
     # ------------------------------------------------------------------
     @property
@@ -308,6 +354,9 @@ class Trainer:
         scale = torch.clamp(self.job_config.training_max_norm / (gnorm + 1e-6), max=1.0)
         finite = torch.isfinite(gnorm)
         ob = self.opt
+        # the update writes params and moments in place: not before a
+        # pending checkpoint's staging copies have read them
+        self.checkpointer.maybe_wait_for_staging()
         with torch.no_grad():
             self.count = fused_adamw_step(
                 grads, self.params, self.mu, self.nu, self.count,
@@ -345,6 +394,25 @@ class Trainer:
         cfg = self.job_config
         total_steps = cfg.lr_scheduler_steps
         logger.info(f"training starts at step {self.step + 1}/{total_steps}")
+        # preemption: SIGTERM saves at the next step boundary and exits
+        self._preempted = False
+
+        def on_sigterm(signum, frame):
+            self._preempted = True
+            logger.warning("SIGTERM received; checkpointing at the next step boundary, then "
+                           "exiting")
+
+        try:
+            prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+        except ValueError:  # not the main thread
+            prev_handler = None
+        # step 1 (kernel builds, allocator warm-up) gets the init timeout and
+        # never aborts; the steps after it the train timeout
+        watchdog = StepWatchdog(cfg.training_train_timeout_seconds,
+                                cfg.training_trace_dump_folder,
+                                abort=cfg.training_abort_on_timeout)
+        init_watchdog = StepWatchdog(cfg.training_init_timeout_seconds,
+                                     cfg.training_trace_dump_folder, abort=False)
 
         def stage(batch):
             ntokens = int((batch["labels"] != -100).sum())
@@ -354,35 +422,97 @@ class Trainer:
         data_iter = DevicePrefetcher(self.dataloader, stage,
                                      depth=self.data_config.dataloader_device_prefetch,
                                      device=self.device)
+        # checkpoints record the state of the last trained batch
+        self.checkpointer.dataloader = _PrefetchStateView(data_iter, self.dataloader)
         try:
-            self._train_loop(data_iter, total_steps)
+            self._train_loop(data_iter, total_steps, watchdog, init_watchdog)
         finally:
             data_iter.close()
+            self.checkpointer.dataloader = self.dataloader
+            watchdog.close()
+            init_watchdog.close()
+            if prev_handler is not None:
+                signal.signal(signal.SIGTERM, prev_handler)
+        if cfg.training_ckpt_model_weights_only and self.checkpointer.enabled:
+            self.checkpointer.wait_until_finished()
+            export_weights_only(self.model.state_dict(),
+                                os.path.join(self.checkpointer.folder, "weights_only"),
+                                cfg.training_ckpt_export_dtype)
+        self.checkpointer.wait_until_finished()
         logger.info("training completed")
 
-    def _train_loop(self, data_iter, total_steps):
+    def _train_loop(self, data_iter, total_steps, watchdog, init_watchdog):
+        cfg = self.job_config
         mp = self.metrics_processor
         metrics, logged = None, True
-        while self.step < total_steps:
-            t0 = time.perf_counter()
-            try:
-                device_batch, num_sentence, ntokens = next(data_iter)
-            except StopIteration:
-                logger.info("dataloader exhausted; ending training")
-                break
-            mp.data_loading_times.append(time.perf_counter() - t0)
-            mp.ntokens_since_last_log += ntokens
-            mp.steps_since_last_log += 1
-            self.step += 1
-            metrics = self.train_step(device_batch, num_sentence)
-            logged = mp.should_log(self.step)
-            if logged:
-                mp.log(self.step, metrics)
+        with maybe_enable_profiling(cfg, self.device) as profiler, \
+                maybe_enable_memory_snapshot(cfg, self.step, self.device) as mem_profiler:
+            while self.step < total_steps:
+                self.gc_handler.run(self.step)
+                (init_watchdog if self.step < 2 else watchdog).arm()
+                t0 = time.perf_counter()
+                try:
+                    device_batch, num_sentence, ntokens = next(data_iter)
+                except StopIteration:
+                    logger.info("dataloader exhausted; ending training")
+                    break
+                mp.data_loading_times.append(time.perf_counter() - t0)
+                mp.ntokens_since_last_log += ntokens
+                mp.steps_since_last_log += 1
+                self.step += 1
+                metrics = self.train_step(device_batch, num_sentence)
+                logged = mp.should_log(self.step)
+                if logged:
+                    mp.log(self.step, metrics)
+                init_watchdog.disarm()
+                watchdog.disarm()
+                saved = self.save(force=self.step == total_steps or self._preempted)
+                if profiler is not None:
+                    profiler.step(self.step)
+                if mem_profiler is not None:
+                    mem_profiler.step(self.step)
+                if saved and self.has_dev:
+                    self.dev()
+                if self._preempted:
+                    logger.warning(f"exiting on preemption at step {self.step} (checkpoint "
+                                   f"{'saved' if saved else 'DISABLED'})")
+                    break
         if not logged:
             mp.log(self.step, metrics)
 
+    def save(self, force: bool = False) -> bool:
+        """The checkpoint of this step, if the cadence (or force) says so."""
+        return self.checkpointer.save(self.step, self.model.state_dict(), self._opt_state(),
+                                      force=force)
+
+    @torch.no_grad()
+    def dev(self):
+        """The dev-set pass (the JAX Trainer.dev, :1024-1072): the eval step
+        (_loss_and_acc, forward only: K1 and K3's forward on the card) over
+        every batch of datalist_dev_path, averaged, logged as one [dev] line."""
+        dev_loader = GlobalBatchLoader(self.train_spec.build_dataloader_fn, self.data_config,
+                                       self.tokenizer, "dev")
+        totals = {"loss_per_sample": 0.0, "loss_per_token": 0.0, "acc": 0.0}
+        n = 0
+        try:
+            for batch in dev_loader:
+                device_batch, num_sentence = self._put_batch(batch)
+                loss_ps, loss_pt, acc = self._loss_and_acc(device_batch, num_sentence)
+                for k, v in zip(totals, (loss_ps, loss_pt, acc)):
+                    totals[k] += float(v)
+                n += 1
+        finally:
+            dev_loader.shutdown()
+        if n:
+            self.metrics_processor.log_dev(self.step, {k: v / n for k, v in totals.items()})
+
     def close(self):
-        self.dataloader.shutdown()
+        """Waits for a pending checkpoint write (raising its error)."""
+        try:
+            self.checkpointer.close()
+        finally:
+            self.dataloader.shutdown()
+            self.gc_handler.close()
 
 
 def main(argv: Optional[list] = None, device: Optional[torch.device] = None) -> Trainer:

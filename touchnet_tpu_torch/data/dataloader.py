@@ -14,10 +14,11 @@
 # datapipe state *after* each produced batch and keying the loader state by
 # the consumed batch, so prefetched-but-unconsumed batches are replayed.
 #
-# Known parity behavior: generator batchers (batch_text etc.) hold one
-# look-ahead sample (the overflow item that triggered a yield); a resume
-# restarts from the root counters, dropping that single sample — identical
-# to the reference's StatefulDataLoader + generator-chain behavior.
+# Generator batchers (batch_text) hold one look-ahead sample (the overflow
+# item that triggered a yield). The reference and the JAX package drop it on
+# resume; the port's root datapipe counts an item only once the next is
+# pulled (datapipe.py), so the resumed state re-reads it and a resumed run
+# gets the batches of an uninterrupted one.
 
 import copy
 import queue

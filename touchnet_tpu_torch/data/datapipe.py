@@ -2,7 +2,13 @@
 # Copied from touchnet_tpu/data/datapipe.py (framework-free: numpy and the standard
 # library), with its imports pointed at the port. Only the
 # texttoken and metainfo decoders are kept; the audio decoders come with the
-# audio slice.
+# audio slice. One change: the root counts an item when the next one is
+# asked for (LowLevelTouchDatapipe.__iter__), so a resume re-reads the
+# look-ahead item a batcher holds instead of dropping it, and a resumed run
+# sees the batches of an uninterrupted one. This holds for batchers that
+# yield a batch only when the item just pulled does not fit, or at the end
+# (batch_text); a batcher that yields right after taking an item in would
+# see that item again after a resume.
 #
 # Stateful, exactly-resumable streaming datapipes.
 #
@@ -189,12 +195,14 @@ class LowLevelTouchDatapipe:
                 for sample_idx in order[self.consumed_samples:]:
                     seed = self.epoch + self.consumed_lists + self.consumed_samples
                     item = decode(dataset, sample_idx, cfg, seed)
-                    # state is advanced BEFORE the yield so that a
-                    # state_dict() taken by the consumer right after receiving
-                    # this item resumes at the next one (generators suspend
-                    # at yield).
-                    self.consumed_samples += 1
                     yield item
+                    # counted when the consumer asks for the next item, not
+                    # before the yield: a state_dict() taken while the
+                    # batcher holds this item as its look-ahead (it yields a
+                    # batch when the item it pulled does not fit) resumes AT
+                    # this item, which goes into the next batch, as it does
+                    # in an uninterrupted run
+                    self.consumed_samples += 1
                 self.consumed_samples = 0
                 self.consumed_lists += 1
             self.consumed_lists = 0

@@ -4,7 +4,8 @@
 # rope arithmetic with a cast back, HF [out, in] weights, rotate_half rope).
 #
 # apply_rope_grouped is not ported: only the JAX package's grouped TPU
-# attention layout uses it.
+# attention layout uses it. swiglu lives in modeling_llama.LlamaMLP, which
+# runs each of its matmuls under its residual name for the remat policy.
 
 import math
 from typing import Optional
@@ -81,11 +82,6 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """y = x @ W^T (+ b). Weight stored HF-style [out, in]."""
     return F.linear(x, weight, bias)
-
-
-def swiglu(x, gate_w, up_w, down_w):
-    """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
-    return linear(F.silu(linear(x, gate_w)) * linear(x, up_w), down_w)
 
 
 def normal_init(generator: torch.Generator, shape, std=0.02,

@@ -3,8 +3,8 @@
 #
 # Port of touchnet_tpu/models/llama/modeling_llama.py: init_params (:44-90),
 # the training forward (:427-487) with decoder_layer (:330-424, the bthd
-# branch), scan_layers (:226-297) with the int-k branch of
-# _selective_layer_freq (:93-134), get_num_params (:490-510) and
+# branch), scan_layers (:226-297) with _selective_layer_freq (:93-134) and
+# the save sets of _apply_remat (:137-223), get_num_params (:490-510) and
 # get_num_flop_per_token (:513). The training forward always attends
 # through ops.attention.flash_attention (K1/K2 on the card);
 # config.attn_implementation is not read, as in serving. The JAX package
@@ -24,20 +24,36 @@
 # so the casts' gradients come back to the f32 leaves.
 #
 # Activation checkpointing (remat_mode) is torch.utils.checkpoint with
-# use_reentrant=False around a whole layer: "none", "full" (every layer) and
-# "selective" with an int k (full checkpointing of every k-th layer, the
-# reference's semantics). The JAX modes that save the flash kernel's
-# residuals by name ("op", "op_small", "op_names", "save:...", selective +
-# "op", the op_every_k / full_every_k hybrids) raise: in PyTorch a
-# selective-checkpoint policy can name K1 only once it is a
-# torch.library.custom_op, which is later work.
+# use_reentrant=False around a whole layer, with the JAX modes and layer
+# choices (_apply_remat :137-223, scan_layers :226-297): "full" recomputes
+# the whole layer; the modes that save named residuals run a selective
+# checkpoint policy (create_selective_checkpoint_contexts) that saves the
+# outputs of the ops named in the mode's save set, by the names of the JAX
+# checkpoint_name tags (decoder_layer :392-423):
+#   flash_out, flash_lse    the outputs of K1's custom op (ops.attention);
+#                           one op gives both, so it is saved when both
+#                           names are in the set and re-run otherwise (as
+#                           JAX re-runs the kernel for a residual it lacks);
+#   dot_q/k/v/o, dot_gate/up/down   the projections' matmuls. A bare aten.mm
+#                           carries no name, so the layer sets a tag around
+#                           each projection (_tagged) and the policy reads
+#                           it; the recompute runs the same code, sets the
+#                           same tags, and so decides the same way.
+# Everything else (norms, rope, casts, the SwiGLU product) is recomputed.
 
-from typing import Callable, List, Optional
+import contextlib
+import functools
+import threading
+from typing import Callable, FrozenSet, List, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from touchnet_tpu_torch.models.common import (
     apply_rope,
@@ -45,7 +61,6 @@ from touchnet_tpu_torch.models.common import (
     normal_init,
     rms_norm,
     rope_frequencies,
-    swiglu,
 )
 from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from touchnet_tpu_torch.ops import attention as attn_ops
@@ -82,14 +97,36 @@ class LlamaMLP(nn.Module):
         self.down_proj = nn.Linear(inter, E, bias=False)
 
     def forward(self, x):
-        dt = x.dtype
-        return swiglu(x, self.gate_proj.weight.to(dt), self.up_proj.weight.to(dt),
-                      self.down_proj.weight.to(dt))
+        """SwiGLU, down(silu(gate(x)) * up(x)) (the JAX common.swiglu), with
+        each matmul under its residual name."""
+        g = _proj(self.gate_proj, x, "dot_gate")
+        u = _proj(self.up_proj, x, "dot_up")
+        return _proj(self.down_proj, F.silu(g) * u, "dot_down")
 
 
-def _proj(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+class _Tag(threading.local):
+    name: Optional[str] = None
+
+
+_TAG = _Tag()
+
+
+@contextlib.contextmanager
+def _tagged(name: str):
+    """While open, the matmuls this thread dispatches carry ``name`` for
+    the checkpoint policy (_save_policy)."""
+    prev, _TAG.name = _TAG.name, name
+    try:
+        yield
+    finally:
+        _TAG.name = prev
+
+
+def _proj(mod: nn.Linear, x: torch.Tensor, name: str) -> torch.Tensor:
     b = None if mod.bias is None else mod.bias.to(x.dtype)
-    return linear(x, mod.weight.to(x.dtype), b)
+    w = mod.weight.to(x.dtype)
+    with _tagged(name):
+        return linear(x, w, b)
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -113,12 +150,12 @@ class LlamaDecoderLayer(nn.Module):
         B, Tq, _ = h.shape
         sa = self.self_attn
         normed = self.input_layernorm(h)
-        q = _proj(sa.q_proj, normed).view(B, Tq, c.num_attention_heads, c.head_dim)
-        k = _proj(sa.k_proj, normed).view(B, Tq, c.num_key_value_heads, c.head_dim)
-        v = _proj(sa.v_proj, normed).view(B, Tq, c.num_key_value_heads, c.head_dim)
+        q = _proj(sa.q_proj, normed, "dot_q").view(B, Tq, c.num_attention_heads, c.head_dim)
+        k = _proj(sa.k_proj, normed, "dot_k").view(B, Tq, c.num_key_value_heads, c.head_dim)
+        v = _proj(sa.v_proj, normed, "dot_v").view(B, Tq, c.num_key_value_heads, c.head_dim)
         q, k = apply_rope(q, k, position_ids, inv_freq)
         attn = attend(q, k, v)
-        h = h + _proj(sa.o_proj, attn.reshape(B, Tq, -1))
+        h = h + _proj(sa.o_proj, attn.reshape(B, Tq, -1), "dot_o")
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -181,38 +218,112 @@ def init_params(config: LlamaConfig, generator: torch.Generator,
     return model
 
 
-_SAVE_NAMED = ("op", "op_small", "op_names")
+FLASH_NAMES = ("flash_out", "flash_lse")
+ATTN_DOTS = ("dot_q", "dot_k", "dot_v", "dot_o")
+MLP_DOTS = ("dot_gate", "dot_up", "dot_down")
+RESIDUAL_NAMES = FLASH_NAMES + ATTN_DOTS + MLP_DOTS
+# the save sets of _apply_remat's named policies; "op" saves what
+# dots_with_no_batch_dims_saveable picks in the layer, every projection
+SAVE_SETS = {
+    "op": frozenset(RESIDUAL_NAMES),
+    "op_names": frozenset(RESIDUAL_NAMES),
+    "op_small": frozenset(FLASH_NAMES + ATTN_DOTS),
+    "selective": frozenset(FLASH_NAMES),  # selective + "op"
+}
+FULL = frozenset()  # a layer recomputed whole
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
-def remat_layers(remat_mode: str, selective_ac_option: str, num_layers: int) -> List[bool]:
-    """Which layers run under torch.utils.checkpoint (scan_layers' choice
-    of layers, as a list; "selective" with an int k checkpoints the layers
-    with index % k == 0, the int branch of the JAX _selective_layer_freq).
-    Raises ValueError for the modes that save named kernel residuals."""
-    opt = str(selective_ac_option)
-    named = (remat_mode in _SAVE_NAMED or remat_mode.startswith("save:")
-             or (remat_mode == "selective" and (opt == "op" or opt.startswith("op_every_"))))
-    if named:
-        raise ValueError(
-            f"remat mode {remat_mode!r} (selective_ac_option {opt!r}) saves the "
-            "flash kernel's residuals by name; that needs K1 as a "
-            "torch.library.custom_op and is a later slice. Use none, full, or "
-            "selective with an int k"
-        )
+def _layer_freq(remat_mode: str, opt: str) -> int:
+    """k of the every-k-th-layer modes, 0 when the mode uses none: the JAX
+    _selective_layer_freq (:93-134)."""
+    for prefix, mode in (("full_every_", "op"), ("op_every_", "selective")):
+        if opt.startswith(prefix):
+            if remat_mode != mode:
+                if remat_mode == "selective":
+                    raise ValueError(f"selective_ac_option {opt!r} applies to mode {mode!r}")
+                return 0
+            k = int(opt[len(prefix):])
+            if k < 1:
+                raise ValueError(f"{prefix}<k> needs k >= 1, got {k}")
+            return k
+    if remat_mode != "selective" or opt == "op":
+        return 0
+    try:
+        k = int(opt)
+    except ValueError:
+        k = 0
+    if k < 1:
+        raise ValueError(f"selective_ac_option must be 'op' or a positive int, got {opt!r}")
+    return k
+
+
+def _save_set(remat_mode: str) -> Optional[FrozenSet[str]]:
+    """The save set of a mode applied to every layer (None: no remat)."""
     if remat_mode == "none":
-        return [False] * num_layers
+        return None
     if remat_mode == "full":
-        return [True] * num_layers
-    if remat_mode == "selective":
-        try:
-            k = int(opt)
-        except ValueError:
-            k = 0
-        if k < 1:
-            raise ValueError(
-                f"selective_ac_option must be 'op' or a positive int, got {opt!r}")
-        return [i % k == 0 for i in range(num_layers)]
+        return FULL
+    if remat_mode.startswith("save:"):
+        names = frozenset(n for n in remat_mode[len("save:"):].split(",") if n)
+        if not names:
+            raise ValueError("remat_mode 'save:' needs at least one name")
+        unknown = sorted(names - set(RESIDUAL_NAMES))
+        if unknown:
+            raise ValueError(f"remat_mode {remat_mode!r}: no residual named {unknown}; "
+                             f"the names are {RESIDUAL_NAMES}")
+        return names
+    if remat_mode in SAVE_SETS:
+        return SAVE_SETS[remat_mode]
     raise ValueError(f"unknown remat mode {remat_mode!r}")
+
+
+def remat_layers(remat_mode: str, selective_ac_option: str,
+                 num_layers: int) -> List[Optional[FrozenSet[str]]]:
+    """Each layer's checkpointing, as scan_layers chooses it: None (the
+    layer keeps all its activations), FULL (recomputed whole) or the set of
+    residual names it saves (the rest recomputed). With an every-k-th mode,
+    the layers with index % k == 0 are the first of their group:
+      selective + int k:       FULL on those, None on the rest;
+      op + full_every_<k>:     FULL on those, op's set on the rest;
+      selective + op_every_<k>: op's set on those, the flash residuals on
+                               the rest;
+    k == 1 puts every layer in the first group. Raises ValueError for an
+    unknown mode or option."""
+    opt = str(selective_ac_option)
+    k = _layer_freq(remat_mode, opt)
+    op_every = opt.startswith("op_every_")
+    if k == 0:  # selective without a k is selective + "op"
+        return [_save_set(remat_mode)] * num_layers
+    first = SAVE_SETS["op"] if op_every else FULL
+    rest = SAVE_SETS["selective"] if op_every else (
+        SAVE_SETS["op"] if remat_mode == "op" else None)
+    return [first if i % k == 0 else rest for i in range(num_layers)]
+
+
+def _save_policy(names: FrozenSet[str]) -> Callable:
+    """The selective-checkpoint policy of a save set: MUST_SAVE for K1's op
+    when both flash names are in the set and for a matmul whose tag is;
+    everything else is recomputed."""
+    save_flash = set(FLASH_NAMES) <= names
+
+    def policy(ctx, op, *args, **kwargs):
+        if op is attn_ops.FLASH_FWD_OP:
+            keep = save_flash
+        else:
+            keep = op in _MATMULS and _TAG.name in names
+        return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _run_layer(layer: "LlamaDecoderLayer", save: Optional[FrozenSet[str]], *args):
+    if save is None:
+        return layer(*args)
+    if not save:
+        return checkpoint(layer, *args, use_reentrant=False)
+    context_fn = functools.partial(create_selective_checkpoint_contexts, _save_policy(save))
+    return checkpoint(layer, *args, use_reentrant=False, context_fn=context_fn)
 
 
 def _train_attention(segment_ids: Optional[torch.Tensor]) -> Callable:
@@ -250,11 +361,8 @@ def forward(
                                 rope_scaling=config.rope_scaling, device=h.device)
     attend = _train_attention(segment_ids)
     remat = remat_layers(remat_mode, selective_ac_option, len(mp.layers))
-    for layer, ckpt in zip(mp.layers, remat):
-        if ckpt:
-            h = checkpoint(layer, h, position_ids, inv_freq, attend, use_reentrant=False)
-        else:
-            h = layer(h, position_ids, inv_freq, attend)
+    for layer, save in zip(mp.layers, remat):
+        h = _run_layer(layer, save, h, position_ids, inv_freq, attend)
     h = mp.norm(h)
     if return_hidden:
         return h

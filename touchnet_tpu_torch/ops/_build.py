@@ -35,7 +35,7 @@ _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     "tn_flash_fwd": [_P] * 7 + [_I64] * 9 + [_I] * 10 + [_F, _P],
     "tn_flash_decode": [_P] * 7 + [_I] * 10 + [_F, _P],
-    "tn_flash_bwd": [_P] * 12 + [_I] * 10 + [_F, _P],
+    "tn_flash_bwd": [_P] * 12 + [_I] * 10 + [_F, _P, _P],
     "tn_ce_fwd": [_P] * 11 + [_I] * 7 + [_P],
     "tn_ce_bwd": [_P] * 9 + [_I] * 7 + [_P],
 }

@@ -9,12 +9,16 @@
 # bounds it on Hopper and what the design does about that. Beside them:
 #   - packed_attention_reference: the plain PyTorch version (:75-111),
 #     which also returns the row logsumexp;
-#   - flash_attention: the wrapper. A CPU tensor goes to the plain version
-#     (differentiable by autograd); a CUDA tensor goes through
-#     _FlashAttention, an autograd Function whose forward launches K1 and
-#     whose backward launches K2 (the JAX custom_vjp, :1711-1744: only out
-#     carries a gradient, lse does not). It raises on a shape or dtype the
-#     kernels do not take and never falls back to the plain version.
+#   - flash_attention: the wrapper. It calls the custom op
+#     touchnet_tpu_torch::flash_attention_fwd (FLASH_FWD_OP), whose CUDA
+#     implementation launches K1 and whose CPU implementation is the plain
+#     version; its registered backward runs flash_attention_bwd (K2 on the
+#     card; the JAX custom_vjp, :1711-1744: only out carries a gradient, lse
+#     does not). Being an op of the dispatcher, K1 is visible to a
+#     selective activation-checkpoint policy, which can save its (out, lse)
+#     so that the backward never re-runs it (the JAX flash_out / flash_lse
+#     residual names). The wrapper raises on a shape or dtype the kernels do
+#     not take and never falls back to the plain version.
 #   - flash_attention_bwd: K2's wrapper (dq, dk, dv from the forward's
 #     residuals); its plain version, flash_attention_bwd_reference, is
 #     autograd through packed_attention_reference.
@@ -28,8 +32,9 @@
 # dtype and lse [B, H, T] in f32, base e: the contract a context-parallel
 # ring and the later backward kernel rely on.
 
+import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -124,11 +129,9 @@ def flash_attention(
     elif kv_segment_ids is None:
         kv_segment_ids = segment_ids
     if q.device.type == "cpu":
-        out, lse = packed_attention_reference(
-            q, k, v, segment_ids, causal, scale, kv_segment_ids,
-            q_offset, kv_offset,
-        )
-        return out, lse.detach()
+        return FLASH_FWD_OP(q, k, v, _segments(segment_ids, (B, T), q.device),
+                            _segments(kv_segment_ids, (B, S), q.device), causal,
+                            float(scale), int(q_offset), int(kv_offset))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if tuple(k.shape) != (B, S, Hkv, D) or tuple(v.shape) != (B, S, Hkv, D):
@@ -145,8 +148,8 @@ def flash_attention(
         raise ValueError("q, k and v must be on one device")
     q_seg = _segments(segment_ids, (B, T), q.device)
     kv_seg = _segments(kv_segment_ids, (B, S), q.device)
-    return _FlashAttention.apply(q, k, v, q_seg, kv_seg, causal, float(scale),
-                                 int(q_offset), int(kv_offset))
+    return FLASH_FWD_OP(q, k, v, q_seg, kv_seg, causal, float(scale), int(q_offset),
+                        int(kv_offset))
 
 
 def _row_strides(x: torch.Tensor) -> tuple:
@@ -190,26 +193,43 @@ def _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
     return out, lse
 
 
-class _FlashAttention(torch.autograd.Function):
-    """K1 forward, K2 backward. Under activation checkpointing the forward
-    runs again in the backward pass and saves that run's own residuals."""
+@torch.library.custom_op("touchnet_tpu_torch::flash_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor], causal: bool,
+                  scale: float, q_offset: int, kv_offset: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 on validated CUDA tensors (flash_attention checks them)."""
+    return _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset)
 
-    @staticmethod
-    def forward(ctx, q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
-        out, lse = _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset)
-        ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
-        ctx.args = (causal, scale, q_offset, kv_offset)
-        ctx.mark_non_differentiable(lse)
-        return out, lse
 
-    @staticmethod
-    def backward(ctx, dout, _dlse):
-        q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
-        causal, scale, q_offset, kv_offset = ctx.args
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, out, lse, dout,
-                                         causal, scale, q_offset, kv_offset)
-        return dq, dk, dv, None, None, None, None, None, None
+@_flash_fwd_op.register_kernel("cpu")
+def _flash_fwd_cpu(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
+    return packed_attention_reference(q, k, v, q_seg, causal, scale, kv_seg, q_offset,
+                                      kv_offset)
+
+
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+    ctx.args = (causal, scale, q_offset, kv_offset)
+    ctx.mark_non_differentiable(lse)
+
+
+def _flash_fwd_backward(ctx, dout, _dlse):
+    """K2 from the forward's residuals (the plain backward on the CPU)."""
+    q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+    causal, scale, q_offset, kv_offset = ctx.args
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, out, lse, dout,
+                                     causal, scale, q_offset, kv_offset)
+    return dq, dk, dv, None, None, None, None, None, None
+
+
+_flash_fwd_op.register_autograd(_flash_fwd_backward, setup_context=_flash_fwd_setup)
+# the op as the dispatcher sees it (what a checkpoint policy matches on)
+FLASH_FWD_OP = torch.ops.touchnet_tpu_torch.flash_attention_fwd.default
 
 
 flash_attention.launches = 0
@@ -230,14 +250,18 @@ def flash_attention_bwd_reference(q, k, v, segment_ids, kv_segment_ids, out, lse
 
 
 def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
-                        causal=True, scale=None, q_offset=0, kv_offset=0) -> tuple:
+                        causal=True, scale=None, q_offset=0, kv_offset=0,
+                        events=None) -> tuple:
     """Backward of flash_attention (K2): (dq [B,T,H,D], dk, dv [B,S,Hkv,D])
     in q's dtype from the forward's inputs, its (out, lse) and dout.
 
     CPU tensors take the plain version. CUDA tensors take the kernel, with
     flash_attention's conditions; q, k, v and out must be contiguous, and
     dout is made contiguous here (autograd may hand it over strided). dk
-    and dv are summed over the G query heads of their kv head."""
+    and dv are summed over the G query heads of their kv head. ``events``:
+    four torch.cuda.Event(enable_timing=True) the kernel records before its
+    delta pass, after it, after the dk/dv kernel and after the dq kernel
+    (their times; the trainer passes none)."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if scale is None:
@@ -262,6 +286,11 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
     if q.dtype == torch.bfloat16:
         _check_aligned("flash_attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
     lib = _build.load_library()
+    handles = None
+    if events is not None:
+        for e in events:  # created at their first record
+            e.record()
+        handles = (ctypes.c_void_p * 4)(*(e.cuda_event for e in events))
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -275,7 +304,7 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             B, T, S, H, Hkv, D, _build.DTYPE_CODES[q.dtype],
             int(causal), int(q_offset), int(kv_offset), float(scale),
-            torch.cuda.current_stream().cuda_stream,
+            torch.cuda.current_stream().cuda_stream, handles,
         )
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1

@@ -984,11 +984,20 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
   }
 }
 
+// Records events[i] on the stream when the caller passed events (timing of
+// the sub-kernels: [0] before delta, [1] after it, [2] after dkv, [3] after dq).
+inline cudaError_t mark(cudaEvent_t* events, int i, cudaStream_t stream) {
+  return events ? cudaEventRecord(events[i], stream) : cudaSuccess;
+}
+
 template <int D>
-cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream) {
+cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream, cudaEvent_t* ev) {
   const int64_t rows = (int64_t)p.B * p.T * p.H;
+  cudaError_t err = mark(ev, 0, stream);
+  if (err != cudaSuccess) return err;
   delta_kernel<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = mark(ev, 1, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_kv = dkv_mma_smem_bytes<D>();
@@ -998,6 +1007,7 @@ cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream) {
   const dim3 grid_kv((p.S + kDkvCols - 1) / kDkvCols, p.Hkv, p.B);
   dkv_mma_kernel<D><<<grid_kv, kMmaThreads, smem_kv, stream>>>(p);
   err = cudaGetLastError();
+  if (err == cudaSuccess) err = mark(ev, 2, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_q = dq_mma_smem_bytes<D>();
@@ -1006,14 +1016,18 @@ cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
   dq_mma_kernel<D><<<grid_q, kMmaThreads, smem_q, stream>>>(p);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  return err == cudaSuccess ? mark(ev, 3, stream) : err;
 }
 
 template <typename T, int D>
-cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+cudaError_t launch(const BwdParams& p, cudaStream_t stream, cudaEvent_t* ev) {
   const int64_t rows = (int64_t)p.B * p.T * p.H;
+  cudaError_t err = mark(ev, 0, stream);
+  if (err != cudaSuccess) return err;
   delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = mark(ev, 1, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_kv = dkv_smem_bytes<D>();
@@ -1023,6 +1037,7 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   const dim3 grid_kv((p.S + kTile - 1) / kTile, p.Hkv, p.B);
   dkv_kernel<T, D><<<grid_kv, kThreads, smem_kv, stream>>>(p);
   err = cudaGetLastError();
+  if (err == cudaSuccess) err = mark(ev, 2, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_q = dq_smem_bytes<D>();
@@ -1031,7 +1046,8 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
   dq_kernel<T, D><<<grid_q, kThreads, smem_q, stream>>>(p);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  return err == cudaSuccess ? mark(ev, 3, stream) : err;
 }
 
 }  // namespace
@@ -1042,7 +1058,7 @@ extern "C" int tn_flash_bwd(
     const void* dout, const float* lse, const int* q_seg, const int* kv_seg,
     float* delta, void* dq, void* dk, void* dv,
     int B, int T, int S, int H, int Hkv, int D, int dtype,
-    int causal, int q_offset, int kv_offset, float scale, void* stream) {
+    int causal, int q_offset, int kv_offset, float scale, void* stream, void** events) {
   tn::BwdParams p;
   p.q = q; p.k = k; p.v = v; p.out = out; p.dout = dout; p.lse = lse;
   p.q_seg = q_seg; p.kv_seg = kv_seg; p.delta = delta;
@@ -1055,18 +1071,19 @@ extern "C" int tn_flash_bwd(
   p.scale = scale;
   p.scale_log2 = scale * tn::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaEvent_t* ev = reinterpret_cast<cudaEvent_t*>(events);
   if (dtype == tn::kBFloat16) {
     // cp.async moves 16-byte rows of the contiguous inputs
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
     p.BQ = tn::kDqRows / p.G;
     p.BQk = tn::kDkvRows / p.G;
-    if (D == 64) return (int)tn::launch_mma<64>(p, st);
-    if (D == 128) return (int)tn::launch_mma<128>(p, st);
+    if (D == 64) return (int)tn::launch_mma<64>(p, st, ev);
+    if (D == 128) return (int)tn::launch_mma<128>(p, st, ev);
     return (int)cudaErrorInvalidValue;
   }
   p.BQ = p.BQk = tn::kTile / p.G;
-  if (dtype == tn::kFloat32 && D == 64) return (int)tn::launch<float, 64>(p, st);
-  if (dtype == tn::kFloat32 && D == 128) return (int)tn::launch<float, 128>(p, st);
+  if (dtype == tn::kFloat32 && D == 64) return (int)tn::launch<float, 64>(p, st, ev);
+  if (dtype == tn::kFloat32 && D == 128) return (int)tn::launch<float, 128>(p, st, ev);
   return (int)cudaErrorInvalidValue;
 }

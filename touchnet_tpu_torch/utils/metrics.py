@@ -1,11 +1,12 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Training telemetry: loss, grad norm, lr, tokens/s, MFU and device memory.
 #
-# Port of touchnet_tpu/utils/metrics.py (MetricsProcessor). The JAX module's
-# peak-flops table holds TPU generations; here it holds the one card the
-# port targets, and memory comes from torch.cuda's allocator statistics. The
-# trainer hands it device tensors and it reads them (.item(), a host sync)
-# only on logging steps. The TensorBoard and wandb backends are not ported.
+# Port of touchnet_tpu/utils/metrics.py (MetricsProcessor, with log_dev).
+# The JAX module's peak-flops table holds TPU generations; here it holds the
+# one card the port targets, and memory comes from torch.cuda's allocator
+# statistics. The trainer hands it device tensors and it reads them
+# (.item(), a host sync) only on logging steps. The TensorBoard and wandb
+# backends are not ported.
 
 import time
 from typing import Dict, List, Optional
@@ -47,6 +48,7 @@ class MetricsProcessor:
         self.data_loading_times: List[float] = []
         self.time_last_log = time.perf_counter()
         self.history: List[Dict[str, float]] = []
+        self.dev_history: List[Dict[str, float]] = []
         if device.type == "cuda":
             self.total_memory = torch.cuda.get_device_properties(device).total_memory
 
@@ -90,3 +92,10 @@ class MetricsProcessor:
         self.data_loading_times.clear()
         self.time_last_log = time.perf_counter()
         return out
+
+    def log_dev(self, step: int, metrics: Dict[str, float]) -> None:
+        """One line of dev-set metrics (the JAX log_dev, metrics.py:275-281),
+        also kept in ``dev_history``."""
+        parts = "  ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        logger.info(f"[dev] step {step:6d}  {parts}")
+        self.dev_history.append({"step": step, **metrics})
