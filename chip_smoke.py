@@ -46,28 +46,52 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      learnable documents); then the remat sweep: the same 10 steps under
      none, op_small and full, each with its step time, tokens/s, MFU, peak
      memory and K1 launches per step, and op_small once more under
-     --training_deterministic true (no op may raise); then one step's loss, grad norm and
-     gradients of the kernel path against the plain path at B1 T4096, full
-     width and depth, in f32 and bf16;
-  9. the recipe's stage 2 on one card (run.sh:97-165, cut to dp 1):
+     --training_deterministic true (no op may raise); then the trainer's
+     single-device modes, the same 10 steps under op_small with one flag
+     each, with the same figures and the launches of each kernel per step:
+     --training_gradient_accumulation_steps 2 (2L, 2L, 2, 2; losses finite
+     and falling), --training_mixed_precision_reduce bfloat16 (losses
+     falling, step 1's loss equal to the main run's bit for bit, steps 5
+     and 10 within bounds of it) and --training_enable_cpu_offload true (its
+     pinned host bytes; sync checkpoints at 1, 5 and 10 with the time the
+     loop blocked in each; losses and final params, mu, nu and count equal
+     the main run's bit for bit, and so are those of a fresh run resumed
+     from its step 5);
+     then one step's loss, grad norm and gradients of the kernel path
+     against the plain path at B1 T4096, full width and depth, in f32 and
+     bf16;
+  9. the recipe's stages 0-3 on one card (run.sh:60-175, cut to dp 1):
+     stage 0, python -m touchnet_tpu_torch.bin.make_data (a subprocess, 4
+     workers, RawTokenizer at vocab 128256) over a jsonl of phase 8's
+     seeded documents as pre-tokenized ids: the shards read back equal the
+     ids, data.list has a line a shard; stage 1, an HF directory of seeded
+     random bf16 weights (the port's safetensors writer and
+     hf_config_dict) through convert_hf_to_ckpt to step_0; stage 2,
      bin.train.main, 10 steps at 1x16384 with its checkpoint flags
      (interval 5 here, keep 2, async), a dev list of seeded shards,
-     profiling (freq 5, keep 1) and memory snapshots; then a fresh main
-     with --training_ckpt_load_step 5 (and sync saves, to time one) runs
-     steps 6-10. Checks the saves at 1, 5 and 10 with a finite dev line
-     after each, a trace naming K1, K2 and K3 kernels, the snapshot files,
-     and that the resumed run's losses and its final params, mu, nu and
-     count (integer checksums of their bits, per tensor, on the card)
-     equal the first run's bit for bit. Prints the bytes of a checkpoint
-     and how long the loop blocked in each save. The temp directory's free
-     space is printed first; without room for three checkpoints (two kept,
-     one being written) the phase runs fewer layers at full width, and
-     says so.
+     profiling (freq 5, keep 1) and memory snapshots, starting from step_0
+     (its params at init equal the HF tensors upcast, bit for bit); then a
+     fresh main with --training_ckpt_load_step 5 (and sync saves, to time
+     one) runs steps 6-10. Checks the saves at 1, 5 and 10 with a finite
+     dev line after each, a trace naming K1, K2 and K3 kernels, the
+     snapshot files, and that the resumed run's losses and its final
+     params, mu, nu and count (integer checksums of their bits, per
+     tensor, on the card) equal the first run's bit for bit. Prints the
+     bytes of a checkpoint and how long the loop blocked in each save.
+     Stage 3, convert_ckpt_to_hf --step -1 --config on step_10: its
+     tensors, read back with the port's reader, equal the final params bit
+     for bit, and greedy generate (K1, K4) from the export gives the
+     trainer's model's tokens (2 prompts, 16 new tokens). Each stage prints
+     its seconds and bytes. The temp directory's free space is printed
+     first; without room for three checkpoints (two kept, one being
+     written), the seed, step_0 and the export, the phase runs fewer
+     layers at full width, and says so.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
-the main paths that run it (K1: serving, training and the recipe run; K4:
-serving; K2, K3: training and the recipe run), each path driven with the
-counts set to 0 just before it.
+the main paths that run it (K1: serving, training, the single-device
+modes and the recipe run with its generate from the export; K4: serving
+and that generate; K2, K3: training, the modes and the recipe run), each
+path driven with the counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -948,23 +972,31 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
     return rows
 
 
+def seeded_documents(seed: int, count: int) -> list:
+    """`count` documents, lengths 200-3000, each an ascending run of ids mod
+    DOC_RANGE (a learnable next-token rule over a small id range)."""
+    rng = np.random.default_rng(seed)
+    docs = []
+    for _ in range(count):
+        n = int(rng.integers(200, 3001))
+        start = int(rng.integers(0, DOC_RANGE))
+        docs.append((np.arange(n) + start) % DOC_RANGE + 3)
+    return docs
+
+
 def write_shards(root: Path, vocab: int, seed: int, shards: int = 4, docs: int = 120) -> Path:
     """TouchDataset texttoken shards through the port's DataBuilder:
-    `shards` shards of `docs` documents, lengths 200-3000, each an
-    ascending run of ids mod DOC_RANGE (a learnable next-token rule over a
-    small id range)."""
+    `shards` shards of `docs` seeded_documents each."""
     from touchnet_tpu_torch.bin.make_data import DataBuilder
 
-    rng = np.random.default_rng(seed)
+    all_docs = seeded_documents(seed, shards * docs)
     lines = []
     for s in range(shards):
         d = root / f"{s:09d}"
         d.mkdir(parents=True)
         b = DataBuilder(str(d / "texttoken.bin"), np.int32)
-        for _ in range(docs):
-            n = int(rng.integers(200, 3001))
-            start = int(rng.integers(0, DOC_RANGE))
-            b.add_item((np.arange(n) + start) % DOC_RANGE + 3)
+        for doc in all_docs[s * docs:(s + 1) * docs]:
+            b.add_item(doc)
             b.end_document()
         b.finalize(str(d / "texttoken.idx"))
         lines.append(f"{d} texttoken\n")
@@ -1059,10 +1091,10 @@ def step_grads(train, listfile, exp, dtype, plain, dev):
 SWEEP_MODES = ("none", "op_small", "full")
 
 
-def step_stats(trainer) -> tuple:
+def step_stats(trainer, skip=()) -> tuple:
     """(step ms, tokens/s, MFU %) as medians of steps 3-10 of a run's
-    logged metrics."""
-    timed = trainer.metrics_processor.history[2:]
+    logged metrics, less the steps in `skip`."""
+    timed = [h for h in trainer.metrics_processor.history[2:] if h["step"] not in skip]
     return (statistics.median(h["time/step_s"] for h in timed) * 1e3,
             statistics.median(h["throughput/tps"] for h in timed),
             statistics.median(h.get("throughput/mfu_pct", float("nan")) for h in timed))
@@ -1122,6 +1154,162 @@ def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
     torch.cuda.empty_cache()
 
 
+# the trainer's single-device modes, each a run of phase 8's steps under
+# op_small with one flag added
+MODE_RUNS = (("gradient accumulation G=2", {"training_gradient_accumulation_steps": 2}),
+             ("bf16 reduce", {"training_mixed_precision_reduce": "bfloat16"}),
+             ("cpu offload", {"training_enable_cpu_offload": "true"}))
+# the bf16-reduce run's losses at steps 5 and 10 against the f32-reduce
+# run's, relative. The two runs part slowly as the rounded gradients steer
+# the weights apart: 3.3e-4 at step 5 and 2.28e-2 at step 10 on an H100
+# 80GB HBM3 at 700 W (PERF.md, PR 7); each bound is a few times its reading
+BF16_REDUCE_LOSS = {5: 2e-3, 10: 5e-2}
+# the offload run's checkpoints: sync saves at 1, 5 and 10 (keep 2), then a
+# fresh run resumes from step 5
+OFFLOAD_CKPT = {"training_enable_ckpt": "true", "training_ckpt_interval": 5,
+                "training_ckpt_keep_latest_k": 2, "training_ckpt_async_mode": "disabled"}
+OFFLOAD_RESUME = 5
+
+
+def kernel_counters():
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import fused_ce
+
+    return {"K1": attn.flash_attention, "K2": attn.flash_attention_bwd,
+            "K3 fwd": fused_ce.fused_ce_fwd, "K3 bwd": fused_ce.fused_ce_bwd}
+
+
+@contextlib.contextmanager
+def timed_saves(train):
+    """{step: (ms the loop blocked in Trainer.save, s of the disk write)}
+    of every saving call while open."""
+    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    times, writes = {}, {}
+    real_save, real_write = train.Trainer.save, CheckpointManager._write
+
+    def save(self, force=False):
+        t0 = time.perf_counter()
+        saved = real_save(self, force)
+        if saved:
+            times[self.step] = ((time.perf_counter() - t0) * 1e3, writes.get(self.step, 0.0))
+        return saved
+
+    def write(self, step, host, items):
+        t0 = time.perf_counter()
+        real_write(self, step, host, items)
+        writes[step] = time.perf_counter() - t0
+
+    train.Trainer.save, CheckpointManager._write = save, write
+    try:
+        yield times
+    finally:
+        train.Trainer.save, CheckpointManager._write = real_save, real_write
+
+
+def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
+    """Phase 8's 10 steps at 1x16384 under op_small with each of MODE_RUNS:
+    step ms, tokens/s, MFU, peak memory and launches per step. Checks:
+    accumulation launches 2L, 2L, 2, 2 a step with finite, falling losses;
+    bf16 reduce's losses falling, its step-1 loss equal to the f32-reduce
+    run's (`resident`, phase 8's main run) bit for bit (the forward reads
+    the same bf16 weights) and its losses at steps 5 and 10 within
+    BF16_REDUCE_LOSS of it; cpu offload's losses and final params, mu, nu and count equal the
+    resident run's bit for bit, with sync checkpoints at 1, 5 and 10, and a
+    fresh run resumed from step 5 equal to it too (the host moments saved
+    after their last copy back, and loaded in place). Each run is a main
+    path: the counts are zeroed just before it and read just after (after
+    the resume for offload); returns their sums."""
+    counters = kernel_counters()
+    totals = dict.fromkeys(counters, 0)
+    print(f"  single-device modes: {TRAIN_STEPS} steps at 1x{TRAIN_T} bf16 under op_small each, "
+          "full width and depth")
+    for i, (mode, extra) in enumerate(MODE_RUNS):
+        offload = "training_enable_cpu_offload" in extra
+        exp = tmp / f"mode_{i}"
+        argv = train_argv(listfile, exp, TRAIN_T, TRAIN_STEPS, "bfloat16", 128256,
+                          **extra, **(OFFLOAD_CKPT if offload else {}))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        with timed_saves(train) as saves:
+            trainer = train.main(argv)
+        got = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = trainer.step
+        per_step = tuple(n / steps for n in got.values())
+        # under offload the sync save at step 5 sits in step 6's time
+        step_ms, tps, mfu = step_stats(trainer, skip=(OFFLOAD_RESUME + 1,) if offload else ())
+        losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+        G = extra.get("training_gradient_accumulation_steps", 1)
+        want = (G * L, G * L, G, G)
+        ok = per_step == want and steps == TRAIN_STEPS and \
+            all(math.isfinite(x) for x in losses)
+        note = ""
+        if G > 1:
+            ok = ok and losses[-1] < losses[0]
+            note = f"losses {[round(x, 4) for x in losses]} (finite, falling)"
+        elif not offload:
+            same = losses[0] == resident[0][0]
+            rel = {s: abs(losses[s - 1] - resident[0][s - 1]) / resident[0][s - 1]
+                   for s in BF16_REDUCE_LOSS}
+            ok = ok and same and losses[-1] < losses[0] and \
+                all(rel[s] <= b for s, b in BF16_REDUCE_LOSS.items())
+            note = (f"losses {[round(x, 4) for x in losses]} (falling), the f32-reduce run's "
+                    f"{[round(x, 4) for x in resident[0]]}; step-1 loss {losses[0]!r} vs "
+                    f"{resident[0][0]!r}: bit-equal {same}; " + ", ".join(
+                        f"step-{s} loss {losses[s - 1]!r} vs {resident[0][s - 1]!r}: rel "
+                        f"{rel[s]:.3e} (<= {b})" for s, b in BF16_REDUCE_LOSS.items()))
+        else:
+            bits = bits_checksums({**trainer.model.state_dict(), **trainer._opt_state()})
+            differ = sorted(k for k in bits if bits[k] != resident[1].get(k))
+            same = losses == resident[0] and not differ and len(bits) == len(resident[1])
+            ok = ok and same
+            pinned = trainer.offload.pinned_bytes
+            note = (f"{pinned} bytes of pinned host memory ({pinned / 1e9:.2f} GB, mu and nu); "
+                    f"losses and final params, mu, nu, count ({len(bits)} tensors) equal the "
+                    f"resident run's bit for bit: {same}, differ in {differ[:5] or 'none'}; "
+                    "sync saves, the loop blocked " + ", ".join(
+                        f"step {s} {ms:.1f} ms ({w:.2f} s of it the disk write)"
+                        for s, (ms, w) in sorted(saves.items())))
+            ok = ok and sorted(saves) == [1, OFFLOAD_RESUME, TRAIN_STEPS]
+        print(f"  {mode}: step {step_ms:.1f} ms (median of steps 3-{steps}"
+              f"{f' less {OFFLOAD_RESUME + 1}' if offload else ''}), {tps:,.0f} "
+              f"tokens/s, MFU {mfu:.2f}%, peak {peak:.2f} GiB allocated; launches per step "
+              f"K1/K2/K3 fwd/K3 bwd {per_step} (want {want}); {note} "
+              f"{'ok' if ok else 'FAIL'}  [{card}]")
+        if not ok:
+            failures.append(f"mode run: {mode}")
+        del trainer
+        torch.cuda.empty_cache()
+        if offload:
+            resumed = train.main(train_argv(
+                listfile, exp, TRAIN_T, TRAIN_STEPS, "bfloat16", 128256, **extra,
+                **{**OFFLOAD_CKPT, "training_ckpt_load_step": OFFLOAD_RESUME}))
+            got = {k: c.launches for k, c in counters.items()}
+            hist = resumed.metrics_processor.history
+            bits = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
+            del resumed
+            torch.cuda.empty_cache()
+            differ = sorted(k for k in bits if bits[k] != resident[1].get(k))
+            ok = ([h["step"] for h in hist] == list(range(OFFLOAD_RESUME + 1, TRAIN_STEPS + 1))
+                  and [h["loss/per_sample"] for h in hist] == resident[0][OFFLOAD_RESUME:]
+                  and not differ and len(bits) == len(resident[1]))
+            print(f"  cpu offload, a fresh run resumed from step {OFFLOAD_RESUME} (its pinned "
+                  f"moments loaded in place): steps {[h['step'] for h in hist]}, losses and final "
+                  f"params, mu, nu, count equal the resident run's bit for bit: {ok}, differ in "
+                  f"{differ[:5] or 'none'}; {tree_bytes(exp / 'checkpoint')} bytes of "
+                  f"checkpoints {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("mode run: cpu offload resume")
+            shutil.rmtree(exp / "checkpoint")
+        for k, n in got.items():
+            totals[k] += n
+    return totals
+
+
 def run_training(dev, card, failures, tmp: Path):
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
@@ -1164,9 +1352,12 @@ def run_training(dev, card, failures, tmp: Path):
     print(f"  step {step_ms:.1f} ms (median of steps 3-{steps}), {tps:,.0f} tokens/s, "
           f"MFU {mfu:.2f}% of 989 TFLOP/s bf16, peak {peak:.2f} GiB allocated  [{card}]")
     train_counts = {"K1": k1, "K2": k2, "K3 fwd": k3f, "K3 bwd": k3b}
+    resident = losses, bits_checksums({**trainer.model.state_dict(), **trainer._opt_state()})
     del trainer
     torch.cuda.empty_cache()
     remat_sweep(train, attn, listfile, tmp, L, card, failures)
+    for name, n in mode_runs(train, listfile, tmp, L, card, failures, resident).items():
+        train_counts[name] += n
 
     print(f"  one step at B1 T{CHECK_T}, full width and depth: kernel vs plain path")
     f32k = step_grads(train, listfile, tmp / "chk", "float32", plain=False, dev=dev)
@@ -1208,12 +1399,15 @@ RECIPE_TRACE_GROUPS = ("K1", "K2", "K3 fwd", "K3 bwd, TMA + wgmma mainloop (ce_g
 
 def bits_checksums(tensors: dict) -> dict:
     """Per tensor of 4-byte elements, two integer checksums of its raw bits,
-    computed where the tensor lies: the sum of its 32-bit words, and their
+    computed on the card where there is one (a host tensor is copied there
+    first): the sum of
+    its 32-bit words, and their
     sum weighted by position mod 65521 plus 1 (a reordering moves the
     second), both mod 2^64."""
     out = {}
     for name, t in tensors.items():
-        words = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        t = t.detach().to("cuda") if torch.cuda.is_available() else t.detach()
+        words = t.reshape(-1).view(torch.int32).to(torch.int64)
         weights = torch.arange(words.numel(), device=words.device) % 65521 + 1
         out[name] = (int(words.sum()), int((words * weights).sum()))
         del words, weights
@@ -1223,33 +1417,190 @@ def bits_checksums(tensors: dict) -> dict:
 def recipe_depth(cfg, free: int) -> tuple:
     """(layers, bytes of one checkpoint, bytes needed) for phase 9: the
     full depth when `free` holds three checkpoints (two kept, one being
-    written: f32 params, mu and nu) and 2 GiB of traces and snapshots, else
-    the most layers that fit, at full width (0 when none do)."""
+    written: f32 params, mu and nu), the stage-1 HF seed (bf16), its step_0
+    (f32 params), the stage-3 export (f32) and 2 GiB of shards, traces and
+    snapshots, else the most layers that fit, at full width (0 when none
+    do)."""
     from touchnet_tpu_torch.models.llama.modeling_llama import get_num_params
 
     c = copy.copy(cfg)
     for layers in range(cfg.num_hidden_layers, 0, -1):
         c.num_hidden_layers = layers
-        ckpt = 3 * 4 * get_num_params(c)
-        need = 3 * ckpt + 2**31
+        n = get_num_params(c)
+        ckpt = 3 * 4 * n
+        need = 3 * ckpt + (2 + 4 + 4) * n + 2**31
         if need <= free:
             return layers, ckpt, need
     return 0, ckpt, need
 
 
+def tree_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def run_cli(module: str, args: list, failures, what: str) -> float:
+    """python -m <module> <args> from the checkout, as the recipe's shell
+    runs it; returns its seconds. A non-zero exit is a failure, with the end
+    of its output printed."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", module] + [str(a) for a in args], cwd=HERE,
+                         capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(f"  {what}: python -m {module} exited {res.returncode}:\n"
+              f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        failures.append(f"recipe {what}")
+    return secs
+
+
+def recipe_stage0(tmp: Path, failures) -> Path:
+    """Stage 0 (run.sh:60-84): jsonl -> shards through make_data, on
+    pre-tokenized ids (RawTokenizer at the model's vocab), 4 workers. The
+    jsonl holds the seeded documents of write_shards, 120 to a shard, so the
+    shards are phase 8's. Checks the ids read back and data.list."""
+    from touchnet_tpu_torch.data.dataset import TouchDataset
+
+    docs = seeded_documents(SEED, 4 * 120)
+    jsonl = tmp / "train.jsonl"
+    with open(jsonl, "w") as f:
+        for i, d in enumerate(docs):
+            f.write(json.dumps({"key": f"doc{i}", "text": d.tolist()}) + "\n")
+    save = tmp / "data"
+    secs = run_cli("touchnet_tpu_torch.bin.make_data",
+                   ["--save_dir", save, "--jsonl_path", jsonl, "--tokenizer_type",
+                    "RawTokenizer", "--tokenizer_raw_vocab_size", 128256,
+                    "--num_utt_per_shard", 120, "--num_workers", 4, "--datatypes", "texttoken"],
+                   failures, "stage 0")
+    listfile = save / "data.list"
+    lines = listfile.read_text().splitlines() if listfile.exists() else []
+    shards = [ln.split()[0] for ln in lines]
+    got = []
+    for shard in shards:
+        ds = TouchDataset(shard, mmap=False, datatypes="texttoken")
+        got += [ds.get(i, "texttoken") for i in range(len(ds))]
+    ok = (len(lines) == 4 and all(ln.endswith(" texttoken") for ln in lines)
+          and len(got) == len(docs) and all(np.array_equal(a, b) for a, b in zip(got, docs)))
+    print(f"  stage 0 (make_data, subprocess, 4 workers): {len(docs)} jsonl documents "
+          f"({jsonl.stat().st_size} bytes) -> {len(lines)} shards, {tree_bytes(save)} bytes, "
+          f"in {secs:.2f} s; ids read back equal the jsonl's, data.list one line a shard "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe stage 0")
+    return listfile
+
+
+def recipe_stage1(cfg, config: Path, exp: Path, tmp: Path, dev, failures) -> dict:
+    """Stage 1 (run.sh:86-94): an HF directory of seeded random weights in
+    bf16 (as the published checkpoint), written with the port's safetensors
+    writer and hf_config_dict, through convert_hf_to_ckpt to
+    <exp>/checkpoint/step_0. Returns the checksums of the HF tensors upcast
+    to f32, which the run's params at init must equal."""
+    from touchnet_tpu_torch.models.llama.convert import hf_config_dict, params_to_hf_state_dict
+    from touchnet_tpu_torch.models.llama.modeling_llama import init_params
+    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
+
+    hf = tmp / "hf_seed"
+    hf.mkdir()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 2), torch.bfloat16,
+                        dev)
+    sd = params_to_hf_state_dict(cfg, model.state_dict())
+    t0 = time.perf_counter()
+    nbytes = write_safetensors(sd, str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(hf_config_dict(cfg, "bfloat16"), indent=2))
+    write_s = time.perf_counter() - t0
+    want = bits_checksums({k: v.float() for k, v in sd.items()})
+    del model, sd
+    torch.cuda.empty_cache()
+    secs = run_cli("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+                   ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
+                    config, "--model_type", "causal_lm"], failures, "stage 1")
+    seed = exp / "checkpoint" / "step_0"
+    print(f"  stage 1: HF seed (random bf16 weights, seed {SEED + 2}) {nbytes} bytes written in "
+          f"{write_s:.2f} s; convert_hf_to_ckpt (subprocess) -> step_0, "
+          f"{tree_bytes(seed) if seed.exists() else 0} bytes (f32), in {secs:.2f} s")
+    return want
+
+
+def recipe_stage3(cfg, config: Path, exp: Path, final: dict, model, dev, card,
+                  failures) -> dict:
+    """Stage 3 (run.sh:168-175): convert_ckpt_to_hf --step -1 --config on
+    the run's last step. Its tensors, read back with the port's reader,
+    must equal `final` (the trained params' checksums) bit for bit, and
+    greedy generate (K1, K4) from the export must give the trainer's
+    model's tokens, 2 prompts x 16 new tokens. Returns the launches of the
+    two generate calls (each a main path)."""
+    import torch.nn.functional as F
+
+    from touchnet_tpu_torch.models.llama import inference_llama as inf
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+    from touchnet_tpu_torch.models.llama.convert import params_from_hf_state_dict
+    from touchnet_tpu_torch.models.llama.modeling_llama import empty_model
+    from touchnet_tpu_torch.ops.attention import flash_attention
+    from touchnet_tpu_torch.ops.decode_attention import decode_attention
+    from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
+
+    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+                   ["--ckpt_dir", exp, "--step", -1, "--config", config,
+                    "--model_type", "causal_lm"], failures, "stage 3")
+    out = exp / "checkpoint_hf" / f"step-{RECIPE_STEPS}"
+    t0 = time.perf_counter()
+    tensors = read_safetensors(str(out / "model.safetensors"))
+    read_s = time.perf_counter() - t0
+    bits = bits_checksums(tensors)
+    differ = sorted(k for k in final if bits.get(k) != final[k]) + sorted(set(bits) - set(final))
+    exported = LlamaConfig.from_json_file(str(out / "config.json"))
+    ok = not differ and exported.rope_scaling == cfg.rope_scaling and \
+        exported.to_dict() == {**cfg.to_dict(), "attn_implementation": "flash"}
+    print(f"  stage 3: convert_ckpt_to_hf --step -1 --config (subprocess) -> {out.name}, "
+          f"{tree_bytes(out)} bytes, in {secs:.2f} s (read back in {read_s:.2f} s); its "
+          f"{len(bits)} tensors equal the final params bit for bit: {not differ} "
+          f"(differ in {differ[:5] or 'none'}); config.json round-trips with rope_scaling "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe stage 3: export")
+    hf_model = empty_model(exported, torch.float32, dev)
+    hf_model.load_state_dict(params_from_hf_state_dict(exported, tensors))
+    del tensors
+    rng = np.random.default_rng(SEED + 3)
+    lens = torch.from_numpy(rng.integers(256, 1025, 2)).to(dev)
+    ids = torch.from_numpy(rng.integers(0, DOC_RANGE, (2, int(lens.max())))).to(dev)
+    gen = {}
+    flash_attention.launches = decode_attention.launches = 0
+    with torch.no_grad():
+        for name, m in (("export", hf_model), ("trainer", model)):
+            emb = F.embedding(ids, m.model.embed_tokens.weight)
+            gen[name] = inf.generate(m, exported, emb, lens, 16, eos_id=128001,
+                                     compute_dtype=torch.bfloat16)
+    counts = {"K1": flash_attention.launches, "K4": decode_attention.launches}
+    L = cfg.num_hidden_layers
+    same = torch.equal(gen["export"], gen["trainer"])
+    ok = same and counts["K1"] == 2 * L and 0 < counts["K4"] <= 2 * 16 * L
+    print(f"  stage 3: greedy generate from the export and from the trainer's model, prompts "
+          f"{lens.tolist()}, 16 new tokens: equal {same}; tokens {gen['export'].tolist()}; "
+          f"launches K1={counts['K1']} K4={counts['K4']} {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("recipe stage 3: generate")
+    del hf_model
+    torch.cuda.empty_cache()
+    return counts
+
+
 def run_recipe(dev, card, failures, tmp: Path) -> dict:
-    """Phase 9: the recipe's stage 2 through bin.train.main at full width,
-    with checkpoints, dev eval, profiling and memory snapshots, then a
-    resume from step 5 held to the straight run bit for bit. Returns the
-    kernels' launches over both runs."""
+    """Phase 9: the recipe's stages 0-3 at full width: make_data, the HF
+    seed through convert_hf_to_ckpt, stage 2 through bin.train.main with
+    checkpoints, dev eval, profiling and memory snapshots from that seed,
+    then a resume from step 5 held to the straight run bit for bit, and the
+    export through convert_ckpt_to_hf with generate from it. Returns the
+    kernels' launches over its main paths."""
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
     from touchnet_tpu_torch.ops import attention as attn
     from touchnet_tpu_torch.ops import fused_ce
     from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
 
-    print("[9] the recipe's stage 2 on one card (run.sh:97-165, dp 1): bin.train.main with "
-          "checkpoints, dev eval, profiling and memory snapshots, then a resume")
+    print("[9] the recipe's stages 0-3 on one card (run.sh:60-175, dp 1): make_data, the HF "
+          "seed, bin.train.main with checkpoints, dev eval, profiling and memory snapshots, "
+          "a resume, the HF export")
     cfg = LlamaConfig.from_json_file(str(CONFIG))
     free = shutil.disk_usage(tmp).free
     L, ckpt_bytes, need = recipe_depth(cfg, free)
@@ -1257,7 +1608,7 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     depth = "full depth" if L == cfg.num_hidden_layers else \
         f"CUT to {L} of {cfg.num_hidden_layers} layers at full width (too little room)"
     print(f"  temp dir: {free / 1e9:.2f} GB free; a checkpoint ~{ckpt_bytes / 1e9:.2f} GB, "
-          f"{need / 1e9:.2f} GB needed: {depth}")
+          f"{need / 1e9:.2f} GB needed with the seed, step_0 and the export: {depth}")
     if L == 0:
         failures.append("recipe run: no room for its checkpoints")
         return {}
@@ -1266,9 +1617,11 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
         raw["num_hidden_layers"] = L
         config = tmp / "config.json"
         config.write_text(json.dumps(raw))
-    listfile = write_shards(tmp / "shards", cfg.vocab_size, SEED)
-    devlist = write_shards(tmp / "dev", cfg.vocab_size, SEED + 1, shards=2, docs=20)
+        cfg = LlamaConfig.from_json_file(str(config))
     exp = tmp / "exp"
+    listfile = recipe_stage0(tmp, failures)
+    seed_bits = recipe_stage1(cfg, config, exp, tmp, dev, failures)
+    devlist = write_shards(tmp / "dev", cfg.vocab_size, SEED + 1, shards=2, docs=20)
     flags = dict(training_model_config_path=config, datalist_dev_path=devlist,
                  training_enable_ckpt="true", training_ckpt_load_step=-1,
                  training_ckpt_interval=RECIPE_INTERVAL, training_ckpt_keep_latest_k=2,
@@ -1278,7 +1631,8 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
                  training_gc_freq=1000, training_deterministic="false")
     print(f"  {RECIPE_STEPS} steps at 1x{TRAIN_T}, remat op_small, checkpoints every "
           f"{RECIPE_INTERVAL} (keep 2, async), dev list of 2 seeded shards, profiling freq 5 "
-          "keep 1, memory snapshots, tensorboard (a warning)")
+          "keep 1, memory snapshots, tensorboard (a warning where the package is missing), "
+          "from the stage-1 seed")
 
     # host time of each saving Trainer.save call (ms), the part of it spent
     # waiting for the previous write, and each write's own time (s; in the
@@ -1306,9 +1660,19 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
         real_write(self, step, host, items)
         write_s[step] = time.perf_counter() - t0
 
+    # the params as the first run starts training (after the seed's load)
+    init_bits = []
+    real_train = train.Trainer.train
+
+    def checked_train(self):
+        if not init_bits:
+            init_bits.append(bits_checksums(self.model.state_dict()))
+        return real_train(self)
+
     counters = (attn.flash_attention, attn.flash_attention_bwd, fused_ce.fused_ce_fwd,
                 fused_ce.fused_ce_bwd)
     train.Trainer.save = timed_save
+    train.Trainer.train = checked_train
     CheckpointManager.wait_until_finished = timed_wait
     CheckpointManager._write = timed_write
     torch.cuda.reset_peak_memory_stats()
@@ -1335,14 +1699,22 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
                "training_enable_memory_snapshot": "false"}))
     finally:
         train.Trainer.save = real_save
+        train.Trainer.train = real_train
         CheckpointManager.wait_until_finished = real_wait
         CheckpointManager._write = real_write
     k1, k2, k3f, k3b = (c.launches for c in counters)
     hist2 = resumed.metrics_processor.history
     dev2 = resumed.metrics_processor.dev_history
     state2 = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
+    final_model = resumed.model
     del resumed
     torch.cuda.empty_cache()
+
+    seeded = bool(init_bits) and init_bits[0] == seed_bits
+    print(f"  stage 2 starts from step_0: the params at init ({len(seed_bits)} tensors) equal the "
+          f"HF tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
+    if not seeded:
+        failures.append("recipe stage 2: not started from the seed")
 
     losses1 = [h["loss/per_sample"] for h in hist1]
     ckpt = exp / "checkpoint"
@@ -1418,7 +1790,12 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("recipe run: launch counts")
-    return {"K1": k1, "K2": k2, "K3 fwd": k3f, "K3 bwd": k3b}
+    final = {k: state2[k] for k in final_model.state_dict()}
+    gen_counts = recipe_stage3(cfg, config, exp, final, final_model, dev, card, failures)
+    del final_model
+    torch.cuda.empty_cache()
+    return {"K1": k1 + gen_counts["K1"], "K2": k2, "K3 fwd": k3f, "K3 bwd": k3b,
+            "K4": gen_counts["K4"]}
 
 
 # device kernels of a step, by the part of the port that launches them (the
@@ -1780,6 +2157,9 @@ def main() -> int:
                 failures.append(f"{name} never launched on the {path} path")
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
             recipe_counts.get(name, 0)
+    if not recipe_counts.get("K4"):
+        failures.append("K4 never launched on the recipe run's export path")
+    counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0)
     for name, n in counts.items():
         if n == 0:
             failures.append(f"{name} never launched on the main path")

@@ -138,14 +138,16 @@ def test_bits_checksums_see_a_flipped_bit_and_a_swap():
 
 def test_recipe_depth_cuts_layers_only_without_room():
     """Phase 9 keeps full depth when the temp directory holds three
-    checkpoints (~14.8 GB each for Llama-3.2-1B: f32 params, mu, nu), and
+    checkpoints (~14.8 GB each for Llama-3.2-1B: f32 params, mu, nu), the
+    stage-1 seed (bf16), its step_0 and the stage-3 export (f32), and
     otherwise cuts layers, never width."""
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 
     cfg = LlamaConfig.from_json_file(str(chip_smoke.CONFIG))
     L, ckpt, need = chip_smoke.recipe_depth(cfg, 10**12)
     assert L == cfg.num_hidden_layers == 16 and 14.7e9 < ckpt < 14.9e9
-    assert need == 3 * ckpt + 2**31
+    n = ckpt // 12  # parameters
+    assert need == 3 * ckpt + (2 + 4 + 4) * n + 2**31
     cut, _, cut_need = chip_smoke.recipe_depth(cfg, need - 1)
     assert 0 < cut < 16 and cut_need < need
     assert chip_smoke.recipe_depth(cfg, 0)[0] == 0

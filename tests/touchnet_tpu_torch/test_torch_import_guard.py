@@ -1,7 +1,8 @@
 # touchnet_tpu_torch imports torch and never jax: the machines it serves on
 # have no JAX. A fresh interpreter imports every module of the package and
-# must end with no jax (and no touchnet_tpu) module loaded, and without
-# building a kernel.
+# must end with no jax (and no touchnet_tpu) module loaded, without
+# building a kernel, and without the host packages that only a flag needs
+# (transformers, wandb, tensorboard: imported on first use).
 
 import os
 import pkgutil
@@ -44,6 +45,10 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.bin",
         "touchnet_tpu_torch.bin.make_data",
         "touchnet_tpu_torch.bin.train",
+        "touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+        "touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+        "touchnet_tpu_torch.utils.checkpoint",
+        "touchnet_tpu_torch.utils.safetensors_io",
         "touchnet_tpu_torch.utils.cli",
         "touchnet_tpu_torch.utils.logging",
         "touchnet_tpu_torch.utils.metrics",
@@ -62,6 +67,9 @@ def test_package_imports_no_jax():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'touchnet_tpu'))\n"
         "assert not bad, bad\n"
+        "lazy = sorted(m for m in sys.modules\n"
+        "              if m.split('.')[0] in ('transformers', 'wandb', 'tensorboard'))\n"
+        "assert not lazy, lazy\n"
         "assert _build._lib is None, 'a kernel was built at import'\n"
         "print('ok')\n"
     )

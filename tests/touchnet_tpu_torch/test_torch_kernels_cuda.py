@@ -527,3 +527,33 @@ def test_fused_ce_refuses_unaligned_bf16(dev, which, direction):
         else:
             g = torch.ones(N, device=dev)
             fused_ce.fused_ce_bwd(h, w, labels, g, g, g)
+
+
+@pytest.mark.parametrize("chunk", [1000, 1 << 25])
+def test_streamed_adamw_equals_resident(dev, chunk, monkeypatch):
+    """CPU offload's streamed AdamW (moments in pinned host memory, two
+    device slots on a copy stream) against the resident step on the same
+    inputs, three steps: params, mu, nu and count bit for bit, with pieces
+    of `chunk` elements (1000: a tensor in several pieces)."""
+    from touchnet_tpu_torch.ops import fused_adamw
+
+    monkeypatch.setattr(fused_adamw.StreamedMoments, "STREAM_CHUNK", chunk)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shapes = [(300, 64), (64,), (7, 9), (4099,)]
+    params = [torch.randn(s, generator=gen, device=dev) for s in shapes]
+    res_p = [p.clone() for p in params]
+    res_m = [torch.zeros_like(p) for p in params]
+    res_v = [torch.zeros_like(p) for p in params]
+    moments = fused_adamw.StreamedMoments(params)
+    assert all(m.is_pinned() and not m.is_cuda for m in moments.mu + moments.nu)
+    c_res = c_off = torch.zeros((), dtype=torch.int32, device=dev)
+    for step in range(3):
+        grads = [torch.randn(s, generator=gen, device=dev).to(torch.bfloat16) for s in shapes]
+        kw = dict(lr=torch.tensor(1e-2, device=dev), clip_scale=torch.tensor(0.5, device=dev),
+                  finite=torch.tensor(step != 1, device=dev))
+        c_res = fused_adamw.fused_adamw_step(grads, res_p, res_m, res_v, c_res, **kw)
+        c_off = fused_adamw.streamed_adamw_step(grads, params, moments, c_off, **kw)
+    moments.synchronize()
+    assert int(c_res) == int(c_off) == 2
+    for a, b in zip(res_p + res_m + res_v, params + moments.mu + moments.nu):
+        assert torch.equal(a.cpu(), b.cpu())

@@ -18,8 +18,8 @@
 #   - the causal_lm loader: the first 3 batches identical to the JAX
 #     loader's on the same DataBuilder shards;
 #   - bin.train.main on the tiny config: the loss drops over 8 steps,
-#     op_small gives the losses of no remat, and each flag of a later slice
-#     raises.
+#     op_small gives the losses of no remat, each parallel degree (a later
+#     slice) raises, and each single-device mode runs.
 
 import os
 
@@ -393,6 +393,12 @@ def test_trainer_main_loss_drops(tmp_path):
     assert (tmp_path / "exp" / "train_config.json").exists()
 
 
+# the single-device modes (since the slice that ported them) run; the
+# parallel degrees are still later slices and raise
+SINGLE_DEVICE_MODES = ("training_gradient_accumulation_steps",
+                       "training_mixed_precision_reduce", "training_enable_cpu_offload")
+
+
 @pytest.mark.parametrize("flag,value", [
     ("training_tensor_parallel_degree", 2),
     ("training_data_parallel_shard_degree", 2),
@@ -404,9 +410,18 @@ def test_trainer_main_loss_drops(tmp_path):
     ("training_enable_cpu_offload", "true"),
 ])
 def test_trainer_rejects_later_slices(tmp_path, flag, value):
-    with pytest.raises(ValueError, match=flag):
-        ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: value}),
-                    device=torch.device("cpu"))
+    """A parallel degree above 1 raises naming its flag; each single-device
+    mode runs 2 CPU steps with finite losses."""
+    if flag not in SINGLE_DEVICE_MODES:
+        with pytest.raises(ValueError, match=flag):
+            ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: value}),
+                        device=torch.device("cpu"))
+        return
+    listfile = build_corpus(tmp_path)
+    trainer = ttrain.main(_flags(tmp_path, listfile, 2, **{flag: value}),
+                          device=torch.device("cpu"))
+    losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+    assert trainer.step == 2 and len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_trainer_op_small_equals_none(tmp_path):

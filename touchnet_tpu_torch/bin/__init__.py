@@ -1,8 +1,12 @@
 # Copyright (c) 2026 touchnet_tpu authors.
-# Copied from touchnet_tpu/bin/__init__.py: TrainConfig, with the same field
-# names, defaults and validate(), so the JAX recipes' flags parse as they
-# are. Which flags the port's trainer runs, and which raise as later slices,
-# is bin/train.py's check_supported.
+# Copied from touchnet_tpu/bin/__init__.py: MakeDataConfig, TrainConfig and
+# CkptConverterConfig, with the same field names, defaults and validate(),
+# so the JAX recipes' flags parse as they are. Which flags the port's
+# trainer runs, and which raise as later slices, is bin/train.py's
+# check_supported; make_data builds texttoken and metainfo shards (the audio
+# datatypes are the audio slice). Two JAX fields that nothing here would
+# read are left out, so passing them is a parse error: MakeDataConfig's
+# audio_resample (the audio datatypes) and CkptConverterConfig's tmp_dir.
 #
 # Entry-point configurations.
 #
@@ -13,6 +17,26 @@
 
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass
+class MakeDataConfig:
+    """Options for converting raw jsonl data into TouchDataset shards."""
+
+    save_dir: str = field(default="./exp")
+    jsonl_path: Optional[str] = field(default=None)
+    num_utt_per_shard: int = field(default=1000)
+    num_workers: int = field(default=10)
+    datatypes: str = field(
+        default="audio+metainfo",
+        metadata={
+            "help": (
+                "'+'-combination of audio | metainfo | audiotoken | "
+                "texttoken (the port builds texttoken and metainfo; "
+                "audio and audiotoken are the audio slice)"
+            )
+        },
+    )
 
 
 @dataclass
@@ -222,3 +246,24 @@ class TrainConfig:
                 "with pipeline parallelism — PP already microbatches the "
                 "step (training_pipeline_parallel_microbatches)"
             )
+
+
+@dataclass
+class CkptConverterConfig:
+    """HF <-> checkpoint converter options (bin/convert_hf_to_ckpt.py,
+    bin/convert_ckpt_to_hf.py)."""
+
+    ckpt_dir: Optional[str] = field(default=None, metadata={"help": "experiment ckpt dir"})
+    training_model_config_path: Optional[str] = field(default=None)
+    model_type: str = field(
+        default="causal_lm",
+        metadata={"help": "causal_lm (touch_audio | qwen2_audio | kimi_audio: the audio slice)"},
+    )
+    config: Optional[str] = field(
+        default=None,
+        metadata={"help": "model config JSON when training_model_config_path is unset "
+                          "(the recipe's stage-3 spelling)"})
+    step: Optional[int] = field(
+        default=None, metadata={"help": "checkpoint step to export; -1 = the latest"})
+    tokenizer_model: Optional[str] = field(default=None)
+    huggingface_model: Optional[str] = field(default=None)

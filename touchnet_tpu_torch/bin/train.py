@@ -5,9 +5,11 @@
 #
 # Port of touchnet_tpu/bin/train.py: Trainer (:299-481), _loss_and_acc
 # (:556-582, the fused-CE route of --training_enable_liger_kernel and the
-# full-logits route), the train step (:645-780) and the eval step
-# (:782-787), GlobalBatchLoader (:96-171) with one data-parallel stream,
-# DevicePrefetcher (:174-220), _PrefetchStateView (:284), _put_batch
+# full-logits route), _value_and_grad (:592-612), the train step (:645-780)
+# with _grads_and_metrics (:702-735) and the eval step (:782-787),
+# GlobalBatchLoader (:96-171) with one data-parallel stream,
+# DevicePrefetcher (:174-220), _AccumBatcher (:223-281),
+# _PrefetchStateView (:284), _put_batch
 # (:790-859), train with its SIGTERM preemption and watchdogs (:884-942),
 # the train loop (:944-1022) with checkpoints, dev evaluation, profiling,
 # memory snapshots and GC, dev (:1024-1072) and main. The flags and the
@@ -25,9 +27,27 @@
 # N) at init: params, AdamW moments and count, the step and the loader
 # state, so the run goes on with the batch after the last trained one.
 #
+# The single-device modes of the JAX trainer:
+#   --training_gradient_accumulation_steps G: _AccumBatcher stacks G host
+#     batches to [G, B, ...]; the step runs forward and backward per
+#     microbatch, each loss normalised by the group's sentence count, and
+#     the gradients add up in .grad: exactly the G*B batch's, at the
+#     activation memory of B. A checkpoint records the loader after the
+#     whole group.
+#   --training_mixed_precision_reduce bfloat16: the step differentiates with
+#     respect to bf16 copies of the f32 masters (torch.func.functional_call
+#     swaps them in for the forward and the backward), so every backward
+#     tensor and every gradient is bf16; the norm and AdamW read each
+#     gradient as f32 (the upcast at the optimizer boundary, tensor by
+#     tensor). Under accumulation each microbatch's bf16 gradients are
+#     upcast and summed in f32, as the JAX scan does.
+#   --training_enable_cpu_offload: on the card the AdamW moments live in
+#     pinned host memory and streamed_adamw_step streams them through the
+#     card (ops/fused_adamw.py); the same arithmetic, so the run equals the
+#     resident one bit for bit. On the CPU the flag changes nothing.
+#
 # What this slice does not run raises a ValueError naming the flag
-# (check_supported): parallel degrees above 1, gradient accumulation, bf16
-# gradient reduction and CPU offload. TensorBoard and wandb are a warning.
+# (check_supported): parallel degrees above 1 and float16.
 
 import copy
 import os
@@ -44,7 +64,11 @@ from touchnet_tpu_torch.bin import TrainConfig
 from touchnet_tpu_torch.data import DataConfig
 from touchnet_tpu_torch.models.llama import check_finite_params
 from touchnet_tpu_torch.models.llama.modeling_llama import remat_layers
-from touchnet_tpu_torch.ops.fused_adamw import fused_adamw_step
+from touchnet_tpu_torch.ops.fused_adamw import (
+    StreamedMoments,
+    fused_adamw_step,
+    streamed_adamw_step,
+)
 from touchnet_tpu_torch.parallel.loss_parallel import fused_linear_cross_entropy
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
 from touchnet_tpu_torch.utils.checkpoint import CheckpointManager, export_weights_only
@@ -84,19 +108,9 @@ def check_supported(job_config: TrainConfig) -> None:
         raise ValueError(
             f"training_data_parallel_shard_degree={cfg.training_data_parallel_shard_degree}: "
             f"multi-device training {later}")
-    checks = [
-        (cfg.training_gradient_accumulation_steps > 1,
-         "training_gradient_accumulation_steps > 1: gradient accumulation"),
-        (cfg.training_mixed_precision_reduce == "bfloat16",
-         "training_mixed_precision_reduce bfloat16: bf16 gradient reduction"),
-        (cfg.training_enable_cpu_offload, "training_enable_cpu_offload: CPU offload"),
-        (cfg.training_mixed_precision_param not in _DTYPES,
-         f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
-         "the kernels take bfloat16 or float32; float16"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise ValueError(f"{what} {later}")
+    if cfg.training_mixed_precision_param not in _DTYPES:
+        raise ValueError(f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
+                         f"the kernels take bfloat16 or float32; float16 {later}")
 
 
 class GlobalBatchLoader:
@@ -205,6 +219,69 @@ class DevicePrefetcher:
         self.thread.join(timeout=10.0)
 
 
+class _AccumBatcher:
+    """Gradient accumulation's loader: pulls G host batches and stacks every
+    array to [G, B, ...], summing num_sentence so each microbatch loss is
+    normalised by the group's sentence count. A trailing partial group is
+    dropped. state_dict reads through to the real loader, so a checkpoint
+    taken after a group resumes at the next group."""
+
+    def __init__(self, loader, accum: int):
+        self.loader = loader
+        self.accum = accum
+
+    def __iter__(self):
+        it = iter(self.loader)
+        while True:
+            parts = []
+            for _ in range(self.accum):
+                try:
+                    parts.append(next(it))
+                except StopIteration:
+                    return
+            batch: Dict[str, Any] = {}
+            for key in parts[0]:
+                vals = [p[key] for p in parts]
+                if key == "num_sentence":
+                    batch[key] = int(sum(vals))
+                elif vals[0] is None:
+                    batch[key] = None
+                elif isinstance(vals[0], np.ndarray):
+                    try:
+                        batch[key] = np.stack(vals, axis=0)
+                    except ValueError as e:
+                        raise ValueError(
+                            "gradient accumulation requires static batch shapes; key "
+                            f"`{key}` varies across microbatches ({[v.shape for v in vals]}): "
+                            "dynamic-batch datapipes are unsupported with "
+                            "training_gradient_accumulation_steps > 1") from e
+                else:
+                    batch[key] = vals
+            yield batch
+
+    def state_dict(self):
+        return self.loader.state_dict()
+
+    def load_state_dict(self, state):
+        self.loader.load_state_dict(state)
+
+
+def _grads_of(leaves):
+    return [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+
+
+class _Reparametrized(torch.nn.Module):
+    """functional_call's handle on the model: forward(fn) runs fn while the
+    model's parameters are the tensors functional_call was given."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, fn):
+        return fn()
+
+
 class _PrefetchStateView:
     """The loader as the CheckpointManager sees it during training: its
     state is the prefetcher's consumed_state (the last trained batch, never
@@ -244,9 +321,6 @@ class Trainer:
         if job_config.training_print_args:
             for cfg_obj in (tokenizer_config, data_config, job_config):
                 logger.info(f"{type(cfg_obj).__name__}: {cfg_obj}")
-        for flag in ("training_enable_tensorboard", "training_enable_wandb"):
-            if getattr(job_config, flag):
-                logger.warning(f"{flag}: not ported; metrics go to the log only")
         set_determinism(job_config.training_seed, job_config.training_deterministic)
 
         self.train_spec = get_train_spec(job_config.training_model_name)
@@ -273,7 +347,12 @@ class Trainer:
         self.model = self.train_spec.init_params_fn(
             self.model_config, gen, torch.float32, device, requires_grad=True, train=True)
         check_finite_params(self.model)
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.accum = job_config.training_gradient_accumulation_steps
+        self.reduce_dtype = _DTYPES[job_config.training_mixed_precision_reduce]
+        self._reparam = _Reparametrized(self.model)
         num_params = self.train_spec.get_num_params_fn(self.model_config)
         num_params_wo_emb = self.train_spec.get_num_params_fn(
             self.model_config, exclude_embedding=True)
@@ -285,8 +364,19 @@ class Trainer:
                     f"{self.num_flop_per_token / 1e9:.2f} GFLOP/token")
 
         self.opt = build_optimizer(job_config)
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        self.offload = None
+        if job_config.training_enable_cpu_offload and device.type == "cuda":
+            self.offload = StreamedMoments(self.params)
+            self.mu, self.nu = self.offload.mu, self.offload.nu
+            logger.info(f"cpu offload: AdamW moments in pinned host memory "
+                        f"({self.offload.pinned_bytes / 1e9:.2f} GB), streamed through the "
+                        "card each step")
+        else:
+            if job_config.training_enable_cpu_offload:
+                logger.info("cpu offload: the device is the CPU, where the moments live "
+                            "already; the flag changes nothing")
+            self.mu = [torch.zeros_like(p) for p in self.params]
+            self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = torch.zeros((), dtype=torch.int32, device=device)
         self.step = 0
 
@@ -298,9 +388,8 @@ class Trainer:
 
     def _opt_state(self) -> Dict[str, torch.Tensor]:
         """The AdamW state by name, as the checkpoint holds it."""
-        names = [n for n, p in self.model.named_parameters() if p.requires_grad]
-        state = {f"mu.{n}": m for n, m in zip(names, self.mu)}
-        state.update({f"nu.{n}": v for n, v in zip(names, self.nu)})
+        state = {f"mu.{n}": m for n, m in zip(self.param_names, self.mu)}
+        state.update({f"nu.{n}": v for n, v in zip(self.param_names, self.nu)})
         state["count"] = self.count
         return state
 
@@ -343,13 +432,59 @@ class Trainer:
         acc = self.train_spec.acc_fn(logits, batch["labels"])
         return loss_ps, loss_pt, acc
 
+    def _loss_backward(self, batch, num_sentence):
+        """Forward and backward of one microbatch; its metrics, detached."""
+        loss_ps, loss_pt, acc = self._loss_and_acc(batch, num_sentence)
+        loss_ps.backward()
+        return loss_ps.detach(), loss_pt.detach(), acc.detach()
+
+    def _microbatch(self, batch, num_sentence):
+        """(leaves, metrics) of one microbatch. Under bf16 reduction the
+        leaves are fresh bf16 copies of the masters, swapped into the model
+        for the forward and the backward alike (so a remat recompute reads
+        them too), and their .grad is bf16; otherwise they are the masters."""
+        if self.reduce_dtype == torch.float32:
+            return self.params, self._loss_backward(batch, num_sentence)
+        leaves = [p.detach().to(self.reduce_dtype).requires_grad_() for p in self.params]
+        low = {f"model.{n}": t for n, t in zip(self.param_names, leaves)}
+        metrics = torch.func.functional_call(
+            self._reparam, low, (lambda: self._loss_backward(batch, num_sentence),))
+        return leaves, metrics
+
+    def _grads_and_metrics(self, batch, num_sentence):
+        """(grads, loss_per_sample, loss_per_token, acc) of one step: the
+        batch, or its G slices of the leading axis under accumulation. With
+        G=1 the gradients are the leaves' (bf16 under bf16 reduction; the
+        norm and AdamW read them as f32). With G>1 they add up in the
+        masters' f32 .grad; under bf16 reduction each microbatch's bf16
+        gradients are upcast as they are added, as the JAX scan sums them in
+        f32. The per-sample loss is the sum over microbatches (each
+        normalised by the group's sentence count), the per-token loss and
+        acc the mean."""
+        if self.accum == 1:
+            leaves, metrics = self._microbatch(batch, num_sentence)
+            return (_grads_of(leaves), *metrics)
+        sums = None
+        for g in range(self.accum):
+            mb = {k: (v[g] if v is not None else None) for k, v in batch.items()}
+            leaves, metrics = self._microbatch(mb, num_sentence)
+            if leaves is not self.params:
+                for p, leaf in zip(self.params, leaves):
+                    if leaf.grad is None:
+                        continue
+                    if p.grad is None:
+                        p.grad = leaf.grad.float()
+                    else:
+                        p.grad.add_(leaf.grad)
+            vals = [x.float() for x in metrics]
+            sums = vals if sums is None else [a + b for a, b in zip(sums, vals)]
+        return _grads_of(self.params), sums[0], sums[1] / self.accum, sums[2] / self.accum
+
     def train_step(self, batch: Dict[str, torch.Tensor], num_sentence: float) -> dict:
         """One optimizer step; returns the step's metrics as device tensors.
         Every optimizer_impl runs the same single-pass AdamW (the JAX
         'for-loop' optax chain computes the same update)."""
-        loss_ps, loss_pt, acc = self._loss_and_acc(batch, num_sentence)
-        loss_ps.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        grads, loss_ps, loss_pt, acc = self._grads_and_metrics(batch, num_sentence)
         gnorm = global_grad_norm(grads)
         scale = torch.clamp(self.job_config.training_max_norm / (gnorm + 1e-6), max=1.0)
         finite = torch.isfinite(gnorm)
@@ -357,17 +492,21 @@ class Trainer:
         # the update writes params and moments in place: not before a
         # pending checkpoint's staging copies have read them
         self.checkpointer.maybe_wait_for_staging()
+        hyper = dict(lr=ob.schedule(self.count), b1=ob.b1, b2=ob.b2, eps=ob.eps,
+                     weight_decay=ob.weight_decay, clip_scale=scale, finite=finite)
         with torch.no_grad():
-            self.count = fused_adamw_step(
-                grads, self.params, self.mu, self.nu, self.count,
-                lr=ob.schedule(self.count), b1=ob.b1, b2=ob.b2, eps=ob.eps,
-                weight_decay=ob.weight_decay, clip_scale=scale, finite=finite)
+            if self.offload is not None:
+                self.count = streamed_adamw_step(grads, self.params, self.offload, self.count,
+                                                 **hyper)
+            else:
+                self.count = fused_adamw_step(grads, self.params, self.mu, self.nu, self.count,
+                                              **hyper)
         for p in self.params:
             p.grad = None
         return {
-            "loss/per_sample": loss_ps.detach(),
-            "loss/per_token": loss_pt.detach(),
-            "acc": acc.detach(),
+            "loss/per_sample": loss_ps,
+            "loss/per_token": loss_pt,
+            "acc": acc,
             "grad_norm": gnorm,
             "lr": ob.schedule(self.step),
         }
@@ -419,7 +558,10 @@ class Trainer:
             device_batch, num_sentence = self._put_batch(batch)
             return device_batch, num_sentence, ntokens
 
-        data_iter = DevicePrefetcher(self.dataloader, stage,
+        loader = self.dataloader
+        if self.accum > 1:
+            loader = _AccumBatcher(loader, self.accum)
+        data_iter = DevicePrefetcher(loader, stage,
                                      depth=self.data_config.dataloader_device_prefetch,
                                      device=self.device)
         # checkpoints record the state of the last trained batch
@@ -482,14 +624,16 @@ class Trainer:
 
     def save(self, force: bool = False) -> bool:
         """The checkpoint of this step, if the cadence (or force) says so."""
-        return self.checkpointer.save(self.step, self.model.state_dict(), self._opt_state(),
-                                      force=force)
+        return self.checkpointer.save(
+            self.step, self.model.state_dict(), self._opt_state(), force=force,
+            before_stage=self.offload.synchronize if self.offload is not None else None)
 
     @torch.no_grad()
     def dev(self):
         """The dev-set pass (the JAX Trainer.dev, :1024-1072): the eval step
         (_loss_and_acc, forward only: K1 and K3's forward on the card) over
-        every batch of datalist_dev_path, averaged, logged as one [dev] line."""
+        every batch of datalist_dev_path (never stacked, whatever the
+        accumulation), averaged, logged as one [dev] line."""
         dev_loader = GlobalBatchLoader(self.train_spec.build_dataloader_fn, self.data_config,
                                        self.tokenizer, "dev")
         totals = {"loss_per_sample": 0.0, "loss_per_token": 0.0, "acc": 0.0}
@@ -513,6 +657,7 @@ class Trainer:
         finally:
             self.dataloader.shutdown()
             self.gc_handler.close()
+            self.metrics_processor.close()
 
 
 def main(argv: Optional[list] = None, device: Optional[torch.device] = None) -> Trainer:

@@ -1,8 +1,9 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/tokenizer/tokenizer.py (framework-free: numpy and the standard
-# library), with its imports pointed at the port. BaseTokenizer and
-# RawTokenizer only; HuggingFaceTokenizer and BestRQTokenizer are later
-# slices.
+# library), with its imports pointed at the port: BaseTokenizer,
+# RawTokenizer and HuggingFaceTokenizer (transformers is imported on first
+# use, so only a run that names an HF tokenizer needs the package).
+# BestRQTokenizer is the audio slice.
 #
 # Tokenizers: HF text tokenizer wrapper + BEST-RQ training-free audio tokenizer.
 #
@@ -123,10 +124,80 @@ class RawTokenizer(BaseTokenizer):
         return self._config.tokenizer_raw_pad_id
 
 
+class HuggingFaceTokenizer(BaseTokenizer):
+    """Lazy AutoTokenizer wrapper (transformers imported on first use)."""
+
+    def __init__(self, config: TokenizerConfig, **kwargs):
+        super().__init__(config.tokenizer_model, **kwargs)
+        self.pretrained_model_name_or_path = config.tokenizer_model
+        self.kwargs = kwargs
+        self._tokenizer = None
+        self._vocab = None
+        self._inv_vocab = None
+
+    def _build_hugging_face(self):
+        if self._tokenizer is None:
+            import transformers
+
+            self._tokenizer = transformers.AutoTokenizer.from_pretrained(
+                pretrained_model_name_or_path=self.pretrained_model_name_or_path,
+                trust_remote_code=True,
+                **self.kwargs,
+            )
+            self._vocab = self._tokenizer.get_vocab()
+            self._inv_vocab = {tid: tok for tok, tid in self._vocab.items()}
+
+    @property
+    def vocab_size(self):
+        self._build_hugging_face()
+        return len(self._tokenizer)
+
+    @property
+    def vocab(self):
+        self._build_hugging_face()
+        return self._vocab
+
+    @property
+    def inv_vocab(self):
+        self._build_hugging_face()
+        return self._inv_vocab
+
+    @property
+    def decoder(self):
+        self._build_hugging_face()
+        return self._inv_vocab
+
+    def tokenize(self, inputs, **kwargs):
+        self._build_hugging_face()
+        return self._tokenizer(inputs, **kwargs).input_ids
+
+    def detokenize(self, token_ids, **kwargs):
+        self._build_hugging_face()
+        return self._tokenizer.decode(token_ids, **kwargs)
+
+    @property
+    def eos(self):
+        self._build_hugging_face()
+        return self._tokenizer.eos_token_id
+
+    @property
+    def bos(self):
+        self._build_hugging_face()
+        return self._tokenizer.bos_token_id
+
+    @property
+    def pad(self):
+        self._build_hugging_face()
+        return self._tokenizer.pad_token_id
+
+
 def build_tokenizer(args: TokenizerConfig, **kwargs):
     if args.tokenizer_type == "RawTokenizer":
         return RawTokenizer(args, **kwargs)
-    raise NotImplementedError(
-        f"{args.tokenizer_type}: only RawTokenizer is ported; "
-        "HuggingFaceTokenizer and BestRQTokenizer are later slices"
-    )
+    if args.tokenizer_type == "HuggingFaceTokenizer":
+        return HuggingFaceTokenizer(args, **kwargs)
+    if args.tokenizer_type == "BestRQTokenizer":
+        raise NotImplementedError(
+            "BestRQTokenizer: the audio tokenizer is ported with the audio slice of "
+            "touchnet_tpu_torch")
+    raise NotImplementedError(f"{args.tokenizer_type} tokenizer not implemented")

@@ -22,7 +22,10 @@
 # moments in place, so the next update must not start before the staging
 # copies have read them: maybe_wait_for_staging makes the compute stream
 # wait for the staging's event (a fence on the card, the host never
-# blocks). Loading validates every key, shape and dtype against the
+# blocks). Host tensors (the AdamW moments under CPU offload) are staged by
+# a host copy in save() itself, after ``before_stage`` (the trainer's wait
+# for the moments' device-to-host copies), so no later update can change
+# them under the writer. Loading validates every key, shape and dtype against the
 # checkpoint's metadata before it reads a byte: a checkpoint that does not
 # fit raises naming the key and never loads partially.
 
@@ -31,7 +34,7 @@ import os
 import re
 import shutil
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 import torch.distributed.checkpoint as dcp
@@ -81,12 +84,16 @@ class CheckpointManager:
         return force or step == 1 or step % self.interval == 0
 
     def save(self, step: int, model: Dict[str, torch.Tensor],
-             optimizer: Dict[str, torch.Tensor], force: bool = False) -> bool:
+             optimizer: Dict[str, torch.Tensor], force: bool = False,
+             before_stage: Optional[Callable[[], None]] = None) -> bool:
         """Stage the state and write step_<step> (in the background under
-        async). Returns whether the cadence saved this step."""
+        async). ``before_stage`` runs first when the step saves. Returns
+        whether the cadence saved this step."""
         if not self._should_save(step, force):
             return False
         self.wait_until_finished()  # one write at a time; it reuses the buffers
+        if before_stage is not None:
+            before_stage()
         tensors = {f"{MODEL}.{k}": v for k, v in model.items()}
         tensors.update({f"{OPTIMIZER}.{k}": v for k, v in optimizer.items()})
         host = self._stage(tensors)
@@ -113,7 +120,8 @@ class CheckpointManager:
         """Host copies of ``tensors``: clones on the CPU; on the card copies
         into pinned buffers (kept for the next save) on a copy stream that
         first waits for the compute stream, with an event recorded after
-        them (self._staged)."""
+        them (self._staged). A host tensor among card tensors is copied into
+        its buffer by the host, before this returns."""
         self._staged = None
         cuda = [t for t in tensors.values() if t.is_cuda]
         if not cuda:
@@ -129,8 +137,11 @@ class CheckpointManager:
                 if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
                     buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                     self._buffers[k] = buf
-                buf.copy_(t.detach(), non_blocking=True)
-                t.record_stream(self._stream)
+                if t.is_cuda:
+                    buf.copy_(t.detach(), non_blocking=True)
+                    t.record_stream(self._stream)
+                else:
+                    buf.copy_(t.detach())
                 host[k] = buf
             self._staged = torch.cuda.Event()
             self._staged.record(self._stream)

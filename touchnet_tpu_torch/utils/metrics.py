@@ -1,19 +1,28 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Training telemetry: loss, grad norm, lr, tokens/s, MFU and device memory.
 #
-# Port of touchnet_tpu/utils/metrics.py (MetricsProcessor, with log_dev).
-# The JAX module's peak-flops table holds TPU generations; here it holds the
-# one card the port targets, and memory comes from torch.cuda's allocator
-# statistics. The trainer hands it device tensors and it reads them
-# (.item(), a host sync) only on logging steps. The TensorBoard and wandb
-# backends are not ported.
+# Port of touchnet_tpu/utils/metrics.py (MetricsProcessor, with log_dev,
+# and the logger backends BaseLogger, TensorBoardLogger, WandBLogger and
+# _build_logger, :89-173). The JAX module's peak-flops table holds TPU
+# generations; here it holds the one card the port targets, and memory comes
+# from torch.cuda's allocator statistics. The trainer hands it device
+# tensors and it reads them (.item(), a host sync) only on logging steps.
+#
+# The backends are host services: every logged line also goes to wandb
+# (training_enable_wandb) or TensorBoard (training_enable_tensorboard,
+# torch.utils.tensorboard, under <dump>/<training_save_tb_folder>/<stamp>),
+# dev lines under dev/. As in JAX, a backend whose package is missing is a
+# warning and the next one is tried (wandb, then TensorBoard, then none);
+# the packages are imported only when their flag is on.
 
+import os
 import time
-from typing import Dict, List, Optional
+from datetime import datetime
+from typing import Any, Dict, List, Optional
 
 import torch
 
-from touchnet_tpu_torch.utils.logging import logger
+from touchnet_tpu_torch.utils.logging import _process_index, logger
 
 # bf16 dense peak, a spec constant and not a measurement: NVIDIA H100 SXM
 # datasheet, 989 TFLOP/s at the card's 700 W limit
@@ -33,6 +42,64 @@ def get_peak_flops(device: torch.device) -> Optional[float]:
     return None
 
 
+class BaseLogger:
+    def log(self, metrics: Dict[str, Any], step: int) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+class TensorBoardLogger(BaseLogger):
+    def __init__(self, log_dir: str):
+        from torch.utils.tensorboard import SummaryWriter
+
+        self.writer = SummaryWriter(log_dir, max_queue=1000)
+        logger.info(f"TensorBoard logging to {log_dir}")
+
+    def log(self, metrics, step):
+        for k, v in metrics.items():
+            self.writer.add_scalar(k, v, step)
+
+    def close(self):
+        self.writer.close()
+
+
+class WandBLogger(BaseLogger):
+    def __init__(self, log_dir: str):
+        import wandb
+
+        self.wandb = wandb
+        self.wandb.init(project=os.getenv("WANDB_PROJECT", "touchnet_tpu"), dir=log_dir)
+
+    def log(self, metrics, step):
+        self.wandb.log(dict(metrics), step=step)
+
+    def close(self):
+        if self.wandb.run is not None:
+            self.wandb.finish()
+
+
+def _build_logger(job_config, dump_dir: str) -> BaseLogger:
+    """wandb, else TensorBoard, else nothing, by the flags; a backend that
+    cannot start (its package missing) is a warning and the next is tried."""
+    if job_config.training_enable_wandb:
+        try:
+            return WandBLogger(dump_dir)
+        except Exception as e:
+            logger.warning(f"wandb unavailable ({e}); falling back")
+    if job_config.training_enable_tensorboard:
+        if job_config.training_tb_rank_0_only and _process_index() != 0:
+            return BaseLogger()
+        try:
+            folder = os.path.join(dump_dir, job_config.training_save_tb_folder,
+                                  datetime.now().strftime("%Y%m%d-%H%M"))
+            return TensorBoardLogger(folder)
+        except Exception as e:
+            logger.warning(f"tensorboard unavailable ({e}); falling back")
+    return BaseLogger()
+
+
 class MetricsProcessor:
     """Accumulates per-interval counters and logs one line per logging step:
     loss, acc, grad norm, lr, peak memory, tokens/s, MFU, data-loading share.
@@ -42,6 +109,7 @@ class MetricsProcessor:
         self.job_config = job_config
         self.device = device
         self.peak_flops = get_peak_flops(device)
+        self.logger_backend = _build_logger(job_config, job_config.training_trace_dump_folder)
         self.num_flop_per_token = 0  # set by the trainer
         self.ntokens_since_last_log = 0
         self.steps_since_last_log = 0
@@ -86,6 +154,7 @@ class MetricsProcessor:
             pieces.append(f"mfu {out['throughput/mfu_pct']:.2f}%")
         pieces.append(f"data {out['time/data_loading_pct']:.1f}%")
         logger.info("  ".join(pieces))
+        self.logger_backend.log({k: v for k, v in out.items() if k != "step"}, step)
         self.history.append(out)
         self.ntokens_since_last_log = 0
         self.steps_since_last_log = 0
@@ -96,6 +165,10 @@ class MetricsProcessor:
     def log_dev(self, step: int, metrics: Dict[str, float]) -> None:
         """One line of dev-set metrics (the JAX log_dev, metrics.py:275-281),
         also kept in ``dev_history``."""
+        self.logger_backend.log({f"dev/{k}": v for k, v in metrics.items()}, step)
         parts = "  ".join(f"{k} {v:.4f}" for k, v in metrics.items())
         logger.info(f"[dev] step {step:6d}  {parts}")
         self.dev_history.append({"step": step, **metrics})
+
+    def close(self) -> None:
+        self.logger_backend.close()
