@@ -38,7 +38,11 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      tiles and the backward accumulates dw over two dl row chunks (an f32
      case forces four); argmax ties in f32 and in bf16 (the TMA + wgmma
      forward: two lanes of a quad, two tiles of a split, two splits), and
-     two backward runs against each other bit for bit;
+     two backward runs against each other bit for bit; and at the audio
+     path's vocab, V=1025 (1024 BEST-RQ codes + 1: four whole 256-column
+     tiles and one live column in a fifth), at N8192 (the audio training
+     shape), N256 in bf16 and in f32 with 64-row dl chunks, and a tie on
+     column 1024;
   8. the training slice: bin.train.main, the port's trainer, takes 10
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) under the recipe's
@@ -85,13 +89,41 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      its seconds and bytes. The temp directory's free space is printed
      first; without room for three checkpoints (two kept, one being
      written), the seed, step_0 and the export, the phase runs fewer
-     layers at full width, and says so.
+     layers at full width, and says so;
+ 10. the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on one card
+     (examples/audio/pretrain/wenetspeech/run.sh, dp 1; stage 1 is skipped
+     without pretrained weights, as there): Touch-Audio-1B at full width
+     and depth (976,064,512 params); ~3600 s of seeded synthetic speech
+     (voiced tones of a drifting pitch plus noise, 1-15 s, 16 kHz int16
+     wavs) through make_data (a subprocess, audio+metainfo, 16 shards) and
+     a dev list; bin.train.main with the recipe's flags (1x8192 packed,
+     fbank 80 bins, stack 5 stride 4, speed perturb 0.9/1.0/1.1, BEST-RQ
+     1024 x 16 from 400, seed 2025, remat none, max_norm 5, AdamW fused lr
+     8e-4, WSD linear, 12 loader threads and prefetch 12), 10 steps with
+     checkpoints every 5 (keep 2, async) and a dev pass after each, then a
+     fresh run resumed from step 5: step ms, tokens/s, MFU (phase 8's
+     count), peak memory, the data-wait share per step, launches per step,
+     losses finite and falling, the resumed run's losses and final state
+     equal the first's bit for bit; stage 3, convert_ckpt_to_hf
+     --model_type touch_audio: the export equals the final params bit for
+     bit; then one step at 1x4096, kernel path against plain path, under
+     phase 8's limits;
+ 11. the ASR CLI (python -m touchnet_tpu_torch.models.touch_audio.
+     inference_touch_audio, run through its main; the SFT recipe's stage
+     4): a Touch-Audio-7B HF export of seeded random bf16 weights (full
+     depth when the temp dir holds it twice, else fewer layers, never below
+     8, said so), 32 synthetic wavs, batch 16, max_length 64, bf16, fbank
+     80 x stack 5 stride 4: a part file with a hyp for every key, K1 and
+     K4 launched; the first batch's prefill and first decode step on the
+     kernel path against the plain path (bf16 both, rel L2 <= 5e-2, the
+     serving limit); prefill ms, decode ms/step and peak memory.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving, training, the single-device
-modes and the recipe run with its generate from the export; K4: serving
-and that generate; K2, K3: training, the modes and the recipe run), each
-path driven with the counts set to 0 just before it.
+modes, the recipe run with its generate from the export, the audio recipe
+run and the ASR CLI; K4: serving, that generate and the ASR CLI; K2, K3:
+training, the modes, the recipe run and the audio recipe run), each path
+driven with the counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -969,6 +1001,17 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
          tie=(7, 5, 261, 128255))
     case("(d) main path: N16384 E2048 V128256 bf16", 16384, 2048, 128256, torch.bfloat16,
          timed=True, min_chunks=2)
+    # the audio pretraining path's vocab: 1024 BEST-RQ codes + 1 = 4 whole
+    # 256-column tiles and one live column in the fifth, the last split's
+    # only tile; dl's row stride rounds 1025 up to 1032
+    case("(e) audio main path: N8192 E2048 V1025 bf16", 8192, 2048, 1025, torch.bfloat16,
+         timed=True)
+    case("(f) ragged tail: N256 E2048 V1025 bf16", 256, 2048, 1025, torch.bfloat16)
+    case("(f) ragged tail: N256 E2048 V1025 f32, 64-row dl chunks", 256, 2048, 1025,
+         torch.float32, chunk_rows=64, min_chunks=4)
+    # column 1024 is the last tile's one live column
+    case("(f) argmax tie N256 E2048 V1025 bf16", 256, 2048, 1025, torch.bfloat16,
+         tie=(1024,))
     return rows
 
 
@@ -1059,17 +1102,16 @@ def count_plain_calls():
             setattr(m, n, fn)
 
 
-def step_grads(train, listfile, exp, dtype, plain, dev):
-    """One step's (loss, grad norm, flat f32 gradient) at B1 T4096 through
-    the port's Trainer: the first batch of the loader, loss and backward as
-    train_step runs them, no optimizer update."""
+def step_grads(train, argv, plain, dev):
+    """One step's (loss, grad norm, flat f32 gradient) through the port's
+    Trainer built from `argv`: the first batch of the loader, loss and
+    backward as train_step runs them, no optimizer update."""
     from touchnet_tpu_torch.bin import TrainConfig
     from touchnet_tpu_torch.data import DataConfig
     from touchnet_tpu_torch.tokenizer import TokenizerConfig
     from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
     from touchnet_tpu_torch.utils.optimizer import global_grad_norm
 
-    argv = train_argv(listfile, exp, CHECK_T, 1, dtype, 128256)
     tok, data, job = parse_args_into_dataclasses([TokenizerConfig, DataConfig, TrainConfig],
                                                  argv)
     trainer = train.Trainer(tok, data, job, dev)
@@ -1360,8 +1402,17 @@ def run_training(dev, card, failures, tmp: Path):
         train_counts[name] += n
 
     print(f"  one step at B1 T{CHECK_T}, full width and depth: kernel vs plain path")
-    f32k = step_grads(train, listfile, tmp / "chk", "float32", plain=False, dev=dev)
-    f32p = step_grads(train, listfile, tmp / "chk", "float32", plain=True, dev=dev)
+    check_step(train, lambda dtype: train_argv(listfile, tmp / "chk", CHECK_T, 1, dtype, 128256),
+               dev, failures)
+    return train_counts
+
+
+def check_step(train, argv_of, dev, failures, what=""):
+    """One step's loss, grad norm and gradients of the kernel path against
+    the plain path (plain_kernels) on the trainer built from argv_of(dtype):
+    f32 under STEP_F32_*, bf16 against the f32 plain path under STEP_BF16_*."""
+    f32k = step_grads(train, argv_of("float32"), plain=False, dev=dev)
+    f32p = step_grads(train, argv_of("float32"), plain=True, dev=dev)
     e_loss = abs(f32k[0] - f32p[0]) / abs(f32p[0])
     e_gn = abs(f32k[1] - f32p[1]) / f32p[1]
     e_g = ((f32k[2] - f32p[2]).norm() / f32p[2].norm()).item()
@@ -1370,10 +1421,10 @@ def run_training(dev, card, failures, tmp: Path):
           f"grad norm {f32k[1]:.6f} vs {f32p[1]:.6f} (rel {e_gn:.2e} <= {STEP_F32_GNORM:.0e}), "
           f"gradients rel L2 {e_g:.2e} (<= {STEP_F32_GRADS:.0e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("f32 train step")
+        failures.append(f"{what}f32 train step")
     del f32k
-    bfk = step_grads(train, listfile, tmp / "chk", "bfloat16", plain=False, dev=dev)
-    bfp = step_grads(train, listfile, tmp / "chk", "bfloat16", plain=True, dev=dev)
+    bfk = step_grads(train, argv_of("bfloat16"), plain=False, dev=dev)
+    bfp = step_grads(train, argv_of("bfloat16"), plain=True, dev=dev)
     e_k = ((bfk[2] - f32p[2]).norm() / f32p[2].norm()).item()
     e_p = ((bfp[2] - f32p[2]).norm() / f32p[2].norm()).item()
     e_kp = ((bfk[2] - bfp[2]).norm() / bfp[2].norm()).item()
@@ -1386,10 +1437,9 @@ def run_training(dev, card, failures, tmp: Path):
           f"{STEP_BF16_LOSS:.0e}); grad norm {bfk[1]:.6f} / bf16 plain {bfp[1]:.6f} / "
           f"f32 plain {f32p[1]:.6f} {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("bf16 train step")
+        failures.append(f"{what}bf16 train step")
     del f32p, bfk, bfp
     torch.cuda.empty_cache()
-    return train_counts
 
 
 RECIPE_STEPS, RECIPE_INTERVAL, RESUME_STEP = 10, 5, 5
@@ -1798,6 +1848,534 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
             "K4": gen_counts["K4"]}
 
 
+# -- phase 10: the audio pretraining recipe (examples/audio/pretrain/wenetspeech/run.sh) --
+
+AUDIO_CONFIG = HERE / "examples/audio/pretrain/wenetspeech/config/Touch-Audio-1B.json"
+ASR_CONFIG = HERE / "examples/audio/sft/asr/wenetspeech/config/Touch-Audio-7B.json"
+SR = 16000
+AUDIO_T, AUDIO_STEPS, AUDIO_INTERVAL, AUDIO_RESUME = 8192, 10, 5, 5
+# seconds of audio in one 1x8192 row: 8192 frames x stride 4 x 10 ms
+ROW_SECONDS = AUDIO_T * 4 * 10 / 1000
+AUDIO_WORKERS = 12  # the recipe's num_workers and prefetch (run.sh:22-23)
+
+
+def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
+                     txt_vocab=None) -> tuple:
+    """`count` seeded 16 kHz int16 wavs of lo-hi seconds under root: voiced
+    tones (harmonics 1-5 of a pitch drifting +-30 % around 90-220 Hz, with a
+    syllable-rate envelope) plus noise, so the BEST-RQ codes spread; and a
+    jsonl of {key, wav, txt} lines (txt: ids below txt_vocab, else a word).
+    Returns (jsonl path, seconds of audio)."""
+    from scipy.io import wavfile
+
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    lines, total = [], 0.0
+    for i in range(count):
+        seconds = float(rng.uniform(lo, hi))
+        n = int(seconds * SR)
+        t = np.arange(n, dtype=np.float32) / SR
+        f0 = rng.uniform(90, 220) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t
+                                                      + rng.uniform(0, 6)))
+        phase = (2 * np.pi / SR) * np.cumsum(f0, dtype=np.float64)
+        x = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.25
+        x *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * rng.uniform(1, 4) * t))
+        x += 0.01 * rng.standard_normal(n)
+        path = root / f"utt{i}.wav"
+        wavfile.write(path, SR, np.clip(x * 20000, -32768, 32767).astype(np.int16))
+        txt = ([int(v) for v in rng.integers(3, txt_vocab, int(rng.integers(4, 30)))]
+               if txt_vocab else f"utterance {i}")
+        lines.append(json.dumps({"key": f"utt{i}", "wav": str(path), "txt": txt}))
+        total += seconds
+    jsonl = root / "data.jsonl"
+    jsonl.write_text("\n".join(lines) + "\n")
+    return jsonl, total
+
+
+def audio_argv(listfile, exp, seqlen, steps, dtype, **extra) -> list:
+    """The recipe's stage-2 flags (run.sh:98-192, BEST-RQ vocab 1024 emb 16
+    input 400 seed 2025, touch_audio packed 1x<seqlen>, fbank 80 bins dither
+    0, stack 5 stride 4 normalised, speed perturb 0.9/1.0/1.1, SpecAug,
+    SpecSub and SpecTrim off, remat none, max_norm 5, AdamW fused lr 8e-4,
+    WSD linear) on one card (dp 1, cp 1, tp 1, pp 1), `steps` steps with 2
+    warmup; `extra` (flag: value) adds or replaces flags. The recipe passes
+    no --dataset_enable_pack, so it would train the dynamic batcher
+    (batch_audio); its exp id names 1x8192 packed, which this passes."""
+    stride, stack, bins = 4, 5, 80
+    args = {
+        "tokenizer_type": "BestRQTokenizer", "tokenizer_bestrq_vocab_size": 1024,
+        "tokenizer_bestrq_input_size": stack * bins, "tokenizer_bestrq_emb_size": 16,
+        "tokenizer_bestrq_init_seed": 2025, "tokenizer_bestrq_init_method": "default",
+        "datapipe_type": "touch_audio", "datalist_path": listfile, "datalist_sharding": "true",
+        "datalist_epoch": 10000, "datalist_shuffling": "true",
+        "dataset_random_cut_audio": "false", "dataset_shuffling": "true",
+        "dataset_mmap": "true", "dataset_enable_pack": "true", "dataset_batchsize": 1,
+        "dataset_audio_seqlen": seqlen, "dataset_text_seqlen": seqlen,
+        "audio_max_length_in_ms_for_filter": seqlen * stride * 10 - 200,
+        "audio_min_length_in_ms_for_filter": 200,
+        "text_max_length_in_tokens_for_filter": seqlen - 1,
+        "text_min_length_in_tokens_for_filter": 1, "max_text_audio_ratio": 1.0,
+        "min_text_audio_ratio": 0.0005, "audio_resample_rate": SR,
+        "audio_speed_perturb": "true", "audio_feat_type": "fbank",
+        "audiofeat_spec_aug": "false", "audiofeat_spec_sub": "false",
+        "audiofeat_spec_trim": "false", "audiofeat_num_mel_bins": bins,
+        "audiofeat_frame_length": 25, "audiofeat_frame_shift": 10, "audiofeat_dither": 0.0,
+        "audiofeat_stack_length": stack, "audiofeat_stride_length": stride,
+        "audiofeat_normalize": "true", "dataloader_num_workers": AUDIO_WORKERS,
+        "dataloader_prefetch_factor": AUDIO_WORKERS,
+        "training_description": "wenetspeech ssl", "training_seed": 2025,
+        "training_model_name": "touch_audio", "training_model_config_path": AUDIO_CONFIG,
+        "training_trace_dump_folder": exp, "training_context_parallel_degree": 1,
+        "training_tensor_parallel_degree": 1, "training_data_parallel_shard_degree": 1,
+        "training_pipeline_parallel_degree": 1, "training_enable_loss_parallel": "true",
+        "training_enable_liger_kernel": "true", "training_log_freq": 1,
+        "training_mixed_precision_param": dtype, "training_mixed_precision_reduce": "float32",
+        "training_compile": "true", "training_gc_freq": 1000,
+        "training_deterministic": "false", "training_max_norm": 5.0,
+        "training_activation_checkpoint_mode": "none",
+        "training_activation_checkpoint_selective_ac_option": "op",
+        "optimizer_name": "AdamW", "optimizer_lr": 8e-4, "optimizer_impl": "fused",
+        "lr_scheduler_steps": steps, "lr_scheduler_warmup_steps": 2,
+        "lr_scheduler_decay_type": "linear", "lr_scheduler_lr_min": 0.0, **extra,
+    }
+    return [x for k, v in args.items() for x in (f"--{k}", str(v))]
+
+
+def audio_stage0(tmp: Path, name: str, seconds: float, seed: int, shards: int,
+                 failures) -> Path:
+    """Synthesised utterances (1-15 s) holding about `seconds` of audio,
+    through make_data (a subprocess, audio+metainfo, 8 workers) into
+    `shards` shards. Checks data.list and the utterance count read back."""
+    from touchnet_tpu_torch.data.dataset import TouchDataset
+
+    count = int(seconds / 8.0) + 1  # uniform 1-15 s: 8 s on average
+    t0 = time.perf_counter()
+    jsonl, total = synth_utterances(tmp / f"{name}_wav", count, seed)
+    synth_s = time.perf_counter() - t0
+    save = tmp / name
+    per_shard = -(-count // shards)
+    secs = run_cli("touchnet_tpu_torch.bin.make_data",
+                   ["--save_dir", save, "--jsonl_path", jsonl, "--num_utt_per_shard",
+                    per_shard, "--num_workers", 8, "--datatypes", "audio+metainfo"],
+                   failures, f"audio stage 0 ({name})")
+    listfile = save / "data.list"
+    lines = listfile.read_text().splitlines() if listfile.exists() else []
+    n = sum(len(TouchDataset(ln.split()[0], datatypes="audio+metainfo")) for ln in lines)
+    ok = len(lines) == -(-count // per_shard) and n == count
+    print(f"  stage 0 ({name}): {count} utterances, {total:.1f} s of audio synthesised in "
+          f"{synth_s:.1f} s; make_data (subprocess, 8 workers) -> {len(lines)} shards, "
+          f"{tree_bytes(save)} bytes, in {secs:.2f} s; {n} utterances read back "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"audio stage 0 ({name})")
+    return listfile
+
+
+def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
+    """Phase 10: the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on
+    one card at Touch-Audio-1B's full width and depth: make_data over
+    synthesised utterances; bin.train.main with the recipe's flags (1x8192
+    packed, speed perturb on, remat none), checkpoints every 5 (async, keep
+    2) and a dev list, then a fresh run resumed from step 5 held to it bit
+    for bit; convert_ckpt_to_hf --model_type touch_audio on step 10, held
+    to the final params bit for bit; one step at 1x4096 on the kernel path
+    against plain_kernels(). Returns the kernels' launches over its two
+    training runs (the main path)."""
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+        TouchAudioConfig,
+    )
+    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import get_num_params
+    from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
+
+    cfg = TouchAudioConfig.from_json_file(str(AUDIO_CONFIG))
+    tc = cfg.text_config
+    L = tc.num_hidden_layers
+    print(f"[10] the audio pretraining recipe's stages 0, 2, 3 on one card "
+          f"(examples/audio/pretrain/wenetspeech/run.sh, dp 1): "
+          f"{AUDIO_CONFIG.relative_to(HERE)}: L={L} E={tc.hidden_size} "
+          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
+          f"V={tc.vocab_size} tied={tc.tie_word_embeddings}, projector "
+          f"{cfg.audio_config.input_size} -> {tc.hidden_size}, {get_num_params(cfg):,} params")
+    listfile = audio_stage0(tmp, "train", 1.1 * AUDIO_STEPS * ROW_SECONDS, SEED + 10, 16,
+                            failures)
+    devlist = audio_stage0(tmp, "dev", 0.6 * ROW_SECONDS, SEED + 11, 1, failures)
+    exp = tmp / "exp"
+    flags = dict(datalist_dev_path=devlist, training_enable_ckpt="true",
+                 training_ckpt_load_step=-1, training_ckpt_interval=AUDIO_INTERVAL,
+                 training_ckpt_keep_latest_k=2, training_ckpt_async_mode="async",
+                 training_enable_tensorboard="true", training_enable_profiling="true",
+                 training_profiling_freq=100, training_profiling_keep_first_k=10)
+    print(f"  stage 2: {AUDIO_STEPS} steps at 1x{AUDIO_T} packed with the recipe's flags, "
+          f"{AUDIO_WORKERS} loader workers and prefetch {AUDIO_WORKERS}, checkpoints every "
+          f"{AUDIO_INTERVAL} (keep 2, async), a dev list; memory snapshots off (phase 9 "
+          "runs them)")
+    counters = kernel_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path (both runs): every launch count is zeroed here and read
+    # after the resumed run
+    for c in counters.values():
+        c.launches = 0
+    with count_plain_calls() as plain_calls, timed_saves(train) as saves:
+        first = train.main(audio_argv(listfile, exp, AUDIO_T, AUDIO_STEPS, "bfloat16", **flags))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        first_counts = {k: c.launches for k, c in counters.items()}
+        step_ms, tps, mfu = step_stats(first)
+        saves1 = dict(saves)
+        hist1 = first.metrics_processor.history
+        dev1 = first.metrics_processor.dev_history
+        state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
+        del first
+        torch.cuda.empty_cache()
+        resumed = train.main(audio_argv(
+            listfile, exp, AUDIO_T, AUDIO_STEPS, "bfloat16",
+            **{**flags, "training_ckpt_load_step": AUDIO_RESUME,
+               "training_ckpt_async_mode": "disabled"}))
+    counts = {k: c.launches for k, c in counters.items()}
+    hist2 = resumed.metrics_processor.history
+    state2 = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
+    final = {k: state2[k] for k in resumed.model.state_dict()}
+    del resumed
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated() / 2**30
+    ok = left < 1.0
+    print(f"  after both runs {left:.2f} GiB stay allocated on the card (each Trainer freed "
+          f"with its last reference) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("audio recipe: a finished run's memory stays allocated")
+
+    losses1 = [h["loss/per_sample"] for h in hist1]
+    ok = (len(losses1) == AUDIO_STEPS and all(math.isfinite(x) for x in losses1)
+          and losses1[-1] < losses1[0])
+    print(f"  run 1 losses per step: {[round(x, 4) for x in losses1]} (finite, step "
+          f"{AUDIO_STEPS} below step 1) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("audio recipe: losses")
+    wait = [h["time/data_loading_pct"] for h in hist1]
+    print(f"  run 1: step {step_ms:.1f} ms (median of steps 3-{AUDIO_STEPS}), {tps:,.0f} "
+          f"label tokens/s, MFU {mfu:.2f}% of 989 TFLOP/s bf16 (the phase-8 count, "
+          f"6N + 12 L H D T at T {AUDIO_T}), peak {peak:.2f} GiB allocated  [{card}]")
+    print(f"  run 1: data-wait share (the loop's wait for the next batch over the step's "
+          f"time) per step, %: {[round(x, 1) for x in wait]}; median of steps 3-"
+          f"{AUDIO_STEPS} {statistics.median(wait[2:]):.1f}%; step times, ms: "
+          f"{[round(h['time/step_s'] * 1e3, 1) for h in hist1]}  [{card}]")
+    per_step = {k: v / AUDIO_STEPS for k, v in first_counts.items()}
+    dev_batches = first_counts["K3 fwd"] - AUDIO_STEPS
+    ok = (first_counts["K2"] == L * AUDIO_STEPS and first_counts["K3 bwd"] == AUDIO_STEPS
+          and dev_batches > 0 and first_counts["K1"] == L * (AUDIO_STEPS + dev_batches)
+          and not plain_calls)
+    print(f"  run 1 launches: {first_counts} over {AUDIO_STEPS} steps and {dev_batches} dev "
+          f"batches (per step K2 {per_step['K2']:g}, K3 bwd {per_step['K3 bwd']:g}; K1 = "
+          f"{L} x (steps + dev batches), K3 fwd = steps + dev batches; remat none: no "
+          f"recompute); plain versions called: {plain_calls or 'none'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("audio recipe: launch counts")
+    ok = [d["step"] for d in dev1] == [1, AUDIO_INTERVAL, AUDIO_STEPS] and \
+        all(math.isfinite(v) for d in dev1 for v in d.values())
+    print("  dev lines: " + "; ".join(f"step {d['step']} loss {d['loss_per_sample']:.4f} acc "
+                                      f"{d['acc']:.4f}" for d in dev1) +
+          f" {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("audio recipe: dev lines")
+    print("  saves, the loop blocked in save(): " + ", ".join(
+        f"step {s} {ms:.1f} ms (write {w:.2f} s)" for s, (ms, w) in sorted(saves1.items())) +
+        f"; a checkpoint is {tree_bytes(exp / 'checkpoint' / f'step_{AUDIO_STEPS}')} bytes")
+    losses2 = [h["loss/per_sample"] for h in hist2]
+    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
+        sorted(set(state2) - set(state1))
+    same = ([h["step"] for h in hist2] == list(range(AUDIO_RESUME + 1, AUDIO_STEPS + 1))
+            and losses2 == losses1[AUDIO_RESUME:] and not differ)
+    print(f"  resumed from step {AUDIO_RESUME}: losses {[round(x, 4) for x in losses2]} equal "
+          f"run 1's bit for bit, and the final params, mu, nu, count ({len(state1)} tensors, "
+          f"checksums of their bits) differ in {differ[:5] or 'none'}: {same} "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("audio recipe: resume not bit-equal")
+
+    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+                   ["--ckpt_dir", exp, "--step", -1, "--config", AUDIO_CONFIG,
+                    "--model_type", "touch_audio"], failures, "audio stage 3")
+    out = exp / "checkpoint_hf" / f"step-{AUDIO_STEPS}"
+    tensors = read_safetensors(str(out / "model.safetensors"))
+    bits = bits_checksums(tensors)
+    del tensors
+    differ = sorted(k for k in final if bits.get(k) != final[k]) + sorted(set(bits) - set(final))
+    exported = TouchAudioConfig.from_json_file(str(out / "config.json"))
+    ok = not differ and exported.to_dict() == cfg.to_dict()
+    print(f"  stage 3: convert_ckpt_to_hf --model_type touch_audio --step -1 (subprocess) -> "
+          f"{out.name}, {tree_bytes(out)} bytes in {secs:.2f} s; its {len(bits)} tensors "
+          f"equal the final params bit for bit, config.json round-trips: {not differ} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("audio recipe: export")
+
+    # what holds the step back: the same steps without checkpoints or dev
+    # passes under 2 loader threads, and with the batches made first and
+    # held in host memory (no loader thread running while the steps do)
+    torch.cuda.empty_cache()
+    run = train.main(audio_argv(listfile, tmp / "threads2", AUDIO_T, AUDIO_STEPS, "bfloat16",
+                                dataloader_num_workers=2, dataloader_prefetch_factor=2))
+    step_ms, tps, mfu = step_stats(run)
+    hist = run.metrics_processor.history
+    del run
+    print(f"  {AUDIO_STEPS} steps, no checkpoints or dev, 2 loader threads and prefetch 2: "
+          f"step {step_ms:.1f} ms (median of steps 3-{AUDIO_STEPS}), {tps:,.0f} label "
+          f"tokens/s, MFU {mfu:.2f}%; step times, ms: "
+          f"{[round(h['time/step_s'] * 1e3, 1) for h in hist]}; data-wait share, %: "
+          f"{[round(h['time/data_loading_pct'], 1) for h in hist]}  [{card}]")
+    held_steps(train, listfile, tmp, dev, card)
+
+    # remat full here (both paths): under the recipe's none the plain
+    # attention keeps each layer's f32 [32, 4096, 4096] scores and weights
+    # for the backward, more than the card holds; remat changes no value
+    print(f"  one step at 1x{CHECK_T}, full width and depth, remat full: kernel vs plain path")
+    check_step(train, lambda dtype: audio_argv(listfile, tmp / "chk", CHECK_T, 1, dtype,
+                                               dataloader_num_workers=1,
+                                               audio_speed_perturb="false",
+                                               training_activation_checkpoint_mode="full"),
+               dev, failures, "audio ")
+    return counts
+
+
+def held_steps(train, listfile, tmp: Path, dev, card):
+    """Phase 10's steps on batches made first and held in host memory: a
+    Trainer with the recipe's flags, AUDIO_STEPS batches pulled from its
+    loader, the loader shut down, then each batch staged and trained with
+    a sync after it (host clock). The step without the loader's threads."""
+    from touchnet_tpu_torch.bin import TrainConfig
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+
+    tok, data, job = parse_args_into_dataclasses(
+        [TokenizerConfig, DataConfig, TrainConfig],
+        audio_argv(listfile, tmp / "held", AUDIO_T, AUDIO_STEPS, "bfloat16"))
+    trainer = train.Trainer(tok, data, job, dev)
+    try:
+        it = iter(trainer.dataloader)
+        batches = [next(it) for _ in range(AUDIO_STEPS)]
+    finally:
+        trainer.dataloader.shutdown()
+    times = []
+    for batch in batches:
+        t0 = time.perf_counter()
+        device_batch, num_sentence = trainer._put_batch(batch)
+        trainer.train_step(device_batch, num_sentence)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    tokens = statistics.median(int((b["labels"] != -100).sum()) for b in batches)
+    step_ms = statistics.median(times[2:])
+    mfu = 100 * trainer.num_flop_per_token * tokens / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+    trainer.close()
+    del trainer
+    torch.cuda.empty_cache()
+    print(f"  {AUDIO_STEPS} steps on batches held in host memory (no loader thread running): "
+          f"step {step_ms:.1f} ms (median of steps 3-{AUDIO_STEPS}), "
+          f"{tokens / step_ms * 1e3:,.0f} label tokens/s, MFU {mfu:.2f}%; step times, ms: "
+          f"{[round(t, 1) for t in times]}  [{card}]")
+
+
+
+# -- phase 11: the ASR inference CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4) --
+
+ASR_UTTS, ASR_BATCH, ASR_NEW, ASR_MIN_LAYERS = 32, 16, 64, 8
+# Llama-3's bos / eos / pad ids, for the RawTokenizer the CLI runs with (the
+# Llama-3.2 tokenizer is not in the repo)
+ASR_TOKENS = {"bos": 128000, "eos": 128001, "pad": 128004}
+# the decode timing: greedy steps after the prefill, kernel path
+ASR_TIMED_STEPS = 32
+
+
+def asr_depth(cfg, free: int) -> int:
+    """Phase 11's layers: the full depth when `free` holds the bf16 export
+    twice (the file, and room to spare) plus 2 GiB, else the most layers
+    that fit, never below ASR_MIN_LAYERS (0: none fit)."""
+    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import get_num_params
+
+    c = copy.deepcopy(cfg)
+    for layers in range(cfg.text_config.num_hidden_layers, ASR_MIN_LAYERS - 1, -1):
+        c.text_config.num_hidden_layers = layers
+        if 2 * 2 * get_num_params(c) + 2**31 <= free:
+            return layers
+    return 0
+
+
+def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
+    """Phase 11: the touch_audio ASR CLI (python -m
+    touchnet_tpu_torch.models.touch_audio.inference_touch_audio, run
+    in-process through its main) on a Touch-Audio-7B HF export of seeded
+    random bf16 weights: 32 synthesised wavs, batch 16, max_length 64,
+    bf16, fbank 80 x stack 5 stride 4 (the recipe's stage 4 passes no
+    feature flags: the defaults give 161-wide features against the
+    projector's 400). Checks a part file with a hyp for every key and K1 and
+    K4 launched; then the first batch's prefill and first decode step on
+    the kernel path against plain_kernels() under the serving limit, and
+    prefill ms, decode ms/step and peak memory. Returns the launches of the
+    CLI run (the main path)."""
+    import torch.nn.functional as F
+
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.models.llama import inference_llama as inf
+    from touchnet_tpu_torch.models.touch_audio import convert
+    from touchnet_tpu_torch.models.touch_audio import inference_touch_audio as cli
+    from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+        TouchAudioConfig,
+    )
+    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import (
+        get_num_params,
+        init_params,
+    )
+    from touchnet_tpu_torch.ops.attention import flash_attention
+    from touchnet_tpu_torch.ops.decode_attention import decode_attention
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.utils.inference import AudioJsonlDataset, pad_right
+    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
+
+    cfg = TouchAudioConfig.from_json_file(str(ASR_CONFIG))
+    tc = cfg.text_config
+    full = tc.num_hidden_layers
+    free = shutil.disk_usage(tmp).free
+    L = asr_depth(cfg, free)
+    config = ASR_CONFIG
+    if L == 0:
+        print(f"[11] ASR CLI: {free / 1e9:.2f} GB free in the temp dir, too little for a "
+              f"{ASR_MIN_LAYERS}-layer export FAIL")
+        failures.append("asr cli: no room for the export")
+        return {}
+    if L != full:
+        raw = json.loads(ASR_CONFIG.read_text())
+        raw["text_config"]["num_hidden_layers"] = L
+        config = tmp / "asr_config.json"
+        config.write_text(json.dumps(raw))
+        cfg = TouchAudioConfig.from_json_file(str(config))
+        tc = cfg.text_config
+    depth = "full depth" if L == full else f"CUT to {L} of {full} layers (too little room)"
+    print(f"[11] ASR CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4, touch_audio): "
+          f"{ASR_CONFIG.relative_to(HERE)}: L={L} E={tc.hidden_size} "
+          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
+          f"V={tc.vocab_size}, {get_num_params(cfg):,} params, bf16, {depth}; temp dir "
+          f"{free / 1e9:.2f} GB free")
+
+    hf = tmp / "asr_hf"
+    hf.mkdir()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 20), torch.bfloat16,
+                        dev)
+    state = convert.params_to_hf_state_dict(cfg, model.state_dict())
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nbytes = write_safetensors(state, str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
+    write_s = time.perf_counter() - t0
+    del model, state
+    torch.cuda.empty_cache()
+    jsonl, total = synth_utterances(tmp / "asr_wav", ASR_UTTS, SEED + 21)
+    print(f"  HF export of seeded random bf16 weights: {nbytes} bytes ({nbytes / 1e9:.2f} GB) "
+          f"written in {write_s:.2f} s (drawn in {init_s:.2f} s); {ASR_UTTS} wavs, "
+          f"{total:.1f} s of audio")
+
+    tok_flags = {"tokenizer_type": "RawTokenizer", "tokenizer_raw_vocab_size": tc.vocab_size,
+                 **{f"tokenizer_raw_{k}_id": v for k, v in ASR_TOKENS.items()}}
+    feat_flags = {"audio_feat_type": "fbank", "audiofeat_num_mel_bins": 80,
+                  "audiofeat_stack_length": 5, "audiofeat_stride_length": 4,
+                  "audiofeat_dither": 0.0}
+    args = {"model_path": hf, "training_model_config_path": config, "data_list": jsonl,
+            "output_dir": tmp / "asr_out", "model_dtype": "bfloat16", "batch_size": ASR_BATCH,
+            "max_length": ASR_NEW, "num_workers": 16, "prefetch": 8,
+            **tok_flags, **feat_flags}
+    loaded = {}
+    real_load = cli.load_params
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        loaded["model"] = real_load(*a, **kw)
+        loaded["s"] = time.perf_counter() - t0
+        return loaded["model"]
+
+    cli.load_params = timed_load
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every launch count is zeroed here and read just after
+    flash_attention.launches = decode_attention.launches = 0
+    try:
+        t0 = time.perf_counter()
+        path = cli.main([x for k, v in args.items() for x in (f"--{k}", str(v))])
+        cli_s = time.perf_counter() - t0
+    finally:
+        cli.load_params = real_load
+    counts = {"K1": flash_attention.launches, "K4": decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(ln) for ln in open(path)]
+    keys = [json.loads(ln)["key"] for ln in open(jsonl)]
+    batches = -(-ASR_UTTS // ASR_BATCH)
+    ok = ([r["key"] for r in rows] == keys and all(isinstance(r.get("hyp"), list) for r in rows)
+          and counts["K1"] == batches * L and 0 < counts["K4"] <= batches * ASR_NEW * L)
+    print(f"  CLI: {cli_s:.2f} s in all ({loaded['s']:.2f} s loading the export onto the card); "
+          f"{path} has {len(rows)} lines, a hyp for every key: "
+          f"{[r['key'] for r in rows] == keys}; first hyp {rows[0]['hyp'][:8]}...; launches "
+          f"K1={counts['K1']} (want {batches}x{L}, single-shot prefill) K4={counts['K4']} "
+          f"(<= {batches}x{ASR_NEW}x{L}); peak {peak:.2f} GiB allocated "
+          f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("asr cli: output / launches")
+
+    # the first batch again, outside the CLI: prefill and the first decode
+    # step, kernel path against plain_kernels(), and the timings
+    model = loaded.pop("model")
+    lm = model.language_model
+    tok = build_tokenizer(TokenizerConfig(**tok_flags))
+    proj, bos_emb = cli.prompt_parts(model, tok)
+    data_cfg = DataConfig(**feat_flags)
+    samples = [AudioJsonlDataset.load(s) for s in AudioJsonlDataset(str(jsonl)).samples]
+    prompts = [cli.make_prompt(cli.compute_features(s, data_cfg), proj, bos_emb)
+               for s in samples[:ASR_BATCH]]
+    lens = torch.tensor([p.shape[0] for p in prompts], device=dev)
+    emb = torch.from_numpy(pad_right(prompts, 0.0)).to(dev)
+
+    def forced(steps, toks=None):
+        """prefill logits and `steps` decode steps' logits, each step fed
+        toks[s] (greedy from its own logits when toks is None); with the
+        prefill ms and the decode ms/step."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, last, Tp = inf.prefill(lm, tc, emb, lens, steps,
+                                          compute_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, fed = [last], []
+            for s in range(steps):
+                fed.append(logits[-1].argmax(-1) if toks is None else toks[s])
+                tok_emb = F.embedding(fed[-1], lm.model.embed_tokens.weight)[:, None]
+                logits.append(inf.decode_step(lm, tc, cache, tok_emb, lens, Tp, s,
+                                              torch.bfloat16))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return logits, fed, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps, 1)
+
+    forced(1)  # warm the shapes (not measured)
+    logits, fed, prefill_ms, step_ms = forced(ASR_TIMED_STEPS)
+    before = (flash_attention.launches, decode_attention.launches)
+    with plain_kernels():
+        plain, _, _, _ = forced(1, fed)
+    launched = (flash_attention.launches, decode_attention.launches) != before
+    e_pre, e_step = rel_l2(logits[0], plain[0]), rel_l2(logits[1], plain[1])
+    finite = bool(torch.isfinite(logits[0]).all() and torch.isfinite(logits[1]).all())
+    ok = finite and not launched and e_pre <= BF16_PREFILL_RTOL and e_step <= BF16_PREFILL_RTOL
+    print(f"  first batch (B={ASR_BATCH}, prompts {lens.min().item()}-{lens.max().item()}): "
+          f"bf16 kernel vs bf16 plain logits rel_l2: prefill {e_pre:.3e}, first decode step "
+          f"{e_step:.3e} (each <= {BF16_PREFILL_RTOL:.0e}); finite={finite}; the plain path "
+          f"launched no kernel: {not launched} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("asr cli: logits")
+    print(f"  first batch: prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms/step (greedy, "
+          f"{ASR_TIMED_STEPS} steps)  [{card}]")
+    del model, lm, logits, plain
+    torch.cuda.empty_cache()
+    return counts
+
+
 # device kernels of a step, by the part of the port that launches them (the
 # first group whose key a kernel's name holds; K3's come before cuBLAS's).
 # Both directions of K3 run the mainloop ce_gemm<Op>: its epilogue class,
@@ -2101,6 +2679,18 @@ def tune(_build, dev, card) -> int:
     return 0
 
 
+def run_audio_phases(dev, card, failures) -> tuple:
+    """Phases 10 and 11, each in a temporary directory of its own; their
+    launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        audio_counts = run_audio_recipe(dev, card, failures, Path(tmp))
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        asr_counts = run_asr_cli(dev, card, failures, Path(tmp))
+    torch.cuda.empty_cache()
+    return audio_counts, asr_counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2151,15 +2741,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         recipe_counts = run_recipe(dev, card, failures, Path(tmp))
+    torch.cuda.empty_cache()
+    audio_counts, asr_counts = run_audio_phases(dev, card, failures)
     for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
-        for path, got in (("training", train_counts), ("recipe run", recipe_counts)):
+        for path, got in (("training", train_counts), ("recipe run", recipe_counts),
+                          ("audio recipe", audio_counts)):
             if not got.get(name):
                 failures.append(f"{name} never launched on the {path} path")
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
-            recipe_counts.get(name, 0)
+            recipe_counts.get(name, 0) + audio_counts.get(name, 0)
+    for name in ("K1", "K4"):
+        if not asr_counts.get(name):
+            failures.append(f"{name} never launched on the ASR CLI path")
     if not recipe_counts.get("K4"):
         failures.append("K4 never launched on the recipe run's export path")
     counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0)
+    for name in ("K1", "K4"):
+        counts[name] += asr_counts.get(name, 0)
     for name, n in counts.items():
         if n == 0:
             failures.append(f"{name} never launched on the main path")

@@ -207,9 +207,21 @@ def test_export_step_resolution(tmp_path):
 
 @pytest.mark.parametrize("model_type", ["touch_audio", "qwen2_audio", "kimi_audio"])
 def test_converters_refuse_audio_model_types(tmp_path, model_type):
+    """The audio families after touch_audio are later slices. touch_audio
+    converts (test_torch_touch_audio.py); it refuses a seed without the
+    model config (the HF directory holds only the backbone's) and an
+    export without a checkpoint."""
+    if model_type == "touch_audio":
+        with pytest.raises(ValueError, match="training_model_config_path is required"):
+            convert_hf_to_ckpt.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
+                                     "--huggingface_model", str(tmp_path)])
+        with pytest.raises(FileNotFoundError, match="no step_<N>"):
+            convert_ckpt_to_hf.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
+                                     "--step", "-1", "--config", CFG])
+        return
     for main, extra in ((convert_hf_to_ckpt.main, ["--huggingface_model", str(tmp_path)]),
                         (convert_ckpt_to_hf.main, ["--step", "-1", "--config", CFG])):
-        with pytest.raises(ValueError, match="audio slice"):
+        with pytest.raises(ValueError, match="later audio slice"):
             main(["--ckpt_dir", str(tmp_path), "--model_type", model_type] + extra)
 
 

@@ -1,7 +1,8 @@
 # The port's entry points run on the card unless the caller names another
 # device: with no card, Trainer and bin.train.main raise instead of training
-# on the CPU; empty_model and init_cache default to "cuda"; init_params
-# follows its generator's device.
+# on the CPU, and so does the touch_audio ASR CLI; empty_model (Llama and
+# touch_audio) and init_cache default to "cuda"; init_params follows its
+# generator's device.
 
 import inspect
 import os
@@ -13,8 +14,13 @@ from touchnet_tpu_torch.bin import train as ttrain
 from touchnet_tpu_torch.models.llama import inference_llama as inf
 from touchnet_tpu_torch.models.llama import modeling_llama as tmodel
 from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+from touchnet_tpu_torch.models.touch_audio import inference_touch_audio as ta_cli
+from touchnet_tpu_torch.models.touch_audio import modeling_touch_audio as ta_model
+from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import TouchAudioConfig
 
 CFG = os.path.join(os.path.dirname(__file__), "..", "assets", "config", "tiny_llama.json")
+TA_CFG = os.path.join(os.path.dirname(__file__), "..", "assets", "config",
+                      "tiny_touch_audio.json")
 
 
 def _flags(tmp_path):
@@ -52,7 +58,7 @@ def test_init_params_follows_its_generator():
     assert inspect.signature(tmodel.init_params).parameters["device"].default is None
 
 
-@pytest.mark.parametrize("fn", [tmodel.empty_model, inf.init_cache])
+@pytest.mark.parametrize("fn", [tmodel.empty_model, inf.init_cache, ta_model.empty_model])
 def test_model_and_cache_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -63,3 +69,20 @@ def test_empty_model_and_cache_on_meta():
     assert {p.device.type for p in model.parameters()} == {"meta"}
     cache = inf.init_cache(cfg, 2, 16, torch.float32, "meta")
     assert cache.kv.device.type == "meta" and cache.kv.shape[1] == 2
+
+
+def test_touch_audio_entry_points_take_the_card(tmp_path, monkeypatch):
+    """The touch_audio init follows its generator; the ASR CLI and the
+    trainer with the touch_audio model raise without a card."""
+    cfg = TouchAudioConfig.from_json_file(TA_CFG)
+    model = ta_model.init_params(cfg, torch.Generator(device="cpu").manual_seed(0))
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert inspect.signature(ta_model.init_params).parameters["device"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ta_cli.main(["--training_model_config_path", TA_CFG, "--model_path", str(tmp_path)])
+    flags = _flags(tmp_path) + ["--training_model_name", "touch_audio",
+                                "--training_model_config_path", TA_CFG,
+                                "--datapipe_type", "touch_audio"]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ttrain.main(flags)

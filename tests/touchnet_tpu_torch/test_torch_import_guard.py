@@ -54,6 +54,15 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.utils.metrics",
         "touchnet_tpu_torch.utils.optimizer",
         "touchnet_tpu_torch.utils.train_spec",
+        "touchnet_tpu_torch.utils.inference",
+        "touchnet_tpu_torch.data.dsp",
+        "touchnet_tpu_torch.data.native",
+        "touchnet_tpu_torch.models.touch_audio",
+        "touchnet_tpu_torch.models.touch_audio.configuration_touch_audio",
+        "touchnet_tpu_torch.models.touch_audio.modeling_touch_audio",
+        "touchnet_tpu_torch.models.touch_audio.convert",
+        "touchnet_tpu_torch.models.touch_audio.processing_touch_audio",
+        "touchnet_tpu_torch.models.touch_audio.inference_touch_audio",
     ):
         assert want in names
 
@@ -71,6 +80,8 @@ def test_package_imports_no_jax():
         "              if m.split('.')[0] in ('transformers', 'wandb', 'tensorboard'))\n"
         "assert not lazy, lazy\n"
         "assert _build._lib is None, 'a kernel was built at import'\n"
+        "from touchnet_tpu_torch.data import native\n"
+        "assert native._lib is None, 'the native frontend was built at import'\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

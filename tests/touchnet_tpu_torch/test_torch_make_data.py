@@ -6,9 +6,10 @@
 #     directory): texttoken with the char-level HuggingFaceTokenizer,
 #     texttoken with RawTokenizer on id lists, metainfo, and both at once;
 #     the shards read back through the port's TouchDataset give the ids;
-#   - the audio datatypes raise a ValueError naming the audio slice;
+#     (the audio datatypes: test_torch_audio_frontend.py);
 #   - HuggingFaceTokenizer equals JAX's on ids, detokenize, vocab_size,
-#     bos, eos and pad; BestRQTokenizer raises naming the audio slice.
+#     bos, eos and pad; BestRQTokenizer raises for an init method it does
+#     not know (the codes: test_torch_bestrq.py).
 
 import json
 
@@ -100,19 +101,42 @@ def test_make_data_matches_jax(tmp_path, datatypes, tok):
 
 @pytest.mark.parametrize("datatypes", ["audio", "audiotoken", "audio+metainfo"])
 def test_make_data_audio_raises(tmp_path, datatypes):
-    jsonl = _jsonl(tmp_path / "data.jsonl", 3, ids=True)
-    with pytest.raises(ValueError, match="audio slice"):
-        make_data(["--save_dir", str(tmp_path / "out"), "--jsonl_path", jsonl,
-                   "--datatypes", datatypes])
+    """The audio datatypes build (byte for byte JAX's:
+    test_torch_audio_frontend.py); what raises is a datatypes string that
+    names one of them twice, as in the JAX CLI."""
+    from test_torch_audio_frontend import write_audio_jsonl
+
+    jsonl = write_audio_jsonl(tmp_path / "wav", 3, seed=0)
+    save = tmp_path / "out"
+    make_data(["--save_dir", str(save), "--jsonl_path", jsonl, "--datatypes", datatypes,
+               "--num_workers", "1", "--tokenizer_type", "BestRQTokenizer",
+               "--tokenizer_bestrq_vocab_size", "64", "--tokenizer_bestrq_input_size", "161"])
+    (shard,) = [ln.split()[0] for ln in (save / "data.list").read_text().splitlines()]
+    assert len(TouchDataset(shard, datatypes=datatypes)) == 3
+    with pytest.raises(NotImplementedError, match="unsupported datatypes"):
+        make_data(["--save_dir", str(tmp_path / "again"), "--jsonl_path", jsonl,
+                   "--datatypes", f"{datatypes}+{datatypes.split('+')[0]}"])
 
 
 def test_make_data_refuses_audio_resample(tmp_path):
-    """--audio_resample only matters for the audio datatypes (the audio
-    slice): the port's CLI does not take it, so it is a parse error."""
-    jsonl = _jsonl(tmp_path / "data.jsonl", 3, ids=True)
+    """--audio_resample is a flag of the audio datatypes again (the rate
+    they decode at: a 16 kHz wav read at 8 kHz holds half the samples); a
+    flag that no datatype reads is refused as a parse error."""
+    from test_torch_audio_frontend import write_audio_jsonl
+
+    jsonl = write_audio_jsonl(tmp_path / "wav", 2, seed=1)
+    lens = {}
+    for rate in (16000, 8000):
+        save = tmp_path / f"out{rate}"
+        make_data(["--save_dir", str(save), "--jsonl_path", jsonl, "--datatypes", "audio",
+                   "--num_workers", "1", "--audio_resample", str(rate)])
+        shard = (save / "data.list").read_text().split()[0]
+        ds = TouchDataset(shard, datatypes="audio")
+        lens[rate] = [len(ds.get(i, "audio")) for i in range(len(ds))]
+    assert all(abs(a - 2 * b) <= 2 for a, b in zip(lens[16000], lens[8000]))
     with pytest.raises(SystemExit):
-        make_data(["--save_dir", str(tmp_path / "out"), "--jsonl_path", jsonl,
-                   "--datatypes", "metainfo", "--audio_resample", "16000"])
+        make_data(["--save_dir", str(tmp_path / "x"), "--jsonl_path", jsonl,
+                   "--datatypes", "audio", "--tmp_dir", str(tmp_path)])
 
 
 def test_hf_tokenizer_matches_jax(tmp_path):
@@ -134,5 +158,8 @@ def test_hf_tokenizer_matches_jax(tmp_path):
 
 
 def test_bestrq_tokenizer_raises():
-    with pytest.raises(NotImplementedError, match="audio slice"):
-        build_tokenizer(TokenizerConfig(tokenizer_type="BestRQTokenizer"))
+    """An init method other than "default" raises at first use, as JAX's."""
+    tok = build_tokenizer(TokenizerConfig(tokenizer_type="BestRQTokenizer",
+                                          tokenizer_bestrq_init_method="kmeans"))
+    with pytest.raises(NotImplementedError, match="kmeans"):
+        tok.tokenize(np.zeros((2, 560), np.float32))

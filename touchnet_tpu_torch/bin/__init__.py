@@ -3,10 +3,8 @@
 # CkptConverterConfig, with the same field names, defaults and validate(),
 # so the JAX recipes' flags parse as they are. Which flags the port's
 # trainer runs, and which raise as later slices, is bin/train.py's
-# check_supported; make_data builds texttoken and metainfo shards (the audio
-# datatypes are the audio slice). Two JAX fields that nothing here would
-# read are left out, so passing them is a parse error: MakeDataConfig's
-# audio_resample (the audio datatypes) and CkptConverterConfig's tmp_dir.
+# check_supported. One JAX field that nothing here would read is left out,
+# so passing it is a parse error: CkptConverterConfig's tmp_dir.
 #
 # Entry-point configurations.
 #
@@ -26,14 +24,14 @@ class MakeDataConfig:
     save_dir: str = field(default="./exp")
     jsonl_path: Optional[str] = field(default=None)
     num_utt_per_shard: int = field(default=1000)
+    audio_resample: int = field(default=16000)
     num_workers: int = field(default=10)
     datatypes: str = field(
         default="audio+metainfo",
         metadata={
             "help": (
                 "'+'-combination of audio | metainfo | audiotoken | "
-                "texttoken (the port builds texttoken and metainfo; "
-                "audio and audiotoken are the audio slice)"
+                "texttoken"
             )
         },
     )
@@ -257,7 +255,7 @@ class CkptConverterConfig:
     training_model_config_path: Optional[str] = field(default=None)
     model_type: str = field(
         default="causal_lm",
-        metadata={"help": "causal_lm (touch_audio | qwen2_audio | kimi_audio: the audio slice)"},
+        metadata={"help": "causal_lm | touch_audio (qwen2_audio | kimi_audio: later slices)"},
     )
     config: Optional[str] = field(
         default=None,

@@ -3,10 +3,12 @@
 # <ckpt_dir>/checkpoint_hf/step-<N>/{model.safetensors,config.json}.
 #
 #     python -m touchnet_tpu_torch.bin.convert_ckpt_to_hf --ckpt_dir <exp> \
-#         --step -1 --config <cfg> --model_type causal_lm [--tokenizer_model <dir>]
+#         --step -1 --config <cfg> --model_type causal_lm | touch_audio \
+#         [--tokenizer_model <dir>]
 #
-# Port of touchnet_tpu/bin/convert_ckpt_to_hf.py (:16-139) for causal_lm,
-# with two faults of that file left behind: its HF config has ten fields
+# Port of touchnet_tpu/bin/convert_ckpt_to_hf.py (:16-139) for causal_lm and
+# touch_audio (whose config.json is the TouchAudioConfig's own dict, as the
+# JAX exporter writes it), with two faults of that file left behind: its HF config has ten fields
 # and drops rope_scaling and head_dim (here models/llama/convert.py's
 # hf_config_dict writes them all), and it reads the model config only from
 # --training_model_config_path and hands --step -1 to the restore unresolved
@@ -60,15 +62,26 @@ def read_model(path: str) -> dict:
 
 def convert(config: CkptConverterConfig) -> str:
     """Write the HF directory; returns its path."""
-    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
-    from touchnet_tpu_torch.models.llama.convert import hf_config_dict, params_to_hf_state_dict
-
     check_model_type(config.model_type)
     refuse_unread(config, ("huggingface_model",), "convert_ckpt_to_hf")
     cfg_path = config.training_model_config_path or config.config
     if cfg_path is None:
         raise ValueError("--training_model_config_path or --config is required")
-    mcfg = LlamaConfig.from_json_file(cfg_path)
+    if config.model_type == "touch_audio":
+        from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+            TouchAudioConfig as Config,
+        )
+        from touchnet_tpu_torch.models.touch_audio.convert import (
+            hf_config_dict,
+            params_to_hf_state_dict,
+        )
+    else:
+        from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig as Config
+        from touchnet_tpu_torch.models.llama.convert import (
+            hf_config_dict,
+            params_to_hf_state_dict,
+        )
+    mcfg = Config.from_json_file(cfg_path)
     step = resolve_step(config.ckpt_dir, -1 if config.step is None else config.step)
     state = read_model(os.path.join(config.ckpt_dir, "checkpoint", f"step_{step}", "model"))
     sd = params_to_hf_state_dict(mcfg, state)

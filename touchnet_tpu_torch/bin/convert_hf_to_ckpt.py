@@ -5,16 +5,18 @@
 #
 #     python -m touchnet_tpu_torch.bin.convert_hf_to_ckpt --ckpt_dir <exp> \
 #         --huggingface_model <hf dir> --training_model_config_path <cfg> \
-#         --model_type causal_lm
+#         --model_type causal_lm | touch_audio
 #
 # Port of touchnet_tpu/bin/convert_hf_to_ckpt.py: load_hf_state_dict
 # (:20-47; *.safetensors through the port's own reader, else
 # pytorch_model*.bin through torch.load) and convert (:50-115) for
-# causal_lm. The seed is written with torch.distributed.checkpoint in one
+# causal_lm and touch_audio (a text backbone's HF weights under
+# language_model. and a fresh projector drawn from torch.Generator seed 0,
+# models/touch_audio/convert.py). The seed is written with torch.distributed.checkpoint in one
 # process, in the layout of utils/checkpoint.py, as f32 masters: HF Llama
 # weights are bf16, the trainer's masters f32, and its load refuses a dtype
-# that differs (JAX upcasts at load, :31-33). Host-only. The audio model
-# types are the audio slice.
+# that differs (JAX upcasts at load, :31-33). Host-only. qwen2_audio and
+# kimi_audio are later slices.
 
 import glob
 import os
@@ -30,7 +32,7 @@ from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
 
-AUDIO_MODEL_TYPES = ("touch_audio", "qwen2_audio", "kimi_audio")
+LATER_MODEL_TYPES = ("qwen2_audio", "kimi_audio")
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -51,10 +53,10 @@ def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def check_model_type(model_type: str) -> None:
-    if model_type in AUDIO_MODEL_TYPES:
-        raise ValueError(f"model_type {model_type!r}: the audio families are the audio "
-                         "slice of touchnet_tpu_torch; this slice converts causal_lm")
-    if model_type != "causal_lm":
+    if model_type in LATER_MODEL_TYPES:
+        raise ValueError(f"model_type {model_type!r}: a later audio slice of "
+                         "touchnet_tpu_torch; the port converts causal_lm and touch_audio")
+    if model_type not in ("causal_lm", "touch_audio"):
         raise NotImplementedError(f"model_type {model_type!r}")
 
 
@@ -68,16 +70,32 @@ def refuse_unread(config: CkptConverterConfig, names, tool: str) -> None:
 
 def convert(config: CkptConverterConfig) -> str:
     """Write the seed; returns the step directory."""
-    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
-    from touchnet_tpu_torch.models.llama.convert import params_from_hf_state_dict
-
     check_model_type(config.model_type)
     refuse_unread(config, ("config", "step", "tokenizer_model"), "convert_hf_to_ckpt")
-    mcfg = LlamaConfig.from_json_file(
-        config.training_model_config_path
-        or os.path.join(config.huggingface_model, "config.json"))
-    sd = load_hf_state_dict(config.huggingface_model)
-    params = params_from_hf_state_dict(mcfg, sd, dtype=torch.float32)
+    if config.model_type == "touch_audio":
+        from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+            TouchAudioConfig,
+        )
+        from touchnet_tpu_torch.models.touch_audio.convert import (
+            params_from_hf_backbone_state_dict,
+        )
+
+        if config.training_model_config_path is None:
+            raise ValueError("--training_model_config_path is required for touch_audio "
+                             "(the HF directory holds the text backbone's config)")
+        mcfg = TouchAudioConfig.from_json_file(config.training_model_config_path)
+        sd = load_hf_state_dict(config.huggingface_model)
+        params = params_from_hf_backbone_state_dict(
+            mcfg, sd, torch.Generator().manual_seed(0), dtype=torch.float32)
+    else:
+        from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+        from touchnet_tpu_torch.models.llama.convert import params_from_hf_state_dict
+
+        mcfg = LlamaConfig.from_json_file(
+            config.training_model_config_path
+            or os.path.join(config.huggingface_model, "config.json"))
+        sd = load_hf_state_dict(config.huggingface_model)
+        params = params_from_hf_state_dict(mcfg, sd, dtype=torch.float32)
     final = os.path.abspath(os.path.join(config.ckpt_dir, "checkpoint", "step_0"))
     tmp = final + ".partial"
     shutil.rmtree(tmp, ignore_errors=True)

@@ -4,20 +4,24 @@
 #     python -m touchnet_tpu_torch.bin.make_data --save_dir <d> --jsonl_path <f> \
 #         --datatypes texttoken --num_utt_per_shard N --num_workers W <tokenizer flags>
 #
-# Port of touchnet_tpu/bin/make_data.py: DataBuilder (:35-62), build_shard
-# (:152-224) for the texttoken and metainfo datatypes, _chunked and main
-# with its multiprocessing pool and the data.list it writes (:236-284). The
-# files are byte for byte the JAX CLI's. Host-only: numpy and the tokenizer.
-# The audio and audiotoken datatypes need the audio decode, the frontends
-# and BestRQ, and raise a ValueError naming the audio slice.
+# Port of touchnet_tpu/bin/make_data.py: DataBuilder (:35-62), the audio
+# decode (load_audio: ffmpeg when it is on the PATH, else the scipy wav
+# reader, :66-117), _offline_audio_codes (:128-149), build_shard for every
+# '+'-combination of audio, metainfo, audiotoken and texttoken (:152-224),
+# _chunked and main with its multiprocessing pool and the data.list it
+# writes (:236-284). The files are byte for byte the JAX CLI's. Host-only:
+# numpy, scipy, the frontends of data/ and the tokenizer.
 #
 # One departure: a shard whose worker raised fails the run here (the JAX
-# CLI logs the error and still lists the broken shard in data.list).
+# CLI logs the error and still lists the broken shard in data.list). A bad
+# record is skipped with a warning, as there.
 
 import json
 import multiprocessing
 import os
-from typing import Iterable, List, Type
+import shutil
+import subprocess
+from typing import Iterable, List, Optional, Type
 
 import numpy
 
@@ -30,7 +34,6 @@ from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 
 DATATYPE_NAMES = ("audio", "metainfo", "audiotoken", "texttoken")
-AUDIO_DATATYPES = ("audio", "audiotoken")
 
 
 class DataBuilder:
@@ -64,44 +67,126 @@ class DataBuilder:
 
 
 def check_datatypes(datatypes: str) -> List[str]:
-    """The '+'-joined datatypes, each once; raises for an unknown one
-    (NotImplementedError, as the JAX CLI) and for an audio one (ValueError)."""
+    """The '+'-joined datatypes, each once; raises NotImplementedError (as
+    the JAX CLI) for an unknown or repeated one."""
     parts = datatypes.split("+")
     bad = [p for p in parts if p not in DATATYPE_NAMES]
     if bad or len(set(parts)) != len(parts):
         raise NotImplementedError(
             f"unsupported datatypes {datatypes!r}: expected a '+'-combination of "
             f"{DATATYPE_NAMES}")
-    audio = [p for p in parts if p in AUDIO_DATATYPES]
-    if audio:
-        raise ValueError(
-            f"datatypes {audio}: audio decode, the frontends and BestRQ are the audio "
-            "slice of touchnet_tpu_torch; this slice builds texttoken and metainfo")
     return parts
 
 
-def build_shard(chunk, path_prefix, cur_chunk, num_chunks, conf, tok_conf):
+# ---------------------------------------------------------------------------
+# Audio decoding
+# ---------------------------------------------------------------------------
+
+
+def _ffmpeg_decode(path, sr, start, end):
+    cmd = ["ffmpeg", "-nostdin", "-threads", "0", "-ss", str(start),
+           "-i", path, "-f", "s16le", "-ac", "1", "-acodec", "pcm_s16le",
+           "-ar", str(sr)]
+    if end is not None:
+        cmd += ["-t", str(end - start)]
+    cmd.append("-")
+    proc = subprocess.run(cmd, capture_output=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"ffmpeg failed: {proc.stderr.decode()[:500]}")
+    return numpy.frombuffer(proc.stdout, numpy.int16).flatten()
+
+
+def _scipy_wav_decode(path, sr, start, end):
+    from scipy.io import wavfile
+
+    from touchnet_tpu_torch.data.dsp import resample
+
+    file_sr, data = wavfile.read(path)
+    if data.ndim > 1:
+        data = data.mean(axis=1)
+    scale = {
+        numpy.dtype(numpy.int16): 32768.0,
+        numpy.dtype(numpy.int32): 2147483648.0,
+    }.get(data.dtype)
+    if scale is not None:
+        f = data.astype(numpy.float32) / scale
+    elif data.dtype == numpy.uint8:
+        f = (data.astype(numpy.float32) - 128.0) / 128.0
+    else:
+        f = data.astype(numpy.float32)
+    lo = int(start * file_sr)
+    hi = int(end * file_sr) if end is not None else f.shape[0]
+    f = f[lo:hi]
+    if file_sr != sr:
+        f = resample(f, file_sr, sr)
+    return numpy.clip(f * 32768.0, -32768, 32767).astype(numpy.int16)
+
+
+def load_audio(file: str, sr: int = 16000, start_time: float = 0.0,
+               end_time: Optional[float] = None) -> numpy.ndarray:
+    """Decode an audio file to mono int16 PCM at the given rate (optionally a
+    time segment). ffmpeg when available, scipy wav reader otherwise."""
+    if shutil.which("ffmpeg") is not None:
+        return _ffmpeg_decode(file, sr, start_time, end_time)
+    if file.lower().endswith(".wav"):
+        return _scipy_wav_decode(file, sr, start_time, end_time)
+    raise RuntimeError(f"ffmpeg not found and {file!r} is not a wav file")
+
+
+def _offline_audio_codes(pcm: numpy.ndarray, sample_rate: int,
+                         data_conf: DataConfig, tokenizer) -> numpy.ndarray:
+    """BestRQ codes for one utterance through the SAME generator chain the
+    online datapipe uses (frontend -> stack -> tokenize), so offline and
+    online tokenization are value-identical when the training config matches
+    the make_data config (no speed perturb / augment — BEST-RQ labels come
+    from clean speech; the online input-feature augments still apply)."""
+    from touchnet_tpu_torch.data import functions
+
+    sample = {
+        "waveform": (pcm.astype(numpy.float32) / 32768.0)[None, :],
+        "sample_rate": sample_rate,
+    }
+    sample = next(functions.feature_function(data_conf)(iter([sample]), data_conf))
+    sample = next(functions.audiofeat_stack(iter([sample]), data_conf))
+    return numpy.asarray(tokenizer.tokenize(sample["audiofeat"]), numpy.int32)
+
+
+def build_shard(chunk, path_prefix, cur_chunk, num_chunks, conf, tok_conf, data_conf):
     """Build one shard dir holding a .bin/.idx pair per requested datatype."""
     datatypes = check_datatypes(conf.datatypes)
     tokenizer = None
-    if "texttoken" in datatypes:
+    if "texttoken" in datatypes or "audiotoken" in datatypes:
         if tok_conf.tokenizer_type == "HuggingFaceTokenizer":
             assert tok_conf.tokenizer_model is not None, "tokenizer_model required"
         tokenizer = build_tokenizer(tok_conf)
 
     builders = {}
+    if "audio" in datatypes:
+        builders["audio"] = DataBuilder(os.path.join(path_prefix, "audio.bin"), numpy.int16)
     if "metainfo" in datatypes:
         builders["metainfo"] = DataBuilder(os.path.join(path_prefix, "metainfo.bin"),
                                            numpy.uint8)
+    if "audiotoken" in datatypes:
+        builders["audiotoken"] = DataBuilder(os.path.join(path_prefix, "audiotoken.bin"),
+                                             DType.optimal_dtype(tokenizer.vocab_size))
     if "texttoken" in datatypes:
         builders["texttoken"] = DataBuilder(os.path.join(path_prefix, "texttoken.bin"),
                                             DType.optimal_dtype(tokenizer.vocab_size))
 
+    needs_audio = "audio" in datatypes or "audiotoken" in datatypes
     logger.info(f"Processing {path_prefix} {cur_chunk}/{num_chunks}")
     for line in chunk:
         try:
             record = json.loads(line.strip())
             items = {}
+            if needs_audio:
+                pcm = load_audio(record["wav"], conf.audio_resample)
+                record["sample_rate"] = conf.audio_resample
+                if "audio" in builders:
+                    items["audio"] = pcm
+                if "audiotoken" in builders:
+                    items["audiotoken"] = _offline_audio_codes(
+                        pcm, conf.audio_resample, data_conf, tokenizer)
             if "texttoken" in builders:
                 if not record["text"]:
                     continue
@@ -128,8 +213,7 @@ def _chunked(lines: List[str], size: int) -> Iterable[List[str]]:
 
 def main(argv=None):
     os.environ["PYTHONUNBUFFERED"] = "1"
-    # DataConfig's flags parse as in the JAX CLI; only its audio datatypes read them
-    conf, tok_conf, _ = parse_args_into_dataclasses(
+    conf, tok_conf, data_conf = parse_args_into_dataclasses(
         [MakeDataConfig, TokenizerConfig, DataConfig], argv)
     assert conf.jsonl_path is not None, "conf.jsonl_path cannot be None"
     check_datatypes(conf.datatypes)
@@ -148,7 +232,8 @@ def main(argv=None):
             os.makedirs(prefix, exist_ok=True)
             shards.append(prefix)
             pending.append(pool.apply_async(build_shard,
-                                            (chunk, prefix, i, len(chunks), conf, tok_conf)))
+                                            (chunk, prefix, i, len(chunks), conf, tok_conf,
+                                             data_conf)))
         for res in pending:
             res.get()  # a worker's exception is raised here
 

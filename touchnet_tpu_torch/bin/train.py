@@ -14,7 +14,13 @@
 # the train loop (:944-1022) with checkpoints, dev evaluation, profiling,
 # memory snapshots and GC, dev (:1024-1072) and main. The flags and the
 # batch contract are the JAX trainer's (TrainConfig, DataConfig,
-# TokenizerConfig).
+# TokenizerConfig). Two model families train: llama (causal_lm datapipe)
+# and touch_audio (touch_audio datapipe: packed BEST-RQ audio pretraining,
+# its input_features cast to the compute dtype by the model); the
+# TrainSpec's additional_pre_init_fn checks the data config against the
+# model's (touch_audio: the stacked feature width against the projector's
+# input) before anything is built, and float batch arrays are checked for
+# NaN/inf on the host before they reach the card.
 #
 # One step: forward (K1 attention) -> pack loss (K3 when fused) -> backward
 # (K2, K3) -> global-norm clip min(1, max_norm / (gnorm + 1e-6)) -> AdamW
@@ -86,6 +92,7 @@ from touchnet_tpu_torch.utils.train_spec import get_train_spec
 _BATCH_ARRAY_KEYS = (
     "input_ids",
     "inputs_embeds",
+    "input_features",
     "labels",
     "position_ids",
     "attention_mask",
@@ -326,11 +333,14 @@ class Trainer:
         self.train_spec = get_train_spec(job_config.training_model_name)
         self.model_config = self.train_spec.config_cls.from_json_file(
             job_config.training_model_config_path)
+        if self.train_spec.additional_pre_init_fn is not None:
+            self.train_spec.additional_pre_init_fn(self.model_config, data_config)
         self.compute_dtype = _DTYPES[job_config.training_mixed_precision_param]
         # an unknown remat mode or option raises here, before any work
+        backbone = getattr(self.model_config, "text_config", self.model_config)
         remat_layers(job_config.training_activation_checkpoint_mode,
                      job_config.training_activation_checkpoint_selective_ac_option,
-                     self.model_config.num_hidden_layers)
+                     backbone.num_hidden_layers)
         dump_dir = job_config.training_trace_dump_folder
         for name, cfg in (("tokenizer_config", tokenizer_config),
                           ("data_config", data_config), ("train_config", job_config)):
@@ -356,7 +366,8 @@ class Trainer:
         num_params = self.train_spec.get_num_params_fn(self.model_config)
         num_params_wo_emb = self.train_spec.get_num_params_fn(
             self.model_config, exclude_embedding=True)
-        seq_len = data_config.dataset_text_seqlen
+        seq_len = (data_config.dataset_text_seqlen if data_config.datapipe_type == "causal_lm"
+                   else data_config.dataset_audio_seqlen)
         self.num_flop_per_token = self.train_spec.get_num_flop_per_token_fn(
             num_params_wo_emb, self.model_config, seq_len)
         self.metrics_processor.num_flop_per_token = self.num_flop_per_token

@@ -1,7 +1,8 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/data/dataloader.py (framework-free: numpy and the standard
 # library), with its imports pointed at the port. build_dataloader
-# takes causal_lm only; the audio datapipes come with the audio slice.
+# takes causal_lm and touch_audio; qwen2_audio and kimi_audio raise as
+# later slices.
 #
 # Parallelism-aware, exactly-resumable dataloader.
 #
@@ -19,6 +20,10 @@
 # resume; the port's root datapipe counts an item only once the next is
 # pulled (datapipe.py), so the resumed state re-reads it and a resumed run
 # gets the batches of an uninterrupted one.
+#
+# One change: shutdown() leaves an end-of-stream mark in each worker's
+# queue, so a consumer blocked on a worker that stopped producing wakes
+# and ends (the JAX loader leaves it waiting).
 
 import copy
 import queue
@@ -129,6 +134,13 @@ class _Worker:
                 while True:
                     self._queue.get_nowait()
             except queue.Empty:
+                pass
+            # wake a consumer blocked in next() on this worker: a stopped
+            # producer puts nothing more, and the consumer (the trainer's
+            # prefetch thread, which holds the trainer) would wait forever
+            try:
+                self._queue.put_nowait((_SENTINEL, None))
+            except queue.Full:
                 pass
             self._thread.join(timeout=5.0)
 
@@ -245,10 +257,14 @@ def build_dataloader(
 
     if config.datapipe_type == "causal_lm":
         from touchnet_tpu_torch.models.llama.processing_llama import causal_lm_datapipe as builder
+    elif config.datapipe_type == "touch_audio":
+        from touchnet_tpu_torch.models.touch_audio.processing_touch_audio import (
+            touch_audio_datapipe as builder,
+        )
     else:
         raise NotImplementedError(
-            f"datapipe_type {config.datapipe_type!r}: only causal_lm is ported; "
-            "the audio datapipes are a later slice"
+            f"datapipe_type {config.datapipe_type!r}: causal_lm and touch_audio are "
+            "ported; qwen2_audio and kimi_audio are later slices"
         )
 
     def factory(worker_id: int, num_workers: int):

@@ -1,14 +1,26 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/data/datapipe.py (framework-free: numpy and the standard
-# library), with its imports pointed at the port. Only the
-# texttoken and metainfo decoders are kept; the audio decoders come with the
-# audio slice. One change: the root counts an item when the next one is
-# asked for (LowLevelTouchDatapipe.__iter__), so a resume re-reads the
-# look-ahead item a batcher holds instead of dropping it, and a resumed run
-# sees the batches of an uninterrupted one. This holds for batchers that
-# yield a batch only when the item just pulled does not fit, or at the end
-# (batch_text); a batcher that yields right after taking an item in would
-# see that item again after a resume.
+# library), with its imports pointed at the port: every decoder
+# (metainfo, texttoken, audiotoken, audio, audio+metainfo,
+# audio+metainfo+audiotoken), pick_segment and random_cut_bounds. Three
+# changes:
+#   - the root counts an item when the next one is asked for
+#     (LowLevelTouchDatapipe.__iter__), so a resume re-reads the look-ahead
+#     item a batcher holds instead of dropping it, and a resumed run sees
+#     the batches of an uninterrupted one. This holds for batchers that
+#     yield a batch only when the item just pulled does not fit, or at the
+#     end (batch_text, the touch_audio batchers); a batcher that yields
+#     right after taking an item in would see that item again after a
+#     resume;
+#   - the root gives every item a draw_seed: its dp rank, worker, epoch,
+#     shard and sample counters at decode time, which a resume restores.
+#     The augmentations of data/functions.py seed their draws from it. (The
+#     decode seed, epoch + consumed_lists + consumed_samples, is the same
+#     for sample k of one shard and sample k - 1 of the next, and for
+#     every worker; the segment pick and the random cut keep it, as in JAX);
+#   - the audio decoders copy what they read out of the dataset's mmap, so
+#     an item outlives its TouchDataset (MMapBinReader.read returns a view
+#     of a mapping that the reader closes when it is collected).
 #
 # Stateful, exactly-resumable streaming datapipes.
 #
@@ -80,6 +92,115 @@ def _decode_texttoken(dataset, sample_idx, config, seed):
     # text pre-training from pre-tokenized ids
     ids = dataset.get(sample_idx, "texttoken").tolist()
     return dict(input_ids=ids, datatypes="texttoken")
+
+
+def pick_segment(
+    metainfo: Dict[str, Any], seed: int
+) -> Optional[Tuple[int, Optional[int], str]]:
+    """Segment-based loading: one uniformly drawn utterance segment from the
+    metainfo's info.segments, as (sample offset, length, transcript)."""
+    segments = (metainfo.get("info") or {}).get("segments")
+    if not segments:
+        return None
+    sr = metainfo["sample_rate"]
+    seg = segments[_randint(0, len(segments), seed)]
+    start = int(float(seg["start"]) * sr)
+    end = int(float(seg["end"]) * sr)
+    return start, end - start, seg["txt"]
+
+
+def random_cut_bounds(
+    total_length: int, sample_rate: int, config: DataConfig, seed: int
+) -> Optional[Tuple[int, int]]:
+    """Random audio crop: (offset, length) in samples, or None when the
+    utterance is shorter than the configured minimum. Draws length then
+    offset, each from a fresh generator on the SAME seed (reference
+    datapipe.py:152-169 — resume-exactness depends on this)."""
+    min_len = config.dataset_random_cut_audio_min_length_in_ms / 1000.0 * sample_rate
+    max_len = config.dataset_random_cut_audio_max_length_in_ms / 1000.0 * sample_rate
+    assert max_len > min_len
+    if total_length <= min_len:
+        return None
+    length = _randint(int(min_len), min(total_length, int(max_len)), seed)
+    offset = _randint(0, max(1, total_length - length), seed)
+    return offset, length
+
+
+def _waveform(pcm: numpy.ndarray) -> numpy.ndarray:
+    """int16 PCM (a view of the mmap) -> a float32 copy in [-1, 1], [1, T]."""
+    return (numpy.array(pcm, dtype=numpy.float32) / 32768.0)[None, :]
+
+
+@register_decoder("audiotoken")
+def _decode_audiotoken(dataset, sample_idx, config, seed):
+    # pure audio-LM pretraining over offline BestRQ codes: the codes ARE the
+    # token stream, consumable by the causal_lm datapipe exactly like
+    # texttoken shards
+    ids = dataset.get(sample_idx, "audiotoken").tolist()
+    return dict(input_ids=ids, datatypes="audiotoken")
+
+
+@register_decoder("audio")
+def _decode_audio(dataset, sample_idx, config, seed):
+    # raw-audio-only shards (no transcript): the sample rate is not stored,
+    # so the config's resample target is taken as the decode-time rate
+    # (make_data decodes at --audio_resample)
+    return {
+        "waveform": _waveform(dataset.get(sample_idx, "audio")),
+        "sample_rate": config.audio_resample_rate,
+        "datatypes": "audio",
+    }
+
+
+@register_decoder("audio+metainfo")
+def _decode_audio_metainfo(dataset, sample_idx, config, seed):
+    # audio pre-training / audio-text alignment, with optional partial reads
+    item = _read_metainfo(dataset, sample_idx)
+    offset, length = 0, None
+    if config.dataset_load_audio_via_segments:
+        picked = pick_segment(item, seed)
+        if picked is not None:
+            offset, length, item["txt"] = picked
+    if config.dataset_random_cut_audio:
+        _, total = dataset.get_idx(sample_idx, "audio")
+        cut = random_cut_bounds(int(total), item["sample_rate"], config, seed)
+        if cut is not None:
+            length, offset = cut[1], cut[0]
+    item["waveform"] = _waveform(dataset.get(sample_idx, "audio", offset=offset,
+                                             length=length))
+    item["datatypes"] = "audio+metainfo"
+    return item
+
+
+@register_decoder("audio+metainfo+audiotoken")
+def _decode_audio_metainfo_audiotoken(dataset, sample_idx, config, seed):
+    # offline-BestRQ audio pretraining: waveform + metainfo as above, plus the
+    # precomputed codes. Codes are frame-aligned to the FULL, unperturbed
+    # utterance, so the partial-read paths and speed perturb are refused.
+    if (
+        config.dataset_load_audio_via_segments
+        or config.dataset_random_cut_audio
+        or config.audio_speed_perturb
+    ):
+        raise ValueError(
+            "audiotoken shards carry codes aligned to the full, unperturbed "
+            "utterance: disable dataset_load_audio_via_segments, "
+            "dataset_random_cut_audio and audio_speed_perturb, or train from "
+            "audio+metainfo shards with online tokenization"
+        )
+    item = _read_metainfo(dataset, sample_idx)
+    if item["sample_rate"] != config.audio_resample_rate:
+        raise ValueError(
+            f"audiotoken codes were computed at {item['sample_rate']} Hz but "
+            f"the config resamples to {config.audio_resample_rate} Hz — the "
+            "frame count would no longer match; rebuild the shards at the "
+            "training rate"
+        )
+    item["waveform"] = _waveform(dataset.get(sample_idx, "audio"))
+    item["audiotoken"] = numpy.array(dataset.get(sample_idx, "audiotoken"),
+                                     dtype=numpy.int32)
+    item["datatypes"] = "audio+metainfo+audiotoken"
+    return item
 
 
 # -- the root datapipe -------------------------------------------------------
@@ -195,6 +316,8 @@ class LowLevelTouchDatapipe:
                 for sample_idx in order[self.consumed_samples:]:
                     seed = self.epoch + self.consumed_lists + self.consumed_samples
                     item = decode(dataset, sample_idx, cfg, seed)
+                    item["draw_seed"] = (f"{self.dp_rank}.{self.worker_id}.{self.epoch}."
+                                         f"{self.consumed_lists}.{self.consumed_samples}")
                     yield item
                     # counted when the consumer asks for the next item, not
                     # before the yield: a state_dict() taken while the

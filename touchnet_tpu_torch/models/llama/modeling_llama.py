@@ -190,7 +190,9 @@ def empty_model(config: LlamaConfig, dtype=torch.float32, device="cuda", *,
     requires_grad=True, train=True."""
     with torch.device("meta"):
         model = LlamaForCausalLM(config)
-    model = model.to_empty(device=device).to(dtype)
+    # the dtype is set on the meta device: no f32 copy of the weights is
+    # ever allocated on `device` (for an 8 B model in bf16 that copy is 32 GB)
+    model = model.to(dtype).to_empty(device=device)
     return model.train(train).requires_grad_(requires_grad)
 
 

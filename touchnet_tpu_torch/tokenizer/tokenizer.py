@@ -1,23 +1,26 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/tokenizer/tokenizer.py (framework-free: numpy and the standard
 # library), with its imports pointed at the port: BaseTokenizer,
-# RawTokenizer and HuggingFaceTokenizer (transformers is imported on first
-# use, so only a run that names an HF tokenizer needs the package).
-# BestRQTokenizer is the audio slice.
+# RawTokenizer, HuggingFaceTokenizer (transformers is imported on first
+# use, so only a run that names an HF tokenizer needs the package) and
+# BestRQTokenizer.
 #
 # Tokenizers: HF text tokenizer wrapper + BEST-RQ training-free audio tokenizer.
 #
 # Capability parity: reference touchnet/tokenizer/tokenizer.py:20-334.
-# BestRQTokenizer is numpy (runs on CPU inside dataloader workers, decoupled
-# from the model forward — reference docs/audio_pretrain.md item 3), drawing
-# its frozen projection/codebook from a torch-CPU-compatible RNG
-# (tokenizer/torch_rng.py) so token ids agree with the reference for the
-# same seed — datasets tokenized by either framework interoperate.
+# BestRQTokenizer draws its frozen projection and codebook from
+# torch.Generator().manual_seed(seed) with xavier_uniform_ and normal_, the
+# original TouchNet's construction (the JAX package replays that generator
+# in numpy, tokenizer/torch_rng.py, which the port does not need), and
+# tokenizes in numpy on the CPU inside the dataloader workers, with the JAX
+# package's arithmetic, so the two give the same codes.
 
 import json
 from abc import ABC, abstractmethod
 from collections import OrderedDict
 from typing import Any
+
+import numpy as np
 
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
 
@@ -83,6 +86,85 @@ class BaseTokenizer(ABC):
     @property
     def mask(self):
         raise NotImplementedError(f"{type(self).__name__} has no attribute 'mask'")
+
+
+class BestRQTokenizer(BaseTokenizer):
+    """BEST-RQ training-free audio tokenizer (arXiv:2202.01855): a frozen
+    random projection [input, emb] and an L2-normalized random codebook
+    [vocab, emb]; tokenize = project -> L2-normalize -> nearest codeword."""
+
+    def __init__(self, config: TokenizerConfig, **kwargs):
+        super().__init__(f"BestRQ-{config.tokenizer_bestrq_init_method}-init", **kwargs)
+        self.kwargs = kwargs
+        self.config = config
+        self._quantizer = None
+        self._codebook = None
+
+    def _build_quantizer_and_codebook(self):
+        if self._quantizer is None:
+            import torch
+
+            cfg = self.config
+            if cfg.tokenizer_bestrq_init_method != "default":
+                raise NotImplementedError(
+                    f"Initialization method {cfg.tokenizer_bestrq_init_method} "
+                    "is not implemented.")
+            gen = torch.Generator().manual_seed(cfg.tokenizer_bestrq_init_seed)
+            quantizer = torch.empty(cfg.tokenizer_bestrq_input_size,
+                                    cfg.tokenizer_bestrq_emb_size)
+            codebook = torch.empty(cfg.tokenizer_bestrq_vocab_size,
+                                   cfg.tokenizer_bestrq_emb_size)
+            torch.nn.init.xavier_uniform_(quantizer, generator=gen)
+            torch.nn.init.normal_(codebook, generator=gen)
+            codebook = codebook.numpy()
+            norm = np.maximum(np.linalg.norm(codebook, axis=1, keepdims=True), 1e-8)
+            self._quantizer = quantizer.numpy()
+            self._codebook = codebook / norm
+
+    @property
+    def vocab_size(self):
+        self._build_quantizer_and_codebook()
+        return self._codebook.shape[0]
+
+    @property
+    def vocab(self):
+        self._build_quantizer_and_codebook()
+        return None
+
+    @property
+    def inv_vocab(self):
+        self._build_quantizer_and_codebook()
+        return self._codebook
+
+    @property
+    def decoder(self):
+        self._build_quantizer_and_codebook()
+        return self._codebook
+
+    def tokenize(self, inputs, **kwargs):
+        """inputs: [T, input_size] float array -> list[int] codes of len T."""
+        self._build_quantizer_and_codebook()
+        xs = np.asarray(inputs, dtype=np.float32) @ self._quantizer  # [T, D]
+        xs = xs / np.maximum(np.linalg.norm(xs, axis=-1, keepdims=True), 1e-8)
+        # nearest neighbor in L2; both unit-normalized => argmax dot product
+        codes = np.argmax(xs @ self._codebook.T, axis=-1)
+        return codes.tolist()
+
+    def detokenize(self, token_ids, **kwargs):
+        self._build_quantizer_and_codebook()
+        return self._codebook[np.asarray(token_ids)]
+
+    @property
+    def eos(self):
+        return None
+
+    @property
+    def bos(self):
+        return None
+
+    @property
+    def pad(self):
+        return None
 
 
 class RawTokenizer(BaseTokenizer):
@@ -197,7 +279,5 @@ def build_tokenizer(args: TokenizerConfig, **kwargs):
     if args.tokenizer_type == "HuggingFaceTokenizer":
         return HuggingFaceTokenizer(args, **kwargs)
     if args.tokenizer_type == "BestRQTokenizer":
-        raise NotImplementedError(
-            "BestRQTokenizer: the audio tokenizer is ported with the audio slice of "
-            "touchnet_tpu_torch")
+        return BestRQTokenizer(args, **kwargs)
     raise NotImplementedError(f"{args.tokenizer_type} tokenizer not implemented")

@@ -16,7 +16,11 @@
 #   build_dataloader_fn        -> per-model datapipe chain
 #   build_tokenizer_fn         -> tokenizer factory
 #   get_num_flop_per_token_fn / get_num_params_fn -> telemetry
-#   additional_{pre,post}_init_fn -> hooks (e.g. NaN checks, HF processor)
+#   additional_pre_init_fn(model_config, data_config) -> the port's trainer
+#                                 calls it before building anything; it
+#                                 raises on a data config the model cannot
+#                                 take (touch_audio: the feature width)
+#   additional_post_init_fn    -> hook (e.g. NaN checks, HF processor)
 #   pipelining_fn              -> pipeline-parallel stage splitter (llama)
 
 from dataclasses import dataclass, field
@@ -66,6 +70,7 @@ def register_train_spec(spec: TrainSpec) -> None:
 def get_train_spec(name: str) -> TrainSpec:
     # model packages self-register on import
     import touchnet_tpu_torch.models.llama  # noqa: F401
+    import touchnet_tpu_torch.models.touch_audio  # noqa: F401
 
     if name not in _train_specs:
         raise ValueError(
