@@ -116,14 +116,36 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      80 x stack 5 stride 4: a part file with a hyp for every key, K1 and
      K4 launched; the first batch's prefill and first decode step on the
      kernel path against the plain path (bf16 both, rel L2 <= 5e-2, the
-     serving limit); prefill ms, decode ms/step and peak memory.
+     serving limit); prefill ms, decode ms/step and peak memory;
+ 12. qwen2_audio's ASR stage (python -m touchnet_tpu_torch.models.
+     qwen2_audio.inference_qwen2_audio, run through its main; the SFT
+     recipe's stage 4 with model_type qwen2_audio, then its scoring): a
+     Qwen2-Audio-7B HF export of seeded random bf16 weights (the whisper
+     tower's 32 layers always; the text model at full depth when the temp
+     dir holds the export twice, else fewer layers, never below 8, said
+     so), a char-level `tokenizers` tokenizer with Qwen2-Audio's special
+     ids, 32 synthetic wavs (1-15 s and one of 35 s: the tiled position
+     table, T 1750), batch 16, max_length 64, bf16, the recipe's instruct;
+     then trans.txt and raw_rec.txt, textnorm_zh on both sides and
+     error_rate_zh --tokenizer char (a pair scored for every key). Checks
+     a hyp for every key, K1 launched (32 tower + L prefill) a batch and K4
+     L a decode step, no plain version called; then the first batch's
+     projected audio, last prefill and first decode step on the kernel path
+     against the plain path (bf16 kernel <= 1.5x the bf16 plain path's
+     error against the f32 plain path, and within 5e-2 of the bf16 plain
+     path); export bytes and seconds, load seconds, host feature ms per
+     utterance, encode_audio ms per batch, prefill ms, decode ms/step, the
+     CLI's seconds, peak memory; and K1 and K4 at this path's shapes: (f)
+     the tower's causal MHA (library: scaled_dot_product_attention), (g)
+     the G 7 prefill, (h) the G 7 decode.
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving, training, the single-device
 modes, the recipe run with its generate from the export, the audio recipe
-run and the ASR CLI; K4: serving, that generate and the ASR CLI; K2, K3:
-training, the modes, the recipe run and the audio recipe run), each path
-driven with the counts set to 0 just before it.
+run, the ASR CLI and qwen2_audio's ASR stage; K4: serving, that generate,
+the ASR CLI and qwen2_audio's; K2, K3: training, the modes, the recipe run
+and the audio recipe run), each path driven with the counts set to 0 just
+before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -139,8 +161,9 @@ the decode case), with every timed case under "cases":
   - library_ms: one PyTorch call computing the same function, timed here
     and used nowhere in the port: varlen flash attention over the
     document runs (aten._flash_attention_forward / _backward) for K1 and
-    K2, the same over a copy of each row's live cache columns for K4 (the
-    copy made outside the timed window), none for K3. Before it is timed
+    K2 (scaled_dot_product_attention, is_causal, for K1's case (f)), the
+    same over a copy of each row's live cache columns for K4 (the copy made
+    outside the timed window), none for K3. Before it is timed
     its output is held to the kernel's under the bf16 limits; a mismatch
     fails the run as the yardstick's fault. K3 adds gemm_ms, informational:
     cuBLAS bf16 h w^T over the same rows for the forward, the three
@@ -371,8 +394,9 @@ def check_yardstick(name, got_out, got_lse, outs, B, T, H, failures):
     yard = []
     compare(f"{name} yardstick out vs kernel", lib_out, got_out, torch.bfloat16, yard)
     lse = outs[1]
-    if tuple(lse.shape) != (H, B * T):  # not the varlen [H, total] layout
-        print(f"  {name} yardstick lse layout {tuple(lse.shape)}: not compared")
+    if lse is None or tuple(lse.shape) != (H, B * T):  # none, or not the varlen [H, total]
+        layout = "none" if lse is None else f"layout {tuple(lse.shape)}"
+        print(f"  {name} yardstick lse {layout}: not compared")
     else:
         lse = lse.view(H, B, T).permute(1, 0, 2)
         fin = torch.isfinite(got_lse)
@@ -422,6 +446,56 @@ def timed_row(name, err, ms, plain, lib, bnd, card):
     return row
 
 
+def k1_case(attn, dev, failures, card, rows, name, q, k, v, seg, kv_seg, causal, q_off,
+            timed=False, grouped=False, runs=None, library=None):
+    """K1 on (q, k, v) against its plain version; when timed, its row in
+    `rows`: kernel, plain and library times and the bound. The library is
+    varlen flash attention over `runs(q, k, v)`, or `library`, a call that
+    returns (out [B, T, H, D], None) for the same inputs."""
+    n_failed = len(failures)
+    out, lse = attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, 0)
+    torch.cuda.synchronize()
+    want, want_lse = grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off)
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    m = torch.ones((B, T, S), dtype=torch.bool, device=dev)
+    if causal:
+        m &= (q_off + torch.arange(T, device=dev))[:, None] >= torch.arange(S, device=dev)
+    if seg is not None:
+        m &= seg[:, :, None] == kv_seg[:, None, :]
+    valid = m.any(-1)
+    del m
+    mx = compare(f"{name} out", out, want, q.dtype, failures, valid)
+    lv = valid[:, None, :].expand(B, H, T)
+    lse_err = (lse[lv] - want_lse[lv]).abs().max().item()
+    print(f"  {name} lse: max_abs_err={lse_err:.3e} "
+          f"{'ok' if lse_err <= LSE_TOL else 'FAIL'}")
+    if lse_err > LSE_TOL:
+        failures.append(f"{name} lse")
+    del want, want_lse
+    if timed:
+        pairs = live_pairs(seg, kv_seg, causal, q_off, 0, T, S, B)
+        bnd = bound(4 * D * H * pairs, nbytes(q, k, v, out, lse, seg, kv_seg))
+        ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, causal, None, kv_seg,
+                                                  q_off, 0))
+        if grouped:
+            plain = time_ms(lambda: grouped_forward_reference(
+                attn, q, k, v, seg, kv_seg, causal, q_off), 3, 1)
+        else:
+            plain = time_ms(lambda: attn.packed_attention_reference(
+                q, k, v, seg, causal, None, kv_seg, q_off, 0))
+        if library is None:
+            q_runs, k_runs, kk, vv = runs(q, k, v)
+            library, _ = attention_library(q, kk, vv, q_runs, k_runs, causal)
+        lib = None
+        if yardstick_checkable(name, failures, n_failed) and \
+                check_yardstick(name, out, lse, library(), B, T, H, failures):
+            lib = time_ms(library)
+        rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
+        torch.cuda.empty_cache()
+    return mx
+
+
 def check_k1(attn, dev, gen, failures, card):
     print("[3] K1 flash_attention vs packed_attention_reference")
     rows = {}
@@ -429,49 +503,8 @@ def check_k1(attn, dev, gen, failures, card):
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    def case(name, q, k, v, seg, kv_seg, causal, q_off, timed=False, grouped=False,
-             runs=None):
-        n_failed = len(failures)
-        out, lse = attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, 0)
-        torch.cuda.synchronize()
-        want, want_lse = grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off)
-        B, T, H, D = q.shape
-        S = k.shape[1]
-        m = torch.ones((B, T, S), dtype=torch.bool, device=dev)
-        if causal:
-            m &= (q_off + torch.arange(T, device=dev))[:, None] >= torch.arange(S, device=dev)
-        if seg is not None:
-            m &= seg[:, :, None] == kv_seg[:, None, :]
-        valid = m.any(-1)
-        del m
-        mx = compare(f"{name} out", out, want, q.dtype, failures, valid)
-        lv = valid[:, None, :].expand(B, H, T)
-        lse_err = (lse[lv] - want_lse[lv]).abs().max().item()
-        print(f"  {name} lse: max_abs_err={lse_err:.3e} "
-              f"{'ok' if lse_err <= LSE_TOL else 'FAIL'}")
-        if lse_err > LSE_TOL:
-            failures.append(f"{name} lse")
-        del want, want_lse
-        if timed:
-            pairs = live_pairs(seg, kv_seg, causal, q_off, 0, T, S, B)
-            bnd = bound(4 * D * H * pairs, nbytes(q, k, v, out, lse, seg, kv_seg))
-            ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, causal, None, kv_seg,
-                                                      q_off, 0))
-            if grouped:
-                plain = time_ms(lambda: grouped_forward_reference(
-                    attn, q, k, v, seg, kv_seg, causal, q_off), 3, 1)
-            else:
-                plain = time_ms(lambda: attn.packed_attention_reference(
-                    q, k, v, seg, causal, None, kv_seg, q_off, 0))
-            q_runs, k_runs, kk, vv = runs(q, k, v)
-            fwd, _ = attention_library(q, kk, vv, q_runs, k_runs, causal)
-            lib = None
-            if yardstick_checkable(name, failures, n_failed) and \
-                    check_yardstick(name, out, lse, fwd(), B, T, H, failures):
-                lib = time_ms(fwd)
-            rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
-            torch.cuda.empty_cache()
-        return mx
+    def case(*args, **kw):
+        return k1_case(attn, dev, failures, card, rows, *args, **kw)
 
     def doc_runs(seg):
         def runs(q, k, v):
@@ -526,50 +559,58 @@ def check_k1(attn, dev, gen, failures, card):
     return rows
 
 
+def k4_case(dec, dev, gen, failures, card, rows, name, B, L, Hkv, G, D, S, plen, base, last,
+            layer, dtype, timed=False, timing=True):
+    """K4 on a random cache against its plain version, and two launches bit
+    for bit; when timed, its row in `rows` (the library on a gathered copy of
+    each row's live columns)."""
+    n_failed = len(failures)
+    q = torch.randn((B, Hkv * G, D), generator=gen, device=dev).to(dtype)
+    kv = torch.randn((L, B, Hkv, S, 2 * D), generator=gen, device=dev, dtype=dtype)
+    plen = torch.tensor(plen, dtype=torch.int32, device=dev)
+    got = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
+    again = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
+    torch.cuda.synchronize()
+    want = dec.decode_attention_reference(q.float(), kv[layer].float(), plen, base, last)
+    mx = compare(name, got, want, dtype, failures)
+    same = torch.equal(got, again)
+    print(f"  {name}: two launches equal bit for bit: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append(f"{name} bit-stable")
+    if timed and timing:
+        ms = time_ms(lambda: dec.decode_attention(q, kv, plen, base, last, layer_idx=layer))
+        plain = time_ms(lambda: dec.decode_attention_reference(
+            q, kv, plen, base, last, layer_idx=layer))
+        # the live columns of each row, gathered (untimed) into the
+        # library's varlen layout [total, Hkv, D]: it cannot skip the
+        # [prompt_len, base) gap of the cache in place
+        cols = torch.arange(S, device=dev)
+        live = (cols[None] < plen[:, None]) | ((cols >= base) & (cols <= last))[None]
+        k_runs = live.sum(1).tolist()
+        k_l = torch.cat([kv[layer, b][:, live[b], :D].transpose(0, 1) for b in range(B)])
+        v_l = torch.cat([kv[layer, b][:, live[b], D:].transpose(0, 1) for b in range(B)])
+        bnd = bound(4 * D * Hkv * G * sum(k_runs),
+                    nbytes(k_l, v_l, q, got, plen))  # the live cache, read once
+        fwd, _ = attention_library(q[:, None], k_l[None], v_l[None], [1] * B, k_runs,
+                                   False)
+        lib = None
+        if yardstick_checkable(name, failures, n_failed):
+            yard = []
+            compare(f"{name} yardstick vs kernel", fwd()[0].view(got.shape), got, dtype,
+                    yard)
+            failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
+            lib = None if yard else time_ms(fwd)
+        name += " (library on a gathered copy of the live columns)"
+        rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
+    return mx
+
+
 def check_k4(dec, dev, gen, failures, card, timing=True):
     print("[4] K4 decode_attention vs decode_attention_reference")
     rows = {}
 
-    def case(name, B, L, Hkv, G, D, S, plen, base, last, layer, dtype, timed=False):
-        n_failed = len(failures)
-        q = torch.randn((B, Hkv * G, D), generator=gen, device=dev).to(dtype)
-        kv = torch.randn((L, B, Hkv, S, 2 * D), generator=gen, device=dev, dtype=dtype)
-        plen = torch.tensor(plen, dtype=torch.int32, device=dev)
-        got = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
-        again = dec.decode_attention(q, kv, plen, base, last, layer_idx=layer)
-        torch.cuda.synchronize()
-        want = dec.decode_attention_reference(q.float(), kv[layer].float(), plen, base, last)
-        mx = compare(name, got, want, dtype, failures)
-        same = torch.equal(got, again)
-        print(f"  {name}: two launches equal bit for bit: {same} {'ok' if same else 'FAIL'}")
-        if not same:
-            failures.append(f"{name} bit-stable")
-        if timed and timing:
-            ms = time_ms(lambda: dec.decode_attention(q, kv, plen, base, last, layer_idx=layer))
-            plain = time_ms(lambda: dec.decode_attention_reference(
-                q, kv, plen, base, last, layer_idx=layer))
-            # the live columns of each row, gathered (untimed) into the
-            # library's varlen layout [total, Hkv, D]: it cannot skip the
-            # [prompt_len, base) gap of the cache in place
-            cols = torch.arange(S, device=dev)
-            live = (cols[None] < plen[:, None]) | ((cols >= base) & (cols <= last))[None]
-            k_runs = live.sum(1).tolist()
-            k_l = torch.cat([kv[layer, b][:, live[b], :D].transpose(0, 1) for b in range(B)])
-            v_l = torch.cat([kv[layer, b][:, live[b], D:].transpose(0, 1) for b in range(B)])
-            bnd = bound(4 * D * Hkv * G * sum(k_runs),
-                        nbytes(k_l, v_l, q, got, plen))  # the live cache, read once
-            fwd, _ = attention_library(q[:, None], k_l[None], v_l[None], [1] * B, k_runs,
-                                       False)
-            lib = None
-            if yardstick_checkable(name, failures, n_failed):
-                yard = []
-                compare(f"{name} yardstick vs kernel", fwd()[0].view(got.shape), got, dtype,
-                        yard)
-                failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
-                lib = None if yard else time_ms(fwd)
-            name += " (library on a gathered copy of the live columns)"
-            rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
-        return mx
+    def case(*args, timed=False):
+        return k4_case(dec, dev, gen, failures, card, rows, *args, timed=timed, timing=timing)
 
     plen = torch.randint(2048, 8192, (32,), generator=torch.Generator().manual_seed(SEED))
     case("(a) B32 L16 H32/8 D64 S8192 bf16 layer 7",
@@ -1077,14 +1118,16 @@ def train_argv(listfile, exp, seqlen, steps, dtype, vocab, remat="op_small", **e
 
 @contextlib.contextmanager
 def count_plain_calls():
-    """Counts calls of every plain version while open (the training path
-    must make none)."""
+    """Counts calls of every plain version while open (the training and
+    serving paths must make none)."""
     from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import decode_attention as dec
     from touchnet_tpu_torch.ops import fused_ce
 
     calls = {}
     targets = [(attn, "packed_attention_reference"), (attn, "flash_attention_bwd_reference"),
-               (fused_ce, "_rows_reference"), (fused_ce, "_rows_backward_reference")]
+               (fused_ce, "_rows_reference"), (fused_ce, "_rows_backward_reference"),
+               (dec, "decode_attention_reference")]
     saved = [getattr(m, n) for m, n in targets]
 
     def counted(fn, name):
@@ -1860,12 +1903,13 @@ AUDIO_WORKERS = 12  # the recipe's num_workers and prefetch (run.sh:22-23)
 
 
 def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
-                     txt_vocab=None) -> tuple:
+                     txt_vocab=None, long=None) -> tuple:
     """`count` seeded 16 kHz int16 wavs of lo-hi seconds under root: voiced
     tones (harmonics 1-5 of a pitch drifting +-30 % around 90-220 Hz, with a
     syllable-rate envelope) plus noise, so the BEST-RQ codes spread; and a
     jsonl of {key, wav, txt} lines (txt: ids below txt_vocab, else a word).
-    Returns (jsonl path, seconds of audio)."""
+    long=(index, seconds) gives that utterance its own length. Returns
+    (jsonl path, seconds of audio)."""
     from scipy.io import wavfile
 
     rng = np.random.default_rng(seed)
@@ -1873,6 +1917,8 @@ def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
     lines, total = [], 0.0
     for i in range(count):
         seconds = float(rng.uniform(lo, hi))
+        if long is not None and i == long[0]:
+            seconds = float(long[1])
         n = int(seconds * SR)
         t = np.arange(n, dtype=np.float32) / SR
         f0 = rng.uniform(90, 220) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t
@@ -2187,12 +2233,11 @@ ASR_TOKENS = {"bos": 128000, "eos": 128001, "pad": 128004}
 ASR_TIMED_STEPS = 32
 
 
-def asr_depth(cfg, free: int) -> int:
-    """Phase 11's layers: the full depth when `free` holds the bf16 export
-    twice (the file, and room to spare) plus 2 GiB, else the most layers
-    that fit, never below ASR_MIN_LAYERS (0: none fit)."""
-    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import get_num_params
-
+def asr_depth(cfg, free: int, get_num_params) -> int:
+    """Phases 11 and 12's text layers: the full depth when `free` holds the
+    bf16 export (get_num_params(cfg) parameters) twice (the file, and room to
+    spare) plus 2 GiB, else the most layers that fit, never below
+    ASR_MIN_LAYERS (0: none fit). Only the text model is cut."""
     c = copy.deepcopy(cfg)
     for layers in range(cfg.text_config.num_hidden_layers, ASR_MIN_LAYERS - 1, -1):
         c.text_config.num_hidden_layers = layers
@@ -2237,7 +2282,7 @@ def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
     tc = cfg.text_config
     full = tc.num_hidden_layers
     free = shutil.disk_usage(tmp).free
-    L = asr_depth(cfg, free)
+    L = asr_depth(cfg, free, get_num_params)
     config = ASR_CONFIG
     if L == 0:
         print(f"[11] ASR CLI: {free / 1e9:.2f} GB free in the temp dir, too little for a "
@@ -2374,6 +2419,362 @@ def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
     del model, lm, logits, plain
     torch.cuda.empty_cache()
     return counts
+
+
+# -- phase 12: qwen2_audio's ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4,
+# model_type qwen2_audio: inference, then textnorm and CER) --
+
+QWEN2_CONFIG = HERE / "examples/audio/sft/asr/wenetspeech/config/Qwen2-Audio-7B.json"
+# Qwen2-Audio's special tokens at their published ids (<|AUDIO|> is the
+# config's audio_token_index); its tokenizer is not in the repo
+QWEN2_SPECIALS = {"<|endoftext|>": 151643, "<|AUDIO|>": 151646, "<|audio_bos|>": 151647,
+                  "<|audio_eos|>": 151648}
+QWEN2_EOS = "<|endoftext|>"
+QWEN2_INSTRUCT = "Generate the transcription:"  # run.sh:163
+# one utterance past 30 s, in the first batch: the tower's position table
+# is tiled and that batch runs at T = 1750
+QWEN2_LONG = (3, 35.0)
+# characters of the tokenizer's ids: ASCII, CJK ideographs (and extension
+# A), Hangul, then the two supplementary private-use planes
+CHAR_BLOCKS = ((0x20, 0x7F), (0x4E00, 0xA000), (0x3400, 0x4DC0), (0xAC00, 0xD7A4),
+               (0xF0000, 0xFFFFE), (0x100000, 0x10FFFE))
+
+
+def write_char_tokenizer(root: Path, vocab_size: int, specials: dict, eos: str,
+                         first_chars: str = "") -> Path:
+    """An HF tokenizer directory (tokenizer.json, tokenizer_config.json): a
+    `tokenizers` WordLevel model over single characters, with `specials` at
+    their ids and every other id below vocab_size one character (those of
+    first_chars first, then CHAR_BLOCKS); text splits into characters
+    after the special tokens, and decoding joins them. eos is also the pad
+    and the unknown token (Qwen2's tokenizer has no bos). The port's
+    HuggingFaceTokenizer loads it."""
+    from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers
+
+    order = list(dict.fromkeys(first_chars))
+    chars = iter(order + [chr(c) for a, b in CHAR_BLOCKS for c in range(a, b)
+                          if chr(c) not in order])
+    taken = set(specials.values())
+    vocab = dict(specials)
+    for i in range(vocab_size):
+        if i not in taken:
+            vocab[next(chars)] = i
+    tok = Tokenizer(models.WordLevel(vocab, unk_token=eos))
+    tok.pre_tokenizer = pre_tokenizers.Split(Regex("."), behavior="isolated")
+    tok.decoder = decoders.Fuse()
+    tok.add_special_tokens(list(specials))
+    root.mkdir(parents=True, exist_ok=True)
+    tok.save(str(root / "tokenizer.json"))
+    (root / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "PreTrainedTokenizerFast", "eos_token": eos, "pad_token": eos,
+        "bos_token": None, "unk_token": eos, "model_max_length": 1 << 20}))
+    return root
+
+
+def write_ark(part: str, out: Path) -> list:
+    """trans.txt and raw_rec.txt ("key<TAB>text" lines of txt and hyp) from
+    the CLI's part file, as the recipe writes them (run.sh:185-195); the
+    keys."""
+    keys = []
+    with open(part, encoding="utf8") as f, open(out / "trans.txt", "w", encoding="utf8") as t, \
+            open(out / "raw_rec.txt", "w", encoding="utf8") as r:
+        for line in f:
+            rec = json.loads(line)
+            keys.append(rec["key"])
+            t.write(f"{rec['key']}\t{rec.get('txt', '')}\n")
+            r.write(f"{rec['key']}\t{rec.get('hyp', '')}\n")
+    return keys
+
+
+def score_cer(out: Path, keys: list, failures) -> str:
+    """The recipe's scoring (run.sh:197-212) with the port's tools:
+    textnorm_zh on both sides, the empty hyps dropped, error_rate_zh
+    --tokenizer char. Checks that the scorer read a pair for every key;
+    returns its summary line."""
+    for src, dst in (("trans.txt", "ref.txt"), ("raw_rec.txt", "rec.txt")):
+        run_cli("touchnet_tpu_torch.bin.textnorm_zh",
+                ["--format=ark", "--to_upper", "--to_banjiao", "--remove_fillers",
+                 "--remove_erhua", out / src, out / dst], failures, f"textnorm {src}")
+    lines = (out / "rec.txt").read_text(encoding="utf8").splitlines()
+    (out / "rec_non_empty.txt").write_text(
+        "".join(ln + "\n" for ln in lines if not ln.endswith("\t")), encoding="utf8")
+    res = subprocess.run(
+        [sys.executable, "-m", "touchnet_tpu_torch.bin.error_rate_zh", "--tokenizer", "char",
+         "--ref", str(out / "ref.txt"), "--hyp", str(out / "rec_non_empty.txt"),
+         "--detail", str(out / "DETAILS.txt")],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    (out / "RESULTS.txt").write_text(res.stdout, encoding="utf8")
+    overall = [ln for ln in res.stdout.splitlines() if ln.startswith("Overall -> ")]
+    n_utts = [ln for ln in res.stdout.splitlines() if ln.startswith("num_eval_utts:")]
+    ok = (res.returncode == 0 and len(overall) == 1
+          and n_utts == [f"num_eval_utts: {len(keys)}"])
+    print(f"  error_rate_zh --tokenizer char: {overall[0] if overall else res.stderr[-500:]}; "
+          f"{n_utts[0] if n_utts else 'no summary'} (want {len(keys)}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("qwen2 asr: scoring")
+    return overall[0] if overall else ""
+
+
+def qwen2_kernel_rows(attn, dec, dev, failures, card, B, Tp, lens, S) -> tuple:
+    """K1 and K4 at this path's shapes, each against its plain version and a
+    library call: (f) the tower's causal MHA, B16 T1500 H20 D64 (the library
+    is scaled_dot_product_attention, is_causal); (g) the prefill of the first
+    batch, B16 T=Tp H28/4 D128 causal over every padded row (generate passes
+    no segment ids); (h) the last decode step of that batch, its prompt
+    lengths, G 7. Returns (K1 rows, K4 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    bf = torch.bfloat16
+    k1_rows, k4_rows = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    q, k, v = (randn(B, 1500, 20, 64) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True).transpose(1, 2), None
+
+    k1_case(attn, dev, failures, card, k1_rows,
+            f"(f) qwen2_audio tower: B{B} T1500 H20/20 D64 bf16 causal, library SDPA",
+            q, k, v, None, None, True, 0, timed=True, library=sdpa)
+    del q, k, v, qt, kt, vt
+    q, k, v = randn(B, Tp, 28, 128), randn(B, Tp, 4, 128), randn(B, Tp, 4, 128)
+    k1_case(attn, dev, failures, card, k1_rows,
+            f"(g) qwen2_audio prefill: B{B} T{Tp} H28/4 (G7) D128 bf16 causal, prompts "
+            f"{min(lens)}-{max(lens)}", q, k, v, None, None, True, 0, timed=True,
+            runs=lambda q, k, v: ([Tp] * B, [Tp] * B, k, v))
+    del q, k, v
+    k4_case(dec, dev, gen, failures, card, k4_rows,
+            f"(h) qwen2_audio decode: B{B} H28/4 (G7) D128 S{S} bf16, prompts "
+            f"{min(lens)}-{max(lens)}, step {ASR_NEW}", B, 1, 4, 7, 128, S, lens, Tp,
+            Tp + ASR_NEW - 1, 0, bf, timed=True)
+    torch.cuda.empty_cache()
+    return k1_rows, k4_rows
+
+
+def run_qwen2_cli(dev, card, failures, tmp: Path) -> tuple:
+    """Phase 12: qwen2_audio's ASR stage (python -m touchnet_tpu_torch.
+    models.qwen2_audio.inference_qwen2_audio, run in-process through its
+    main) on a Qwen2-Audio-7B HF export of seeded random bf16 weights, 32
+    synthesised wavs (one of 35 s), batch 16, max_length 64, bf16, the
+    recipe's instruct, a char-level tokenizer with Qwen2-Audio's special
+    ids; then the recipe's scoring. Checks a hyp for every key, the scorer's
+    pairs, the launches (K1: the tower's layers and the text layers a batch;
+    K4: the text layers a decode step) and no plain version called; then the
+    first batch outside the CLI: the projected audio, the last prefill's and
+    the first decode step's logits on the kernel path against
+    plain_kernels(), with the timings, and the kernel rows (f), (g), (h).
+    Returns (the CLI run's launches, K1 rows, K4 rows)."""
+    from touchnet_tpu_torch.models.llama import inference_llama as inf
+    from touchnet_tpu_torch.models.qwen2_audio import convert
+    from touchnet_tpu_torch.models.qwen2_audio import inference_qwen2_audio as cli
+    from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
+        Qwen2AudioConfig,
+    )
+    from touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio import (
+        empty_model,
+        encode_audio,
+        get_num_params,
+        init_params,
+        merge_audio_into_text,
+    )
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.utils.inference import AudioJsonlDataset, pad_right
+    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
+
+    cfg = Qwen2AudioConfig.from_json_file(str(QWEN2_CONFIG))
+    full, tower_L = cfg.text_config.num_hidden_layers, cfg.audio_config.encoder_layers
+    free = shutil.disk_usage(tmp).free
+    L = asr_depth(cfg, free, get_num_params)
+    config = QWEN2_CONFIG
+    if L == 0:
+        print(f"[12] qwen2_audio ASR: {free / 1e9:.2f} GB free in the temp dir, too little for "
+              f"a {ASR_MIN_LAYERS}-layer export FAIL")
+        failures.append("qwen2 asr: no room for the export")
+        return {}, {}, {}
+    if L != full:
+        raw = json.loads(QWEN2_CONFIG.read_text())
+        raw["text_config"]["num_hidden_layers"] = L
+        config = tmp / "qwen2_config.json"
+        config.write_text(json.dumps(raw))
+        cfg = Qwen2AudioConfig.from_json_file(str(config))
+    tc, ac = cfg.text_config, cfg.audio_config
+    depth = ("full depth" if L == full
+             else f"text model CUT to {L} of {full} layers (too little room)")
+    print(f"[12] qwen2_audio ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4): "
+          f"{QWEN2_CONFIG.relative_to(HERE)}: tower {tower_L} layers d{ac.d_model} "
+          f"H{ac.encoder_attention_heads} mel {ac.num_mel_bins}; text L={L} E={tc.hidden_size} "
+          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} V={tc.vocab_size}; "
+          f"{get_num_params(cfg):,} params, bf16, {depth}; temp dir {free / 1e9:.2f} GB free")
+
+    hf = tmp / "qwen2_hf"
+    hf.mkdir()
+    t0 = time.perf_counter()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 30), torch.bfloat16,
+                        dev)
+    state = convert.params_to_hf_state_dict(cfg, model.state_dict())
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_bytes = write_safetensors(state, str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
+    write_s = time.perf_counter() - t0
+    del model, state
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tok_dir = write_char_tokenizer(tmp / "qwen2_tokenizer", tc.vocab_size, QWEN2_SPECIALS,
+                                   QWEN2_EOS, QWEN2_INSTRUCT)
+    tok_s = time.perf_counter() - t0
+    jsonl, total = synth_utterances(tmp / "qwen2_wav", ASR_UTTS, SEED + 31, long=QWEN2_LONG)
+    print(f"  HF export of seeded random bf16 weights: {n_bytes} bytes ({n_bytes / 1e9:.2f} GB) "
+          f"written in {write_s:.2f} s (drawn in {init_s:.2f} s); a char-level tokenizer with "
+          f"Qwen2-Audio's special ids in {tok_s:.2f} s; {ASR_UTTS} wavs, {total:.1f} s of audio "
+          f"(utt{QWEN2_LONG[0]} {QWEN2_LONG[1]:.0f} s)  [{card}]")
+
+    tok_flags = {"tokenizer_type": "HuggingFaceTokenizer", "tokenizer_model": str(tok_dir)}
+    out = tmp / "qwen2_out"
+    # the recipe's stage-4 flags (run.sh:157-182) with max_length 64
+    args = {"model_path": hf, "model_dtype": "bfloat16", "instruct": QWEN2_INSTRUCT,
+            "data_list": jsonl, "output_dir": out, "batch_size": ASR_BATCH,
+            "max_length": ASR_NEW, "num_workers": 16, "prefetch": 8,
+            "training_model_config_path": config, **tok_flags}
+    loaded, feat_s = {}, []
+    real_load, real_feats = cli.load_params, cli.whisper_features
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        loaded["model"] = real_load(*a, **kw)
+        loaded["s"] = time.perf_counter() - t0
+        return loaded["model"]
+
+    def timed_feats(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_feats(*a, **kw)
+        feat_s.append(time.perf_counter() - t0)
+        return res
+
+    cli.load_params, cli.whisper_features = timed_load, timed_feats
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: every launch count is zeroed here and read just after
+    attn.flash_attention.launches = dec.decode_attention.launches = 0
+    try:
+        with count_plain_calls() as plain_calls:
+            t0 = time.perf_counter()
+            path = cli.main([x for k, v in args.items() for x in (f"--{k}", str(v))])
+            cli_s = time.perf_counter() - t0
+    finally:
+        cli.load_params, cli.whisper_features = real_load, real_feats
+    counts = {"K1": attn.flash_attention.launches, "K4": dec.decode_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rows = [json.loads(ln) for ln in open(path, encoding="utf8")]
+    keys = [json.loads(ln)["key"] for ln in open(jsonl)]
+    batches = -(-ASR_UTTS // ASR_BATCH)
+    ok = ([r["key"] for r in rows] == keys and all(isinstance(r.get("hyp"), str) for r in rows)
+          and counts["K1"] == batches * (tower_L + L) and counts["K4"] % L == 0
+          and 0 < counts["K4"] <= batches * ASR_NEW * L and not plain_calls)
+    print(f"  CLI: {cli_s:.2f} s for {ASR_UTTS} wavs ({loaded['s']:.2f} s loading the export onto "
+          f"the card); host features {1e3 * statistics.mean(feat_s):.1f} ms per utterance "
+          f"(whisper_features on {args['num_workers']} prefetch threads, {len(feat_s)} calls); "
+          f"{path} has {len(rows)} lines, a hyp for every key: "
+          f"{[r['key'] for r in rows] == keys}; first hyp {rows[0]['hyp'][:12]!r}; launches "
+          f"K1={counts['K1']} (want {batches}x({tower_L} tower + {L} prefill)) K4={counts['K4']} "
+          f"({counts['K4'] // L} decode steps x {L}, <= {batches}x{ASR_NEW}); plain versions "
+          f"called: {plain_calls or 'none'}; peak {peak:.2f} GiB allocated "
+          f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("qwen2 asr: output / launches")
+    cer = score_cer(out, write_ark(path, out), failures)
+
+    # the first batch again, outside the CLI: the projected audio, the last
+    # prefill's and the first decode step's logits, kernel path against
+    # plain_kernels(), and the timings
+    model = loaded.pop("model")
+    tok = build_tokenizer(TokenizerConfig(**tok_flags))
+    samples = [AudioJsonlDataset.load(s) for s in AudioJsonlDataset(str(jsonl)).samples]
+    feats, ids = [], []
+    for s in samples[:ASR_BATCH]:
+        f, mask = cli.whisper_features(s["waveform"], s["sample_rate"], ac.num_mel_bins)
+        feats.append(f)
+        ids.append(cli.prompt_ids(tok, QWEN2_INSTRUCT, int(mask.sum()), cfg.audio_token_index))
+    lens = [len(i) for i in ids]
+    lens_t = torch.tensor(lens, device=dev)
+    ids = torch.from_numpy(pad_right(ids, 0)).to(dev)
+    feats = torch.from_numpy(pad_right(feats, 0.0)).to(dev).transpose(1, 2)
+
+    def prompt_of(m, dtype):
+        with torch.no_grad():
+            audio = encode_audio(m, feats, cfg, dtype)
+            embed = F.embedding(ids, m.language_model.model.embed_tokens.weight)
+            return audio, merge_audio_into_text(embed, audio, ids, cfg.audio_token_index)
+
+    def forced(m, prompt, dtype, steps, toks=None):
+        """prefill logits and `steps` decode steps' logits (each fed toks[s],
+        or greedy from its own logits); the prefill ms and decode ms/step."""
+        lm = m.language_model
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, last, Tp = inf.prefill(lm, tc, prompt, lens_t, steps, compute_dtype=dtype)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, fed = [last], []
+            for s in range(steps):
+                fed.append(logits[-1].argmax(-1) if toks is None else toks[s])
+                emb = F.embedding(fed[-1], lm.model.embed_tokens.weight)[:, None]
+                logits.append(inf.decode_step(lm, tc, cache, emb, lens_t, Tp, s, dtype))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return logits, fed, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps, 1)
+
+    bf = torch.bfloat16
+    audio_k, prompt_k = prompt_of(model, bf)
+    tower_ms = time_ms(lambda: prompt_of(model, bf), 5, 1)
+    forced(model, prompt_k, bf, 1)  # warm the shapes (not measured)
+    logits_k, fed, prefill_ms, step_ms = forced(model, prompt_k, bf, ASR_TIMED_STEPS)
+    before = (attn.flash_attention.launches, dec.decode_attention.launches)
+    with plain_kernels():
+        audio_p, prompt_p = prompt_of(model, bf)
+        logits_p = forced(model, prompt_p, bf, 1, fed)[0]
+        model32 = empty_model(cfg, torch.float32, dev)
+        model32.load_state_dict(model.state_dict())  # the same weights, upcast
+        audio_r, prompt_r = prompt_of(model32, torch.float32)
+        logits_r = forced(model32, prompt_r, torch.float32, 1, fed)[0]
+        del model32, prompt_r
+    launched = (attn.flash_attention.launches, dec.decode_attention.launches) != before
+    ok = not launched
+    for what, got, plain, ref in (("projected audio", audio_k, audio_p, audio_r),
+                                  ("last prefill logits", logits_k[0], logits_p[0], logits_r[0]),
+                                  ("first decode step logits", logits_k[1], logits_p[1],
+                                   logits_r[1])):
+        e_k, e_p, e_kp = rel_l2(got, ref), rel_l2(plain, ref), rel_l2(got, plain)
+        finite = bool(torch.isfinite(got).all())
+        good = finite and e_k <= BF16_NOISE_RATIO * e_p and e_kp <= BF16_PREFILL_RTOL
+        ok &= good
+        print(f"  first batch {what}: rel_l2 vs the f32 plain path: bf16 kernel {e_k:.3e}, "
+              f"bf16 plain {e_p:.3e} (kernel <= {BF16_NOISE_RATIO}x plain); bf16 kernel vs bf16 "
+              f"plain {e_kp:.3e} (<= {BF16_PREFILL_RTOL:.0e}); finite={finite} "
+              f"{'ok' if good else 'FAIL'}")
+    print(f"  first batch (B={ASR_BATCH}, features T={feats.shape[2]}, prompts {min(lens)}-"
+          f"{max(lens)}): the plain paths launched no kernel: {not launched}; encode_audio "
+          f"(tower, pool, projector) {tower_ms:.1f} ms per batch, prefill {prefill_ms:.1f} ms, "
+          f"decode {step_ms:.3f} ms/step (greedy, {ASR_TIMED_STEPS} steps) "
+          f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("qwen2 asr: kernel path vs plain path")
+    Tp = ids.shape[1]
+    S = -(-(Tp + ASR_NEW) // dec.DECODE_BLOCK) * dec.DECODE_BLOCK  # init_cache's capacity
+    del model, logits_k, logits_p, logits_r, audio_k, audio_p, audio_r, prompt_k, prompt_p
+    torch.cuda.empty_cache()
+    k1_rows, k4_rows = qwen2_kernel_rows(attn, dec, dev, failures, card, ASR_BATCH, Tp, lens, S)
+    print(f"  phase 12: export {n_bytes} bytes in {write_s:.2f} s, load {loaded['s']:.2f} s, "
+          f"host features {1e3 * statistics.mean(feat_s):.1f} ms/utterance, encode_audio "
+          f"{tower_ms:.1f} ms/batch, prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms/step, "
+          f"CLI {cli_s:.2f} s for {ASR_UTTS} wavs, peak {peak:.2f} GiB, launches K1="
+          f"{counts['K1']} K4={counts['K4']}; {cer}  [{card}]")
+    return counts, k1_rows, k4_rows
 
 
 # device kernels of a step, by the part of the port that launches them (the
@@ -2680,15 +3081,49 @@ def tune(_build, dev, card) -> int:
 
 
 def run_audio_phases(dev, card, failures) -> tuple:
-    """Phases 10 and 11, each in a temporary directory of its own; their
-    launch counts."""
+    """Phases 10, 11 and 12, each in a temporary directory of its own: their
+    launch counts, and phase 12's kernel rows."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_counts = run_audio_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         asr_counts = run_asr_cli(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    return audio_counts, asr_counts
+    with tempfile.TemporaryDirectory() as tmp:
+        qwen2_counts, k1_rows, k4_rows = run_qwen2_cli(dev, card, failures, Path(tmp))
+    torch.cuda.empty_cache()
+    return audio_counts, asr_counts, qwen2_counts, k1_rows, k4_rows
+
+
+def kernels_line(counts, k1, k2, k3, k4) -> dict:
+    """The JSON line of the kernels: a row each for K1, K2, K3 (forward,
+    backward) and K4 with its launches over the main paths (`counts`) and
+    the numbers of its case at the main path's shape, every timed case
+    under "cases"."""
+    def row(name, source, replaces, launches, cases, main_case):
+        (main,) = [v for n, v in cases.items() if n.startswith(main_case)]
+        return {"name": name, "route": "cuda", "source": f"touchnet_tpu_torch/ops/csrc/{source}",
+                "replaces": replaces, "launches": launches,
+                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms", "tflops", "gemm_ms", "parts")
+                   if k in main},
+                "cases": cases}
+
+    return {"kernels": [
+        row("flash_attention_fwd (K1)", "flash_attention.cu",
+            "touchnet_tpu/ops/attention.py:269", counts["K1"], k1, "(d)"),
+        row("flash_attention_bwd (K2: delta, dkv, dq)", "flash_attention_bwd.cu",
+            "touchnet_tpu/ops/attention.py:778", counts["K2"], k2, "(d)"),
+        row("fused_ce_fwd (K3 forward: TMA + wgmma mainloop, ce_gemm<RowStatsOp>, and the "
+            "combine)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
+            counts["K3 fwd"], {n: v["fwd"] for n, v in k3.items()}, "(d)"),
+        row("fused_ce_bwd (K3 backward: TMA + wgmma mainloop, ce_gemm)", "fused_ce.cu",
+            "touchnet_tpu/ops/fused_ce.py:175", counts["K3 bwd"],
+            {n: v["bwd"] for n, v in k3.items()}, "(d)"),
+        row("flash_decode (K4: cp.async ring into mma.sync, decode_mma_kernel, and the "
+            "combine)", "decode_attention.cu", "touchnet_tpu/ops/decode_attention.py:85",
+            counts["K4"], k4, "(a)"),
+    ]}
 
 
 def main() -> int:
@@ -2742,7 +3177,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         recipe_counts = run_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    audio_counts, asr_counts = run_audio_phases(dev, card, failures)
+    audio_counts, asr_counts, qwen2_counts, k1_q2, k4_q2 = run_audio_phases(dev, card, failures)
+    k1.update(k1_q2)
+    k4.update(k4_q2)
     for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
         for path, got in (("training", train_counts), ("recipe run", recipe_counts),
                           ("audio recipe", audio_counts)):
@@ -2751,43 +3188,19 @@ def main() -> int:
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
             recipe_counts.get(name, 0) + audio_counts.get(name, 0)
     for name in ("K1", "K4"):
-        if not asr_counts.get(name):
-            failures.append(f"{name} never launched on the ASR CLI path")
+        for path, got in (("ASR CLI", asr_counts), ("qwen2_audio ASR", qwen2_counts)):
+            if not got.get(name):
+                failures.append(f"{name} never launched on the {path} path")
     if not recipe_counts.get("K4"):
         failures.append("K4 never launched on the recipe run's export path")
     counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0)
     for name in ("K1", "K4"):
-        counts[name] += asr_counts.get(name, 0)
+        counts[name] += asr_counts.get(name, 0) + qwen2_counts.get(name, 0)
     for name, n in counts.items():
         if n == 0:
             failures.append(f"{name} never launched on the main path")
 
-    def row(name, source, replaces, launches, cases, main_case):
-        """The kernel's row at the main path's shape (`main_case`), with every
-        timed case of the kernel under "cases"."""
-        (main,) = [v for n, v in cases.items() if n.startswith(main_case)]
-        return {"name": name, "route": "cuda", "source": f"touchnet_tpu_torch/ops/csrc/{source}",
-                "replaces": replaces, "launches": launches,
-                **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms", "tflops", "gemm_ms", "parts")
-                   if k in main},
-                "cases": cases}
-
-    print(json.dumps({"kernels": [
-        row("flash_attention_fwd (K1)", "flash_attention.cu",
-            "touchnet_tpu/ops/attention.py:269", counts["K1"], k1, "(d)"),
-        row("flash_attention_bwd (K2: delta, dkv, dq)", "flash_attention_bwd.cu",
-            "touchnet_tpu/ops/attention.py:778", counts["K2"], k2, "(d)"),
-        row("fused_ce_fwd (K3 forward: TMA + wgmma mainloop, ce_gemm<RowStatsOp>, and the "
-            "combine)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
-            counts["K3 fwd"], {n: v["fwd"] for n, v in k3.items()}, "(d)"),
-        row("fused_ce_bwd (K3 backward: TMA + wgmma mainloop, ce_gemm)", "fused_ce.cu",
-            "touchnet_tpu/ops/fused_ce.py:175", counts["K3 bwd"],
-            {n: v["bwd"] for n, v in k3.items()}, "(d)"),
-        row("flash_decode (K4: cp.async ring into mma.sync, decode_mma_kernel, and the "
-            "combine)", "decode_attention.cu", "touchnet_tpu/ops/decode_attention.py:85",
-            counts["K4"], k4, "(a)"),
-    ]}))
+    print(json.dumps(kernels_line(counts, k1, k2, k3, k4)))
     if failures:
         raise SystemExit(f"chip_smoke FAILED: {failures}")
     print(card)

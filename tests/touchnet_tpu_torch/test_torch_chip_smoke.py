@@ -3,9 +3,12 @@
 # sum of the dense causal + segment mask that K1 applies; K2's per-kernel
 # bounds. The bit checksums and the depth choice of the recipe phase. And
 # the source edits of its --faults and --tune modes must still find their
-# text.
+# text. Phase 12's helpers: the depth rule, the tokenizer it builds, the
+# long utterance, the ark files and the scoring; and the kernels line.
 
+import copy
 import importlib.util
+import json
 import os
 
 import numpy as np
@@ -178,3 +181,95 @@ def test_profile_groups_of_the_k3_kernels(kernel, group):
     run ce_gemm<Op>, so the epilogue class decides, ahead of cuBLAS's
     "gemm"."""
     assert chip_smoke.profile_group(kernel) == group
+
+
+def test_asr_depth_cuts_only_the_text_model_without_room():
+    """Phases 11 and 12 keep full depth when the temp dir holds the bf16
+    export twice plus 2 GiB, else cut the text model's layers, never below
+    8 (0: not even 8 fit); the tower keeps its 32 layers."""
+    from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
+        Qwen2AudioConfig,
+    )
+    from touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio import get_num_params
+
+    cfg = Qwen2AudioConfig.from_json_file(str(chip_smoke.QWEN2_CONFIG))
+    full = 2 * 2 * get_num_params(cfg) + 2**31  # 35.3 GB for 8,283,699,200 params
+    assert chip_smoke.asr_depth(cfg, full, get_num_params) == 28
+    cut = chip_smoke.asr_depth(cfg, full - 1, get_num_params)
+    assert cut == 27 and cfg.text_config.num_hidden_layers == 28
+    c8 = copy.deepcopy(cfg)
+    c8.text_config.num_hidden_layers = 8
+    least = 2 * 2 * get_num_params(c8) + 2**31
+    assert chip_smoke.asr_depth(cfg, least, get_num_params) == 8
+    assert chip_smoke.asr_depth(cfg, least - 1, get_num_params) == 0
+    assert cfg.audio_config.encoder_layers == 32
+
+
+def test_char_tokenizer_has_qwen2_audios_special_ids(tmp_path):
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+
+    V = 156032
+    root = chip_smoke.write_char_tokenizer(tmp_path / "tok", V, chip_smoke.QWEN2_SPECIALS,
+                                           chip_smoke.QWEN2_EOS, chip_smoke.QWEN2_INSTRUCT)
+    tok = build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
+                                          tokenizer_model=str(root)))
+    assert (tok.eos, tok.pad, tok.bos) == (151643, 151643, None)
+    for name, i in chip_smoke.QWEN2_SPECIALS.items():
+        assert tok.tokenize(name, add_special_tokens=False) == [i]
+    text = "<|audio_bos|><|AUDIO|><|AUDIO|><|audio_eos|>" + chip_smoke.QWEN2_INSTRUCT
+    ids = tok.tokenize(text, add_special_tokens=False)
+    assert ids[:4] == [151647, 151646, 151646, 151648]
+    first = list(dict.fromkeys(chip_smoke.QWEN2_INSTRUCT))  # its characters take ids 0, 1, ...
+    assert ids[4:] == [first.index(c) for c in chip_smoke.QWEN2_INSTRUCT]
+    assert tok.detokenize(ids[4:]) == chip_smoke.QWEN2_INSTRUCT
+    assert len(tok.detokenize([0, 151642, 151649, V - 1])) == 4  # one character an id
+    assert tok.vocab_size == V
+
+
+def test_long_utterance_and_ark_files(tmp_path):
+    jsonl, total = chip_smoke.synth_utterances(tmp_path / "wav", 3, 7, lo=1.0, hi=2.0,
+                                               long=(1, 31.0))
+    from scipy.io import wavfile
+
+    recs = [json.loads(ln) for ln in open(jsonl)]
+    sr, x = wavfile.read(recs[1]["wav"])
+    assert sr == 16000 and len(x) == 31 * 16000 and 33.0 < total < 35.0
+    part = tmp_path / "part_0"
+    part.write_text("".join(json.dumps({"key": r["key"], "txt": r["txt"], "hyp": h},
+                                       ensure_ascii=False) + "\n"
+                            for r, h in zip(recs, ["UTTERANCE 0", "", "乱"])), encoding="utf8")
+    out = tmp_path / "out"
+    out.mkdir()
+    keys = chip_smoke.write_ark(str(part), out)
+    assert keys == ["utt0", "utt1", "utt2"]
+    assert (out / "raw_rec.txt").read_text(encoding="utf8") == \
+        "utt0\tUTTERANCE 0\nutt1\t\nutt2\t乱\n"
+    assert (out / "trans.txt").read_text().splitlines()[2] == "utt2\tutterance 2"
+    failures = []
+    line = chip_smoke.score_cer(out, keys, failures)
+    assert not failures and line.startswith("Overall -> ")
+    assert "num_eval_utts: 3" in (out / "RESULTS.txt").read_text()  # the empty hyp too
+    failures = []
+    chip_smoke.score_cer(out, keys + ["utt3"], failures)  # a key the scorer never read
+    assert failures == ["qwen2 asr: scoring"]
+
+
+def test_kernels_line_names_k1_to_k4():
+    def case(ms):
+        return {"max_abs_err": 1e-3, "ms": ms, "plain_ms": 2 * ms, "library_ms": None,
+                "bound_ms": ms / 10, "bound_by": "operations", "tflops": 1.0}
+
+    k1 = {"(d) main": case(2.0), "(f) tower": case(0.8), "(g) prefill": case(0.7)}
+    k4 = {"(a) decode": case(0.2), "(h) qwen2 decode": case(0.07)}
+    k3 = {"(d) main": {"fwd": case(13.0), "bwd": case(44.0)}}
+    counts = {"K1": 120, "K2": 16, "K3 fwd": 1, "K3 bwd": 1, "K4": 3584}
+    line = chip_smoke.kernels_line(counts, k1, {"(d) main": case(6.8)}, k3, k4)
+    rows = line["kernels"]
+    assert [r["name"].split("(")[1][:2] for r in rows] == ["K1", "K2", "K3", "K3", "K4"]
+    for r in rows:
+        for key in ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+                    "plain_ms", "bound_ms", "bound_by", "library_ms"):
+            assert key in r, (r["name"], key)
+    assert rows[0]["ms"] == 2.0 and set(rows[0]["cases"]) == set(k1)
+    assert rows[4]["launches"] == 3584 and "(h) qwen2 decode" in rows[4]["cases"]

@@ -58,6 +58,14 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.data.dsp",
         "touchnet_tpu_torch.data.native",
         "touchnet_tpu_torch.models.touch_audio",
+        "touchnet_tpu_torch.models.whisper_encoder",
+        "touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio",
+        "touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio",
+        "touchnet_tpu_torch.models.qwen2_audio.convert",
+        "touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio",
+        "touchnet_tpu_torch.models.qwen2_audio.inference_qwen2_audio",
+        "touchnet_tpu_torch.bin.textnorm_zh",
+        "touchnet_tpu_torch.bin.error_rate_zh",
         "touchnet_tpu_torch.models.touch_audio.configuration_touch_audio",
         "touchnet_tpu_torch.models.touch_audio.modeling_touch_audio",
         "touchnet_tpu_torch.models.touch_audio.convert",

@@ -108,6 +108,15 @@ ATTENTION_CASES = [
     (1, 77, 300, 8, 2, 128, True, None, 223, 0),
     (1, 520, 520, 8, 2, 64, True, "long", 0, 0),
     (1, 400, 400, 32, 8, 64, True, None, 0, 0),
+    # the qwen2_audio ASR path: (f) the whisper tower's causal MHA at D64
+    # over 1500 frames (23 tiles and a 28-row tail) and over 1750 (a 35 s
+    # utterance: the tiled position table); (g) Qwen2-Audio-7B's prefill,
+    # 28 query heads over 4 kv heads (G 7: 9 positions a 64-row block, one
+    # dead row), D128, and G 7 over packed documents
+    (2, 1500, 1500, 20, 20, 64, True, None, 0, 0),
+    (1, 1750, 1750, 20, 20, 64, True, None, 0, 0),
+    (3, 401, 401, 28, 4, 128, True, None, 0, 0),
+    (2, 300, 300, 7, 1, 128, True, "packed", 0, 0),
 ]
 
 
@@ -183,7 +192,7 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Hkv,G", [(1, 4), (3, 2), (5, 1), (7, 2), (8, 4), (2, 16)])
+@pytest.mark.parametrize("Hkv,G", [(1, 4), (3, 2), (5, 1), (7, 2), (8, 4), (2, 16), (4, 7)])
 def test_decode_kernel(dev, dtype, D, Hkv, G):
     rng = np.random.default_rng(Hkv * 10 + G)
     L, B, S = 3, 4, 1536
@@ -200,7 +209,7 @@ def test_decode_kernel(dev, dtype, D, Hkv, G):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D,G", [(64, 4), (128, 1), (128, 16)])
+@pytest.mark.parametrize("D,G", [(64, 4), (128, 1), (128, 16), (128, 7)])
 def test_decode_kernel_balanced_splits(dev, dtype, D, G):
     """Prompt lengths with a 4x spread over an 8192-column cache (the split
     plan's fixed budget of live columns per split: a long row takes more
