@@ -137,19 +137,46 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      utterance, encode_audio ms per batch, prefill ms, decode ms/step, the
      CLI's seconds, peak memory; and K1 and K4 at this path's shapes: (f)
      the tower's causal MHA (library: scaled_dot_product_attention), (g)
-     the G 7 prefill, (h) the G 7 decode.
+     the G 7 prefill, (h) the G 7 decode;
+ 13. kimi_audio's ASR stage (python -m touchnet_tpu_torch.models.kimi_audio.
+     inference_kimi_audio, run through its main with the recipe's stage-4
+     flags exactly, stage4_argv: f32, batch 1, no config and no tokenizer
+     flag, plus max_length 64; then its scoring): a Kimi-Audio-7B HF export
+     of seeded random bf16 weights holding its config.json and a
+     char-level `tokenizers` tokenizer with Kimi's special ids (the text
+     model at full depth when the temp dir holds the export twice, else
+     fewer layers, never below 8, said so), loaded in f32 (the host's peak
+     resident memory during the load printed); output_type text over 8
+     synthetic wavs of 1-30 s, then trans.txt, raw_rec.txt, textnorm_zh and
+     error_rate_zh as phase 12; output_type both over 2 of them on the same
+     loaded model. Checks a hyp for every key (audio codes under both), K1
+     launched 32 tower + L (text) or L + 6 (both stacks) an utterance and
+     K4 L (or L + 6) a decode step, no plain version called; then the first
+     utterance outside the CLI, f32 kernel path against the f32 plain path
+     on the same weights: the adaptor's output, the last prefill's text
+     logits and the first decode step's text and audio logits (both
+     stacks), relative L2 <= KIMI_RTOL, the first two greedy text tokens
+     equal, the VQ codes (plain PyTorch on both paths) counted where they
+     differ; the encode split (tower, speech tokenizer, adaptor), prefill
+     and decode ms for text and for both, host features, peak memory; and
+     K1 and K4 at this path's f32 shapes, bounded at the FP32 peak: (i) the
+     tower's non-causal MHA (library SDPA), (j) the G 7 prefill (SDPA with
+     enable_gqa), (k) the G 7 decode on a main and a mimo row of the 34-row
+     cache (SDPA on a gathered copy).
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving, training, the single-device
 modes, the recipe run with its generate from the export, the audio recipe
-run, the ASR CLI and qwen2_audio's ASR stage; K4: serving, that generate,
-the ASR CLI and qwen2_audio's; K2, K3: training, the modes, the recipe run
-and the audio recipe run), each path driven with the counts set to 0 just
-before it.
+run, the ASR CLI and the qwen2_audio and kimi_audio ASR stages; K4:
+serving, that generate, the ASR CLI and the two ASR stages; K2, K3:
+training, the modes, the recipe run and the audio recipe run), each path
+driven with the counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
-    cores) and its bytes (each input read once, each output written once)
+    cores; phase 13's f32 rows (i)-(k) over the FP32 peak, 66.9 TFLOP/s,
+    the rate of the f32 FMA kernels; the earlier f32 cases keep the bf16
+    peak) and its bytes (each input read once, each output written once)
     over 3.35 TB/s, and bound_by, which of the two. Attention counts the
     live (row, column) pairs of these inputs under the causal and segment
     mask (live_pairs, from the segment runs): K1 4·D·H·pairs, K2
@@ -163,7 +190,9 @@ the decode case), with every timed case under "cases":
     document runs (aten._flash_attention_forward / _backward) for K1 and
     K2 (scaled_dot_product_attention, is_causal, for K1's case (f)), the
     same over a copy of each row's live cache columns for K4 (the copy made
-    outside the timed window), none for K3. Before it is timed
+    outside the timed window; in f32, which it does not take, one
+    scaled_dot_product_attention call on that copy), none for K3; phase
+    13's f32 K1 rows scaled_dot_product_attention (with enable_gqa at G 7). Before it is timed
     its output is held to the kernel's under the bf16 limits; a mismatch
     fails the run as the yardstick's fault. K3 adds gemm_ms, informational:
     cuBLAS bf16 h w^T over the same rows for the forward, the three
@@ -196,6 +225,13 @@ Tolerances on the card, each against the plain version on the same inputs:
     the last prefill's logits of the bf16 kernel path against the bf16
     plain path, 5e-2 (that rounding noise, ~3e-2, with room; a kernel
     fault beyond rounding moves them by far more, see PERF.md);
+  - phase 13 (Kimi-Audio-7B in f32, the recipe's dtype), the kernel path
+    against the plain path on the same f32 weights: the adaptor's output
+    and the logits, relative L2 1e-3 (KIMI_RTOL: only K1 and K4 differ,
+    each within 1e-4 of its plain version alone; 60 layers of f32 rounding
+    in another summation order read ~1e-5, and a kernel fault beyond
+    rounding moves them by 1e-2 or more), and the first greedy text tokens
+    equal; TF32 off for both paths' matmuls and convolutions (set here);
   - the training step at B1 T4096 (set before the first run of phase 8),
     kernel path against the plain path on the same weights and batch:
     f32: loss relative 1e-5 and grad norm relative 1e-4 (only the kernels
@@ -285,15 +321,17 @@ def compare(name, got, want, dtype, failures, valid=None):
     return mx
 
 
-# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): bf16 tensor cores and HBM3
-PEAK_BF16_FLOPS, PEAK_HBM_BYTES = 989e12, 3.35e12
+# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): bf16 tensor cores, FP32
+# outside the tensor cores (the rate of the f32 FMA kernels), and HBM3
+PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES = 989e12, 66.9e12, 3.35e12
 
 
-def bound(flops, nbytes) -> dict:
+def bound(flops, nbytes, peak=PEAK_BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations over
-    the bf16 peak and the bytes (each input read once, each output written
-    once) over the memory rate, and which of the two it is."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    `peak` (the bf16 peak unless the row gives the f32 one) and the bytes
+    (each input read once, each output written once) over the memory rate,
+    and which of the two it is."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return {"bound_ms": max(t_ops, t_bytes) * 1e3,
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops}
 
@@ -447,11 +485,12 @@ def timed_row(name, err, ms, plain, lib, bnd, card):
 
 
 def k1_case(attn, dev, failures, card, rows, name, q, k, v, seg, kv_seg, causal, q_off,
-            timed=False, grouped=False, runs=None, library=None):
+            timed=False, grouped=False, runs=None, library=None, peak=PEAK_BF16_FLOPS):
     """K1 on (q, k, v) against its plain version; when timed, its row in
-    `rows`: kernel, plain and library times and the bound. The library is
-    varlen flash attention over `runs(q, k, v)`, or `library`, a call that
-    returns (out [B, T, H, D], None) for the same inputs."""
+    `rows`: kernel, plain and library times and the bound (operations at
+    `peak`). The library is varlen flash attention over `runs(q, k, v)`, or
+    `library`, a call that returns (out [B, T, H, D], None) for the same
+    inputs."""
     n_failed = len(failures)
     out, lse = attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, 0)
     torch.cuda.synchronize()
@@ -475,7 +514,7 @@ def k1_case(attn, dev, failures, card, rows, name, q, k, v, seg, kv_seg, causal,
     del want, want_lse
     if timed:
         pairs = live_pairs(seg, kv_seg, causal, q_off, 0, T, S, B)
-        bnd = bound(4 * D * H * pairs, nbytes(q, k, v, out, lse, seg, kv_seg))
+        bnd = bound(4 * D * H * pairs, nbytes(q, k, v, out, lse, seg, kv_seg), peak)
         ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, causal, None, kv_seg,
                                                   q_off, 0))
         if grouped:
@@ -560,10 +599,10 @@ def check_k1(attn, dev, gen, failures, card):
 
 
 def k4_case(dec, dev, gen, failures, card, rows, name, B, L, Hkv, G, D, S, plen, base, last,
-            layer, dtype, timed=False, timing=True):
+            layer, dtype, timed=False, timing=True, peak=PEAK_BF16_FLOPS):
     """K4 on a random cache against its plain version, and two launches bit
     for bit; when timed, its row in `rows` (the library on a gathered copy of
-    each row's live columns)."""
+    each row's live columns; the bound's operations at `peak`)."""
     n_failed = len(failures)
     q = torch.randn((B, Hkv * G, D), generator=gen, device=dev).to(dtype)
     kv = torch.randn((L, B, Hkv, S, 2 * D), generator=gen, device=dev, dtype=dtype)
@@ -590,14 +629,25 @@ def k4_case(dec, dev, gen, failures, card, rows, name, B, L, Hkv, G, D, S, plen,
         k_l = torch.cat([kv[layer, b][:, live[b], :D].transpose(0, 1) for b in range(B)])
         v_l = torch.cat([kv[layer, b][:, live[b], D:].transpose(0, 1) for b in range(B)])
         bnd = bound(4 * D * Hkv * G * sum(k_runs),
-                    nbytes(k_l, v_l, q, got, plen))  # the live cache, read once
-        fwd, _ = attention_library(q[:, None], k_l[None], v_l[None], [1] * B, k_runs,
-                                   False)
+                    nbytes(k_l, v_l, q, got, plen), peak)  # the live cache, read once
+        if dtype == torch.float32:
+            # varlen flash attention takes no f32: one SDPA call (GQA) on the
+            # gathered copy of the one row's live columns
+            assert B == 1, "the f32 yardstick takes one row"
+            k4d, v4d = k_l.transpose(0, 1)[None], v_l.transpose(0, 1)[None]
+
+            def fwd():
+                return (F.scaled_dot_product_attention(q[:, :, None], k4d, v4d,
+                                                       enable_gqa=True),)
+        else:
+            fwd, _ = attention_library(q[:, None], k_l[None], v_l[None], [1] * B, k_runs,
+                                       False)
         lib = None
         if yardstick_checkable(name, failures, n_failed):
             yard = []
-            compare(f"{name} yardstick vs kernel", fwd()[0].view(got.shape), got, dtype,
-                    yard)
+            # under the bf16 limits, as check_yardstick holds K1's
+            compare(f"{name} yardstick vs kernel", fwd()[0].view(got.shape), got,
+                    torch.bfloat16, yard)
             failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
             lib = None if yard else time_ms(fwd)
         name += " (library on a gathered copy of the live columns)"
@@ -2486,7 +2536,7 @@ def write_ark(part: str, out: Path) -> list:
     return keys
 
 
-def score_cer(out: Path, keys: list, failures) -> str:
+def score_cer(out: Path, keys: list, failures, what: str = "qwen2 asr") -> str:
     """The recipe's scoring (run.sh:197-212) with the port's tools:
     textnorm_zh on both sides, the empty hyps dropped, error_rate_zh
     --tokenizer char. Checks that the scorer read a pair for every key;
@@ -2511,7 +2561,7 @@ def score_cer(out: Path, keys: list, failures) -> str:
     print(f"  error_rate_zh --tokenizer char: {overall[0] if overall else res.stderr[-500:]}; "
           f"{n_utts[0] if n_utts else 'no summary'} (want {len(keys)}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        failures.append("qwen2 asr: scoring")
+        failures.append(f"{what}: scoring")
     return overall[0] if overall else ""
 
 
@@ -2774,6 +2824,427 @@ def run_qwen2_cli(dev, card, failures, tmp: Path) -> tuple:
           f"{tower_ms:.1f} ms/batch, prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms/step, "
           f"CLI {cli_s:.2f} s for {ASR_UTTS} wavs, peak {peak:.2f} GiB, launches K1="
           f"{counts['K1']} K4={counts['K4']}; {cer}  [{card}]")
+    return counts, k1_rows, k4_rows
+
+
+# -- phase 13: kimi_audio's ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4,
+# model_type kimi_audio: f32 at batch 1, inference then textnorm and CER) --
+
+KIMI_CONFIG = HERE / "examples/audio/sft/asr/wenetspeech/config/Kimi-Audio-7B.json"
+# Kimi-Audio's special tokens: the media markers at the config's ids, blank
+# and eos at the ids the reference hardcodes (151666, 151667), the others at
+# unused ids below kimia_token_offset; its tokenizer is not in the repo
+KIMI_SPECIALS = {"<|im_media_begin|>": 151661, "<|im_media_end|>": 151663,
+                 "<|im_kimia_text_blank|>": 151666, "<|im_kimia_text_eos|>": 151667,
+                 "<|im_kimia_user_msg_start|>": 151670,
+                 "<|im_kimia_assistant_msg_start|>": 151671,
+                 "<|im_kimia_speech_ct_id|>": 151672, "<|im_msg_end|>": 151673}
+KIMI_EOS = "<|im_kimia_text_eos|>"
+KIMI_UTTS, KIMI_BOTH_UTTS = 8, 2
+# the recipe's instruct for qwen2_audio and kimi_audio (run.sh:160-164)
+STAGE4_INSTRUCT = "Generate the transcription:"
+
+
+def stage4_argv(model_type: str, model_path, data_list, output_dir) -> list:
+    """The flags stage 4 of the SFT recipe passes its ASR CLI
+    (examples/audio/sft/asr/wenetspeech/run.sh:156-181), exactly: Kimi in
+    f32 at batch 1, the others in bf16 at batch 16; touch_audio's instruct
+    empty; no config and no tokenizer flag (the CLI reads both from the
+    export)."""
+    kimi = model_type == "kimi_audio"
+    return ["--model_path", str(model_path), "--model_dtype", "float32" if kimi else "bfloat16",
+            "--instruct", "" if model_type == "touch_audio" else STAGE4_INSTRUCT,
+            "--data_list", str(data_list), "--output_dir", str(output_dir),
+            "--batch_size", "1" if kimi else "16", "--inference_enable_liger_kernel", "true",
+            "--num_workers", "16", "--prefetch", "8"]
+
+
+# relative L2 limit of the kernel path against the plain path, both f32 on
+# the same weights (only K1 and K4 differ, each held to 1e-4 max abs alone;
+# 60 layers of f32 rounding in another order move the logits by ~1e-5, a
+# kernel fault moves them by 1e-2 or more)
+KIMI_RTOL = 1e-3
+
+
+class HostPeak:
+    """The most resident memory of this process seen while open, sampled
+    every 20 ms from /proc/self/statm (a load's own peak: the process's
+    lifetime peak, ru_maxrss, holds the earlier phases')."""
+
+    def __enter__(self):
+        import os
+        import threading
+
+        self.page = os.sysconf("SC_PAGE_SIZE")
+        self.before = self.peak = self.rss()
+        self.stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+        return self
+
+    def rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self.page
+
+    def _run(self):
+        while not self.stop.wait(0.02):
+            self.peak = max(self.peak, self.rss())
+
+    def __exit__(self, *exc):
+        self.stop.set()
+        self.thread.join(timeout=5)
+        self.peak = max(self.peak, self.rss())
+
+
+def kimi_kernel_rows(attn, dec, dev, failures, card, Tp, S, L, L_mimo) -> tuple:
+    """K1 and K4 at the Kimi path's f32 shapes, each against its plain version
+    and a library call checked first, bounds at the FP32 peak: (i) the
+    tower, B1 T1500 H20 D64 non-causal (SDPA); (j) the prefill of the first
+    utterance, B1 T=Tp H28/4 D128 causal (SDPA with enable_gqa); (k) its
+    last decode step, G 7 D128, on a main layer and a mimo layer of the
+    packed cache (SDPA on a gathered copy of the live columns). Returns
+    (K1 rows, K4 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    f32 = torch.float32
+    k1_rows, k4_rows = {}, {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=f32)
+
+    q, k, v = (randn(1, 1500, 20, 64) for _ in range(3))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2), None
+
+    k1_case(attn, dev, failures, card, k1_rows,
+            "(i) kimi_audio tower: B1 T1500 H20/20 D64 f32 non-causal, library SDPA",
+            q, k, v, None, None, False, 0, timed=True, library=sdpa, peak=PEAK_F32_FLOPS)
+    q, k, v = randn(1, Tp, 28, 128), randn(1, Tp, 4, 128), randn(1, Tp, 4, 128)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa_gqa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True).transpose(1, 2), None
+
+    k1_case(attn, dev, failures, card, k1_rows,
+            f"(j) kimi_audio prefill: B1 T{Tp} H28/4 (G7) D128 f32 causal, library SDPA "
+            "(enable_gqa)", q, k, v, None, None, True, 0, timed=True, library=sdpa_gqa,
+            peak=PEAK_F32_FLOPS)
+    del q, k, v, qt, kt, vt
+    for what, layer in (("main layer 0", 0), (f"mimo layer {L + L_mimo - 1}", L + L_mimo - 1)):
+        k4_case(dec, dev, gen, failures, card, k4_rows,
+                f"(k) kimi_audio decode: B1 H28/4 (G7) D128 S{S} f32, {L + L_mimo} cache rows, "
+                f"{what}, prompt {Tp}, step {ASR_NEW}", 1, L + L_mimo, 4, 7, 128, S, [Tp],
+                Tp, Tp + ASR_NEW - 1, layer, f32, timed=True, peak=PEAK_F32_FLOPS)
+    torch.cuda.empty_cache()
+    return k1_rows, k4_rows
+
+
+def run_kimi_cli(dev, card, failures, tmp: Path) -> tuple:
+    """Phase 13: kimi_audio's ASR stage (python -m touchnet_tpu_torch.models.
+    kimi_audio.inference_kimi_audio, run in-process through its main with the
+    recipe's exact stage-4 flags, stage4_argv, plus max_length 64) on a
+    Kimi-Audio-7B HF export of seeded random bf16 weights that holds its
+    config.json and a char-level tokenizer with Kimi's special ids: f32,
+    batch 1, output_type text over 8 synthesised wavs of 1-30 s, then the
+    recipe's scoring, then output_type both over 2 of them (the weights
+    loaded once: the second run takes the first's model). Checks a hyp for
+    every key (and audio codes under both), the launches (K1: the tower's
+    layers and the prefill's, over the text stack or both stacks; K4: the
+    stack's layers a decode step) and no plain version called; then the
+    first utterance outside the CLI, kernel path against plain_kernels() on
+    the same f32 weights: the adaptor's output, the last prefill's text
+    logits, the first decode step's text and audio logits (dual path) by
+    relative L2 <= KIMI_RTOL, the first greedy text tokens equal, the VQ
+    codes (plain PyTorch on both paths) counted where they differ; with the
+    encode split (tower, tokenizer, adaptor), prefill and decode timings;
+    and the kernel rows (i)-(k). Returns (the CLI runs' launches, K1 rows,
+    K4 rows)."""
+    from touchnet_tpu_torch.models import whisper_encoder
+    from touchnet_tpu_torch.models.kimi_audio import convert
+    from touchnet_tpu_torch.models.kimi_audio import generate_kimi_audio as kgen
+    from touchnet_tpu_torch.models.kimi_audio import inference_kimi_audio as cli
+    from touchnet_tpu_torch.models.kimi_audio import modeling_kimi_audio as km
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from touchnet_tpu_torch.models.llama import inference_llama as inf
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.utils.inference import AudioJsonlDataset
+    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
+
+    cfg = KimiAudioConfig.from_json_file(str(KIMI_CONFIG))
+    tc = cfg.text_config
+    full, L_mimo = tc.num_hidden_layers, cfg.kimia_mimo_layers
+    tower_L = cfg.speech_encoder_config.encoder_layers
+    free = shutil.disk_usage(tmp).free
+    L = asr_depth(cfg, free, km.get_num_params)
+    if L == 0:
+        print(f"[13] kimi_audio ASR: {free / 1e9:.2f} GB free in the temp dir, too little for "
+              f"a {ASR_MIN_LAYERS}-layer export FAIL")
+        failures.append("kimi asr: no room for the export")
+        return {}, {}, {}
+    if L != full:  # the fork keeps its place in proportion
+        raw = json.loads(KIMI_CONFIG.read_text())
+        raw["num_hidden_layers"] = L
+        raw["kimia_mimo_transformer_from_layer_index"] = (
+            (cfg.kimia_mimo_transformer_from_layer_index + 1) * L // full - 1)
+        cfg = KimiAudioConfig.from_dict(raw)
+        tc = cfg.text_config
+    fork = cfg.kimia_mimo_transformer_from_layer_index + 1
+    depth = ("full depth" if L == full
+             else f"text model CUT to {L} of {full} layers (too little room)")
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    print(f"[13] kimi_audio ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4): "
+          f"{KIMI_CONFIG.relative_to(HERE)}: text L={L} E={tc.hidden_size} "
+          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} V={tc.vocab_size}, "
+          f"mimo {L_mimo} layers forked after layer {fork - 1}; tower {tower_L} layers, speech "
+          f"tokenizer {cfg.speech_tokenizer_config.quantize_position} layers; "
+          f"{km.get_num_params(cfg):,} params, f32 (the recipe's), {depth}; TF32 for cuBLAS "
+          f"matmuls {tf32[0]}, for cuDNN convolutions {tf32[1]} (this script turns both off; "
+          f"the package sets neither); temp dir {free / 1e9:.2f} GB free")
+
+    hf = tmp / "kimi_hf"
+    hf.mkdir()
+    t0 = time.perf_counter()
+    model = km.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 40),
+                           torch.bfloat16, dev)
+    state = convert.params_to_hf_state_dict(cfg, model.state_dict())
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_bytes = write_safetensors(state, str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
+    write_s = time.perf_counter() - t0
+    del model, state
+    torch.cuda.empty_cache()
+    write_char_tokenizer(hf, tc.vocab_size, KIMI_SPECIALS, KIMI_EOS, STAGE4_INSTRUCT)
+    jsonl, total = synth_utterances(tmp / "kimi_wav", KIMI_UTTS, SEED + 41, lo=1.0, hi=30.0)
+    both_jsonl = tmp / "kimi_wav" / "both.jsonl"
+    both_jsonl.write_text("".join(open(jsonl).readlines()[:KIMI_BOTH_UTTS]))
+    print(f"  HF export of seeded random bf16 weights with config.json and the tokenizer: "
+          f"{n_bytes} bytes ({n_bytes / 1e9:.2f} GB) written in {write_s:.2f} s (drawn in "
+          f"{init_s:.2f} s); {KIMI_UTTS} wavs, {total:.1f} s of audio  [{card}]")
+
+    loaded, feat_s = {}, []
+    real_load, real_feats = cli.load_params, cli.whisper_features
+
+    def timed_load(*a, **kw):
+        with HostPeak() as host:
+            t0 = time.perf_counter()
+            loaded["model"] = real_load(*a, **kw)
+            loaded["s"] = time.perf_counter() - t0
+        loaded["host"] = host
+        return loaded["model"]
+
+    def timed_feats(*a, **kw):
+        t0 = time.perf_counter()
+        res = real_feats(*a, **kw)
+        feat_s.append(time.perf_counter() - t0)
+        return res
+
+    def run(jsonl_path, out, output_type, load):
+        """One CLI run on the main path: the launch counts zeroed just before
+        and read just after."""
+        argv = stage4_argv("kimi_audio", hf, jsonl_path, out) + [
+            "--max_length", str(ASR_NEW), "--output_type", output_type]
+        cli.load_params, cli.whisper_features = load, timed_feats
+        attn.flash_attention.launches = dec.decode_attention.launches = 0
+        try:
+            with count_plain_calls() as plain_calls:
+                t0 = time.perf_counter()
+                path = cli.main(argv)
+                secs = time.perf_counter() - t0
+        finally:
+            cli.load_params, cli.whisper_features = real_load, real_feats
+        counts = {"K1": attn.flash_attention.launches, "K4": dec.decode_attention.launches}
+        return path, secs, counts, plain_calls
+
+    torch.cuda.reset_peak_memory_stats()
+    out_text, out_both = tmp / "kimi_out_text", tmp / "kimi_out_both"
+    path, cli_s, counts, plain_calls = run(jsonl, out_text, "text", timed_load)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    host, load_s = loaded["host"], loaded["s"]
+    rows = [json.loads(ln) for ln in open(path, encoding="utf8")]
+    keys = [json.loads(ln)["key"] for ln in open(jsonl)]
+    steps = counts["K4"] // L
+    ok = ([r["key"] for r in rows] == keys and all(isinstance(r.get("hyp"), str) for r in rows)
+          and counts["K1"] == KIMI_UTTS * (tower_L + L) and counts["K4"] % L == 0
+          and 0 < steps <= KIMI_UTTS * ASR_NEW and not plain_calls)
+    print(f"  CLI, output_type text: {cli_s:.2f} s for {KIMI_UTTS} wavs ({load_s:.2f} s "
+          f"loading the export onto the card in f32; host RSS {host.before / 1e9:.2f} GB before "
+          f"the load, peak {host.peak / 1e9:.2f} GB during it); host features "
+          f"{1e3 * statistics.mean(feat_s):.1f} ms per utterance ({len(feat_s)} calls on 16 "
+          f"prefetch threads); {path} has {len(rows)} lines, a hyp for every key: "
+          f"{[r['key'] for r in rows] == keys}; first hyp {rows[0]['hyp'][:12]!r}; launches "
+          f"K1={counts['K1']} (want {KIMI_UTTS}x({tower_L} tower + {L} prefill)) "
+          f"K4={counts['K4']} ({steps} decode steps x {L}, <= {KIMI_UTTS}x{ASR_NEW}); plain "
+          f"versions called: {plain_calls or 'none'}; peak {peak:.2f} GiB allocated "
+          f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("kimi asr text: output / launches")
+    cer = score_cer(out_text, write_ark(path, out_text), failures, "kimi asr")
+
+    model = loaded.pop("model")
+    feat_text = statistics.mean(feat_s)
+    path, both_s, both_counts, plain_calls = run(both_jsonl, out_both, "both",
+                                                 lambda *a, **kw: model)
+    rows = [json.loads(ln) for ln in open(path, encoding="utf8")]
+    Ld = L + L_mimo
+    steps_both = both_counts["K4"] // Ld
+    codes_ok = all(isinstance(r.get("audio_codes"), list) and
+                   all(0 <= c < tc.vocab_size - cfg.kimia_token_offset for c in r["audio_codes"])
+                   for r in rows)
+    ok = (len(rows) == KIMI_BOTH_UTTS and codes_ok and all(isinstance(r["hyp"], str) for r in rows)
+          and both_counts["K1"] == KIMI_BOTH_UTTS * (tower_L + Ld)
+          and both_counts["K4"] % Ld == 0 and 0 < steps_both <= KIMI_BOTH_UTTS * ASR_NEW
+          and not plain_calls)
+    print(f"  CLI, output_type both (the loaded model reused): {both_s:.2f} s for "
+          f"{KIMI_BOTH_UTTS} wavs; audio codes per row {[len(r['audio_codes']) for r in rows]}, "
+          f"in range: {codes_ok}; launches K1={both_counts['K1']} (want {KIMI_BOTH_UTTS}x"
+          f"({tower_L} tower + {Ld} prefill over both stacks)) K4={both_counts['K4']} "
+          f"({steps_both} decode steps x {Ld}); plain versions called: {plain_calls or 'none'} "
+          f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("kimi asr both: output / launches")
+    counts = {k: counts[k] + both_counts[k] for k in counts}
+
+    # the first utterance again, outside the CLI: kernel path against the
+    # plain path on the same f32 weights, and the timings
+    f32 = torch.float32
+    tok = build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
+                                          tokenizer_model=str(hf)))
+    blank_id, _ = cli.check_special_tokens(tok, cfg)
+    s = AudioJsonlDataset.load(AudioJsonlDataset(str(jsonl)).samples[0])
+    feats_np, fmask_np = cli.whisper_features(s["waveform"], s["sample_rate"],
+                                              cfg.speech_encoder_config.num_mel_bins)
+    n_tok = int(fmask_np[::2][::4].sum())
+    text_np, audio_np = cli.prompt_streams(tok, STAGE4_INSTRUCT, n_tok, cfg)
+    Tp = len(text_np)
+    lens = torch.tensor([Tp], device=dev)
+    text_ids = torch.from_numpy(text_np[None]).to(dev)
+    audio_ids = torch.from_numpy(audio_np[None]).to(dev)
+    feats = torch.from_numpy(feats_np[None]).to(dev).transpose(1, 2)
+    fmask = torch.from_numpy(fmask_np[None]).to(dev)
+    embed_w = model.model.embed_tokens.weight
+    blank_emb = embed_w[blank_id]
+
+    def prompt_of():
+        """The CLI's encode step: the speech merged into the audio stream
+        (the tower, the adaptor, the tokenizer's codes), plus the text
+        stream."""
+        with torch.no_grad():
+            embs = km.prepare_audio_input_embs(model, audio_ids, F.embedding(audio_ids, embed_w),
+                                               feats, fmask, cfg, f32)
+            return embs + F.embedding(text_ids, embed_w)
+
+    def encode():
+        with torch.no_grad():
+            return (*km.encode_speech(model, feats, fmask, cfg, f32), prompt_of())
+
+    def text_path(prompt, steps, toks=None):
+        """The CLI's text path: prefill over the text stack, then `steps`
+        decode steps fed toks[i] (greedy when None) with the audio stream at
+        blank; logits, the fed tokens, prefill ms, decode ms/step."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, last, Tpad = inf.prefill(model, tc, prompt, lens, steps, compute_dtype=f32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, fed = [last], []
+            for i in range(steps):
+                fed.append(logits[-1].argmax(-1) if toks is None else toks[i])
+                emb = (F.embedding(fed[-1], embed_w) + blank_emb)[:, None]
+                logits.append(inf.decode_step(model, tc, cache, emb, lens, Tpad, i, f32))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return logits, fed, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps, 1)
+
+    def dual_path(prompt, steps, toks=None):
+        """Both stacks: prefill, then `steps` decode steps fed the (text,
+        audio) pair toks[i] (greedy when None); per step (text, audio)
+        logits, the fed pairs, prefill ms, decode ms/step."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache, tl, al, Tpad = kgen.prefill_dual(model, cfg, prompt, lens, steps,
+                                                    compute_dtype=f32)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, fed = [(tl, al)], []
+            for i in range(steps):
+                pair = ((logits[-1][0].argmax(-1), logits[-1][1].argmax(-1))
+                        if toks is None else toks[i])
+                fed.append(pair)
+                emb = (F.embedding(pair[0], embed_w) + F.embedding(pair[1], embed_w))[:, None]
+                tl, al, _ = kgen.forward_step_dual(
+                    model, emb, cache, lens + i, cfg, f32, write_pos=Tpad + i,
+                    decode_valid=(lens, Tpad, Tpad + i))
+                logits.append((tl[:, 0], al[:, 0]))
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        return logits, fed, (t1 - t0) * 1e3, (t2 - t1) * 1e3 / max(steps, 1)
+
+    cont_k, codes_k, prompt_k = encode()
+    with torch.no_grad():
+        tower_ms = time_ms(lambda: whisper_encoder.forward(
+            model.speech_encoder, feats, cfg.speech_encoder_config, compute_dtype=f32,
+            causal=False, apply_final_layer_norm=True), 3, 1)
+        tok_ms = time_ms(lambda: km.speech_tokenizer_forward(
+            model.speech_tokenizer, feats, fmask, cfg.speech_tokenizer_config, f32), 3, 1)
+        stacked = torch.randn((1, 375, cfg.kimia_adaptor_input_dim), device=dev)
+        adaptor_ms = time_ms(lambda: km.vq_adaptor_forward(model.model.vq_adaptor, stacked,
+                                                           tc.rms_norm_eps), 3, 1)
+        encode_ms = time_ms(prompt_of, 3, 1)
+    text_path(prompt_k, 1)  # warm the shapes (not measured)
+    logits_k, fed, prefill_ms, step_ms = text_path(prompt_k, ASR_TIMED_STEPS)
+    dual_path(prompt_k, 1)
+    dual_k, fed_dual, prefill_both_ms, step_both_ms = dual_path(prompt_k, ASR_TIMED_STEPS)
+    before = (attn.flash_attention.launches, dec.decode_attention.launches)
+    with plain_kernels():
+        cont_p, codes_p, prompt_p = encode()
+        logits_p = text_path(prompt_p, 1, fed)[0]
+        dual_p = dual_path(prompt_p, 1, fed_dual)[0]
+    launched = (attn.flash_attention.launches, dec.decode_attention.launches) != before
+    ok = not launched
+    for what, got, plain in (("adaptor output", cont_k, cont_p),
+                             ("last prefill text logits", logits_k[0], logits_p[0]),
+                             ("first decode step text logits", dual_k[1][0], dual_p[1][0]),
+                             ("first decode step audio logits", dual_k[1][1], dual_p[1][1])):
+        err, finite = rel_l2(got, plain), bool(torch.isfinite(got).all())
+        good = finite and err <= KIMI_RTOL
+        ok &= good
+        print(f"  first utterance {what}: f32 kernel vs f32 plain rel_l2 {err:.3e} "
+              f"(<= {KIMI_RTOL:.0e}); finite={finite} {'ok' if good else 'FAIL'}")
+    greedy = [int(logits_p[0].argmax(-1)), int(logits_p[1].argmax(-1))]
+    same = greedy == [int(fed[0]), int(fed[1])]
+    n_codes = int((codes_k != codes_p).sum())
+    ok &= same
+    print(f"  first utterance (features T={feats.shape[2]}, {n_tok} audio tokens, prompt {Tp}): "
+          f"first greedy text tokens kernel {[int(t) for t in fed[:2]]}, plain {greedy}, equal: "
+          f"{same}; VQ codes (plain PyTorch on both paths) differing: {n_codes} of "
+          f"{codes_k.numel()}; the plain paths launched no kernel: {not launched}; encode "
+          f"{encode_ms:.1f} ms (tower {tower_ms:.1f}, speech tokenizer {tok_ms:.1f}, adaptor "
+          f"{adaptor_ms:.2f}); text: prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms/step; "
+          f"both: prefill {prefill_both_ms:.1f} ms, decode {step_both_ms:.3f} ms/step (greedy, "
+          f"{ASR_TIMED_STEPS} steps) {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("kimi asr: kernel path vs plain path")
+    S = -(-(Tp + ASR_NEW) // dec.DECODE_BLOCK) * dec.DECODE_BLOCK  # init_cache's capacity
+    del model, embed_w, blank_emb, logits_k, logits_p, dual_k, dual_p, prompt_k, prompt_p
+    del cont_k, cont_p
+    torch.cuda.empty_cache()
+    k1_rows, k4_rows = kimi_kernel_rows(attn, dec, dev, failures, card, Tp, S, L, L_mimo)
+    print(f"  phase 13: export {n_bytes} bytes in {write_s:.2f} s, load {load_s:.2f} s (host "
+          f"RSS peak {host.peak / 1e9:.2f} GB), host features {1e3 * feat_text:.1f} "
+          f"ms/utterance, encode {encode_ms:.1f} ms (tower {tower_ms:.1f}, tokenizer "
+          f"{tok_ms:.1f}, adaptor {adaptor_ms:.2f}), text prefill {prefill_ms:.1f} ms and decode "
+          f"{step_ms:.3f} ms/step, both prefill {prefill_both_ms:.1f} ms and decode "
+          f"{step_both_ms:.3f} ms/step, CLI {cli_s:.2f} s (text, {KIMI_UTTS} wavs) and "
+          f"{both_s:.2f} s (both, {KIMI_BOTH_UTTS} wavs), peak {peak:.2f} GiB, launches "
+          f"K1={counts['K1']} K4={counts['K4']}; {cer}  [{card}]")
     return counts, k1_rows, k4_rows
 
 
@@ -3081,8 +3552,8 @@ def tune(_build, dev, card) -> int:
 
 
 def run_audio_phases(dev, card, failures) -> tuple:
-    """Phases 10, 11 and 12, each in a temporary directory of its own: their
-    launch counts, and phase 12's kernel rows."""
+    """Phases 10, 11, 12 and 13, each in a temporary directory of its own:
+    their launch counts, and the kernel rows of phases 12 and 13."""
     with tempfile.TemporaryDirectory() as tmp:
         audio_counts = run_audio_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
@@ -3092,7 +3563,12 @@ def run_audio_phases(dev, card, failures) -> tuple:
     with tempfile.TemporaryDirectory() as tmp:
         qwen2_counts, k1_rows, k4_rows = run_qwen2_cli(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    return audio_counts, asr_counts, qwen2_counts, k1_rows, k4_rows
+    with tempfile.TemporaryDirectory() as tmp:
+        kimi_counts, k1_kimi, k4_kimi = run_kimi_cli(dev, card, failures, Path(tmp))
+    torch.cuda.empty_cache()
+    k1_rows.update(k1_kimi)
+    k4_rows.update(k4_kimi)
+    return audio_counts, asr_counts, qwen2_counts, kimi_counts, k1_rows, k4_rows
 
 
 def kernels_line(counts, k1, k2, k3, k4) -> dict:
@@ -3177,7 +3653,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         recipe_counts = run_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    audio_counts, asr_counts, qwen2_counts, k1_q2, k4_q2 = run_audio_phases(dev, card, failures)
+    audio_counts, asr_counts, qwen2_counts, kimi_counts, k1_q2, k4_q2 = run_audio_phases(
+        dev, card, failures)
     k1.update(k1_q2)
     k4.update(k4_q2)
     for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
@@ -3188,14 +3665,16 @@ def main() -> int:
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
             recipe_counts.get(name, 0) + audio_counts.get(name, 0)
     for name in ("K1", "K4"):
-        for path, got in (("ASR CLI", asr_counts), ("qwen2_audio ASR", qwen2_counts)):
+        for path, got in (("ASR CLI", asr_counts), ("qwen2_audio ASR", qwen2_counts),
+                          ("kimi_audio ASR", kimi_counts)):
             if not got.get(name):
                 failures.append(f"{name} never launched on the {path} path")
     if not recipe_counts.get("K4"):
         failures.append("K4 never launched on the recipe run's export path")
     counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0)
     for name in ("K1", "K4"):
-        counts[name] += asr_counts.get(name, 0) + qwen2_counts.get(name, 0)
+        counts[name] += (asr_counts.get(name, 0) + qwen2_counts.get(name, 0)
+                         + kimi_counts.get(name, 0))
     for name, n in counts.items():
         if n == 0:
             failures.append(f"{name} never launched on the main path")

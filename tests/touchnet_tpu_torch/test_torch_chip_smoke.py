@@ -5,6 +5,9 @@
 # the source edits of its --faults and --tune modes must still find their
 # text. Phase 12's helpers: the depth rule, the tokenizer it builds, the
 # long utterance, the ark files and the scoring; and the kernels line.
+# Phase 13's: the bound at a given peak (the f32 rows at the FP32 peak),
+# the stage-4 argv (run.sh's flag set exactly), the kimi cases (i)-(k) in
+# the kernels line.
 
 import copy
 import importlib.util
@@ -15,7 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-_PATH = os.path.join(os.path.dirname(__file__), "..", "..", "chip_smoke.py")
+ROOT = os.path.join(os.path.dirname(__file__), "..", "..")
+_PATH = os.path.join(ROOT, "chip_smoke.py")
 _spec = importlib.util.spec_from_file_location("chip_smoke", _PATH)
 chip_smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(chip_smoke)
@@ -93,6 +97,37 @@ def test_bound_names_its_limit():
     assert ops["bound_by"] == "operations" and abs(ops["bound_ms"] - 1e3) < 1e-9
     mem = chip_smoke.bound(1.0, 3.35e9)  # 1 ms of bytes
     assert mem["bound_by"] == "bytes" and abs(mem["bound_ms"] - 1.0) < 1e-9
+
+
+@pytest.mark.parametrize("peak,ms", [(None, 11.5e9 / 989e12 * 1e3), (66.9e12, 11.5e9 / 66.9e12 * 1e3)])
+def test_bound_at_a_given_peak(peak, ms):
+    """The f32 rows (i)-(k) are bounded at the FP32 peak, 66.9 TFLOP/s; the
+    rest at the bf16 989 TFLOP/s. (i)'s 11.5 GFLOP: 0.17 ms at FP32."""
+    args = () if peak is None else (peak,)
+    got = chip_smoke.bound(11.5e9, 1.0, *args)
+    assert got["bound_by"] == "operations" and abs(got["bound_ms"] - ms) < 1e-12
+    assert chip_smoke.PEAK_F32_FLOPS == 66.9e12
+    assert abs(chip_smoke.bound(11.5e9, 1.0, chip_smoke.PEAK_F32_FLOPS)["bound_ms"] - 0.1719) < 1e-4
+
+
+@pytest.mark.parametrize("model_type", ["touch_audio", "qwen2_audio", "kimi_audio"])
+def test_stage4_argv_is_the_recipes(model_type):
+    """stage4_argv is run.sh:172-181's flag set: f32 at batch 1 for Kimi,
+    bf16 at 16 otherwise (run.sh:156-160), touch_audio's instruct empty,
+    and neither --training_model_config_path nor --tokenizer_model."""
+    argv = chip_smoke.stage4_argv(model_type, "m", "d", "o")
+    flags = dict(zip(argv[::2], argv[1::2]))
+    assert len(flags) * 2 == len(argv)
+    kimi = model_type == "kimi_audio"
+    assert flags == {
+        "--model_path": "m", "--model_dtype": "float32" if kimi else "bfloat16",
+        "--instruct": "" if model_type == "touch_audio" else "Generate the transcription:",
+        "--data_list": "d", "--output_dir": "o", "--batch_size": "1" if kimi else "16",
+        "--inference_enable_liger_kernel": "true", "--num_workers": "16", "--prefetch": "8"}
+    run_sh = open(os.path.join(ROOT, "examples/audio/sft/asr/wenetspeech/run.sh")).read()
+    stage4 = run_sh[run_sh.index('python -m "touchnet_tpu.models.${model_type}'):]
+    stage4 = stage4[:stage4.index("\n\n")]
+    assert [ln.split()[0] for ln in stage4.splitlines()[1:]] == list(flags)
 
 
 def test_fault_and_tune_edits_match_the_kernel_sources():
@@ -273,3 +308,25 @@ def test_kernels_line_names_k1_to_k4():
             assert key in r, (r["name"], key)
     assert rows[0]["ms"] == 2.0 and set(rows[0]["cases"]) == set(k1)
     assert rows[4]["launches"] == 3584 and "(h) qwen2 decode" in rows[4]["cases"]
+
+
+def test_kernels_line_carries_the_kimi_cases():
+    """Phase 13's f32 rows (i)-(k) land under K1's and K4's cases; the main
+    rows stay (d) and (a)."""
+    def case(ms, bound):
+        return {"max_abs_err": 1e-6, "ms": ms, "plain_ms": 2 * ms, "library_ms": ms / 2,
+                "bound_ms": bound, "bound_by": "operations", "tflops": 1.0}
+
+    k1 = {"(d) main": case(2.0, 0.2), "(i) kimi_audio tower": case(1.0, 0.172),
+          "(j) kimi_audio prefill": case(0.5, 0.02)}
+    k4 = {"(a) decode": case(0.2, 0.1), "(k) kimi_audio decode main": case(0.03, 0.001),
+          "(k) kimi_audio decode mimo": case(0.03, 0.001)}
+    k3 = {"(d) main": {"fwd": case(13.0, 8.7), "bwd": case(44.0, 26.1)}}
+    counts = {"K1": 600, "K2": 16, "K3 fwd": 1, "K3 bwd": 1, "K4": 20000}
+    rows = chip_smoke.kernels_line(counts, k1, {"(d) main": case(6.8, 0.5)}, k3, k4)["kernels"]
+    assert [n for n in rows[0]["cases"] if n.startswith(("(i)", "(j)"))] == \
+        ["(i) kimi_audio tower", "(j) kimi_audio prefill"]
+    assert sum(n.startswith("(k)") for n in rows[4]["cases"]) == 2
+    assert rows[0]["ms"] == 2.0 and rows[4]["ms"] == 0.2
+    assert all(c["library_ms"] is not None for n, c in rows[4]["cases"].items()
+               if n.startswith("(k)"))

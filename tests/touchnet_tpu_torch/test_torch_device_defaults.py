@@ -1,8 +1,8 @@
 # The port's entry points run on the card unless the caller names another
 # device: with no card, Trainer and bin.train.main raise instead of training
-# on the CPU, and so does the touch_audio ASR CLI; empty_model (Llama and
-# touch_audio) and init_cache default to "cuda"; init_params follows its
-# generator's device.
+# on the CPU, and so do the touch_audio and kimi_audio ASR CLIs; empty_model
+# (Llama, touch_audio, kimi_audio), init_cache and init_dual_cache default
+# to "cuda"; init_params follows its generator's device.
 
 import inspect
 import os
@@ -11,6 +11,9 @@ import pytest
 import torch
 
 from touchnet_tpu_torch.bin import train as ttrain
+from touchnet_tpu_torch.models.kimi_audio import generate_kimi_audio as kimi_gen
+from touchnet_tpu_torch.models.kimi_audio import inference_kimi_audio as kimi_cli
+from touchnet_tpu_torch.models.kimi_audio import modeling_kimi_audio as kimi_model
 from touchnet_tpu_torch.models.llama import inference_llama as inf
 from touchnet_tpu_torch.models.llama import modeling_llama as tmodel
 from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
@@ -58,7 +61,8 @@ def test_init_params_follows_its_generator():
     assert inspect.signature(tmodel.init_params).parameters["device"].default is None
 
 
-@pytest.mark.parametrize("fn", [tmodel.empty_model, inf.init_cache, ta_model.empty_model])
+@pytest.mark.parametrize("fn", [tmodel.empty_model, inf.init_cache, ta_model.empty_model,
+                                kimi_model.empty_model, kimi_gen.init_dual_cache])
 def test_model_and_cache_default_to_the_card(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -86,3 +90,18 @@ def test_touch_audio_entry_points_take_the_card(tmp_path, monkeypatch):
                                 "--datapipe_type", "touch_audio"]
     with pytest.raises(RuntimeError, match="no CUDA card"):
         ttrain.main(flags)
+
+
+def test_kimi_audio_cli_takes_the_card(tmp_path, monkeypatch):
+    """The Kimi-Audio ASR CLI raises without a card, before it reads the
+    export; its init follows its generator."""
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from test_torch_kimi_audio import TINY
+
+    model = kimi_model.init_params(KimiAudioConfig.from_dict(TINY),
+                                   torch.Generator(device="cpu").manual_seed(0))
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    assert inspect.signature(kimi_model.init_params).parameters["device"].default is None
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        kimi_cli.main(["--model_path", str(tmp_path / "missing")])

@@ -71,6 +71,13 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.models.touch_audio.convert",
         "touchnet_tpu_torch.models.touch_audio.processing_touch_audio",
         "touchnet_tpu_torch.models.touch_audio.inference_touch_audio",
+        "touchnet_tpu_torch.models.kimi_audio",
+        "touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio",
+        "touchnet_tpu_torch.models.kimi_audio.modeling_kimi_audio",
+        "touchnet_tpu_torch.models.kimi_audio.convert",
+        "touchnet_tpu_torch.models.kimi_audio.processing_kimi_audio",
+        "touchnet_tpu_torch.models.kimi_audio.generate_kimi_audio",
+        "touchnet_tpu_torch.models.kimi_audio.inference_kimi_audio",
     ):
         assert want in names
 

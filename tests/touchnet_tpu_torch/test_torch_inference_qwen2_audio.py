@@ -14,11 +14,18 @@
 #   - the setup check: a tokenizer whose <|AUDIO|> is another id, or not a
 #     token at all, raises before any weight is read; a prompt with fewer
 #     audio ids than frames raises;
-#   - without a card main raises, and output_type "both" raises, as in JAX.
+#   - without a card main raises, and output_type "both" raises, as in JAX;
+#   - stage 4 of the SFT recipe as run.sh writes it (chip_smoke.stage4_argv:
+#     bf16, batch 16, no config and no tokenizer flag) on an export holding
+#     config.json and the tokenizer: a hyp for every key; without the
+#     config, or the tokenizer, the ValueError names the flag, and a
+#     config.json of another model_type raises
+#     (test_torch_inference_kimi_audio.run_stage4).
 
 import importlib.util
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -35,6 +42,7 @@ from touchnet_tpu_torch.tokenizer import TokenizerConfig
 from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
 from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
 from test_torch_audio_frontend import synth_wave, write_audio_jsonl
+from test_torch_inference_kimi_audio import STAGE4_FAULTS, run_stage4
 from test_torch_qwen2_audio import TINY
 
 _spec = importlib.util.spec_from_file_location(
@@ -151,3 +159,16 @@ def test_main_needs_a_card(tiny, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         cli.main(_argv(tiny, tmp_path))
+
+
+@pytest.mark.parametrize("fault", STAGE4_FAULTS)
+def test_stage4_flags(tiny, tmp_path, fault, monkeypatch):
+    export = tmp_path / "export"
+    shutil.copytree(tiny["hf"], export)
+    for name in ("tokenizer.json", "tokenizer_config.json"):
+        shutil.copy(os.path.join(tiny["tok"], name), export / name)
+    rows = run_stage4(cli, "qwen2_audio", export, tiny["jsonl"], tmp_path, fault, monkeypatch)
+    if rows is not None:
+        keys = [json.loads(ln)["key"] for ln in open(tiny["jsonl"])]
+        assert [r["key"] for r in rows] == keys
+        assert all(isinstance(r["hyp"], str) for r in rows) and any(r["hyp"] for r in rows)

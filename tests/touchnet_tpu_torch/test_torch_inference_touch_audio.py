@@ -13,11 +13,19 @@
 #     tokens of that comparison; without a card it raises; features of
 #     another width raise at setup;
 #   - batched, pad_right, prefetch_map, part_file and write_results equal
-#     JAX's.
+#     JAX's;
+#   - stage 4 of the SFT recipe as run.sh writes it (chip_smoke.stage4_argv:
+#     bf16, batch 16, an empty instruct, no config, tokenizer or feature
+#     flag) on an export holding config.json and an HF tokenizer (a
+#     `tokenizers` char-level model with eos/pad and bos): a hyp for every
+#     key; without the config, or the tokenizer, the ValueError names the
+#     flag, and a config.json of another model_type raises
+#     (test_torch_inference_kimi_audio.run_stage4).
 
 import copy
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -43,6 +51,7 @@ from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
 from touchnet_tpu_torch.utils import inference as utils
 from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
 from test_torch_audio_frontend import jax_native, jax_native_dir, write_audio_jsonl  # noqa: F401
+from test_torch_inference_kimi_audio import STAGE4_FAULTS, chip_smoke, run_stage4
 
 CFG = os.path.join(os.path.dirname(__file__), "..", "assets", "config", "tiny_touch_audio.json")
 NEW = 12
@@ -164,3 +173,18 @@ def test_inference_utils_match_jax(tmp_path):
     assert utils.torch_dtype("bfloat16") is torch.bfloat16
     with pytest.raises(ValueError, match="float16"):
         utils.torch_dtype("float16")
+
+
+@pytest.mark.parametrize("fault", STAGE4_FAULTS)
+def test_stage4_flags(tiny, tmp_path, fault, monkeypatch):
+    export = tmp_path / "export"
+    shutil.copytree(tiny["hf"], export)
+    chip_smoke.write_char_tokenizer(export, 64, {"<|endoftext|>": 61, "<s>": 62},
+                                    "<|endoftext|>")
+    tok_cfg = json.loads((export / "tokenizer_config.json").read_text())
+    (export / "tokenizer_config.json").write_text(json.dumps({**tok_cfg, "bos_token": "<s>"}))
+    rows = run_stage4(cli, "touch_audio", export, tiny["jsonl"], tmp_path, fault, monkeypatch)
+    if rows is not None:
+        keys = [json.loads(ln)["key"] for ln in open(tiny["jsonl"])]
+        assert [r["key"] for r in rows] == keys
+        assert all(isinstance(r["hyp"], str) for r in rows) and any(r["hyp"] for r in rows)

@@ -117,6 +117,11 @@ ATTENTION_CASES = [
     (1, 1750, 1750, 20, 20, 64, True, None, 0, 0),
     (3, 401, 401, 28, 4, 128, True, None, 0, 0),
     (2, 300, 300, 7, 1, 128, True, "packed", 0, 0),
+    # the kimi_audio ASR path (f32 in the recipe): (i) the whisper tower,
+    # non-causal, 1500 frames at D64 G1; (j) Kimi-Audio-7B's prefill of one
+    # utterance, B1 G7 D128 causal
+    (1, 1500, 1500, 20, 20, 64, False, None, 0, 0),
+    (1, 390, 390, 28, 4, 128, True, None, 0, 0),
 ]
 
 
@@ -192,19 +197,24 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("D", [64, 128])
-@pytest.mark.parametrize("Hkv,G", [(1, 4), (3, 2), (5, 1), (7, 2), (8, 4), (2, 16), (4, 7)])
-def test_decode_kernel(dev, dtype, D, Hkv, G):
+# L cache rows, the layer read: (k) is Kimi-Audio-7B's decode, G 7 over the
+# packed cache of both stacks (28 main rows, then 6 mimo rows), on a main
+# row and on the last mimo row
+@pytest.mark.parametrize("Hkv,G,L,layer", [(1, 4, 3, 1), (3, 2, 3, 1), (5, 1, 3, 1),
+                                           (7, 2, 3, 1), (8, 4, 3, 1), (2, 16, 3, 1),
+                                           (4, 7, 3, 1), (4, 7, 34, 0), (4, 7, 34, 33)])
+def test_decode_kernel(dev, dtype, D, Hkv, G, L, layer):
     rng = np.random.default_rng(Hkv * 10 + G)
-    L, B, S = 3, 4, 1536
+    B, S = 4, 1536
     q = _randn(rng, (B, Hkv * G, D), dtype, dev)
     kv = _randn(rng, (L, B, Hkv, S, 2 * D), dtype, dev)
     plen = torch.tensor([1000, 300, 1, 1024], dtype=torch.int32, device=dev)
     base, last = 1024, 1100
     n0 = decode_attention.launches
-    got = decode_attention(q, kv, plen, base, last, layer_idx=1)
+    got = decode_attention(q, kv, plen, base, last, layer_idx=layer)
     torch.cuda.synchronize()
     assert decode_attention.launches == n0 + 1
-    want = decode_attention_reference(q.float(), kv.float(), plen, base, last, layer_idx=1)
+    want = decode_attention_reference(q.float(), kv.float(), plen, base, last, layer_idx=layer)
     _check(got, want, dtype)
 
 

@@ -11,7 +11,13 @@
 #   - the step watchdog: a dump of the threads' stacks when a step hangs,
 #     and with --training_abort_on_timeout the process ends with code 124;
 #   - --training_gc_freq: automatic GC off during training, a generation-1
-#     collection every gc_freq steps, the collector restored by close().
+#     collection every gc_freq steps, the collector restored by close();
+#   - the flags the trainer accepts and never reads (bin/train.py
+#     UNREAD_FLAGS): each set away from its default writes one warning
+#     naming it to the run's log, none at the defaults, and the layout
+#     flags of a parallel degree stay silent at degree 1 (inert in the JAX
+#     trainer on one device too); the losses equal the default run's bit
+#     for bit in every case.
 
 import gc
 import os
@@ -206,3 +212,46 @@ def test_gc_freq(tmp_path, monkeypatch):
     assert collected == [1, 1, 1]  # at init, then before steps 3 and 5
     trainer.close()
     assert gc.isenabled()
+
+
+UNREAD_CASES = {
+    "defaults": ({}, ()),
+    "compile": ({"training_compile": "true"}, ("training_compile",)),
+    "compiled_autograd": ({"training_enable_compiled_autograd": "true"},
+                          ("training_enable_compiled_autograd",)),
+    "trace_buf_size": ({"training_trace_buf_size": 100}, ("training_trace_buf_size",)),
+    "all three": ({"training_compile": "true", "training_enable_compiled_autograd": "true",
+                   "training_trace_buf_size": 100}, tuple(ttrain.UNREAD_FLAGS)),
+    "layout flags at degree 1": ({
+        "training_context_parallel_rotate_method": "alltoall",
+        "training_fsdp_reshard_after_forward": "always",
+        "training_pipeline_parallel_schedule": "GPipe",
+        "training_pipeline_parallel_microbatches": 4,
+        "training_pipeline_parallel_split_points": "layers.1",
+        "training_enable_loss_parallel": "true",
+        "training_enable_async_tensor_parallel": "true"}, ()),
+}
+
+
+@pytest.fixture(scope="module")
+def default_losses(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("unread")
+    listfile = build_corpus(tmp)
+    trainer = ttrain.main(_flags(tmp, listfile, 2), device=torch.device("cpu"))
+    return listfile, [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+
+
+@pytest.mark.parametrize("case", list(UNREAD_CASES))
+def test_unread_flags_warn_once_and_change_nothing(tmp_path, default_losses, case):
+    listfile, want = default_losses
+    flags, warned = UNREAD_CASES[case]
+    trainer = ttrain.main(_flags(tmp_path, listfile, 2, **flags), device=torch.device("cpu"))
+    losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+    assert losses == want and len(losses) == 2
+    log = (tmp_path / "exp" / "touchnet_train.log").read_text().splitlines()
+    for name in ttrain.UNREAD_FLAGS:
+        lines = [ln for ln in log if " WARNING " in ln and f"{name}=" in ln]
+        assert len(lines) == (name in warned), (name, lines)
+        if lines:
+            assert ttrain.UNREAD_FLAGS[name] in lines[0] and "changes nothing" in lines[0]
+    assert not [ln for ln in log if " WARNING " in ln and "parallel" in ln]

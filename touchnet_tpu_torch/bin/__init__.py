@@ -4,7 +4,10 @@
 # so the JAX recipes' flags parse as they are. Which flags the port's
 # trainer runs, and which raise as later slices, is bin/train.py's
 # check_supported. One JAX field that nothing here would read is left out,
-# so passing it is a parse error: CkptConverterConfig's tmp_dir.
+# so passing it is a parse error: CkptConverterConfig's tmp_dir. One default
+# differs: training_compile is false, since the port's step runs eagerly;
+# the trainer warns once for each flag it accepts and never reads
+# (bin/train.py warn_unread), and true is one of those.
 #
 # Entry-point configurations.
 #
@@ -59,7 +62,9 @@ class TrainConfig:
     training_tb_rank_0_only: bool = field(default=True)
     training_trace_buf_size: int = field(
         default=20000,
-        metadata={"help": "TPU: XLA debug dump cap (reference: NCCL flight-recorder buffer)"},
+        metadata={"help": "JAX: XLA debug dump cap (reference: NCCL flight-recorder "
+                          "buffer); the port writes no such trace, and another value logs a "
+                          "warning"},
     )
     training_trace_dump_folder: str = field(default="./exp")
     training_init_timeout_seconds: int = field(default=300)
@@ -78,9 +83,14 @@ class TrainConfig:
         default="float32", metadata={"help": "gradient reduction dtype"}
     )
     training_compile: bool = field(
-        default=True, metadata={"help": "TPU: everything runs under jax.jit; kept for parity"}
+        default=False,
+        metadata={"help": "the port's step runs eagerly: true (the recipes' value; the JAX "
+                          "trainer's default, whose step is always jitted) logs a warning "
+                          "and changes nothing"},
     )
-    training_enable_compiled_autograd: bool = field(default=False)
+    training_enable_compiled_autograd: bool = field(
+        default=False, metadata={"help": "not read: true logs a warning (the step runs "
+                                         "eagerly)"})
     training_enable_liger_kernel: bool = field(
         default=False,
         metadata={"help": "TPU: fused chunked linear+cross-entropy — the "

@@ -120,6 +120,30 @@ def check_supported(job_config: TrainConfig) -> None:
                          f"the kernels take bfloat16 or float32; float16 {later}")
 
 
+# flags the trainer accepts and never reads: set away from their default
+# (what the port does), each logs one warning saying so. The layout flags
+# of a parallel degree (rotate method, reshard, pipeline schedule and
+# microbatches, loss parallel, async TP) are inert at degree 1 here as in
+# the JAX trainer on one device, and stay silent.
+UNREAD_FLAGS = {
+    "training_compile": "the port's step runs eagerly (no torch.compile)",
+    "training_enable_compiled_autograd": "the port's step runs eagerly (no compiled autograd)",
+    "training_trace_buf_size": "the port writes no XLA comm trace (the JAX trainer's dump "
+                               "under <training_trace_dump_folder>/comm_trace)",
+}
+
+
+def warn_unread(job_config: TrainConfig) -> list:
+    """Log one warning for each UNREAD_FLAGS flag set away from its default;
+    returns their names. Results do not change."""
+    fields = type(job_config).__dataclass_fields__
+    names = [n for n in UNREAD_FLAGS if getattr(job_config, n) != fields[n].default]
+    for name in names:
+        logger.warning(f"{name}={getattr(job_config, name)}: {UNREAD_FLAGS[name]}; the flag "
+                       "changes nothing")
+    return names
+
+
 class GlobalBatchLoader:
     """The global batch from the data-parallel loader streams; the port runs
     one device, so there is one stream (dp rank 0 of 1)."""
@@ -314,6 +338,7 @@ class Trainer:
         job_config.validate()
         check_supported(job_config)
         init_logger(os.path.join(job_config.training_trace_dump_folder, "touchnet_train.log"))
+        warn_unread(job_config)
         self.gc_handler = GarbageCollection(job_config.training_gc_freq)
         if device is None:
             if not torch.cuda.is_available():

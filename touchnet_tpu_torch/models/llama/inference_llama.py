@@ -94,43 +94,30 @@ def _cached_attention(q, kv_cache, valid_len, scale, attn_mask=None):
     return out.reshape(B, Tq, H, D).to(q.dtype)
 
 
-@torch.no_grad()
-def forward_step(
-    model,  # LlamaForCausalLM
-    inputs_embeds: torch.Tensor,  # [B, Tq, E] (prefill chunk or 1-token step)
+def cached_attention(
     cache: KVCache,
-    start_pos: torch.Tensor,  # [B] absolute position of inputs_embeds[:, 0]
+    start_pos: torch.Tensor,  # [B] absolute position of the step's first row
+    Tq: int,
     config: LlamaConfig,
-    compute_dtype=torch.bfloat16,
     *,
-    write_pos: Optional[int] = None,  # uniform cache slot of inputs_embeds[:, 0]
-    attn_mask: Optional[torch.Tensor] = None,  # [B, S] cache-slot validity
-    flash_prefill: bool = False,  # Tq>1 chunk at start_pos 0: flash kernel
-    prefill_ctx: Optional[int] = None,  # chunked prefill: the chunk's offset
-    logits_indices: Optional[torch.Tensor] = None,  # [B] project ONLY these
-    decode_valid=None,  # (prompt_len [B], base, last): ragged decode mask
-    inv_freq: Optional[torch.Tensor] = None,  # rope_inv_freq(config, device)
-) -> tuple:
-    """Returns (logits [B, Tq, V] f32, cache); the cache is updated in place.
-
-    start_pos drives rope and the default causal validity. write_pos, when
-    given, is the slot every row's kv is stored at; without it each row
-    writes at its own start_pos (clamped so the chunk fits, as
-    lax.dynamic_update_slice does). logits_indices projects one position
-    per row ([B, 1, V]): a long prefill's other rows are never projected.
-    inv_freq: the rope frequencies, which a loop of steps computes once;
-    None computes them here."""
-    B, Tq, _ = inputs_embeds.shape
-    device = inputs_embeds.device
-    Dh = config.head_dim
+    write_pos: Optional[int] = None,
+    attn_mask: Optional[torch.Tensor] = None,
+    flash_prefill: bool = False,
+    prefill_ctx: Optional[int] = None,
+    decode_valid=None,
+) -> Callable[[int], Callable]:
+    """attend_in(li): the attention step ``attend(q, k, v)`` of the layer
+    whose kv lives in cache row li, for one forward step of Tq rows: it
+    writes the step's k/v into that row in place and attends through the
+    dispatch above. The arguments are forward_step's; every layer of a step
+    shares what they determine (the chunk's segment ids, the rows' slots),
+    whichever stack the layer belongs to (Kimi-Audio's mimo layers run on
+    rows L and up of the same cache)."""
     kv_all = cache.kv
-    S = kv_all.shape[3]
-    h = inputs_embeds.to(compute_dtype)
-    position_ids = start_pos[:, None] + torch.arange(Tq, device=device)[None, :]
+    B, S = kv_all.shape[1], kv_all.shape[3]
+    device = kv_all.device
+    scale = 1.0 / math.sqrt(config.head_dim)
     valid_len = start_pos + Tq
-    scale = 1.0 / math.sqrt(Dh)
-    if inv_freq is None:
-        inv_freq = rope_inv_freq(config, device)
     if decode_valid is not None and Tq != 1:
         raise ValueError(f"decode_valid is a one-token decode mask; got Tq={Tq}")
     if prefill_ctx is not None and Tq > 1:
@@ -167,13 +154,59 @@ def forward_step(
 
         return attend
 
+    return attend_in
+
+
+def project_rows(h: torch.Tensor, norm, weight: torch.Tensor,
+                 logits_indices: Optional[torch.Tensor], compute_dtype) -> torch.Tensor:
+    """The final norm, then the head ``weight`` over every row of h [B, Tq,
+    E], or over row logits_indices[b] of each (-> [B, 1, V]). f32 logits."""
+    h = norm(h)
+    if logits_indices is not None:
+        h = h[torch.arange(h.shape[0], device=h.device), logits_indices][:, None]
+    return linear(h, weight.to(compute_dtype)).float()
+
+
+@torch.no_grad()
+def forward_step(
+    model,  # LlamaForCausalLM
+    inputs_embeds: torch.Tensor,  # [B, Tq, E] (prefill chunk or 1-token step)
+    cache: KVCache,
+    start_pos: torch.Tensor,  # [B] absolute position of inputs_embeds[:, 0]
+    config: LlamaConfig,
+    compute_dtype=torch.bfloat16,
+    *,
+    write_pos: Optional[int] = None,  # uniform cache slot of inputs_embeds[:, 0]
+    attn_mask: Optional[torch.Tensor] = None,  # [B, S] cache-slot validity
+    flash_prefill: bool = False,  # Tq>1 chunk at start_pos 0: flash kernel
+    prefill_ctx: Optional[int] = None,  # chunked prefill: the chunk's offset
+    logits_indices: Optional[torch.Tensor] = None,  # [B] project ONLY these
+    decode_valid=None,  # (prompt_len [B], base, last): ragged decode mask
+    inv_freq: Optional[torch.Tensor] = None,  # rope_inv_freq(config, device)
+) -> tuple:
+    """Returns (logits [B, Tq, V] f32, cache); the cache is updated in place.
+
+    start_pos drives rope and the default causal validity. write_pos, when
+    given, is the slot every row's kv is stored at; without it each row
+    writes at its own start_pos (clamped so the chunk fits, as
+    lax.dynamic_update_slice does). logits_indices projects one position
+    per row ([B, 1, V]): a long prefill's other rows are never projected.
+    inv_freq: the rope frequencies, which a loop of steps computes once;
+    None computes them here."""
+    Tq = inputs_embeds.shape[1]
+    device = inputs_embeds.device
+    h = inputs_embeds.to(compute_dtype)
+    position_ids = start_pos[:, None] + torch.arange(Tq, device=device)[None, :]
+    if inv_freq is None:
+        inv_freq = rope_inv_freq(config, device)
+    attend_in = cached_attention(
+        cache, start_pos, Tq, config, write_pos=write_pos, attn_mask=attn_mask,
+        flash_prefill=flash_prefill, prefill_ctx=prefill_ctx, decode_valid=decode_valid)
     for li, layer in enumerate(model.model.layers):
         h = layer(h, position_ids, inv_freq, attend_in(li))
-    h = model.model.norm(h)
-    if logits_indices is not None:
-        h = h[torch.arange(B, device=device), logits_indices][:, None]
-    logits = linear(h, head_weight(model, config).to(compute_dtype))
-    return logits.float(), cache
+    logits = project_rows(h, model.model.norm, head_weight(model, config), logits_indices,
+                          compute_dtype)
+    return logits, cache
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,16 @@
 # Batch ASR inference for Qwen2AudioForConditionalGeneration, on the card.
 #
 #     python -m touchnet_tpu_torch.models.qwen2_audio.inference_qwen2_audio \
-#         --model_path <HF dir> --training_model_config_path <cfg> \
-#         --data_list <jsonl of {key, wav, txt}> --output_dir <dir> \
-#         --batch_size 16 --max_length 64 --model_dtype bfloat16 \
+#         --model_path <HF dir> --model_dtype bfloat16 \
 #         --instruct "Generate the transcription:" \
-#         --tokenizer_type HuggingFaceTokenizer --tokenizer_model <dir>
+#         --data_list <jsonl of {key, wav, txt}> --output_dir <dir> \
+#         --batch_size 16 --inference_enable_liger_kernel true \
+#         --num_workers 16 --prefetch 8 \
+#         [--training_model_config_path <cfg>] [--tokenizer_model <dir>]
+#
+# (stage 4 of examples/audio/sft/asr/wenetspeech/run.sh, :172-181: without
+# the two bracketed flags the config and the tokenizer are the export's,
+# utils/inference.resolve_model_files)
 #
 # Port of touchnet_tpu/models/qwen2_audio/inference_qwen2_audio.py (main,
 # :41-124). On prefetch threads each wav becomes whisper features (padded to
@@ -57,6 +62,7 @@ from touchnet_tpu_torch.utils.inference import (
     pad_right,
     part_file,
     prefetch_map,
+    resolve_model_files,
     torch_dtype,
     write_results,
 )
@@ -116,7 +122,8 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
             raise RuntimeError("inference_qwen2_audio: no CUDA card "
                                "(torch.cuda.is_available() is False)")
         device = torch.device("cuda")
-    model_config = Qwen2AudioConfig.from_json_file(config.training_model_config_path)
+    model_config, tok_config = resolve_model_files(config, tok_config, Qwen2AudioConfig,
+                                                   "qwen2_audio")
     tokenizer = build_tokenizer(tok_config)
     check_audio_token(tokenizer, model_config.audio_token_index)
     dtype = torch_dtype(config.model_dtype)

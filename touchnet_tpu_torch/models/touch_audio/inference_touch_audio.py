@@ -2,9 +2,14 @@
 # Batch ASR inference for TouchAudioForCausalLM, on the card.
 #
 #     python -m touchnet_tpu_torch.models.touch_audio.inference_touch_audio \
-#         --model_path <HF dir> --training_model_config_path <cfg> \
-#         --data_list <jsonl of {key, wav, txt}> --output_dir <dir> \
-#         --batch_size 16 --max_length 64 <tokenizer and frontend flags>
+#         --model_path <HF dir> --data_list <jsonl of {key, wav, txt}> \
+#         --output_dir <dir> --batch_size 16 --max_length 64 \
+#         [--training_model_config_path <cfg>] [<tokenizer and frontend flags>]
+#
+# (without --training_model_config_path, and for an HF tokenizer without
+# --tokenizer_model, the config and the tokenizer are the export's, as
+# stage 4 of examples/audio/sft/asr/wenetspeech/run.sh needs:
+# utils/inference.resolve_model_files)
 #
 # Port of touchnet_tpu/models/touch_audio/inference_touch_audio.py:
 # compute_features (:28-38), load_params (:41-46) and main (:49-135). A
@@ -43,6 +48,7 @@ from touchnet_tpu_torch.utils.inference import (
     pad_right,
     part_file,
     prefetch_map,
+    resolve_model_files,
     torch_dtype,
     write_results,
 )
@@ -114,7 +120,8 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
             raise RuntimeError("inference_touch_audio: no CUDA card "
                                "(torch.cuda.is_available() is False)")
         device = torch.device("cuda")
-    model_config = TouchAudioConfig.from_json_file(config.training_model_config_path)
+    model_config, tok_config = resolve_model_files(config, tok_config, TouchAudioConfig,
+                                                   "touch_audio")
     check_feature_width(model_config, data_config)
     tokenizer = build_tokenizer(tok_config)
     dtype = torch_dtype(config.model_dtype)

@@ -29,6 +29,7 @@
 
 import math
 from dataclasses import dataclass
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -110,9 +111,12 @@ class WhisperEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, config.encoder_ffn_dim, bias=True)
         self.fc2 = nn.Linear(config.encoder_ffn_dim, d, bias=True)
 
-    def forward(self, h: torch.Tensor, causal: bool) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, attend: Callable) -> torch.Tensor:
         """Pre-LN block (the JAX forward's layer, :157-196); the projections
-        carry the JAX tower's residual names, as the Llama's do."""
+        carry the JAX tower's residual names, as the Llama's do. ``attend(q,
+        k, v) -> [B, T, H, hd]`` is the attention (the tower's is
+        flash_attention, see forward; Kimi-Audio's speech tokenizer runs the
+        same block with its block-causal attention)."""
         B, T, D = h.shape
         hd = D // self.heads
         sa = self.self_attn
@@ -120,7 +124,7 @@ class WhisperEncoderLayer(nn.Module):
         q = _proj(sa.q_proj, normed, "dot_q").view(B, T, self.heads, hd)
         k = _proj(sa.k_proj, normed, "dot_k").view(B, T, self.heads, hd)
         v = _proj(sa.v_proj, normed, "dot_v").view(B, T, self.heads, hd)
-        attn = attn_ops.flash_attention(q, k, v, None, causal, 1.0 / math.sqrt(hd))[0]
+        attn = attend(q, k, v)
         h = h + _proj(sa.out_proj, attn.reshape(B, T, D), "dot_o")
         mid = F.gelu(_proj(self.fc1, self.final_layer_norm(h), "dot_gate"))  # exact erf GELU
         return h + _proj(self.fc2, mid, "dot_down")
@@ -187,8 +191,13 @@ def forward(model: WhisperEncoder, input_features: torch.Tensor, config: Whisper
     reps = -(-T // table.shape[0])
     # past max_source_positions the table repeats (the JAX jnp.tile)
     h = h + table.repeat(reps, 1)[:T].to(compute_dtype)[None]
+    scale = 1.0 / math.sqrt(config.d_model // config.encoder_attention_heads)
+
+    def attend(q, k, v):
+        return attn_ops.flash_attention(q, k, v, None, causal, scale)[0]
+
     for layer in model.layers:
-        h = layer(h, causal)
+        h = layer(h, attend)
     if apply_final_layer_norm:
         h = model.layer_norm(h)
     return h

@@ -4,6 +4,10 @@
 # with the same fields and defaults, AudioJsonlDataset, batched,
 # prefetch_map, pad_right, part_file and write_results. jnp_dtype becomes
 # torch_dtype, which refuses float16 (the kernels take bf16 and f32).
+# The port's own: resolve_model_files, which lets the ASR CLIs run stage 4
+# of the SFT recipe as run.sh writes it (no config and no tokenizer flag:
+# both are read from the export), and load_state_streamed, the strict
+# state_dict load that casts on the model's device.
 #
 # Batch-inference utilities + InferenceConfig.
 #
@@ -12,6 +16,7 @@
 # left/right padded batching, per-rank part files). Padding is right-side
 # (generate masks by true length, so left padding is unnecessary).
 
+import dataclasses
 import json
 import os
 from concurrent.futures import ThreadPoolExecutor
@@ -166,3 +171,70 @@ def write_results(path: str, results: List[dict]):
     with open(path, "w", encoding="utf8") as f:
         for r in results:
             f.write(json.dumps(r, ensure_ascii=False) + "\n")
+
+
+HF_TOKENIZER_FILES = ("tokenizer_config.json", "tokenizer.json")
+
+
+def resolve_model_files(config: InferenceConfig, tok_config, config_cls, model_type: str):
+    """(model config, tokenizer config) of an ASR CLI. Stage 4 of the SFT
+    recipe (examples/audio/sft/asr/wenetspeech/run.sh:172-181) passes
+    neither --training_model_config_path nor --tokenizer_model: unset, they
+    are the export's <model_path>/config.json (read with ``config_cls``) and
+    the tokenizer saved beside it (stage 3's --tokenizer_model). A missing
+    file raises a ValueError naming the flag that would have given it.
+    config_cls.from_dict drops unknown keys and fills defaults, so a file of
+    another form would load as a default config without a word: the
+    export's config.json must name ``model_type``, and a file named by the
+    flag may omit it (the JAX package's config files name it) but not name
+    another."""
+    if config.model_path is None:
+        raise ValueError("--model_path is required: the HF directory of the export")
+    path = config.training_model_config_path
+    implicit = path is None
+    if implicit:
+        path = os.path.join(config.model_path, "config.json")
+        if not os.path.isfile(path):
+            raise ValueError(f"--training_model_config_path is unset and {path} does not "
+                             "exist: pass the model config")
+    with open(path) as f:
+        raw = json.load(f)
+    found = raw.get("model_type")
+    if found != model_type and (implicit or found is not None):
+        raise ValueError(f"{path}: model_type {found!r}, this CLI serves {model_type!r} (a "
+                         f"config of another model would load as a default one); pass "
+                         f"--training_model_config_path")
+    model_config = config_cls.from_dict(raw)
+    if tok_config.tokenizer_type == "HuggingFaceTokenizer" and tok_config.tokenizer_model is None:
+        if not any(os.path.isfile(os.path.join(config.model_path, n))
+                   for n in HF_TOKENIZER_FILES):
+            raise ValueError(f"--tokenizer_model is unset and {config.model_path} holds no "
+                             f"tokenizer ({' or '.join(HF_TOKENIZER_FILES)}): pass "
+                             "--tokenizer_model, or export with convert_ckpt_to_hf "
+                             "--tokenizer_model")
+        tok_config = dataclasses.replace(tok_config, tokenizer_model=config.model_path)
+    return model_config, tok_config
+
+
+def load_state_streamed(model, state: dict) -> None:
+    """model.load_state_dict(state, strict=True) for a model whose storage
+    is already on its device, one tensor at a time: each is moved there in
+    its stored dtype, then cast there (a cross-device copy that also casts
+    converts on the host first, which for an f32 model of a bf16 file is an
+    f32 copy of each tensor in host memory). Raises, before any copy, on a
+    missing or unexpected key or a shape that differs."""
+    import torch
+
+    params = model.state_dict()
+    missing = sorted(set(params) - set(state))
+    unexpected = sorted(set(state) - set(params))
+    if missing or unexpected:
+        raise KeyError(f"state dict: missing {missing[:4]}, unexpected {unexpected[:4]}")
+    for name, t in state.items():
+        if tuple(t.shape) != tuple(params[name].shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, the model has "
+                             f"{tuple(params[name].shape)}")
+    with torch.no_grad():
+        for name, t in state.items():
+            dst = params[name]
+            dst.copy_(t.to(dst.device))
