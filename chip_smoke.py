@@ -47,20 +47,20 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) under the recipe's
      remat op_small on TouchDataset shards this script writes (seeded,
-     learnable documents); then the remat sweep: the same 10 steps under
-     none, op_small and full, each with its step time, tokens/s, MFU, peak
-     memory and K1 launches per step, and op_small once more under
-     --training_deterministic true (no op may raise); then the trainer's
+     learnable documents); then the remat sweep: 5 of the same steps
+     (SWEEP_STEPS) under none, op_small and full, each with its step time,
+     tokens/s, MFU, peak memory and K1 launches per step, and op_small once
+     more under --training_deterministic true (no op may raise); then the trainer's
      single-device modes, the same 10 steps under op_small with one flag
      each, with the same figures and the launches of each kernel per step:
      --training_gradient_accumulation_steps 2 (2L, 2L, 2, 2; losses finite
      and falling), --training_mixed_precision_reduce bfloat16 (losses
      falling, step 1's loss equal to the main run's bit for bit, steps 5
      and 10 within bounds of it) and --training_enable_cpu_offload true (its
-     pinned host bytes; sync checkpoints at 1, 5 and 10 with the time the
+     pinned host bytes; sync checkpoints at 1 and 10 with the time the
      loop blocked in each; losses and final params, mu, nu and count equal
      the main run's bit for bit, and so are those of a fresh run resumed
-     from its step 5);
+     from its step 1);
      then one step's loss, grad norm and gradients of the kernel path
      against the plain path at B1 T4096, full width and depth, in f32 and
      bf16;
@@ -99,9 +99,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      a dev list; bin.train.main with the recipe's flags (1x8192 packed,
      fbank 80 bins, stack 5 stride 4, speed perturb 0.9/1.0/1.1, BEST-RQ
      1024 x 16 from 400, seed 2025, remat none, max_norm 5, AdamW fused lr
-     8e-4, WSD linear, 12 loader threads and prefetch 12), 10 steps with
-     checkpoints every 5 (keep 2, async) and a dev pass after each, then a
-     fresh run resumed from step 5: step ms, tokens/s, MFU (phase 8's
+     8e-4, WSD linear, 12 loader threads; their prefetch 12 cut to 2,
+     AUDIO_PREFETCH), 10 steps with checkpoints every 5 (keep 2, async)
+     and a dev pass after each, then a fresh run resumed from step 5: step
+     ms, tokens/s, MFU (phase 8's
      count), peak memory, the data-wait share per step, launches per step,
      losses finite and falling, the resumed run's losses and final state
      equal the first's bit for bit; stage 3, convert_ckpt_to_hf
@@ -119,12 +120,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      serving limit); prefill ms, decode ms/step and peak memory;
  12. qwen2_audio's ASR stage (python -m touchnet_tpu_torch.models.
      qwen2_audio.inference_qwen2_audio, run through its main; the SFT
-     recipe's stage 4 with model_type qwen2_audio, then its scoring): a
-     Qwen2-Audio-7B HF export of seeded random bf16 weights (the whisper
-     tower's 32 layers always; the text model at full depth when the temp
-     dir holds the export twice, else fewer layers, never below 8, said
-     so), a char-level `tokenizers` tokenizer with Qwen2-Audio's special
-     ids, 32 synthetic wavs (1-15 s and one of 35 s: the tiled position
+     recipe's stage 4 with model_type qwen2_audio, then its scoring), run
+     after phase 14 on its stage-3 export (the recipe's chain: the whisper
+     tower's 32 layers, the text model at phase 14's depth, f32 weights
+     loaded in bf16, its char-level `tokenizers` tokenizer with
+     Qwen2-Audio's special ids; without that export, on one of seeded
+     random bf16 weights at full depth), 32 synthetic wavs (1-15 s and one of 35 s: the tiled position
      table, T 1750), batch 16, max_length 64, bf16, the recipe's instruct;
      then trans.txt and raw_rec.txt, textnorm_zh on both sides and
      error_rate_zh --tokenizer char (a pair scored for every key). Checks
@@ -162,15 +163,42 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      K1 and K4 at this path's f32 shapes, bounded at the FP32 peak: (i) the
      tower's non-causal MHA (library SDPA), (j) the G 7 prefill (SDPA with
      enable_gqa), (k) the G 7 decode on a main and a mimo row of the 34-row
-     cache (SDPA on a gathered copy).
+     cache (SDPA on a gathered copy);
+ 14. (run after 11, before 12) qwen2_audio's SFT, stages 0-3 of the SFT
+     recipe with model_type qwen2_audio (run_qwen2_sft): Qwen2-Audio-7B at
+     full width (the 32-layer whisper tower, vocab 156032) and the text
+     depth of sft_depth (at most 4; the disk and the card), random bf16
+     weights; stage 0, seeded synthetic speech (1-15 s, txt in the char
+     tokenizer's alphabet) through make_data audio+metainfo (a subprocess)
+     with a dev set and data.list.raw; stage 1, an HF directory through
+     convert_hf_to_ckpt --model_type qwen2_audio to step_0 (the params at
+     init equal the HF tensors upcast, bit for bit); stage 2,
+     bin.train.main with the recipe's stage-2 flags (sft_argv: the
+     qwen2_audio datapipe's dynamic batches of right-padded rows under 2 x
+     8192 tokens, each row's whisper features padded to 30 s, the
+     full-logits loss, AdamW fused) cut as sft_argv says, 4 steps with one
+     sync save at step 2, then a fresh run resumed from it: per step its
+     ms, label tokens/s, MFU as the reference counts it, the tower's and
+     the text model's TFLOP, the data-wait share, rows, launches (K1 2 x
+     (32 + L), K2 32 + L, K3 0: no head weight, as in JAX); the resumed
+     run's losses and final params, mu, nu and count equal the first's bit
+     for bit; stage 3, convert_ckpt_to_hf --model_type qwen2_audio
+     --tokenizer_model: the export equals the final params bit for bit;
+     one step's loss, grad norm and gradients at 1 x 1200 tokens on the
+     kernel path against the plain path, under phase 8's limits; K2 (l) at
+     the tower's training shape and K1 and K2 (m) at the text layers'
+     (right-padded rows).
+Each phase prints its wall seconds ("[phase N] wall"), and the script its
+whole ("[all phases] wall").
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving, training, the single-device
 modes, the recipe run with its generate from the export, the audio recipe
 run, the ASR CLI and the qwen2_audio and kimi_audio ASR stages; K4:
 serving, that generate, the ASR CLI and the two ASR stages; K2, K3:
-training, the modes, the recipe run and the audio recipe run), each path
-driven with the counts set to 0 just before it.
+training, the modes, the recipe run and the audio recipe run; K1 and K2
+also qwen2_audio's SFT runs), each path driven with the counts set to 0
+just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -259,7 +287,9 @@ the logging sync).
 
 import contextlib
 import copy
+import gc
 import json
+import os
 import math
 import shutil
 import statistics
@@ -286,6 +316,36 @@ def card_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return res.stdout.strip().splitlines()[0]
+
+
+def host_rss() -> int:
+    """This process's resident memory in bytes (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+@contextlib.contextmanager
+def phase_clock(label: str):
+    """Prints the wall seconds of the phases run inside, on a line of their
+    own, when they end (also when one raises), after freeing what they left
+    cached: the card allocator's blocks and the pinned host blocks PyTorch
+    keeps for reuse (a trainer's offloaded moments and checkpoint staging
+    leave tens of GB of them, which later phases' loads would contend
+    with); then the process's resident memory."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the pinned host cache's release (a private binding in older
+        # releases, torch.accelerator.empty_host_cache in newer ones)
+        empty_host = getattr(torch._C, "_host_emptyCache", None) or \
+            getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+        if empty_host is not None:
+            empty_host()
+        print(f"  [{label}] wall {time.perf_counter() - t0:.1f} s; host resident memory after "
+              f"{host_rss() / 1e9:.2f} GB", flush=True)
 
 
 def time_ms(fn, iters=7, warmup=2) -> float:
@@ -827,6 +887,9 @@ CE_STAT_TOL, ARGMAX_AGREE = 1e-3, 0.999
 STEP_F32_LOSS, STEP_F32_GNORM, STEP_F32_GRADS = 1e-5, 1e-4, 1e-4
 STEP_BF16_RATIO, STEP_BF16_LOSS = 1.5, 2e-2
 TRAIN_STEPS, TRAIN_T, CHECK_T, DOC_RANGE = 10, 16384, 4096, 1000
+# the remat sweep's and the deterministic run's steps (cut from 10 for the
+# script's time: their checks read every step's loss and the launches a step)
+SWEEP_STEPS = 5
 
 
 def compare_grad(name, got, want, dtype, failures):
@@ -884,71 +947,82 @@ def k2_parts(attn, q, k, v, seg, out, lse, g, causal, got, pairs, name, card,
     return parts
 
 
+def k2_grouped_reference(attn, q, k, v, seg, g, causal):
+    """K2's plain backward one kv head at a time (its G query heads against
+    it), so the f32 scores of a long sequence fit."""
+    G = q.shape[2] // k.shape[2]
+    dq, dk, dv = (torch.empty(x.shape, device=q.device) for x in (q, k, v))
+    for j in range(k.shape[2]):
+        hs, ks = slice(j * G, (j + 1) * G), slice(j, j + 1)
+        dq[:, :, hs], dk[:, :, ks], dv[:, :, ks] = attn.flash_attention_bwd_reference(
+            q[:, :, hs].float(), k[:, :, ks].float(), v[:, :, ks].float(), seg, seg,
+            None, None, g[:, :, hs].float(), causal)
+    return dq, dk, dv
+
+
+def k2_case(attn, dev, gen, failures, card, rows, name, B, T, H, Hkv, D, dtype, causal, seg,
+            timed=False, grouped=False):
+    """K2 on random q, k, v, dout (segment ids `seg` or None) against
+    autograd through the plain forward; when timed, its row in `rows`:
+    kernel, plain and library times, each of its three kernels, the bound
+    (10·D·H a live pair)."""
+    n_failed = len(failures)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    q, k, v = randn(B, T, H, D), randn(B, T, Hkv, D), randn(B, T, Hkv, D)
+    g = randn(B, T, H, D)
+    out, lse = attn.flash_attention(q, k, v, seg, causal)
+    got = attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g, causal)
+    torch.cuda.synchronize()
+    if grouped:
+        want = k2_grouped_reference(attn, q, k, v, seg, g, causal)
+    else:
+        want = attn.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
+                                                  seg, None, None, g.float(), causal)
+    errs = [compare_grad(f"{name} {n}", a, b, dtype, failures)
+            for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+    del want
+    if timed:
+        pairs = live_pairs(seg, seg, causal, 0, 0, T, T, B)
+        bnd = bound(10 * D * H * pairs, nbytes(q, k, v, out, g, lse, seg, *got))
+        ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
+                                                      causal))
+        parts = k2_parts(attn, q, k, v, seg, out, lse, g, causal, got, pairs, name, card)
+        if grouped:
+            plain = time_ms(lambda: k2_grouped_reference(attn, q, k, v, seg, g, causal), 3, 1)
+        else:
+            plain = time_ms(lambda: attn.flash_attention_bwd_reference(
+                q, k, v, seg, seg, None, None, g, causal))
+        runs = [e - a for row in seg.cpu().numpy() for _, a, e in seg_runs(row)] \
+            if seg is not None else [T] * B
+        fwd, bwd = attention_library(q, k, v, runs, runs, causal)
+        outs = fwd()
+        lib = None
+        if yardstick_checkable(name, failures, n_failed):
+            yard = []
+            for n, a, b in zip(("dq", "dk", "dv"), bwd(outs, g), got):
+                compare_grad(f"{name} yardstick {n} vs kernel", a.view(b.shape), b, dtype,
+                             yard)
+            failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
+            if not yard:
+                lib = time_ms(lambda: bwd(outs, g))
+        rows[name] = timed_row(name, max(errs), ms, plain, lib, bnd, card)
+        rows[name]["parts"] = parts
+    del got
+    torch.cuda.empty_cache()
+
+
 def check_k2(attn, dev, gen, failures, card):
     print("[6] K2 flash_attention_bwd vs autograd through packed_attention_reference")
     rows = {}
 
-    def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
-
-    def grouped_reference(q, k, v, seg, g, causal):
-        """The plain backward one kv head at a time (its G query heads
-        against it), so the f32 scores of a long sequence fit."""
-        G = q.shape[2] // k.shape[2]
-        dq, dk, dv = (torch.empty(x.shape, device=dev) for x in (q, k, v))
-        for j in range(k.shape[2]):
-            hs, ks = slice(j * G, (j + 1) * G), slice(j, j + 1)
-            dq[:, :, hs], dk[:, :, ks], dv[:, :, ks] = attn.flash_attention_bwd_reference(
-                q[:, :, hs].float(), k[:, :, ks].float(), v[:, :, ks].float(), seg, seg,
-                None, None, g[:, :, hs].float(), causal)
-        return dq, dk, dv
-
     def case(name, B, T, H, Hkv, D, dtype, causal, packed, timed=False, docs=3,
              grouped=False):
-        n_failed = len(failures)
-        q, k, v = randn(B, T, H, D, dtype=dtype), randn(B, T, Hkv, D, dtype=dtype), \
-            randn(B, T, Hkv, D, dtype=dtype)
-        g = randn(B, T, H, D, dtype=dtype)
         seg = packed_segments(B, T, dev, docs) if packed else None
-        out, lse = attn.flash_attention(q, k, v, seg, causal)
-        got = attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g, causal)
-        torch.cuda.synchronize()
-        if grouped:
-            want = grouped_reference(q, k, v, seg, g, causal)
-        else:
-            want = attn.flash_attention_bwd_reference(q.float(), k.float(), v.float(), seg,
-                                                      seg, None, None, g.float(), causal)
-        errs = [compare_grad(f"{name} {n}", a, b, dtype, failures)
-                for n, a, b in zip(("dq", "dk", "dv"), got, want)]
-        del want
-        if timed:
-            pairs = live_pairs(seg, seg, causal, 0, 0, T, T, B)
-            bnd = bound(10 * D * H * pairs, nbytes(q, k, v, out, g, lse, seg, *got))
-            ms = time_ms(lambda: attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g,
-                                                          causal))
-            parts = k2_parts(attn, q, k, v, seg, out, lse, g, causal, got, pairs, name, card)
-            if grouped:
-                plain = time_ms(lambda: grouped_reference(q, k, v, seg, g, causal), 3, 1)
-            else:
-                plain = time_ms(lambda: attn.flash_attention_bwd_reference(
-                    q, k, v, seg, seg, None, None, g, causal))
-            runs = [e - a for row in seg.cpu().numpy() for _, a, e in seg_runs(row)] \
-                if packed else [T] * B
-            fwd, bwd = attention_library(q, k, v, runs, runs, causal)
-            outs = fwd()
-            lib = None
-            if yardstick_checkable(name, failures, n_failed):
-                yard = []
-                for n, a, b in zip(("dq", "dk", "dv"), bwd(outs, g), got):
-                    compare_grad(f"{name} yardstick {n} vs kernel", a.view(b.shape), b, dtype,
-                                 yard)
-                failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
-                if not yard:
-                    lib = time_ms(lambda: bwd(outs, g))
-            rows[name] = timed_row(name, max(errs), ms, plain, lib, bnd, card)
-            rows[name]["parts"] = parts
-        del got
-        torch.cuda.empty_cache()
+        k2_case(attn, dev, gen, failures, card, rows, name, B, T, H, Hkv, D, dtype, causal,
+                seg, timed, grouped)
 
     case("(a) B1 T4096 H32/8 D64 bf16 causal packed", 1, 4096, 32, 8, 64, torch.bfloat16,
          True, True, timed=True)
@@ -1240,10 +1314,10 @@ def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
     order, one process: step ms, tokens/s, MFU, peak memory and K1 launches
     per step (none and op_small L, full 2L); the modes' losses must be
     equal bit for bit."""
-    print(f"  remat sweep: {TRAIN_STEPS} steps at 1x{TRAIN_T} bf16 each, full width and depth")
+    print(f"  remat sweep: {SWEEP_STEPS} steps at 1x{TRAIN_T} bf16 each, full width and depth")
     losses = {}
     for mode in SWEEP_MODES:
-        argv = train_argv(listfile, tmp / f"sweep_{mode}", TRAIN_T, TRAIN_STEPS, "bfloat16",
+        argv = train_argv(listfile, tmp / f"sweep_{mode}", TRAIN_T, SWEEP_STEPS, "bfloat16",
                           128256, remat=mode)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1254,7 +1328,7 @@ def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
         step_ms, tps, mfu = step_stats(trainer)
         losses[mode] = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
         want = 2 * L if mode == "full" else L
-        ok = k1 == want and trainer.step == TRAIN_STEPS
+        ok = k1 == want and trainer.step == SWEEP_STEPS
         print(f"  {mode}: step {step_ms:.1f} ms (median of steps 3-{trainer.step}), "
               f"{tps:,.0f} tokens/s, MFU {mfu:.2f}%, peak {peak:.2f} GiB allocated, "
               f"K1 {k1:g} launches/step (want {want}) {'ok' if ok else 'FAIL'}  [{card}]")
@@ -1270,7 +1344,7 @@ def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
     # --training_deterministic true: PyTorch's deterministic algorithms only
     # (an op without one raises, which fails this run) and cuBLAS's fixed
     # workspace; process-wide, so switched off again after the run
-    argv = train_argv(listfile, tmp / "sweep_det", TRAIN_T, TRAIN_STEPS, "bfloat16", 128256,
+    argv = train_argv(listfile, tmp / "sweep_det", TRAIN_T, SWEEP_STEPS, "bfloat16", 128256,
                       training_deterministic="true")
     torch.cuda.empty_cache()
     try:
@@ -1279,7 +1353,7 @@ def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
         torch.use_deterministic_algorithms(False)
     step_ms, tps, mfu = step_stats(trainer)
     det = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
-    ok = trainer.step == TRAIN_STEPS and all(math.isfinite(x) for x in det)
+    ok = trainer.step == SWEEP_STEPS and all(math.isfinite(x) for x in det)
     print(f"  op_small under --training_deterministic true: no op raised; step {step_ms:.1f} ms, "
           f"{tps:,.0f} tokens/s, MFU {mfu:.2f}%; losses equal the default run's bit for bit: "
           f"{det == losses['op_small']} {'ok' if ok else 'FAIL'}  [{card}]")
@@ -1299,11 +1373,12 @@ MODE_RUNS = (("gradient accumulation G=2", {"training_gradient_accumulation_step
 # the weights apart: 3.3e-4 at step 5 and 2.28e-2 at step 10 on an H100
 # 80GB HBM3 at 700 W (PERF.md, PR 7); each bound is a few times its reading
 BF16_REDUCE_LOSS = {5: 2e-3, 10: 5e-2}
-# the offload run's checkpoints: sync saves at 1, 5 and 10 (keep 2), then a
-# fresh run resumes from step 5
-OFFLOAD_CKPT = {"training_enable_ckpt": "true", "training_ckpt_interval": 5,
+# the offload run's checkpoints: sync saves at 1 and 10 (keep 2), then a
+# fresh run resumes from step 1 (cut from saves at 1, 5 and 10 and a resume
+# from 5 for the script's time: one 15 GB save fewer)
+OFFLOAD_CKPT = {"training_enable_ckpt": "true", "training_ckpt_interval": 10,
                 "training_ckpt_keep_latest_k": 2, "training_ckpt_async_mode": "disabled"}
-OFFLOAD_RESUME = 5
+OFFLOAD_RESUME = 1
 
 
 def kernel_counters():
@@ -1350,8 +1425,8 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
     run's (`resident`, phase 8's main run) bit for bit (the forward reads
     the same bf16 weights) and its losses at steps 5 and 10 within
     BF16_REDUCE_LOSS of it; cpu offload's losses and final params, mu, nu and count equal the
-    resident run's bit for bit, with sync checkpoints at 1, 5 and 10, and a
-    fresh run resumed from step 5 equal to it too (the host moments saved
+    resident run's bit for bit, with sync checkpoints at 1 and 10, and a
+    fresh run resumed from step 1 equal to it too (the host moments saved
     after their last copy back, and loaded in place). Each run is a main
     path: the counts are zeroed just before it and read just after (after
     the resume for offload); returns their sums."""
@@ -1375,7 +1450,7 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
         peak = torch.cuda.max_memory_allocated() / 2**30
         steps = trainer.step
         per_step = tuple(n / steps for n in got.values())
-        # under offload the sync save at step 5 sits in step 6's time
+        # under offload the sync save at the resume step sits in the next step's time
         step_ms, tps, mfu = step_stats(trainer, skip=(OFFLOAD_RESUME + 1,) if offload else ())
         losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
         G = extra.get("training_gradient_accumulation_steps", 1)
@@ -1409,7 +1484,7 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
                     "sync saves, the loop blocked " + ", ".join(
                         f"step {s} {ms:.1f} ms ({w:.2f} s of it the disk write)"
                         for s, (ms, w) in sorted(saves.items())))
-            ok = ok and sorted(saves) == [1, OFFLOAD_RESUME, TRAIN_STEPS]
+            ok = ok and sorted(saves) == sorted({1, OFFLOAD_RESUME, TRAIN_STEPS})
         print(f"  {mode}: step {step_ms:.1f} ms (median of steps 3-{steps}"
               f"{f' less {OFFLOAD_RESUME + 1}' if offload else ''}), {tps:,.0f} "
               f"tokens/s, MFU {mfu:.2f}%, peak {peak:.2f} GiB allocated; launches per step "
@@ -1949,7 +2024,12 @@ SR = 16000
 AUDIO_T, AUDIO_STEPS, AUDIO_INTERVAL, AUDIO_RESUME = 8192, 10, 5, 5
 # seconds of audio in one 1x8192 row: 8192 frames x stride 4 x 10 ms
 ROW_SECONDS = AUDIO_T * 4 * 10 / 1000
-AUDIO_WORKERS = 12  # the recipe's num_workers and prefetch (run.sh:22-23)
+AUDIO_WORKERS = 12  # the recipe's num_workers (run.sh:22)
+# the loader's queue depth a worker: the recipe's prefetch 12 (run.sh:23) is
+# cut for the script's time: 12 x 12 queued batches cost a run's first step
+# ~70 s of loader fill on threads that take the GIL from the launch thread,
+# and the queue depth changes no batch, so no check reads it
+AUDIO_PREFETCH = 2
 
 
 def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
@@ -2018,7 +2098,7 @@ def audio_argv(listfile, exp, seqlen, steps, dtype, **extra) -> list:
         "audiofeat_frame_length": 25, "audiofeat_frame_shift": 10, "audiofeat_dither": 0.0,
         "audiofeat_stack_length": stack, "audiofeat_stride_length": stride,
         "audiofeat_normalize": "true", "dataloader_num_workers": AUDIO_WORKERS,
-        "dataloader_prefetch_factor": AUDIO_WORKERS,
+        "dataloader_prefetch_factor": AUDIO_PREFETCH,
         "training_description": "wenetspeech ssl", "training_seed": 2025,
         "training_model_name": "touch_audio", "training_model_config_path": AUDIO_CONFIG,
         "training_trace_dump_folder": exp, "training_context_parallel_degree": 1,
@@ -2103,7 +2183,8 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
                  training_enable_tensorboard="true", training_enable_profiling="true",
                  training_profiling_freq=100, training_profiling_keep_first_k=10)
     print(f"  stage 2: {AUDIO_STEPS} steps at 1x{AUDIO_T} packed with the recipe's flags, "
-          f"{AUDIO_WORKERS} loader workers and prefetch {AUDIO_WORKERS}, checkpoints every "
+          f"{AUDIO_WORKERS} loader workers (prefetch {AUDIO_PREFETCH}, cut from 12), "
+          f"checkpoints every "
           f"{AUDIO_INTERVAL} (keep 2, async), a dev list; memory snapshots off (phase 9 "
           "runs them)")
     counters = kernel_counters()
@@ -2603,21 +2684,21 @@ def qwen2_kernel_rows(attn, dec, dev, failures, card, B, Tp, lens, S) -> tuple:
     return k1_rows, k4_rows
 
 
-def run_qwen2_cli(dev, card, failures, tmp: Path) -> tuple:
+def run_qwen2_cli(dev, card, failures, tmp: Path, export) -> tuple:
     """Phase 12: qwen2_audio's ASR stage (python -m touchnet_tpu_torch.
     models.qwen2_audio.inference_qwen2_audio, run in-process through its
-    main) on a Qwen2-Audio-7B HF export of seeded random bf16 weights, 32
-    synthesised wavs (one of 35 s), batch 16, max_length 64, bf16, the
-    recipe's instruct, a char-level tokenizer with Qwen2-Audio's special
-    ids; then the recipe's scoring. Checks a hyp for every key, the scorer's
-    pairs, the launches (K1: the tower's layers and the text layers a batch;
-    K4: the text layers a decode step) and no plain version called; then the
-    first batch outside the CLI: the projected audio, the last prefill's and
-    the first decode step's logits on the kernel path against
-    plain_kernels(), with the timings, and the kernel rows (f), (g), (h).
-    Returns (the CLI run's launches, K1 rows, K4 rows)."""
+    main) on phase 14's stage-3 export (the recipe's chain: stage 4 reads
+    what stage 3 wrote; Qwen2-Audio-7B at full width with phase 14's text
+    depth, f32 weights loaded in bf16, the char tokenizer saved beside
+    them), 32 synthesised wavs (one of 35 s), batch 16, max_length 64, bf16,
+    the recipe's instruct; then the recipe's scoring. Checks a hyp for every
+    key, the scorer's pairs, the launches (K1: the tower's layers and the
+    text layers a batch; K4: the text layers a decode step) and no plain
+    version called; then the first batch outside the CLI: the projected
+    audio, the last prefill's and the first decode step's logits on the
+    kernel path against plain_kernels(), with the timings, and the kernel
+    rows (f), (g), (h). Returns (the CLI run's launches, K1 rows, K4 rows)."""
     from touchnet_tpu_torch.models.llama import inference_llama as inf
-    from touchnet_tpu_torch.models.qwen2_audio import convert
     from touchnet_tpu_torch.models.qwen2_audio import inference_qwen2_audio as cli
     from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
         Qwen2AudioConfig,
@@ -2626,7 +2707,6 @@ def run_qwen2_cli(dev, card, failures, tmp: Path) -> tuple:
         empty_model,
         encode_audio,
         get_num_params,
-        init_params,
         merge_audio_into_text,
     )
     from touchnet_tpu_torch.ops import attention as attn
@@ -2634,55 +2714,26 @@ def run_qwen2_cli(dev, card, failures, tmp: Path) -> tuple:
     from touchnet_tpu_torch.tokenizer import TokenizerConfig
     from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
     from touchnet_tpu_torch.utils.inference import AudioJsonlDataset, pad_right
-    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
 
-    cfg = Qwen2AudioConfig.from_json_file(str(QWEN2_CONFIG))
-    full, tower_L = cfg.text_config.num_hidden_layers, cfg.audio_config.encoder_layers
-    free = shutil.disk_usage(tmp).free
-    L = asr_depth(cfg, free, get_num_params)
-    config = QWEN2_CONFIG
-    if L == 0:
-        print(f"[12] qwen2_audio ASR: {free / 1e9:.2f} GB free in the temp dir, too little for "
-              f"a {ASR_MIN_LAYERS}-layer export FAIL")
-        failures.append("qwen2 asr: no room for the export")
+    if export is None:
+        print("[12] qwen2_audio ASR: phase 14 left no stage-3 export to run stage 4 on FAIL")
+        failures.append("qwen2 asr: no export")
         return {}, {}, {}
-    if L != full:
-        raw = json.loads(QWEN2_CONFIG.read_text())
-        raw["text_config"]["num_hidden_layers"] = L
-        config = tmp / "qwen2_config.json"
-        config.write_text(json.dumps(raw))
-        cfg = Qwen2AudioConfig.from_json_file(str(config))
+    hf = tok_dir = Path(export)
+    config = hf / "config.json"
+    cfg = Qwen2AudioConfig.from_json_file(str(config))
     tc, ac = cfg.text_config, cfg.audio_config
-    depth = ("full depth" if L == full
-             else f"text model CUT to {L} of {full} layers (too little room)")
-    print(f"[12] qwen2_audio ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4): "
-          f"{QWEN2_CONFIG.relative_to(HERE)}: tower {tower_L} layers d{ac.d_model} "
-          f"H{ac.encoder_attention_heads} mel {ac.num_mel_bins}; text L={L} E={tc.hidden_size} "
-          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} V={tc.vocab_size}; "
-          f"{get_num_params(cfg):,} params, bf16, {depth}; temp dir {free / 1e9:.2f} GB free")
-
-    hf = tmp / "qwen2_hf"
-    hf.mkdir()
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 30), torch.bfloat16,
-                        dev)
-    state = convert.params_to_hf_state_dict(cfg, model.state_dict())
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_bytes = write_safetensors(state, str(hf / "model.safetensors"))
-    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
-    write_s = time.perf_counter() - t0
-    del model, state
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    tok_dir = write_char_tokenizer(tmp / "qwen2_tokenizer", tc.vocab_size, QWEN2_SPECIALS,
-                                   QWEN2_EOS, QWEN2_INSTRUCT)
-    tok_s = time.perf_counter() - t0
+    L, tower_L = tc.num_hidden_layers, ac.encoder_layers
+    n_bytes = (hf / "model.safetensors").stat().st_size
+    print(f"[12] qwen2_audio ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4) on "
+          f"phase 14's stage-3 export: {QWEN2_CONFIG.relative_to(HERE)}: tower {tower_L} layers "
+          f"d{ac.d_model} H{ac.encoder_attention_heads} mel {ac.num_mel_bins}; text L={L} (phase "
+          f"14's depth) E={tc.hidden_size} H={tc.num_attention_heads}/{tc.num_key_value_heads} "
+          f"D={tc.head_dim} V={tc.vocab_size}; {get_num_params(cfg):,} params, {n_bytes} bytes "
+          f"({n_bytes / 1e9:.2f} GB) of f32 weights loaded in bf16")
     jsonl, total = synth_utterances(tmp / "qwen2_wav", ASR_UTTS, SEED + 31, long=QWEN2_LONG)
-    print(f"  HF export of seeded random bf16 weights: {n_bytes} bytes ({n_bytes / 1e9:.2f} GB) "
-          f"written in {write_s:.2f} s (drawn in {init_s:.2f} s); a char-level tokenizer with "
-          f"Qwen2-Audio's special ids in {tok_s:.2f} s; {ASR_UTTS} wavs, {total:.1f} s of audio "
-          f"(utt{QWEN2_LONG[0]} {QWEN2_LONG[1]:.0f} s)  [{card}]")
+    print(f"  {ASR_UTTS} wavs, {total:.1f} s of audio (utt{QWEN2_LONG[0]} "
+          f"{QWEN2_LONG[1]:.0f} s)  [{card}]")
 
     tok_flags = {"tokenizer_type": "HuggingFaceTokenizer", "tokenizer_model": str(tok_dir)}
     out = tmp / "qwen2_out"
@@ -2819,7 +2870,7 @@ def run_qwen2_cli(dev, card, failures, tmp: Path) -> tuple:
     del model, logits_k, logits_p, logits_r, audio_k, audio_p, audio_r, prompt_k, prompt_p
     torch.cuda.empty_cache()
     k1_rows, k4_rows = qwen2_kernel_rows(attn, dec, dev, failures, card, ASR_BATCH, Tp, lens, S)
-    print(f"  phase 12: export {n_bytes} bytes in {write_s:.2f} s, load {loaded['s']:.2f} s, "
+    print(f"  phase 12: export {n_bytes} bytes, load {loaded['s']:.2f} s, "
           f"host features {1e3 * statistics.mean(feat_s):.1f} ms/utterance, encode_audio "
           f"{tower_ms:.1f} ms/batch, prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms/step, "
           f"CLI {cli_s:.2f} s for {ASR_UTTS} wavs, peak {peak:.2f} GiB, launches K1="
@@ -2872,28 +2923,22 @@ class HostPeak:
     lifetime peak, ru_maxrss, holds the earlier phases')."""
 
     def __enter__(self):
-        import os
         import threading
 
-        self.page = os.sysconf("SC_PAGE_SIZE")
-        self.before = self.peak = self.rss()
+        self.before = self.peak = host_rss()
         self.stop = threading.Event()
         self.thread = threading.Thread(target=self._run, daemon=True)
         self.thread.start()
         return self
 
-    def rss(self) -> int:
-        with open("/proc/self/statm") as f:
-            return int(f.read().split()[1]) * self.page
-
     def _run(self):
         while not self.stop.wait(0.02):
-            self.peak = max(self.peak, self.rss())
+            self.peak = max(self.peak, host_rss())
 
     def __exit__(self, *exc):
         self.stop.set()
         self.thread.join(timeout=5)
-        self.peak = max(self.peak, self.rss())
+        self.peak = max(self.peak, host_rss())
 
 
 def kimi_kernel_rows(attn, dec, dev, failures, card, Tp, S, L, L_mimo) -> tuple:
@@ -3260,6 +3305,475 @@ PROFILE_GROUPS = (("K1", ("flash_fwd",)), ("K2", ("dkv_", "dq_mma", "dq_kernel",
                   ("copies", ("Memcpy", "Memset")))
 
 
+# -- phase 14: qwen2_audio's SFT stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with
+# model_type qwen2_audio: make_data, the HF seed, the SFT run, the HF export) --
+
+SFT_STEPS, SFT_RESUME, SFT_MAX_LAYERS = 4, 2, 2
+SFT_UTTS, SFT_DEV_UTTS, SFT_PER_SHARD = 200, 16, 25
+# the recipe's loader is 12 workers with prefetch 12 (run.sh:22-23): in a
+# run of 4 steps they would fill 144 batches of ~40 rows (~5,800 whisper
+# features) on threads that take the GIL from the launch thread (phase 10's
+# first step: 73 s of loader fill); cut to 2 and 2
+SFT_WORKERS = 2
+# the kernel-vs-plain step: 1 x 1200 tokens of the same shards (~3 rows)
+SFT_CHECK_SEQLEN = 1200
+# the card's share of the step that is not the params, gradients or logits:
+# the tower's saved layer inputs under remat full, one layer's recompute
+SFT_ACTIVATIONS = 16 * 2**30
+# the most the phase puts on disk at once, so that it fits a 45 GiB scratch
+# disk whatever the temp dir reports free
+SFT_DISK_CAP = 40 * 2**30
+
+
+def sft_depth(cfg, free: int, card_bytes: int, get_num_params) -> tuple:
+    """(text layers, bytes of one checkpoint, disk bytes needed, card bytes
+    needed) of phase 14: the most text layers, at most SFT_MAX_LAYERS (a
+    checkpoint is 12 bytes a parameter, written at ~1 GB/s), for which the
+    temp dir, up to SFT_DISK_CAP, holds one checkpoint (the phase removes
+    each step once it is read) and 2 GiB, and the card the f32 params and
+    gradients (8 bytes a parameter), the full-logits loss of the recipe's
+    2 x 8192 tokens (bf16 logits, their f32 copy and two f32 gradients: 14
+    bytes a logit) and SFT_ACTIVATIONS; the tower and the vocab stay full.
+    0 layers when none fit."""
+    c = copy.deepcopy(cfg)
+    logits = 2 * 8192 * cfg.text_config.vocab_size * 14
+    for layers in range(min(SFT_MAX_LAYERS, cfg.text_config.num_hidden_layers), 0, -1):
+        c.text_config.num_hidden_layers = layers
+        n = get_num_params(c)
+        ckpt = 12 * n
+        disk, card = ckpt + 2**31, 8 * n + logits + SFT_ACTIVATIONS
+        if disk <= min(free, SFT_DISK_CAP) and card <= card_bytes:
+            return layers, ckpt, disk, card
+    return 0, ckpt, disk, card
+
+
+def sft_argv(listfile, exp, config, tok_dir, dtype="bfloat16", **extra) -> list:
+    """The recipe's stage-2 flags (run.sh:76-141, model_type qwen2_audio)
+    on one card, with phase 14's cuts: dp 8 -> 1, SFT_STEPS steps (warmup
+    2, the recipe's 30000 and 1000 cut), remat none -> full and the AdamW
+    moments in host memory (the card's memory), sync checkpoints (the
+    recipe's async, so the save is timed whole), a log line every step (the
+    recipe's 100), SFT_WORKERS loader workers and prefetch (the recipe's
+    12); `extra` (flag: value) adds or replaces flags."""
+    args = {
+        "tokenizer_type": "HuggingFaceTokenizer", "tokenizer_model": tok_dir,
+        "datapipe_type": "qwen2_audio", "datalist_path": listfile,
+        "datalist_sharding": "true", "datalist_epoch": 10000, "datalist_shuffling": "true",
+        "dataset_shuffling": "true", "dataset_mmap": "true", "dataset_batchsize": 2,
+        "dataset_audio_seqlen": 8192, "dataset_text_seqlen": 8192,
+        "audio_max_length_in_ms_for_filter": 30000, "audio_min_length_in_ms_for_filter": 200,
+        "text_max_length_in_tokens_for_filter": 400, "text_min_length_in_tokens_for_filter": 1,
+        "max_text_audio_ratio": 1.0, "min_text_audio_ratio": 0.0005,
+        "audio_resample_rate": SR, "audio_speed_perturb": "false",
+        "audio_feat_type": "log_mel_spectrogram", "audiofeat_num_mel_bins": 128,
+        "audiofeat_n_fft": 400, "audiofeat_hop_length": 160,
+        "dataloader_num_workers": SFT_WORKERS, "dataloader_prefetch_factor": SFT_WORKERS,
+        "training_description": "wenetspeech asr sft (qwen2_audio)", "training_seed": 2025,
+        "training_model_name": "qwen2_audio", "training_model_config_path": config,
+        "training_print_args": "true", "training_trace_dump_folder": exp,
+        "training_fsdp_reshard_after_forward": "default",
+        "training_context_parallel_degree": 1, "training_tensor_parallel_degree": 1,
+        "training_data_parallel_shard_degree": 1, "training_pipeline_parallel_degree": 1,
+        "training_enable_liger_kernel": "true", "training_enable_ckpt": "true",
+        "training_ckpt_load_step": -1, "training_ckpt_interval": 2000,
+        "training_ckpt_keep_latest_k": 2, "training_ckpt_async_mode": "disabled",
+        "training_log_freq": 1, "training_enable_tensorboard": "true",
+        "training_save_tb_folder": "tensorboard", "training_tb_rank_0_only": "true",
+        "training_mixed_precision_param": dtype, "training_mixed_precision_reduce": "float32",
+        "training_compile": "true", "training_gc_freq": 1000, "training_deterministic": "false",
+        "training_max_norm": 1.0, "training_activation_checkpoint_mode": "full",
+        "training_enable_profiling": "true", "training_profiling_freq": 100,
+        "training_enable_memory_snapshot": "false", "training_enable_cpu_offload": "true",
+        "optimizer_name": "AdamW", "optimizer_lr": 2e-5, "optimizer_impl": "fused",
+        "lr_scheduler_steps": SFT_STEPS, "lr_scheduler_warmup_steps": 2,
+        "lr_scheduler_decay_type": "linear", "lr_scheduler_lr_min": 0.0, **extra,
+    }
+    return [x for k, v in args.items() for x in (f"--{k}", str(v))]
+
+
+def sft_stage0(tmp: Path, failures) -> tuple:
+    """Stage 0 (run.sh:46-61): seeded synthetic speech (1-15 s, txt in the
+    char tokenizer's alphabet) through make_data --datatypes audio+metainfo
+    (a subprocess; SFT_PER_SHARD utterances a shard, so each loader worker
+    has shards: the recipe's 2000 a shard would make one), a train and a
+    dev set, each jsonl copied beside its shards as data.list.raw. Returns
+    (train data.list, dev data.list)."""
+    from touchnet_tpu_torch.data.dataset import TouchDataset
+
+    lists = []
+    for name, count, seed in (("train", SFT_UTTS, SEED + 40), ("dev", SFT_DEV_UTTS, SEED + 41)):
+        t0 = time.perf_counter()
+        jsonl, total = synth_utterances(tmp / f"sft_{name}_wav", count, seed)
+        synth_s = time.perf_counter() - t0
+        save = tmp / f"sft_{name}"
+        secs = run_cli("touchnet_tpu_torch.bin.make_data",
+                       ["--save_dir", save, "--jsonl_path", jsonl, "--num_utt_per_shard",
+                        SFT_PER_SHARD, "--num_workers", 8, "--datatypes", "audio+metainfo"],
+                       failures, f"qwen2 sft stage 0 ({name})")
+        shutil.copy(jsonl, save / "data.list.raw")
+        listfile = save / "data.list"
+        lines = listfile.read_text().splitlines() if listfile.exists() else []
+        n = sum(len(TouchDataset(ln.split()[0], datatypes="audio+metainfo")) for ln in lines)
+        ok = n == count and len(lines) == -(-count // SFT_PER_SHARD)
+        print(f"  stage 0 ({name}): {count} utterances, {total:.1f} s of audio synthesised in "
+              f"{synth_s:.1f} s; make_data (subprocess, 8 workers) -> {len(lines)} shards, "
+              f"{tree_bytes(save)} bytes, in {secs:.2f} s; {n} utterances read back, "
+              f"data.list.raw beside them {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"qwen2 sft stage 0 ({name})")
+        lists.append(listfile)
+    return tuple(lists)
+
+
+def sft_kernel_rows(attn, dev, failures, card, B, L, seg) -> tuple:
+    """K2 (l) at the tower's training shape, B rows x T1500 H20/20 D64 bf16
+    causal with no segment ids, and K1 and K2 (m) at the text layers'
+    training shape, B x L H28/4 D128 bf16 causal with the batch's
+    right-padded segment ids (1 on tokens, 0 on padding), each against its
+    plain version (one kv head at a time), timed beside FlashAttention-2
+    varlen over the same runs. Returns (K1 rows, K2 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    bf = torch.bfloat16
+    k1_rows, k2_rows = {}, {}
+    k2_case(attn, dev, gen, failures, card, k2_rows,
+            f"(l) qwen2_audio tower training: B{B} T1500 H20/20 D64 bf16 causal", B, 1500, 20,
+            20, 64, bf, True, None, timed=True, grouped=True)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    name = (f"(m) qwen2_audio text training: B{B} T{L} H28/4 (G7) D128 bf16 causal, "
+            f"right-padded rows of {int(seg.sum(1).min())}-{int(seg.sum(1).max())} tokens")
+    runs = [e - a for row in seg.cpu().numpy() for _, a, e in seg_runs(row)]
+    k1_case(attn, dev, failures, card, k1_rows, name, randn(B, L, 28, 128), randn(B, L, 4, 128),
+            randn(B, L, 4, 128), seg, seg, True, 0, timed=True, grouped=True,
+            runs=lambda q, k, v: (runs, runs, k, v))
+    k2_case(attn, dev, gen, failures, card, k2_rows, name, B, L, 28, 4, 128, bf, True, seg,
+            timed=True, grouped=True)
+    return k1_rows, k2_rows
+
+
+def sft_step_split(trace: Path, step_ms: float, card, failures) -> None:
+    """The device time of the traced SFT step by kernel group
+    (profile_group), each group's share of the step, and the device's busy
+    share (kernel time over the step's host time)."""
+    try:
+        with open(trace) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"]
+    except (OSError, ValueError, KeyError) as e:
+        print(f"  the traced step: no kernel trace at {trace} ({e!r}) FAIL")
+        failures.append("qwen2 sft: trace")
+        return
+    groups = {}
+    for e in events:
+        g = profile_group(e["name"])
+        groups[g] = groups.get(g, 0.0) + e["dur"] / 1e3
+    busy = sum(groups.values())
+    print(f"  the traced step (run 1's last, under the profiler): {step_ms:.1f} ms, "
+          f"{len(events)} kernels, device busy {busy:.1f} ms ({100 * busy / step_ms:.1f}%): " +
+          ", ".join(f"{g} {ms:.1f} ms ({100 * ms / step_ms:.1f}%)"
+                    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1])) + f"  [{card}]")
+
+
+def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
+    """Phase 14: stages 0-3 of the SFT recipe with model_type qwen2_audio on
+    one card, Qwen2-Audio-7B at full width (the whisper tower's 32 layers,
+    the vocab of 156032) and the text depth of sft_depth: make_data over
+    synthesised speech; a seeded random bf16 HF directory through
+    convert_hf_to_ckpt to step_0; bin.train.main with the recipe's stage-2
+    flags (sft_argv) from it, SFT_STEPS steps with one save at SFT_RESUME,
+    then a fresh trainer resumed from that save, held to it bit for bit;
+    convert_ckpt_to_hf on the resumed run's last save, held to the final
+    params bit for bit (each run removes the step it loaded once its init
+    has read it, and stage 3 reads only the model, so one checkpoint is on
+    disk at a time); one step at a small batch on the kernel path
+    against plain_kernels(); K2 (l) and K1 and K2 (m). Returns the launches
+    of the two runs (the main path), the kernel rows, the export and the
+    tokenizer."""
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.models import whisper_encoder
+    from touchnet_tpu_torch.models.qwen2_audio import convert
+    from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
+        Qwen2AudioConfig,
+    )
+    from touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio import (
+        get_num_params,
+        init_params,
+    )
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
+    from touchnet_tpu_torch.utils.safetensors_io import read_safetensors, write_safetensors
+
+    t_phase = time.perf_counter()
+    cfg = Qwen2AudioConfig.from_json_file(str(QWEN2_CONFIG))
+    full = cfg.text_config.num_hidden_layers
+    free = shutil.disk_usage(tmp).free
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    L, ckpt_bytes, disk, need = sft_depth(cfg, free, card_bytes, get_num_params)
+    out = {"counts": {}, "k1": {}, "k2": {}, "export": None}
+    if L == 0:
+        print(f"[14] qwen2_audio SFT: {free / 1e9:.2f} GB free in the temp dir, too little for "
+              "two checkpoints of one text layer FAIL")
+        failures.append("qwen2 sft: no room")
+        return out
+    raw = json.loads(QWEN2_CONFIG.read_text())
+    raw["text_config"]["num_hidden_layers"] = L
+    config = tmp / "qwen2_sft_config.json"
+    config.write_text(json.dumps(raw))
+    cfg = Qwen2AudioConfig.from_json_file(str(config))
+    tc, ac = cfg.text_config, cfg.audio_config
+    n_params = get_num_params(cfg)
+    print(f"[14] qwen2_audio SFT, stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with "
+          f"model_type qwen2_audio) on one card: {QWEN2_CONFIG.relative_to(HERE)} at full width "
+          f"(tower {ac.encoder_layers} layers d{ac.d_model}; text E={tc.hidden_size} "
+          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
+          f"V={tc.vocab_size}), text depth CUT {full} -> {L}; {n_params:,} params; a checkpoint "
+          f"~{ckpt_bytes / 1e9:.2f} GB; temp dir {free / 1e9:.2f} GB free, the phase's cap "
+          f"{SFT_DISK_CAP / 1e9:.2f} GB ({disk / 1e9:.2f} GB needed), card "
+          f"{card_bytes / 1e9:.2f} GB ({need / 1e9:.2f} GB reckoned)")
+    print(f"  cuts: dp 8 -> 1 (one card); text layers {full} -> {L} (sft_depth: at most "
+          f"{SFT_MAX_LAYERS}, a checkpoint's write time; disk and memory); {SFT_STEPS} steps of "
+          f"30000, warmup 2 of 1000; remat none -> full and the AdamW moments in host memory "
+          "(the card's memory); loader 12 workers, prefetch 12 -> "
+          f"{SFT_WORKERS}, {SFT_WORKERS} (the loader's fill); checkpoints sync (the recipe's "
+          "async), one save in run 1 (at its midpoint: this script skips the trainer's "
+          "step-1 and last saves there, 2 x 12 bytes a parameter); log every step (100); "
+          f"run 1's profiler traces its last step (freq {SFT_STEPS}; 100); make_data "
+          f"{SFT_PER_SHARD} utterances a shard (2000)")
+
+    t0 = time.perf_counter()
+    listfile, devlist = sft_stage0(tmp, failures)
+    stage0_s = time.perf_counter() - t0
+
+    # stage 1: an HF directory of seeded random bf16 weights -> step_0
+    t0 = time.perf_counter()
+    exp, hf = tmp / "sft_exp", tmp / "sft_hf"
+    hf.mkdir()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 43), torch.bfloat16,
+                        dev)
+    state = model.state_dict()
+    n_bytes = write_safetensors(convert.params_to_hf_state_dict(cfg, state),
+                                str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
+    seed_bits = bits_checksums({k: v.float() for k, v in state.items()})
+    del model, state
+    torch.cuda.empty_cache()
+    secs = run_cli("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+                   ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
+                    config, "--model_type", "qwen2_audio"], failures, "qwen2 sft stage 1")
+    step0 = exp / "checkpoint" / "step_0"
+    print(f"  stage 1: HF seed (random bf16 weights, seed {SEED + 43}) {n_bytes} bytes; "
+          f"convert_hf_to_ckpt --model_type qwen2_audio (subprocess) -> step_0, "
+          f"{tree_bytes(step0) if step0.exists() else 0} bytes (f32), in {secs:.2f} s; stage 1 "
+          f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(hf)  # its tensors are in step_0 now
+    tok_dir = write_char_tokenizer(tmp / "sft_tokenizer", tc.vocab_size, QWEN2_SPECIALS,
+                                   QWEN2_EOS, QWEN2_INSTRUCT)
+
+    # stage 2: run 1 saves at its midpoint only; the resumed run saves at
+    # its last step (the trainer's cadence), which stage 3 exports
+    counters = kernel_counters()
+    steps, devs, init_bits = [], [], []
+    real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train,
+            CheckpointManager._should_save)
+
+    def counted_step(self, batch, num_sentence):
+        before = {k: c.launches for k, c in counters.items()}
+        res = real[0](self, batch, num_sentence)
+        ids = batch["input_ids"]
+        steps.append({"launches": {k: c.launches - before[k] for k, c in counters.items()},
+                      "rows": ids.shape[0], "L": ids.shape[1],
+                      "seg": batch["attention_mask"].cpu() if not steps else None})
+        return res
+
+    def counted_dev(self):
+        before = {k: c.launches for k, c in counters.items()}
+        real[1](self)
+        devs.append({k: c.launches - before[k] for k, c in counters.items()})
+
+    def checked_train(self):
+        if not init_bits:
+            init_bits.append(bits_checksums(self.model.state_dict()))
+        # the init has read the step it started from: off the disk with it
+        shutil.rmtree(exp / "checkpoint" / f"step_{self.step}")
+        return real[2](self)
+
+    def midpoint_only(self, step, force=False):
+        return self.enabled and step == SFT_RESUME
+
+    flags = dict(datalist_dev_path=devlist)
+    train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = (
+        counted_step, counted_dev, checked_train)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # the main path (both runs): every launch count is zeroed here and
+        # read after the resumed run
+        for c in counters.values():
+            c.launches = 0
+        with count_plain_calls() as plain_calls, timed_saves(train) as saves:
+            t0 = time.perf_counter()
+            CheckpointManager._should_save = midpoint_only
+            try:
+                with HostPeak() as host1:
+                    # the profiler traces run 1's last step (the recipe's
+                    # freq 100 would trace none of 4)
+                    first = train.main(sft_argv(listfile, exp, config, tok_dir, **flags,
+                                                training_profiling_freq=SFT_STEPS), device=dev)
+            finally:
+                CheckpointManager._should_save = real[3]
+            run1_s = time.perf_counter() - t0
+            peak1 = torch.cuda.max_memory_allocated() / 2**30
+            saves1 = dict(saves)
+            hist1 = first.metrics_processor.history
+            dev1 = first.metrics_processor.dev_history
+            pinned = first.offload.pinned_bytes if first.offload is not None else 0
+            state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
+            del first
+            torch.cuda.empty_cache()
+            saves.clear()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with HostPeak() as host2:
+                resumed = train.main(sft_argv(listfile, exp, config, tok_dir, **flags,
+                                              training_ckpt_load_step=SFT_RESUME), device=dev)
+            run2_s = time.perf_counter() - t0
+            peak2 = torch.cuda.max_memory_allocated() / 2**30
+            saves2 = dict(saves)
+    finally:
+        train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = real[:3]
+    counts = {k: c.launches for k, c in counters.items()}
+    hist2 = resumed.metrics_processor.history
+    dev2 = resumed.metrics_processor.dev_history
+    state2 = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
+    final = {k: state2[k] for k in resumed.model.state_dict()}
+    del resumed
+    torch.cuda.empty_cache()
+
+    seeded = bool(init_bits) and init_bits[0] == seed_bits
+    print(f"  stage 2 starts from step_0: the params at init ({len(seed_bits)} tensors) equal the "
+          f"HF tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
+    if not seeded:
+        failures.append("qwen2 sft: not started from the seed")
+    tower_p = whisper_encoder.get_num_params(ac)
+    text_p = n_params - tower_p
+    losses1 = [h["loss/per_sample"] for h in hist1]
+    for h, s in zip(hist1 + hist2, steps):
+        rows, T = s["rows"], s["L"]
+        frames = rows * (3000 // 2)
+        tower_tf = frames * (6 * tower_p + 12 * ac.encoder_layers * ac.d_model * 1500) / 1e12
+        text_tf = rows * T * (6 * text_p + 12 * tc.num_hidden_layers * tc.num_attention_heads
+                              * tc.head_dim * T) / 1e12
+        la = s["launches"]
+        print(f"  step {h['step']}: loss {h['loss/per_sample']:.4f}, {h['time/step_s'] * 1e3:.1f} "
+              f"ms, {h['throughput/tps']:,.0f} label tokens/s, MFU "
+              f"{h.get('throughput/mfu_pct', float('nan')):.3f}% (the reference's count: text "
+              f"model, label tokens); the tower {tower_tf:.1f} TFLOP and the text model over "
+              f"all {rows * T} positions {text_tf:.1f} TFLOP a step "
+              f"({(tower_tf + text_tf) / h['time/step_s']:.1f} TFLOP/s); data wait "
+              f"{h['time/data_loading_pct']:.1f}%; {rows} rows x {T}; launches K1 {la['K1']} "
+              f"K2 {la['K2']} K3 {la['K3 fwd']}+{la['K3 bwd']}  [{card}]")
+    want_step = {"K1": 2 * (ac.encoder_layers + L), "K2": ac.encoder_layers + L,
+                 "K3 fwd": 0, "K3 bwd": 0}
+    ok = (len(steps) == SFT_STEPS + SFT_STEPS - SFT_RESUME
+          and all(s["launches"] == want_step for s in steps)
+          and all(d["K1"] > 0 and d["K1"] % (ac.encoder_layers + L) == 0 and d["K2"] == 0
+                  and d["K3 fwd"] == d["K3 bwd"] == 0 for d in devs)
+          and len(devs) == 2 and not plain_calls
+          and len(losses1) == SFT_STEPS and all(math.isfinite(x) for x in losses1))
+    print(f"  launches a step (remat full recomputes the attention): want K1 "
+          f"{want_step['K1']} = 2 x ({ac.encoder_layers} tower + {L} text), K2 "
+          f"{want_step['K2']}, K3 0; dev passes {devs}; over both runs {counts}; plain "
+          f"versions called: {plain_calls or 'none'}; losses finite {'ok' if ok else 'FAIL'}")
+    print("  K3 stays at 0 launches: the qwen2_audio TrainSpec has no head weight, so the "
+          "trainer takes the full-logits pack loss under --training_enable_liger_kernel true, "
+          "as the JAX trainer does (touchnet_tpu/bin/train.py:485-498)")
+    if not ok:
+        failures.append("qwen2 sft: launches / losses")
+    clean = [hist1[1], hist2[1]]  # no save, dev pass, set-up or profiler in them
+    step_ms = statistics.median(h["time/step_s"] for h in clean) * 1e3
+    sft_step_split(exp / "profile_traces" / f"iteration_{SFT_STEPS}" / "trace.json",
+                   hist1[SFT_STEPS - 1]["time/step_s"] * 1e3, card, failures)
+    print(f"  step {step_ms:.1f} ms (the median of run 1's step 2 and the resumed run's step "
+          f"4: no save, dev pass, set-up or profiler in them); peak {peak1:.2f} GiB allocated "
+          f"(run 1), {peak2:.2f} GiB (resumed); AdamW moments {pinned / 1e9:.2f} GB in pinned "
+          f"host memory; the host's resident memory {host1.before / 1e9:.2f} -> peak "
+          f"{host1.peak / 1e9:.2f} GB (run 1), {host2.before / 1e9:.2f} -> "
+          f"{host2.peak / 1e9:.2f} GB (resumed); dev lines {[(d['step'], round(d['loss_per_sample'], 4)) for d in dev1]}"
+          f", {[(d['step'], round(d['loss_per_sample'], 4)) for d in dev2]}  [{card}]")
+    ok = sorted(saves1) == [SFT_RESUME] and sorted(saves2) == [SFT_STEPS]
+    ckpt = tree_bytes(exp / "checkpoint" / f"step_{SFT_STEPS}")
+    print("  saves (sync), the loop blocked: " + ", ".join(
+        f"run {r} step {s} {ms:.1f} ms ({w:.2f} s writing, {ckpt / max(w, 1e-9) / 1e9:.2f} GB/s)"
+        for r, sv in ((1, saves1), (2, saves2)) for s, (ms, w) in sorted(sv.items())) +
+        f"; a checkpoint {ckpt} bytes; run 1 {run1_s:.1f} s, resumed run {run2_s:.1f} s "
+        f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("qwen2 sft: saves")
+    losses2 = [h["loss/per_sample"] for h in hist2]
+    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
+        sorted(set(state2) - set(state1))
+    same = ([h["step"] for h in hist2] == list(range(SFT_RESUME + 1, SFT_STEPS + 1))
+            and losses2 == losses1[SFT_RESUME:] and not differ
+            and [d["step"] for d in dev2] == [SFT_STEPS])
+    print(f"  resumed from step {SFT_RESUME}: losses {losses2} equal run 1's bit for bit, and "
+          f"the final params, mu, nu, count ({len(state1)} tensors, checksums of their bits) "
+          f"differ in {differ[:5] or 'none'}: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("qwen2 sft: resume not bit-equal")
+    # stage 3 reads the model of the last step; the moments make room for the export
+    shutil.rmtree(exp / "checkpoint" / f"step_{SFT_STEPS}" / "optimizer")
+
+    # stage 3: the resumed run's last save -> HF (with the tokenizer, as
+    # run.sh:144-152 passes --tokenizer_model)
+    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+                   ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
+                    "qwen2_audio", "--tokenizer_model", tok_dir], failures, "qwen2 sft stage 3")
+    export = exp / "checkpoint_hf" / f"step-{SFT_STEPS}"
+    tensors = read_safetensors(str(export / "model.safetensors"))
+    bits = bits_checksums(tensors)
+    del tensors
+    differ = sorted(k for k in final if bits.get(k) != final[k]) + sorted(set(bits) - set(final))
+    exported = Qwen2AudioConfig.from_json_file(str(export / "config.json")).to_dict()
+    want_cfg = cfg.to_dict()
+    want_cfg["text_config"]["attn_implementation"] = "flash"
+    ok = not differ and exported == want_cfg and (export / "tokenizer.json").exists()
+    print(f"  stage 3: convert_ckpt_to_hf --step -1 --config --model_type qwen2_audio "
+          f"--tokenizer_model (subprocess) -> {export.name}, {tree_bytes(export)} bytes in "
+          f"{secs:.2f} s; its {len(bits)} tensors equal the final params bit for bit: "
+          f"{not differ} (differ in {differ[:5] or 'none'}); config.json round-trips, the "
+          f"tokenizer beside it {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("qwen2 sft: export")
+    shutil.rmtree(exp / "checkpoint", ignore_errors=True)
+
+    # one step on the kernel path against the plain path: 1 x SFT_CHECK_SEQLEN
+    # tokens of the same shards, no checkpoint, dev pass or offload (no
+    # optimizer step is taken)
+    t0 = time.perf_counter()
+    print(f"  one step at 1 x {SFT_CHECK_SEQLEN} tokens of the same shards, full width, "
+          f"{L} text layers, remat full: kernel vs plain path")
+    check_step(train, lambda dtype: sft_argv(
+        listfile, tmp / "sft_chk", config, tok_dir, dtype, dataset_batchsize=1,
+        dataset_text_seqlen=SFT_CHECK_SEQLEN, dataloader_num_workers=1,
+        training_enable_ckpt="false", training_enable_tensorboard="false",
+        training_enable_profiling="false", training_enable_cpu_offload="false"),
+        dev, failures, "qwen2 sft ")
+    check_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    first_step = steps[0]
+    k1_rows, k2_rows = sft_kernel_rows(attn, dev, failures, card, first_step["rows"],
+                                       first_step["L"], first_step["seg"].to(dev))
+    rows_s = time.perf_counter() - t0
+    print(f"  phase 14: stage 0 {stage0_s:.1f} s, run 1 {run1_s:.1f} s, resumed run "
+          f"{run2_s:.1f} s, kernel vs plain step {check_s:.1f} s, kernel rows {rows_s:.1f} s, "
+          f"all {time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, peak "
+          f"{max(peak1, peak2):.2f} GiB, launches {counts}  [{card}]")
+    out.update(counts=counts, k1=k1_rows, k2=k2_rows, export=export)
+    return out
+
+
 def profile_group(kernel: str) -> str:
     return next((g for g, keys in PROFILE_GROUPS if any(k in kernel for k in keys)),
                 "elementwise and other")
@@ -3552,23 +4066,33 @@ def tune(_build, dev, card) -> int:
 
 
 def run_audio_phases(dev, card, failures) -> tuple:
-    """Phases 10, 11, 12 and 13, each in a temporary directory of its own:
-    their launch counts, and the kernel rows of phases 12 and 13."""
-    with tempfile.TemporaryDirectory() as tmp:
+    """Phases 10, 11, 14, 12 and 13, in this order, each in a temporary
+    directory of its own but 12, which runs stage 4 in phase 14's (on its
+    stage-3 export, once the checkpoints are gone): their launch counts,
+    and the kernel rows of phases 12, 13 and 14."""
+    with phase_clock("phase 10"), tempfile.TemporaryDirectory() as tmp:
         audio_counts = run_audio_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("phase 11"), tempfile.TemporaryDirectory() as tmp:
         asr_counts = run_asr_cli(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        qwen2_counts, k1_rows, k4_rows = run_qwen2_cli(dev, card, failures, Path(tmp))
+        with phase_clock("phase 14"):
+            sft = run_qwen2_sft(dev, card, failures, Path(tmp))
+        torch.cuda.empty_cache()
+        with phase_clock("phase 12"):
+            qwen2_counts, k1_rows, k4_rows = run_qwen2_cli(dev, card, failures, Path(tmp),
+                                                           sft["export"])
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("phase 13"), tempfile.TemporaryDirectory() as tmp:
         kimi_counts, k1_kimi, k4_kimi = run_kimi_cli(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
     k1_rows.update(k1_kimi)
+    k1_rows.update(sft["k1"])
     k4_rows.update(k4_kimi)
-    return audio_counts, asr_counts, qwen2_counts, kimi_counts, k1_rows, k4_rows
+    return {"audio recipe": audio_counts, "ASR CLI": asr_counts, "qwen2_audio ASR": qwen2_counts,
+            "kimi_audio ASR": kimi_counts, "qwen2_audio SFT": sft["counts"]}, \
+        k1_rows, sft["k2"], k4_rows
 
 
 def kernels_line(counts, k1, k2, k3, k4) -> dict:
@@ -3603,6 +4127,7 @@ def kernels_line(counts, k1, k2, k3, k4) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
@@ -3641,22 +4166,30 @@ def main() -> int:
 
     failures = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    k1 = check_k1(attn, dev, gen, failures, card)
-    k4 = check_k4(dec, dev, gen, failures, card)
-    counts = run_slice(dev, card, failures)
+    print(f"  temp dir {tempfile.gettempdir()}: "
+          f"{shutil.disk_usage(tempfile.gettempdir()).free / 1e9:.2f} GB free")
+    with phase_clock("phase 3"):
+        k1 = check_k1(attn, dev, gen, failures, card)
+    with phase_clock("phase 4"):
+        k4 = check_k4(dec, dev, gen, failures, card)
+    with phase_clock("phase 5"):
+        counts = run_slice(dev, card, failures)
     torch.cuda.empty_cache()
-    k2 = check_k2(attn, dev, gen, failures, card)
-    k3 = check_k3(fused_ce, dev, gen, failures, card)
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("phase 6"):
+        k2 = check_k2(attn, dev, gen, failures, card)
+    with phase_clock("phase 7"):
+        k3 = check_k3(fused_ce, dev, gen, failures, card)
+    with phase_clock("phase 8"), tempfile.TemporaryDirectory() as tmp:
         train_counts = run_training(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with phase_clock("phase 9"), tempfile.TemporaryDirectory() as tmp:
         recipe_counts = run_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
-    audio_counts, asr_counts, qwen2_counts, kimi_counts, k1_q2, k4_q2 = run_audio_phases(
-        dev, card, failures)
-    k1.update(k1_q2)
-    k4.update(k4_q2)
+    paths, k1_audio, k2_sft, k4_audio = run_audio_phases(dev, card, failures)
+    k1.update(k1_audio)
+    k2.update(k2_sft)
+    k4.update(k4_audio)
+    audio_counts = paths["audio recipe"]
     for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
         for path, got in (("training", train_counts), ("recipe run", recipe_counts),
                           ("audio recipe", audio_counts)):
@@ -3664,21 +4197,25 @@ def main() -> int:
                 failures.append(f"{name} never launched on the {path} path")
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
             recipe_counts.get(name, 0) + audio_counts.get(name, 0)
+    for name in ("K1", "K2"):  # K3 stays off on the SFT path (phase 14 checks it)
+        if not paths["qwen2_audio SFT"].get(name):
+            failures.append(f"{name} never launched on the qwen2_audio SFT path")
+        counts[name] += paths["qwen2_audio SFT"].get(name, 0)
     for name in ("K1", "K4"):
-        for path, got in (("ASR CLI", asr_counts), ("qwen2_audio ASR", qwen2_counts),
-                          ("kimi_audio ASR", kimi_counts)):
-            if not got.get(name):
+        for path in ("ASR CLI", "qwen2_audio ASR", "kimi_audio ASR"):
+            if not paths[path].get(name):
                 failures.append(f"{name} never launched on the {path} path")
     if not recipe_counts.get("K4"):
         failures.append("K4 never launched on the recipe run's export path")
     counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0)
     for name in ("K1", "K4"):
-        counts[name] += (asr_counts.get(name, 0) + qwen2_counts.get(name, 0)
-                         + kimi_counts.get(name, 0))
+        counts[name] += sum(paths[p].get(name, 0)
+                            for p in ("ASR CLI", "qwen2_audio ASR", "kimi_audio ASR"))
     for name, n in counts.items():
         if n == 0:
             failures.append(f"{name} never launched on the main path")
 
+    print(f"  [all phases] wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels_line(counts, k1, k2, k3, k4)))
     if failures:
         raise SystemExit(f"chip_smoke FAILED: {failures}")

@@ -7,7 +7,8 @@
 # long utterance, the ark files and the scoring; and the kernels line.
 # Phase 13's: the bound at a given peak (the f32 rows at the FP32 peak),
 # the stage-4 argv (run.sh's flag set exactly), the kimi cases (i)-(k) in
-# the kernels line.
+# the kernels line. Phase 14's: the depth rule, the stage-2 argv (run.sh's
+# flags but the named cuts), the SFT cases (l) and (m) in the kernels line.
 
 import copy
 import importlib.util
@@ -330,3 +331,101 @@ def test_kernels_line_carries_the_kimi_cases():
     assert rows[0]["ms"] == 2.0 and rows[4]["ms"] == 0.2
     assert all(c["library_ms"] is not None for n, c in rows[4]["cases"].items()
                if n.startswith("(k)"))
+
+
+def _qwen2():
+    from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
+        Qwen2AudioConfig,
+    )
+    from touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio import get_num_params
+
+    return Qwen2AudioConfig.from_json_file(str(chip_smoke.QWEN2_CONFIG)), get_num_params
+
+
+@pytest.mark.parametrize("free_gb,card_gb,want", [(80.21, 85.0, 2), (28.0, 85.0, 1),
+                                                  (80.21, 60.0, 0), (20.0, 85.0, 0)])
+def test_sft_depth_cuts_the_text_model_by_disk_and_card(free_gb, card_gb, want):
+    """Phase 14 takes at most SFT_MAX_LAYERS text layers, fewer when the
+    temp dir (at most SFT_DISK_CAP) cannot hold one checkpoint (12 bytes a
+    parameter) and 2 GiB or the card the params, gradients, full logits and
+    activations; the tower and the vocab stay full. At 2 layers:
+    2,224,196,608 params, a 26.7 GB checkpoint, 70.8 GB of card."""
+    cfg, get_num_params = _qwen2()
+    layers, ckpt, disk, card = chip_smoke.sft_depth(cfg, int(free_gb * 1e9),
+                                                    int(card_gb * 1e9), get_num_params)
+    assert layers == want and cfg.text_config.num_hidden_layers == 28
+    if want:
+        c = copy.deepcopy(cfg)
+        c.text_config.num_hidden_layers = want
+        n = get_num_params(c)
+        assert ckpt == 12 * n and disk == ckpt + 2**31
+        assert disk <= min(free_gb * 1e9, chip_smoke.SFT_DISK_CAP)
+        assert card == 8 * n + 16384 * 156032 * 14 + chip_smoke.SFT_ACTIVATIONS
+    if want == 2:
+        assert n == 2_224_196_608 and 26.6e9 < ckpt < 26.8e9 and 70.7e9 < card < 70.9e9
+
+
+def _run_sh_stage2():
+    run_sh = open(os.path.join(ROOT, "examples/audio/sft/asr/wenetspeech/run.sh")).read()
+    body = run_sh[run_sh.index("python -m touchnet_tpu.bin.train"):]
+    body = body[:body.index("\nfi")]
+    flags = {}
+    for ln in body.splitlines()[1:]:
+        parts = ln.strip().rstrip("\\").split(None, 1)
+        flags[parts[0][2:]] = parts[1].strip().strip('"')
+    return flags
+
+
+def test_sft_argv_is_the_recipes_stage2_but_the_named_cuts():
+    """Every flag of run.sh's stage 2 is in sft_argv with the recipe's
+    value (its shell variables resolved for qwen2_audio and exp_id's
+    2x8192 dp8), except the cuts phase 14 names; sft_argv adds only the
+    CPU offload of the moments and the SFT cut's checkpoint writes."""
+    recipe = _run_sh_stage2()
+    argv = chip_smoke.sft_argv("L", "E", "C", "T")
+    got = dict(zip((a[2:] for a in argv[::2]), argv[1::2]))
+    resolved = {"${pretrained_tokenizer_dir}": "T", "${model_type}": "qwen2_audio",
+                "data/${train_set}/data.list": "L", "${bs}": "2", "${max_seq_len}": "8192",
+                "${num_workers}": "12", "${prefetch}": "12", "${seed}": "2025",
+                "config/${model_config}.json": "C", "exp/${exp_id}": "E", "${cp}": "1",
+                "${tp}": "1", "${dp}": "8", "${pp}": "1", "${liger}": "true",
+                "${param_dtype}": "bfloat16",
+                "wenetspeech asr sft (${model_type})": "wenetspeech asr sft (qwen2_audio)"}
+    cuts = {"training_data_parallel_shard_degree": "1", "dataloader_num_workers": "2",
+            "dataloader_prefetch_factor": "2", "training_ckpt_async_mode": "disabled",
+            "training_log_freq": "1", "training_activation_checkpoint_mode": "full",
+            "lr_scheduler_steps": "4", "lr_scheduler_warmup_steps": "2"}
+    differ = {}
+    for k, v in recipe.items():
+        if k == "datalist_dev_path":  # phase 14 passes its dev list through extra
+            assert k not in got
+            continue
+        want = resolved.get(v, v)
+        try:  # numbers by value (2e-5 is written 2e-05)
+            same = float(got[k]) == float(want)
+        except ValueError:
+            same = got[k].lower() == want.lower()
+        if not same:
+            differ[k] = got[k]
+    assert differ == cuts
+    assert set(got) - set(recipe) == {"training_enable_cpu_offload"}
+    assert got["training_enable_cpu_offload"] == "true"
+
+
+def test_kernels_line_carries_the_sft_cases():
+    """Phase 14's (l) lands under K2's cases, (m) under K1's and K2's; the
+    main rows stay (d)."""
+    def case(ms):
+        return {"max_abs_err": 1e-3, "ms": ms, "plain_ms": 2 * ms, "library_ms": ms / 2,
+                "bound_ms": ms / 10, "bound_by": "operations", "tflops": 1.0, "parts": {}}
+
+    k1 = {"(d) main": case(2.0), "(m) qwen2_audio text training": case(0.5)}
+    k2 = {"(d) main": case(6.8), "(l) qwen2_audio tower training": case(9.0),
+          "(m) qwen2_audio text training": case(1.5)}
+    k3 = {"(d) main": {"fwd": case(13.0), "bwd": case(44.0)}}
+    counts = {"K1": 600, "K2": 400, "K3 fwd": 1, "K3 bwd": 1, "K4": 20000}
+    rows = chip_smoke.kernels_line(counts, k1, k2, k3, {"(a) decode": case(0.2)})["kernels"]
+    assert "(m) qwen2_audio text training" in rows[0]["cases"]
+    assert {"(l) qwen2_audio tower training", "(m) qwen2_audio text training"} <= \
+        set(rows[1]["cases"])
+    assert rows[0]["ms"] == 2.0 and rows[1]["ms"] == 6.8 and rows[1]["launches"] == 400

@@ -207,12 +207,15 @@ def test_export_step_resolution(tmp_path):
 
 @pytest.mark.parametrize("model_type", ["touch_audio", "qwen2_audio", "kimi_audio"])
 def test_converters_refuse_audio_model_types(tmp_path, model_type):
-    """The audio families after touch_audio are later slices. touch_audio
-    converts (test_torch_touch_audio.py); it refuses a seed without the
-    model config (the HF directory holds only the backbone's) and an
-    export without a checkpoint."""
-    if model_type == "touch_audio":
-        with pytest.raises(ValueError, match="training_model_config_path is required"):
+    """kimi_audio is a later slice. touch_audio and qwen2_audio convert
+    (test_torch_touch_audio.py, test_torch_qwen2_audio_sft.py); touch_audio
+    refuses a seed without the model config (the HF directory holds only
+    the backbone's), qwen2_audio one whose directory has no config.json
+    when no config is given, and both an export without a checkpoint."""
+    if model_type in ("touch_audio", "qwen2_audio"):
+        seed_error = ((ValueError, "training_model_config_path is required")
+                      if model_type == "touch_audio" else (FileNotFoundError, "config.json"))
+        with pytest.raises(seed_error[0], match=seed_error[1]):
             convert_hf_to_ckpt.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
                                      "--huggingface_model", str(tmp_path)])
         with pytest.raises(FileNotFoundError, match="no step_<N>"):

@@ -123,7 +123,7 @@ def test_main_matches_the_jax_cli(tiny, tmp_path):
 def test_prompts_hold_one_audio_id_a_frame(tiny):
     tok = build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
                                           tokenizer_model=tiny["tok"]))
-    cli.check_audio_token(tok, 60)
+    proc.check_audio_token(proc.ManualQwen2AudioFrontend(tok), 60)
     for frames, n in ((100, 25), (3000, 750), (3100, 775)):
         ids = cli.prompt_ids(tok, INSTRUCT, frames, 60)
         # the instruct's characters take the first ids: "G" is 0
@@ -134,7 +134,7 @@ def test_prompts_hold_one_audio_id_a_frame(tiny):
         def tokenize(self, text, add_special_tokens=False):
             return [60] if text == cli.AUDIO_TOKEN else [58, 60, 60, 59]
 
-    cli.check_audio_token(Merging(), 60)
+    proc.check_audio_token(proc.ManualQwen2AudioFrontend(Merging()), 60)
     with pytest.raises(ValueError, match="holds 2 audio ids for 25 audio frames"):
         cli.prompt_ids(Merging(), INSTRUCT, 100, 60)
 

@@ -78,12 +78,19 @@ def _packed_segments(B, T, rng):
 
 def _segments_of(kind, B, T, rng):
     """None (one segment), "packed" (three documents + a padding tail),
-    "boundary" (documents that end inside the 64/128-row diagonal tiles) or
-    "long" (two long documents, so most tiles are wholly live)."""
+    "boundary" (documents that end inside the 64/128-row diagonal tiles),
+    "long" (two long documents, so most tiles are wholly live) or
+    "rightpad" (dynamic_batch's rows: segment 1 on a row's tokens, 0 on its
+    right padding, which attends itself; the first row full)."""
     if kind is None:
         return None
     if kind == "packed":
         return _packed_segments(B, T, rng)
+    if kind == "rightpad":
+        seg = np.zeros((B, T), np.int32)
+        for b, n in enumerate([T, *rng.integers(T // 3, T, B - 1)]):
+            seg[b, :n] = 1
+        return seg
     seg = np.zeros((B, T), np.int32)
     cuts = [0, 100, 141, T - 5] if kind == "boundary" else [0, T // 2 + 3, T]
     for i, (a, e) in enumerate(zip(cuts[:-1], cuts[1:])):
@@ -122,6 +129,11 @@ ATTENTION_CASES = [
     # utterance, B1 G7 D128 causal
     (1, 1500, 1500, 20, 20, 64, False, None, 0, 0),
     (1, 390, 390, 28, 4, 128, True, None, 0, 0),
+    # qwen2_audio's SFT (dynamic_batch): (m) Qwen2-Audio-7B's text layers on
+    # right-padded rows, G 7 D128 causal, segment 1 on tokens and 0 on the
+    # padding; the tower's training shape (l) is (f) above, through K2 too
+    (3, 401, 401, 28, 4, 128, True, "rightpad", 0, 0),
+    (2, 130, 130, 7, 1, 128, True, "rightpad", 0, 0),
 ]
 
 

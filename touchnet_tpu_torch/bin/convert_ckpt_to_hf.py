@@ -3,12 +3,15 @@
 # <ckpt_dir>/checkpoint_hf/step-<N>/{model.safetensors,config.json}.
 #
 #     python -m touchnet_tpu_torch.bin.convert_ckpt_to_hf --ckpt_dir <exp> \
-#         --step -1 --config <cfg> --model_type causal_lm | touch_audio \
+#         --step -1 --config <cfg> --model_type causal_lm | touch_audio | qwen2_audio \
 #         [--tokenizer_model <dir>]
 #
-# Port of touchnet_tpu/bin/convert_ckpt_to_hf.py (:16-139) for causal_lm and
+# Port of touchnet_tpu/bin/convert_ckpt_to_hf.py (:16-139) for causal_lm,
 # touch_audio (whose config.json is the TouchAudioConfig's own dict, as the
-# JAX exporter writes it), with two faults of that file left behind: its HF config has ten fields
+# JAX exporter writes it) and qwen2_audio (:84-121: the HF state dict of
+# models/qwen2_audio/convert.py and its hf_config_dict, which holds every
+# field of the audio and text configs), with two faults of that file left
+# behind: its HF config has ten fields
 # and drops rope_scaling and head_dim (here models/llama/convert.py's
 # hf_config_dict writes them all), and it reads the model config only from
 # --training_model_config_path and hands --step -1 to the restore unresolved
@@ -72,6 +75,14 @@ def convert(config: CkptConverterConfig) -> str:
             TouchAudioConfig as Config,
         )
         from touchnet_tpu_torch.models.touch_audio.convert import (
+            hf_config_dict,
+            params_to_hf_state_dict,
+        )
+    elif config.model_type == "qwen2_audio":
+        from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
+            Qwen2AudioConfig as Config,
+        )
+        from touchnet_tpu_torch.models.qwen2_audio.convert import (
             hf_config_dict,
             params_to_hf_state_dict,
         )

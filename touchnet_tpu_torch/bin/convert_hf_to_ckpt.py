@@ -5,18 +5,21 @@
 #
 #     python -m touchnet_tpu_torch.bin.convert_hf_to_ckpt --ckpt_dir <exp> \
 #         --huggingface_model <hf dir> --training_model_config_path <cfg> \
-#         --model_type causal_lm | touch_audio
+#         --model_type causal_lm | touch_audio | qwen2_audio
 #
 # Port of touchnet_tpu/bin/convert_hf_to_ckpt.py: load_hf_state_dict
 # (:20-47; *.safetensors through the port's own reader, else
 # pytorch_model*.bin through torch.load) and convert (:50-115) for
-# causal_lm and touch_audio (a text backbone's HF weights under
+# causal_lm, touch_audio (a text backbone's HF weights under
 # language_model. and a fresh projector drawn from torch.Generator seed 0,
-# models/touch_audio/convert.py). The seed is written with torch.distributed.checkpoint in one
-# process, in the layout of utils/checkpoint.py, as f32 masters: HF Llama
+# models/touch_audio/convert.py) and qwen2_audio (the whole
+# Qwen2AudioForConditionalGeneration, :75-85, models/qwen2_audio/
+# convert.py; the config from --training_model_config_path, else the HF
+# directory's config.json). The seed is written with torch.distributed.checkpoint in one
+# process, in the layout of utils/checkpoint.py, as f32 masters: HF
 # weights are bf16, the trainer's masters f32, and its load refuses a dtype
-# that differs (JAX upcasts at load, :31-33). Host-only. qwen2_audio and
-# kimi_audio are later slices.
+# that differs (JAX upcasts at load, :31-33). Host-only. kimi_audio is a
+# later slice.
 
 import glob
 import os
@@ -32,7 +35,8 @@ from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
 
-LATER_MODEL_TYPES = ("qwen2_audio", "kimi_audio")
+LATER_MODEL_TYPES = ("kimi_audio",)
+MODEL_TYPES = ("causal_lm", "touch_audio", "qwen2_audio")
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -55,8 +59,8 @@ def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
 def check_model_type(model_type: str) -> None:
     if model_type in LATER_MODEL_TYPES:
         raise ValueError(f"model_type {model_type!r}: a later audio slice of "
-                         "touchnet_tpu_torch; the port converts causal_lm and touch_audio")
-    if model_type not in ("causal_lm", "touch_audio"):
+                         f"touchnet_tpu_torch; the port converts {', '.join(MODEL_TYPES)}")
+    if model_type not in MODEL_TYPES:
         raise NotImplementedError(f"model_type {model_type!r}")
 
 
@@ -87,6 +91,17 @@ def convert(config: CkptConverterConfig) -> str:
         sd = load_hf_state_dict(config.huggingface_model)
         params = params_from_hf_backbone_state_dict(
             mcfg, sd, torch.Generator().manual_seed(0), dtype=torch.float32)
+    elif config.model_type == "qwen2_audio":
+        from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
+            Qwen2AudioConfig,
+        )
+        from touchnet_tpu_torch.models.qwen2_audio.convert import params_from_hf_state_dict
+
+        mcfg = Qwen2AudioConfig.from_json_file(
+            config.training_model_config_path
+            or os.path.join(config.huggingface_model, "config.json"))
+        sd = load_hf_state_dict(config.huggingface_model)
+        params = params_from_hf_state_dict(mcfg, sd, dtype=torch.float32)
     else:
         from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
         from touchnet_tpu_torch.models.llama.convert import params_from_hf_state_dict

@@ -14,13 +14,18 @@
 # the train loop (:944-1022) with checkpoints, dev evaluation, profiling,
 # memory snapshots and GC, dev (:1024-1072) and main. The flags and the
 # batch contract are the JAX trainer's (TrainConfig, DataConfig,
-# TokenizerConfig). Two model families train: llama (causal_lm datapipe)
-# and touch_audio (touch_audio datapipe: packed BEST-RQ audio pretraining,
-# its input_features cast to the compute dtype by the model); the
-# TrainSpec's additional_pre_init_fn checks the data config against the
-# model's (touch_audio: the stacked feature width against the projector's
-# input) before anything is built, and float batch arrays are checked for
-# NaN/inf on the host before they reach the card.
+# TokenizerConfig). Three model families train: llama (causal_lm
+# datapipe), touch_audio (touch_audio datapipe: packed BEST-RQ audio
+# pretraining, its input_features cast to the compute dtype by the model)
+# and qwen2_audio (qwen2_audio datapipe: dynamic_batch's right-padded SFT
+# rows with whisper features and feature_attention_mask, the full-logits
+# loss); the TrainSpec's additional_pre_init_fn checks the data config
+# against the model's (touch_audio: the stacked feature width against the
+# projector's input; qwen2_audio: the mel bins against the tower's) before
+# anything is built, the loaders get the model config (the qwen2_audio
+# datapipe checks the tokenizer against its audio_token_index), and float
+# batch arrays are checked for NaN/inf on the host before they reach the
+# card.
 #
 # One step: forward (K1 attention) -> pack loss (K3 when fused) -> backward
 # (K2, K3) -> global-norm clip min(1, max_norm / (gnorm + 1e-6)) -> AdamW
@@ -96,6 +101,7 @@ _BATCH_ARRAY_KEYS = (
     "labels",
     "position_ids",
     "attention_mask",
+    "feature_attention_mask",
     "sentence_lens",
 )
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -148,9 +154,10 @@ class GlobalBatchLoader:
     """The global batch from the data-parallel loader streams; the port runs
     one device, so there is one stream (dp rank 0 of 1)."""
 
-    def __init__(self, build_fn, data_config, tokenizer, split: str):
+    def __init__(self, build_fn, data_config, tokenizer, split: str, model_config=None):
         self.dp_degree = 1
-        self.loaders = [build_fn(data_config, tokenizer, 0, 1, split)]
+        self.loaders = [build_fn(data_config, tokenizer, 0, 1, split,
+                                 model_config=model_config)]
 
     def __iter__(self):
         return iter(self.loaders[0])
@@ -373,7 +380,8 @@ class Trainer:
 
         self.tokenizer = self.train_spec.build_tokenizer_fn(tokenizer_config)
         self.dataloader = GlobalBatchLoader(self.train_spec.build_dataloader_fn,
-                                            data_config, self.tokenizer, "train")
+                                            data_config, self.tokenizer, "train",
+                                            self.model_config)
         self.has_dev = data_config.datalist_dev_path is not None
         self.metrics_processor = MetricsProcessor(job_config, device)
 
@@ -671,7 +679,7 @@ class Trainer:
         every batch of datalist_dev_path (never stacked, whatever the
         accumulation), averaged, logged as one [dev] line."""
         dev_loader = GlobalBatchLoader(self.train_spec.build_dataloader_fn, self.data_config,
-                                       self.tokenizer, "dev")
+                                       self.tokenizer, "dev", self.model_config)
         totals = {"loss_per_sample": 0.0, "loss_per_token": 0.0, "acc": 0.0}
         n = 0
         try:

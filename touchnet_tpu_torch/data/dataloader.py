@@ -1,8 +1,9 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/data/dataloader.py (framework-free: numpy and the standard
 # library), with its imports pointed at the port. build_dataloader
-# takes causal_lm and touch_audio; qwen2_audio and kimi_audio raise as
-# later slices.
+# takes causal_lm, touch_audio and qwen2_audio (whose datapipe checks the
+# tokenizer against the model config's audio_token_index, so the caller
+# passes model_config); kimi_audio raises as a later slice.
 #
 # Parallelism-aware, exactly-resumable dataloader.
 #
@@ -26,6 +27,7 @@
 # and ends (the JAX loader leaves it waiting).
 
 import copy
+import functools
 import queue
 import threading
 from abc import ABC, abstractmethod
@@ -240,10 +242,12 @@ def build_dataloader(
     dp_rank: int,
     dp_world_size: int,
     split: str = "train",
+    model_config=None,
 ) -> ParallelAwareDataloader:
     """Dispatch on datapipe_type to the per-model datapipe builder; dev/test
     splits force no-shuffle / no-augment / 1 epoch (reference
-    touchnet/data/dataloader.py:114-163)."""
+    touchnet/data/dataloader.py:114-163). qwen2_audio needs ``model_config``
+    (a Qwen2AudioConfig: its audio_token_index)."""
     config = copy.deepcopy(data_config)
     if split != "train":
         config.datalist_shuffling = False
@@ -261,10 +265,20 @@ def build_dataloader(
         from touchnet_tpu_torch.models.touch_audio.processing_touch_audio import (
             touch_audio_datapipe as builder,
         )
+    elif config.datapipe_type == "qwen2_audio":
+        from touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio import (
+            qwen2_audio_datapipe,
+        )
+
+        if model_config is None or not hasattr(model_config, "audio_token_index"):
+            raise ValueError("datapipe_type qwen2_audio needs the model's config (its "
+                             "audio_token_index): train with --training_model_name qwen2_audio")
+        builder = functools.partial(qwen2_audio_datapipe,
+                                    audio_token_index=model_config.audio_token_index)
     else:
         raise NotImplementedError(
-            f"datapipe_type {config.datapipe_type!r}: causal_lm and touch_audio are "
-            "ported; qwen2_audio and kimi_audio are later slices"
+            f"datapipe_type {config.datapipe_type!r}: causal_lm, touch_audio and qwen2_audio "
+            "are ported; kimi_audio is a later slice"
         )
 
     def factory(worker_id: int, num_workers: int):

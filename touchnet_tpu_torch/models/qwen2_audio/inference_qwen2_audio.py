@@ -50,6 +50,8 @@ from touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio import (
 )
 from touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio import (
     QWEN2_AUDIO_TEMPLATE_FOR_S2T,
+    ManualQwen2AudioFrontend,
+    check_audio_token,
     whisper_features,
 )
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
@@ -69,15 +71,6 @@ from touchnet_tpu_torch.utils.inference import (
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 
 AUDIO_TOKEN = "<|AUDIO|>"
-
-
-def check_audio_token(tokenizer, audio_token_index: int) -> None:
-    """Raise unless the tokenizer maps AUDIO_TOKEN to [audio_token_index]."""
-    ids = list(tokenizer.tokenize(AUDIO_TOKEN, add_special_tokens=False))
-    if ids != [audio_token_index]:
-        raise ValueError(f"the tokenizer maps {AUDIO_TOKEN!r} to {ids[:8]}, not to the one id "
-                         f"[{audio_token_index}] (the config's audio_token_index): the prompt's "
-                         "audio positions would not be found")
 
 
 def load_params(config: InferenceConfig, model_config: Qwen2AudioConfig, dtype, device):
@@ -125,7 +118,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
     model_config, tok_config = resolve_model_files(config, tok_config, Qwen2AudioConfig,
                                                    "qwen2_audio")
     tokenizer = build_tokenizer(tok_config)
-    check_audio_token(tokenizer, model_config.audio_token_index)
+    check_audio_token(ManualQwen2AudioFrontend(tokenizer), model_config.audio_token_index)
     dtype = torch_dtype(config.model_dtype)
     model = load_params(config, model_config, dtype, device)
     embed_w = model.language_model.model.embed_tokens.weight

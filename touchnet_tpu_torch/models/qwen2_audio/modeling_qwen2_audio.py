@@ -11,8 +11,12 @@
 # card; the language model runs as the text model does (K1, and K4 when
 # serving). The merge is the JAX package's cumsum gather: row b's j-th
 # <|AUDIO|> token takes row b's j-th pooled audio frame (clipped to the last
-# frame when a row has more audio tokens than frames). The state_dict keys
-# are the HF Qwen2AudioForConditionalGeneration ones:
+# frame when a row has more audio tokens than frames). Training runs forward
+# with the JAX forward's remat_mode over the tower's layers (selective option
+# "op", as JAX passes none to the tower) and over the text layers (with the
+# trainer's selective_ac_option), then the full logits: the qwen2_audio
+# TrainSpec has no head weight, so the fused lm-head (K3) is off, as in JAX.
+# The state_dict keys are the HF Qwen2AudioForConditionalGeneration ones:
 #   audio_tower.<the WhisperEncoder keys of models/whisper_encoder.py>
 #   multi_modal_projector.linear.{weight [E, d_model], bias [E]}
 #   language_model.<the Llama keys of models/llama/modeling_llama.py>
@@ -64,12 +68,15 @@ def empty_model(config: Qwen2AudioConfig, dtype=torch.float32, device="cuda", *,
 
 @torch.no_grad()
 def init_params(config: Qwen2AudioConfig, generator: torch.Generator, dtype=torch.float32,
-                device=None) -> Qwen2AudioForConditionalGeneration:
+                device=None, *, requires_grad: bool = False,
+                train: bool = False) -> Qwen2AudioForConditionalGeneration:
     """The tower as whisper_encoder.init_params draws it, the projector from
     kaiming_uniform_init with a zero bias (the JAX init_params), then the
     Llama's weights as modeling_llama.init_params draws them, all from
     ``generator`` on its device (or ``device``); the numbers differ from
-    jax.random's. Eval mode, no gradients."""
+    jax.random's. Serving's defaults (eval mode, no gradients); a trainer
+    passes requires_grad=True, train=True: every tensor trains, the tower's
+    position table too, as in the JAX trainer."""
     if device is None:
         device = generator.device
     with torch.device("meta"):  # each part is allocated once, by its own init
@@ -82,7 +89,7 @@ def init_params(config: Qwen2AudioConfig, generator: torch.Generator, dtype=torc
     proj.bias.zero_()
     model.language_model = modeling_llama.init_params(config.text_config, generator, dtype,
                                                       device)
-    return model.eval().requires_grad_(False)
+    return model.train(train).requires_grad_(requires_grad)
 
 
 def get_feat_extract_output_lengths(input_lengths):
@@ -94,14 +101,16 @@ def get_feat_extract_output_lengths(input_lengths):
 
 
 def encode_audio(model: Qwen2AudioForConditionalGeneration, input_features: torch.Tensor,
-                 config: Qwen2AudioConfig, compute_dtype=torch.bfloat16) -> torch.Tensor:
+                 config: Qwen2AudioConfig, compute_dtype=torch.bfloat16,
+                 remat_mode: str = "none") -> torch.Tensor:
     """input_features [B, mel, T] -> the projected audio [B, T // 4, E] in
-    compute_dtype: the causal tower, avg-pool 2 over time, the tower's final
-    LayerNorm, the projector."""
+    compute_dtype: the causal tower (its layers under remat_mode), avg-pool
+    2 over time, the tower's final LayerNorm, the projector."""
     tower = model.audio_tower
     h = whisper_encoder.forward(tower, input_features, config.audio_config,
                                 compute_dtype=compute_dtype, causal=True,
-                                apply_final_layer_norm=False)  # [B, T', D]
+                                apply_final_layer_norm=False,
+                                remat_mode=remat_mode)  # [B, T', D]
     B, T, D = h.shape
     h = h[:, :(T // 2) * 2].reshape(B, T // 2, 2, D).mean(dim=2)  # avg_pool1d(2, 2)
     h = tower.layer_norm(h)
@@ -126,21 +135,28 @@ def forward(
     *,
     input_ids: Optional[torch.Tensor] = None,
     input_features: Optional[torch.Tensor] = None,  # [B, mel, T]
+    feature_attention_mask: Optional[torch.Tensor] = None,
     inputs_embeds: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
     position_ids: Optional[torch.Tensor] = None,
     config: Qwen2AudioConfig,
     compute_dtype=torch.bfloat16,
+    remat_mode: str = "none",
+    selective_ac_option: str = "op",
+    return_hidden: bool = False,
 ) -> torch.Tensor:
-    """Logits [B, L, V] in compute_dtype, as modeling_llama.forward, from
+    """Logits [B, L, V] in compute_dtype (or the final-norm hidden state
+    with return_hidden), as modeling_llama.forward, from
     embed_tokens(input_ids) with the encoded audio merged in (unless
-    inputs_embeds is given). The JAX forward's remat and sharding options
-    come with the training slice."""
+    inputs_embeds is given). feature_attention_mask is taken and not read:
+    the tower runs over every padded frame, as in the JAX forward."""
+    del feature_attention_mask
     lm = model.language_model
     if inputs_embeds is None:
         inputs_embeds = F.embedding(input_ids, lm.model.embed_tokens.weight).to(compute_dtype)
         if input_features is not None:
-            audio_embeds = encode_audio(model, input_features, config, compute_dtype)
+            audio_embeds = encode_audio(model, input_features, config, compute_dtype,
+                                        remat_mode)
             inputs_embeds = merge_audio_into_text(inputs_embeds, audio_embeds, input_ids,
                                                   config.audio_token_index)
     return modeling_llama.forward(
@@ -150,6 +166,9 @@ def forward(
         position_ids=position_ids,
         config=config.text_config,
         compute_dtype=compute_dtype,
+        remat_mode=remat_mode,
+        selective_ac_option=selective_ac_option,
+        return_hidden=return_hidden,
     )
 
 

@@ -25,7 +25,11 @@
 #   layers.{i}.final_layer_norm.{weight, bias}
 #   layers.{i}.fc1.{weight, bias}, fc2.{weight, bias}
 #   layer_norm.{weight, bias}
-# The remat modes of the JAX tower come with the qwen2_audio training slice.
+# Activation checkpointing over the layers is the Llama's (the JAX forward
+# wraps its scan body in modeling_llama._apply_remat, :206-208):
+# modeling_llama.remat_layers picks each layer's save set and _run_layer
+# runs it, the projections carrying the Llama's dot_* names and K1 its
+# flash_out / flash_lse, so every mode saves what it saves in the Llama.
 
 import math
 from dataclasses import dataclass
@@ -36,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from touchnet_tpu_torch.models.common import normal_init
-from touchnet_tpu_torch.models.llama.modeling_llama import _proj
+from touchnet_tpu_torch.models.llama.modeling_llama import _proj, _run_layer, remat_layers
 from touchnet_tpu_torch.ops import attention as attn_ops
 
 
@@ -177,11 +181,13 @@ def _conv1d(x, conv: nn.Conv1d, stride: int) -> torch.Tensor:
 
 def forward(model: WhisperEncoder, input_features: torch.Tensor, config: WhisperEncoderConfig,
             *, compute_dtype=torch.bfloat16, causal: bool = True,
-            apply_final_layer_norm: bool = False) -> torch.Tensor:
+            apply_final_layer_norm: bool = False, remat_mode: str = "none",
+            selective_ac_option: str = "op") -> torch.Tensor:
     """input_features [B, mel, T] -> [B, ceil(T / 2), d_model] in compute_dtype.
     causal=True is the reference's streamable patch, which Qwen2-Audio runs
     also at inference; apply_final_layer_norm=False is Qwen2-Audio's (it
-    pools first)."""
+    pools first). remat_mode / selective_ac_option checkpoint the layers as
+    modeling_llama.remat_layers says (the JAX tower passes no option: "op")."""
     x = input_features.to(compute_dtype)
     x = F.gelu(_conv1d(x, model.conv1, 1))
     x = F.gelu(_conv1d(x, model.conv2, 2))
@@ -196,8 +202,9 @@ def forward(model: WhisperEncoder, input_features: torch.Tensor, config: Whisper
     def attend(q, k, v):
         return attn_ops.flash_attention(q, k, v, None, causal, scale)[0]
 
-    for layer in model.layers:
-        h = layer(h, attend)
+    remat = remat_layers(remat_mode, selective_ac_option, len(model.layers))
+    for layer, save in zip(model.layers, remat):
+        h = _run_layer(layer, save, h, attend)
     if apply_final_layer_norm:
         h = model.layer_norm(h)
     return h

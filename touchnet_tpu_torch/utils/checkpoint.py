@@ -22,10 +22,12 @@
 # moments in place, so the next update must not start before the staging
 # copies have read them: maybe_wait_for_staging makes the compute stream
 # wait for the staging's event (a fence on the card, the host never
-# blocks). Host tensors (the AdamW moments under CPU offload) are staged by
-# a host copy in save() itself, after ``before_stage`` (the trainer's wait
-# for the moments' device-to-host copies), so no later update can change
-# them under the writer. Loading validates every key, shape and dtype against the
+# blocks). Host tensors (the AdamW moments under CPU offload) are read
+# after ``before_stage`` (the trainer's wait for the moments'
+# device-to-host copies): under async a host copy in save() itself stages
+# them, so no later update can change them under the writer; a sync save
+# writes them as they are, since no update runs before it returns (a copy
+# would hold a second 8 bytes a parameter of pinned memory). Loading validates every key, shape and dtype against the
 # checkpoint's metadata before it reads a byte: a checkpoint that does not
 # fit raises naming the key and never loads partially.
 
@@ -96,7 +98,7 @@ class CheckpointManager:
             before_stage()
         tensors = {f"{MODEL}.{k}": v for k, v in model.items()}
         tensors.update({f"{OPTIMIZER}.{k}": v for k, v in optimizer.items()})
-        host = self._stage(tensors)
+        host = self._stage(tensors, copy_host=self.async_mode)
         items = {TRAIN_STATE: {"step": int(step)}}
         if self.dataloader is not None:
             items[DATALOADER] = _jsonify(self.dataloader.state_dict())
@@ -116,12 +118,14 @@ class CheckpointManager:
             logger.info(f"checkpoint saved for step {step}")
         return True
 
-    def _stage(self, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _stage(self, tensors: Dict[str, torch.Tensor],
+               copy_host: bool = True) -> Dict[str, torch.Tensor]:
         """Host copies of ``tensors``: clones on the CPU; on the card copies
         into pinned buffers (kept for the next save) on a copy stream that
         first waits for the compute stream, with an event recorded after
         them (self._staged). A host tensor among card tensors is copied into
-        its buffer by the host, before this returns."""
+        its buffer by the host, before this returns, or, without
+        ``copy_host``, handed over as it is."""
         self._staged = None
         cuda = [t for t in tensors.values() if t.is_cuda]
         if not cuda:
@@ -133,6 +137,9 @@ class CheckpointManager:
         host = {}
         with torch.cuda.stream(self._stream):
             for k, t in tensors.items():
+                if not t.is_cuda and not copy_host:
+                    host[k] = t.detach()
+                    continue
                 buf = self._buffers.get(k)
                 if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
                     buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)

@@ -70,6 +70,7 @@ def register_train_spec(spec: TrainSpec) -> None:
 def get_train_spec(name: str) -> TrainSpec:
     # model packages self-register on import
     import touchnet_tpu_torch.models.llama  # noqa: F401
+    import touchnet_tpu_torch.models.qwen2_audio  # noqa: F401
     import touchnet_tpu_torch.models.touch_audio  # noqa: F401
 
     if name not in _train_specs:
