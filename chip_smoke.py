@@ -57,8 +57,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      and falling), --training_mixed_precision_reduce bfloat16 (losses
      falling, step 1's loss equal to the main run's bit for bit, steps 5
      and 10 within bounds of it) and --training_enable_cpu_offload true (its
-     pinned host bytes; sync checkpoints at 1 and 10 with the time the
-     loop blocked in each; losses and final params, mu, nu and count equal
+     pinned host bytes; a sync checkpoint at step 1 alone with the time the
+     loop blocked in it; losses and final params, mu, nu and count equal
      the main run's bit for bit, and so are those of a fresh run resumed
      from its step 1);
      then one step's loss, grad norm and gradients of the kernel path
@@ -86,20 +86,22 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      tensors, read back with the port's reader, equal the final params bit
      for bit, and greedy generate (K1, K4) from the export gives the
      trainer's model's tokens (2 prompts, 16 new tokens). Each stage prints
-     its seconds and bytes. The temp directory's free space is printed
-     first; without room for three checkpoints (two kept, one being
-     written), the seed, step_0 and the export, the phase runs fewer
-     layers at full width, and says so;
+     its seconds and bytes. The model is Llama-3.2-1B at full width and
+     RECIPE_MAX_LAYERS of its 16 layers (phase 8 trains all 16). The temp
+     directory's free space is printed first; without room for three
+     checkpoints (two kept, one being written), the seed, step_0 and the
+     export, the phase runs fewer layers still, and says so;
  10. the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on one card
      (examples/audio/pretrain/wenetspeech/run.sh, dp 1; stage 1 is skipped
      without pretrained weights, as there): Touch-Audio-1B at full width
-     and depth (976,064,512 params); ~3600 s of seeded synthetic speech
+     and AUDIO_MAX_LAYERS (8) of its 16 layers (976,064,512 params at 16);
+     ~3600 s of seeded synthetic speech
      (voiced tones of a drifting pitch plus noise, 1-15 s, 16 kHz int16
      wavs) through make_data (a subprocess, audio+metainfo, 16 shards) and
      a dev list; bin.train.main with the recipe's flags (1x8192 packed,
      fbank 80 bins, stack 5 stride 4, speed perturb 0.9/1.0/1.1, BEST-RQ
      1024 x 16 from 400, seed 2025, remat none, max_norm 5, AdamW fused lr
-     8e-4, WSD linear, 12 loader threads; their prefetch 12 cut to 2,
+     8e-4, WSD linear, 12 loader threads; their prefetch 12 cut to 1,
      AUDIO_PREFETCH), 10 steps with checkpoints every 5 (keep 2, async)
      and a dev pass after each, then a fresh run resumed from step 5: step
      ms, tokens/s, MFU (phase 8's
@@ -111,9 +113,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      phase 8's limits;
  11. the ASR CLI (python -m touchnet_tpu_torch.models.touch_audio.
      inference_touch_audio, run through its main; the SFT recipe's stage
-     4): a Touch-Audio-7B HF export of seeded random bf16 weights (full
-     depth when the temp dir holds it twice, else fewer layers, never below
-     8, said so), 32 synthetic wavs, batch 16, max_length 64, bf16, fbank
+     4): a Touch-Audio-7B HF export of seeded random bf16 weights at full
+     width and ASR_MAX_LAYERS (8) of its 32 text layers (fewer when the
+     temp dir cannot hold it twice, never below 8, said so), 32 synthetic
+     wavs, batch 16, max_length 64, bf16, fbank
      80 x stack 5 stride 4: a part file with a hyp for every key, K1 and
      K4 launched; the first batch's prefill and first decode step on the
      kernel path against the plain path (bf16 both, rel L2 <= 5e-2, the
@@ -139,15 +142,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      CLI's seconds, peak memory; and K1 and K4 at this path's shapes: (f)
      the tower's causal MHA (library: scaled_dot_product_attention), (g)
      the G 7 prefill, (h) the G 7 decode;
- 13. kimi_audio's ASR stage (python -m touchnet_tpu_torch.models.kimi_audio.
-     inference_kimi_audio, run through its main with the recipe's stage-4
-     flags exactly, stage4_argv: f32, batch 1, no config and no tokenizer
-     flag, plus max_length 64; then its scoring): a Kimi-Audio-7B HF export
-     of seeded random bf16 weights holding its config.json and a
-     char-level `tokenizers` tokenizer with Kimi's special ids (the text
-     model at full depth when the temp dir holds the export twice, else
-     fewer layers, never below 8, said so), loaded in f32 (the host's peak
-     resident memory during the load printed); output_type text over 8
+ 13. (run after 15, on its stage-3 export) kimi_audio's ASR stage (python
+     -m touchnet_tpu_torch.models.kimi_audio.inference_kimi_audio, run
+     through its main with the recipe's stage-4 flags exactly, stage4_argv:
+     f32, batch 1, no config and no tokenizer flag, plus max_length 64; then
+     its scoring): phase 15's HF export (Kimi-Audio-7B at full width with
+     phase 15's text and mimo depth, its SFT-trained weights, config.json
+     and the char-level `tokenizers` tokenizer with Kimi's special ids),
+     loaded in f32 (the host's peak resident memory during the load
+     printed); output_type text over 8
      synthetic wavs of 1-30 s, then trans.txt, raw_rec.txt, textnorm_zh and
      error_rate_zh as phase 12; output_type both over 2 of them on the same
      loaded model. Checks a hyp for every key (audio codes under both), K1
@@ -167,7 +170,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  14. (run after 11, before 12) qwen2_audio's SFT, stages 0-3 of the SFT
      recipe with model_type qwen2_audio (run_qwen2_sft): Qwen2-Audio-7B at
      full width (the 32-layer whisper tower, vocab 156032) and the text
-     depth of sft_depth (at most 4; the disk and the card), random bf16
+     depth of sft_depth (at most 2; the disk and the card), random bf16
      weights; stage 0, seeded synthetic speech (1-15 s, txt in the char
      tokenizer's alphabet) through make_data audio+metainfo (a subprocess)
      with a dev set and data.list.raw; stage 1, an HF directory through
@@ -177,17 +180,45 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      qwen2_audio datapipe's dynamic batches of right-padded rows under 2 x
      8192 tokens, each row's whisper features padded to 30 s, the
      full-logits loss, AdamW fused) cut as sft_argv says, 4 steps with one
-     sync save at step 2, then a fresh run resumed from it: per step its
-     ms, label tokens/s, MFU as the reference counts it, the tower's and
-     the text model's TFLOP, the data-wait share, rows, launches (K1 2 x
-     (32 + L), K2 32 + L, K3 0: no head weight, as in JAX); the resumed
-     run's losses and final params, mu, nu and count equal the first's bit
-     for bit; stage 3, convert_ckpt_to_hf --model_type qwen2_audio
+     sync save at the last, the model alone (no resumed run: phase 15 holds
+     the SFT resume): per step its ms, label tokens/s, MFU as the reference
+     counts it, the tower's and the text model's TFLOP, the data-wait share,
+     rows, launches (K1 2 x (32 + L), K2 32 + L, K3 0: no head weight, as
+     in JAX); stage 3, convert_ckpt_to_hf --model_type qwen2_audio
      --tokenizer_model: the export equals the final params bit for bit;
      one step's loss, grad norm and gradients at 1 x 1200 tokens on the
      kernel path against the plain path, under phase 8's limits; K2 (l) at
      the tower's training shape and K1 and K2 (m) at the text layers'
-     (right-padded rows).
+     (right-padded rows);
+ 15. (run after 12, before 13) kimi_audio's SFT, stages 0-3 of the SFT
+     recipe with model_type kimi_audio (run_kimi_sft): Kimi-Audio-7B at full
+     width (the 32-layer whisper tower, the 16-layer WhisperVQ speech
+     tokenizer, frozen, the adaptor, hidden 3584, vocab 168448) cut as
+     kimi_sft_depth reckons the disk and the card: text layers 28 -> 1
+     (KIMI_SFT_MAX_LAYERS) and mimo layers 6 -> 1 forked after the last text
+     layer, the recipe's 2 x 8192 budget unless the card forces 1 x 8192
+     (it does: KIMI_SFT_LOGIT_BYTES); random bf16 weights; stage
+     0 is phase 14's (its shards, dev list and data.list.raw); stage 1, an
+     HF directory through convert_hf_to_ckpt --model_type kimi_audio to
+     step_0 (the params at init equal the HF tensors upcast, bit for bit);
+     stage 2, bin.train.main with the recipe's stage-2 flags (kimi_sft_argv:
+     sft_argv's cuts, datapipe and model kimi_audio: right-padded rows of
+     the text and audio streams, 30 s whisper features, the full-logits
+     loss, AdamW fused, whose semantics are the optax chain's with a frozen
+     tensor), 3 steps with one sync save at step 1, then a fresh run
+     resumed from it whose last save holds the model alone: per step its
+     ms, label tokens/s, MFU as the reference counts it, the tower's, the
+     tokenizer's and the text model's TFLOP, peak memory, the data-wait
+     share, rows, launches (K1 2 x (32 + L), K2 32 + L, K3 0); the resumed
+     run's losses and final params, mu, nu and count equal the first's bit
+     for bit; after the last step the speech tokenizer bit-equal to the
+     seed, the mimo stack (no gradient reaches it) equal to the seed times
+     prod(1 - lr_t wd), every other tensor moved; stage 3,
+     convert_ckpt_to_hf --model_type kimi_audio --tokenizer_model: the
+     export equals the final params bit for bit; one step's loss, grad norm
+     and gradients at 1 x 1200 tokens on the kernel path against the plain
+     path, under phase 8's limits; K1 and K2 (n) at the tower's training
+     shape (non-causal, no segment ids).
 Each phase prints its wall seconds ("[phase N] wall"), and the script its
 whole ("[all phases] wall").
 Then one JSON line of per-kernel results, the card line, and the last
@@ -197,8 +228,8 @@ modes, the recipe run with its generate from the export, the audio recipe
 run, the ASR CLI and the qwen2_audio and kimi_audio ASR stages; K4:
 serving, that generate, the ASR CLI and the two ASR stages; K2, K3:
 training, the modes, the recipe run and the audio recipe run; K1 and K2
-also qwen2_audio's SFT runs), each path driven with the counts set to 0
-just before it.
+also qwen2_audio's and kimi_audio's SFT runs), each path driven with the
+counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -324,26 +355,32 @@ def host_rss() -> int:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
+def free_caches() -> None:
+    """Frees what finished work left cached: the card allocator's blocks and
+    the pinned host blocks PyTorch keeps for reuse (a trainer's offloaded
+    moments and checkpoint staging leave tens of GB of them, which the page
+    cache, and so the next checkpoint load or read-back, would contend
+    with)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the pinned host cache's release (a private binding in older releases,
+    # torch.accelerator.empty_host_cache in newer ones)
+    empty_host = getattr(torch._C, "_host_emptyCache", None) or \
+        getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
+    if empty_host is not None:
+        empty_host()
+
+
 @contextlib.contextmanager
 def phase_clock(label: str):
     """Prints the wall seconds of the phases run inside, on a line of their
-    own, when they end (also when one raises), after freeing what they left
-    cached: the card allocator's blocks and the pinned host blocks PyTorch
-    keeps for reuse (a trainer's offloaded moments and checkpoint staging
-    leave tens of GB of them, which later phases' loads would contend
-    with); then the process's resident memory."""
+    own, when they end (also when one raises), after free_caches(); then
+    the process's resident memory."""
     t0 = time.perf_counter()
     try:
         yield
     finally:
-        gc.collect()
-        torch.cuda.empty_cache()
-        # the pinned host cache's release (a private binding in older
-        # releases, torch.accelerator.empty_host_cache in newer ones)
-        empty_host = getattr(torch._C, "_host_emptyCache", None) or \
-            getattr(getattr(torch, "accelerator", None), "empty_host_cache", None)
-        if empty_host is not None:
-            empty_host()
+        free_caches()
         print(f"  [{label}] wall {time.perf_counter() - t0:.1f} s; host resident memory after "
               f"{host_rss() / 1e9:.2f} GB", flush=True)
 
@@ -1288,7 +1325,8 @@ def step_grads(train, argv, plain, dev):
     with plain_kernels() if plain else contextlib.nullcontext():
         loss, _, _ = trainer._loss_and_acc(batch, num_sentence)
         loss.backward()
-    grads = [p.grad for p in trainer.params]
+    # a tensor the loss does not reach (kimi_audio's mimo stack) has none
+    grads = [p.grad for p in trainer.params if p.grad is not None]
     gnorm = global_grad_norm(grads).item()
     flat = torch.cat([g.float().flatten() for g in grads])
     out = loss.item(), gnorm, flat
@@ -1373,9 +1411,11 @@ MODE_RUNS = (("gradient accumulation G=2", {"training_gradient_accumulation_step
 # the weights apart: 3.3e-4 at step 5 and 2.28e-2 at step 10 on an H100
 # 80GB HBM3 at 700 W (PERF.md, PR 7); each bound is a few times its reading
 BF16_REDUCE_LOSS = {5: 2e-3, 10: 5e-2}
-# the offload run's checkpoints: sync saves at 1 and 10 (keep 2), then a
-# fresh run resumes from step 1 (cut from saves at 1, 5 and 10 and a resume
-# from 5 for the script's time: one 15 GB save fewer)
+# the offload run's checkpoints: a sync save at step 1 alone (this script
+# skips the trainer's last saves, which nothing reads), then a fresh run
+# resumes from it (cut from saves at 1, 5 and 10 and a resume from 5, then
+# from saves at 1 and 10 and the resumed run's at 10, for the script's
+# time: 15 GB a save)
 OFFLOAD_CKPT = {"training_enable_ckpt": "true", "training_ckpt_interval": 10,
                 "training_ckpt_keep_latest_k": 2, "training_ckpt_async_mode": "disabled"}
 OFFLOAD_RESUME = 1
@@ -1417,6 +1457,23 @@ def timed_saves(train):
         train.Trainer.save, CheckpointManager._write = real_save, real_write
 
 
+@contextlib.contextmanager
+def saves_where(keep):
+    """While open, a trainer saves at a step only when keep(step, force) (its
+    cadence's other saves skipped; force: its last step or a preemption);
+    `keep` None changes nothing."""
+    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    real = CheckpointManager._should_save
+    if keep is not None:
+        CheckpointManager._should_save = \
+            lambda self, step, force=False: self.enabled and keep(step, force)
+    try:
+        yield
+    finally:
+        CheckpointManager._should_save = real
+
+
 def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
     """Phase 8's 10 steps at 1x16384 under op_small with each of MODE_RUNS:
     step ms, tokens/s, MFU, peak memory and launches per step. Checks:
@@ -1425,9 +1482,10 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
     run's (`resident`, phase 8's main run) bit for bit (the forward reads
     the same bf16 weights) and its losses at steps 5 and 10 within
     BF16_REDUCE_LOSS of it; cpu offload's losses and final params, mu, nu and count equal the
-    resident run's bit for bit, with sync checkpoints at 1 and 10, and a
-    fresh run resumed from step 1 equal to it too (the host moments saved
-    after their last copy back, and loaded in place). Each run is a main
+    resident run's bit for bit, with a sync checkpoint at step 1 (the
+    trainer's last save skipped here), and a fresh run resumed from it equal
+    to it too (the host moments saved after their last copy back, and loaded
+    in place). Each run is a main
     path: the counts are zeroed just before it and read just after (after
     the resume for offload); returns their sums."""
     counters = kernel_counters()
@@ -1443,7 +1501,9 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
-        with timed_saves(train) as saves:
+        # the offload run saves only the step its resumed run reads
+        resume_save = (lambda step, force: step == OFFLOAD_RESUME) if offload else None
+        with timed_saves(train) as saves, saves_where(resume_save):
             trainer = train.main(argv)
         got = {k: c.launches for k, c in counters.items()}
         torch.cuda.synchronize()
@@ -1484,7 +1544,7 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
                     "sync saves, the loop blocked " + ", ".join(
                         f"step {s} {ms:.1f} ms ({w:.2f} s of it the disk write)"
                         for s, (ms, w) in sorted(saves.items())))
-            ok = ok and sorted(saves) == sorted({1, OFFLOAD_RESUME, TRAIN_STEPS})
+            ok = ok and sorted(saves) == [OFFLOAD_RESUME]
         print(f"  {mode}: step {step_ms:.1f} ms (median of steps 3-{steps}"
               f"{f' less {OFFLOAD_RESUME + 1}' if offload else ''}), {tps:,.0f} "
               f"tokens/s, MFU {mfu:.2f}%, peak {peak:.2f} GiB allocated; launches per step "
@@ -1495,9 +1555,10 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
         del trainer
         torch.cuda.empty_cache()
         if offload:
-            resumed = train.main(train_argv(
-                listfile, exp, TRAIN_T, TRAIN_STEPS, "bfloat16", 128256, **extra,
-                **{**OFFLOAD_CKPT, "training_ckpt_load_step": OFFLOAD_RESUME}))
+            with saves_where(resume_save):
+                resumed = train.main(train_argv(
+                    listfile, exp, TRAIN_T, TRAIN_STEPS, "bfloat16", 128256, **extra,
+                    **{**OFFLOAD_CKPT, "training_ckpt_load_step": OFFLOAD_RESUME}))
             got = {k: c.launches for k, c in counters.items()}
             hist = resumed.metrics_processor.history
             bits = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
@@ -1611,6 +1672,10 @@ def check_step(train, argv_of, dev, failures, what=""):
 
 
 RECIPE_STEPS, RECIPE_INTERVAL, RESUME_STEP = 10, 5, 5
+# phase 9's text depth: phase 8 trains Llama-3.2-1B at its full 16 layers;
+# the recipe's stages around it (four checkpoint writes, the seed, the
+# export) run at full width and 4 layers, for the script's clock
+RECIPE_MAX_LAYERS = 4
 # the kernel groups (PROFILE_GROUPS) the recipe run's trace must name
 RECIPE_TRACE_GROUPS = ("K1", "K2", "K3 fwd", "K3 bwd, TMA + wgmma mainloop (ce_gemm)")
 
@@ -1633,16 +1698,16 @@ def bits_checksums(tensors: dict) -> dict:
 
 
 def recipe_depth(cfg, free: int) -> tuple:
-    """(layers, bytes of one checkpoint, bytes needed) for phase 9: the
-    full depth when `free` holds three checkpoints (two kept, one being
-    written: f32 params, mu and nu), the stage-1 HF seed (bf16), its step_0
-    (f32 params), the stage-3 export (f32) and 2 GiB of shards, traces and
-    snapshots, else the most layers that fit, at full width (0 when none
-    do)."""
+    """(layers, bytes of one checkpoint, bytes needed) for phase 9:
+    RECIPE_MAX_LAYERS when `free` holds three checkpoints (two kept, one
+    being written: f32 params, mu and nu), the stage-1 HF seed (bf16), its
+    step_0 (f32 params), the stage-3 export (f32) and 2 GiB of shards,
+    traces and snapshots, else the most layers that fit, at full width (0
+    when none do)."""
     from touchnet_tpu_torch.models.llama.modeling_llama import get_num_params
 
     c = copy.copy(cfg)
-    for layers in range(cfg.num_hidden_layers, 0, -1):
+    for layers in range(min(RECIPE_MAX_LAYERS, cfg.num_hidden_layers), 0, -1):
         c.num_hidden_layers = layers
         n = get_num_params(c)
         ckpt = 3 * 4 * n
@@ -1823,8 +1888,9 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     free = shutil.disk_usage(tmp).free
     L, ckpt_bytes, need = recipe_depth(cfg, free)
     config = CONFIG
-    depth = "full depth" if L == cfg.num_hidden_layers else \
-        f"CUT to {L} of {cfg.num_hidden_layers} layers at full width (too little room)"
+    depth = (f"CUT to {L} of {cfg.num_hidden_layers} layers at full width ("
+             + ("phase 8 trains the full depth; the script's clock)" if L == RECIPE_MAX_LAYERS
+                else "too little room)"))
     print(f"  temp dir: {free / 1e9:.2f} GB free; a checkpoint ~{ckpt_bytes / 1e9:.2f} GB, "
           f"{need / 1e9:.2f} GB needed with the seed, step_0 and the export: {depth}")
     if L == 0:
@@ -2027,9 +2093,12 @@ ROW_SECONDS = AUDIO_T * 4 * 10 / 1000
 AUDIO_WORKERS = 12  # the recipe's num_workers (run.sh:22)
 # the loader's queue depth a worker: the recipe's prefetch 12 (run.sh:23) is
 # cut for the script's time: 12 x 12 queued batches cost a run's first step
-# ~70 s of loader fill on threads that take the GIL from the launch thread,
-# and the queue depth changes no batch, so no check reads it
-AUDIO_PREFETCH = 2
+# ~70 s of loader fill on threads that take the GIL from the launch thread
+# (12 x 2: ~23 s), and the queue depth changes no batch, so no check reads it
+AUDIO_PREFETCH = 1
+# phase 10's text depth: Touch-Audio-1B's 16 layers cut to 8 for the
+# script's clock (its checkpoints, their load and the export halve)
+AUDIO_MAX_LAYERS = 8
 
 
 def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
@@ -2068,13 +2137,14 @@ def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
     return jsonl, total
 
 
-def audio_argv(listfile, exp, seqlen, steps, dtype, **extra) -> list:
+def audio_argv(listfile, exp, seqlen, steps, dtype, config=AUDIO_CONFIG, **extra) -> list:
     """The recipe's stage-2 flags (run.sh:98-192, BEST-RQ vocab 1024 emb 16
     input 400 seed 2025, touch_audio packed 1x<seqlen>, fbank 80 bins dither
     0, stack 5 stride 4 normalised, speed perturb 0.9/1.0/1.1, SpecAug,
     SpecSub and SpecTrim off, remat none, max_norm 5, AdamW fused lr 8e-4,
     WSD linear) on one card (dp 1, cp 1, tp 1, pp 1), `steps` steps with 2
-    warmup; `extra` (flag: value) adds or replaces flags. The recipe passes
+    warmup, the model config `config`; `extra` (flag: value) adds or
+    replaces flags. The recipe passes
     no --dataset_enable_pack, so it would train the dynamic batcher
     (batch_audio); its exp id names 1x8192 packed, which this passes."""
     stride, stack, bins = 4, 5, 80
@@ -2100,7 +2170,7 @@ def audio_argv(listfile, exp, seqlen, steps, dtype, **extra) -> list:
         "audiofeat_normalize": "true", "dataloader_num_workers": AUDIO_WORKERS,
         "dataloader_prefetch_factor": AUDIO_PREFETCH,
         "training_description": "wenetspeech ssl", "training_seed": 2025,
-        "training_model_name": "touch_audio", "training_model_config_path": AUDIO_CONFIG,
+        "training_model_name": "touch_audio", "training_model_config_path": config,
         "training_trace_dump_folder": exp, "training_context_parallel_degree": 1,
         "training_tensor_parallel_degree": 1, "training_data_parallel_shard_degree": 1,
         "training_pipeline_parallel_degree": 1, "training_enable_loss_parallel": "true",
@@ -2149,7 +2219,8 @@ def audio_stage0(tmp: Path, name: str, seconds: float, seed: int, shards: int,
 
 def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     """Phase 10: the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on
-    one card at Touch-Audio-1B's full width and depth: make_data over
+    one card at Touch-Audio-1B's full width and AUDIO_MAX_LAYERS of its 16
+    layers: make_data over
     synthesised utterances; bin.train.main with the recipe's flags (1x8192
     packed, speed perturb on, remat none), checkpoints every 5 (async, keep
     2) and a dev list, then a fresh run resumed from step 5 held to it bit
@@ -2164,14 +2235,18 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import get_num_params
     from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
 
-    cfg = TouchAudioConfig.from_json_file(str(AUDIO_CONFIG))
+    raw = json.loads(AUDIO_CONFIG.read_text())
+    full = raw["text_config"]["num_hidden_layers"]
+    raw["text_config"]["num_hidden_layers"] = L = min(AUDIO_MAX_LAYERS, full)
+    config = tmp / "audio_config.json"
+    config.write_text(json.dumps(raw))
+    cfg = TouchAudioConfig.from_json_file(str(config))
     tc = cfg.text_config
-    L = tc.num_hidden_layers
     print(f"[10] the audio pretraining recipe's stages 0, 2, 3 on one card "
           f"(examples/audio/pretrain/wenetspeech/run.sh, dp 1): "
-          f"{AUDIO_CONFIG.relative_to(HERE)}: L={L} E={tc.hidden_size} "
-          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
-          f"V={tc.vocab_size} tied={tc.tie_word_embeddings}, projector "
+          f"{AUDIO_CONFIG.relative_to(HERE)}: L={L} (CUT from {full}: the script's clock) "
+          f"E={tc.hidden_size} H={tc.num_attention_heads}/{tc.num_key_value_heads} "
+          f"D={tc.head_dim} V={tc.vocab_size} tied={tc.tie_word_embeddings}, projector "
           f"{cfg.audio_config.input_size} -> {tc.hidden_size}, {get_num_params(cfg):,} params")
     listfile = audio_stage0(tmp, "train", 1.1 * AUDIO_STEPS * ROW_SECONDS, SEED + 10, 16,
                             failures)
@@ -2195,7 +2270,8 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     for c in counters.values():
         c.launches = 0
     with count_plain_calls() as plain_calls, timed_saves(train) as saves:
-        first = train.main(audio_argv(listfile, exp, AUDIO_T, AUDIO_STEPS, "bfloat16", **flags))
+        first = train.main(audio_argv(listfile, exp, AUDIO_T, AUDIO_STEPS, "bfloat16", config,
+                                      **flags))
         peak = torch.cuda.max_memory_allocated() / 2**30
         first_counts = {k: c.launches for k, c in counters.items()}
         step_ms, tps, mfu = step_stats(first)
@@ -2206,7 +2282,7 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
         del first
         torch.cuda.empty_cache()
         resumed = train.main(audio_argv(
-            listfile, exp, AUDIO_T, AUDIO_STEPS, "bfloat16",
+            listfile, exp, AUDIO_T, AUDIO_STEPS, "bfloat16", config,
             **{**flags, "training_ckpt_load_step": AUDIO_RESUME,
                "training_ckpt_async_mode": "disabled"}))
     counts = {k: c.launches for k, c in counters.items()}
@@ -2271,7 +2347,7 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
         failures.append("audio recipe: resume not bit-equal")
 
     secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
-                   ["--ckpt_dir", exp, "--step", -1, "--config", AUDIO_CONFIG,
+                   ["--ckpt_dir", exp, "--step", -1, "--config", config,
                     "--model_type", "touch_audio"], failures, "audio stage 3")
     out = exp / "checkpoint_hf" / f"step-{AUDIO_STEPS}"
     tensors = read_safetensors(str(out / "model.safetensors"))
@@ -2292,7 +2368,8 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     # held in host memory (no loader thread running while the steps do)
     torch.cuda.empty_cache()
     run = train.main(audio_argv(listfile, tmp / "threads2", AUDIO_T, AUDIO_STEPS, "bfloat16",
-                                dataloader_num_workers=2, dataloader_prefetch_factor=2))
+                                config, dataloader_num_workers=2,
+                                dataloader_prefetch_factor=2))
     step_ms, tps, mfu = step_stats(run)
     hist = run.metrics_processor.history
     del run
@@ -2301,13 +2378,14 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
           f"tokens/s, MFU {mfu:.2f}%; step times, ms: "
           f"{[round(h['time/step_s'] * 1e3, 1) for h in hist]}; data-wait share, %: "
           f"{[round(h['time/data_loading_pct'], 1) for h in hist]}  [{card}]")
-    held_steps(train, listfile, tmp, dev, card)
+    held_steps(train, listfile, tmp, dev, card, config)
 
     # remat full here (both paths): under the recipe's none the plain
     # attention keeps each layer's f32 [32, 4096, 4096] scores and weights
     # for the backward, more than the card holds; remat changes no value
-    print(f"  one step at 1x{CHECK_T}, full width and depth, remat full: kernel vs plain path")
-    check_step(train, lambda dtype: audio_argv(listfile, tmp / "chk", CHECK_T, 1, dtype,
+    print(f"  one step at 1x{CHECK_T}, full width, {L} layers, remat full: kernel vs plain "
+          "path")
+    check_step(train, lambda dtype: audio_argv(listfile, tmp / "chk", CHECK_T, 1, dtype, config,
                                                dataloader_num_workers=1,
                                                audio_speed_perturb="false",
                                                training_activation_checkpoint_mode="full"),
@@ -2315,7 +2393,7 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     return counts
 
 
-def held_steps(train, listfile, tmp: Path, dev, card):
+def held_steps(train, listfile, tmp: Path, dev, card, config):
     """Phase 10's steps on batches made first and held in host memory: a
     Trainer with the recipe's flags, AUDIO_STEPS batches pulled from its
     loader, the loader shut down, then each batch staged and trained with
@@ -2327,7 +2405,7 @@ def held_steps(train, listfile, tmp: Path, dev, card):
 
     tok, data, job = parse_args_into_dataclasses(
         [TokenizerConfig, DataConfig, TrainConfig],
-        audio_argv(listfile, tmp / "held", AUDIO_T, AUDIO_STEPS, "bfloat16"))
+        audio_argv(listfile, tmp / "held", AUDIO_T, AUDIO_STEPS, "bfloat16", config))
     trainer = train.Trainer(tok, data, job, dev)
     try:
         it = iter(trainer.dataloader)
@@ -2357,6 +2435,9 @@ def held_steps(train, listfile, tmp: Path, dev, card):
 # -- phase 11: the ASR inference CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4) --
 
 ASR_UTTS, ASR_BATCH, ASR_NEW, ASR_MIN_LAYERS = 32, 16, 64, 8
+# phase 11's text depth: Touch-Audio-7B's 32 layers cut to 8 for the
+# script's clock (the 16 GB export's write and load, the decode)
+ASR_MAX_LAYERS = 8
 # Llama-3's bos / eos / pad ids, for the RawTokenizer the CLI runs with (the
 # Llama-3.2 tokenizer is not in the repo)
 ASR_TOKENS = {"bos": 128000, "eos": 128001, "pad": 128004}
@@ -2365,12 +2446,13 @@ ASR_TIMED_STEPS = 32
 
 
 def asr_depth(cfg, free: int, get_num_params) -> int:
-    """Phases 11 and 12's text layers: the full depth when `free` holds the
-    bf16 export (get_num_params(cfg) parameters) twice (the file, and room to
-    spare) plus 2 GiB, else the most layers that fit, never below
-    ASR_MIN_LAYERS (0: none fit). Only the text model is cut."""
+    """Phase 11's text layers: ASR_MAX_LAYERS (at most the full depth) when
+    `free` holds the bf16 export (get_num_params(cfg) parameters) twice (the
+    file, and room to spare) plus 2 GiB, else the most layers that fit,
+    never below ASR_MIN_LAYERS (0: none fit). Only the text model is cut."""
     c = copy.deepcopy(cfg)
-    for layers in range(cfg.text_config.num_hidden_layers, ASR_MIN_LAYERS - 1, -1):
+    top = min(ASR_MAX_LAYERS, cfg.text_config.num_hidden_layers)
+    for layers in range(top, ASR_MIN_LAYERS - 1, -1):
         c.text_config.num_hidden_layers = layers
         if 2 * 2 * get_num_params(c) + 2**31 <= free:
             return layers
@@ -2427,7 +2509,8 @@ def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
         config.write_text(json.dumps(raw))
         cfg = TouchAudioConfig.from_json_file(str(config))
         tc = cfg.text_config
-    depth = "full depth" if L == full else f"CUT to {L} of {full} layers (too little room)"
+    depth = (f"CUT to {L} of {full} layers ("
+             + ("the script's clock)" if L == ASR_MAX_LAYERS else "too little room)"))
     print(f"[11] ASR CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4, touch_audio): "
           f"{ASR_CONFIG.relative_to(HERE)}: L={L} E={tc.hidden_size} "
           f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
@@ -2986,12 +3069,13 @@ def kimi_kernel_rows(attn, dec, dev, failures, card, Tp, S, L, L_mimo) -> tuple:
     return k1_rows, k4_rows
 
 
-def run_kimi_cli(dev, card, failures, tmp: Path) -> tuple:
+def run_kimi_cli(dev, card, failures, tmp: Path, export) -> tuple:
     """Phase 13: kimi_audio's ASR stage (python -m touchnet_tpu_torch.models.
     kimi_audio.inference_kimi_audio, run in-process through its main with the
-    recipe's exact stage-4 flags, stage4_argv, plus max_length 64) on a
-    Kimi-Audio-7B HF export of seeded random bf16 weights that holds its
-    config.json and a char-level tokenizer with Kimi's special ids: f32,
+    recipe's exact stage-4 flags, stage4_argv, plus max_length 64) on
+    phase 15's stage-3 export (the recipe's chain: Kimi-Audio-7B at full
+    width with phase 15's text and mimo depth, its SFT-trained f32 weights,
+    config.json and the char-level tokenizer with Kimi's special ids): f32,
     batch 1, output_type text over 8 synthesised wavs of 1-30 s, then the
     recipe's scoring, then output_type both over 2 of them (the weights
     loaded once: the second run takes the first's model). Checks a hyp for
@@ -3007,7 +3091,6 @@ def run_kimi_cli(dev, card, failures, tmp: Path) -> tuple:
     and the kernel rows (i)-(k). Returns (the CLI runs' launches, K1 rows,
     K4 rows)."""
     from touchnet_tpu_torch.models import whisper_encoder
-    from touchnet_tpu_torch.models.kimi_audio import convert
     from touchnet_tpu_torch.models.kimi_audio import generate_kimi_audio as kgen
     from touchnet_tpu_torch.models.kimi_audio import inference_kimi_audio as cli
     from touchnet_tpu_torch.models.kimi_audio import modeling_kimi_audio as km
@@ -3018,59 +3101,33 @@ def run_kimi_cli(dev, card, failures, tmp: Path) -> tuple:
     from touchnet_tpu_torch.tokenizer import TokenizerConfig
     from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
     from touchnet_tpu_torch.utils.inference import AudioJsonlDataset
-    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
 
-    cfg = KimiAudioConfig.from_json_file(str(KIMI_CONFIG))
-    tc = cfg.text_config
-    full, L_mimo = tc.num_hidden_layers, cfg.kimia_mimo_layers
-    tower_L = cfg.speech_encoder_config.encoder_layers
-    free = shutil.disk_usage(tmp).free
-    L = asr_depth(cfg, free, km.get_num_params)
-    if L == 0:
-        print(f"[13] kimi_audio ASR: {free / 1e9:.2f} GB free in the temp dir, too little for "
-              f"a {ASR_MIN_LAYERS}-layer export FAIL")
-        failures.append("kimi asr: no room for the export")
+    if export is None:
+        print("[13] kimi_audio ASR: no stage-3 export from phase 15 FAIL")
+        failures.append("kimi asr: no export")
         return {}, {}, {}
-    if L != full:  # the fork keeps its place in proportion
-        raw = json.loads(KIMI_CONFIG.read_text())
-        raw["num_hidden_layers"] = L
-        raw["kimia_mimo_transformer_from_layer_index"] = (
-            (cfg.kimia_mimo_transformer_from_layer_index + 1) * L // full - 1)
-        cfg = KimiAudioConfig.from_dict(raw)
-        tc = cfg.text_config
+    hf = Path(export)
+    cfg = KimiAudioConfig.from_json_file(str(hf / "config.json"))
+    tc = cfg.text_config
+    full = json.loads(KIMI_CONFIG.read_text())["num_hidden_layers"]
+    L, L_mimo = tc.num_hidden_layers, cfg.kimia_mimo_layers
+    tower_L = cfg.speech_encoder_config.encoder_layers
     fork = cfg.kimia_mimo_transformer_from_layer_index + 1
-    depth = ("full depth" if L == full
-             else f"text model CUT to {L} of {full} layers (too little room)")
+    n_bytes = tree_bytes(hf)
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
-    print(f"[13] kimi_audio ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4): "
-          f"{KIMI_CONFIG.relative_to(HERE)}: text L={L} E={tc.hidden_size} "
-          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} V={tc.vocab_size}, "
-          f"mimo {L_mimo} layers forked after layer {fork - 1}; tower {tower_L} layers, speech "
-          f"tokenizer {cfg.speech_tokenizer_config.quantize_position} layers; "
-          f"{km.get_num_params(cfg):,} params, f32 (the recipe's), {depth}; TF32 for cuBLAS "
-          f"matmuls {tf32[0]}, for cuDNN convolutions {tf32[1]} (this script turns both off; "
-          f"the package sets neither); temp dir {free / 1e9:.2f} GB free")
-
-    hf = tmp / "kimi_hf"
-    hf.mkdir()
-    t0 = time.perf_counter()
-    model = km.init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 40),
-                           torch.bfloat16, dev)
-    state = convert.params_to_hf_state_dict(cfg, model.state_dict())
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    n_bytes = write_safetensors(state, str(hf / "model.safetensors"))
-    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
-    write_s = time.perf_counter() - t0
-    del model, state
-    torch.cuda.empty_cache()
-    write_char_tokenizer(hf, tc.vocab_size, KIMI_SPECIALS, KIMI_EOS, STAGE4_INSTRUCT)
+    print(f"[13] kimi_audio ASR stage (examples/audio/sft/asr/wenetspeech/run.sh stage 4) on "
+          f"phase 15's stage-3 export: {KIMI_CONFIG.relative_to(HERE)}: text L={L} (phase 15's "
+          f"depth, of {full}) E={tc.hidden_size} H={tc.num_attention_heads}/"
+          f"{tc.num_key_value_heads} D={tc.head_dim} V={tc.vocab_size}, mimo {L_mimo} layers "
+          f"forked after layer {fork - 1}; tower {tower_L} layers, speech tokenizer "
+          f"{cfg.speech_tokenizer_config.quantize_position} layers; "
+          f"{km.get_num_params(cfg):,} params, {n_bytes} bytes ({n_bytes / 1e9:.2f} GB) of f32 "
+          f"weights loaded in f32 (the recipe's); TF32 for cuBLAS matmuls {tf32[0]}, for cuDNN "
+          f"convolutions {tf32[1]} (this script turns both off; the package sets neither)")
     jsonl, total = synth_utterances(tmp / "kimi_wav", KIMI_UTTS, SEED + 41, lo=1.0, hi=30.0)
     both_jsonl = tmp / "kimi_wav" / "both.jsonl"
     both_jsonl.write_text("".join(open(jsonl).readlines()[:KIMI_BOTH_UTTS]))
-    print(f"  HF export of seeded random bf16 weights with config.json and the tokenizer: "
-          f"{n_bytes} bytes ({n_bytes / 1e9:.2f} GB) written in {write_s:.2f} s (drawn in "
-          f"{init_s:.2f} s); {KIMI_UTTS} wavs, {total:.1f} s of audio  [{card}]")
+    print(f"  {KIMI_UTTS} wavs, {total:.1f} s of audio  [{card}]")
 
     loaded, feat_s = {}, []
     real_load, real_feats = cli.load_params, cli.whisper_features
@@ -3282,7 +3339,7 @@ def run_kimi_cli(dev, card, failures, tmp: Path) -> tuple:
     del cont_k, cont_p
     torch.cuda.empty_cache()
     k1_rows, k4_rows = kimi_kernel_rows(attn, dec, dev, failures, card, Tp, S, L, L_mimo)
-    print(f"  phase 13: export {n_bytes} bytes in {write_s:.2f} s, load {load_s:.2f} s (host "
+    print(f"  phase 13: phase 15's export {n_bytes} bytes, load {load_s:.2f} s (host "
           f"RSS peak {host.peak / 1e9:.2f} GB), host features {1e3 * feat_text:.1f} "
           f"ms/utterance, encode {encode_ms:.1f} ms (tower {tower_ms:.1f}, tokenizer "
           f"{tok_ms:.1f}, adaptor {adaptor_ms:.2f}), text prefill {prefill_ms:.1f} ms and decode "
@@ -3305,10 +3362,29 @@ PROFILE_GROUPS = (("K1", ("flash_fwd",)), ("K2", ("dkv_", "dq_mma", "dq_kernel",
                   ("copies", ("Memcpy", "Memset")))
 
 
+@contextlib.contextmanager
+def model_only_saves():
+    """While open, every checkpoint a trainer writes holds the model alone,
+    no AdamW moments: the SFT phases' last saves, which only stage 3 reads
+    (phase 15's save that its resume reads holds the whole state)."""
+    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
+
+    real = CheckpointManager.save
+
+    def save(self, step, model, optimizer, force=False, before_stage=None):
+        return real(self, step, model, {}, force, before_stage)
+
+    CheckpointManager.save = save
+    try:
+        yield
+    finally:
+        CheckpointManager.save = real
+
+
 # -- phase 14: qwen2_audio's SFT stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with
 # model_type qwen2_audio: make_data, the HF seed, the SFT run, the HF export) --
 
-SFT_STEPS, SFT_RESUME, SFT_MAX_LAYERS = 4, 2, 2
+SFT_STEPS, SFT_MAX_LAYERS = 4, 2
 SFT_UTTS, SFT_DEV_UTTS, SFT_PER_SHARD = 200, 16, 25
 # the recipe's loader is 12 workers with prefetch 12 (run.sh:22-23): in a
 # run of 4 steps they would fill 144 batches of ~40 rows (~5,800 whisper
@@ -3481,15 +3557,13 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     the vocab of 156032) and the text depth of sft_depth: make_data over
     synthesised speech; a seeded random bf16 HF directory through
     convert_hf_to_ckpt to step_0; bin.train.main with the recipe's stage-2
-    flags (sft_argv) from it, SFT_STEPS steps with one save at SFT_RESUME,
-    then a fresh trainer resumed from that save, held to it bit for bit;
-    convert_ckpt_to_hf on the resumed run's last save, held to the final
-    params bit for bit (each run removes the step it loaded once its init
-    has read it, and stage 3 reads only the model, so one checkpoint is on
-    disk at a time); one step at a small batch on the kernel path
-    against plain_kernels(); K2 (l) and K1 and K2 (m). Returns the launches
-    of the two runs (the main path), the kernel rows, the export and the
-    tokenizer."""
+    flags (sft_argv) from it, SFT_STEPS steps whose last save holds the
+    model alone (phase 15 holds the SFT resume); convert_ckpt_to_hf on that
+    save, held to the final params bit for bit (the run removes step_0 once
+    its init has read it, so one checkpoint is on disk at a time); one step
+    at a small batch on the kernel path against plain_kernels(); K2 (l) and
+    K1 and K2 (m). Returns the launches of the run (the main path), the
+    kernel rows, the export and the stage-0 lists."""
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models import whisper_encoder
     from touchnet_tpu_torch.models.qwen2_audio import convert
@@ -3501,7 +3575,6 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
         init_params,
     )
     from touchnet_tpu_torch.ops import attention as attn
-    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
     from touchnet_tpu_torch.utils.safetensors_io import read_safetensors, write_safetensors
 
     t_phase = time.perf_counter()
@@ -3510,7 +3583,7 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     free = shutil.disk_usage(tmp).free
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
     L, ckpt_bytes, disk, need = sft_depth(cfg, free, card_bytes, get_num_params)
-    out = {"counts": {}, "k1": {}, "k2": {}, "export": None}
+    out = {"counts": {}, "k1": {}, "k2": {}, "export": None, "lists": None}
     if L == 0:
         print(f"[14] qwen2_audio SFT: {free / 1e9:.2f} GB free in the temp dir, too little for "
               "two checkpoints of one text layer FAIL")
@@ -3536,9 +3609,10 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
           f"30000, warmup 2 of 1000; remat none -> full and the AdamW moments in host memory "
           "(the card's memory); loader 12 workers, prefetch 12 -> "
           f"{SFT_WORKERS}, {SFT_WORKERS} (the loader's fill); checkpoints sync (the recipe's "
-          "async), one save in run 1 (at its midpoint: this script skips the trainer's "
-          "step-1 and last saves there, 2 x 12 bytes a parameter); log every step (100); "
-          f"run 1's profiler traces its last step (freq {SFT_STEPS}; 100); make_data "
+          "async), one save, at the last step, holding the model alone (this script skips "
+          "the trainer's step-1 save; stage 3 reads nothing else), and no resumed run "
+          "(phase 15 holds the SFT resume: the script's clock); log every step (100); the "
+          f"profiler traces the last step (freq {SFT_STEPS}; 100); make_data "
           f"{SFT_PER_SHARD} utterances a shard (2000)")
 
     t0 = time.perf_counter()
@@ -3570,12 +3644,11 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     tok_dir = write_char_tokenizer(tmp / "sft_tokenizer", tc.vocab_size, QWEN2_SPECIALS,
                                    QWEN2_EOS, QWEN2_INSTRUCT)
 
-    # stage 2: run 1 saves at its midpoint only; the resumed run saves at
-    # its last step (the trainer's cadence), which stage 3 exports
+    # stage 2: one run, whose last save (the trainer's cadence; its step-1
+    # save skipped here) holds the model alone, which stage 3 exports
     counters = kernel_counters()
     steps, devs, init_bits = [], [], []
-    real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train,
-            CheckpointManager._should_save)
+    real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train)
 
     def counted_step(self, batch, num_sentence):
         before = {k: c.launches for k, c in counters.items()}
@@ -3592,63 +3665,37 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
         devs.append({k: c.launches - before[k] for k, c in counters.items()})
 
     def checked_train(self):
-        if not init_bits:
-            init_bits.append(bits_checksums(self.model.state_dict()))
-        # the init has read the step it started from: off the disk with it
+        init_bits.append(bits_checksums(self.model.state_dict()))
+        # the init has read step_0: off the disk with it
         shutil.rmtree(exp / "checkpoint" / f"step_{self.step}")
         return real[2](self)
 
-    def midpoint_only(self, step, force=False):
-        return self.enabled and step == SFT_RESUME
-
-    flags = dict(datalist_dev_path=devlist)
     train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = (
         counted_step, counted_dev, checked_train)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     try:
-        # the main path (both runs): every launch count is zeroed here and
-        # read after the resumed run
+        # the main path: every launch count is zeroed here and read after it
         for c in counters.values():
             c.launches = 0
-        with count_plain_calls() as plain_calls, timed_saves(train) as saves:
+        with count_plain_calls() as plain_calls, timed_saves(train) as saves, \
+                saves_where(lambda step, force: force), model_only_saves(), HostPeak() as host:
             t0 = time.perf_counter()
-            CheckpointManager._should_save = midpoint_only
-            try:
-                with HostPeak() as host1:
-                    # the profiler traces run 1's last step (the recipe's
-                    # freq 100 would trace none of 4)
-                    first = train.main(sft_argv(listfile, exp, config, tok_dir, **flags,
-                                                training_profiling_freq=SFT_STEPS), device=dev)
-            finally:
-                CheckpointManager._should_save = real[3]
-            run1_s = time.perf_counter() - t0
-            peak1 = torch.cuda.max_memory_allocated() / 2**30
-            saves1 = dict(saves)
-            hist1 = first.metrics_processor.history
-            dev1 = first.metrics_processor.dev_history
-            pinned = first.offload.pinned_bytes if first.offload is not None else 0
-            state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
-            del first
-            torch.cuda.empty_cache()
-            saves.clear()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            with HostPeak() as host2:
-                resumed = train.main(sft_argv(listfile, exp, config, tok_dir, **flags,
-                                              training_ckpt_load_step=SFT_RESUME), device=dev)
-            run2_s = time.perf_counter() - t0
-            peak2 = torch.cuda.max_memory_allocated() / 2**30
-            saves2 = dict(saves)
+            # the profiler traces the last step (the recipe's freq 100 would
+            # trace none of 4)
+            run = train.main(sft_argv(listfile, exp, config, tok_dir, datalist_dev_path=devlist,
+                                      training_profiling_freq=SFT_STEPS), device=dev)
+            run_s = time.perf_counter() - t0
     finally:
-        train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = real[:3]
+        train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = real
+    peak = torch.cuda.max_memory_allocated() / 2**30
     counts = {k: c.launches for k, c in counters.items()}
-    hist2 = resumed.metrics_processor.history
-    dev2 = resumed.metrics_processor.dev_history
-    state2 = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
-    final = {k: state2[k] for k in resumed.model.state_dict()}
-    del resumed
-    torch.cuda.empty_cache()
+    hist = run.metrics_processor.history
+    dev_hist = run.metrics_processor.dev_history
+    pinned = run.offload.pinned_bytes if run.offload is not None else 0
+    final = bits_checksums(run.model.state_dict())
+    del run
+    free_caches()  # page-cache room for stage 3's read-back of the export
 
     seeded = bool(init_bits) and init_bits[0] == seed_bits
     print(f"  stage 2 starts from step_0: the params at init ({len(seed_bits)} tensors) equal the "
@@ -3657,8 +3704,8 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
         failures.append("qwen2 sft: not started from the seed")
     tower_p = whisper_encoder.get_num_params(ac)
     text_p = n_params - tower_p
-    losses1 = [h["loss/per_sample"] for h in hist1]
-    for h, s in zip(hist1 + hist2, steps):
+    losses = [h["loss/per_sample"] for h in hist]
+    for h, s in zip(hist, steps):
         rows, T = s["rows"], s["L"]
         frames = rows * (3000 // 2)
         tower_tf = frames * (6 * tower_p + 12 * ac.encoder_layers * ac.d_model * 1500) / 1e12
@@ -3675,56 +3722,39 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
               f"K2 {la['K2']} K3 {la['K3 fwd']}+{la['K3 bwd']}  [{card}]")
     want_step = {"K1": 2 * (ac.encoder_layers + L), "K2": ac.encoder_layers + L,
                  "K3 fwd": 0, "K3 bwd": 0}
-    ok = (len(steps) == SFT_STEPS + SFT_STEPS - SFT_RESUME
-          and all(s["launches"] == want_step for s in steps)
+    ok = (len(steps) == SFT_STEPS and all(s["launches"] == want_step for s in steps)
           and all(d["K1"] > 0 and d["K1"] % (ac.encoder_layers + L) == 0 and d["K2"] == 0
                   and d["K3 fwd"] == d["K3 bwd"] == 0 for d in devs)
-          and len(devs) == 2 and not plain_calls
-          and len(losses1) == SFT_STEPS and all(math.isfinite(x) for x in losses1))
+          and len(devs) == 1 and not plain_calls
+          and len(losses) == SFT_STEPS and all(math.isfinite(x) for x in losses))
     print(f"  launches a step (remat full recomputes the attention): want K1 "
           f"{want_step['K1']} = 2 x ({ac.encoder_layers} tower + {L} text), K2 "
-          f"{want_step['K2']}, K3 0; dev passes {devs}; over both runs {counts}; plain "
+          f"{want_step['K2']}, K3 0; dev pass {devs}; over the run {counts}; plain "
           f"versions called: {plain_calls or 'none'}; losses finite {'ok' if ok else 'FAIL'}")
     print("  K3 stays at 0 launches: the qwen2_audio TrainSpec has no head weight, so the "
           "trainer takes the full-logits pack loss under --training_enable_liger_kernel true, "
           "as the JAX trainer does (touchnet_tpu/bin/train.py:485-498)")
     if not ok:
         failures.append("qwen2 sft: launches / losses")
-    clean = [hist1[1], hist2[1]]  # no save, dev pass, set-up or profiler in them
-    step_ms = statistics.median(h["time/step_s"] for h in clean) * 1e3
+    # steps 2 and 3: no save, dev pass, set-up or profiler in them
+    step_ms = statistics.median(h["time/step_s"] for h in hist[1:SFT_STEPS - 1]) * 1e3
     sft_step_split(exp / "profile_traces" / f"iteration_{SFT_STEPS}" / "trace.json",
-                   hist1[SFT_STEPS - 1]["time/step_s"] * 1e3, card, failures)
-    print(f"  step {step_ms:.1f} ms (the median of run 1's step 2 and the resumed run's step "
-          f"4: no save, dev pass, set-up or profiler in them); peak {peak1:.2f} GiB allocated "
-          f"(run 1), {peak2:.2f} GiB (resumed); AdamW moments {pinned / 1e9:.2f} GB in pinned "
-          f"host memory; the host's resident memory {host1.before / 1e9:.2f} -> peak "
-          f"{host1.peak / 1e9:.2f} GB (run 1), {host2.before / 1e9:.2f} -> "
-          f"{host2.peak / 1e9:.2f} GB (resumed); dev lines {[(d['step'], round(d['loss_per_sample'], 4)) for d in dev1]}"
-          f", {[(d['step'], round(d['loss_per_sample'], 4)) for d in dev2]}  [{card}]")
-    ok = sorted(saves1) == [SFT_RESUME] and sorted(saves2) == [SFT_STEPS]
+                   hist[SFT_STEPS - 1]["time/step_s"] * 1e3, card, failures)
     ckpt = tree_bytes(exp / "checkpoint" / f"step_{SFT_STEPS}")
-    print("  saves (sync), the loop blocked: " + ", ".join(
-        f"run {r} step {s} {ms:.1f} ms ({w:.2f} s writing, {ckpt / max(w, 1e-9) / 1e9:.2f} GB/s)"
-        for r, sv in ((1, saves1), (2, saves2)) for s, (ms, w) in sorted(sv.items())) +
-        f"; a checkpoint {ckpt} bytes; run 1 {run1_s:.1f} s, resumed run {run2_s:.1f} s "
-        f"{'ok' if ok else 'FAIL'}  [{card}]")
+    ok = sorted(saves) == [SFT_STEPS]
+    print(f"  step {step_ms:.1f} ms (the median of steps 2 and 3: no save, dev pass, set-up or "
+          f"profiler in them); peak {peak:.2f} GiB allocated; AdamW moments "
+          f"{pinned / 1e9:.2f} GB in pinned host memory; the host's resident memory "
+          f"{host.before / 1e9:.2f} -> peak {host.peak / 1e9:.2f} GB; dev line "
+          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev_hist]}; the last save "
+          "(sync, the model alone: stage 3 reads nothing else; phase 15 holds the SFT resume), "
+          "the loop blocked " + ", ".join(f"{ms:.1f} ms ({ckpt} bytes in {w:.2f} s)"
+                                         for _, (ms, w) in sorted(saves.items())) +
+          f"; the run {run_s:.1f} s {'ok' if ok else 'FAIL'}  [{card}]")
     if not ok:
         failures.append("qwen2 sft: saves")
-    losses2 = [h["loss/per_sample"] for h in hist2]
-    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
-        sorted(set(state2) - set(state1))
-    same = ([h["step"] for h in hist2] == list(range(SFT_RESUME + 1, SFT_STEPS + 1))
-            and losses2 == losses1[SFT_RESUME:] and not differ
-            and [d["step"] for d in dev2] == [SFT_STEPS])
-    print(f"  resumed from step {SFT_RESUME}: losses {losses2} equal run 1's bit for bit, and "
-          f"the final params, mu, nu, count ({len(state1)} tensors, checksums of their bits) "
-          f"differ in {differ[:5] or 'none'}: {same} {'ok' if same else 'FAIL'}")
-    if not same:
-        failures.append("qwen2 sft: resume not bit-equal")
-    # stage 3 reads the model of the last step; the moments make room for the export
-    shutil.rmtree(exp / "checkpoint" / f"step_{SFT_STEPS}" / "optimizer")
 
-    # stage 3: the resumed run's last save -> HF (with the tokenizer, as
+    # stage 3: the run's last save -> HF (with the tokenizer, as
     # run.sh:144-152 passes --tokenizer_model)
     secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
                    ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
@@ -3766,11 +3796,579 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     k1_rows, k2_rows = sft_kernel_rows(attn, dev, failures, card, first_step["rows"],
                                        first_step["L"], first_step["seg"].to(dev))
     rows_s = time.perf_counter() - t0
-    print(f"  phase 14: stage 0 {stage0_s:.1f} s, run 1 {run1_s:.1f} s, resumed run "
-          f"{run2_s:.1f} s, kernel vs plain step {check_s:.1f} s, kernel rows {rows_s:.1f} s, "
-          f"all {time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, peak "
-          f"{max(peak1, peak2):.2f} GiB, launches {counts}  [{card}]")
-    out.update(counts=counts, k1=k1_rows, k2=k2_rows, export=export)
+    print(f"  phase 14: stage 0 {stage0_s:.1f} s, the run {run_s:.1f} s, kernel vs plain step "
+          f"{check_s:.1f} s, kernel rows {rows_s:.1f} s, all {time.perf_counter() - t_phase:.1f} "
+          f"s; step {step_ms:.1f} ms, peak {peak:.2f} GiB, launches {counts}  [{card}]")
+    out.update(counts=counts, k1=k1_rows, k2=k2_rows, export=export,
+               lists=(listfile, devlist))
+    return out
+
+
+# -- phase 15: kimi_audio's SFT stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with
+# model_type kimi_audio: make_data, the HF seed, the SFT run, the HF export) --
+
+# run 1 saves at step 1 and the resumed run trains steps 2 and 3: run 1's
+# step 3, which the profiler traces, and the resumed run's have no save or
+# set-up in their time
+KIMI_SFT_STEPS, KIMI_SFT_RESUME, KIMI_SFT_MIMO = 3, 1, 1
+# phase 15's most text layers: the disk's clock (a checkpoint is 12 bytes a
+# trainable parameter, written at ~0.7 GB/s and read back at ~0.5; 1 layer
+# of 28 saves 3 GB a checkpoint against 2)
+KIMI_SFT_MAX_LAYERS = 1
+# the card's share of the step past the params, gradients, logits and the
+# tower's saved layer inputs: one tower layer's recompute at ~70 rows (its
+# fc1 and GELU outputs, the f32 LayerNorm copies, ~7.5 GB), the speech
+# tokenizer's working set (SCORE_CHUNK_BYTES of scores) and the text layers'
+KIMI_SFT_WORKSPACE = 8 * 2**30
+# the token budgets the phase tries, the recipe's 2 x 8192 first: the budget
+# sets both the logits and the rows, so it is the first cut the card forces
+KIMI_SFT_BUDGETS = (2 * 8192, 1 * 8192)
+# bytes a logit the port's full-logits pack loss holds at its peak, in the
+# backward: the bf16 logits, their f32 copy (saved by logsumexp), exp(x -
+# lse), its product with the incoming gradient, the gather's scatter and
+# their sum. On an H100 80GB HBM3, 2 x 8192 positions at vocab 168448 ran
+# out of memory in that backward with 75.0 GB allocated, asking for 11.0 GB
+# more (params 14.1, the tower's saved inputs ~9: >= 22.8 bytes a logit);
+# 14 a logit (bf16 logits, an f32 copy, two f32 gradients) reckons it fits
+KIMI_SFT_LOGIT_BYTES = 24
+
+
+def kimi_row_tokens(tok, instruct: str, samples: int, txt: str) -> int:
+    """Ids of the text stream dynamic_batch makes of an utterance of
+    `samples` 16 kHz samples (at most 30 s): user start, the instruct, a
+    blank per audio token (its whisper frames [::2][::4]) and five more,
+    the response."""
+    frames = max(samples // 160, 1)
+    audio = -(-(-(-frames // 2)) // 4)
+    ids = tok.tokenize(instruct, add_special_tokens=False)
+    return 1 + len(ids) + 1 + audio + 4 + len(tok.tokenize(txt, add_special_tokens=False))
+
+
+def sft_rows(lengths: list, budget: int, seed: int, trials: int = 64) -> int:
+    """The most rows of any batch dynamic_batch's budget rule (the longest
+    row times the rows within `budget`) makes of `lengths`, over `trials`
+    seeded shuffles of them."""
+    rng = np.random.default_rng(seed)
+    most = 0
+    for _ in range(trials):
+        longest, rows = 0, 0
+        for n in rng.permutation(lengths):
+            longest = max(longest, int(n))
+            if longest * (rows + 1) > budget and rows:
+                most, longest, rows = max(most, rows), int(n), 0
+            rows += 1
+        most = max(most, rows)
+    return most
+
+
+def kimi_sft_config(raw: dict, layers: int, mimo: int) -> dict:
+    """Kimi-Audio's config dict with `layers` text layers and `mimo` mimo
+    layers forked after the last text layer (the fork index layers - 1),
+    so the mimo stack stays in the model."""
+    out = json.loads(json.dumps(raw))
+    out.update(num_hidden_layers=layers, kimia_mimo_layers=mimo,
+               kimia_mimo_transformer_from_layer_index=layers - 1)
+    return out
+
+
+def kimi_sft_depth(raw: dict, free: int, card_bytes: int, rows_of) -> dict:
+    """Phase 15's cut of Kimi-Audio-7B: the most text layers, at most
+    KIMI_SFT_MAX_LAYERS, with KIMI_SFT_MIMO mimo layers, and at those layers the
+    first budget of KIMI_SFT_BUDGETS, for which both fit (the widths and the
+    vocab stay full; the disk sets the depth, the card the budget first):
+      - the disk, up to SFT_DISK_CAP, holds one checkpoint with AdamW
+        moments for every trainable tensor (f32 params 4 bytes a parameter,
+        mu and nu 8 more; the frozen speech tokenizer has no moments), or
+        the last save's model with the f32 export beside it (8 bytes a
+        parameter: the resumed run's last save holds the model alone),
+        whichever is larger, and 2 GiB;
+      - the card holds the f32 params, gradients where one exists (not the
+        tokenizer, not the mimo stack, mimo_norm and mimo_output, which the
+        text logits do not reach), the full-logits loss of the budget
+        (KIMI_SFT_LOGIT_BYTES a logit),
+        the tower's saved layer inputs at the budget's rows (rows_of(budget);
+        remat full: bf16, 1500 frames x d_model a layer) and
+        KIMI_SFT_WORKSPACE.
+    Returns the plan (layers 0 when none fits) with every term in bytes."""
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from touchnet_tpu_torch.models.kimi_audio.modeling_kimi_audio import empty_model
+
+    enc = raw["speech_encoder_config"]
+    row_bytes = enc["encoder_layers"] * 1500 * enc["d_model"] * 2
+    plan = {"layers": 0}
+    for layers in range(min(KIMI_SFT_MAX_LAYERS, raw["num_hidden_layers"]), 0, -1):
+        cfg = KimiAudioConfig.from_dict(kimi_sft_config(raw, layers, KIMI_SFT_MIMO))
+        sizes = {"frozen": 0, "no_grad": 0, "all": 0}
+        for name, p in empty_model(cfg, device="meta").named_parameters():
+            sizes["all"] += p.numel()
+            if name.startswith("speech_tokenizer."):
+                sizes["frozen"] += p.numel()
+            elif name.startswith(("model.mimo_layers.", "model.mimo_norm.", "mimo_output.")):
+                sizes["no_grad"] += p.numel()
+        n = sizes["all"]
+        ckpt = 4 * n + 8 * (n - sizes["frozen"])
+        disk = max(ckpt, 8 * n) + 2**31
+        grads = 4 * (n - sizes["frozen"] - sizes["no_grad"])
+        for budget in KIMI_SFT_BUDGETS:
+            rows = rows_of(budget)
+            logits = KIMI_SFT_LOGIT_BYTES * budget * cfg.text_config.vocab_size
+            card = 4 * n + grads + logits + rows * row_bytes + KIMI_SFT_WORKSPACE
+            plan = dict(layers=layers, budget=budget, rows=rows, params=n, ckpt=ckpt,
+                        disk=disk, card=card, grads=grads, logits=logits,
+                        tower=rows * row_bytes, **sizes)
+            if disk <= min(free, SFT_DISK_CAP) and card <= card_bytes:
+                return plan
+    plan["layers"] = 0
+    return plan
+
+
+def kimi_sft_argv(listfile, exp, config, tok_dir, budget, dtype="bfloat16", **extra) -> list:
+    """The recipe's stage-2 flags with model_type kimi_audio (run.sh:76-141)
+    as sft_argv cuts them for phase 14, with phase 15's own: KIMI_SFT_STEPS
+    steps, and the token budget `budget` (2 x 8192, or 1 x 8192 when the
+    card forces it: dataset_batchsize)."""
+    return sft_argv(listfile, exp, config, tok_dir, dtype, **{
+        "datapipe_type": "kimi_audio", "training_model_name": "kimi_audio",
+        "training_description": "wenetspeech asr sft (kimi_audio)",
+        "lr_scheduler_steps": KIMI_SFT_STEPS, "dataset_batchsize": budget // 8192, **extra})
+
+
+def kimi_sft_rows(attn, dev, failures, card, B) -> tuple:
+    """K1 and K2 (n) at the Kimi tower's training shape, B rows x T1500
+    H20/20 D64 bf16 non-causal with no segment ids (the last 128-row block
+    of 1500 ragged), each against its plain version (one head at a time),
+    timed beside FlashAttention-2 varlen over the same rows. Returns (K1
+    rows, K2 rows)."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 52)
+    bf = torch.bfloat16
+    k1_rows, k2_rows = {}, {}
+    name = f"(n) kimi_audio tower training: B{B} T1500 H20/20 D64 bf16 non-causal"
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    k1_case(attn, dev, failures, card, k1_rows, name, randn(B, 1500, 20, 64),
+            randn(B, 1500, 20, 64), randn(B, 1500, 20, 64), None, None, False, 0, timed=True,
+            grouped=True, runs=lambda q, k, v: ([1500] * B, [1500] * B, k, v))
+    k2_case(attn, dev, gen, failures, card, k2_rows, name, B, 1500, 20, 20, 64, bf, False, None,
+            timed=True, grouped=True)
+    return k1_rows, k2_rows
+
+
+def kimi_step_split(trainer, batch, card) -> dict:
+    """The SFT step's parts, each timed alone (one warm-up, then CUDA events
+    over one run) on the trainer's weights and the first step's batch:
+    the frozen speech tokenizer's forward; the whisper tower's forward,
+    recompute and backward (remat full); the text layers' (with the
+    embeddings and the final norm); the lm-head, the full-logits pack loss
+    and their backward; the streamed AdamW over every trainable tensor
+    (with zero gradients). The parts alone do not add up to the step
+    (launch gaps, the merge and the adaptor, the allocator). Returns {part:
+    ms}."""
+    from touchnet_tpu_torch.models import whisper_encoder
+    from touchnet_tpu_torch.models.common import linear
+    from touchnet_tpu_torch.models.kimi_audio import modeling_kimi_audio as km
+    from touchnet_tpu_torch.ops.fused_adamw import streamed_adamw_step
+
+    model, cfg, ob = trainer.model, trainer.model_config, trainer.opt
+    bf = torch.bfloat16
+    feats, fmask = batch["whisper_input_features"], batch["whisper_attention_mask"]
+    ids = dict(text_input_ids=batch["text_input_ids"], audio_input_ids=batch["audio_input_ids"],
+               segment_ids=batch["attention_mask"])
+    hidden = km.forward(model, **ids, config=cfg, compute_dtype=bf,
+                        return_hidden=True).detach()
+
+    def tokenizer():
+        km.speech_tokenizer_forward(model.speech_tokenizer, feats, fmask,
+                                    cfg.speech_tokenizer_config, bf)
+
+    def tower():
+        whisper_encoder.forward(model.speech_encoder, feats, cfg.speech_encoder_config,
+                                compute_dtype=bf, causal=False, apply_final_layer_norm=True,
+                                remat_mode="full").float().sum().backward()
+
+    def text_layers():
+        km.forward(model, **ids, config=cfg, compute_dtype=bf, remat_mode="full",
+                   return_hidden=True).float().sum().backward()
+
+    def loss():
+        h = hidden.clone().requires_grad_()
+        logits = linear(h, model.lm_head.weight.to(bf))
+        trainer.train_spec.loss_fn(logits, batch["labels"], batch["sentence_lens"],
+                                   float(batch["labels"].shape[0]))[0].backward()
+
+    def adamw():
+        with torch.no_grad():
+            streamed_adamw_step([None] * len(trainer.params), trainer.params, trainer.offload,
+                                trainer.count, lr=ob.schedule(trainer.count), b1=ob.b1,
+                                b2=ob.b2, eps=ob.eps, weight_decay=ob.weight_decay)
+        trainer.offload.synchronize()
+
+    out = {}
+    for name, fn in (("speech tokenizer (forward)", tokenizer),
+                     ("whisper tower (forward, recompute, backward)", tower),
+                     ("text layers (forward, recompute, backward)", text_layers),
+                     ("lm-head and full-logits loss (forward, backward)", loss),
+                     ("AdamW, moments streamed from host memory", adamw)):
+        for timed in (False, True):
+            for p in model.parameters():
+                p.grad = None
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+        out[name] = start.elapsed_time(end)
+    for p in model.parameters():
+        p.grad = None
+    print("  the step's parts, each timed alone on the first step's batch: " +
+          ", ".join(f"{n} {ms:.1f} ms" for n, ms in out.items()) + f"  [{card}]")
+    return out
+
+
+def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
+    """Phase 15: stages 0-3 of the SFT recipe with model_type kimi_audio on
+    one card, Kimi-Audio-7B at full width (the 32-layer tower, the 16-layer
+    speech tokenizer, the adaptor, hidden 3584, vocab 168448) cut as
+    kimi_sft_depth says: stage 0 is phase 14's (`lists`: the same shards,
+    dev list and data.list.raw); a seeded random bf16 HF directory through
+    convert_hf_to_ckpt --model_type kimi_audio to step_0; bin.train.main with
+    the recipe's stage-2 flags (sft_argv, datapipe and model kimi_audio),
+    KIMI_SFT_STEPS steps with one save at KIMI_SFT_RESUME, then a fresh
+    trainer resumed from it, held to it bit for bit, whose last save holds
+    the model alone; after the last step the speech tokenizer bit-equal to
+    the seed, the mimo stack equal to the seed times prod(1 - lr_t wd), every
+    other tensor moved; convert_ckpt_to_hf on that save, held to the final
+    params bit for bit; one step at a small batch on the kernel path against
+    plain_kernels(); K1 and K2 (n). Returns the launches of the two runs (the
+    main path), the kernel rows and the export."""
+    import wave
+
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.models import whisper_encoder
+    from touchnet_tpu_torch.models.kimi_audio import convert
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from touchnet_tpu_torch.models.kimi_audio.modeling_kimi_audio import (
+        get_num_params,
+        init_params,
+    )
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.utils.safetensors_io import read_safetensors, write_safetensors
+
+    t_phase = time.perf_counter()
+    out = {"counts": {}, "k1": {}, "k2": {}, "export": None}
+    raw_full = json.loads(KIMI_CONFIG.read_text())
+    full, mimo_full = raw_full["num_hidden_layers"], raw_full["kimia_mimo_layers"]
+    tok_dir = write_char_tokenizer(tmp / "kimi_sft_tokenizer", raw_full["vocab_size"],
+                                   KIMI_SPECIALS, KIMI_EOS, STAGE4_INSTRUCT)
+    t0 = time.perf_counter()
+    shared = lists is not None
+    listfile, devlist = lists if shared else sft_stage0(tmp, failures)
+    stage0_s = time.perf_counter() - t0
+    tok = build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
+                                          tokenizer_model=str(tok_dir)))
+    lengths = []
+    for line in open(Path(listfile).parent / "data.list.raw"):
+        u = json.loads(line)
+        with wave.open(u["wav"]) as w:
+            lengths.append(kimi_row_tokens(tok, STAGE4_INSTRUCT, w.getnframes(), u["txt"]))
+
+    def rows_of(budget):
+        return sft_rows(lengths, budget, SEED + 53)
+
+    free = shutil.disk_usage(tmp).free
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    plan = kimi_sft_depth(raw_full, free, card_bytes, rows_of)
+    L = plan["layers"]
+    print(f"[15] kimi_audio SFT, stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with "
+          f"model_type kimi_audio) on one card: {KIMI_CONFIG.relative_to(HERE)} at full width "
+          f"(tower {raw_full['speech_encoder_config']['encoder_layers']} layers d"
+          f"{raw_full['speech_encoder_config']['d_model']}; speech tokenizer "
+          f"{raw_full['speech_tokenizer_config']['quantize_position']} layers, frozen; text "
+          f"E={raw_full['hidden_size']} H={raw_full['num_attention_heads']}/"
+          f"{raw_full['num_key_value_heads']} V={raw_full['vocab_size']}); rows of "
+          f"{min(lengths)}-{max(lengths)} tokens; the plan (kimi_sft_depth): text layers "
+          f"{L}, mimo {KIMI_SFT_MIMO}, budget {plan.get('budget')} tokens, at most "
+          f"{plan.get('rows')} rows (the budget rule over 64 shuffles of the train set); "
+          f"{plan.get('params', 0):,} params ({plan.get('frozen', 0):,} frozen, "
+          f"{plan.get('no_grad', 0):,} with no gradient); disk: a checkpoint "
+          f"{plan.get('ckpt', 0) / 1e9:.2f} GB, {plan.get('disk', 0) / 1e9:.2f} GB needed of "
+          f"{free / 1e9:.2f} GB free (cap {SFT_DISK_CAP / 1e9:.2f}); card: params "
+          f"{4 * plan.get('params', 0) / 1e9:.2f} + gradients {plan.get('grads', 0) / 1e9:.2f} "
+          f"+ logits {plan.get('logits', 0) / 1e9:.2f} + the tower's saved inputs "
+          f"{plan.get('tower', 0) / 1e9:.2f} + workspace {KIMI_SFT_WORKSPACE / 1e9:.2f} = "
+          f"{plan.get('card', 0) / 1e9:.2f} GB of {card_bytes / 1e9:.2f}")
+    if L == 0:
+        print("  nothing fits the disk and the card FAIL")
+        failures.append("kimi sft: no room")
+        return out
+    raw = kimi_sft_config(raw_full, L, KIMI_SFT_MIMO)
+    config = tmp / "kimi_sft_config.json"
+    config.write_text(json.dumps(raw))
+    cfg = KimiAudioConfig.from_json_file(str(config))
+    tc, ec, vq = cfg.text_config, cfg.speech_encoder_config, cfg.speech_tokenizer_config
+    budget = plan["budget"]
+    print(f"  cuts: dp 8 -> 1 (one card); text layers {full} -> {L} and mimo layers "
+          f"{mimo_full} -> {KIMI_SFT_MIMO}, forked after layer {L - 1} (was "
+          f"{raw_full['kimia_mimo_transformer_from_layer_index']}), so the mimo stack stays "
+          f"and decays without gradient (the disk: 12 bytes a trainable parameter; the "
+          f"three vocab-wide matrices alone hold {3 * tc.vocab_size * tc.hidden_size:,}); "
+          f"token budget 2 x 8192 -> {budget // 8192} x 8192 "
+          f"{'(none: it fits)' if budget == 2 * 8192 else '(the card)'}; {KIMI_SFT_STEPS} "
+          f"steps of 30000, warmup 2 of 1000; remat none -> full and the AdamW moments in "
+          f"host memory (the card's memory); loader 12 workers, prefetch 12 -> "
+          f"{SFT_WORKERS}, {SFT_WORKERS}; checkpoints sync, one save in run 1 (at step "
+          f"{KIMI_SFT_RESUME}: this script skips the trainer's other saves there), "
+          f"the resumed run's last save the model alone (stage 3 reads nothing else); "
+          f"log every step (100); run 1's profiler traces its last step; stage 0 "
+          f"{'the shards, dev list and data.list.raw of phase 14 (shared)' if shared else 'its own'}")
+
+    # stage 1: an HF directory of seeded random bf16 weights -> step_0
+    t0 = time.perf_counter()
+    exp, hf = tmp / "kimi_sft_exp", tmp / "kimi_sft_hf"
+    hf.mkdir()
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 50), torch.bfloat16,
+                        dev)
+    state = model.state_dict()
+    n_bytes = write_safetensors(convert.params_to_hf_state_dict(cfg, state),
+                                str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
+    seed_bits = bits_checksums({k: v.float() for k, v in state.items()})
+    mimo_names = [k for k in state
+                  if k.startswith(("model.mimo_layers.", "model.mimo_norm.", "mimo_output."))]
+    mimo_seed = {k: state[k].cpu() for k in mimo_names}  # bf16, exact in f32
+    del model, state
+    torch.cuda.empty_cache()
+    secs = run_cli("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+                   ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
+                    config, "--model_type", "kimi_audio"], failures, "kimi sft stage 1")
+    step0 = exp / "checkpoint" / "step_0"
+    stage1_s = time.perf_counter() - t0
+    print(f"  stage 1: HF seed (random bf16 weights, seed {SEED + 50}) {n_bytes} bytes; "
+          f"convert_hf_to_ckpt --model_type kimi_audio (subprocess) -> step_0, "
+          f"{tree_bytes(step0) if step0.exists() else 0} bytes (f32), in {secs:.2f} s; stage 1 "
+          f"{stage1_s:.1f} s")
+    shutil.rmtree(hf)  # its tensors are in step_0 now
+
+    # stage 2: run 1 saves at KIMI_SFT_RESUME only; the resumed run saves its
+    # last step (the trainer's cadence) with the model alone, which stage 3
+    # exports
+    counters = kernel_counters()
+    steps, devs, init_bits, sizes = [], [], [], {}
+    real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train)
+
+    def counted_step(self, batch, num_sentence):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.reset_peak_memory_stats()
+        res = real[0](self, batch, num_sentence)
+        ids = batch["text_input_ids"]
+        steps.append({"launches": {k: c.launches - before[k] for k, c in counters.items()},
+                      "rows": ids.shape[0], "L": ids.shape[1],
+                      "peak": torch.cuda.max_memory_allocated() / 2**30,
+                      "batch": batch if not steps else None})
+        return res
+
+    def counted_dev(self):
+        before = {k: c.launches for k, c in counters.items()}
+        real[1](self)
+        devs.append({k: c.launches - before[k] for k, c in counters.items()})
+
+    def checked_train(self):
+        if not init_bits:
+            init_bits.append(bits_checksums(self.model.state_dict()))
+        # the init has read the step it started from: off the disk with it
+        sizes[self.step] = tree_bytes(exp / "checkpoint" / f"step_{self.step}")
+        shutil.rmtree(exp / "checkpoint" / f"step_{self.step}")
+        return real[2](self)
+
+    flags = dict(datalist_dev_path=devlist)
+    train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = (
+        counted_step, counted_dev, checked_train)
+    torch.cuda.empty_cache()
+    try:
+        # the main path (both runs): every launch count is zeroed here and
+        # read after the resumed run
+        for c in counters.values():
+            c.launches = 0
+        with count_plain_calls() as plain_calls, timed_saves(train) as saves:
+            t0 = time.perf_counter()
+            with HostPeak() as host1, \
+                    saves_where(lambda step, force: step == KIMI_SFT_RESUME):
+                first = train.main(kimi_sft_argv(listfile, exp, config, tok_dir, budget, **flags,
+                                                 training_profiling_freq=KIMI_SFT_STEPS),
+                                   device=dev)
+            run1_s = time.perf_counter() - t0
+            saves1 = dict(saves)
+            hist1 = first.metrics_processor.history
+            dev1 = first.metrics_processor.dev_history
+            pinned = first.offload.pinned_bytes if first.offload is not None else 0
+            lrs = [float(first.opt.schedule(t)) for t in range(KIMI_SFT_STEPS)]
+            wd = first.opt.weight_decay
+            state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
+            del first
+            free_caches()  # page-cache room for the resume's read of run 1's checkpoint
+            saves.clear()
+            t0 = time.perf_counter()
+            with HostPeak() as host2, model_only_saves():
+                resumed = train.main(kimi_sft_argv(
+                    listfile, exp, config, tok_dir, budget, **flags,
+                    training_ckpt_load_step=KIMI_SFT_RESUME), device=dev)
+            run2_s = time.perf_counter() - t0
+            saves2 = dict(saves)
+    finally:
+        train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = real
+    counts = {k: c.launches for k, c in counters.items()}
+    hist2 = resumed.metrics_processor.history
+    dev2 = resumed.metrics_processor.dev_history
+    final_state = resumed.model.state_dict()
+    state2 = bits_checksums({**final_state, **resumed._opt_state()})
+    final = {k: state2[k] for k in final_state}
+    # after the last step: the tokenizer as seeded, the mimo stack decayed
+    # by prod(1 - lr_t wd) (no gradient reaches it), every other tensor moved
+    decay = math.prod(1.0 - lr * wd for lr in lrs)
+    tok_names = [k for k in final if k.startswith("speech_tokenizer.")]
+    tok_same = all(final[k] == seed_bits[k] for k in tok_names)
+    mimo_err = max(((final_state[k] - mimo_seed[k].to(dev).float() * decay).abs().max()
+                    / mimo_seed[k].float().abs().max().clamp_min(1e-30)).item()
+                   for k in mimo_names)
+    still = [k for k in final if k not in tok_names and k not in mimo_names
+             and final[k] == seed_bits[k]]
+    del final_state, mimo_seed
+    # the parts of a step, on the resumed trainer (its state is checked above)
+    split = kimi_step_split(resumed, steps[0].pop("batch"), card)
+    del resumed
+    free_caches()  # page-cache room for stage 3's read-back of the export
+
+    seeded = bool(init_bits) and init_bits[0] == seed_bits
+    print(f"  stage 2 starts from step_0: the params at init ({len(seed_bits)} tensors) equal the "
+          f"HF tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
+    if not seeded:
+        failures.append("kimi sft: not started from the seed")
+    ok = tok_same and mimo_err <= 1e-6 and not still
+    print(f"  after step {KIMI_SFT_STEPS}: the {len(tok_names)} speech_tokenizer.* tensors "
+          f"bit-equal to the seed: {tok_same}; the {len(mimo_names)} mimo tensors (no gradient) "
+          f"equal the seed x prod(1 - lr_t wd) = {decay:.9f} (lr_t {lrs}, wd {wd}) within "
+          f"{mimo_err:.2e} of their largest value (<= 1e-6, f32 rounding); tensors left at the "
+          f"seed among the other {len(final) - len(tok_names) - len(mimo_names)}: "
+          f"{still[:5] or 'none'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("kimi sft: frozen / decayed / moved")
+    tower_p = whisper_encoder.get_num_params(ec)
+    tok_p = plan["frozen"]
+    text_p = get_num_params(cfg) - tower_p - tok_p - plan["no_grad"]
+    losses1 = [h["loss/per_sample"] for h in hist1]
+    for h, s in zip(hist1 + hist2, steps):
+        rows, T = s["rows"], s["L"]
+        tower_tf = rows * 1500 * (6 * tower_p + 12 * ec.encoder_layers * ec.d_model * 1500) / 1e12
+        tok_tf = rows * 1500 * (2 * tok_p + 4 * vq.quantize_position * vq.d_model * 1500) / 1e12
+        text_tf = rows * T * (6 * text_p + 12 * tc.num_hidden_layers * tc.num_attention_heads
+                              * tc.head_dim * T) / 1e12
+        la = s["launches"]
+        print(f"  step {h['step']}: loss {h['loss/per_sample']:.4f}, {h['time/step_s'] * 1e3:.1f} "
+              f"ms, {h['throughput/tps']:,.0f} label tokens/s, MFU "
+              f"{h.get('throughput/mfu_pct', float('nan')):.3f}% (the reference's count: text "
+              f"and mimo layers, label tokens); the tower {tower_tf:.1f} TFLOP (forward and "
+              f"backward), the frozen tokenizer {tok_tf:.1f} (forward) and the text model over "
+              f"all {rows * T} positions {text_tf:.1f} TFLOP a step "
+              f"({(tower_tf + tok_tf + text_tf) / h['time/step_s']:.1f} TFLOP/s); peak "
+              f"{s['peak']:.2f} GiB; data wait {h['time/data_loading_pct']:.1f}%; {rows} rows x "
+              f"{T}; launches K1 {la['K1']} K2 {la['K2']} K3 {la['K3 fwd']}+{la['K3 bwd']}  "
+              f"[{card}]")
+    want_step = {"K1": 2 * (ec.encoder_layers + L), "K2": ec.encoder_layers + L,
+                 "K3 fwd": 0, "K3 bwd": 0}
+    n_steps = KIMI_SFT_STEPS + KIMI_SFT_STEPS - KIMI_SFT_RESUME
+    ok = (len(steps) == n_steps and all(s["launches"] == want_step for s in steps)
+          and all(d["K1"] > 0 and d["K1"] % (ec.encoder_layers + L) == 0 and d["K2"] == 0
+                  and d["K3 fwd"] == d["K3 bwd"] == 0 for d in devs)
+          and len(devs) == 2 and not plain_calls
+          and len(losses1) == KIMI_SFT_STEPS and all(math.isfinite(x) for x in losses1))
+    print(f"  launches a step (remat full recomputes the attention): want K1 "
+          f"{want_step['K1']} = 2 x ({ec.encoder_layers} tower + {L} text), K2 "
+          f"{want_step['K2']}, K3 0 (no head weight in the kimi_audio TrainSpec, so the "
+          f"full-logits pack loss under --training_enable_liger_kernel true, as the JAX trainer, "
+          f"touchnet_tpu/bin/train.py:555-581); the speech tokenizer's block-causal attention is "
+          f"plain PyTorch in JAX's dense form, not a kernel; dev passes {devs}; over both runs "
+          f"{counts}; plain versions called: {plain_calls or 'none'}; losses finite "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("kimi sft: launches / losses")
+    step_ms = hist2[-1]["time/step_s"] * 1e3  # the resumed run's step 3: no save, set-up
+    sft_step_split(exp / "profile_traces" / f"iteration_{KIMI_SFT_STEPS}" / "trace.json",
+                   hist1[KIMI_SFT_STEPS - 1]["time/step_s"] * 1e3, card, failures)
+    peak = max(s["peak"] for s in steps)
+    print(f"  step {step_ms:.1f} ms (the resumed run's step {KIMI_SFT_STEPS}: no save, dev "
+          f"pass, set-up or profiler in it); peak {peak:.2f} GiB allocated; AdamW moments {pinned / 1e9:.2f} GB in pinned "
+          f"host memory (none for the frozen tokenizer); the host's resident memory "
+          f"{host1.before / 1e9:.2f} -> peak {host1.peak / 1e9:.2f} GB (run 1), "
+          f"{host2.before / 1e9:.2f} -> {host2.peak / 1e9:.2f} GB (resumed); dev lines "
+          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev1]}, "
+          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev2]}  [{card}]")
+    sizes[KIMI_SFT_STEPS] = tree_bytes(exp / "checkpoint" / f"step_{KIMI_SFT_STEPS}")
+    ok = sorted(saves1) == [KIMI_SFT_RESUME] and sorted(saves2) == [KIMI_SFT_STEPS]
+    print("  saves (sync), the loop blocked: " + ", ".join(
+        f"run {r} step {s} {ms:.1f} ms ({sizes[s]} bytes in {w:.2f} s, "
+        f"{sizes[s] / max(w, 1e-9) / 1e9:.2f} GB/s)"
+        for r, sv in ((1, saves1), (2, saves2)) for s, (ms, w) in sorted(sv.items())) +
+        f" (run 1's with the moments, reckoned {plan['ckpt']}; the last the model alone); "
+        f"run 1 {run1_s:.1f} s, resumed run {run2_s:.1f} s {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("kimi sft: saves")
+    losses2 = [h["loss/per_sample"] for h in hist2]
+    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
+        sorted(set(state2) - set(state1))
+    same = ([h["step"] for h in hist2] == list(range(KIMI_SFT_RESUME + 1, KIMI_SFT_STEPS + 1))
+            and losses2 == losses1[KIMI_SFT_RESUME:] and not differ
+            and [d["step"] for d in dev2] == [KIMI_SFT_STEPS])
+    print(f"  resumed from step {KIMI_SFT_RESUME}: losses {losses2} equal run 1's bit for bit, "
+          f"and the final params, mu, nu, count ({len(state1)} tensors, checksums of their bits) "
+          f"differ in {differ[:5] or 'none'}: {same} {'ok' if same else 'FAIL'}")
+    if not same:
+        failures.append("kimi sft: resume not bit-equal")
+
+    # stage 3: the resumed run's last save -> HF, with the tokenizer
+    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+                   ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
+                    "kimi_audio", "--tokenizer_model", tok_dir], failures, "kimi sft stage 3")
+    export = exp / "checkpoint_hf" / f"step-{KIMI_SFT_STEPS}"
+    tensors = read_safetensors(str(export / "model.safetensors"))
+    bits = bits_checksums(tensors)
+    del tensors
+    differ = sorted(k for k in final if bits.get(k) != final[k]) + sorted(set(bits) - set(final))
+    exported = KimiAudioConfig.from_json_file(str(export / "config.json")).to_dict()
+    ok = not differ and exported == cfg.to_dict() and (export / "tokenizer.json").exists()
+    print(f"  stage 3: convert_ckpt_to_hf --step -1 --config --model_type kimi_audio "
+          f"--tokenizer_model (subprocess) -> {export.name}, {tree_bytes(export)} bytes in "
+          f"{secs:.2f} s; its {len(bits)} tensors equal the final params bit for bit: "
+          f"{not differ} (differ in {differ[:5] or 'none'}); config.json round-trips, the "
+          f"tokenizer beside it {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("kimi sft: export")
+    shutil.rmtree(exp / "checkpoint", ignore_errors=True)
+
+    # one step on the kernel path against the plain path: 1 x SFT_CHECK_SEQLEN
+    # tokens of the same shards, no checkpoint, dev pass or offload
+    t0 = time.perf_counter()
+    print(f"  one step at 1 x {SFT_CHECK_SEQLEN} tokens of the same shards, full width, "
+          f"{L} text layers, remat full: kernel vs plain path")
+    check_step(train, lambda dtype: kimi_sft_argv(
+        listfile, tmp / "kimi_sft_chk", config, tok_dir, 8192, dtype,
+        dataset_text_seqlen=SFT_CHECK_SEQLEN, dataloader_num_workers=1,
+        training_enable_ckpt="false", training_enable_tensorboard="false",
+        training_enable_profiling="false", training_enable_cpu_offload="false"),
+        dev, failures, "kimi sft ")
+    check_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    k1_rows, k2_rows = kimi_sft_rows(attn, dev, failures, card, steps[0]["rows"])
+    rows_s = time.perf_counter() - t0
+    print(f"  phase 15: stage 0 {stage0_s:.1f} s{' (shared)' if shared else ''}, stage 1 "
+          f"{stage1_s:.1f} s, run 1 {run1_s:.1f} s, resumed run {run2_s:.1f} s, stage 3 "
+          f"{secs:.1f} s, kernel vs plain step {check_s:.1f} s, kernel rows {rows_s:.1f} s, all "
+          f"{time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, peak {peak:.2f} GiB, "
+          f"launches {counts}  [{card}]")
+    out.update(counts=counts, k1=k1_rows, k2=k2_rows, export=export, split=split)
     return out
 
 
@@ -4066,10 +4664,12 @@ def tune(_build, dev, card) -> int:
 
 
 def run_audio_phases(dev, card, failures) -> tuple:
-    """Phases 10, 11, 14, 12 and 13, in this order, each in a temporary
-    directory of its own but 12, which runs stage 4 in phase 14's (on its
-    stage-3 export, once the checkpoints are gone): their launch counts,
-    and the kernel rows of phases 12, 13 and 14."""
+    """Phases 10, 11, 14, 12, 15 and 13, in this order: 10 and 11 each in a
+    temporary directory of its own, the SFT recipe's chains in one: 14
+    (qwen2_audio's stages 0-3), 12 (its stage 4 on 14's export, once the
+    checkpoints are gone), then 15 (kimi_audio's stages 1-3 on 14's stage-0
+    shards, once 14's export is gone) and 13 (its stage 4 on 15's export).
+    Returns their launch counts and the kernel rows of phases 12-15."""
     with phase_clock("phase 10"), tempfile.TemporaryDirectory() as tmp:
         audio_counts = run_audio_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
@@ -4083,16 +4683,22 @@ def run_audio_phases(dev, card, failures) -> tuple:
         with phase_clock("phase 12"):
             qwen2_counts, k1_rows, k4_rows = run_qwen2_cli(dev, card, failures, Path(tmp),
                                                            sft["export"])
+            shutil.rmtree(Path(tmp) / "sft_exp", ignore_errors=True)  # the disk, for 15
+        torch.cuda.empty_cache()
+        with phase_clock("phase 15"):
+            kimi_sft = run_kimi_sft(dev, card, failures, Path(tmp), sft["lists"])
+        torch.cuda.empty_cache()
+        with phase_clock("phase 13"):
+            kimi_counts, k1_kimi, k4_kimi = run_kimi_cli(dev, card, failures, Path(tmp),
+                                                         kimi_sft["export"])
     torch.cuda.empty_cache()
-    with phase_clock("phase 13"), tempfile.TemporaryDirectory() as tmp:
-        kimi_counts, k1_kimi, k4_kimi = run_kimi_cli(dev, card, failures, Path(tmp))
-    torch.cuda.empty_cache()
-    k1_rows.update(k1_kimi)
-    k1_rows.update(sft["k1"])
+    for rows in (k1_kimi, sft["k1"], kimi_sft["k1"]):
+        k1_rows.update(rows)
     k4_rows.update(k4_kimi)
     return {"audio recipe": audio_counts, "ASR CLI": asr_counts, "qwen2_audio ASR": qwen2_counts,
-            "kimi_audio ASR": kimi_counts, "qwen2_audio SFT": sft["counts"]}, \
-        k1_rows, sft["k2"], k4_rows
+            "kimi_audio ASR": kimi_counts, "qwen2_audio SFT": sft["counts"],
+            "kimi_audio SFT": kimi_sft["counts"]}, k1_rows, {**sft["k2"], **kimi_sft["k2"]}, \
+        k4_rows
 
 
 def kernels_line(counts, k1, k2, k3, k4) -> dict:
@@ -4197,10 +4803,11 @@ def main() -> int:
                 failures.append(f"{name} never launched on the {path} path")
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
             recipe_counts.get(name, 0) + audio_counts.get(name, 0)
-    for name in ("K1", "K2"):  # K3 stays off on the SFT path (phase 14 checks it)
-        if not paths["qwen2_audio SFT"].get(name):
-            failures.append(f"{name} never launched on the qwen2_audio SFT path")
-        counts[name] += paths["qwen2_audio SFT"].get(name, 0)
+    for name in ("K1", "K2"):  # K3 stays off on the SFT paths (phases 14 and 15 check it)
+        for path in ("qwen2_audio SFT", "kimi_audio SFT"):
+            if not paths[path].get(name):
+                failures.append(f"{name} never launched on the {path} path")
+            counts[name] += paths[path].get(name, 0)
     for name in ("K1", "K4"):
         for path in ("ASR CLI", "qwen2_audio ASR", "kimi_audio ASR"):
             if not paths[path].get(name):

@@ -9,6 +9,9 @@
 # the stage-4 argv (run.sh's flag set exactly), the kimi cases (i)-(k) in
 # the kernels line. Phase 14's: the depth rule, the stage-2 argv (run.sh's
 # flags but the named cuts), the SFT cases (l) and (m) in the kernels line.
+# Phase 15's: the depth rule (text and mimo layers, then the budget, by disk
+# and card), the rows rule, a row's length against dynamic_batch's, the
+# stage-2 argv with model_type kimi_audio, the case (n) in the kernels line.
 
 import copy
 import importlib.util
@@ -176,19 +179,21 @@ def test_bits_checksums_see_a_flipped_bit_and_a_swap():
 
 
 def test_recipe_depth_cuts_layers_only_without_room():
-    """Phase 9 keeps full depth when the temp directory holds three
-    checkpoints (~14.8 GB each for Llama-3.2-1B: f32 params, mu, nu), the
-    stage-1 seed (bf16), its step_0 and the stage-3 export (f32), and
-    otherwise cuts layers, never width."""
+    """Phase 9 takes RECIPE_MAX_LAYERS (4) of Llama-3.2-1B's 16 layers
+    (phase 8 trains all 16) when the temp directory holds three checkpoints
+    (~6.1 GB each at 4 layers: f32 params, mu, nu), the stage-1 seed
+    (bf16), its step_0 and the stage-3 export (f32), and otherwise cuts
+    layers further, never width."""
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 
     cfg = LlamaConfig.from_json_file(str(chip_smoke.CONFIG))
     L, ckpt, need = chip_smoke.recipe_depth(cfg, 10**12)
-    assert L == cfg.num_hidden_layers == 16 and 14.7e9 < ckpt < 14.9e9
+    assert L == chip_smoke.RECIPE_MAX_LAYERS == 4 and 6.0e9 < ckpt < 6.2e9
+    assert cfg.num_hidden_layers == 16
     n = ckpt // 12  # parameters
     assert need == 3 * ckpt + (2 + 4 + 4) * n + 2**31
     cut, _, cut_need = chip_smoke.recipe_depth(cfg, need - 1)
-    assert 0 < cut < 16 and cut_need < need
+    assert 0 < cut < 4 and cut_need < need
     assert chip_smoke.recipe_depth(cfg, 0)[0] == 0
     assert cfg.num_hidden_layers == 16  # the config itself is untouched
 
@@ -220,9 +225,11 @@ def test_profile_groups_of_the_k3_kernels(kernel, group):
 
 
 def test_asr_depth_cuts_only_the_text_model_without_room():
-    """Phases 11 and 12 keep full depth when the temp dir holds the bf16
-    export twice plus 2 GiB, else cut the text model's layers, never below
-    8 (0: not even 8 fit); the tower keeps its 32 layers."""
+    """Phase 11 takes ASR_MAX_LAYERS (8) text layers when the temp dir holds
+    that bf16 export twice plus 2 GiB, and none (0) when not even 8 fit; the
+    rule cuts only the text model, which a larger ASR_MAX_LAYERS would show
+    (one layer fewer per export's worth of room less); the tower keeps its
+    32 layers."""
     from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
         Qwen2AudioConfig,
     )
@@ -230,8 +237,14 @@ def test_asr_depth_cuts_only_the_text_model_without_room():
 
     cfg = Qwen2AudioConfig.from_json_file(str(chip_smoke.QWEN2_CONFIG))
     full = 2 * 2 * get_num_params(cfg) + 2**31  # 35.3 GB for 8,283,699,200 params
-    assert chip_smoke.asr_depth(cfg, full, get_num_params) == 28
-    cut = chip_smoke.asr_depth(cfg, full - 1, get_num_params)
+    assert chip_smoke.asr_depth(cfg, full, get_num_params) == chip_smoke.ASR_MAX_LAYERS == 8
+    cap = chip_smoke.ASR_MAX_LAYERS
+    try:
+        chip_smoke.ASR_MAX_LAYERS = 28
+        assert chip_smoke.asr_depth(cfg, full, get_num_params) == 28
+        cut = chip_smoke.asr_depth(cfg, full - 1, get_num_params)
+    finally:
+        chip_smoke.ASR_MAX_LAYERS = cap
     assert cut == 27 and cfg.text_config.num_hidden_layers == 28
     c8 = copy.deepcopy(cfg)
     c8.text_config.num_hidden_layers = 8
@@ -429,3 +442,142 @@ def test_kernels_line_carries_the_sft_cases():
     assert {"(l) qwen2_audio tower training", "(m) qwen2_audio text training"} <= \
         set(rows[1]["cases"])
     assert rows[0]["ms"] == 2.0 and rows[1]["ms"] == 6.8 and rows[1]["launches"] == 400
+
+
+def _kimi_raw():
+    return json.loads(chip_smoke.KIMI_CONFIG.read_text())
+
+
+@pytest.mark.parametrize("max_layers,free_gb,card_gb,rows,want", [
+    (1, 80.21, 85.02, {16384: 73, 8192: 38}, (1, 8192)),
+    (2, 80.21, 85.02, {16384: 73, 8192: 38}, (2, 8192)),
+    (2, 40.0, 85.02, {16384: 73, 8192: 38}, (1, 8192)),
+    (2, 80.21, 120.0, {16384: 73, 8192: 38}, (2, 16384)),
+    (1, 80.21, 60.0, {16384: 73, 8192: 38}, (0, None)),
+    (1, 30.0, 85.02, {16384: 73, 8192: 38}, (0, None)),
+])
+def test_kimi_sft_depth_cuts_depth_then_budget(monkeypatch, max_layers, free_gb, card_gb, rows,
+                                               want):
+    """Phase 15 keeps the widths and the vocab; it takes at most
+    KIMI_SFT_MAX_LAYERS text layers and KIMI_SFT_MIMO mimo layers forked
+    after the last, fewer text layers when the disk cannot hold run 1's
+    checkpoint (f32 params and moments for every tensor but the frozen
+    tokenizer's) and 2 GiB, and the recipe's 2 x 8192 budget cut to 1 x
+    8192 when the card cannot hold the params, the gradients that exist,
+    the logits, the tower's saved inputs at the budget's rows and the
+    workspace (KIMI_SFT_LOGIT_BYTES a logit: at 14, 2 x 8192 ran out of the
+    card's memory). At 2 text layers and 1 mimo layer: 3,522,111,232 params,
+    a 39.52 GB checkpoint (the 42.3 GB of 12 bytes a parameter, less the
+    tokenizer's moments); at 1 and 1: 3,289,053,440, 36.72 GB."""
+    monkeypatch.setattr(chip_smoke, "KIMI_SFT_MAX_LAYERS", max_layers)
+    raw = _kimi_raw()
+    plan = chip_smoke.kimi_sft_depth(raw, int(free_gb * 1e9), int(card_gb * 1e9),
+                                     rows.__getitem__)
+    assert (plan["layers"], plan["budget"] if plan["layers"] else None) == want
+    assert raw["num_hidden_layers"] == 28
+    if plan["layers"]:
+        n, frozen = plan["params"], plan["frozen"]
+        assert plan["ckpt"] == 4 * n + 8 * (n - frozen)
+        assert plan["disk"] == max(plan["ckpt"], 8 * n) + 2**31
+        assert plan["disk"] <= min(free_gb * 1e9, chip_smoke.SFT_DISK_CAP)
+        assert plan["logits"] == chip_smoke.KIMI_SFT_LOGIT_BYTES * plan["budget"] * 168448
+        assert plan["tower"] == rows[plan["budget"]] * 32 * 1500 * 1280 * 2
+        assert plan["card"] == (4 * n + plan["grads"] + plan["logits"] + plan["tower"]
+                                + chip_smoke.KIMI_SFT_WORKSPACE) <= card_gb * 1e9
+        assert plan["frozen"] == 343_599_360
+    if want[0] == 2:
+        assert plan["params"] == 3_522_111_232 and plan["no_grad"] == 836_779_008
+        assert 39.5e9 < plan["ckpt"] < 39.6e9
+    if want[0] == 1:
+        assert plan["params"] == 3_289_053_440 and 36.7e9 < plan["ckpt"] < 36.8e9
+    cut = chip_smoke.kimi_sft_config(raw, 2, 1)
+    assert (cut["num_hidden_layers"], cut["kimia_mimo_layers"],
+            cut["kimia_mimo_transformer_from_layer_index"]) == (2, 1, 1)
+    assert cut["hidden_size"] == 3584 and cut["speech_encoder_config"] == \
+        raw["speech_encoder_config"]
+
+
+@pytest.mark.parametrize("lengths,budget,want", [
+    ([100] * 30, 1000, 10), ([100] * 5, 1000, 5), ([300, 10, 10, 10], 600, 3),
+    ([2000], 1000, 1)])
+def test_sft_rows_is_the_budget_rule(lengths, budget, want):
+    assert chip_smoke.sft_rows(lengths, budget, seed=0, trials=8) == want
+
+
+def test_kimi_row_tokens_is_dynamic_batchs_row(tmp_path):
+    """kimi_row_tokens gives the length of the row the port's dynamic_batch
+    makes of the same utterance (the text stream with the response)."""
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.models.kimi_audio import processing_kimi_audio as proc
+    from touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio import whisper_features
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+
+    specials = {k: v - 151661 + 200 for k, v in chip_smoke.KIMI_SPECIALS.items()}
+    tok = build_tokenizer(TokenizerConfig(
+        tokenizer_type="HuggingFaceTokenizer", tokenizer_model=str(chip_smoke.write_char_tokenizer(
+            tmp_path, 256, specials, chip_smoke.KIMI_EOS, chip_smoke.STAGE4_INSTRUCT))))
+    for samples, txt in ((16000, "utterance 3"), (23_999, "utterance 142"), (480_000, "x")):
+        wav = np.zeros(samples, np.float32)
+        (b,) = proc.dynamic_batch(
+            iter([{"key": "k", "waveform": wav, "sample_rate": 16000, "txt": txt}]),
+            DataConfig(dataset_text_seqlen=8192, text_max_length_in_tokens_for_filter=9000,
+                       dataloader_drop_last_batch=False),
+            lambda w, sr: whisper_features(w, sr, 16), tok, specials["<|im_media_begin|>"],
+            specials["<|im_media_end|>"], 3000)
+        assert chip_smoke.kimi_row_tokens(tok, chip_smoke.STAGE4_INSTRUCT, samples, txt) == \
+            b["text_input_ids"].shape[1]
+
+
+def test_kimi_sft_argv_is_the_recipes_stage2_but_the_named_cuts():
+    """Phase 15's stage-2 flags: run.sh's with model_type kimi_audio, but
+    phase 14's cuts, its own step count, and the budget the plan keeps."""
+    recipe = _run_sh_stage2()
+    for budget, bs in ((16384, "2"), (8192, "1")):
+        argv = chip_smoke.kimi_sft_argv("L", "E", "C", "T", budget)
+        got = dict(zip((a[2:] for a in argv[::2]), argv[1::2]))
+        resolved = {"${pretrained_tokenizer_dir}": "T", "${model_type}": "kimi_audio",
+                    "data/${train_set}/data.list": "L", "${bs}": "2", "${max_seq_len}": "8192",
+                    "${num_workers}": "12", "${prefetch}": "12", "${seed}": "2025",
+                    "config/${model_config}.json": "C", "exp/${exp_id}": "E", "${cp}": "1",
+                    "${tp}": "1", "${dp}": "8", "${pp}": "1", "${liger}": "true",
+                    "${param_dtype}": "bfloat16",
+                    "wenetspeech asr sft (${model_type})": "wenetspeech asr sft (kimi_audio)"}
+        cuts = {"training_data_parallel_shard_degree": "1", "dataloader_num_workers": "2",
+                "dataloader_prefetch_factor": "2", "training_ckpt_async_mode": "disabled",
+                "training_log_freq": "1", "training_activation_checkpoint_mode": "full",
+                "lr_scheduler_steps": str(chip_smoke.KIMI_SFT_STEPS),
+                "lr_scheduler_warmup_steps": "2"}
+        if bs == "1":
+            cuts["dataset_batchsize"] = "1"
+        differ = {}
+        for k, v in recipe.items():
+            if k == "datalist_dev_path":
+                assert k not in got
+                continue
+            want = resolved.get(v, v)
+            try:
+                same = float(got[k]) == float(want)
+            except ValueError:
+                same = got[k].lower() == want.lower()
+            if not same:
+                differ[k] = got[k]
+        assert differ == cuts
+        assert set(got) - set(recipe) == {"training_enable_cpu_offload"}
+
+
+def test_kernels_line_carries_the_kimi_sft_case():
+    """Phase 15's (n) lands under K1's and K2's cases; the main rows stay
+    (d)."""
+    def case(ms):
+        return {"max_abs_err": 1e-3, "ms": ms, "plain_ms": 2 * ms, "library_ms": ms / 2,
+                "bound_ms": ms / 10, "bound_by": "operations", "tflops": 1.0, "parts": {}}
+
+    name = "(n) kimi_audio tower training: B71 T1500 H20/20 D64 bf16 non-causal"
+    k1 = {"(d) main": case(2.0), name: case(6.0)}
+    k2 = {"(d) main": case(6.8), name: case(20.0)}
+    k3 = {"(d) main": {"fwd": case(13.0), "bwd": case(44.0)}}
+    counts = {"K1": 800, "K2": 500, "K3 fwd": 1, "K3 bwd": 1, "K4": 20000}
+    rows = chip_smoke.kernels_line(counts, k1, k2, k3, {"(a) decode": case(0.2)})["kernels"]
+    assert name in rows[0]["cases"] and name in rows[1]["cases"]
+    assert rows[0]["ms"] == 2.0 and rows[1]["ms"] == 6.8 and rows[1]["cases"][name]["ms"] == 20.0

@@ -207,25 +207,79 @@ def test_export_step_resolution(tmp_path):
 
 @pytest.mark.parametrize("model_type", ["touch_audio", "qwen2_audio", "kimi_audio"])
 def test_converters_refuse_audio_model_types(tmp_path, model_type):
-    """kimi_audio is a later slice. touch_audio and qwen2_audio convert
-    (test_torch_touch_audio.py, test_torch_qwen2_audio_sft.py); touch_audio
+    """All three audio model types convert (test_torch_touch_audio.py,
+    test_torch_qwen2_audio_sft.py, test_kimi_audio_round_trip); touch_audio
     refuses a seed without the model config (the HF directory holds only
-    the backbone's), qwen2_audio one whose directory has no config.json
-    when no config is given, and both an export without a checkpoint."""
-    if model_type in ("touch_audio", "qwen2_audio"):
-        seed_error = ((ValueError, "training_model_config_path is required")
-                      if model_type == "touch_audio" else (FileNotFoundError, "config.json"))
-        with pytest.raises(seed_error[0], match=seed_error[1]):
-            convert_hf_to_ckpt.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
-                                     "--huggingface_model", str(tmp_path)])
-        with pytest.raises(FileNotFoundError, match="no step_<N>"):
-            convert_ckpt_to_hf.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
-                                     "--step", "-1", "--config", CFG])
-        return
+    the backbone's), qwen2_audio and kimi_audio one whose directory has no
+    config.json when no config is given, and all an export without a
+    checkpoint; an unknown model type raises in both."""
+    seed_error = ((ValueError, "training_model_config_path is required")
+                  if model_type == "touch_audio" else (FileNotFoundError, "config.json"))
+    with pytest.raises(seed_error[0], match=seed_error[1]):
+        convert_hf_to_ckpt.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
+                                 "--huggingface_model", str(tmp_path)])
+    with pytest.raises(FileNotFoundError, match="no step_<N>"):
+        convert_ckpt_to_hf.main(["--ckpt_dir", str(tmp_path), "--model_type", model_type,
+                                 "--step", "-1", "--config", CFG])
     for main, extra in ((convert_hf_to_ckpt.main, ["--huggingface_model", str(tmp_path)]),
                         (convert_ckpt_to_hf.main, ["--step", "-1", "--config", CFG])):
-        with pytest.raises(ValueError, match="later audio slice"):
-            main(["--ckpt_dir", str(tmp_path), "--model_type", model_type] + extra)
+        with pytest.raises(NotImplementedError, match="whisper"):
+            main(["--ckpt_dir", str(tmp_path), "--model_type", "whisper"] + extra)
+
+
+def test_kimi_audio_round_trip(tmp_path):
+    """--model_type kimi_audio through both converters on the tiny Kimi
+    config of test_torch_kimi_audio_sft.py: an HF directory (bf16, with the
+    speech tokenizer's EMA buffers, as the published checkpoint) -> step_0
+    equal to the JAX converter's params_from_hf_state_dict upcast (the EMA
+    buffers dropped, embed_positions2 kept), then step_0 -> an HF directory
+    whose tensors equal step_0's bit for bit, read by the port's reader and
+    by JAX's loader, with a config.json both packages load."""
+    import jax
+
+    from touchnet_tpu.models.kimi_audio import convert as jkconvert
+    from touchnet_tpu.models.kimi_audio.configuration_kimi_audio import (
+        KimiAudioConfig as JKimiConfig,
+    )
+    from touchnet_tpu_torch.bin.convert_ckpt_to_hf import read_model
+    from touchnet_tpu_torch.models.kimi_audio import convert as kconvert
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from test_torch_kimi_audio import jax_tree
+    from test_torch_kimi_audio_sft import RAW
+
+    cfg, jcfg = KimiAudioConfig.from_dict(RAW), JKimiConfig.from_dict(RAW)
+    state = kconvert.params_from_jax_numpy(jax.tree.map(np.asarray, jax_tree(RAW, seed=7)), cfg)
+    sd = kconvert.params_to_hf_state_dict(cfg, {k: v.to(torch.bfloat16) for k, v in state.items()})
+    sd["speech_tokenizer.layers.0.ema_codebook.weight"] = torch.zeros(3, dtype=torch.bfloat16)
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    write_safetensors(sd, str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(kconvert.hf_config_dict(cfg, "bfloat16")))
+    exp = tmp_path / "exp"
+    convert_hf_to_ckpt.main(["--ckpt_dir", str(exp), "--huggingface_model", str(hf),
+                             "--model_type", "kimi_audio"])
+    step0 = read_model(str(exp / "checkpoint" / "step_0" / "model"))
+    want = kconvert.params_from_jax_numpy(
+        jax.tree.map(lambda a: np.asarray(a, np.float32),
+                     jkconvert.params_from_hf_state_dict(jcfg, jload_hf_state_dict(str(hf)))), cfg)
+    assert set(step0) == set(want) == set(state)
+    assert "speech_tokenizer.embed_positions2.weight" in step0
+    for k, v in want.items():
+        assert step0[k].dtype == torch.float32 and torch.equal(step0[k], v), k
+    cfg_file = tmp_path / "config.json"
+    cfg_file.write_text(json.dumps(RAW))
+    out = convert_ckpt_to_hf.main(["--ckpt_dir", str(exp), "--step", "-1", "--config",
+                                   str(cfg_file), "--model_type", "kimi_audio"])
+    assert out.endswith("step-0")
+    got = read_safetensors(os.path.join(out, "model.safetensors"))
+    theirs = jload_hf_state_dict(out)
+    assert set(got) == set(step0) == set(theirs)
+    for k, v in step0.items():
+        assert torch.equal(got[k], v), k
+        np.testing.assert_array_equal(np.asarray(theirs[k]), v.numpy())
+    written = os.path.join(out, "config.json")
+    assert KimiAudioConfig.from_json_file(written).to_dict() == cfg.to_dict()
+    assert JKimiConfig.from_json_file(written).to_dict() == jcfg.to_dict()
 
 
 @pytest.mark.parametrize("main, flag", [

@@ -1,6 +1,7 @@
 # The port's entry points run on the card unless the caller names another
 # device: with no card, Trainer and bin.train.main raise instead of training
-# on the CPU, and so do the touch_audio and kimi_audio ASR CLIs; empty_model
+# on the CPU (with each model family: llama, touch_audio, kimi_audio), and so
+# do the touch_audio and kimi_audio ASR CLIs; empty_model
 # (Llama, touch_audio, kimi_audio), init_cache and init_dual_cache default
 # to "cuda"; init_params follows its generator's device.
 
@@ -105,3 +106,25 @@ def test_kimi_audio_cli_takes_the_card(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         kimi_cli.main(["--model_path", str(tmp_path / "missing")])
+
+
+def test_kimi_audio_trainer_takes_the_card(tmp_path, monkeypatch):
+    """bin.train.main with the kimi_audio model and datapipe raises without a
+    card (before any weight or shard is read); the trainable init follows
+    its generator too."""
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from test_torch_kimi_audio_sft import RAW
+
+    cfg_file = tmp_path / "kimi.json"
+    cfg_file.write_text(__import__("json").dumps(RAW))
+    model = kimi_model.init_params(KimiAudioConfig.from_dict(RAW),
+                                   torch.Generator(device="cpu").manual_seed(0),
+                                   requires_grad=True, train=True)
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    flags = _flags(tmp_path) + ["--training_model_name", "kimi_audio",
+                                "--training_model_config_path", str(cfg_file),
+                                "--datapipe_type", "kimi_audio", "--audiofeat_num_mel_bins",
+                                str(RAW["speech_encoder_config"]["num_mel_bins"])]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ttrain.main(flags)

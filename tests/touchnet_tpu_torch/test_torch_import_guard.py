@@ -104,3 +104,24 @@ def test_package_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_train_specs_register_without_jax():
+    """The trainer's lookup of every model family (kimi_audio's registration
+    imports the loader, the loss and the model) loads no jax, no
+    touchnet_tpu and no transformers."""
+    code = (
+        "import sys\n"
+        "from touchnet_tpu_torch.utils.train_spec import get_train_spec\n"
+        "for name in ('llama', 'touch_audio', 'qwen2_audio', 'kimi_audio'):\n"
+        "    assert get_train_spec(name).name == name\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'touchnet_tpu', 'transformers'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

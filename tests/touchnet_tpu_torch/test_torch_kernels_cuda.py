@@ -134,6 +134,11 @@ ATTENTION_CASES = [
     # padding; the tower's training shape (l) is (f) above, through K2 too
     (3, 401, 401, 28, 4, 128, True, "rightpad", 0, 0),
     (2, 130, 130, 7, 1, 128, True, "rightpad", 0, 0),
+    # kimi_audio's SFT: (n) the tower's training shape, several rows of 1500
+    # frames, H20/20 D64 non-causal with no segment ids, so no causal mask
+    # trims the ragged last block (1500 = 23 x 64 + 28); the text layers are
+    # (m)'s shape
+    (3, 1500, 1500, 20, 20, 64, False, None, 0, 0),
 ]
 
 

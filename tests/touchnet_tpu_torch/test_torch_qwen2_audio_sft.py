@@ -263,7 +263,8 @@ def test_build_dataloader_needs_the_model_config(env):
     cfg = DataConfig(**_data_kw(datalist_path=env["listfile"], datapipe_type="qwen2_audio"))
     with pytest.raises(ValueError, match="audio_token_index"):
         build_dataloader(cfg, tok, 0, 1)
-    with pytest.raises(NotImplementedError, match="kimi_audio is a later slice"):
+    # kimi_audio's datapipe needs a Kimi config (its marker ids), not this one
+    with pytest.raises(ValueError, match="--training_model_name kimi_audio"):
         build_dataloader(DataConfig(**_data_kw(datapipe_type="kimi_audio")), tok, 0, 1,
                          model_config=Qwen2AudioConfig.from_dict(TINY))
 
@@ -666,12 +667,28 @@ def test_converters_cli_round_trip(env, weights, tmp_path):
 
 
 def test_converters_take_qwen2_audio_and_refuse_kimi(env, tmp_path):
+    """qwen2_audio converts; kimi_audio converts too now
+    (test_torch_converters.test_kimi_audio_round_trip) and refuses this
+    Qwen2-Audio seed, whose tensors are not a Kimi-Audio model's."""
     with pytest.raises(FileNotFoundError, match="no step_<N>"):
         convert_ckpt_to_hf.main(["--ckpt_dir", str(tmp_path), "--model_type", "qwen2_audio",
                                  "--step", "-1", "--config", env["cfg"]])
     with pytest.raises(FileNotFoundError):
         convert_hf_to_ckpt.main(["--ckpt_dir", str(tmp_path), "--model_type", "qwen2_audio",
                                  "--huggingface_model", str(tmp_path)])
-    with pytest.raises(ValueError, match="later audio slice"):
+    hf = tmp_path / "hf"
+    hf.mkdir()
+    jp = jax.jit(lambda key: jm.init_params(JConfig.from_dict(TINY), key))(
+        jax.random.PRNGKey(0))
+    tc = Qwen2AudioConfig.from_dict(TINY)
+    write_safetensors(convert.params_to_hf_state_dict(
+        tc, convert.params_from_jax_numpy(jax.tree.map(np.asarray, jp), tc)),
+        str(hf / "model.safetensors"))
+    from test_torch_kimi_audio_sft import RAW as KIMI_RAW
+
+    kimi_cfg = tmp_path / "kimi.json"
+    kimi_cfg.write_text(json.dumps(KIMI_RAW))
+    with pytest.raises(KeyError, match="HF state dict has no 'model.embed_tokens.weight'"):
         convert_hf_to_ckpt.main(["--ckpt_dir", str(tmp_path), "--model_type", "kimi_audio",
-                                 "--huggingface_model", str(tmp_path)])
+                                 "--huggingface_model", str(hf),
+                                 "--training_model_config_path", str(kimi_cfg)])

@@ -437,3 +437,27 @@ def test_trainer_op_small_equals_none(tmp_path):
         losses[mode] = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
     assert len(losses["none"]) == 3
     assert losses["op_small"] == losses["none"]
+
+
+def test_kimi_audio_train_spec_matches_jax():
+    """The kimi_audio TrainSpec as JAX's (touchnet_tpu/models/kimi_audio/
+    __init__.py:22-43): data-parallel only, the four kimi batch keys, no
+    head weight (so the liger flag leaves the full-logits loss), the frozen
+    regex text; plus the mel-bin check JAX lacks."""
+    from touchnet_tpu.utils.train_spec import get_train_spec as jget_train_spec
+    from touchnet_tpu_torch.models.kimi_audio import check_mel_bins
+    from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
+    from touchnet_tpu_torch.utils.train_spec import get_train_spec
+
+    ours, theirs = get_train_spec("kimi_audio"), jget_train_spec("kimi_audio")
+    assert ours.dp_only and theirs.dp_only
+    assert ours.forward_batch_keys == theirs.forward_batch_keys
+    assert ours.frozen_params_re == theirs.frozen_params_re == (r"speech_tokenizer/.*",)
+    assert ours.head_weight_fn is None and theirs.head_weight_fn is None
+    assert ours.additional_pre_init_fn is check_mel_bins
+    cfg = KimiAudioConfig.from_json_file(os.path.join(
+        os.path.dirname(__file__), "..", "..", "examples/audio/sft/asr/wenetspeech/config/"
+        "Kimi-Audio-7B.json"))
+    check_mel_bins(cfg, DataConfig(audiofeat_num_mel_bins=128))
+    with pytest.raises(ValueError, match="takes 128 mel bins"):
+        check_mel_bins(cfg, DataConfig(audiofeat_num_mel_bins=80))

@@ -265,7 +265,7 @@ class CkptConverterConfig:
     training_model_config_path: Optional[str] = field(default=None)
     model_type: str = field(
         default="causal_lm",
-        metadata={"help": "causal_lm | touch_audio | qwen2_audio (kimi_audio: a later slice)"},
+        metadata={"help": "causal_lm | touch_audio | qwen2_audio | kimi_audio"},
     )
     config: Optional[str] = field(
         default=None,

@@ -3,14 +3,18 @@
 # <ckpt_dir>/checkpoint_hf/step-<N>/{model.safetensors,config.json}.
 #
 #     python -m touchnet_tpu_torch.bin.convert_ckpt_to_hf --ckpt_dir <exp> \
-#         --step -1 --config <cfg> --model_type causal_lm | touch_audio | qwen2_audio \
+#         --step -1 --config <cfg> \
+#         --model_type causal_lm | touch_audio | qwen2_audio | kimi_audio \
 #         [--tokenizer_model <dir>]
 #
 # Port of touchnet_tpu/bin/convert_ckpt_to_hf.py (:16-139) for causal_lm,
 # touch_audio (whose config.json is the TouchAudioConfig's own dict, as the
-# JAX exporter writes it) and qwen2_audio (:84-121: the HF state dict of
+# JAX exporter writes it), qwen2_audio (:84-121: the HF state dict of
 # models/qwen2_audio/convert.py and its hf_config_dict, which holds every
-# field of the audio and text configs), with two faults of that file left
+# field of the audio and text configs) and kimi_audio (:94-110:
+# models/kimi_audio/convert.py, the config's own flat dict with both
+# whisper sub-configs and model_type kimi_audio, so stage 4's CLI reads the
+# export as it is), with two faults of that file left
 # behind: its HF config has ten fields
 # and drops rope_scaling and head_dim (here models/llama/convert.py's
 # hf_config_dict writes them all), and it reads the model config only from
@@ -83,6 +87,14 @@ def convert(config: CkptConverterConfig) -> str:
             Qwen2AudioConfig as Config,
         )
         from touchnet_tpu_torch.models.qwen2_audio.convert import (
+            hf_config_dict,
+            params_to_hf_state_dict,
+        )
+    elif config.model_type == "kimi_audio":
+        from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import (
+            KimiAudioConfig as Config,
+        )
+        from touchnet_tpu_torch.models.kimi_audio.convert import (
             hf_config_dict,
             params_to_hf_state_dict,
         )

@@ -5,7 +5,7 @@
 #
 #     python -m touchnet_tpu_torch.bin.convert_hf_to_ckpt --ckpt_dir <exp> \
 #         --huggingface_model <hf dir> --training_model_config_path <cfg> \
-#         --model_type causal_lm | touch_audio | qwen2_audio
+#         --model_type causal_lm | touch_audio | qwen2_audio | kimi_audio
 #
 # Port of touchnet_tpu/bin/convert_hf_to_ckpt.py: load_hf_state_dict
 # (:20-47; *.safetensors through the port's own reader, else
@@ -14,12 +14,14 @@
 # language_model. and a fresh projector drawn from torch.Generator seed 0,
 # models/touch_audio/convert.py) and qwen2_audio (the whole
 # Qwen2AudioForConditionalGeneration, :75-85, models/qwen2_audio/
-# convert.py; the config from --training_model_config_path, else the HF
-# directory's config.json). The seed is written with torch.distributed.checkpoint in one
-# process, in the layout of utils/checkpoint.py, as f32 masters: HF
-# weights are bf16, the trainer's masters f32, and its load refuses a dtype
-# that differs (JAX upcasts at load, :31-33). Host-only. kimi_audio is a
-# later slice.
+# convert.py) and kimi_audio (the whole MoonshotKimiaForCausalLM, :86-95,
+# models/kimi_audio/convert.py: the speech tokenizer's EMA buffers dropped,
+# embed_positions2 kept); the audio models' config from
+# --training_model_config_path, else the HF directory's config.json. The
+# seed is written with torch.distributed.checkpoint in one process, in the
+# layout of utils/checkpoint.py, as f32 masters: HF weights are bf16, the
+# trainer's masters f32, and its load refuses a dtype that differs (JAX
+# upcasts at load, :31-33). Host-only.
 
 import glob
 import os
@@ -35,8 +37,7 @@ from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
 
-LATER_MODEL_TYPES = ("kimi_audio",)
-MODEL_TYPES = ("causal_lm", "touch_audio", "qwen2_audio")
+MODEL_TYPES = ("causal_lm", "touch_audio", "qwen2_audio", "kimi_audio")
 
 
 def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
@@ -57,9 +58,6 @@ def load_hf_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 
 def check_model_type(model_type: str) -> None:
-    if model_type in LATER_MODEL_TYPES:
-        raise ValueError(f"model_type {model_type!r}: a later audio slice of "
-                         f"touchnet_tpu_torch; the port converts {', '.join(MODEL_TYPES)}")
     if model_type not in MODEL_TYPES:
         raise NotImplementedError(f"model_type {model_type!r}")
 
@@ -98,6 +96,17 @@ def convert(config: CkptConverterConfig) -> str:
         from touchnet_tpu_torch.models.qwen2_audio.convert import params_from_hf_state_dict
 
         mcfg = Qwen2AudioConfig.from_json_file(
+            config.training_model_config_path
+            or os.path.join(config.huggingface_model, "config.json"))
+        sd = load_hf_state_dict(config.huggingface_model)
+        params = params_from_hf_state_dict(mcfg, sd, dtype=torch.float32)
+    elif config.model_type == "kimi_audio":
+        from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import (
+            KimiAudioConfig,
+        )
+        from touchnet_tpu_torch.models.kimi_audio.convert import params_from_hf_state_dict
+
+        mcfg = KimiAudioConfig.from_json_file(
             config.training_model_config_path
             or os.path.join(config.huggingface_model, "config.json"))
         sd = load_hf_state_dict(config.huggingface_model)

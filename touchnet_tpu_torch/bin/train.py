@@ -14,18 +14,34 @@
 # the train loop (:944-1022) with checkpoints, dev evaluation, profiling,
 # memory snapshots and GC, dev (:1024-1072) and main. The flags and the
 # batch contract are the JAX trainer's (TrainConfig, DataConfig,
-# TokenizerConfig). Three model families train: llama (causal_lm
+# TokenizerConfig). Four model families train: llama (causal_lm
 # datapipe), touch_audio (touch_audio datapipe: packed BEST-RQ audio
-# pretraining, its input_features cast to the compute dtype by the model)
-# and qwen2_audio (qwen2_audio datapipe: dynamic_batch's right-padded SFT
-# rows with whisper features and feature_attention_mask, the full-logits
-# loss); the TrainSpec's additional_pre_init_fn checks the data config
+# pretraining, its input_features cast to the compute dtype by the model),
+# qwen2_audio (qwen2_audio datapipe: dynamic_batch's right-padded SFT rows
+# with whisper features and feature_attention_mask, the full-logits loss)
+# and kimi_audio (kimi_audio datapipe: right-padded rows of two streams,
+# text_input_ids and audio_input_ids, with whisper features and
+# whisper_attention_mask, the full-logits loss, the speech tokenizer
+# frozen); the TrainSpec's additional_pre_init_fn checks the data config
 # against the model's (touch_audio: the stacked feature width against the
-# projector's input; qwen2_audio: the mel bins against the tower's) before
-# anything is built, the loaders get the model config (the qwen2_audio
-# datapipe checks the tokenizer against its audio_token_index), and float
-# batch arrays are checked for NaN/inf on the host before they reach the
-# card.
+# projector's input; qwen2_audio and kimi_audio: the mel bins against the
+# tower's) before anything is built, the loaders get the model config (the
+# qwen2_audio and kimi_audio datapipes check the tokenizer's special ids
+# against it), and float batch arrays are checked for NaN/inf on the host
+# before they reach the card.
+#
+# Frozen parameters (the TrainSpec's frozen_params_re; kimi_audio's speech
+# tokenizer) get no gradient, no update and no AdamW moments, so they stay
+# bit-unchanged and count zero in the gradient norm: the JAX chain zeroes
+# their gradients and then their updates, weight decay included
+# (touchnet_tpu/bin/train.py:741-771), and holds zero moments for them.
+# A trainable tensor the loss does not reach (kimi_audio's mimo stack, its
+# norm and head: the forward returns text logits only) has a None gradient,
+# read as zero by the norm and by AdamW, which still decays it by lr * wd
+# each step, as optax's adamw, which has no mask, decays JAX's
+# zero-gradient leaves. With frozen tensors the JAX trainer swaps its fused
+# AdamW for the optax chain under any optimizer_impl (:626-634); the port's
+# one AdamW computes the chain's update, and a log line says so.
 #
 # One step: forward (K1 attention) -> pack loss (K3 when fused) -> backward
 # (K2, K3) -> global-norm clip min(1, max_norm / (gnorm + 1e-6)) -> AdamW
@@ -92,17 +108,22 @@ from touchnet_tpu_torch.utils.profiling import (
     maybe_enable_memory_snapshot,
     maybe_enable_profiling,
 )
-from touchnet_tpu_torch.utils.train_spec import get_train_spec
+from touchnet_tpu_torch.utils.train_spec import get_train_spec, is_frozen
 
 _BATCH_ARRAY_KEYS = (
     "input_ids",
     "inputs_embeds",
     "input_features",
     "labels",
+    "shift_labels",
     "position_ids",
     "attention_mask",
     "feature_attention_mask",
     "sentence_lens",
+    "text_input_ids",
+    "audio_input_ids",
+    "whisper_input_features",
+    "whisper_attention_mask",
 )
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -305,7 +326,9 @@ class _AccumBatcher:
 
 
 def _grads_of(leaves):
-    return [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+    """The leaves' gradients; None where the loss does not reach a leaf (the
+    norm and AdamW read it as zero, with no tensor of zeros allocated)."""
+    return [p.grad for p in leaves]
 
 
 class _Reparametrized(torch.nn.Module):
@@ -390,6 +413,21 @@ class Trainer:
         self.model = self.train_spec.init_params_fn(
             self.model_config, gen, torch.float32, device, requires_grad=True, train=True)
         check_finite_params(self.model)
+        # frozen tensors (frozen_params_re) take no gradient, no AdamW update
+        # and no moments: they stay bit-unchanged, as the JAX chain zeroes
+        # their gradients and their updates (:741-771); checkpoints hold them
+        frozen = [p for n, p in self.model.named_parameters() if is_frozen(self.train_spec, n)]
+        for p in frozen:
+            p.requires_grad_(False)
+        if frozen:
+            logger.info(f"frozen (frozen_params_re {self.train_spec.frozen_params_re}): "
+                        f"{len(frozen)} tensors, {sum(p.numel() for p in frozen):,} params; no "
+                        "gradient, update or moments")
+            if job_config.optimizer_impl in ("fused", "foreach"):
+                logger.info(f"optimizer_impl {job_config.optimizer_impl} with frozen params: "
+                            "the optax chain's semantics apply (the JAX trainer turns its fused "
+                            "AdamW off): clip, AdamW with weight decay on every trainable "
+                            "tensor, the frozen ones untouched")
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]

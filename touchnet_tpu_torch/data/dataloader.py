@@ -1,9 +1,9 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/data/dataloader.py (framework-free: numpy and the standard
 # library), with its imports pointed at the port. build_dataloader
-# takes causal_lm, touch_audio and qwen2_audio (whose datapipe checks the
-# tokenizer against the model config's audio_token_index, so the caller
-# passes model_config); kimi_audio raises as a later slice.
+# takes causal_lm, touch_audio, qwen2_audio and kimi_audio (whose
+# datapipes check the tokenizer against the model config's special-token
+# ids, so the caller passes model_config).
 #
 # Parallelism-aware, exactly-resumable dataloader.
 #
@@ -247,7 +247,9 @@ def build_dataloader(
     """Dispatch on datapipe_type to the per-model datapipe builder; dev/test
     splits force no-shuffle / no-augment / 1 epoch (reference
     touchnet/data/dataloader.py:114-163). qwen2_audio needs ``model_config``
-    (a Qwen2AudioConfig: its audio_token_index)."""
+    (a Qwen2AudioConfig: its audio_token_index), kimi_audio too (a
+    KimiAudioConfig: its media marker ids and its speech tokenizer's
+    position table)."""
     config = copy.deepcopy(data_config)
     if split != "train":
         config.datalist_shuffling = False
@@ -275,11 +277,18 @@ def build_dataloader(
                              "audio_token_index): train with --training_model_name qwen2_audio")
         builder = functools.partial(qwen2_audio_datapipe,
                                     audio_token_index=model_config.audio_token_index)
-    else:
-        raise NotImplementedError(
-            f"datapipe_type {config.datapipe_type!r}: causal_lm, touch_audio and qwen2_audio "
-            "are ported; kimi_audio is a later slice"
+    elif config.datapipe_type == "kimi_audio":
+        from touchnet_tpu_torch.models.kimi_audio.processing_kimi_audio import (
+            kimi_audio_datapipe,
         )
+
+        if model_config is None or not hasattr(model_config, "kimia_media_begin"):
+            raise ValueError("datapipe_type kimi_audio needs the model's config (its media "
+                             "marker ids and the speech tokenizer's frames): train with "
+                             "--training_model_name kimi_audio")
+        builder = functools.partial(kimi_audio_datapipe, model_config=model_config)
+    else:
+        raise NotImplementedError(f"datapipe_type {config.datapipe_type!r}")
 
     def factory(worker_id: int, num_workers: int):
         return builder(

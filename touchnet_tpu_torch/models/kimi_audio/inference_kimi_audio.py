@@ -28,7 +28,8 @@
 # Results land in <output_dir>/part_0 (one process: rank 0 of 1).
 #
 # Checks the JAX CLI lacks, each turning silent wrong output into an error:
-#   - setup (check_special_tokens): <|im_kimia_text_blank|> and
+#   - setup (processing_kimi_audio.check_special_tokens, which the SFT
+#     datapipe runs too): <|im_kimia_text_blank|> and
 #     <|im_kimia_text_eos|> must each be one id (the JAX CLI takes the
 #     first id of whatever they tokenize to), and <|im_media_begin|> /
 #     <|im_media_end|> exactly [kimia_media_begin] / [kimia_media_end] (the
@@ -61,8 +62,11 @@ from touchnet_tpu_torch.models.kimi_audio.modeling_kimi_audio import (
     prepare_audio_input_embs,
 )
 from touchnet_tpu_torch.models.kimi_audio.processing_kimi_audio import (
+    BLANK,
     KIMI_AUDIO_TEMPLATE_FOR_S2T,
     KIMI_TEXT_TEMPLATE_FOR_S2T,
+    _ids,
+    check_special_tokens,
 )
 from touchnet_tpu_torch.models.llama.inference_llama import generate
 from touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio import whisper_features
@@ -83,36 +87,11 @@ from touchnet_tpu_torch.utils.inference import (
 )
 from touchnet_tpu_torch.utils.logging import init_logger, logger
 
-BLANK = "<|im_kimia_text_blank|>"
-EOS = "<|im_kimia_text_eos|>"
-MEDIA_BEGIN, MEDIA_END = "<|im_media_begin|>", "<|im_media_end|>"
 # the decode settings of the text stream: the reference generate()'s text
 # defaults, greedy WITH repetition penalty 1.1 over a 16-token window
 # (touchnet/models/kimi_audio/modeling_kimi_audio.py:1084-1100, applied
 # before the argmax)
 TEXT_DECODE = dict(temperature=0.0, repetition_penalty=1.1, repetition_window=16)
-
-
-def _ids(tokenizer, text: str) -> list:
-    return list(tokenizer.tokenize(text, add_special_tokens=False))
-
-
-def check_special_tokens(tokenizer, config: KimiAudioConfig) -> tuple:
-    """(blank_id, eos_id); raises unless blank and eos are one id each and
-    the media markers are exactly the config's ids."""
-    found = {}
-    for token in (BLANK, EOS):
-        ids = _ids(tokenizer, token)
-        if len(ids) != 1:
-            raise ValueError(f"the tokenizer maps {token!r} to {ids[:8]}, not to one id")
-        found[token] = ids[0]
-    for token, want in ((MEDIA_BEGIN, config.kimia_media_begin),
-                        (MEDIA_END, config.kimia_media_end)):
-        ids = _ids(tokenizer, token)
-        if ids != [want]:
-            raise ValueError(f"the tokenizer maps {token!r} to {ids[:8]}, not to [{want}] (the "
-                             "config's marker id): the speech span would not be found")
-    return found[BLANK], found[EOS]
 
 
 def prompt_streams(tokenizer, instruct: str, n_tok: int, config: KimiAudioConfig) -> tuple:

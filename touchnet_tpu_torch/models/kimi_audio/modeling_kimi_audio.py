@@ -10,8 +10,17 @@
 # vector_quantize (:109), speech_tokenizer_forward (:118), init_params
 # (:192), vq_adaptor_forward (:246), _mask_between_markers (:254),
 # prepare_audio_input_embs (:266), forward (:311), get_num_params (:401) and
-# get_num_flop_per_token (:433). The JAX forward's shard_fn and remat
-# options come with the SFT slice.
+# get_num_flop_per_token (:433). Training (the SFT recipe's stage 2) runs
+# forward with the trainer's remat options routed as the JAX forward routes
+# them: the tower's layers under remat_mode alone (:282, selective option
+# "op"), the backbone's two stacks (split at the fork) and the mimo stack
+# each under remat_mode and selective_ac_option (:378-391); the frozen
+# speech tokenizer runs under torch.no_grad, so its codes reach the loss
+# only through the embedding they index, as JAX's stop_gradient. The
+# forward returns the text logits only (as JAX's does by default), so the
+# mimo stack, mimo_norm and mimo_output get no gradient; the trainer's
+# AdamW decays them all the same, as optax decays JAX's zero-gradient
+# leaves. The JAX shard_fn is not ported (one device).
 #
 # Where each attention runs:
 #   - the backbone and the mimo stream: the port's Llama layers, K1 on the
@@ -24,7 +33,10 @@
 #     the CPU and on the card. It is the one attention of the path that is
 #     not a kernel: the JAX package computes it in dense jnp, not Pallas,
 #     and its mask, "causal OR same quantize_causal_block_size-frame block",
-#     AND key padding, is not K1's (causal AND same segment).
+#     AND key padding, is not K1's (causal AND same segment). It runs a few
+#     rows at a time (SCORE_CHUNK_BYTES of f32 scores), so an SFT batch of
+#     ~70 rows never holds all rows' [H, T, T] scores at once (12.6 GB at
+#     T 1500, H 20).
 #
 # The state_dict keys are the HF ones:
 #   model.embed_tokens.weight, model.layers.{i}.*, model.norm.weight
@@ -96,20 +108,37 @@ def causal_conv1d(x: torch.Tensor, conv: nn.Conv1d, stride: int = 1) -> torch.Te
     return out + conv.bias.to(out.dtype)[None, :, None]
 
 
-def block_causal_attention(q, k, v, frame_mask, block_size: int, scale: float):
-    """Dense attention under (causal OR same block) AND key padding.
-    q/k/v [B, T, H, Dh], frame_mask [B, T] (1 = valid) -> [B, T, H, Dh] in
-    v's dtype. Scores and softmax in f32, p cast to v's dtype for the PV
-    product (the JAX function's precision chain)."""
+# the most f32 scores block_causal_attention holds at once: the rows of a
+# batch go through in chunks of this many bytes' worth (at least one row)
+SCORE_CHUNK_BYTES = 1 << 30
+
+
+def _block_causal_rows(q, k, v, frame_mask, allowed, scale: float):
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
-    T = q.shape[1]
-    pos = torch.arange(T, device=q.device)
-    rows, cols = pos[:, None], pos[None, :]
-    allowed = (rows >= cols) | ((rows // block_size) == (cols // block_size))
     mask = allowed[None, None] & (frame_mask[:, None, None, :] > 0)
     s = s.masked_fill(~mask, DEFAULT_MASK_VALUE)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhts,bshd->bthd", p.to(v.dtype), v)
+
+
+def block_causal_attention(q, k, v, frame_mask, block_size: int, scale: float,
+                           chunk_bytes: int = SCORE_CHUNK_BYTES):
+    """Dense attention under (causal OR same block) AND key padding.
+    q/k/v [B, T, H, Dh], frame_mask [B, T] (1 = valid) -> [B, T, H, Dh] in
+    v's dtype. Scores and softmax in f32, p cast to v's dtype for the PV
+    product (the JAX function's precision chain). The rows go through in
+    chunks whose [b, H, T, T] f32 scores take at most ``chunk_bytes`` (one
+    row at least); each row's arithmetic is the same whatever the chunk."""
+    B, T, H, _ = q.shape
+    pos = torch.arange(T, device=q.device)
+    rows, cols = pos[:, None], pos[None, :]
+    allowed = (rows >= cols) | ((rows // block_size) == (cols // block_size))
+    step = max(1, chunk_bytes // (H * T * T * 4))
+    if step >= B:
+        return _block_causal_rows(q, k, v, frame_mask, allowed, scale)
+    return torch.cat([_block_causal_rows(q[a:a + step], k[a:a + step], v[a:a + step],
+                                         frame_mask[a:a + step], allowed, scale)
+                      for a in range(0, B, step)])
 
 
 def vector_quantize(h: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -236,14 +265,17 @@ _ONES = ("layernorm.weight", "norm.weight", "layer_norm.weight", "vq_adaptor.lay
 
 @torch.no_grad()
 def init_params(config: KimiAudioConfig, generator: torch.Generator, dtype=torch.float32,
-                device=None) -> KimiAudioForCausalLM:
+                device=None, *, requires_grad: bool = False,
+                train: bool = False) -> KimiAudioForCausalLM:
     """The JAX init_params' distributions, drawn from ``generator`` on its
     device (or ``device``); the numbers differ from jax.random's: the speech
     encoder as whisper_encoder.init_params; the Qwen2 layers (main and mimo)
     and the embedding normal(0, initializer_range); the adaptor's linears,
     the heads and every tokenizer weight (convs, position tables, codebook,
-    projections) normal(0, 0.02); norms one, biases zero. Eval mode, no
-    gradients."""
+    projections) normal(0, 0.02); norms one, biases zero. Serving's defaults
+    (eval mode, no gradients); a trainer passes requires_grad=True,
+    train=True and then freezes what its TrainSpec's frozen_params_re names
+    (the speech tokenizer)."""
     if device is None:
         device = generator.device
     model = empty_model(config, dtype, device)
@@ -260,7 +292,7 @@ def init_params(config: KimiAudioConfig, generator: torch.Generator, dtype=torch
         else:
             lm = name.startswith("model.") and not name.startswith("model.vq_adaptor.")
             p.copy_(normal_init(generator, p.shape, std_lm if lm else 0.02, dtype, device))
-    return model.eval().requires_grad_(False)
+    return model.train(train).requires_grad_(requires_grad)
 
 
 def vq_adaptor_forward(adaptor: VQAdaptor, x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -287,14 +319,16 @@ def mask_between_markers(ids: torch.Tensor, begin: int, end: int) -> torch.Tenso
 
 def encode_speech(model: KimiAudioForCausalLM, whisper_input_features: torch.Tensor,
                   whisper_attention_mask: torch.Tensor, config: KimiAudioConfig,
-                  compute_dtype=torch.bfloat16) -> tuple:
+                  compute_dtype=torch.bfloat16, remat_mode: str = "none") -> tuple:
     """(the adaptor's output [B, Tw // 4, E], the VQ codes [B, Ta]) of
     features [B, mel, T]: the non-causal tower with its final LayerNorm
-    (K1 on the card), four frames stacked into one, the adaptor; and the
+    (K1 on the card; its layers under remat_mode, the JAX forward passing no
+    selective option), four frames stacked into one, the adaptor; and the
     frozen tokenizer's codes."""
     enc = whisper_encoder.forward(model.speech_encoder, whisper_input_features,
                                   config.speech_encoder_config, compute_dtype=compute_dtype,
-                                  causal=False, apply_final_layer_norm=True)  # [B, Tw, D]
+                                  causal=False, apply_final_layer_norm=True,
+                                  remat_mode=remat_mode)  # [B, Tw, D]
     B, Tw, D = enc.shape
     enc = enc[:, :(Tw // 4) * 4].reshape(B, Tw // 4, 4 * D)
     cont = vq_adaptor_forward(model.model.vq_adaptor, enc, config.text_config.rms_norm_eps)
@@ -308,12 +342,13 @@ def prepare_audio_input_embs(model: KimiAudioForCausalLM, audio_input_ids: torch
                              audio_input_embs: torch.Tensor,
                              whisper_input_features: torch.Tensor,
                              whisper_attention_mask: torch.Tensor, config: KimiAudioConfig,
-                             compute_dtype=torch.bfloat16) -> torch.Tensor:
+                             compute_dtype=torch.bfloat16,
+                             remat_mode: str = "none") -> torch.Tensor:
     """audio_input_embs [B, T, E] with the positions strictly between the
     media markers replaced, the j-th by speech frame j (clipped to the last
     frame): (adaptor output + embed(code + kimia_token_offset)) * sqrt(2)."""
     cont, codes = encode_speech(model, whisper_input_features, whisper_attention_mask,
-                                config, compute_dtype)
+                                config, compute_dtype, remat_mode)
     disc = F.embedding(codes + config.kimia_token_offset,
                        model.model.embed_tokens.weight).to(compute_dtype)
     speech = (cont + disc) * math.sqrt(2.0)  # [B, Ta, E]
@@ -335,20 +370,28 @@ def forward(
     position_ids: Optional[torch.Tensor] = None,
     config: KimiAudioConfig,
     compute_dtype=torch.bfloat16,
+    remat_mode: str = "none",
+    selective_ac_option: str = "op",
+    return_hidden: bool = False,
     return_audio_logits: bool = False,
 ):
     """Text logits [B, T, V] in compute_dtype (and the mimo stream's audio
-    logits with return_audio_logits): the audio stream's embeddings with
-    the speech merged between the media markers, plus the text stream's;
-    the backbone split after layer kimia_mimo_transformer_from_layer_index,
-    whose hidden state the mimo layers continue."""
+    logits with return_audio_logits; the text stack's final-norm hidden
+    state instead of its logits with return_hidden): the audio stream's
+    embeddings with the speech merged between the media markers, plus the
+    text stream's; the backbone split after layer
+    kimia_mimo_transformer_from_layer_index, whose hidden state the mimo
+    layers continue. remat_mode checkpoints the tower's layers;
+    remat_mode and selective_ac_option each of the three Qwen2 stacks, a
+    stack's layers counted from its own first (the JAX forward's three
+    scan_layers calls)."""
     tc = config.text_config
     mp = model.model
     embed = mp.embed_tokens.weight
     h = F.embedding(audio_input_ids, embed).to(compute_dtype)
     if config.use_whisper_feature and whisper_input_features is not None:
         h = prepare_audio_input_embs(model, audio_input_ids, h, whisper_input_features,
-                                     whisper_attention_mask, config, compute_dtype)
+                                     whisper_attention_mask, config, compute_dtype, remat_mode)
     if text_input_ids is not None:
         h = h + F.embedding(text_input_ids, embed).to(compute_dtype)
     B, T, _ = h.shape
@@ -357,17 +400,23 @@ def forward(
     inv_freq = rope_frequencies(tc.head_dim, tc.rope_theta, rope_scaling=tc.rope_scaling,
                                 device=h.device)
     attend = modeling_llama._train_attention(segment_ids)
+
+    def stack(layers, h):
+        remat = modeling_llama.remat_layers(remat_mode, selective_ac_option, len(layers))
+        for layer, save in zip(layers, remat):
+            h = modeling_llama._run_layer(layer, save, h, position_ids, inv_freq, attend)
+        return h
+
     fork = config.kimia_mimo_transformer_from_layer_index + 1
-    for layer in mp.layers[:fork]:
-        h = layer(h, position_ids, inv_freq, attend)
+    h = stack(mp.layers[:fork], h)
     mimo_h = h  # the forked stream (the reference captures after layer idx)
-    for layer in mp.layers[fork:]:
-        h = layer(h, position_ids, inv_freq, attend)
-    text_logits = linear(mp.norm(h), model.lm_head.weight.to(compute_dtype))
+    h = mp.norm(stack(mp.layers[fork:], h))
+    if return_hidden:
+        return h
+    text_logits = linear(h, model.lm_head.weight.to(compute_dtype))
     if not return_audio_logits:
         return text_logits
-    for layer in mp.mimo_layers:
-        mimo_h = layer(mimo_h, position_ids, inv_freq, attend)
+    mimo_h = stack(mp.mimo_layers, mimo_h)
     audio_logits = linear(mp.mimo_norm(mimo_h), model.mimo_output.weight.to(compute_dtype))
     return text_logits, audio_logits
 

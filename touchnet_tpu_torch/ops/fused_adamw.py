@@ -40,7 +40,12 @@ class _Hyper:
         self.lr = torch.as_tensor(lr).to(**f32)
 
     def update(self, g, p, m, v) -> None:
-        """One tensor's update, in place on p, m and v."""
+        """One tensor's update, in place on p, m and v. A None gradient is
+        a zero one (a parameter the loss does not reach: its moments decay
+        and weight decay still shrinks it, as optax treats a zero
+        gradient), without a tensor of zeros."""
+        if g is None:
+            g = torch.zeros((), dtype=torch.float32, device=p.device)
         g = g.float() * self.scale
         m_new = self.b1 * m + (1.0 - self.b1) * g
         v_new = self.b2 * v + (1.0 - self.b2) * (g * g)
@@ -76,8 +81,8 @@ def fused_adamw_step(
     count: int32 scalar tensor, steps completed so far (bias correction uses
     count + 1). lr: a scalar, or a 0-d f32 tensor on the params' device.
     A gradient of another dtype (bf16 under bf16 reduction) is upcast to f32
-    here, tensor by tensor. Returns the new count (count + 1, or count when
-    held)."""
+    here, tensor by tensor; a None gradient counts as zero. Returns the new
+    count (count + 1, or count when held)."""
     hp = _Hyper(count, lr, b1, b2, eps, weight_decay, clip_scale, finite)
     for g, p, m, v in zip(grads, params, mu, nu):
         hp.update(g, p, m, v)
@@ -162,7 +167,8 @@ def streamed_adamw_step(
         sm, sv = moments.slots[k % 2]
         m, v = sm[:b - a], sv[:b - a]
         compute.wait_event(loaded[k])
-        hp.update(grads[i].view(-1)[a:b], params[i].view(-1)[a:b], m, v)
+        g = grads[i].view(-1)[a:b] if grads[i] is not None else None
+        hp.update(g, params[i].view(-1)[a:b], m, v)
         updated = torch.cuda.Event()
         updated.record(compute)
         with torch.cuda.stream(copy):

@@ -10,7 +10,7 @@
 # trainer evaluates it on the optimizer's device-side count without a sync.
 
 import math
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -84,8 +84,8 @@ def build_optimizer(job_config: TrainConfig) -> OptimizerBundle:
                            eps=job_config.optimizer_eps, weight_decay=wd)
 
 
-def global_grad_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+def global_grad_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
     """sqrt of the sum of squares over every gradient, in f32 (optax
-    global_norm)."""
-    sq = [torch.sum(g.float() * g.float()) for g in grads]
+    global_norm); a None gradient counts as zero."""
+    sq = [torch.sum(g.float() * g.float()) for g in grads if g is not None]
     return torch.sqrt(torch.stack(sq).sum())

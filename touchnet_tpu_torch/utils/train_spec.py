@@ -23,6 +23,7 @@
 #   additional_post_init_fn    -> hook (e.g. NaN checks, HF processor)
 #   pipelining_fn              -> pipeline-parallel stage splitter (llama)
 
+import re
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional
 
@@ -46,7 +47,7 @@ class TrainSpec:
     # batch keys (beyond the universal ones) forwarded into forward_fn
     forward_batch_keys: tuple = ("input_ids", "inputs_embeds")
     # regexes over param paths whose updates are zeroed (frozen submodules,
-    # e.g. kimi_audio's WhisperVQ speech tokenizer)
+    # e.g. kimi_audio's WhisperVQ speech tokenizer; is_frozen)
     frozen_params_re: tuple = ()
     # (params, model_config) -> lm_head weight [V, E]; set when forward_fn
     # supports return_hidden=True, enabling the fused linear+CE path
@@ -69,6 +70,7 @@ def register_train_spec(spec: TrainSpec) -> None:
 
 def get_train_spec(name: str) -> TrainSpec:
     # model packages self-register on import
+    import touchnet_tpu_torch.models.kimi_audio  # noqa: F401
     import touchnet_tpu_torch.models.llama  # noqa: F401
     import touchnet_tpu_torch.models.qwen2_audio  # noqa: F401
     import touchnet_tpu_torch.models.touch_audio  # noqa: F401
@@ -78,6 +80,15 @@ def get_train_spec(name: str) -> TrainSpec:
             f"TrainSpec {name} not registered; known: {sorted(_train_specs)}"
         )
     return _train_specs[name]
+
+
+def is_frozen(spec: TrainSpec, name: str) -> bool:
+    """Whether the parameter ``name`` (a state_dict key) is one of the
+    spec's frozen_params_re: a regex matched at the start of the name with
+    "." read as "/", as the JAX trainer matches its tree paths
+    (touchnet_tpu/bin/train.py:659-663)."""
+    path = name.replace(".", "/")
+    return any(re.match(r, path) for r in spec.frozen_params_re)
 
 
 def apply_to_train_specs(fn: Callable) -> None:
