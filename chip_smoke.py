@@ -8,6 +8,7 @@
     python3 chip_smoke.py --faults     # faulty kernel copies must fail (check_faults)
     python3 chip_smoke.py --tune       # K3/K4 registers, and times their design variants
                                        # (K3 forward: splits, raster group, ring depth)
+    python3 chip_smoke.py --two-ranks  # only phase 16 (two ranks on the card over gloo)
 
 Phases, one or more lines each; any failure raises and exits non-zero:
   1. device: the card's name and power limit (nvidia-smi), torch / CUDA
@@ -42,7 +43,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      path's vocab, V=1025 (1024 BEST-RQ codes + 1: four whole 256-column
      tiles and one live column in a fifth), at N8192 (the audio training
      shape), N256 in bf16 and in f32 with 64-row dl chunks, and a tie on
-     column 1024;
+     column 1024; then (o), tensor parallelism's loss: the head split into
+     2 and 4 vocab shards at N16384, K3 on each shard with offset labels,
+     merged by parallel/loss_parallel.combine_vocab_shards over a stacked
+     shard axis (standing in for the tp group): loss, dh and dw against
+     whole-vocab K3 and the plain version, a tie across the shard boundary
+     to the smaller id, and one shard's forward and backward timed;
   8. the training slice: bin.train.main, the port's trainer, takes 10
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) under the recipe's
@@ -70,27 +76,34 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      seeded documents as pre-tokenized ids: the shards read back equal the
      ids, data.list has a line a shard; stage 1, an HF directory of seeded
      random bf16 weights (the port's safetensors writer and
-     hf_config_dict) through convert_hf_to_ckpt to step_0; stage 2,
-     bin.train.main, 10 steps at 1x16384 with its checkpoint flags
-     (interval 5 here, keep 2, async), a dev list of seeded shards,
-     profiling (freq 5, keep 1) and memory snapshots, starting from step_0
-     (its params at init equal the HF tensors upcast, bit for bit); then a
-     fresh main with --training_ckpt_load_step 5 (and sync saves, to time
-     one) runs steps 6-10. Checks the saves at 1, 5 and 10 with a finite
-     dev line after each, a trace naming K1, K2 and K3 kernels, the
-     snapshot files, and that the resumed run's losses and its final
-     params, mu, nu and count (integer checksums of their bits, per
-     tensor, on the card) equal the first run's bit for bit. Prints the
-     bytes of a checkpoint and how long the loop blocked in each save.
-     Stage 3, convert_ckpt_to_hf --step -1 --config on step_10: its
-     tensors, read back with the port's reader, equal the final params bit
-     for bit, and greedy generate (K1, K4) from the export gives the
-     trainer's model's tokens (2 prompts, 16 new tokens). Each stage prints
-     its seconds and bytes. The model is Llama-3.2-1B at full width and
-     RECIPE_MAX_LAYERS of its 16 layers (phase 8 trains all 16). The temp
-     directory's free space is printed first; without room for three
-     checkpoints (two kept, one being written), the seed, step_0 and the
-     export, the phase runs fewer layers still, and says so;
+     hf_config_dict) through convert_hf_to_ckpt to step_0; an in-process
+     Trainer from step_0 (no process group: its params at init equal the
+     HF tensors upcast, bit for bit) for the first 3 of the 10 steps;
+     stage 2 as torchrun --standalone --nproc_per_node 1 -m
+     touchnet_tpu_torch.bin.train with the recipe's layout flags
+     (dp_shard -1, loss parallel; FSDP2 at world 1 over NCCL), 10 steps at
+     1x16384 with its checkpoint flags (interval 5 here, keep 2, async),
+     a dev list of seeded shards, profiling (freq 5, keep 1) and memory
+     snapshots, from step_0; its first 3 losses against the in-process
+     run's (bit-equal, or within LAUNCHER_LOSS_RTOL); then a fresh torchrun
+     with --training_ckpt_load_step 5 (and sync saves, to time one) runs
+     steps 6-10. Checks the saves at 1, 5 and 10 with a finite dev line
+     after each, a trace naming K1, K2 and K3 kernels, the snapshot files,
+     and that the resumed run's losses and its final params, mu, nu and
+     count (integer checksums of their bits, step_10 read back) equal the
+     first run's bit for bit; the launches are each torchrun process's
+     own (its train_summary_rank0.json). Prints the bytes of a checkpoint,
+     how long the loop blocked in each save, both runs' step times and the
+     peak memory. Stage 3, convert_ckpt_to_hf --step -1 --config on
+     step_10: its tensors, read back with the port's reader, equal the
+     final params bit for bit, and greedy generate (K1, K4) from the
+     export gives the checkpoint's model's tokens (2 prompts, 16 new
+     tokens). Each stage prints its seconds and bytes. The model is
+     Llama-3.2-1B at full width and RECIPE_MAX_LAYERS of its 16 layers
+     (phase 8 trains all 16). The temp directory's free space is printed
+     first; without room for three checkpoints (two kept, one being
+     written), the seed, step_0 and the export, the phase runs fewer
+     layers still, and says so;
  10. the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on one card
      (examples/audio/pretrain/wenetspeech/run.sh, dp 1; stage 1 is skipped
      without pretrained weights, as there): Touch-Audio-1B at full width
@@ -205,13 +218,12 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      sft_argv's cuts, datapipe and model kimi_audio: right-padded rows of
      the text and audio streams, 30 s whisper features, the full-logits
      loss, AdamW fused, whose semantics are the optax chain's with a frozen
-     tensor), 3 steps with one sync save at step 1, then a fresh run
-     resumed from it whose last save holds the model alone: per step its
+     tensor), 3 steps with one sync save, at the last, holding the model
+     alone (no resumed run: the script's clock): per step its
      ms, label tokens/s, MFU as the reference counts it, the tower's, the
      tokenizer's and the text model's TFLOP, peak memory, the data-wait
-     share, rows, launches (K1 2 x (32 + L), K2 32 + L, K3 0); the resumed
-     run's losses and final params, mu, nu and count equal the first's bit
-     for bit; after the last step the speech tokenizer bit-equal to the
+     share, rows, launches (K1 2 x (32 + L), K2 32 + L, K3 0); after the
+     last step the speech tokenizer bit-equal to the
      seed, the mimo stack (no gradient reaches it) equal to the seed times
      prod(1 - lr_t wd), every other tensor moved; stage 3,
      convert_ckpt_to_hf --model_type kimi_audio --tokenizer_model: the
@@ -219,6 +231,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      and gradients at 1 x 1200 tokens on the kernel path against the plain
      path, under phase 8's limits; K1 and K2 (n) at the tower's training
      shape (non-causal, no segment ids).
+ 16. (last) two ranks on the one card: Llama-3.2-1B at full width and
+     TWO_RANK_LAYERS (2) layers, 1x4096 a rank, 3 steps of bin.train.main in
+     two processes over a gloo process group on cuda:0 (gloo takes CUDA
+     tensors for FSDP2's all-gather and reduce-scatter; NCCL takes one rank
+     a card), first dp_shard 2 (FSDP2 over both ranks), then tp 2 (the TP
+     plan: each rank's K1/K2 on its heads, K3 on its vocab shard, merged by
+     the vocab-parallel combine): losses finite and equal on both ranks,
+     K1, K2 and K3 launched by each, step ms and peak memory.
 Each phase prints its wall seconds ("[phase N] wall"), and the script its
 whole ("[all phases] wall").
 Then one JSON line of per-kernel results, the card line, and the last
@@ -227,7 +247,8 @@ the main paths that run it (K1: serving, training, the single-device
 modes, the recipe run with its generate from the export, the audio recipe
 run, the ASR CLI and the qwen2_audio and kimi_audio ASR stages; K4:
 serving, that generate, the ASR CLI and the two ASR stages; K2, K3:
-training, the modes, the recipe run and the audio recipe run; K1 and K2
+training, the modes, the recipe run (its two torchrun processes), the
+audio recipe run and phase 16's ranks; K1 and K2
 also qwen2_audio's and kimi_audio's SFT runs), each path driven with the
 counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
@@ -1214,8 +1235,118 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
     # column 1024 is the last tile's one live column
     case("(f) argmax tie N256 E2048 V1025 bf16", 256, 2048, 1025, torch.bfloat16,
          tie=(1024,))
+    if timing:
+        rows.update(check_k3_shards(fused_ce, dev, gen, failures, card))
     return rows
 
+
+
+def _stacked_reduce(t, op):
+    """combine_vocab_shards' all-reduce over a leading axis of shards held in
+    one process: the group's reduction, each shard given the result."""
+    if op == "sum":
+        return t.sum(0, keepdim=True).expand_as(t)
+    red = t.amax(0, keepdim=True) if op == "max" else t.amin(0, keepdim=True)
+    return red.expand_as(t)
+
+
+def check_k3_shards(fused_ce, dev, gen, failures, card) -> dict:
+    """Phase 7 (o): K3 on Llama-3.2-1B's head split into 2 and 4 vocab shards
+    (tensor parallelism's loss), at the main path's rows. Each shard's K3
+    takes labels - its first id; the shards' statistics are merged by the
+    port's own combine (parallel/loss_parallel.combine_vocab_shards) with a
+    reduction over a stacked shard axis standing in for the tp group. The
+    mean CE's loss, dh and dw are held to whole-vocab K3 and to the plain
+    version under phase 7's limits; the label logit, lse and argmax too,
+    rows 0-63 holding a tie across the boundary of shards 0 and 1 (the
+    smaller id must win). One shard's forward and backward are timed."""
+    from touchnet_tpu_torch.parallel.loss_parallel import combine_vocab_shards
+
+    N, E, V = TRAIN_T, 2048, 128256
+    print(f"  (o) K3 on vocab shards: N{N} E{E} V{V} bf16 split over tp 2 and 4, combined by "
+          "loss_parallel.combine_vocab_shards over a stacked shard axis")
+    h = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
+    w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(torch.bfloat16)
+    labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    labels[::9] = -100
+    valid = labels != -100
+    rows = {}
+    for tp in (2, 4):
+        vl = V // tp
+        ht, wt, lab = h.clone(), w.clone(), labels.clone()
+        ht[:64, 0] = 4.0  # ids vl-1 and vl: equal and dominant for rows 0-63
+        wt[[vl - 1, vl]] = 0.0
+        wt[[vl - 1, vl], 0] = 8.0
+        lab[0:64:2], lab[1:64:2] = vl - 1, vl
+        starts = torch.arange(tp, device=dev, dtype=torch.int32)[:, None] * vl
+
+        def sharded(hs, ws, lab=lab, vl=vl, tp=tp, starts=starts):
+            stats = [fused_ce.fused_ce_rows(hs, ws[s * vl:(s + 1) * vl], lab - s * vl)
+                     for s in range(tp)]
+            lse, tl, m2, ai = (torch.stack(x) for x in zip(*stats))
+            lse, tl, ai = combine_vocab_shards(lse, tl, m2, ai, starts, _stacked_reduce)
+            return lse[0], tl[0], ai[0]
+
+        def whole(hs, ws, lab=lab):
+            lse, tl, _, ai = fused_ce.fused_ce_rows(hs, ws, lab)
+            return lse, tl, ai
+
+        def plain(hs, ws, lab=lab):
+            lse, tl, _, ai = fused_ce.fused_ce_rows_reference(hs, ws, lab)
+            return lse, tl, ai
+
+        out = {}
+        for name, fn in (("shards", sharded), ("whole", whole), ("plain", plain)):
+            hs, ws = ht.clone().requires_grad_(), wt.clone().requires_grad_()
+            lse, tl, ai = fn(hs, ws)
+            loss = ((lse - tl) * valid).sum() / valid.sum()
+            loss.backward()
+            out[name] = (loss.detach(), lse.detach(), tl.detach(), ai, hs.grad, ws.grad)
+            del hs, ws, lse, tl, loss
+            torch.cuda.synchronize()
+        got = out["shards"]
+        errs = []
+        for ref_name in ("whole", "plain"):
+            ref = out[ref_name]
+            stat = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(got[:3], ref[:3]))
+            agree = (got[3] == ref[3]).float().mean().item()
+            ok = stat <= CE_STAT_TOL and agree >= ARGMAX_AGREE
+            what = "the plain version" if ref_name == "plain" else "whole-vocab K3"
+            print(f"  (o) tp {tp} vs {what}: loss {got[0].item():.6f} vs {ref[0].item():.6f}, loss/lse/label logit "
+                  f"max_abs_err={stat:.3e}, argmax agreement {agree:.5f} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"(o) tp {tp} statistics vs {ref_name}")
+            errs.append(stat)
+            errs.append(compare_grad(f"(o) tp {tp} dh vs {ref_name}", got[4], ref[4],
+                                     torch.bfloat16, failures))
+            errs.append(compare_grad(f"(o) tp {tp} dw vs {ref_name}", got[5], ref[5],
+                                     torch.bfloat16, failures))
+        tie = bool((got[3][:64] == vl - 1).all())
+        print(f"  (o) tp {tp}: rows 0-63 tie ids {vl - 1} and {vl} across the shard boundary: "
+              f"all pick {vl - 1}: {tie} {'ok' if tie else 'FAIL'}")
+        if not tie:
+            failures.append(f"(o) tp {tp} tie across shards")
+        del out
+        # one shard's kernels at the shape each rank's K3 sees
+        w0, l0 = wt[:vl].contiguous(), lab
+        lse, tl, m2, ai = fused_ce.fused_ce_fwd(ht, w0, l0)
+        dlse, dtl = valid.float() / N, -valid.float() / N
+        fwd = time_ms(lambda: fused_ce.fused_ce_fwd(ht, w0, l0))
+        fwd_p = time_ms(lambda: fused_ce._rows_reference(ht, w0, l0))
+        bwd = time_ms(lambda: fused_ce.fused_ce_bwd(ht, w0, l0, lse, dlse, dtl), 3, 1)
+        bwd_p = time_ms(lambda: fused_ce._rows_backward_reference(ht, w0, l0, lse, dlse, dtl),
+                        3, 1)
+        name = f"(o) tp {tp} vocab shard: N{N} E{E} V{vl} bf16"
+        rows[name] = {
+            "fwd": timed_row(f"{name} fwd", max(errs), fwd, fwd_p, None,
+                             bound(2 * N * E * vl, nbytes(ht, w0, l0, lse, tl, m2, ai)), card),
+            "bwd": timed_row(f"{name} bwd", max(errs), bwd, bwd_p, None,
+                             bound(6 * N * E * vl, nbytes(ht, w0, l0, lse, dlse, dtl)
+                                   + nbytes(ht, w0)), card)}
+        del ht, wt, w0, lse, tl, m2, ai
+        torch.cuda.empty_cache()
+    return rows
 
 def seeded_documents(seed: int, count: int) -> list:
     """`count` documents, lengths 200-3000, each an ascending run of ids mod
@@ -1674,8 +1805,10 @@ def check_step(train, argv_of, dev, failures, what=""):
 RECIPE_STEPS, RECIPE_INTERVAL, RESUME_STEP = 10, 5, 5
 # phase 9's text depth: phase 8 trains Llama-3.2-1B at its full 16 layers;
 # the recipe's stages around it (four checkpoint writes, the seed, the
-# export) run at full width and 4 layers, for the script's clock
-RECIPE_MAX_LAYERS = 4
+# export, three trainers, two of them started by torchrun) run at full
+# width and 2 layers, for the script's clock (4 before stage 2 went
+# through the launcher)
+RECIPE_MAX_LAYERS = 2
 # the kernel groups (PROFILE_GROUPS) the recipe run's trace must name
 RECIPE_TRACE_GROUPS = ("K1", "K2", "K3 fwd", "K3 bwd, TMA + wgmma mainloop (ce_gemm)")
 
@@ -1868,22 +2001,214 @@ def recipe_stage3(cfg, config: Path, exp: Path, final: dict, model, dev, card,
     return counts
 
 
+# the fineweb-edu recipe's stage-2 layout flags (run.sh:118-125), cut to one
+# card: dp_shard -1 fills the world (1), loss parallel does nothing at tp 1
+RECIPE_LAYOUT = dict(training_fsdp_reshard_after_forward="default",
+                     training_context_parallel_degree=1,
+                     training_context_parallel_rotate_method="allgather",
+                     training_tensor_parallel_degree=1, training_data_parallel_shard_degree=-1,
+                     training_enable_loss_parallel="true", training_pipeline_parallel_degree=1,
+                     training_pipeline_parallel_schedule="1F1B", training_tb_rank_0_only="true",
+                     training_print_args="true")
+# the in-process run beside the launcher's: its first steps, no checkpoints
+INPROC_STEPS = 3
+# the launcher's run against the in-process one, relative, where their
+# losses are not bit-equal: FSDP2's bf16 parameters sum the tied embedding's
+# two gradients (the lookup's and the head's) in bf16 where the single-card
+# path sums them in f32 (PERF.md §6)
+LAUNCHER_LOSS_RTOL = 1e-3
+
+
+def torchrun_train(argv: list, exp: Path, failures, what: str, nproc: int = 1,
+                   timeout: int = 900, env=None) -> tuple:
+    """torchrun --standalone --nproc_per_node N -m touchnet_tpu_torch.bin.train
+    <argv> from the checkout (python -m torch.distributed.run is torchrun).
+    Returns (each rank's train_summary_rank<R>.json, or None when it failed;
+    the command's seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+           str(nproc), "-m", "touchnet_tpu_torch.bin.train"] + [str(a) for a in argv]
+    free_caches()
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=timeout,
+                         env=env)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(f"  {what}: torchrun exited {res.returncode}:\n{res.stdout[-4000:]}\n"
+              f"{res.stderr[-4000:]}")
+        failures.append(f"{what}: torchrun")
+        return None, secs
+    return [json.loads((exp / f"train_summary_rank{r}.json").read_text())
+            for r in range(nproc)], secs
+
+
+def ckpt_checksums(step_dir: Path) -> dict:
+    """bits_checksums of every tensor of a checkpoint step (model, then
+    optimizer, keyed as the trainer's state: the model's names, mu.<name>,
+    nu.<name>, count), read back in one process."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    out = {}
+    for part in ("model", "optimizer"):
+        reader = FileSystemReader(str(step_dir / part))
+        md = reader.read_metadata().state_dict_metadata
+        state = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in md.items()}
+        dcp.load(state, storage_reader=reader, no_dist=True)
+        out.update(bits_checksums(state))
+        del state
+    return out
+
+
+def load_model(cfg, step_dir: Path, dev):
+    """The model of a checkpoint step on the card, in f32."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    from touchnet_tpu_torch.models.llama.modeling_llama import empty_model
+
+    model = empty_model(cfg, torch.float32, dev)
+    state = model.state_dict()
+    dcp.load(state, storage_reader=FileSystemReader(str(step_dir / "model")), no_dist=True)
+    return model
+
+
+def inprocess_run(train, argv, seed_dir: Path, seed_bits: dict, failures) -> dict:
+    """The same configuration without the launcher: a Trainer in this
+    process (no process group, no FSDP) from the stage-1 seed, the first
+    INPROC_STEPS steps of the same schedule and data, no checkpoints.
+    Checks that its params at init equal the HF tensors upcast."""
+    import torch.distributed.checkpoint as dcp
+    from torch.distributed.checkpoint import FileSystemReader
+
+    from touchnet_tpu_torch.bin import TrainConfig
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+
+    tok, data, job = train.parse_args_into_dataclasses(
+        [TokenizerConfig, DataConfig, TrainConfig], [str(a) for a in argv])
+    trainer = train.Trainer(tok, data, job)
+    try:
+        state = trainer.model.state_dict()
+        dcp.load(state, storage_reader=FileSystemReader(str(seed_dir / "model")), no_dist=True)
+        init = bits_checksums(trainer.model.state_dict())
+        seeded = init == seed_bits
+        print(f"  in-process run starts from step_0: its params ({len(init)} tensors) equal the HF "
+              f"tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
+        if not seeded:
+            failures.append("recipe stage 2: not started from the seed")
+        # the loop's length only: the schedule was built for the run's steps
+        trainer.job_config.lr_scheduler_steps = INPROC_STEPS
+        torch.cuda.reset_peak_memory_stats()
+        trainer.train()
+    finally:
+        trainer.close()
+    hist = trainer.metrics_processor.history
+    del trainer
+    free_caches()
+    return hist
+
+
+# --two-ranks: two ranks of Llama-3.2-1B at full width on the one card, over
+# gloo (which takes CUDA tensors for FSDP2's collectives; NCCL takes one rank
+# a card), each layout from the same seeded weights and data
+TWO_RANK_LAYERS, TWO_RANK_STEPS, TWO_RANK_T = 2, 3, 4096
+TWO_RANK_LAYOUTS = {
+    "dp_shard 2": dict(training_data_parallel_shard_degree=2),
+    "tp 2": dict(training_tensor_parallel_degree=2, training_data_parallel_shard_degree=1),
+}
+
+
+def gloo_rank_worker(argv: list) -> int:
+    """One rank of --two-ranks (its own process): a gloo process group over
+    a FileStore, then bin.train.main on cuda:0 (the trainer keeps a group its
+    caller started)."""
+    import torch.distributed as dist
+
+    rank, store = int(argv[0]), argv[1]
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
+    sys.path.insert(0, str(HERE))
+    from touchnet_tpu_torch.bin import train
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
+    try:
+        train.main(argv[2:], device=torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def run_two_ranks(card, failures, tmp: Path) -> dict:
+    """Phase 16: each layout of TWO_RANK_LAYOUTS as two processes on the
+    card: losses finite and equal on both ranks, K1, K2 and K3 launched on
+    each, the step times and peak memory (max over ranks) printed. Returns
+    the launches of every rank of both layouts (each process counts its
+    own, from zero)."""
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+
+    raw = json.loads(CONFIG.read_text())
+    raw["num_hidden_layers"] = TWO_RANK_LAYERS
+    config = tmp / "config.json"
+    config.write_text(json.dumps(raw))
+    cfg = LlamaConfig.from_json_file(str(config))
+    listfile = write_shards(tmp / "data", cfg.vocab_size, SEED)
+    print(f"[16] two ranks: Llama-3.2-1B at full width and {TWO_RANK_LAYERS} layers, "
+          f"1x{TWO_RANK_T} a rank, {TWO_RANK_STEPS} steps, two processes on one card over gloo")
+    counts = {k: 0 for k in ("K1", "K2", "K3 fwd", "K3 bwd")}
+    for name, layout in TWO_RANK_LAYOUTS.items():
+        exp = tmp / name.replace(" ", "_")
+        argv = train_argv(listfile, exp, TWO_RANK_T, TWO_RANK_STEPS, "bfloat16", cfg.vocab_size,
+                          training_model_config_path=config, **layout)
+        store = tmp / f"store_{exp.name}"
+        free_caches()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gloo-rank",
+                                   str(r), str(store)] + [str(a) for a in argv], cwd=HERE,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        secs = time.perf_counter() - t0
+        if any(p.returncode for p in procs):
+            print(f"  {name}: rank exit codes {[p.returncode for p in procs]}:\n"
+                  + "\n".join(o[-3000:] for o in outs))
+            failures.append(f"two ranks {name}")
+            continue
+        sums = [json.loads((exp / f"train_summary_rank{r}.json").read_text()) for r in range(2)]
+        for sm in sums:
+            for k in counts:
+                counts[k] += sm["launches"][k]
+        losses = [[h["loss/per_sample"] for h in s["history"]] for s in sums]
+        launched = all(all(s["launches"][k] > 0 for k in ("K1", "K2", "K3 fwd", "K3 bwd"))
+                       for s in sums)
+        ok = (losses[0] == losses[1] and len(losses[0]) == TWO_RANK_STEPS
+              and all(math.isfinite(x) for x in losses[0]) and launched)
+        hist = sums[0]["history"]
+        print(f"  {name}: losses {losses[0]} on both ranks: {losses[0] == losses[1]}; launches "
+              f"rank 0 {sums[0]['launches']}, rank 1 {sums[1]['launches']}; step ms "
+              f"{[round(h['time/step_s'] * 1e3, 1) for h in hist]}; peak "
+              f"{max(h.get('memory/peak_gib', 0) for h in hist):.2f} GiB (max over ranks); "
+              f"{secs:.1f} s for both processes {'ok' if ok else 'FAIL'}  [{card}]")
+        if not ok:
+            failures.append(f"two ranks {name}")
+    return counts
+
 def run_recipe(dev, card, failures, tmp: Path) -> dict:
     """Phase 9: the recipe's stages 0-3 at full width: make_data, the HF
-    seed through convert_hf_to_ckpt, stage 2 through bin.train.main with
-    checkpoints, dev eval, profiling and memory snapshots from that seed,
-    then a resume from step 5 held to the straight run bit for bit, and the
-    export through convert_ckpt_to_hf with generate from it. Returns the
-    kernels' launches over its main paths."""
+    seed through convert_hf_to_ckpt, a short in-process run from that seed,
+    then stage 2 as torchrun --standalone --nproc_per_node 1 -m
+    touchnet_tpu_torch.bin.train (world 1: FSDP2 over NCCL, the recipe's
+    layout flags) with checkpoints, dev eval, profiling and memory
+    snapshots, its first losses held to the in-process run's, then a
+    resume from step 5 through the launcher held to the straight run bit
+    for bit, and the export through convert_ckpt_to_hf with generate from
+    it. Returns the kernels' launches over its main paths (the launcher's
+    runs, read from each run's train_summary_rank0.json)."""
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
-    from touchnet_tpu_torch.ops import attention as attn
-    from touchnet_tpu_torch.ops import fused_ce
-    from touchnet_tpu_torch.utils.checkpoint import CheckpointManager
 
     print("[9] the recipe's stages 0-3 on one card (run.sh:60-175, dp 1): make_data, the HF "
-          "seed, bin.train.main with checkpoints, dev eval, profiling and memory snapshots, "
-          "a resume, the HF export")
+          "seed, an in-process run, bin.train through torchrun (FSDP2 at world 1) with "
+          "checkpoints, dev eval, profiling and memory snapshots, a resume, the HF export")
     cfg = LlamaConfig.from_json_file(str(CONFIG))
     free = shutil.disk_usage(tmp).free
     L, ckpt_bytes, need = recipe_depth(cfg, free)
@@ -1912,96 +2237,59 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
                  training_ckpt_async_mode="async", training_enable_profiling="true",
                  training_profiling_freq=5, training_profiling_keep_first_k=1,
                  training_enable_memory_snapshot="true", training_enable_tensorboard="true",
-                 training_gc_freq=1000, training_deterministic="false")
+                 training_gc_freq=1000, training_deterministic="false", **RECIPE_LAYOUT)
+
+    inproc = inprocess_run(train, train_argv(
+        listfile, tmp / "inproc", TRAIN_T, RECIPE_STEPS, "bfloat16", cfg.vocab_size,
+        training_model_config_path=config, **RECIPE_LAYOUT), exp / "checkpoint" / "step_0",
+        seed_bits, failures)
+    peak0 = torch.cuda.max_memory_allocated() / 2**30
+
     print(f"  {RECIPE_STEPS} steps at 1x{TRAIN_T}, remat op_small, checkpoints every "
           f"{RECIPE_INTERVAL} (keep 2, async), dev list of 2 seeded shards, profiling freq 5 "
           "keep 1, memory snapshots, tensorboard (a warning where the package is missing), "
-          "from the stage-1 seed")
-
-    # host time of each saving Trainer.save call (ms), the part of it spent
-    # waiting for the previous write, and each write's own time (s; in the
-    # background thread under async)
-    save_ms, write_s, waited = {}, {}, [0.0]
-    real_save, real_wait, real_write = (train.Trainer.save, CheckpointManager.wait_until_finished,
-                                        CheckpointManager._write)
-
-    def timed_save(self, force=False):
-        t0, w0 = time.perf_counter(), waited[0]
-        saved = real_save(self, force)
-        if saved:
-            save_ms[self.step] = ((time.perf_counter() - t0) * 1e3, (waited[0] - w0) * 1e3)
-        return saved
-
-    def timed_wait(self):
-        t0 = time.perf_counter()
-        try:
-            real_wait(self)
-        finally:
-            waited[0] += time.perf_counter() - t0
-
-    def timed_write(self, step, host, items):
-        t0 = time.perf_counter()
-        real_write(self, step, host, items)
-        write_s[step] = time.perf_counter() - t0
-
-    # the params as the first run starts training (after the seed's load)
-    init_bits = []
-    real_train = train.Trainer.train
-
-    def checked_train(self):
-        if not init_bits:
-            init_bits.append(bits_checksums(self.model.state_dict()))
-        return real_train(self)
-
-    counters = (attn.flash_attention, attn.flash_attention_bwd, fused_ce.fused_ce_fwd,
-                fused_ce.fused_ce_bwd)
-    train.Trainer.save = timed_save
-    train.Trainer.train = checked_train
-    CheckpointManager.wait_until_finished = timed_wait
-    CheckpointManager._write = timed_write
-    torch.cuda.reset_peak_memory_stats()
-    try:
-        # the main path (both runs): every launch count is zeroed here and
-        # read after the resumed run
-        for c in counters:
-            c.launches = 0
-        first = train.main(train_argv(listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16",
-                                      cfg.vocab_size, **flags))
-        async_ms, async_write_s = dict(save_ms), dict(write_s)
-        peak1 = torch.cuda.max_memory_allocated() / 2**30
-        hist1 = first.metrics_processor.history
-        dev1 = first.metrics_processor.dev_history
-        state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
-        del first
-        torch.cuda.empty_cache()
-        save_ms.clear()
-        write_s.clear()
-        resumed = train.main(train_argv(
-            listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16", cfg.vocab_size,
-            **{**flags, "training_ckpt_load_step": RESUME_STEP,
-               "training_ckpt_async_mode": "disabled", "training_enable_profiling": "false",
-               "training_enable_memory_snapshot": "false"}))
-    finally:
-        train.Trainer.save = real_save
-        train.Trainer.train = real_train
-        CheckpointManager.wait_until_finished = real_wait
-        CheckpointManager._write = real_write
-    k1, k2, k3f, k3b = (c.launches for c in counters)
-    hist2 = resumed.metrics_processor.history
-    dev2 = resumed.metrics_processor.dev_history
-    state2 = bits_checksums({**resumed.model.state_dict(), **resumed._opt_state()})
-    final_model = resumed.model
-    del resumed
-    torch.cuda.empty_cache()
-
-    seeded = bool(init_bits) and init_bits[0] == seed_bits
-    print(f"  stage 2 starts from step_0: the params at init ({len(seed_bits)} tensors) equal the "
-          f"HF tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
-    if not seeded:
-        failures.append("recipe stage 2: not started from the seed")
+          "from the stage-1 seed, through torchrun --standalone --nproc_per_node 1 -m "
+          "touchnet_tpu_torch.bin.train")
+    argv1 = train_argv(listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16", cfg.vocab_size, **flags)
+    sums1, secs1 = torchrun_train(argv1, exp, failures, "recipe run 1")
+    if sums1 is None:
+        return {}
+    ckpt = exp / "checkpoint"
+    state1 = ckpt_checksums(ckpt / f"step_{RECIPE_STEPS}")
+    argv2 = train_argv(listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16", cfg.vocab_size,
+                       **{**flags, "training_ckpt_load_step": RESUME_STEP,
+                          "training_ckpt_async_mode": "disabled",
+                          "training_enable_profiling": "false",
+                          "training_enable_memory_snapshot": "false"})
+    sums2, secs2 = torchrun_train(argv2, exp, failures, "recipe resumed run")
+    if sums2 is None:
+        return {}
+    run1, run2 = sums1[0], sums2[0]
+    hist1, dev1, hist2, dev2 = (run1["history"], run1["dev_history"], run2["history"],
+                                run2["dev_history"])
+    state2 = ckpt_checksums(ckpt / f"step_{RECIPE_STEPS}")
+    print(f"  torchrun commands: run 1 {secs1:.1f} s, the resumed run {secs2:.1f} s (each with "
+          "the launcher's start, the process group, FSDP2's wrap and the model's build)")
 
     losses1 = [h["loss/per_sample"] for h in hist1]
-    ckpt = exp / "checkpoint"
+    lin = [h["loss/per_sample"] for h in inproc]
+    same = lin == losses1[:INPROC_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lin, losses1))
+    ok = len(lin) == INPROC_STEPS and (same or rel <= LAUNCHER_LOSS_RTOL)
+    print(f"  in-process (one process, no FSDP) vs torchrun (FSDP2, world 1), steps 1-"
+          f"{INPROC_STEPS}: losses {lin} vs {losses1[:INPROC_STEPS]}: bit-equal {same}, largest "
+          f"relative difference {rel:.3e} (limit {LAUNCHER_LOSS_RTOL:g}: the tied embedding's two "
+          f"gradients summed in bf16 under FSDP2) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: launcher losses")
+    print(f"  step ms: in-process {[round(h['time/step_s'] * 1e3, 1) for h in inproc]}; "
+          f"torchrun {[round(h['time/step_s'] * 1e3, 1) for h in hist1[:INPROC_STEPS]]}; peak "
+          f"GiB allocated: in-process {peak0:.2f}, torchrun run 1 "
+          f"{max(h.get('memory/peak_gib', 0) for h in hist1):.2f} (memory history recording on)"
+          f"  [{card}]")
+
+    async_ms = {int(k): v for k, v in run1["checkpoint_times"].items()}
+    sync_ms = {int(k): v for k, v in run2["checkpoint_times"].items()}
     kept = {p.name for p in ckpt.iterdir() if p.name.startswith("step_")}
     ok = (sorted(async_ms) == [1, RECIPE_INTERVAL, RECIPE_STEPS] and len(losses1) == RECIPE_STEPS
           and all(math.isfinite(x) for x in losses1) and kept == {"step_5", "step_10"})
@@ -2021,17 +2309,17 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     print(f"  checkpoint step_10: {size} bytes ({size / 1e9:.3f} GB) in {len(files)} files")
 
     def blocked(times):
-        return ", ".join(f"step {s} {ms:.1f} ms ({w:.1f} waiting for the previous write)"
-                         for s, (ms, w) in sorted(times.items()))
+        return ", ".join(f"step {s} {t['blocked_ms']:.1f} ms ({t['waited_ms']:.1f} waiting for "
+                         "the previous write)" for s, t in sorted(times.items()))
 
     print(f"  the loop blocked in save(): async {blocked(async_ms)}; sync (the resumed run) "
-          f"{blocked(save_ms)}. Step 1 also allocates the pinned staging buffers  [{card}]")
+          f"{blocked(sync_ms)}. Step 1 also allocates the pinned staging buffers  [{card}]")
     print("  each write to disk: async (a background thread) " + ", ".join(
-        f"step {s} {t:.2f} s" for s, t in sorted(async_write_s.items())) + "; sync " + ", ".join(
-        f"step {s} {t:.2f} s ({size / t / 1e9:.2f} GB/s)" for s, t in sorted(write_s.items())))
+        f"step {s} {t['write_s']:.2f} s" for s, t in sorted(async_ms.items())) + "; sync " +
+        ", ".join(f"step {s} {t['write_s']:.2f} s ({size / t['write_s'] / 1e9:.2f} GB/s)"
+                  for s, t in sorted(sync_ms.items())))
     print(f"  step times of run 1, ms (each includes the save, trace and dev pass after the "
-          f"step before it): {[round(h['time/step_s'] * 1e3, 1) for h in hist1]}; peak "
-          f"{peak1:.2f} GiB allocated (memory history recording on)")
+          f"step before it): {[round(h['time/step_s'] * 1e3, 1) for h in hist1]}")
 
     trace = exp / "profile_traces" / f"iteration_{RECIPE_INTERVAL}" / "trace.json"
     traces = sorted(p.name for p in (exp / "profile_traces").iterdir())
@@ -2060,20 +2348,25 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     ok = same_loss and not differ and same_dev
     print(f"  resumed from step {RESUME_STEP}: steps {[h['step'] for h in hist2]}, losses equal "
           f"run 1's bit for bit: {same_loss}; final params, mu, nu, count ({len(state1)} "
-          f"tensors, checksums of their bits on the card) differ in {differ[:5] or 'none'}; "
-          f"dev line at step 10 equal: {same_dev} {'ok' if ok else 'FAIL'}")
+          f"tensors of step_{RECIPE_STEPS}, read back, checksums of their bits on the card) "
+          f"differ in {differ[:5] or 'none'}; dev line at step 10 equal: {same_dev} "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("recipe run: resume not bit-equal")
 
+    launches = [{k: r["launches"][k] for k in ("K1", "K2", "K3 fwd", "K3 bwd")}
+                for r in (run1, run2)]
+    k1, k2, k3f, k3b = (launches[0][k] + launches[1][k] for k in ("K1", "K2", "K3 fwd", "K3 bwd"))
     steps = RECIPE_STEPS + RECIPE_STEPS - RESUME_STEP
     dev_fwd = k3f - steps  # each dev batch runs K3's forward once and K1 L times
     ok = k2 == L * steps and k3b == steps and dev_fwd > 0 and k1 == L * (steps + dev_fwd)
-    print(f"  launches over both runs ({steps} steps, {dev_fwd} dev batches over 4 dev passes): "
-          f"K1={k1} K2={k2} K3 fwd={k3f} K3 bwd={k3b} (want K1 = {L}x(steps + dev batches), "
-          f"K2 = {L}x steps, K3 bwd = steps; no backward kernel in dev) "
-          f"{'ok' if ok else 'FAIL'}")
+    print(f"  launches over both torchrun runs ({steps} steps, {dev_fwd} dev batches over 4 dev "
+          f"passes; each run's process counts its own): K1={k1} K2={k2} K3 fwd={k3f} "
+          f"K3 bwd={k3b} (want K1 = {L}x(steps + dev batches), K2 = {L}x steps, K3 bwd = steps; "
+          f"no backward kernel in dev) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("recipe run: launch counts")
+    final_model = load_model(cfg, ckpt / f"step_{RECIPE_STEPS}", dev)
     final = {k: state2[k] for k in final_model.state_dict()}
     gen_counts = recipe_stage3(cfg, config, exp, final, final_model, dev, card, failures)
     del final_model
@@ -3807,10 +4100,11 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
 # -- phase 15: kimi_audio's SFT stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with
 # model_type kimi_audio: make_data, the HF seed, the SFT run, the HF export) --
 
-# run 1 saves at step 1 and the resumed run trains steps 2 and 3: run 1's
-# step 3, which the profiler traces, and the resumed run's have no save or
-# set-up in their time
-KIMI_SFT_STEPS, KIMI_SFT_RESUME, KIMI_SFT_MIMO = 3, 1, 1
+# one run of 3 steps whose last saves the model alone (its resumed run, a
+# 36.7 GB save at step 1 and its read, went for the script's clock when
+# phase 9 went through the launcher); step 2 has no save, dev pass, set-up
+# or trace in its time
+KIMI_SFT_STEPS, KIMI_SFT_MIMO = 3, 1
 # phase 15's most text layers: the disk's clock (a checkpoint is 12 bytes a
 # trainable parameter, written at ~0.7 GB/s and read back at ~0.5; 1 layer
 # of 28 saves 3 GB a checkpoint against 2)
@@ -3880,7 +4174,7 @@ def kimi_sft_depth(raw: dict, free: int, card_bytes: int, rows_of) -> dict:
         moments for every trainable tensor (f32 params 4 bytes a parameter,
         mu and nu 8 more; the frozen speech tokenizer has no moments), or
         the last save's model with the f32 export beside it (8 bytes a
-        parameter: the resumed run's last save holds the model alone),
+        parameter: the last save holds the model alone),
         whichever is larger, and 2 GiB;
       - the card holds the f32 params, gradients where one exists (not the
         tokenizer, not the mimo stack, mimo_norm and mimo_output, which the
@@ -4034,9 +4328,10 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     dev list and data.list.raw); a seeded random bf16 HF directory through
     convert_hf_to_ckpt --model_type kimi_audio to step_0; bin.train.main with
     the recipe's stage-2 flags (sft_argv, datapipe and model kimi_audio),
-    KIMI_SFT_STEPS steps with one save at KIMI_SFT_RESUME, then a fresh
-    trainer resumed from it, held to it bit for bit, whose last save holds
-    the model alone; after the last step the speech tokenizer bit-equal to
+    KIMI_SFT_STEPS steps with one save, at the last, holding the model
+    alone (no resumed run since the data- and tensor-parallel slice: the
+    script's clock; phases 9 and 10 hold the resume on the card and
+    test_torch_kimi_audio_sft.py holds this one on the CPU); after the last step the speech tokenizer bit-equal to
     the seed, the mimo stack equal to the seed times prod(1 - lr_t wd), every
     other tensor moved; convert_ckpt_to_hf on that save, held to the final
     params bit for bit; one step at a small batch on the kernel path against
@@ -4119,9 +4414,9 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
           f"{'(none: it fits)' if budget == 2 * 8192 else '(the card)'}; {KIMI_SFT_STEPS} "
           f"steps of 30000, warmup 2 of 1000; remat none -> full and the AdamW moments in "
           f"host memory (the card's memory); loader 12 workers, prefetch 12 -> "
-          f"{SFT_WORKERS}, {SFT_WORKERS}; checkpoints sync, one save in run 1 (at step "
-          f"{KIMI_SFT_RESUME}: this script skips the trainer's other saves there), "
-          f"the resumed run's last save the model alone (stage 3 reads nothing else); "
+          f"{SFT_WORKERS}, {SFT_WORKERS}; checkpoints sync, one save, at the last step, "
+          f"holding the model alone (this script skips the trainer's step-1 save; stage 3 "
+          f"reads nothing else), and no resumed run (the script's clock); "
           f"log every step (100); run 1's profiler traces its last step; stage 0 "
           f"{'the shards, dev list and data.list.raw of phase 14 (shared)' if shared else 'its own'}")
 
@@ -4152,9 +4447,8 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
           f"{stage1_s:.1f} s")
     shutil.rmtree(hf)  # its tensors are in step_0 now
 
-    # stage 2: run 1 saves at KIMI_SFT_RESUME only; the resumed run saves its
-    # last step (the trainer's cadence) with the model alone, which stage 3
-    # exports
+    # stage 2: one run, saving its last step (the trainer's cadence) with the
+    # model alone, which stage 3 exports
     counters = kernel_counters()
     steps, devs, init_bits, sizes = [], [], [], {}
     real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train)
@@ -4188,43 +4482,28 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
         counted_step, counted_dev, checked_train)
     torch.cuda.empty_cache()
     try:
-        # the main path (both runs): every launch count is zeroed here and
-        # read after the resumed run
+        # the main path: every launch count is zeroed here and read after it
         for c in counters.values():
             c.launches = 0
         with count_plain_calls() as plain_calls, timed_saves(train) as saves:
             t0 = time.perf_counter()
-            with HostPeak() as host1, \
-                    saves_where(lambda step, force: step == KIMI_SFT_RESUME):
+            with HostPeak() as host1, model_only_saves(), \
+                    saves_where(lambda step, force: step == KIMI_SFT_STEPS):
                 first = train.main(kimi_sft_argv(listfile, exp, config, tok_dir, budget, **flags,
                                                  training_profiling_freq=KIMI_SFT_STEPS),
                                    device=dev)
             run1_s = time.perf_counter() - t0
             saves1 = dict(saves)
-            hist1 = first.metrics_processor.history
-            dev1 = first.metrics_processor.dev_history
-            pinned = first.offload.pinned_bytes if first.offload is not None else 0
-            lrs = [float(first.opt.schedule(t)) for t in range(KIMI_SFT_STEPS)]
-            wd = first.opt.weight_decay
-            state1 = bits_checksums({**first.model.state_dict(), **first._opt_state()})
-            del first
-            free_caches()  # page-cache room for the resume's read of run 1's checkpoint
-            saves.clear()
-            t0 = time.perf_counter()
-            with HostPeak() as host2, model_only_saves():
-                resumed = train.main(kimi_sft_argv(
-                    listfile, exp, config, tok_dir, budget, **flags,
-                    training_ckpt_load_step=KIMI_SFT_RESUME), device=dev)
-            run2_s = time.perf_counter() - t0
-            saves2 = dict(saves)
     finally:
         train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = real
     counts = {k: c.launches for k, c in counters.items()}
-    hist2 = resumed.metrics_processor.history
-    dev2 = resumed.metrics_processor.dev_history
-    final_state = resumed.model.state_dict()
-    state2 = bits_checksums({**final_state, **resumed._opt_state()})
-    final = {k: state2[k] for k in final_state}
+    hist1 = first.metrics_processor.history
+    dev1 = first.metrics_processor.dev_history
+    pinned = first.offload.pinned_bytes if first.offload is not None else 0
+    lrs = [float(first.opt.schedule(t)) for t in range(KIMI_SFT_STEPS)]
+    wd = first.opt.weight_decay
+    final_state = first.model.state_dict()
+    final = bits_checksums(final_state)
     # after the last step: the tokenizer as seeded, the mimo stack decayed
     # by prod(1 - lr_t wd) (no gradient reaches it), every other tensor moved
     decay = math.prod(1.0 - lr * wd for lr in lrs)
@@ -4236,9 +4515,9 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     still = [k for k in final if k not in tok_names and k not in mimo_names
              and final[k] == seed_bits[k]]
     del final_state, mimo_seed
-    # the parts of a step, on the resumed trainer (its state is checked above)
-    split = kimi_step_split(resumed, steps[0].pop("batch"), card)
-    del resumed
+    # the parts of a step, on the trainer (its state is checked above)
+    split = kimi_step_split(first, steps[0].pop("batch"), card)
+    del first
     free_caches()  # page-cache room for stage 3's read-back of the export
 
     seeded = bool(init_bits) and init_bits[0] == seed_bits
@@ -4259,7 +4538,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     tok_p = plan["frozen"]
     text_p = get_num_params(cfg) - tower_p - tok_p - plan["no_grad"]
     losses1 = [h["loss/per_sample"] for h in hist1]
-    for h, s in zip(hist1 + hist2, steps):
+    for h, s in zip(hist1, steps):
         rows, T = s["rows"], s["L"]
         tower_tf = rows * 1500 * (6 * tower_p + 12 * ec.encoder_layers * ec.d_model * 1500) / 1e12
         tok_tf = rows * 1500 * (2 * tok_p + 4 * vq.quantize_position * vq.d_model * 1500) / 1e12
@@ -4278,11 +4557,10 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
               f"[{card}]")
     want_step = {"K1": 2 * (ec.encoder_layers + L), "K2": ec.encoder_layers + L,
                  "K3 fwd": 0, "K3 bwd": 0}
-    n_steps = KIMI_SFT_STEPS + KIMI_SFT_STEPS - KIMI_SFT_RESUME
-    ok = (len(steps) == n_steps and all(s["launches"] == want_step for s in steps)
+    ok = (len(steps) == KIMI_SFT_STEPS and all(s["launches"] == want_step for s in steps)
           and all(d["K1"] > 0 and d["K1"] % (ec.encoder_layers + L) == 0 and d["K2"] == 0
                   and d["K3 fwd"] == d["K3 bwd"] == 0 for d in devs)
-          and len(devs) == 2 and not plain_calls
+          and len(devs) == 1 and not plain_calls
           and len(losses1) == KIMI_SFT_STEPS and all(math.isfinite(x) for x in losses1))
     print(f"  launches a step (remat full recomputes the attention): want K1 "
           f"{want_step['K1']} = 2 x ({ec.encoder_layers} tower + {L} text), K2 "
@@ -4294,40 +4572,25 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("kimi sft: launches / losses")
-    step_ms = hist2[-1]["time/step_s"] * 1e3  # the resumed run's step 3: no save, set-up
+    step_ms = hist1[1]["time/step_s"] * 1e3  # step 2: no save, dev pass, set-up or trace
     sft_step_split(exp / "profile_traces" / f"iteration_{KIMI_SFT_STEPS}" / "trace.json",
                    hist1[KIMI_SFT_STEPS - 1]["time/step_s"] * 1e3, card, failures)
     peak = max(s["peak"] for s in steps)
-    print(f"  step {step_ms:.1f} ms (the resumed run's step {KIMI_SFT_STEPS}: no save, dev "
-          f"pass, set-up or profiler in it); peak {peak:.2f} GiB allocated; AdamW moments {pinned / 1e9:.2f} GB in pinned "
+    print(f"  step {step_ms:.1f} ms (step 2: no save, dev pass, set-up or profiler in it); "
+          f"peak {peak:.2f} GiB allocated; AdamW moments {pinned / 1e9:.2f} GB in pinned "
           f"host memory (none for the frozen tokenizer); the host's resident memory "
-          f"{host1.before / 1e9:.2f} -> peak {host1.peak / 1e9:.2f} GB (run 1), "
-          f"{host2.before / 1e9:.2f} -> {host2.peak / 1e9:.2f} GB (resumed); dev lines "
-          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev1]}, "
-          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev2]}  [{card}]")
+          f"{host1.before / 1e9:.2f} -> peak {host1.peak / 1e9:.2f} GB; dev lines "
+          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev1]}  [{card}]")
     sizes[KIMI_SFT_STEPS] = tree_bytes(exp / "checkpoint" / f"step_{KIMI_SFT_STEPS}")
-    ok = sorted(saves1) == [KIMI_SFT_RESUME] and sorted(saves2) == [KIMI_SFT_STEPS]
+    ok = sorted(saves1) == [KIMI_SFT_STEPS]
     print("  saves (sync), the loop blocked: " + ", ".join(
-        f"run {r} step {s} {ms:.1f} ms ({sizes[s]} bytes in {w:.2f} s, "
-        f"{sizes[s] / max(w, 1e-9) / 1e9:.2f} GB/s)"
-        for r, sv in ((1, saves1), (2, saves2)) for s, (ms, w) in sorted(sv.items())) +
-        f" (run 1's with the moments, reckoned {plan['ckpt']}; the last the model alone); "
-        f"run 1 {run1_s:.1f} s, resumed run {run2_s:.1f} s {'ok' if ok else 'FAIL'}  [{card}]")
+        f"step {s} {ms:.1f} ms ({sizes[s]} bytes in {w:.2f} s, "
+        f"{sizes[s] / max(w, 1e-9) / 1e9:.2f} GB/s)" for s, (ms, w) in sorted(saves1.items())) +
+        f" (the model alone); run {run1_s:.1f} s {'ok' if ok else 'FAIL'}  [{card}]")
     if not ok:
         failures.append("kimi sft: saves")
-    losses2 = [h["loss/per_sample"] for h in hist2]
-    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
-        sorted(set(state2) - set(state1))
-    same = ([h["step"] for h in hist2] == list(range(KIMI_SFT_RESUME + 1, KIMI_SFT_STEPS + 1))
-            and losses2 == losses1[KIMI_SFT_RESUME:] and not differ
-            and [d["step"] for d in dev2] == [KIMI_SFT_STEPS])
-    print(f"  resumed from step {KIMI_SFT_RESUME}: losses {losses2} equal run 1's bit for bit, "
-          f"and the final params, mu, nu, count ({len(state1)} tensors, checksums of their bits) "
-          f"differ in {differ[:5] or 'none'}: {same} {'ok' if same else 'FAIL'}")
-    if not same:
-        failures.append("kimi sft: resume not bit-equal")
 
-    # stage 3: the resumed run's last save -> HF, with the tokenizer
+    # stage 3: the run's last save -> HF, with the tokenizer
     secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
                    ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
                     "kimi_audio", "--tokenizer_model", tok_dir], failures, "kimi sft stage 3")
@@ -4364,7 +4627,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     k1_rows, k2_rows = kimi_sft_rows(attn, dev, failures, card, steps[0]["rows"])
     rows_s = time.perf_counter() - t0
     print(f"  phase 15: stage 0 {stage0_s:.1f} s{' (shared)' if shared else ''}, stage 1 "
-          f"{stage1_s:.1f} s, run 1 {run1_s:.1f} s, resumed run {run2_s:.1f} s, stage 3 "
+          f"{stage1_s:.1f} s, the run {run1_s:.1f} s, stage 3 "
           f"{secs:.1f} s, kernel vs plain step {check_s:.1f} s, kernel rows {rows_s:.1f} s, all "
           f"{time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, peak {peak:.2f} GiB, "
           f"launches {counts}  [{card}]")
@@ -4769,6 +5032,13 @@ def main() -> int:
         return check_faults(_build, dev, card)
     if sys.argv[1:] == ["--tune"]:
         return tune(_build, dev, card)
+    if sys.argv[1:] == ["--two-ranks"]:
+        failures = []
+        with phase_clock("phase 16"), tempfile.TemporaryDirectory() as tmp:
+            run_two_ranks(card, failures, Path(tmp))
+        if failures:
+            raise SystemExit(f"chip_smoke --two-ranks FAILED: {failures}")
+        return 0
 
     failures = []
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -4792,17 +5062,20 @@ def main() -> int:
         recipe_counts = run_recipe(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
     paths, k1_audio, k2_sft, k4_audio = run_audio_phases(dev, card, failures)
+    with phase_clock("phase 16"), tempfile.TemporaryDirectory() as tmp:
+        paths["two ranks"] = run_two_ranks(card, failures, Path(tmp))
     k1.update(k1_audio)
     k2.update(k2_sft)
     k4.update(k4_audio)
     audio_counts = paths["audio recipe"]
     for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
         for path, got in (("training", train_counts), ("recipe run", recipe_counts),
-                          ("audio recipe", audio_counts)):
+                          ("audio recipe", audio_counts), ("two ranks", paths["two ranks"])):
             if not got.get(name):
                 failures.append(f"{name} never launched on the {path} path")
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
-            recipe_counts.get(name, 0) + audio_counts.get(name, 0)
+            recipe_counts.get(name, 0) + audio_counts.get(name, 0) + \
+            paths["two ranks"].get(name, 0)
     for name in ("K1", "K2"):  # K3 stays off on the SFT paths (phases 14 and 15 check it)
         for path in ("qwen2_audio SFT", "kimi_audio SFT"):
             if not paths[path].get(name):
@@ -4834,4 +5107,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--gloo-rank"]:
+        sys.exit(gloo_rank_worker(sys.argv[2:]))
     sys.exit(main())

@@ -179,21 +179,21 @@ def test_bits_checksums_see_a_flipped_bit_and_a_swap():
 
 
 def test_recipe_depth_cuts_layers_only_without_room():
-    """Phase 9 takes RECIPE_MAX_LAYERS (4) of Llama-3.2-1B's 16 layers
+    """Phase 9 takes RECIPE_MAX_LAYERS (2) of Llama-3.2-1B's 16 layers
     (phase 8 trains all 16) when the temp directory holds three checkpoints
-    (~6.1 GB each at 4 layers: f32 params, mu, nu), the stage-1 seed
+    (~4.6 GB each at 2 layers: f32 params, mu, nu), the stage-1 seed
     (bf16), its step_0 and the stage-3 export (f32), and otherwise cuts
     layers further, never width."""
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 
     cfg = LlamaConfig.from_json_file(str(chip_smoke.CONFIG))
     L, ckpt, need = chip_smoke.recipe_depth(cfg, 10**12)
-    assert L == chip_smoke.RECIPE_MAX_LAYERS == 4 and 6.0e9 < ckpt < 6.2e9
+    assert L == chip_smoke.RECIPE_MAX_LAYERS == 2 and 4.5e9 < ckpt < 4.7e9
     assert cfg.num_hidden_layers == 16
     n = ckpt // 12  # parameters
     assert need == 3 * ckpt + (2 + 4 + 4) * n + 2**31
     cut, _, cut_need = chip_smoke.recipe_depth(cfg, need - 1)
-    assert 0 < cut < 4 and cut_need < need
+    assert 0 < cut < 2 and cut_need < need
     assert chip_smoke.recipe_depth(cfg, 0)[0] == 0
     assert cfg.num_hidden_layers == 16  # the config itself is untouched
 

@@ -78,6 +78,10 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.models.kimi_audio.processing_kimi_audio",
         "touchnet_tpu_torch.models.kimi_audio.generate_kimi_audio",
         "touchnet_tpu_torch.models.kimi_audio.inference_kimi_audio",
+        "touchnet_tpu_torch.parallel.dims",
+        "touchnet_tpu_torch.parallel.sharding",
+        "touchnet_tpu_torch.utils.distributed",
+        "touchnet_tpu_torch.bin.elastic",
     ):
         assert want in names
 
@@ -97,6 +101,8 @@ def test_package_imports_no_jax():
         "assert _build._lib is None, 'a kernel was built at import'\n"
         "from touchnet_tpu_torch.data import native\n"
         "assert native._lib is None, 'the native frontend was built at import'\n"
+        "import torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'a process group was started at import'\n"
         "print('ok')\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}

@@ -18,8 +18,10 @@
 #   - the causal_lm loader: the first 3 batches identical to the JAX
 #     loader's on the same DataBuilder shards;
 #   - bin.train.main on the tiny config: the loss drops over 8 steps,
-#     op_small gives the losses of no remat, each parallel degree (a later
-#     slice) raises, and each single-device mode runs.
+#     op_small gives the losses of no remat, each parallel degree raises
+#     in one process (dp and tp do not fit a world of 1; cp and pp are
+#     later slices; the multi-process runs are test_torch_parallel_train),
+#     and each single-device mode runs.
 
 import os
 
@@ -393,8 +395,9 @@ def test_trainer_main_loss_drops(tmp_path):
     assert (tmp_path / "exp" / "train_config.json").exists()
 
 
-# the single-device modes (since the slice that ported them) run; the
-# parallel degrees are still later slices and raise
+# the single-device modes (since the slice that ported them) run; in one
+# process every parallel degree raises: dp and tp do not fit its world of 1,
+# cp and pp are still later slices
 SINGLE_DEVICE_MODES = ("training_gradient_accumulation_steps",
                        "training_mixed_precision_reduce", "training_enable_cpu_offload")
 
@@ -410,8 +413,9 @@ SINGLE_DEVICE_MODES = ("training_gradient_accumulation_steps",
     ("training_enable_cpu_offload", "true"),
 ])
 def test_trainer_rejects_later_slices(tmp_path, flag, value):
-    """A parallel degree above 1 raises naming its flag; each single-device
-    mode runs 2 CPU steps with finite losses."""
+    """A parallel degree above 1 raises naming its flag (without a process
+    group: the world is 1); each single-device mode runs 2 CPU steps with
+    finite losses."""
     if flag not in SINGLE_DEVICE_MODES:
         with pytest.raises(ValueError, match=flag):
             ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: value}),

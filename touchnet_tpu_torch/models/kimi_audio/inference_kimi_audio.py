@@ -25,7 +25,10 @@
 #   --output_type both: generate_dual over both stacks, whose rows also
 #     carry "audio_codes" (the sampled audio ids >= kimia_token_offset,
 #     minus it).
-# Results land in <output_dir>/part_0 (one process: rank 0 of 1).
+# Results land in <output_dir>/part_<rank>: under torchrun each process
+# (RANK of WORLD_SIZE, on cuda:LOCAL_RANK) transcribes every WORLD_SIZE-th
+# utterance of the jsonl, as JAX splits it by jax.process_index() (:74);
+# stage 4's `cat part*` joins them.
 #
 # Checks the JAX CLI lacks, each turning silent wrong output into an error:
 #   - setup (processing_kimi_audio.check_special_tokens, which the SFT
@@ -73,6 +76,7 @@ from touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio import whisper
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
 from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
 from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+from touchnet_tpu_torch.utils.distributed import local_cuda_device, rank_and_world
 from touchnet_tpu_torch.utils.inference import (
     AudioJsonlDataset,
     InferenceConfig,
@@ -144,7 +148,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
         if not torch.cuda.is_available():
             raise RuntimeError("inference_kimi_audio: no CUDA card "
                                "(torch.cuda.is_available() is False)")
-        device = torch.device("cuda")
+        device = local_cuda_device()  # cuda:LOCAL_RANK
     model_config, tok_config = resolve_model_files(config, tok_config, KimiAudioConfig,
                                                    "kimi_audio")
     tokenizer = build_tokenizer(tok_config)
@@ -158,7 +162,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
         # decode feeds the text stream's token; the audio stream stays blank
         return F.embedding(toks, embed_w) + blank_emb[None]
 
-    rank, world = 0, 1
+    rank, world = rank_and_world()
     dataset = AudioJsonlDataset(config.data_list, rank, world)
     n_mels = model_config.speech_encoder_config.num_mel_bins
     max_frames = 2 * model_config.speech_tokenizer_config.max_source_positions

@@ -3,8 +3,9 @@
 # TrainSpec the trainer looks up by name.
 #
 # check_finite_params, head_weight and the TrainSpec registration port
-# touchnet_tpu/models/llama/__init__.py:25-67. The TrainSpec's
-# pipelining_fn and param_rules (meshes) wait for the multi-device slice.
+# touchnet_tpu/models/llama/__init__.py:25-67. The TrainSpec's param_rules
+# is the tensor-parallel plan (parallel/sharding.apply_tp); its
+# pipelining_fn waits for pipeline parallelism.
 
 import torch
 from torch import nn
@@ -36,6 +37,7 @@ def _register() -> None:
         init_params,
     )
     from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.parallel.sharding import apply_tp
     from touchnet_tpu_torch.utils.train_spec import TrainSpec, register_train_spec
 
     register_train_spec(
@@ -51,6 +53,7 @@ def _register() -> None:
             get_num_flop_per_token_fn=get_num_flop_per_token,
             get_num_params_fn=get_num_params,
             head_weight_fn=head_weight,
+            param_rules=apply_tp,
         )
     )
 

@@ -64,6 +64,14 @@ from touchnet_tpu_torch.models.common import (
 )
 from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from touchnet_tpu_torch.ops import attention as attn_ops
+from touchnet_tpu_torch.parallel.sharding import (
+    embed,
+    head_logits,
+    local,
+    sum_backward,
+    sum_forward,
+    tp_group,
+)
 
 
 class LlamaRMSNorm(nn.Module):
@@ -73,7 +81,7 @@ class LlamaRMSNorm(nn.Module):
         self.eps = eps
 
     def forward(self, x):
-        return rms_norm(x, self.weight.to(x.dtype), self.eps)
+        return rms_norm(x, local(self.weight).to(x.dtype), self.eps)
 
 
 class LlamaAttention(nn.Module):
@@ -98,10 +106,14 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         """SwiGLU, down(silu(gate(x)) * up(x)) (the JAX common.swiglu), with
-        each matmul under its residual name."""
+        each matmul under its residual name. Under tensor parallelism (the
+        plan of parallel/sharding.py) gate/up hold this rank's columns and
+        down its rows: x's gradient and down's output are summed over tp."""
+        group = tp_group(self)
+        x = sum_backward(x, group)
         g = _proj(self.gate_proj, x, "dot_gate")
         u = _proj(self.up_proj, x, "dot_up")
-        return _proj(self.down_proj, F.silu(g) * u, "dot_down")
+        return sum_forward(_proj(self.down_proj, F.silu(g) * u, "dot_down"), group)
 
 
 class _Tag(threading.local):
@@ -123,8 +135,8 @@ def _tagged(name: str):
 
 
 def _proj(mod: nn.Linear, x: torch.Tensor, name: str) -> torch.Tensor:
-    b = None if mod.bias is None else mod.bias.to(x.dtype)
-    w = mod.weight.to(x.dtype)
+    b = None if mod.bias is None else local(mod.bias).to(x.dtype)
+    w = local(mod.weight).to(x.dtype)
     with _tagged(name):
         return linear(x, w, b)
 
@@ -145,17 +157,21 @@ class LlamaDecoderLayer(nn.Module):
         attention step after rope (in serving the KV-cache write and the
         kernel call, supplied by inference_llama.forward_step; in training
         the packed flash attention, see forward). Weights are cast to h's
-        compute dtype (a no-op when the model is stored in it)."""
+        compute dtype (a no-op when the model is stored in it). Under tensor
+        parallelism q/k/v hold this rank's heads (the kernels see them
+        alone) and o its rows: the normed input's gradient and o's output
+        are summed over tp."""
         c = self.config
         B, Tq, _ = h.shape
         sa = self.self_attn
-        normed = self.input_layernorm(h)
-        q = _proj(sa.q_proj, normed, "dot_q").view(B, Tq, c.num_attention_heads, c.head_dim)
-        k = _proj(sa.k_proj, normed, "dot_k").view(B, Tq, c.num_key_value_heads, c.head_dim)
-        v = _proj(sa.v_proj, normed, "dot_v").view(B, Tq, c.num_key_value_heads, c.head_dim)
+        group = tp_group(sa)
+        normed = sum_backward(self.input_layernorm(h), group)
+        q = _proj(sa.q_proj, normed, "dot_q").view(B, Tq, -1, c.head_dim)
+        k = _proj(sa.k_proj, normed, "dot_k").view(B, Tq, -1, c.head_dim)
+        v = _proj(sa.v_proj, normed, "dot_v").view(B, Tq, -1, c.head_dim)
         q, k = apply_rope(q, k, position_ids, inv_freq)
         attn = attend(q, k, v)
-        h = h + _proj(sa.o_proj, attn.reshape(B, Tq, -1), "dot_o")
+        h = h + sum_forward(_proj(sa.o_proj, attn.reshape(B, Tq, -1), "dot_o"), group)
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
@@ -354,7 +370,7 @@ def forward(
     document mask (attention_mask in the batch contract, 0 = padding)."""
     mp = model.model
     if inputs_embeds is None:
-        inputs_embeds = F.embedding(input_ids, mp.embed_tokens.weight)
+        inputs_embeds = embed(input_ids, mp.embed_tokens)
     h = inputs_embeds.to(compute_dtype)
     B, T, _ = h.shape
     if position_ids is None:
@@ -368,8 +384,8 @@ def forward(
     h = mp.norm(h)
     if return_hidden:
         return h
-    head_w = mp.embed_tokens.weight if config.tie_word_embeddings else model.lm_head.weight
-    return linear(h, head_w.to(compute_dtype))
+    return head_logits(h, mp.embed_tokens if config.tie_word_embeddings else model.lm_head,
+                       compute_dtype)
 
 
 def get_num_params(config: LlamaConfig, exclude_embedding: bool = False) -> int:

@@ -21,8 +21,10 @@
 # causal whisper tower through K1, the pool, the projector), merges the
 # audio into the prompt's embeddings, and generates greedily with the
 # port's generate (K1 prefill, K4 decode), as JAX does. Results land in
-# <output_dir>/part_0 as {"key", "txt", "hyp"} lines (one process: rank 0 of
-# 1).
+# <output_dir>/part_<rank> as {"key", "txt", "hyp"} lines: under torchrun
+# each process (RANK of WORLD_SIZE, on cuda:LOCAL_RANK) transcribes every
+# WORLD_SIZE-th utterance of the jsonl, as JAX splits it by
+# jax.process_index() (:65); stage 4's `cat part*` joins them.
 #
 # Checks the JAX CLI lacks:
 #   - the tokenizer must map "<|AUDIO|>" to exactly [audio_token_index]
@@ -57,6 +59,7 @@ from touchnet_tpu_torch.models.qwen2_audio.processing_qwen2_audio import (
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
 from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
 from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+from touchnet_tpu_torch.utils.distributed import local_cuda_device, rank_and_world
 from touchnet_tpu_torch.utils.inference import (
     AudioJsonlDataset,
     InferenceConfig,
@@ -114,7 +117,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
         if not torch.cuda.is_available():
             raise RuntimeError("inference_qwen2_audio: no CUDA card "
                                "(torch.cuda.is_available() is False)")
-        device = torch.device("cuda")
+        device = local_cuda_device()  # cuda:LOCAL_RANK
     model_config, tok_config = resolve_model_files(config, tok_config, Qwen2AudioConfig,
                                                    "qwen2_audio")
     tokenizer = build_tokenizer(tok_config)
@@ -123,7 +126,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
     model = load_params(config, model_config, dtype, device)
     embed_w = model.language_model.model.embed_tokens.weight
 
-    rank, world = 0, 1
+    rank, world = rank_and_world()
     dataset = AudioJsonlDataset(config.data_list, rank, world)
     n_mels = model_config.audio_config.num_mel_bins
 

@@ -6,8 +6,10 @@
 #
 # The TrainSpec registration ports touchnet_tpu/models/touch_audio/
 # __init__.py:39-62, with input_features among the forward's batch keys.
-# Its param_rules (meshes) and pipelining_fn (pipeline_touch_audio.py) wait
-# for the multi-device slice. additional_pre_init_fn checks, before any
+# Its param_rules is the tensor-parallel plan (parallel/sharding.apply_tp:
+# the llama layers', the projector rowwise); pipelining_fn
+# (pipeline_touch_audio.py) waits for pipeline parallelism.
+# additional_pre_init_fn checks, before any
 # work, that the data's stacked features are as wide as the projector.
 
 from touchnet_tpu_torch.data import DataConfig, functions
@@ -39,6 +41,7 @@ def _register() -> None:
         init_params,
     )
     from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+    from touchnet_tpu_torch.parallel.sharding import apply_tp
     from touchnet_tpu_torch.utils.train_spec import TrainSpec, register_train_spec
 
     register_train_spec(
@@ -54,6 +57,7 @@ def _register() -> None:
             get_num_flop_per_token_fn=get_num_flop_per_token,
             get_num_params_fn=get_num_params,
             head_weight_fn=head_weight,
+            param_rules=apply_tp,
             forward_batch_keys=("input_ids", "inputs_embeds", "input_features"),
             additional_pre_init_fn=check_feature_width,
         )

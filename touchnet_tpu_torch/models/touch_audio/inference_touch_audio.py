@@ -20,8 +20,10 @@
 # right-padded batches go through the port's generate (K1 prefill, K4
 # decode) with JAX's decode settings: greedy, no repeated bigrams,
 # repetition penalty 1.5 over the whole generated history, the prompt's
-# pad/bos ids primed into both. Results land in <output_dir>/part_0 (one
-# process: rank 0 of 1).
+# pad/bos ids primed into both. Results land in <output_dir>/part_<rank>:
+# under torchrun each process (RANK of WORLD_SIZE, on cuda:LOCAL_RANK)
+# transcribes every WORLD_SIZE-th utterance of the jsonl, as JAX splits it
+# by jax.process_index() (:82); stage 4's `cat part*` joins them.
 #
 # Two checks the JAX CLI lacks: the stacked features must be as wide as
 # the projector's input (touch_audio.check_feature_width), and the command
@@ -41,6 +43,7 @@ from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import Touc
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
 from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
 from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+from touchnet_tpu_torch.utils.distributed import local_cuda_device, rank_and_world
 from touchnet_tpu_torch.utils.inference import (
     AudioJsonlDataset,
     InferenceConfig,
@@ -119,7 +122,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
         if not torch.cuda.is_available():
             raise RuntimeError("inference_touch_audio: no CUDA card "
                                "(torch.cuda.is_available() is False)")
-        device = torch.device("cuda")
+        device = local_cuda_device()  # cuda:LOCAL_RANK
     model_config, tok_config = resolve_model_files(config, tok_config, TouchAudioConfig,
                                                    "touch_audio")
     check_feature_width(model_config, data_config)
@@ -133,7 +136,7 @@ def main(argv=None, device: Optional[torch.device] = None) -> str:
     data_config.audiofeat_spec_sub = False
     data_config.audiofeat_spec_trim = False
 
-    rank, world = 0, 1
+    rank, world = rank_and_world()
     dataset = AudioJsonlDataset(config.data_list, rank, world)
     proj, bos_emb = prompt_parts(model, tokenizer)
 

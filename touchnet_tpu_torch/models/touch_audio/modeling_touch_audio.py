@@ -18,15 +18,14 @@
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from touchnet_tpu_torch.models.common import linear
 from touchnet_tpu_torch.models.llama import head_weight as llama_head_weight
 from touchnet_tpu_torch.models.llama import modeling_llama
 from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
     TouchAudioConfig,
 )
+from touchnet_tpu_torch.parallel.sharding import embed, rowwise_linear
 
 
 class TouchAudioForCausalLM(nn.Module):
@@ -103,11 +102,10 @@ def forward(
     if inputs_embeds is None:
         parts = []
         if input_ids is not None:
-            embed = model.language_model.model.embed_tokens.weight
-            parts.append(F.embedding(input_ids, embed).to(compute_dtype))
+            parts.append(embed(input_ids, model.language_model.model.embed_tokens)
+                         .to(compute_dtype))
         if input_features is not None:
-            parts.append(linear(input_features.to(compute_dtype),
-                                model.projector.weight.to(compute_dtype)))
+            parts.append(rowwise_linear(input_features.to(compute_dtype), model.projector))
         if not parts:
             raise ValueError("touch_audio forward: needs input_ids and/or input_features")
         inputs_embeds = parts[0] if len(parts) == 1 else parts[0] + parts[1]

@@ -5,9 +5,15 @@
 # cadence (:65-69: step 1 to fail fast, every training_ckpt_interval steps,
 # and forced at the last), save (:71), load (:106) with the shape and dtype
 # checks of _from_savable (:202-236), and export_weights_only (:255). DCP
-# is the original TouchNet's format; it runs here in one process (no
-# process group), and a sharded trainer loads the same files. The layout is
-# the JAX manager's (Orbax) one:
+# is the original TouchNet's format. One process writes and reads it with
+# no process group; a sharded trainer (``group``: a gloo group over every
+# rank, apart from the step's) writes each rank's shards of its DTensors
+# (FSDP's, TP's) and every rank reads its own, so a resume at the same
+# world size is exact; and any one process reads the whole tensors back
+# (bin/convert_ckpt_to_hf.py). Every rank's loader state goes into the same
+# step: the states are gathered, merged (each is keyed by its dp rank) and
+# written once; a resume at another data-parallel world size raises in the
+# loader, as JAX's does. The layout is the JAX manager's (Orbax) one:
 #   <dump>/<ckpt_folder>/step_<N>/model/        DCP, keyed by state_dict name
 #                                 optimizer/    DCP: mu.<name>, nu.<name>, count
 #                                 train_state/metadata   JSON {"step": N}
@@ -36,12 +42,15 @@ import os
 import re
 import shutil
 import threading
+import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 from torch.distributed.checkpoint import FileSystemReader, FileSystemWriter
 
+from touchnet_tpu_torch.parallel.sharding import local, on_host
 from touchnet_tpu_torch.utils.logging import logger
 
 MODEL = "model"
@@ -55,11 +64,15 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torc
 class CheckpointManager:
     """Save and load of {model, optimizer, dataloader, step}.
 
-    ``model`` and ``optimizer`` are flat dicts of tensors keyed by name;
-    load copies into them in place. ``dataloader`` has state_dict() and
-    load_state_dict() (the trainer swaps in a view of its prefetcher)."""
+    ``model`` and ``optimizer`` are flat dicts of tensors (or DTensors)
+    keyed by name; load copies into them in place. ``dataloader`` has
+    state_dict() and load_state_dict() (the trainer swaps in a view of its
+    prefetcher). ``group``: the process group of a sharded run, used only
+    here (also from the async writer's thread), or None for one process."""
 
-    def __init__(self, dataloader, job_config):
+    def __init__(self, dataloader, job_config, group=None):
+        self.group = group
+        self.rank = dist.get_rank(group) if group is not None else 0
         self.enabled = job_config.training_enable_ckpt
         self.job_config = job_config
         self.dataloader = dataloader
@@ -73,6 +86,9 @@ class CheckpointManager:
         self._staged: Optional[torch.cuda.Event] = None
         self._buffers: Dict[str, torch.Tensor] = {}
         self._stream = None
+        # per saved step: ms the caller blocked in save (of it, waiting for
+        # the previous write) and the write's seconds (telemetry)
+        self.times: Dict[int, Dict[str, float]] = {}
         if self.enabled:
             os.makedirs(self.folder, exist_ok=True)
             logger.info(f"CheckpointManager at {self.folder} (async={self.async_mode}, "
@@ -93,7 +109,9 @@ class CheckpointManager:
         whether the cadence saved this step."""
         if not self._should_save(step, force):
             return False
+        t0 = time.perf_counter()
         self.wait_until_finished()  # one write at a time; it reuses the buffers
+        waited = time.perf_counter() - t0
         if before_stage is not None:
             before_stage()
         tensors = {f"{MODEL}.{k}": v for k, v in model.items()}
@@ -101,14 +119,17 @@ class CheckpointManager:
         host = self._stage(tensors, copy_host=self.async_mode)
         items = {TRAIN_STATE: {"step": int(step)}}
         if self.dataloader is not None:
-            items[DATALOADER] = _jsonify(self.dataloader.state_dict())
+            items[DATALOADER] = self._loader_state()
         staged = self._staged
 
         def write():
             if staged is not None:
                 staged.synchronize()
+            w0 = time.perf_counter()
             self._write(step, host, items)
+            self.times[step]["write_s"] = time.perf_counter() - w0
 
+        self.times[step] = {"waited_ms": waited * 1e3}
         if self.async_mode:
             self._thread = threading.Thread(target=self._run, args=(write,), daemon=True)
             self._thread.start()
@@ -116,29 +137,45 @@ class CheckpointManager:
         else:
             write()
             logger.info(f"checkpoint saved for step {step}")
+        self.times[step]["blocked_ms"] = (time.perf_counter() - t0) * 1e3
         return True
+
+    def _loader_state(self) -> dict:
+        """The loader state of every rank, merged (each rank's entries are
+        keyed by its dp rank; the ranks of a tp group hold the same)."""
+        state = _jsonify(self.dataloader.state_dict())
+        if self.group is None:
+            return state
+        states = [None] * dist.get_world_size(self.group)
+        dist.all_gather_object(states, state, group=self.group)
+        merged = {}
+        for st in states:
+            merged.update(st)
+        return merged
 
     def _stage(self, tensors: Dict[str, torch.Tensor],
                copy_host: bool = True) -> Dict[str, torch.Tensor]:
-        """Host copies of ``tensors``: clones on the CPU; on the card copies
-        into pinned buffers (kept for the next save) on a copy stream that
-        first waits for the compute stream, with an event recorded after
-        them (self._staged). A host tensor among card tensors is copied into
-        its buffer by the host, before this returns, or, without
-        ``copy_host``, handed over as it is."""
+        """Host copies of ``tensors`` (of a DTensor, of its local shard,
+        laid out as it: parallel/sharding.on_host): clones on the CPU; on
+        the card copies into pinned buffers (kept for the next save) on a
+        copy stream that first waits for the compute stream, with an event
+        recorded after them (self._staged). A host tensor among card tensors
+        is copied into its buffer by the host, before this returns, or,
+        without ``copy_host``, handed over as it is."""
         self._staged = None
-        cuda = [t for t in tensors.values() if t.is_cuda]
+        cuda = [local(t) for t in tensors.values() if local(t).is_cuda]
         if not cuda:
-            return {k: t.detach().clone() for k, t in tensors.items()}
+            return {k: on_host(t, local(t).detach().clone()) for k, t in tensors.items()}
         device = cuda[0].device
         if self._stream is None:
             self._stream = torch.cuda.Stream(device)
         self._stream.wait_stream(torch.cuda.current_stream(device))
         host = {}
         with torch.cuda.stream(self._stream):
-            for k, t in tensors.items():
+            for k, whole in tensors.items():
+                t = local(whole)
                 if not t.is_cuda and not copy_host:
-                    host[k] = t.detach()
+                    host[k] = whole.detach()
                     continue
                 buf = self._buffers.get(k)
                 if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
@@ -149,27 +186,40 @@ class CheckpointManager:
                     t.record_stream(self._stream)
                 else:
                     buf.copy_(t.detach())
-                host[k] = buf
+                host[k] = on_host(whole, buf)
             self._staged = torch.cuda.Event()
             self._staged.record(self._stream)
         return host
 
     def _write(self, step: int, host: Dict[str, torch.Tensor], items: Dict[str, Any]):
+        """Every rank writes its shards; rank 0 the JSON items and the
+        rename, between barriers of the checkpoint group."""
         final = os.path.join(self.folder, f"step_{step}")
         tmp = final + ".partial"
-        shutil.rmtree(tmp, ignore_errors=True)
+        if self.rank == 0:
+            shutil.rmtree(tmp, ignore_errors=True)
+            for part in (MODEL, OPTIMIZER):
+                os.makedirs(os.path.join(tmp, part))
+        self._barrier()
         for part in (MODEL, OPTIMIZER):
             prefix = part + "."
-            dcp.save({k[len(prefix):]: v for k, v in host.items() if k.startswith(prefix)},
-                     storage_writer=FileSystemWriter(os.path.join(tmp, part), thread_count=4),
-                     no_dist=True)
-        for name, obj in items.items():
-            os.makedirs(os.path.join(tmp, name))
-            with open(os.path.join(tmp, name, "metadata"), "w") as f:
-                json.dump(obj, f)
-        shutil.rmtree(final, ignore_errors=True)
-        os.replace(tmp, final)
-        self._purge()
+            _save({k[len(prefix):]: v for k, v in host.items() if k.startswith(prefix)},
+                  FileSystemWriter(os.path.join(tmp, part), thread_count=4), self.group)
+        if self.rank == 0:
+            for name, obj in items.items():
+                os.makedirs(os.path.join(tmp, name))
+                with open(os.path.join(tmp, name, "metadata"), "w") as f:
+                    json.dump(obj, f)
+        self._barrier()
+        if self.rank == 0:
+            shutil.rmtree(final, ignore_errors=True)
+            os.replace(tmp, final)
+            self._purge()
+        self._barrier()
+
+    def _barrier(self):
+        if self.group is not None:
+            dist.barrier(group=self.group)
 
     def _run(self, fn):
         try:
@@ -238,8 +288,11 @@ class CheckpointManager:
         for part, tensors in parts.items():  # every check before any read
             _check_fits(os.path.join(root, part), tensors, part)
         for part, tensors in parts.items():
-            dcp.load(tensors, storage_reader=FileSystemReader(os.path.join(root, part)),
-                     no_dist=True)
+            reader = FileSystemReader(os.path.join(root, part))
+            if self.group is None:
+                dcp.load(tensors, storage_reader=reader, no_dist=True)
+            else:
+                dcp.load(tensors, storage_reader=reader, process_group=self.group)
         if step != 0:
             if DATALOADER not in exclude and self.dataloader is not None:
                 self.dataloader.load_state_dict(_read_json(root, DATALOADER))
@@ -287,11 +340,23 @@ def _jsonify(obj):
     return obj
 
 
+def _save(state: Dict[str, torch.Tensor], writer, group) -> None:
+    if group is None:
+        dcp.save(state, storage_writer=writer, no_dist=True)
+    else:
+        dcp.save(state, storage_writer=writer, process_group=group)
+
+
 def export_weights_only(model: Dict[str, torch.Tensor], folder: str,
-                        dtype: Optional[str] = None) -> None:
+                        dtype: Optional[str] = None, group=None) -> None:
     """The final weights-only export (DCP, keyed by state_dict name), cast
-    to ``dtype`` (float32 | bfloat16 | float16) when given."""
+    to ``dtype`` (float32 | bfloat16 | float16) when given; a sharded run
+    (``group``) writes each rank's shards."""
     cast = _DTYPES[dtype] if dtype is not None else None
-    host = {k: (v.detach().to("cpu", cast) if cast is not None else v.detach().cpu())
-            for k, v in model.items()}
-    dcp.save(host, storage_writer=FileSystemWriter(folder), no_dist=True)
+    host = {k: on_host(v, local(v).detach().to("cpu", cast) if cast is not None
+                       else local(v).detach().cpu()) for k, v in model.items()}
+    if group is None or dist.get_rank(group) == 0:
+        os.makedirs(folder, exist_ok=True)
+    if group is not None:
+        dist.barrier(group=group)
+    _save(host, FileSystemWriter(folder), group)

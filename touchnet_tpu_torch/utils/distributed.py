@@ -1,11 +1,18 @@
 # Copyright (c) 2026 touchnet_tpu authors.
-# Run-time services of the trainer: garbage-collection control, seeding and
-# determinism, and the step watchdog.
+# Run-time services of the trainer: the process group, garbage-collection
+# control, seeding and determinism, and the step watchdog.
 #
-# Port of touchnet_tpu/utils/distributed.py: GarbageCollection (:21),
-# set_determinism (:99) and StepWatchdog (:114). The JAX module's process
-# initialisation and XLA-flag helpers have no counterpart on one card.
+# Port of touchnet_tpu/utils/distributed.py: init_distributed (:36-67),
+# GarbageCollection (:21), set_determinism (:99), StepWatchdog (:114),
+# barrier and the dist_* metric reductions (:198-230). JAX starts one
+# controller per host from COORDINATOR_ADDRESS; here every card is a
+# process started by torchrun (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+# MASTER_PORT), on cuda:LOCAL_RANK over NCCL, or over gloo when the caller
+# passes the CPU device (the tests). Without torchrun's environment there is
+# no process group: world 1, as before. The XLA-flag helpers have no
+# counterpart.
 
+import datetime
 import faulthandler
 import gc
 import logging
@@ -13,12 +20,97 @@ import os
 import random
 import threading
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from touchnet_tpu_torch.utils.logging import logger
+
+
+def torchrun_env() -> bool:
+    """Whether this process was started by torchrun (its RANK and
+    WORLD_SIZE are in the environment)."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def rank_and_world() -> Tuple[int, int]:
+    """(rank, world size): the process group's when there is one, else
+    torchrun's environment, else (0, 1)."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    if torchrun_env():
+        return int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    return 0, 1
+
+
+def local_cuda_device() -> torch.device:
+    """cuda:LOCAL_RANK (cuda:0 without torchrun), the card of this process;
+    raises when there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card (torch.cuda.is_available() is False); pass "
+                           "device=torch.device('cpu') to run on the CPU")
+    return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def init_distributed(device: torch.device, timeout_s: float = 300.0) -> bool:
+    """Start the process group from torchrun's environment (env://): NCCL
+    with this process on ``device`` (cuda:LOCAL_RANK), or gloo when
+    ``device`` is the CPU. A group that is already up (a test's FileStore
+    rendezvous) is kept. Returns whether there is a group: False without
+    torchrun's environment, where the trainer runs as one process."""
+    if dist.is_initialized():
+        return True
+    if not torchrun_env():
+        return False
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+        backend = "nccl"
+    else:
+        backend = "gloo"
+    kwargs = dict(backend=backend, timeout=datetime.timedelta(seconds=timeout_s))
+    if device.type == "cuda":
+        kwargs["device_id"] = device
+    dist.init_process_group(**kwargs)
+    logger.info(f"process group up: rank {dist.get_rank()}/{dist.get_world_size()}, "
+                f"{backend} on {device}")
+    return True
+
+
+def barrier(group=None) -> None:
+    """Every rank of ``group`` waits for the others; no-op without a group."""
+    if dist.is_initialized():
+        dist.barrier(group=group)
+
+
+def _reduce(x, op, group) -> float:
+    if not dist.is_initialized():
+        return float(x)
+    device = torch.device("cpu")
+    if dist.get_backend(group) == "nccl":
+        device = torch.device("cuda", torch.cuda.current_device())
+    t = torch.as_tensor(x, dtype=torch.float64).detach().to(device).reshape(())
+    dist.all_reduce(t, op=op, group=group)
+    return float(t)
+
+
+def dist_max(x, group=None) -> float:
+    """The largest of a scalar over the ranks of ``group``."""
+    return _reduce(x, dist.ReduceOp.MAX, group)
+
+
+def dist_min(x, group=None) -> float:
+    return _reduce(x, dist.ReduceOp.MIN, group)
+
+
+def dist_sum(x, group=None) -> float:
+    return _reduce(x, dist.ReduceOp.SUM, group)
+
+
+def dist_mean(x, group=None) -> float:
+    n = dist.get_world_size(group) if dist.is_initialized() else 1
+    return dist_sum(x, group) / n
 
 
 class GarbageCollection:

@@ -7,6 +7,12 @@
 # generations; here it holds the one card the port targets, and memory comes
 # from torch.cuda's allocator statistics. The trainer hands it device
 # tensors and it reads them (.item(), a host sync) only on logging steps.
+# Under torchrun every rank keeps its history and rank 0 alone prints the
+# line; TensorBoard runs on rank 0 under training_tb_rank_0_only (JAX
+# :160-163); the peak memory is the max
+# over the ranks, and tokens/s is per card: each process counts the tokens
+# of its one loader stream (JAX divides its count by the streams it holds,
+# :191-195), which the ranks of a tp group share (non_data_parallel_size).
 #
 # The backends are host services: every logged line also goes to wandb
 # (training_enable_wandb) or TensorBoard (training_enable_tensorboard,
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from touchnet_tpu_torch.utils.distributed import dist_max, rank_and_world
 from touchnet_tpu_torch.utils.logging import _process_index, logger
 
 # bf16 dense peak, a spec constant and not a measurement: NVIDIA H100 SXM
@@ -105,9 +112,11 @@ class MetricsProcessor:
     loss, acc, grad norm, lr, peak memory, tokens/s, MFU, data-loading share.
     Every logged line is also kept in ``history`` (a dict per step)."""
 
-    def __init__(self, job_config, device: torch.device):
+    def __init__(self, job_config, device: torch.device, non_data_parallel_size: int = 1):
         self.job_config = job_config
         self.device = device
+        self.rank = rank_and_world()[0]
+        self.non_data_parallel_size = non_data_parallel_size
         self.peak_flops = get_peak_flops(device)
         self.logger_backend = _build_logger(job_config, job_config.training_trace_dump_folder)
         self.num_flop_per_token = 0  # set by the trainer
@@ -130,7 +139,8 @@ class MetricsProcessor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         time_delta = time.perf_counter() - self.time_last_log
-        tps = self.ntokens_since_last_log / time_delta if time_delta else 0.0
+        tps = (self.ntokens_since_last_log / time_delta / self.non_data_parallel_size
+               if time_delta else 0.0)
         out["step"] = step
         out["throughput/tps"] = tps
         out["time/step_s"] = time_delta / max(self.steps_since_last_log, 1)
@@ -144,7 +154,7 @@ class MetricsProcessor:
                   f"acc {out.get('acc', 0):.4f}", f"gnorm {out.get('grad_norm', 0):.3f}",
                   f"lr {out.get('lr', 0):.2e}"]
         if self.device.type == "cuda":
-            peak = torch.cuda.max_memory_allocated(self.device)
+            peak = dist_max(torch.cuda.max_memory_allocated(self.device))
             out["memory/peak_gib"] = peak / _GIB
             out["memory/peak_pct"] = 100 * peak / self.total_memory
             pieces.append(f"mem {out['memory/peak_gib']:.1f}GiB({out['memory/peak_pct']:.0f}%)")
@@ -153,7 +163,8 @@ class MetricsProcessor:
         if "throughput/mfu_pct" in out:
             pieces.append(f"mfu {out['throughput/mfu_pct']:.2f}%")
         pieces.append(f"data {out['time/data_loading_pct']:.1f}%")
-        logger.info("  ".join(pieces))
+        if self.rank == 0:
+            logger.info("  ".join(pieces))
         self.logger_backend.log({k: v for k, v in out.items() if k != "step"}, step)
         self.history.append(out)
         self.ntokens_since_last_log = 0
@@ -166,8 +177,9 @@ class MetricsProcessor:
         """One line of dev-set metrics (the JAX log_dev, metrics.py:275-281),
         also kept in ``dev_history``."""
         self.logger_backend.log({f"dev/{k}": v for k, v in metrics.items()}, step)
-        parts = "  ".join(f"{k} {v:.4f}" for k, v in metrics.items())
-        logger.info(f"[dev] step {step:6d}  {parts}")
+        if self.rank == 0:
+            parts = "  ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+            logger.info(f"[dev] step {step:6d}  {parts}")
         self.dev_history.append({"step": step, **metrics})
 
     def close(self) -> None:

@@ -8,11 +8,16 @@
 # weight decay 0.1 for AdamW and 0 for Adam, eps from the config) and the
 # schedule. The schedule takes a python int or a device tensor, so the
 # trainer evaluates it on the optimizer's device-side count without a sync.
+# Over sharded gradients (DTensors: FSDP's shards, TP's) the norm is the
+# whole gradient's: each tensor's local sum of squares, summed over the mesh
+# dimensions the tensor is sharded on (a replicated dimension holds copies),
+# then the square root; every rank gets the same value.
 
 import math
 from typing import Callable, List, NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from touchnet_tpu_torch.bin import TrainConfig
 
@@ -86,6 +91,25 @@ def build_optimizer(job_config: TrainConfig) -> OptimizerBundle:
 
 def global_grad_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
     """sqrt of the sum of squares over every gradient, in f32 (optax
-    global_norm); a None gradient counts as zero."""
-    sq = [torch.sum(g.float() * g.float()) for g in grads if g is not None]
-    return torch.sqrt(torch.stack(sq).sum())
+    global_norm); a None gradient counts as zero. A DTensor gradient counts
+    its whole tensor: its shards' squares are summed over the mesh
+    dimensions it is sharded on."""
+    from torch.distributed.tensor import DTensor
+
+    plain, sharded = [], {}
+    for g in grads:
+        if g is None:
+            continue
+        if isinstance(g, DTensor):
+            loc = g.to_local().float()
+            dims = tuple(i for i, p in enumerate(g.placements) if not p.is_replicate())
+            sharded.setdefault((g.device_mesh, dims), []).append(torch.sum(loc * loc))
+        else:
+            plain.append(torch.sum(g.float() * g.float()))
+    total = torch.stack(plain).sum() if plain else None
+    for (mesh, dims), sq in sharded.items():
+        part = torch.stack(sq).sum()
+        for d in dims:
+            dist.all_reduce(part, group=mesh.get_group(d))
+        total = part if total is None else total + part
+    return torch.sqrt(total)

@@ -11,7 +11,7 @@
 #   config_cls(path)           -> model config
 #   init_params_fn(config,key) -> param pytree (on host or sharded via jit)
 #   forward_fn(params, batch-kwargs, config, ...) -> logits
-#   param_rules                -> sharding-rule table (parallelize plan)
+#   param_rules                -> the tensor-parallel plan: fn(model, tp_mesh, log)
 #   loss_fn / acc_fn           -> pack CE + accuracy
 #   build_dataloader_fn        -> per-model datapipe chain
 #   build_tokenizer_fn         -> tokenizer factory
