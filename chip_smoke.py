@@ -32,7 +32,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      (B1 T16384, 10 packed documents; the plain version one kv head at a
      time so its f32 scores fit); at the timed shapes also each of its
      three kernels (delta, dkv, dq) per launch, by CUDA events the
-     launcher records between them, each against its own bound;
+     launcher records between them, each against its own bound; then (p),
+     context parallelism's calls at cp 2 of Llama-3.2-1B's 1 x 8192 (B1
+     T4096 a rank, H32/8 D64 bf16, packed): K1 on a rank's own chunk
+     (q_offset = kv_offset = 4096), its past chunk (4096, 0), the future
+     chunk (0, 4096: out 0 and lse -inf, no NaN) and the allgather call
+     (4096 queries at 4096 over 8192 keys), the ring's combine of each
+     rank's two steps against the allgather call, and K2 on each step and
+     on the allgather call given the final out and lse, each against its
+     plain version given the same, the future step's gradients 0 and the
+     steps' sum equal to the allgather call's (check_cp_cases);
   7. K3 (fused lm-head + cross-entropy, forward and backward) against its
      plain versions at the training shape's vocab, and at phase 8's own
      N = 16384 rows, where the forward's blocks walk vocab splits of 14
@@ -85,17 +94,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      1x16384 with its checkpoint flags (interval 5 here, keep 2, async),
      a dev list of seeded shards, profiling (freq 5, keep 1) and memory
      snapshots, from step_0; its first 3 losses against the in-process
-     run's (bit-equal, or within LAUNCHER_LOSS_RTOL); then a fresh torchrun
-     with --training_ckpt_load_step 5 (and sync saves, to time one) runs
-     steps 6-10. Checks the saves at 1, 5 and 10 with a finite dev line
-     after each, a trace naming K1, K2 and K3 kernels, the snapshot files,
-     and that the resumed run's losses and its final params, mu, nu and
-     count (integer checksums of their bits, step_10 read back) equal the
-     first run's bit for bit; the launches are each torchrun process's
-     own (its train_summary_rank0.json). Prints the bytes of a checkpoint,
-     how long the loop blocked in each save, both runs' step times and the
-     peak memory. Stage 3, convert_ckpt_to_hf --step -1 --config on
-     step_10: its tensors, read back with the port's reader, equal the
+     run's (bit-equal). Checks the saves at 1, 5 and 10 with a finite dev
+     line after each, a trace naming K1, K2 and K3 kernels and the snapshot
+     files (no resumed run, for the script's clock: phase 16 resumes a
+     sharded checkpoint of two ranks, phases 8 and 10 one of one); the
+     launches are the torchrun process's own (its
+     train_summary_rank0.json). Prints the bytes of a checkpoint, how long
+     the loop blocked in each save, the step times and the peak memory.
+     Stage 3, convert_ckpt_to_hf --step -1 --config on step_10 (its
+     params, mu, nu and count read back as integer checksums of their
+     bits): its tensors, read back with the port's reader, equal the
      final params bit for bit, and greedy generate (K1, K4) from the
      export gives the checkpoint's model's tokens (2 prompts, 16 new
      tokens). Each stage prints its seconds and bytes. The model is
@@ -120,7 +128,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      ms, tokens/s, MFU (phase 8's
      count), peak memory, the data-wait share per step, launches per step,
      losses finite and falling, the resumed run's losses and final state
-     equal the first's bit for bit; stage 3, convert_ckpt_to_hf
+     equal the first's bit for bit; what holds its step back: LOADER_STEPS
+     steps without checkpoints or dev under 2 loader threads, and on
+     batches made first and held in host memory; stage 3, convert_ckpt_to_hf
      --model_type touch_audio: the export equals the final params bit for
      bit; then one step at 1x4096, kernel path against plain path, under
      phase 8's limits;
@@ -232,13 +242,23 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      path, under phase 8's limits; K1 and K2 (n) at the tower's training
      shape (non-causal, no segment ids).
  16. (last) two ranks on the one card: Llama-3.2-1B at full width and
-     TWO_RANK_LAYERS (2) layers, 1x4096 a rank, 3 steps of bin.train.main in
-     two processes over a gloo process group on cuda:0 (gloo takes CUDA
-     tensors for FSDP2's all-gather and reduce-scatter; NCCL takes one rank
-     a card), first dp_shard 2 (FSDP2 over both ranks), then tp 2 (the TP
-     plan: each rank's K1/K2 on its heads, K3 on its vocab shard, merged by
-     the vocab-parallel combine): losses finite and equal on both ranks,
-     K1, K2 and K3 launched by each, step ms and peak memory.
+     TWO_RANK_LAYERS (2) layers, 2 steps of bin.train.main a layout, in one
+     pair of processes over a gloo process group on cuda:0 (gloo takes CUDA
+     tensors for FSDP2's all-gather and reduce-scatter, not for
+     point-to-point, which the ring stages through the host; NCCL takes one
+     rank a card): tp 2 at 1x4096 (the TP plan: each rank's K1/K2 on its
+     heads, K3 on its vocab shard, merged by the vocab-parallel combine);
+     dp_shard 2 at 1x4096 a rank (FSDP2 over both ranks, each its own dp
+     loader stream) with a sync save and a dev pass after each step, then a
+     run resumed from its step 1 (the sharded DCP checkpoint read back by
+     both ranks): step 2's loss, grad norm and dev line and each rank's
+     shards of the final params, mu, nu and count equal bit for bit; cp 2
+     at 1x8192 (4096 a rank) with each rotate method, allgather (FSDP2
+     over the flattened dp_shard x cp mesh of both ranks) and alltoall (the
+     ring, 1 step): losses finite and equal on both ranks, K1, K2 and K3
+     launched by each, the cp layouts' step-1 loss and grad norm against
+     one process (world 1) on the same 1x8192 batch and against each
+     other (CP_LOSS_RTOL, CP_GRAD_NORM_RTOL), step ms and peak memory.
 Each phase prints its wall seconds ("[phase N] wall"), and the script its
 whole ("[all phases] wall").
 Then one JSON line of per-kernel results, the card line, and the last
@@ -247,8 +267,8 @@ the main paths that run it (K1: serving, training, the single-device
 modes, the recipe run with its generate from the export, the audio recipe
 run, the ASR CLI and the qwen2_audio and kimi_audio ASR stages; K4:
 serving, that generate, the ASR CLI and the two ASR stages; K2, K3:
-training, the modes, the recipe run (its two torchrun processes), the
-audio recipe run and phase 16's ranks; K1 and K2
+training, the modes, the recipe run (its torchrun process), the
+audio recipe run and phase 16's ranks (every layout); K1 and K2
 also qwen2_audio's and kimi_audio's SFT runs), each path driven with the
 counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
@@ -259,7 +279,10 @@ the decode case), with every timed case under "cases":
     peak) and its bytes (each input read once, each output written once)
     over 3.35 TB/s, and bound_by, which of the two. Attention counts the
     live (row, column) pairs of these inputs under the causal and segment
-    mask (live_pairs, from the segment runs): K1 4·D·H·pairs, K2
+    mask (live_pairs, from the segment runs), and K1's bytes and (p)'s K2
+    bytes those of the rows and columns that hold a live pair (live_bytes:
+    a chunk that causality masks whole reads nothing and writes its
+    outputs): K1 4·D·H·pairs, K2
     10·D·H·pairs (the work of one fused pass; K2's "parts" count what its
     split design does: dkv 8·D·H·pairs for S, dP, dV and dK, dq
     6·D·H·pairs for S, dP and dQ, delta the bytes of out, dout and delta);
@@ -329,9 +352,11 @@ Tolerances on the card, each against the plain version on the same inputs:
     op_small, 2L under full, and the three modes' losses equal bit for bit
     (remat changes no value: the recompute runs the same kernels on the
     same inputs);
-  - the recipe run: its resumed steps' losses and final state equal the
+  - the recipe run: its launcher's first steps equal the in-process run's
+    bit for bit; the audio recipe run (phase 10) and the offload mode
+    (phase 8): their resumed steps' losses and final state equal the
     straight run's bit for bit (every kernel of the step gives the same
-    bits twice), and the dev line at step 10 equal in both runs.
+    bits twice).
 Timings are the median of 7 runs after 2 warmup runs, with CUDA events;
 the training step's is the median host time of steps 3-10 (each ends in
 the logging sync).
@@ -502,6 +527,47 @@ def live_pairs(q_seg, kv_seg, causal, q_offset=0, kv_offset=0, T=None, S=None, B
     return total
 
 
+def live_extent(q_seg, kv_seg, causal, q_offset=0, kv_offset=0, T=None, S=None, B=1) -> tuple:
+    """(query rows, key columns) that hold at least one live pair, summed
+    over the batch, under live_pairs' rule (None is one segment)."""
+    if q_seg is None:
+        q_seg = np.ones((B, T), np.int64)
+        kv_seg = np.ones((B, S), np.int64)
+    q_seg = np.asarray(q_seg.cpu() if hasattr(q_seg, "cpu") else q_seg)
+    kv_seg = np.asarray(kv_seg.cpu() if hasattr(kv_seg, "cpu") else kv_seg)
+    rows = cols = 0
+    for qrow, krow in zip(q_seg, kv_seg):
+        q_runs, kv_runs = {}, {}
+        for val, a, b in seg_runs(qrow):
+            q_runs.setdefault(val, []).append((a, b))
+        for val, c, d in seg_runs(krow):
+            kv_runs.setdefault(val, []).append((c, d))
+        for val, runs in q_runs.items():
+            if val in kv_runs:  # row t is live iff q_offset + t >= kv_offset + the first column
+                lo = kv_offset + min(c for c, _ in kv_runs[val]) - q_offset if causal else 0
+                rows += sum(max(0, b - max(a, lo)) for a, b in runs)
+        for val, runs in kv_runs.items():
+            if val in q_runs:  # column s is live iff the last row reaches it
+                hi = q_offset + max(b for _, b in q_runs[val]) - kv_offset if causal else len(krow)
+                cols += sum(max(0, min(d, hi) - c) for c, d in runs)
+    return rows, cols
+
+
+def live_bytes(q_side, kv_side, written, seg, kv_seg, causal, q_offset=0, kv_offset=0) -> float:
+    """The bytes an attention function must move for this run's data: the
+    query-side inputs ([B, T, ...]) of the rows that hold a live pair, the
+    key-side inputs ([B, S, ...]) of the columns that do, each read once,
+    every output written once, and the segment ids in full unless no pair
+    is live (a chunk that causality alone masks needs no input: its out is
+    0 and its lse -inf, its gradients 0)."""
+    B, T = q_side[0].shape[:2]
+    S = kv_side[0].shape[1]
+    rows, cols = live_extent(seg, kv_seg, causal, q_offset, kv_offset, T, S, B)
+    read = sum(nbytes(t) * rows / (B * T) for t in q_side) + \
+        sum(nbytes(t) * cols / (B * S) for t in kv_side)
+    return read + nbytes(*written) + (nbytes(seg, kv_seg) if rows else 0)
+
+
 def attention_library(q, k, v, q_runs, k_runs, causal, scale=None):
     """The yardstick of K1/K2: PyTorch's varlen flash attention over the
     document runs (q/k/v flattened to [total, heads, D], native GQA). The
@@ -576,7 +642,7 @@ def packed_segments(B, T, dev, docs=3):
     return torch.from_numpy(seg).to(dev)
 
 
-def grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off):
+def grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off, kv_off=0):
     """The plain forward one kv head at a time (its G query heads against
     it), in f32, so the scores of a long sequence fit."""
     G = q.shape[2] // k.shape[2]
@@ -584,7 +650,7 @@ def grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off):
     for j in range(k.shape[2]):
         o, l = attn.packed_attention_reference(
             q[:, :, j * G:(j + 1) * G].float(), k[:, :, j:j + 1].float(),
-            v[:, :, j:j + 1].float(), seg, causal, None, kv_seg, q_off, 0)
+            v[:, :, j:j + 1].float(), seg, causal, None, kv_seg, q_off, kv_off)
         outs.append(o)
         lses.append(l)
     return torch.cat(outs, 2), torch.cat(lses, 1)
@@ -603,21 +669,25 @@ def timed_row(name, err, ms, plain, lib, bnd, card):
 
 
 def k1_case(attn, dev, failures, card, rows, name, q, k, v, seg, kv_seg, causal, q_off,
-            timed=False, grouped=False, runs=None, library=None, peak=PEAK_BF16_FLOPS):
+            timed=False, grouped=False, runs=None, library=None, peak=PEAK_BF16_FLOPS,
+            kv_off=0, keep=False):
     """K1 on (q, k, v) against its plain version; when timed, its row in
     `rows`: kernel, plain and library times and the bound (operations at
     `peak`). The library is varlen flash attention over `runs(q, k, v)`, or
     `library`, a call that returns (out [B, T, H, D], None) for the same
-    inputs."""
+    inputs; none when both are None. Returns the max abs error, and with
+    `keep` the kernel's out and lse beside it."""
     n_failed = len(failures)
-    out, lse = attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, 0)
+    out, lse = attn.flash_attention(q, k, v, seg, causal, None, kv_seg, q_off, kv_off)
     torch.cuda.synchronize()
-    want, want_lse = grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off)
+    want, want_lse = grouped_forward_reference(attn, q, k, v, seg, kv_seg, causal, q_off,
+                                               kv_off)
     B, T, H, D = q.shape
     S = k.shape[1]
     m = torch.ones((B, T, S), dtype=torch.bool, device=dev)
     if causal:
-        m &= (q_off + torch.arange(T, device=dev))[:, None] >= torch.arange(S, device=dev)
+        m &= (q_off + torch.arange(T, device=dev))[:, None] >= \
+            kv_off + torch.arange(S, device=dev)
     if seg is not None:
         m &= seg[:, :, None] == kv_seg[:, None, :]
     valid = m.any(-1)
@@ -631,26 +701,27 @@ def k1_case(attn, dev, failures, card, rows, name, q, k, v, seg, kv_seg, causal,
         failures.append(f"{name} lse")
     del want, want_lse
     if timed:
-        pairs = live_pairs(seg, kv_seg, causal, q_off, 0, T, S, B)
-        bnd = bound(4 * D * H * pairs, nbytes(q, k, v, out, lse, seg, kv_seg), peak)
+        pairs = live_pairs(seg, kv_seg, causal, q_off, kv_off, T, S, B)
+        bnd = bound(4 * D * H * pairs, live_bytes((q,), (k, v), (out, lse), seg, kv_seg, causal,
+                                                  q_off, kv_off), peak)
         ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, causal, None, kv_seg,
-                                                  q_off, 0))
+                                                  q_off, kv_off))
         if grouped:
             plain = time_ms(lambda: grouped_forward_reference(
-                attn, q, k, v, seg, kv_seg, causal, q_off), 3, 1)
+                attn, q, k, v, seg, kv_seg, causal, q_off, kv_off), 3, 1)
         else:
             plain = time_ms(lambda: attn.packed_attention_reference(
-                q, k, v, seg, causal, None, kv_seg, q_off, 0))
-        if library is None:
+                q, k, v, seg, causal, None, kv_seg, q_off, kv_off))
+        if library is None and runs is not None:
             q_runs, k_runs, kk, vv = runs(q, k, v)
             library, _ = attention_library(q, kk, vv, q_runs, k_runs, causal)
         lib = None
-        if yardstick_checkable(name, failures, n_failed) and \
+        if library is not None and yardstick_checkable(name, failures, n_failed) and \
                 check_yardstick(name, out, lse, library(), B, T, H, failures):
             lib = time_ms(library)
         rows[name] = timed_row(name, mx, ms, plain, lib, bnd, card)
         torch.cuda.empty_cache()
-    return mx
+    return (mx, out, lse) if keep else mx
 
 
 def check_k1(attn, dev, gen, failures, card):
@@ -1092,6 +1163,205 @@ def check_k2(attn, dev, gen, failures, card):
          1, TRAIN_T, 32, 8, 64, torch.bfloat16, True, True, timed=True, docs=10, grouped=True)
     torch.cuda.empty_cache()
     return rows
+
+
+# (p) context parallelism at cp 2: a rank's slice of Llama-3.2-1B's attention
+# (phase 16's cp layouts: 1 x 8192 global, 4096 a rank)
+CP_T, CP_DOCS = 4096, 4
+
+
+def k2_final_reference(attn, q, k, v, q_seg, kv_seg, out, lse, g, q_off, kv_off):
+    """K2's plain version one kv head at a time, in f32, given the ring's
+    final out and lse (so the f32 scores of 4096 x 8192 fit)."""
+    G = q.shape[2] // k.shape[2]
+    dq, dk, dv = (torch.empty(x.shape, device=q.device) for x in (q, k, v))
+    for j in range(k.shape[2]):
+        hs, ks = slice(j * G, (j + 1) * G), slice(j, j + 1)
+        dq[:, :, hs], dk[:, :, ks], dv[:, :, ks] = attn.flash_attention_bwd_reference(
+            q[:, :, hs].float(), k[:, :, ks].float(), v[:, :, ks].float(), q_seg, kv_seg,
+            out[:, :, hs].float(), lse[:, hs], g[:, :, hs].float(), True, None, q_off, kv_off)
+    return dq, dk, dv
+
+
+def cp_runs(seg, T):
+    """The varlen runs of the allgather case: rank 1's queries (global
+    positions T..2T) per document, and each document's keys from its global
+    start (bottom-right causal alignment is the queries' offset); the keys'
+    first row."""
+    row = seg[0].cpu().numpy()
+    starts = {}
+    for val, a, e in seg_runs(row):
+        starts.setdefault((val, e), a)
+    q_runs, k_runs = [], []
+    for val, a, e in seg_runs(row[T:]):
+        (gs,) = [st for (vv, ee), st in starts.items() if vv == val and ee == T + e]
+        q_runs.append(e - a)
+        k_runs.append(T + e - gs)
+    first = 2 * T - sum(k_runs)
+    return q_runs, k_runs, first
+
+
+def check_cp_cases(attn, dev, gen, failures, card) -> tuple:
+    """(p): K1 and K2 on the offsets context parallelism gives them at cp 2,
+    B1 T4096 a rank (8192 global) H32/8 D64 bf16, CP_DOCS packed documents
+    and a padding tail over the global row. K1 on rank 1's own chunk
+    (q_offset = kv_offset = 4096), its past chunk (4096, 0), rank 0's future
+    chunk (0, 4096: every pair masked, out 0 and lse -inf, no NaN) and the
+    allgather call (4096 queries at 4096 against 8192 keys), each against
+    its plain version; the ring's combine of each rank's two steps against
+    the allgather call (rank 1) and the own chunk alone (rank 0); then K2 on
+    each ring step and on the allgather call, given the final out and lse
+    (-inf clamped to 0), against the plain version given the same; the
+    future step's gradients exactly 0. Library: varlen flash attention where
+    its runs and causal alignment express the case (own chunk; allgather),
+    its backward given the same final out and lse; none for the past and
+    future chunks (their documents pair across chunks). Returns the K1 and
+    K2 rows."""
+    from touchnet_tpu_torch.ops.ring_attention import combine
+
+    print("[6] (p) context parallelism at cp 2: K1 and K2 at the ring's and the allgather's "
+          "offsets")
+    k1_rows, k2_rows = {}, {}
+    T, H, Hkv, D, bf = CP_T, 32, 8, 64, torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    seg = packed_segments(1, 2 * T, dev, docs=CP_DOCS)
+    q, k, v, g = randn(1, 2 * T, H, D), randn(1, 2 * T, Hkv, D), randn(1, 2 * T, Hkv, D), \
+        randn(1, 2 * T, H, D)
+    half = [slice(0, T), slice(T, 2 * T)]
+    qs, ks, vs, gs, segs = ([x[:, h].contiguous() for h in half] for x in (q, k, v, g, seg))
+    tag = f"B1 T{T} H32/8 D64 bf16 packed, cp 2 of 1x{2 * T}"
+
+    def chunk_runs(sg):
+        def runs(q_, k_, v_):
+            r = [e - a for _, a, e in seg_runs(sg[0].cpu().numpy())]
+            return r, r, k_, v_
+        return runs
+
+    def k1(name, qq, kk, vv, q_seg, kv_seg, q_off, kv_off, runs=None):
+        return k1_case(attn, dev, failures, card, k1_rows, f"(p) {name}: {tag}", qq, kk, vv,
+                       q_seg, kv_seg, True, q_off, timed=True, grouped=True, runs=runs,
+                       kv_off=kv_off, keep=True)
+
+    _, out_own1, lse_own1 = k1("own chunk @4096/@4096", qs[1], ks[1], vs[1], segs[1], segs[1],
+                               T, T, runs=chunk_runs(segs[1]))
+    _, out_past1, lse_past1 = k1("past chunk @4096/@0", qs[1], ks[0], vs[0], segs[1], segs[0],
+                                 T, 0)
+    q_runs, k_runs, first = cp_runs(seg, T)
+    _, out_ag, lse_ag = k1("allgather @4096 over 8192 keys", qs[1], k, v, segs[1], seg, T, 0,
+                           runs=lambda q_, k_, v_: (q_runs, k_runs, k_[:, first:],
+                                                    v_[:, first:]))
+    # the future chunk: every pair masked
+    name = f"(p) future chunk @0/@4096: {tag}"
+    out_fut, lse_fut = attn.flash_attention(qs[0], ks[1], vs[1], segs[0], True, None, segs[1],
+                                            0, T)
+    torch.cuda.synchronize()
+    ok = bool((out_fut == 0).all()) and bool(torch.isneginf(lse_fut).all()) and \
+        not bool(torch.isnan(out_fut.float()).any())
+    print(f"  {name}: out all 0, lse all -inf, no NaN: {ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name)
+    ms = time_ms(lambda: attn.flash_attention(qs[0], ks[1], vs[1], segs[0], True, None,
+                                              segs[1], 0, T))
+    plain = time_ms(lambda: grouped_forward_reference(attn, qs[0], ks[1], vs[1], segs[0],
+                                                      segs[1], True, 0, T), 3, 1)
+    k1_rows[name] = timed_row(name, 0.0, ms, plain, None, bound(
+        0, live_bytes((qs[0],), (ks[1], vs[1]), (out_fut, lse_fut), segs[0], segs[1], True, 0,
+                      T)), card)
+    out_own0, lse_own0 = attn.flash_attention(qs[0], ks[0], vs[0], segs[0])
+
+    # the ring's combine: rank 1 (own, then past) is the allgather call; rank
+    # 0 (own, then future) is its own chunk, bit for bit
+    def ring(steps):
+        num = torch.zeros((1, T, H, D), dtype=torch.float32, device=dev)
+        den = torch.zeros((1, H, T), dtype=torch.float32, device=dev)
+        m = torch.full((1, H, T), float("-inf"), device=dev)
+        for o, l in steps:
+            num, den, m = combine(num, den, m, o, l)
+        live = den > 0
+        den1 = torch.where(live, den, torch.ones_like(den))
+        return (num / den1.transpose(1, 2)[..., None]).to(bf), \
+            torch.where(live, m + torch.log(den1), torch.full_like(m, float("-inf")))
+
+    out_f1, lse_f1 = ring([(out_own1, lse_own1), (out_past1, lse_past1)])
+    out_f0, lse_f0 = ring([(out_own0, lse_own0), (out_fut, lse_fut)])
+    compare("(p) ring combine, rank 1, vs the allgather call: out", out_f1, out_ag, bf, failures)
+    lerr = (lse_f1 - lse_ag).abs().max().item()
+    print(f"  (p) ring combine, rank 1, vs the allgather call: lse max_abs_err={lerr:.3e} "
+          f"{'ok' if lerr <= LSE_TOL else 'FAIL'}")
+    same0 = torch.equal(out_f0, out_own0) and torch.equal(lse_f0, lse_own0)
+    print(f"  (p) ring combine, rank 0: own chunk and the future chunk give the own chunk's "
+          f"out and lse bit for bit: {same0} {'ok' if same0 else 'FAIL'}")
+    if lerr > LSE_TOL:
+        failures.append("(p) ring combine lse")
+    if not same0:
+        failures.append("(p) ring combine rank 0")
+    del out_own1, out_past1, out_fut
+
+    # K2 on each step, given the final out and lse
+    def k2(name, qq, kk, vv, q_seg, kv_seg, out, lse, gg, q_off, kv_off, runs=None,
+           zero=False):
+        name = f"(p) K2 {name}: {tag}, the final lse"
+        n_failed = len(failures)
+        lse = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse)).contiguous()
+        got = attn.flash_attention_bwd(qq, kk, vv, q_seg, kv_seg, out, lse, gg, True, None,
+                                       q_off, kv_off)
+        torch.cuda.synchronize()
+        if zero:
+            ok = all(bool((x == 0).all()) for x in got)
+            print(f"  {name}: dq, dk, dv all 0: {ok} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(name)
+            errs = [0.0]
+        else:
+            want = k2_final_reference(attn, qq, kk, vv, q_seg, kv_seg, out, lse, gg, q_off,
+                                      kv_off)
+            errs = [compare_grad(f"{name} {n}", a, b, bf, failures)
+                    for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+            del want
+        S = kk.shape[1]
+        pairs = live_pairs(q_seg, kv_seg, True, q_off, kv_off, T, S, 1)
+        bnd = bound(10 * D * H * pairs, live_bytes((qq, out, gg, lse), (kk, vv),
+                                                   got, q_seg, kv_seg, True, q_off, kv_off))
+        ms = time_ms(lambda: attn.flash_attention_bwd(qq, kk, vv, q_seg, kv_seg, out, lse, gg,
+                                                      True, None, q_off, kv_off))
+        plain = time_ms(lambda: k2_final_reference(attn, qq, kk, vv, q_seg, kv_seg, out, lse,
+                                                   gg, q_off, kv_off), 3, 1)
+        lib = None
+        if runs is not None and yardstick_checkable(name, failures, n_failed):
+            qr, kr, kk2, vv2 = runs
+            fwd, bwd = attention_library(qq, kk2, vv2, qr, kr, True)
+            rng_state, unused = fwd()[2:4]
+            outs = (out.reshape(-1, H, D), lse[0], rng_state, unused)
+            yard = []
+            for n, a, b in zip(("dq", "dk", "dv"), bwd(outs, gg), got):
+                b = b if n == "dq" else b[:, S - kk2.shape[1]:]
+                compare_grad(f"{name} yardstick {n} vs kernel", a.view(b.shape), b, bf, yard)
+            failures.extend(f"yardstick (not the kernel): {n}" for n in yard)
+            if not yard:
+                lib = time_ms(lambda: bwd(outs, gg))
+        k2_rows[name] = timed_row(name, max(errs), ms, plain, lib, bnd, card)
+        return got
+
+    own_runs = [e - a for _, a, e in seg_runs(segs[1][0].cpu().numpy())]
+    d_own = k2("own chunk @4096/@4096", qs[1], ks[1], vs[1], segs[1], segs[1], out_f1, lse_f1,
+               gs[1], T, T, runs=(own_runs, own_runs, ks[1], vs[1]))
+    d_past = k2("past chunk @4096/@0", qs[1], ks[0], vs[0], segs[1], segs[0], out_f1, lse_f1,
+                gs[1], T, 0)
+    k2("future chunk @0/@4096", qs[0], ks[1], vs[1], segs[0], segs[1], out_f0, lse_f0, gs[0],
+       0, T, zero=True)
+    d_ag = k2("allgather @4096 over 8192 keys", qs[1], k, v, segs[1], seg, out_f1, lse_f1,
+              gs[1], T, 0, runs=(q_runs, k_runs, k[:, first:], v[:, first:]))
+    # the ring's steps add up to the allgather call's gradients
+    for n, i in (("dq", 0), ("dk", 1), ("dv", 2)):
+        ring_sum = torch.cat([d_past[i].float(), d_own[i].float()], 1) if i else \
+            d_own[0].float() + d_past[0].float()
+        compare_grad(f"(p) K2 ring steps summed vs the allgather call {n}", ring_sum,
+                     d_ag[i].float(), bf, failures)
+    torch.cuda.empty_cache()
+    return k1_rows, k2_rows
 
 
 def gemm_yardstick(h, w, chunk):
@@ -1802,7 +2072,7 @@ def check_step(train, argv_of, dev, failures, what=""):
     torch.cuda.empty_cache()
 
 
-RECIPE_STEPS, RECIPE_INTERVAL, RESUME_STEP = 10, 5, 5
+RECIPE_STEPS, RECIPE_INTERVAL = 10, 5
 # phase 9's text depth: phase 8 trains Llama-3.2-1B at its full 16 layers;
 # the recipe's stages around it (four checkpoint writes, the seed, the
 # export, three trainers, two of them started by torchrun) run at full
@@ -2010,13 +2280,10 @@ RECIPE_LAYOUT = dict(training_fsdp_reshard_after_forward="default",
                      training_enable_loss_parallel="true", training_pipeline_parallel_degree=1,
                      training_pipeline_parallel_schedule="1F1B", training_tb_rank_0_only="true",
                      training_print_args="true")
-# the in-process run beside the launcher's: its first steps, no checkpoints
+# the in-process run beside the launcher's: its first steps, no checkpoints;
+# their losses bit-equal (FSDP2's root unit holds f32 parameters, so the tied
+# embedding's two gradients add up in f32 on both paths)
 INPROC_STEPS = 3
-# the launcher's run against the in-process one, relative, where their
-# losses are not bit-equal: FSDP2's bf16 parameters sum the tied embedding's
-# two gradients (the lookup's and the head's) in bf16 where the single-card
-# path sums them in f32 (PERF.md §6)
-LAUNCHER_LOSS_RTOL = 1e-3
 
 
 def torchrun_train(argv: list, exp: Path, failures, what: str, nproc: int = 1,
@@ -2109,22 +2376,62 @@ def inprocess_run(train, argv, seed_dir: Path, seed_bits: dict, failures) -> dic
 
 
 # --two-ranks: two ranks of Llama-3.2-1B at full width on the one card, over
-# gloo (which takes CUDA tensors for FSDP2's collectives; NCCL takes one rank
-# a card), each layout from the same seeded weights and data
-TWO_RANK_LAYERS, TWO_RANK_STEPS, TWO_RANK_T = 2, 3, 4096
+# gloo (which takes CUDA tensors for FSDP2's collectives, not for
+# point-to-point: the ring stages through the host; NCCL takes one rank a
+# card), each layout from the same seeded weights and data: name ->
+# (dataset_text_seqlen, steps, flags). dp_shard 2 gives each rank its own
+# rows (num_sentence summed over dp) with a sync checkpoint after each step
+# and a dev pass after each save; its resumed run loads step 1 from a copy
+# of its checkpoint folder (hard links) and runs step 2. The cp layouts split
+# 1 x 8192 into 4096 a rank; cp 2 allgather runs FSDP2 over the flattened
+# dp_shard x cp mesh of both ranks; the ring (alltoall) runs its first step
+# alone (cut from 2 for the script's clock: step 1 is what is compared).
+TWO_RANK_LAYERS, TWO_RANK_STEPS, TWO_RANK_T = 2, 2, 4096
+TWO_RANK_CKPT = dict(training_enable_ckpt="true", training_ckpt_interval=1,
+                     training_ckpt_keep_latest_k=2, training_ckpt_async_mode="disabled")
+TWO_RANK_RESUME = 1
 TWO_RANK_LAYOUTS = {
-    "dp_shard 2": dict(training_data_parallel_shard_degree=2),
-    "tp 2": dict(training_tensor_parallel_degree=2, training_data_parallel_shard_degree=1),
+    "tp 2": (TWO_RANK_T, TWO_RANK_STEPS, dict(training_tensor_parallel_degree=2,
+                                              training_data_parallel_shard_degree=1)),
+    "dp_shard 2": (TWO_RANK_T, TWO_RANK_STEPS, dict(training_data_parallel_shard_degree=2,
+                                                    **TWO_RANK_CKPT)),
+    "dp_shard 2 resumed": (TWO_RANK_T, TWO_RANK_STEPS, dict(
+        training_data_parallel_shard_degree=2, training_ckpt_load_step=TWO_RANK_RESUME,
+        **TWO_RANK_CKPT)),
+    "cp 2 allgather": (2 * TWO_RANK_T, TWO_RANK_STEPS, dict(
+        training_context_parallel_degree=2, training_data_parallel_shard_degree=1,
+        training_context_parallel_rotate_method="allgather")),
+    "cp 2 alltoall": (2 * TWO_RANK_T, 1, dict(
+        training_context_parallel_degree=2, training_data_parallel_shard_degree=1,
+        training_context_parallel_rotate_method="alltoall")),
 }
+# the cp layouts' step 1 against one process on the whole 1 x 8192 row (the
+# same weights and data), relative: loss/per_sample and grad_norm differ only
+# by the bf16 rounding of the attention's outputs and gradients in another
+# order. On an H100 80GB HBM3 at 700 W (PERF.md) the loss read 0
+# (allgather) and 1.0e-6 (alltoall), the grad norm 1.6e-5 (both); each
+# limit a few times its reading
+CP_LOSS_RTOL, CP_GRAD_NORM_RTOL = 5e-6, 1e-4
+# the dev list of dp_shard 2 (a shard a rank): its forward under FSDP2
+# gathers every weight through gloo's host staging, ~2 s a batch, so the
+# list is kept to a few documents (20 a shard cost ~18 s a dev pass)
+TWO_RANK_DEV_DOCS = 4
 
 
 def gloo_rank_worker(argv: list) -> int:
     """One rank of --two-ranks (its own process): a gloo process group over
-    a FileStore, then bin.train.main on cuda:0 (the trainer keeps a group its
-    caller started)."""
+    a FileStore, then bin.train.main on cuda:0 for each run of the JSON
+    list at argv[2], in order (the trainer keeps a group its caller
+    started), each with the kernels' counts and the peak memory reset
+    before it (its train_summary_rank<R>.json holds its own launches). A
+    run is {"argv": [...], "link": [src, dst] or null, "state": path or
+    null}: rank 0 first hard-links the folder src as dst; with "state" each
+    rank writes bits_checksums of its shards of the final params, mu, nu
+    and count to the path (its {rank} filled in)."""
     import torch.distributed as dist
 
     rank, store = int(argv[0]), argv[1]
+    runs = json.loads(Path(argv[2]).read_text())
     os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0")
     sys.path.insert(0, str(HERE))
     from touchnet_tpu_torch.bin import train
@@ -2132,18 +2439,52 @@ def gloo_rank_worker(argv: list) -> int:
     torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank, world_size=2)
     try:
-        train.main(argv[2:], device=torch.device("cuda", 0))
+        for run in runs:
+            if run["link"] and rank == 0:
+                shutil.copytree(run["link"][0], run["link"][1], copy_function=os.link)
+            dist.barrier()
+            for counter in kernel_counters().values():
+                counter.launches = 0
+            torch.cuda.reset_peak_memory_stats()
+            trainer = train.main(run["argv"], device=torch.device("cuda", 0))
+            if run["state"]:
+                state = {**trainer._model_state(), **trainer._opt_state()}
+                local = {k: v.to_local() if hasattr(v, "to_local") else v
+                         for k, v in state.items()}
+                Path(run["state"].format(rank=rank)).write_text(json.dumps(bits_checksums(local)))
+                del state, local
+            del trainer
+            free_caches()
     finally:
         dist.destroy_process_group()
     return 0
 
 
+def world_one_reference(train, listfile, tmp: Path, config, vocab) -> list:
+    """The cp layouts' batch (1 x 8192) in this process at world 1 (no
+    process group, no FSDP), the same weights, data and flags: its history."""
+    argv = train_argv(listfile, tmp / "world1", 2 * TWO_RANK_T, TWO_RANK_STEPS, "bfloat16", vocab,
+                      training_model_config_path=config)
+    trainer = train.main([str(a) for a in argv])
+    hist = trainer.metrics_processor.history
+    del trainer
+    free_caches()
+    return hist
+
+
 def run_two_ranks(card, failures, tmp: Path) -> dict:
-    """Phase 16: each layout of TWO_RANK_LAYOUTS as two processes on the
-    card: losses finite and equal on both ranks, K1, K2 and K3 launched on
-    each, the step times and peak memory (max over ranks) printed. Returns
-    the launches of every rank of both layouts (each process counts its
-    own, from zero)."""
+    """Phase 16: the layouts of TWO_RANK_LAYOUTS, one after another in one
+    pair of processes on the card (a process's start and its group's set-up
+    paid once): for each, losses finite and equal on both ranks, K1, K2 and
+    K3 launched on each, the step times and peak memory (max over ranks)
+    printed. dp_shard 2: saves and dev lines at steps 1 and 2; its resumed
+    run's step-2 loss, grad norm and dev line, and each rank's shards of the
+    final params, mu, nu and count, equal the straight run's bit for bit.
+    The cp layouts' step-1 loss and grad norm within CP_LOSS_RTOL and
+    CP_GRAD_NORM_RTOL of one process on the same 1 x 8192 batch
+    (world_one_reference, run first), and of each other. Returns the launches
+    of every rank of every layout (each run counts its own, from zero)."""
+    from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 
     raw = json.loads(CONFIG.read_text())
@@ -2152,45 +2493,124 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
     config.write_text(json.dumps(raw))
     cfg = LlamaConfig.from_json_file(str(config))
     listfile = write_shards(tmp / "data", cfg.vocab_size, SEED)
+    devlist = write_shards(tmp / "dev", cfg.vocab_size, SEED + 1, shards=2,
+                           docs=TWO_RANK_DEV_DOCS)
     print(f"[16] two ranks: Llama-3.2-1B at full width and {TWO_RANK_LAYERS} layers, "
-          f"1x{TWO_RANK_T} a rank, {TWO_RANK_STEPS} steps, two processes on one card over gloo")
+          f"{TWO_RANK_STEPS} steps a layout (cp 2 alltoall 1), two processes on one card over "
+          "gloo; one process on the cp layouts' batch first")
+    t0 = time.perf_counter()
+    one = world_one_reference(train, listfile, tmp, config, cfg.vocab_size)
+    print(f"  one process (world 1, no FSDP), 1x{2 * TWO_RANK_T}: losses "
+          f"{[h['loss/per_sample'] for h in one]}, grad norms {[h['grad_norm'] for h in one]}; "
+          f"{time.perf_counter() - t0:.1f} s")
     counts = {k: 0 for k in ("K1", "K2", "K3 fwd", "K3 bwd")}
-    for name, layout in TWO_RANK_LAYOUTS.items():
-        exp = tmp / name.replace(" ", "_")
-        argv = train_argv(listfile, exp, TWO_RANK_T, TWO_RANK_STEPS, "bfloat16", cfg.vocab_size,
-                          training_model_config_path=config, **layout)
-        store = tmp / f"store_{exp.name}"
-        free_caches()
-        t0 = time.perf_counter()
-        procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gloo-rank",
-                                   str(r), str(store)] + [str(a) for a in argv], cwd=HERE,
-                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for r in range(2)]
-        outs = [p.communicate(timeout=600)[0] for p in procs]
-        secs = time.perf_counter() - t0
-        if any(p.returncode for p in procs):
-            print(f"  {name}: rank exit codes {[p.returncode for p in procs]}:\n"
-                  + "\n".join(o[-3000:] for o in outs))
+    exps = {name: tmp / name.replace(" ", "_") for name in TWO_RANK_LAYOUTS}
+    straight, resumed = exps["dp_shard 2"], exps["dp_shard 2 resumed"]
+    step_dir = f"checkpoint/step_{TWO_RANK_RESUME}"
+    runs = []
+    for name, (seqlen, steps, layout) in TWO_RANK_LAYOUTS.items():
+        extra = dict(datalist_dev_path=devlist) if "dp_shard" in name else {}
+        runs.append({
+            "argv": [str(a) for a in train_argv(
+                listfile, exps[name], seqlen, steps, "bfloat16", cfg.vocab_size,
+                training_model_config_path=config, **layout, **extra)],
+            "link": [str(straight / step_dir), str(resumed / step_dir)]
+            if exps[name] == resumed else None,
+            "state": str(exps[name] / "state_rank{rank}.json") if "dp_shard" in name else None})
+    (tmp / "runs.json").write_text(json.dumps(runs))
+    free_caches()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--gloo-rank",
+                               str(r), str(tmp / "store"), str(tmp / "runs.json")], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    outs = [p.communicate(timeout=900)[0] for p in procs]
+    print(f"  both processes: {time.perf_counter() - t0:.1f} s for the "
+          f"{len(TWO_RANK_LAYOUTS)} runs, exit codes {[p.returncode for p in procs]}")
+    if any(p.returncode for p in procs):
+        print("\n".join(o[-3000:] for o in outs))
+    sums = {}
+    for name, (seqlen, steps, _) in TWO_RANK_LAYOUTS.items():
+        paths = [exps[name] / f"train_summary_rank{r}.json" for r in range(2)]
+        if not all(p.exists() for p in paths):
+            print(f"  {name}: no summary from {[str(p) for p in paths if not p.exists()]} FAIL")
             failures.append(f"two ranks {name}")
             continue
-        sums = [json.loads((exp / f"train_summary_rank{r}.json").read_text()) for r in range(2)]
-        for sm in sums:
+        sums[name] = both = [json.loads(p.read_text()) for p in paths]
+        for sm in both:
             for k in counts:
                 counts[k] += sm["launches"][k]
-        losses = [[h["loss/per_sample"] for h in s["history"]] for s in sums]
+        losses = [[h["loss/per_sample"] for h in s["history"]] for s in both]
+        first = TWO_RANK_RESUME + 1 if exps[name] == resumed else 1
         launched = all(all(s["launches"][k] > 0 for k in ("K1", "K2", "K3 fwd", "K3 bwd"))
-                       for s in sums)
-        ok = (losses[0] == losses[1] and len(losses[0]) == TWO_RANK_STEPS
-              and all(math.isfinite(x) for x in losses[0]) and launched)
-        hist = sums[0]["history"]
-        print(f"  {name}: losses {losses[0]} on both ranks: {losses[0] == losses[1]}; launches "
-              f"rank 0 {sums[0]['launches']}, rank 1 {sums[1]['launches']}; step ms "
+                       for s in both)
+        ok = (losses[0] == losses[1] and all(math.isfinite(x) for x in losses[0]) and launched
+              and [h["step"] for h in both[0]["history"]] == list(range(first, steps + 1)))
+        hist = both[0]["history"]
+        print(f"  {name} (1x{seqlen}): steps {[h['step'] for h in hist]}, losses {losses[0]} on "
+              f"both ranks: {losses[0] == losses[1]}; launches "
+              f"rank 0 {both[0]['launches']}, rank 1 {both[1]['launches']}; step ms "
               f"{[round(h['time/step_s'] * 1e3, 1) for h in hist]}; peak "
-              f"{max(h.get('memory/peak_gib', 0) for h in hist):.2f} GiB (max over ranks); "
-              f"{secs:.1f} s for both processes {'ok' if ok else 'FAIL'}  [{card}]")
+              f"{max(h.get('memory/peak_gib', 0) for h in hist):.2f} GiB (max over ranks) "
+              f"{'ok' if ok else 'FAIL'}  [{card}]")
         if not ok:
             failures.append(f"two ranks {name}")
+    if {"dp_shard 2", "dp_shard 2 resumed"} <= set(sums):
+        check_sharded_resume(sums["dp_shard 2"], sums["dp_shard 2 resumed"], straight, resumed,
+                             card, failures)
+    cp = {n: sums[n][0]["history"][0] for n in ("cp 2 allgather", "cp 2 alltoall") if n in sums}
+    for key, rtol in (("loss/per_sample", CP_LOSS_RTOL), ("grad_norm", CP_GRAD_NORM_RTOL)):
+        want = one[0][key]
+        rels = {n: abs(h[key] - want) / abs(want) for n, h in cp.items()}
+        if len(cp) == 2:
+            a, b = (h[key] for h in cp.values())
+            rels["allgather vs alltoall"] = abs(a - b) / abs(a)
+        ok = len(cp) == 2 and all(r <= rtol for r in rels.values())
+        print(f"  cp 2 step 1 {key}: one process {want!r}, " +
+              ", ".join(f"{n} {h[key]!r}" for n, h in cp.items()) + "; relative " +
+              ", ".join(f"{n} {r:.3e}" for n, r in rels.items()) +
+              f" (<= {rtol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"two ranks: the cp layouts' step-1 {key}")
     return counts
+
+
+def check_sharded_resume(straight, resumed, straight_exp: Path, resumed_exp: Path, card,
+                         failures) -> None:
+    """dp_shard 2's saves (steps 1 and 2, sync) and dev lines (after each),
+    and its resumed run (step 2 from the saved step 1) against it bit for
+    bit: the step's loss and grad norm, the dev line, and each rank's shards
+    of the final params, mu, nu and count."""
+    dev = straight[0]["dev_history"]
+    saves = sorted(int(k) for k in straight[0]["checkpoint_times"])
+    ok = (saves == [1, TWO_RANK_STEPS] and [d["step"] for d in dev] == [1, TWO_RANK_STEPS]
+          and all(math.isfinite(v) for d in dev for v in d.values())
+          and all(s["dev_history"] == dev for s in straight))
+    print(f"  dp_shard 2: sync saves at steps {saves} (the loop blocked " + ", ".join(
+        f"{t['blocked_ms']:.1f} ms" for _, t in sorted(straight[0]["checkpoint_times"].items()))
+        + "); dev lines " + "; ".join(
+            f"step {d['step']} loss {d['loss_per_sample']:.4f} acc {d['acc']:.4f}" for d in dev)
+        + f", equal on both ranks {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("two ranks: dp_shard 2 saves and dev lines")
+    last = {k: straight[0]["history"][-1][k] for k in ("loss/per_sample", "grad_norm")}
+    again = {k: resumed[0]["history"][-1][k] for k in last}
+    states = [[json.loads((exp / f"state_rank{r}.json").read_text()) for r in range(2)]
+              for exp in (straight_exp, resumed_exp)]
+    differ = [f"rank {r} {k}" for r in range(2) for k in sorted(states[0][r])
+              if states[0][r][k] != states[1][r].get(k)]
+    differ += [f"rank {r} {k}" for r in range(2) for k in sorted(set(states[1][r]) -
+                                                                 set(states[0][r]))]
+    same_dev = resumed[0]["dev_history"] == dev[-1:]
+    ok = again == last and not differ and same_dev
+    print(f"  dp_shard 2 resumed from step {TWO_RANK_RESUME} (its checkpoint's shards read by "
+          f"both ranks): step {TWO_RANK_STEPS} loss and grad norm {again} vs {last}: equal "
+          f"{again == last}; dev line equal: {same_dev}; each rank's shards of the final params, "
+          f"mu, nu, count ({len(states[0][0])} tensors a rank, checksums of their bits) differ "
+          f"in {differ[:5] or 'none'} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("two ranks: dp_shard 2 resume not bit-equal")
+
 
 def run_recipe(dev, card, failures, tmp: Path) -> dict:
     """Phase 9: the recipe's stages 0-3 at full width: make_data, the HF
@@ -2198,17 +2618,16 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     then stage 2 as torchrun --standalone --nproc_per_node 1 -m
     touchnet_tpu_torch.bin.train (world 1: FSDP2 over NCCL, the recipe's
     layout flags) with checkpoints, dev eval, profiling and memory
-    snapshots, its first losses held to the in-process run's, then a
-    resume from step 5 through the launcher held to the straight run bit
-    for bit, and the export through convert_ckpt_to_hf with generate from
-    it. Returns the kernels' launches over its main paths (the launcher's
-    runs, read from each run's train_summary_rank0.json)."""
+    snapshots, its first losses held to the in-process run's, and the
+    export through convert_ckpt_to_hf with generate from it. Returns the
+    kernels' launches over its main paths (the launcher's run, read from
+    its train_summary_rank0.json, and the generate)."""
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 
     print("[9] the recipe's stages 0-3 on one card (run.sh:60-175, dp 1): make_data, the HF "
           "seed, an in-process run, bin.train through torchrun (FSDP2 at world 1) with "
-          "checkpoints, dev eval, profiling and memory snapshots, a resume, the HF export")
+          "checkpoints, dev eval, profiling and memory snapshots, the HF export")
     cfg = LlamaConfig.from_json_file(str(CONFIG))
     free = shutil.disk_usage(tmp).free
     L, ckpt_bytes, need = recipe_depth(cfg, free)
@@ -2256,30 +2675,19 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
         return {}
     ckpt = exp / "checkpoint"
     state1 = ckpt_checksums(ckpt / f"step_{RECIPE_STEPS}")
-    argv2 = train_argv(listfile, exp, TRAIN_T, RECIPE_STEPS, "bfloat16", cfg.vocab_size,
-                       **{**flags, "training_ckpt_load_step": RESUME_STEP,
-                          "training_ckpt_async_mode": "disabled",
-                          "training_enable_profiling": "false",
-                          "training_enable_memory_snapshot": "false"})
-    sums2, secs2 = torchrun_train(argv2, exp, failures, "recipe resumed run")
-    if sums2 is None:
-        return {}
-    run1, run2 = sums1[0], sums2[0]
-    hist1, dev1, hist2, dev2 = (run1["history"], run1["dev_history"], run2["history"],
-                                run2["dev_history"])
-    state2 = ckpt_checksums(ckpt / f"step_{RECIPE_STEPS}")
-    print(f"  torchrun commands: run 1 {secs1:.1f} s, the resumed run {secs2:.1f} s (each with "
-          "the launcher's start, the process group, FSDP2's wrap and the model's build)")
+    run1 = sums1[0]
+    hist1, dev1 = run1["history"], run1["dev_history"]
+    print(f"  torchrun command: {secs1:.1f} s (with the launcher's start, the process group, "
+          "FSDP2's wrap and the model's build)")
 
     losses1 = [h["loss/per_sample"] for h in hist1]
     lin = [h["loss/per_sample"] for h in inproc]
     same = lin == losses1[:INPROC_STEPS]
     rel = max(abs(a - b) / abs(b) for a, b in zip(lin, losses1))
-    ok = len(lin) == INPROC_STEPS and (same or rel <= LAUNCHER_LOSS_RTOL)
+    ok = len(lin) == INPROC_STEPS and same
     print(f"  in-process (one process, no FSDP) vs torchrun (FSDP2, world 1), steps 1-"
-          f"{INPROC_STEPS}: losses {lin} vs {losses1[:INPROC_STEPS]}: bit-equal {same}, largest "
-          f"relative difference {rel:.3e} (limit {LAUNCHER_LOSS_RTOL:g}: the tied embedding's two "
-          f"gradients summed in bf16 under FSDP2) {'ok' if ok else 'FAIL'}")
+          f"{INPROC_STEPS}: losses {lin} vs {losses1[:INPROC_STEPS]}: bit-equal {same} "
+          f"(largest relative difference {rel:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("recipe run: launcher losses")
     print(f"  step ms: in-process {[round(h['time/step_s'] * 1e3, 1) for h in inproc]}; "
@@ -2289,7 +2697,6 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
           f"  [{card}]")
 
     async_ms = {int(k): v for k, v in run1["checkpoint_times"].items()}
-    sync_ms = {int(k): v for k, v in run2["checkpoint_times"].items()}
     kept = {p.name for p in ckpt.iterdir() if p.name.startswith("step_")}
     ok = (sorted(async_ms) == [1, RECIPE_INTERVAL, RECIPE_STEPS] and len(losses1) == RECIPE_STEPS
           and all(math.isfinite(x) for x in losses1) and kept == {"step_5", "step_10"})
@@ -2312,12 +2719,11 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
         return ", ".join(f"step {s} {t['blocked_ms']:.1f} ms ({t['waited_ms']:.1f} waiting for "
                          "the previous write)" for s, t in sorted(times.items()))
 
-    print(f"  the loop blocked in save(): async {blocked(async_ms)}; sync (the resumed run) "
-          f"{blocked(sync_ms)}. Step 1 also allocates the pinned staging buffers  [{card}]")
-    print("  each write to disk: async (a background thread) " + ", ".join(
-        f"step {s} {t['write_s']:.2f} s" for s, t in sorted(async_ms.items())) + "; sync " +
-        ", ".join(f"step {s} {t['write_s']:.2f} s ({size / t['write_s'] / 1e9:.2f} GB/s)"
-                  for s, t in sorted(sync_ms.items())))
+    print(f"  the loop blocked in save(): async {blocked(async_ms)}. Step 1 also allocates "
+          f"the pinned staging buffers  [{card}]")
+    print("  each write to disk (a background thread): " + ", ".join(
+        f"step {s} {t['write_s']:.2f} s ({size / t['write_s'] / 1e9:.2f} GB/s)"
+        for s, t in sorted(async_ms.items())))
     print(f"  step times of run 1, ms (each includes the save, trace and dev pass after the "
           f"step before it): {[round(h['time/step_s'] * 1e3, 1) for h in hist1]}")
 
@@ -2339,35 +2745,18 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     if not ok:
         failures.append("recipe run: memory snapshots")
 
-    losses2 = [h["loss/per_sample"] for h in hist2]
-    same_loss = [h["step"] for h in hist2] == list(range(RESUME_STEP + 1, RECIPE_STEPS + 1)) \
-        and losses2 == losses1[RESUME_STEP:]
-    differ = sorted(k for k in state1 if state1[k] != state2.get(k)) + \
-        sorted(set(state2) - set(state1))
-    same_dev = len(dev2) == 1 and dev2[0] == dev1[-1]
-    ok = same_loss and not differ and same_dev
-    print(f"  resumed from step {RESUME_STEP}: steps {[h['step'] for h in hist2]}, losses equal "
-          f"run 1's bit for bit: {same_loss}; final params, mu, nu, count ({len(state1)} "
-          f"tensors of step_{RECIPE_STEPS}, read back, checksums of their bits on the card) "
-          f"differ in {differ[:5] or 'none'}; dev line at step 10 equal: {same_dev} "
-          f"{'ok' if ok else 'FAIL'}")
-    if not ok:
-        failures.append("recipe run: resume not bit-equal")
-
-    launches = [{k: r["launches"][k] for k in ("K1", "K2", "K3 fwd", "K3 bwd")}
-                for r in (run1, run2)]
-    k1, k2, k3f, k3b = (launches[0][k] + launches[1][k] for k in ("K1", "K2", "K3 fwd", "K3 bwd"))
-    steps = RECIPE_STEPS + RECIPE_STEPS - RESUME_STEP
+    k1, k2, k3f, k3b = (run1["launches"][k] for k in ("K1", "K2", "K3 fwd", "K3 bwd"))
+    steps = RECIPE_STEPS
     dev_fwd = k3f - steps  # each dev batch runs K3's forward once and K1 L times
     ok = k2 == L * steps and k3b == steps and dev_fwd > 0 and k1 == L * (steps + dev_fwd)
-    print(f"  launches over both torchrun runs ({steps} steps, {dev_fwd} dev batches over 4 dev "
-          f"passes; each run's process counts its own): K1={k1} K2={k2} K3 fwd={k3f} "
+    print(f"  launches of the torchrun run ({steps} steps, {dev_fwd} dev batches over 3 dev "
+          f"passes; the process counts its own): K1={k1} K2={k2} K3 fwd={k3f} "
           f"K3 bwd={k3b} (want K1 = {L}x(steps + dev batches), K2 = {L}x steps, K3 bwd = steps; "
           f"no backward kernel in dev) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("recipe run: launch counts")
     final_model = load_model(cfg, ckpt / f"step_{RECIPE_STEPS}", dev)
-    final = {k: state2[k] for k in final_model.state_dict()}
+    final = {k: state1[k] for k in final_model.state_dict()}
     gen_counts = recipe_stage3(cfg, config, exp, final, final_model, dev, card, failures)
     del final_model
     torch.cuda.empty_cache()
@@ -2392,6 +2781,9 @@ AUDIO_PREFETCH = 1
 # phase 10's text depth: Touch-Audio-1B's 16 layers cut to 8 for the
 # script's clock (its checkpoints, their load and the export halve)
 AUDIO_MAX_LAYERS = 8
+# the steps of phase 10's two runs that measure what holds its step back
+# (cut from AUDIO_STEPS for the script's clock: the medians of steps 3-6)
+LOADER_STEPS = 6
 
 
 def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
@@ -2660,14 +3052,14 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     # passes under 2 loader threads, and with the batches made first and
     # held in host memory (no loader thread running while the steps do)
     torch.cuda.empty_cache()
-    run = train.main(audio_argv(listfile, tmp / "threads2", AUDIO_T, AUDIO_STEPS, "bfloat16",
+    run = train.main(audio_argv(listfile, tmp / "threads2", AUDIO_T, LOADER_STEPS, "bfloat16",
                                 config, dataloader_num_workers=2,
                                 dataloader_prefetch_factor=2))
     step_ms, tps, mfu = step_stats(run)
     hist = run.metrics_processor.history
     del run
-    print(f"  {AUDIO_STEPS} steps, no checkpoints or dev, 2 loader threads and prefetch 2: "
-          f"step {step_ms:.1f} ms (median of steps 3-{AUDIO_STEPS}), {tps:,.0f} label "
+    print(f"  {LOADER_STEPS} steps, no checkpoints or dev, 2 loader threads and prefetch 2: "
+          f"step {step_ms:.1f} ms (median of steps 3-{LOADER_STEPS}), {tps:,.0f} label "
           f"tokens/s, MFU {mfu:.2f}%; step times, ms: "
           f"{[round(h['time/step_s'] * 1e3, 1) for h in hist]}; data-wait share, %: "
           f"{[round(h['time/data_loading_pct'], 1) for h in hist]}  [{card}]")
@@ -2688,7 +3080,7 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
 
 def held_steps(train, listfile, tmp: Path, dev, card, config):
     """Phase 10's steps on batches made first and held in host memory: a
-    Trainer with the recipe's flags, AUDIO_STEPS batches pulled from its
+    Trainer with the recipe's flags, LOADER_STEPS batches pulled from its
     loader, the loader shut down, then each batch staged and trained with
     a sync after it (host clock). The step without the loader's threads."""
     from touchnet_tpu_torch.bin import TrainConfig
@@ -2698,11 +3090,11 @@ def held_steps(train, listfile, tmp: Path, dev, card, config):
 
     tok, data, job = parse_args_into_dataclasses(
         [TokenizerConfig, DataConfig, TrainConfig],
-        audio_argv(listfile, tmp / "held", AUDIO_T, AUDIO_STEPS, "bfloat16", config))
+        audio_argv(listfile, tmp / "held", AUDIO_T, LOADER_STEPS, "bfloat16", config))
     trainer = train.Trainer(tok, data, job, dev)
     try:
         it = iter(trainer.dataloader)
-        batches = [next(it) for _ in range(AUDIO_STEPS)]
+        batches = [next(it) for _ in range(LOADER_STEPS)]
     finally:
         trainer.dataloader.shutdown()
     times = []
@@ -2718,11 +3110,10 @@ def held_steps(train, listfile, tmp: Path, dev, card, config):
     trainer.close()
     del trainer
     torch.cuda.empty_cache()
-    print(f"  {AUDIO_STEPS} steps on batches held in host memory (no loader thread running): "
-          f"step {step_ms:.1f} ms (median of steps 3-{AUDIO_STEPS}), "
+    print(f"  {LOADER_STEPS} steps on batches held in host memory (no loader thread running): "
+          f"step {step_ms:.1f} ms (median of steps 3-{LOADER_STEPS}), "
           f"{tokens / step_ms * 1e3:,.0f} label tokens/s, MFU {mfu:.2f}%; step times, ms: "
           f"{[round(t, 1) for t in times]}  [{card}]")
-
 
 
 # -- phase 11: the ASR inference CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4) --
@@ -4330,7 +4721,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     the recipe's stage-2 flags (sft_argv, datapipe and model kimi_audio),
     KIMI_SFT_STEPS steps with one save, at the last, holding the model
     alone (no resumed run since the data- and tensor-parallel slice: the
-    script's clock; phases 9 and 10 hold the resume on the card and
+    script's clock; phases 8 and 10 hold the resume on the card and
     test_torch_kimi_audio_sft.py holds this one on the CPU); after the last step the speech tokenizer bit-equal to
     the seed, the mimo stack equal to the seed times prod(1 - lr_t wd), every
     other tensor moved; convert_ckpt_to_hf on that save, held to the final
@@ -5053,6 +5444,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     with phase_clock("phase 6"):
         k2 = check_k2(attn, dev, gen, failures, card)
+        k1_cp, k2_cp = check_cp_cases(attn, dev, gen, failures, card)
+    k1.update(k1_cp)
+    k2.update(k2_cp)
     with phase_clock("phase 7"):
         k3 = check_k3(fused_ce, dev, gen, failures, card)
     with phase_clock("phase 8"), tempfile.TemporaryDirectory() as tmp:

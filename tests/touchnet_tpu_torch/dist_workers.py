@@ -140,3 +140,47 @@ def mesh_coords(rank, shape):
     world = (d.dist_max(x), d.dist_min(x), d.dist_sum(x), d.dist_mean(x))
     tp_sum = d.dist_sum(x, mesh["tp"].get_group())
     return tuple(mesh.get_coordinate()), pd.dp_rank(), world, tp_sum
+
+
+def cp_attention(rank, method, q, k, v, seg, g, cp, tp=1):
+    """parallel.context_parallel.cp_local_attn on this rank's sequence slice
+    (cp rank) and head slice (tp rank) of whole numpy inputs, on the
+    (cp, tp) mesh of ParallelDims (dp 1): its out and the gradients of
+    sum(out * g) with respect to its q, k and v slices."""
+    from touchnet_tpu_torch.parallel.context_parallel import cp_local_attn
+    from touchnet_tpu_torch.parallel.dims import ParallelDims
+
+    mesh = ParallelDims(dp_shard=1, cp=cp, tp=tp).build_mesh("cpu")
+    c = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    T = q.shape[1] // cp
+    t = slice(c["cp"] * T, (c["cp"] + 1) * T)
+    h, hk = q.shape[2] // tp, k.shape[2] // tp
+    hs, ks = slice(c["tp"] * h, (c["tp"] + 1) * h), slice(c["tp"] * hk, (c["tp"] + 1) * hk)
+    qq = torch.tensor(q[:, t, hs], requires_grad=True)
+    kk = torch.tensor(k[:, t, ks], requires_grad=True)
+    vv = torch.tensor(v[:, t, ks], requires_grad=True)
+    out = cp_local_attn(qq, kk, vv, torch.from_numpy(seg[:, t]), cp=cp, rotate_method=method,
+                        group=mesh["cp"].get_group())
+    (out * torch.from_numpy(np.ascontiguousarray(g[:, t, hs]))).sum().backward()
+    return c, out.detach().numpy(), qq.grad.numpy(), kk.grad.numpy(), vv.grad.numpy()
+
+
+def cp_forward(rank, method, cfg_path, state, ids, pos, seg):
+    """modeling_llama.forward of the tiny Llama with every Llama stack
+    attending over the world as its cp group (context_parallel.apply_cp),
+    on this rank's half of each row: its logits, with the batch's position
+    ids sliced and with none (the forward's default, global positions)."""
+    from touchnet_tpu_torch.models.llama import modeling_llama
+    from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
+    from touchnet_tpu_torch.parallel.context_parallel import apply_cp, split_sequence
+
+    cfg = LlamaConfig.from_json_file(cfg_path)
+    model = modeling_llama.empty_model(cfg, device="cpu")
+    model.load_state_dict(state)
+    apply_cp(model, dist.group.WORLD, method)
+    n = dist.get_world_size()
+    ids, pos, seg = (torch.from_numpy(split_sequence(a, n, rank)) for a in (ids, pos, seg))
+    kw = dict(input_ids=ids, segment_ids=seg, config=cfg, compute_dtype=torch.float32)
+    with torch.no_grad():
+        return (modeling_llama.forward(model, position_ids=pos, **kw).numpy(),
+                modeling_llama.forward(model, **kw).numpy())

@@ -1,5 +1,6 @@
 # K2's plain version (touchnet_tpu_torch.ops.attention.flash_attention_bwd,
-# which CPU tensors take: autograd through packed_attention_reference)
+# which CPU tensors take: the kernel's formula from out and lse, here those
+# of packed_attention_reference)
 # against jax.grad of touchnet_tpu's flash_attention in interpret mode, which
 # runs the Pallas backward kernels (dq / dkv, and the fused single pass) on
 # the same numpy inputs. f32, atol 5e-4: the JAX kernel test's own bound

@@ -12,6 +12,9 @@
 # Phase 15's: the depth rule (text and mimo layers, then the budget, by disk
 # and card), the rows rule, a row's length against dynamic_batch's, the
 # stage-2 argv with model_type kimi_audio, the case (n) in the kernels line.
+# Phase 6's (p): the varlen runs that express the allgather call, and the
+# rows and columns with a live pair that its bytes count (live_extent,
+# live_bytes: a chunk that causality masks whole reads nothing).
 
 import copy
 import importlib.util
@@ -41,13 +44,17 @@ def _packed(B, T, docs, seed, tail=True):
     return seg
 
 
-def _dense(q_seg, kv_seg, causal, q_off, kv_off, T, S):
+def _mask(q_seg, kv_seg, causal, q_off, kv_off, T, S):
     m = np.ones((1 if q_seg is None else q_seg.shape[0], T, S), bool)
     if causal:
         m &= (q_off + np.arange(T))[:, None] >= (kv_off + np.arange(S))[None, :]
     if q_seg is not None:
         m &= q_seg[:, :, None] == kv_seg[:, None, :]
-    return int(m.sum())
+    return m
+
+
+def _dense(q_seg, kv_seg, causal, q_off, kv_off, T, S):
+    return int(_mask(q_seg, kv_seg, causal, q_off, kv_off, T, S).sum())
 
 
 def _case(name):
@@ -78,14 +85,22 @@ def _case(name):
         q = np.full((1, 20), 2, np.int32)
         kv = np.ones((1, 30), np.int32)
         return q, kv, True, 5, 0
+    if name == "ring past chunk":
+        seg = _packed(2, 128, 3, 4)
+        return seg[:, 64:], seg[:, :64], True, 64, 0
+    if name == "ring future chunk":
+        seg = _packed(2, 128, 3, 4)
+        return seg[:, :64], seg[:, 64:], True, 0, 64
     raise KeyError(name)
 
 
-@pytest.mark.parametrize("name", [
-    "packed rows, padding tail", "packed rows, no tail", "chunked prefill offset",
-    "both offsets", "non-causal, packed", "non-causal, one segment",
-    "causal, one segment", "all padding", "rows that see no key",
-])
+CASES = ["packed rows, padding tail", "packed rows, no tail", "chunked prefill offset",
+         "both offsets", "non-causal, packed", "non-causal, one segment",
+         "causal, one segment", "all padding", "rows that see no key", "ring past chunk",
+         "ring future chunk"]
+
+
+@pytest.mark.parametrize("name", CASES)
 def test_live_pairs_equals_the_dense_mask(name):
     q_seg, kv_seg, causal, q_off, kv_off = _case(name)
     T = 37 if q_seg is None else q_seg.shape[1]
@@ -94,6 +109,43 @@ def test_live_pairs_equals_the_dense_mask(name):
     got = chip_smoke.live_pairs(q_seg, kv_seg, causal, q_off, kv_off, T, S, B)
     want = _dense(q_seg, kv_seg, causal, q_off, kv_off, T, S)
     assert got == (B * want if q_seg is None else want)
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_live_extent_equals_the_dense_mask(name):
+    """The query rows and key columns with at least one live pair, summed
+    over the batch, equal the dense mask's."""
+    q_seg, kv_seg, causal, q_off, kv_off = _case(name)
+    T = 37 if q_seg is None else q_seg.shape[1]
+    S = 41 if kv_seg is None else kv_seg.shape[1]
+    B = 3 if q_seg is None else q_seg.shape[0]
+    m = _mask(q_seg, kv_seg, causal, q_off, kv_off, T, S)
+    want = (int(m.any(-1).sum()), int(m.any(-2).sum()))
+    if q_seg is None:
+        want = (B * want[0], B * want[1])
+    assert chip_smoke.live_extent(q_seg, kv_seg, causal, q_off, kv_off, T, S, B) == want
+
+
+def test_live_bytes_of_the_ring_chunks():
+    """K1's bytes at (p)'s chunks: the own chunk reads all of q, k, v and
+    the segment ids; the future chunk, which causality masks whole, only
+    writes out and lse; the past chunk reads the live rows of q and the
+    live columns of k and v."""
+    T, H, Hkv, D = 64, 4, 2, 8
+    seg = torch.from_numpy(_packed(1, 2 * T, 3, 4))
+    q = torch.zeros(1, T, H, D, dtype=torch.bfloat16)
+    k = torch.zeros(1, T, Hkv, D, dtype=torch.bfloat16)
+    lse = torch.zeros(1, H, T)
+    nb = chip_smoke.nbytes
+    own = chip_smoke.live_bytes((q,), (k, k), (q, lse), seg[:, T:], seg[:, T:], True, T, T)
+    assert own == nb(q, k, k, q, lse, seg[:, T:], seg[:, T:])
+    fut = chip_smoke.live_bytes((q,), (k, k), (q, lse), seg[:, :T], seg[:, T:], True, 0, T)
+    assert fut == nb(q, lse)
+    rows, cols = chip_smoke.live_extent(seg[:, T:], seg[:, :T], True, T, 0)
+    assert 0 < rows < T and 0 < cols <= T
+    past = chip_smoke.live_bytes((q,), (k, k), (q, lse), seg[:, T:], seg[:, :T], True, T, 0)
+    assert past == pytest.approx(nb(q) * rows / T + 2 * nb(k) * cols / T + nb(q, lse)
+                                 + nb(seg[:, T:], seg[:, :T]))
 
 
 def test_bound_names_its_limit():
@@ -581,3 +633,18 @@ def test_kernels_line_carries_the_kimi_sft_case():
     rows = chip_smoke.kernels_line(counts, k1, k2, k3, {"(a) decode": case(0.2)})["kernels"]
     assert name in rows[0]["cases"] and name in rows[1]["cases"]
     assert rows[0]["ms"] == 2.0 and rows[1]["ms"] == 6.8 and rows[1]["cases"][name]["ms"] == 20.0
+
+
+def test_cp_runs_cover_the_allgather_mask():
+    """(p)'s library runs for the allgather call: rank 1's queries (global
+    positions T..2T) per document against each document's keys from its
+    global start, bottom-right causal, cover exactly the live pairs of the
+    dense causal + segment mask at q_offset T over all 2T keys; the keys'
+    first row is where the runs' keys begin."""
+    T = 64
+    seg = torch.from_numpy(_packed(1, 2 * T, 4, 7))
+    q_runs, k_runs, first = chip_smoke.cp_runs(seg, T)
+    assert sum(q_runs) == T and sum(k_runs) == 2 * T - first
+    covered = sum(q * (k - q) + q * (q + 1) // 2 for q, k in zip(q_runs, k_runs))
+    want = _dense(seg[:, T:].numpy(), seg.numpy(), True, T, 0, T, 2 * T)
+    assert covered == want == chip_smoke.live_pairs(seg[:, T:], seg, True, T, 0, T, 2 * T)

@@ -12,7 +12,8 @@
 #     shard boundary goes to the smallest global index. The same combine
 #     over a stacked shard axis in one process (as the card's check runs
 #     it) gives the same values and gradients;
-#   - the plan's refusals: tp not dividing num_key_value_heads, cp and pp.
+#   - the plan's refusals: tp not dividing num_key_value_heads, cp and pp;
+#     a dp_only TrainSpec (qwen2_audio, kimi_audio) at tp, cp or pp > 1.
 
 import jax
 import jax.numpy as jnp
@@ -195,3 +196,27 @@ def test_tp_must_divide_kv_heads():
     with pytest.raises(ValueError, match="training_tensor_parallel_degree=4 does not divide "
                                          "num_key_value_heads=2"):
         apply_tp(model, _FakeMesh(4))
+
+
+DP_ONLY_FLAGS = ("training_tensor_parallel_degree", "training_context_parallel_degree",
+                 "training_pipeline_parallel_degree")
+
+
+@pytest.mark.parametrize("flag", DP_ONLY_FLAGS)
+@pytest.mark.parametrize("model", ["qwen2_audio", "kimi_audio"])
+def test_dp_only_specs_refuse_model_parallel_degrees(model, flag):
+    """qwen2_audio's and kimi_audio's TrainSpecs are dp_only (FSDP, HSDP
+    and DDP only): tp, cp or pp at 2 raises naming the flag, as the JAX
+    trainer asserts (touchnet_tpu/bin/train.py:353-358); degree 1 of each,
+    and llama and touch_audio at 2, pass the check."""
+    from touchnet_tpu_torch.bin import TrainConfig
+    from touchnet_tpu_torch.bin.train import check_dp_only
+    from touchnet_tpu_torch.utils.train_spec import get_train_spec
+
+    spec = get_train_spec(model)
+    assert spec.dp_only
+    with pytest.raises(ValueError, match=f"{flag}=2: {model}'s TrainSpec is dp_only"):
+        check_dp_only(spec, TrainConfig(**{flag: 2}))
+    check_dp_only(spec, TrainConfig())
+    for other in ("llama", "touch_audio"):
+        check_dp_only(get_train_spec(other), TrainConfig(**{flag: 2}))

@@ -1,15 +1,19 @@
 # The port's trainer over gloo ranks on the CPU (bin.train.main in spawned
 # processes, torchrun's environment, a FileStore rendezvous each) against
-# the JAX Trainer at the same dp degree, which fixes the global batch: the
-# JAX run takes as many of the pytest process's virtual devices as the dp
-# degree (jax.device_count patched, as test_torch_checkpoint does for 1),
-# both start from the JAX init (a step_0 seed checkpoint for the port),
-# 3 steps on the tiny Llama in f32 with liger (the fused K3 loss):
+# the JAX Trainer at the same dp degree, which fixes the global batch (the
+# cp layouts at their own layout): the JAX run takes as many of the pytest
+# process's virtual devices as its world (jax.device_count patched, as
+# test_torch_checkpoint does for 1), both start from the JAX init (a step_0
+# seed checkpoint for the port), 3 steps on the tiny Llama in f32 with
+# liger (the fused K3 loss):
 #   - per-step loss_per_sample rtol 1e-5, grad_norm rtol 1e-4 (the two
 #     frameworks' summation orders; the norm sums ~1e5 squares), and the
 #     per-token loss and accuracy of the global batch rtol 1e-5, for
-#     dp_shard 2, dp_replicate 2 (DDP), HSDP 2 x 2 and dp_shard 2 x tp 2
-#     with loss parallel (the vocab-parallel K3 combine, q/k/v heads split);
+#     dp_shard 2, dp_replicate 2 (DDP), HSDP 2 x 2, dp_shard 2 x tp 2
+#     with loss parallel (the vocab-parallel K3 combine, q/k/v heads split),
+#     and context parallelism: cp 2 with each rotate method (allgather, and
+#     alltoall, the ring) and dp_shard 2 x cp 2 (allgather; FSDP2 over the
+#     flattened dp_shard x cp mesh), each rank on its half of every row;
 #   - touch_audio at tp 2: V = 1025 is not divisible, so embed and head
 #     stay whole, the projector's input width 161 too; its losses equal the
 #     same run at world 1 (no JAX run: its own test holds world 1 to JAX);
@@ -19,10 +23,9 @@
 #     checkpoint equals the export of the same parameters written by one
 #     process; a resume at another world size raises;
 #   - one rank under FSDP2 (as on one card) against one process: bit-equal
-#     in f32; under bf16 step 1's forward bit-equal, the rest within rtol
-#     1e-4 (the embedding's bf16 gradient sums);
-#   - cp > 1 and pp > 1 raise naming the flag; at world 1 a degree that
-#     does not fit raises naming it.
+#     in f32 and in bf16;
+#   - pp > 1 raises naming the flag; at world 1 a degree that does not fit
+#     (tp, cp) raises from ParallelDims naming it.
 
 import gc
 import os
@@ -55,18 +58,34 @@ LAYOUTS = {
     "dp_shard2_tp2": (4, dict(training_data_parallel_shard_degree=2,
                               training_tensor_parallel_degree=2,
                               training_enable_loss_parallel="true")),
+    "cp2_allgather": (2, dict(training_data_parallel_shard_degree=1,
+                              training_context_parallel_degree=2,
+                              training_context_parallel_rotate_method="allgather")),
+    "cp2_alltoall": (2, dict(training_data_parallel_shard_degree=1,
+                             training_context_parallel_degree=2,
+                             training_context_parallel_rotate_method="alltoall")),
+    "dp_shard2_cp2": (4, dict(training_data_parallel_shard_degree=2,
+                              training_context_parallel_degree=2)),
 }
+# the JAX run each layout is held to: dp_shard at the layout's dp degree, or
+# the cp layout itself
+JAX_RUNS = {"dp2": (2, dict(training_data_parallel_shard_degree=2)),
+            "dp4": (4, dict(training_data_parallel_shard_degree=4)),
+            **{name: LAYOUTS[name] for name in ("cp2_allgather", "cp2_alltoall",
+                                                "dp_shard2_cp2")}}
+HELD_TO = {"dp_shard2": "dp2", "ddp2": "dp2", "hsdp2x2": "dp4", "dp_shard2_tp2": "dp2",
+           "cp2_allgather": "cp2_allgather", "cp2_alltoall": "cp2_alltoall",
+           "dp_shard2_cp2": "dp_shard2_cp2"}
 
 
-def _jax_reference(tmp_path, listfile, dp):
-    """The JAX Trainer at dp_shard = dp over dp of the CPU devices: its
+def _jax_reference(tmp_path, listfile, world, flags):
+    """The JAX Trainer with ``flags`` over ``world`` of the CPU devices: its
     params at init (as the port's state dict) and its logged metrics."""
     mp = pytest.MonkeyPatch()
-    mp.setattr(jax, "device_count", lambda *a: dp)
+    mp.setattr(jax, "device_count", lambda *a: world)
     gc_on = gc.isenabled()
     jt = JTrainer(*jparse([JTokenizerConfig, JDataConfig, JTrainConfig],
-                          _flags(tmp_path / "jax", listfile, STEPS,
-                                 training_data_parallel_shard_degree=dp)))
+                          _flags(tmp_path / "jax", listfile, STEPS, **flags)))
     try:
         init = params_from_jax_numpy(jax.tree.map(np.asarray, jt.params),
                                      LlamaConfig.from_json_file(CFG))
@@ -85,7 +104,8 @@ def _jax_reference(tmp_path, listfile, dp):
 def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ref")
     listfile = build_corpus(tmp)
-    return listfile, {dp: _jax_reference(tmp, listfile, dp) for dp in (2, 4)}
+    return listfile, {name: _jax_reference(tmp / name, listfile, world, flags)
+                      for name, (world, flags) in JAX_RUNS.items()}
 
 
 def _seeded(exp, init):
@@ -100,8 +120,7 @@ def _seeded(exp, init):
 def test_layout_matches_jax_trainer(tmp_path, reference, tp_run, layout):
     listfile, refs = reference
     world, flags = LAYOUTS[layout]
-    dp = world // int(flags.get("training_tensor_parallel_degree", 1))
-    init, want = refs[dp]
+    init, want = refs[HELD_TO[layout]]
     if layout == "dp_shard2_tp2":
         ranks = tp_run[1]  # its first 3 steps
     else:
@@ -123,7 +142,7 @@ def tp_run(reference, tmp_path_factory):
     1 and 4 (straight), and its directory."""
     listfile, refs = reference
     tmp = tmp_path_factory.mktemp("tp_run")
-    _seeded(tmp / "exp", refs[2][0])
+    _seeded(tmp / "exp", refs["dp2"][0])
     argv = _flags(tmp, listfile, 4, training_enable_ckpt="true", training_ckpt_interval=100,
                   **LAYOUTS["dp_shard2_tp2"][1])
     return tmp, spawn(train_main, 4, tmp, argv, True)
@@ -140,7 +159,7 @@ def test_four_rank_resume_and_export_are_exact(tmp_path, reference, tp_run):
 
     listfile, refs = reference
     straight_dir, straight = tp_run
-    _seeded(tmp_path / "exp", refs[2][0])
+    _seeded(tmp_path / "exp", refs["dp2"][0])
     argv = _flags(tmp_path, listfile, 4, training_enable_ckpt="true", training_ckpt_interval=100,
                   **LAYOUTS["dp_shard2_tp2"][1])
     first = spawn(train_main, 4, tmp_path, argv, False, 2)
@@ -181,8 +200,8 @@ def test_four_rank_resume_and_export_are_exact(tmp_path, reference, tp_run):
                                   "training_pipeline_parallel_degree",
                                   "training_tensor_parallel_degree"])
 def test_unported_degrees_raise(tmp_path, flag):
-    """cp and pp raise naming the flag; tp 2 at world 1 (no torchrun)
-    raises from ParallelDims naming it."""
+    """pp raises naming the flag (a later slice); cp 2 and tp 2 at world 1
+    (no torchrun) raise from ParallelDims naming theirs."""
     with pytest.raises(ValueError, match=f"{flag}=2"):
         ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: 2}), device=torch.device("cpu"))
 
@@ -224,14 +243,15 @@ def test_touch_audio_tp2_keeps_odd_dimensions_whole(tmp_path):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_world_one_under_fsdp_equals_one_process(tmp_path, dtype):
     """One rank under torchrun's environment (FSDP2 over a mesh of 1, as
-    on one card) against the trainer without a process group. In f32 the
-    losses and grad norms of 3 steps are bit-equal. Under bf16 compute the
-    first step's forward is (FSDP2's bf16 parameters give the values of the
-    single-device casts; its cast of the layers' floating inputs would
-    round the f32 rope frequencies, so it is off), and the later ones
-    within rtol 1e-4 (grad norms 1e-3): the embedding's gradient sums the
-    rows of repeated ids in its parameter's dtype, bf16 under FSDP2, f32 in
-    one process (a bf16 rounding is 4e-3 relative; read 2e-4 on the norm)."""
+    on one card) against the trainer without a process group: the losses,
+    grad norms and accuracies of 3 steps are bit-equal, in f32 and under
+    bf16 compute. Under bf16 FSDP2 gathers the layers' weights in bf16,
+    which gives the values of the single-device casts (its cast of the
+    layers' floating inputs would round the f32 rope frequencies, so it is
+    off), and the root unit's (embedding, final norm) in the reduce dtype,
+    f32, so the embedding's gradient, the sum of its rows over repeated ids
+    and of the tied head's part, adds up in f32 as in one process (in bf16
+    parameters it read 1.5e-5 apart by step 2)."""
     listfile = build_corpus(tmp_path)
     kw = dict(training_mixed_precision_param=dtype)
     argv = _flags(tmp_path / "one", listfile, STEPS, **kw)
@@ -241,10 +261,4 @@ def test_world_one_under_fsdp_equals_one_process(tmp_path, dtype):
     assert "FSDP2 over dp_replicate 1 x dp_shard 1" in log
     for key in ("loss/per_sample", "grad_norm", "loss/per_token", "acc"):
         g, w = [h[key] for h in got["history"]], [h[key] for h in want]
-        if dtype == "float32":
-            assert g == w, key
-        else:
-            if key != "grad_norm":  # step 1's forward; its gradient differs
-                assert g[0] == w[0], key
-            rtol = 1e-3 if key == "grad_norm" else 1e-4
-            np.testing.assert_allclose(g, w, rtol=rtol, err_msg=key)
+        assert len(g) == STEPS and g == w, key

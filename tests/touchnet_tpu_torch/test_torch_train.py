@@ -19,8 +19,8 @@
 #     loader's on the same DataBuilder shards;
 #   - bin.train.main on the tiny config: the loss drops over 8 steps,
 #     op_small gives the losses of no remat, each parallel degree raises
-#     in one process (dp and tp do not fit a world of 1; cp and pp are
-#     later slices; the multi-process runs are test_torch_parallel_train),
+#     in one process (dp, tp and cp do not fit a world of 1; pp is a later
+#     slice; the multi-process runs are test_torch_parallel_train),
 #     and each single-device mode runs.
 
 import os
@@ -396,8 +396,8 @@ def test_trainer_main_loss_drops(tmp_path):
 
 
 # the single-device modes (since the slice that ported them) run; in one
-# process every parallel degree raises: dp and tp do not fit its world of 1,
-# cp and pp are still later slices
+# process every parallel degree raises: dp, tp and cp do not fit its world
+# of 1, pp is still a later slice
 SINGLE_DEVICE_MODES = ("training_gradient_accumulation_steps",
                        "training_mixed_precision_reduce", "training_enable_cpu_offload")
 

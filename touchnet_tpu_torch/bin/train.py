@@ -99,8 +99,23 @@
 # Without torchrun's environment (or a process group the caller started)
 # the trainer runs on one device as before.
 #
+# Context parallelism (--training_context_parallel_degree cp, llama and
+# touch_audio): the cp ranks of one dp rank load the same rows (dp_rank is
+# cp-free, JAX's DP_CP) and each keeps its [r*T/cp, (r+1)*T/cp) slice of
+# every per-position array (_stage_batch, context_parallel.split_sequence:
+# JAX's batch_specs; a T that cp does not divide raises, where JAX would
+# leave the array unsplit). Each Llama stack attends over its cp group by
+# --training_context_parallel_rotate_method (context_parallel.apply_cp:
+# allgather or the ring, alltoall); FSDP2 shards over dp_shard x cp; the
+# loss's four sums are summed over dp x cp (the loss group), num_sentence
+# counted over dp only (the cp ranks share rows). tps and MFU count, as
+# JAX's metrics do, the dp rank's tokens over the non-data-parallel ranks
+# (cp x tp x pp).
+#
 # What the port does not run raises a ValueError naming the flag
-# (check_supported): context and pipeline parallelism, and float16.
+# (check_supported): pipeline parallelism and float16; so does a dp_only
+# TrainSpec (qwen2_audio, kimi_audio) at tp, cp or pp above 1
+# (check_dp_only).
 
 import copy
 import json
@@ -124,6 +139,7 @@ from touchnet_tpu_torch.ops.fused_adamw import (
     fused_adamw_step,
     streamed_adamw_step,
 )
+from touchnet_tpu_torch.parallel.context_parallel import apply_cp, split_sequence
 from touchnet_tpu_torch.parallel.dims import MESH_AXES, ParallelDims
 from touchnet_tpu_torch.parallel.loss_parallel import fused_linear_cross_entropy
 from touchnet_tpu_torch.parallel.sharding import (
@@ -178,19 +194,31 @@ def check_supported(job_config: TrainConfig) -> None:
     """Raise a ValueError naming the first flag the port does not run."""
     later = "is a later slice of touchnet_tpu_torch"
     cfg = job_config
-    for name, what in (("training_context_parallel_degree", "context parallelism"),
-                       ("training_pipeline_parallel_degree", "pipeline parallelism")):
-        if getattr(cfg, name) > 1:
-            raise ValueError(f"{name}={getattr(cfg, name)}: {what} {later}")
+    if cfg.training_pipeline_parallel_degree > 1:
+        raise ValueError(f"training_pipeline_parallel_degree="
+                         f"{cfg.training_pipeline_parallel_degree}: pipeline parallelism {later}")
     if cfg.training_mixed_precision_param not in _DTYPES:
         raise ValueError(f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
                          f"the kernels take bfloat16 or float32; float16 {later}")
 
 
+def check_dp_only(spec, job_config: TrainConfig) -> None:
+    """A dp_only TrainSpec (FSDP, HSDP and DDP only: qwen2_audio, kimi_audio)
+    raises a ValueError naming the first of tp, cp and pp above 1, as the
+    JAX trainer asserts (touchnet_tpu/bin/train.py:353-358)."""
+    if not spec.dp_only:
+        return
+    for name in ("training_tensor_parallel_degree", "training_context_parallel_degree",
+                 "training_pipeline_parallel_degree"):
+        if getattr(job_config, name) > 1:
+            raise ValueError(f"{name}={getattr(job_config, name)}: {spec.name}'s TrainSpec is "
+                             "dp_only (FSDP, HSDP and DDP only)")
+
+
 # flags the trainer accepts and never reads: set away from their default
 # (what the port does), each logs one warning saying so. The layout flags
-# of the parallelisms the port does not run (rotate method, pipeline
-# schedule and microbatches) are inert at degree 1 here as in the JAX
+# of pipeline parallelism, which the port does not run (its schedule and
+# microbatches), and the rotate method at cp 1 are inert here as in the JAX
 # trainer on one device, and stay silent; so does async TP at tp 1 (at
 # tp > 1 it warns once: the port runs no XLA scheduler it could set).
 UNREAD_FLAGS = {
@@ -373,12 +401,13 @@ class _AccumBatcher:
         self.loader.load_state_dict(state)
 
 
-def _dp_group(pd: ParallelDims, rank: int):
-    """The group of the ranks that share this rank's tp (and pp, cp)
-    coordinates: the data-parallel ranks, over which num_sentence and the
-    loss's sums are summed. Every rank creates every group, in one order."""
+def _loss_group(pd: ParallelDims, rank: int):
+    """The group of the ranks that share this rank's tp and pp coordinates:
+    dp_replicate x dp_shard x cp (JAX's DP_CP), each with its own rows or
+    its own slice of their sequence, over which the loss's sums are summed.
+    Every rank creates every group, in one order."""
     mine = None
-    others = ("pp", "cp", "tp")
+    others = ("pp", "tp")
     key = tuple(pd.coords(rank)[a] for a in others)
     groups = {}
     for r in range(pd.world_size):
@@ -432,6 +461,7 @@ class Trainer:
         self.tokenizer_config = tokenizer_config
         job_config.validate()
         check_supported(job_config)
+        check_dp_only(get_train_spec(job_config.training_model_name), job_config)
         init_logger(os.path.join(job_config.training_trace_dump_folder, "touchnet_train.log"))
         warn_unread(job_config)
         self.gc_handler = GarbageCollection(job_config.training_gc_freq)
@@ -452,10 +482,10 @@ class Trainer:
             world_size=self.world,
             enable_loss_parallel=job_config.training_enable_loss_parallel)
         pd = self.parallel_dims
-        self.dp_group = self.host_group = self.ckpt_group = self.mesh = None
+        self.loss_group = self.host_group = self.ckpt_group = self.mesh = None
         if self.fsdp:
             self.mesh = pd.build_mesh(device.type)
-            self.dp_group = _dp_group(pd, self.rank)
+            self.loss_group = _loss_group(pd, self.rank)
             # the loop's agreements (num_sentence, the NaN guard, the end of
             # the data, SIGTERM): gloo over every rank, on the host
             self.host_group = dist.new_group(backend="gloo")
@@ -578,19 +608,18 @@ class Trainer:
         with this run's dtypes; the bf16 casts and reductions are FSDP's
         MixedPrecisionPolicy then."""
         pd, cfg = self.parallel_dims, self.job_config
-        if pd.tp > 1:
-            if self.train_spec.param_rules is not None:
-                self.train_spec.param_rules(self.model, self.mesh["tp"], log=logger.info)
-            else:
-                logger.info(f"{self.train_spec.name} has no tensor-parallel plan (FSDP/HSDP/DDP "
-                            f"only): training_tensor_parallel_degree={pd.tp} leaves its weights "
-                            "replicated over tp")
+        if pd.tp > 1:  # a spec without param_rules is dp_only (check_dp_only)
+            self.train_spec.param_rules(self.model, self.mesh["tp"], log=logger.info)
+        if pd.cp > 1:
+            apply_cp(self.model, self.mesh["cp"].get_group(),
+                     cfg.training_context_parallel_rotate_method)
         apply_fsdp(self._reparam, self.model, dp_mesh_of(self.mesh, pd.dp_replicate),
                    param_dtype=self.compute_dtype, reduce_dtype=self.reduce_dtype,
                    reshard_after_forward=cfg.training_fsdp_reshard_after_forward)
-        logger.info(f"FSDP2 over dp_replicate {pd.dp_replicate} x dp_shard {pd.dp_shard} "
-                    f"(reshard_after_forward {cfg.training_fsdp_reshard_after_forward}, "
-                    f"params {self.compute_dtype}, reduce {self.reduce_dtype}, sum), tp {pd.tp}")
+        logger.info(f"FSDP2 over dp_replicate {pd.dp_replicate} x dp_shard {pd.dp_shard} x cp "
+                    f"{pd.cp} (reshard_after_forward {cfg.training_fsdp_reshard_after_forward}, "
+                    f"params {self.compute_dtype}, reduce {self.reduce_dtype}, sum), tp {pd.tp}"
+                    + (f", cp {cfg.training_context_parallel_rotate_method}" if pd.cp > 1 else ""))
 
     def _model_state(self) -> Dict[str, torch.Tensor]:
         """The model's tensors by name, as the checkpoint holds them (under
@@ -647,18 +676,18 @@ class Trainer:
             return fused_linear_cross_entropy(
                 hidden, local(head.weight), batch["labels"], batch["sentence_lens"],
                 num_sentence, compute_dtype=self.compute_dtype, tp_group=tp_group(head),
-                vocab_start=vocab_start(head), dp_group=self.dp_group)
+                vocab_start=vocab_start(head), dp_group=self.loss_group)
         logits = self._forward(batch)
         loss_ps, loss_pt = self.train_spec.loss_fn(
             logits, batch["labels"], batch["sentence_lens"], num_sentence)
         acc = self.train_spec.acc_fn(logits, batch["labels"])
-        if self.dp_group is None:
+        if self.loss_group is None:
             return loss_ps, loss_pt, acc
-        # the global batch's values (the gradient stays this rank's rows):
+        # the global batch's values (the gradient stays this rank's tokens):
         # per-sample sums, per-token loss and accuracy weighted by tokens
         ntok = (batch["labels"] != -100).sum().double()
         vals = sum_forward(torch.stack([loss_ps.double(), loss_pt.detach() * ntok,
-                                        acc.detach() * ntok, ntok]), self.dp_group)
+                                        acc.detach() * ntok, ntok]), self.loss_group)
         n = vals[3].clamp(min=1)
         return vals[0].float(), (vals[1] / n).float(), (vals[2] / n).float()
 
@@ -754,14 +783,18 @@ class Trainer:
             raise ValueError(f"NaN/inf in data batch `{bad}`.")
         return device_batch, num_sentence
 
-    def _stage_batch(self, batch: Dict[str, Any]):
+    def _stage_batch(self, batch: Dict[str, Any], stacked: bool = False):
         """Host batch -> (device tensors (int32 buffers stay int32), this
         rank's num_sentence, the first float array holding NaN/inf or None).
-        Runs on the prefetcher's thread, so it raises nothing for the NaN
-        guard: the loop agrees on it over the ranks first
+        Under cp each array keeps this rank's slice of the sequence (axis 1,
+        axis 2 of an accumulation stack); num_sentence counts the whole
+        rows. Runs on the prefetcher's thread, so it raises nothing for the
+        NaN guard: the loop agrees on it over the ranks first
         (_global_batch)."""
-        arrays = {k: batch[k] for k in _BATCH_ARRAY_KEYS
-                  if isinstance(batch.get(k), np.ndarray)}
+        pd = self.parallel_dims
+        cp_rank = pd.coords(self.rank)["cp"]
+        arrays = {k: split_sequence(batch[k], pd.cp, cp_rank, 2 if stacked else 1)
+                  for k in _BATCH_ARRAY_KEYS if isinstance(batch.get(k), np.ndarray)}
         bad = next((k for k, a in arrays.items()
                     if np.issubdtype(a.dtype, np.floating) and not np.isfinite(a).all()), None)
         cuda = self.device.type == "cuda"
@@ -822,7 +855,7 @@ class Trainer:
 
         def stage(batch):
             ntokens = int((batch["labels"] != -100).sum())
-            device_batch, num_sentence, bad = self._stage_batch(batch)
+            device_batch, num_sentence, bad = self._stage_batch(batch, self.accum > 1)
             return device_batch, num_sentence, bad, ntokens
 
         loader = self.dataloader

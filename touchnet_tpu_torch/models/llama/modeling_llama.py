@@ -6,7 +6,8 @@
 # branch), scan_layers (:226-297) with _selective_layer_freq (:93-134) and
 # the save sets of _apply_remat (:137-223), get_num_params (:490-510) and
 # get_num_flop_per_token (:513). The training forward always attends
-# through ops.attention.flash_attention (K1/K2 on the card);
+# through ops.attention.flash_attention (K1/K2 on the card; under context
+# parallelism by way of parallel/context_parallel.cp_local_attn);
 # config.attn_implementation is not read, as in serving. The JAX package
 # keeps per-layer weights stacked on a leading [L, ...] axis and loops with
 # lax.scan; here each layer is its own module in a ModuleList and the loop
@@ -64,6 +65,7 @@ from touchnet_tpu_torch.models.common import (
 )
 from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
 from touchnet_tpu_torch.ops import attention as attn_ops
+from touchnet_tpu_torch.parallel.context_parallel import context_parallel
 from touchnet_tpu_torch.parallel.sharding import (
     embed,
     head_logits,
@@ -344,10 +346,15 @@ def _run_layer(layer: "LlamaDecoderLayer", save: Optional[FrozenSet[str]], *args
     return checkpoint(layer, *args, use_reentrant=False, context_fn=context_fn)
 
 
-def _train_attention(segment_ids: Optional[torch.Tensor]) -> Callable:
+def _train_attention(segment_ids: Optional[torch.Tensor], cp=None) -> Callable:
     """Packed causal attention of the training forward: K1 (and K2 in the
     backward) through ops.attention.flash_attention, which takes its plain
-    version only for CPU tensors. Looked up on the module at call time."""
+    version only for CPU tensors. Looked up on the module at call time.
+    Under context parallelism (``cp``, the stack's ContextParallel) the
+    rank's sequence slice attends the whole sequence of its cp group
+    (parallel/context_parallel.cp_local_attn)."""
+    if cp is not None:
+        return lambda q, k, v: cp.attend(q, k, v, segment_ids)
     return lambda q, k, v: attn_ops.flash_attention(q, k, v, segment_ids)[0]
 
 
@@ -367,17 +374,21 @@ def forward(
     """Run the decoder; returns logits [B, T, V] in compute_dtype (or the
     final-norm hidden state [B, T, E] when return_hidden, for K3).
     position_ids restart per packed document; segment_ids is the packed
-    document mask (attention_mask in the batch contract, 0 = padding)."""
+    document mask (attention_mask in the batch contract, 0 = padding).
+    Under context parallelism every array holds the rank's slice of the
+    sequence (position ids their global positions)."""
     mp = model.model
     if inputs_embeds is None:
         inputs_embeds = embed(input_ids, mp.embed_tokens)
     h = inputs_embeds.to(compute_dtype)
     B, T, _ = h.shape
-    if position_ids is None:
-        position_ids = torch.arange(T, device=h.device).expand(B, T)
+    cp = context_parallel(mp)
+    if position_ids is None:  # the global positions of this rank's slice
+        start = 0 if cp is None else cp.rank * T
+        position_ids = (start + torch.arange(T, device=h.device)).expand(B, T)
     inv_freq = rope_frequencies(config.head_dim, config.rope_theta,
                                 rope_scaling=config.rope_scaling, device=h.device)
-    attend = _train_attention(segment_ids)
+    attend = _train_attention(segment_ids, cp)
     remat = remat_layers(remat_mode, selective_ac_option, len(mp.layers))
     for layer, save in zip(mp.layers, remat):
         h = _run_layer(layer, save, h, position_ids, inv_freq, attend)

@@ -20,8 +20,9 @@
 #     residual names). The wrapper raises on a shape or dtype the kernels do
 #     not take and never falls back to the plain version.
 #   - flash_attention_bwd: K2's wrapper (dq, dk, dv from the forward's
-#     residuals); its plain version, flash_attention_bwd_reference, is
-#     autograd through packed_attention_reference.
+#     residuals, or from a context-parallel ring's final out and lse); its
+#     plain version, flash_attention_bwd_reference, computes the kernel's
+#     formula from the same inputs in f32.
 #   - flash_prefill: the chunked-prefill entry (the role of
 #     flash_prefill_grouped, :1983): a chunk's queries attend the halves of
 #     the packed KV cache, passed as strided views, never copied.
@@ -43,6 +44,22 @@ from touchnet_tpu_torch.ops import _build
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)  # head dims the kernel is built for
 MAX_GROUP = 64  # query heads per kv head (the kernel's 64-row tile)
+
+
+def _mask(B, T, S, device, segment_ids, kv_segment_ids, causal, q_offset, kv_offset):
+    """[B, 1, T, S] bool: the pairs the kernels keep (segments equal and,
+    when causal, q_offset + t >= kv_offset + s)."""
+    mask = torch.ones((B, 1, T, S), dtype=torch.bool, device=device)
+    if causal:
+        rows = q_offset + torch.arange(T, device=device)[:, None]
+        cols = kv_offset + torch.arange(S, device=device)[None, :]
+        mask = mask & (rows >= cols)
+    if segment_ids is not None:
+        mask = mask & (
+            segment_ids.to(torch.int32)[:, None, :, None]
+            == kv_segment_ids.to(torch.int32)[:, None, None, :]
+        )
+    return mask
 
 
 def packed_attention_reference(
@@ -72,16 +89,7 @@ def packed_attention_reference(
         k = k.repeat_interleave(H // Hkv, dim=2)
         v = v.repeat_interleave(H // Hkv, dim=2)
     s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
-    mask = torch.ones((B, 1, T, S), dtype=torch.bool, device=q.device)
-    if causal:
-        rows = q_offset + torch.arange(T, device=q.device)[:, None]
-        cols = kv_offset + torch.arange(S, device=q.device)[None, :]
-        mask = mask & (rows >= cols)
-    if segment_ids is not None:
-        mask = mask & (
-            segment_ids.to(torch.int32)[:, None, :, None]
-            == kv_segment_ids.to(torch.int32)[:, None, None, :]
-        )
+    mask = _mask(B, T, S, q.device, segment_ids, kv_segment_ids, causal, q_offset, kv_offset)
     s.masked_fill_(~mask, DEFAULT_MASK_VALUE)
     lse = torch.logsumexp(s, dim=-1)
     p = torch.softmax(s, dim=-1)
@@ -238,15 +246,39 @@ flash_attention.launches = 0
 def flash_attention_bwd_reference(q, k, v, segment_ids, kv_segment_ids, out, lse,
                                   dout, causal=True, scale=None, q_offset=0,
                                   kv_offset=0) -> tuple:
-    """K2's plain version: (dq, dk, dv) by autograd through
-    packed_attention_reference. out and lse are K2's inputs and are not
-    read (the reference recomputes them)."""
-    with torch.enable_grad():
-        qq, kk, vv = (x.detach().requires_grad_(True) for x in (q, k, v))
-        o, _ = packed_attention_reference(qq, kk, vv, segment_ids, causal, scale,
-                                          kv_segment_ids, q_offset, kv_offset)
-        dq, dk, dv = torch.autograd.grad(o, (qq, kk, vv), dout)
-    return dq, dk, dv
+    """K2's plain version: (dq, dk, dv) in q's dtype from K2's inputs, in
+    f32, as the kernel computes them: p = exp(s - lse), delta = rowsum(dout
+    * out), ds = p * (dout v^T - delta) on the kept pairs, dq = ds k, dk =
+    ds^T q (times the scale), dv = p^T dout, dk and dv summed over the G
+    query heads of their kv head. out and lse need not be this forward's:
+    a context-parallel ring hands every step the final out and lse of all
+    its steps, and gets that step's share of the gradient. Given None, they
+    are packed_attention_reference's (then the result is autograd through
+    it: on a row with no valid key p is uniform, as its forward)."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if kv_segment_ids is None:
+        kv_segment_ids = segment_ids
+    if out is None or lse is None:
+        out, lse = packed_attention_reference(q, k, v, segment_ids, causal, scale,
+                                              kv_segment_ids, q_offset, kv_offset)
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    qf, do = q.float(), dout.float()
+    mask = _mask(B, T, S, q.device, segment_ids, kv_segment_ids, causal, q_offset, kv_offset)
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    s.masked_fill_(~mask, DEFAULT_MASK_VALUE)
+    p = torch.exp(s - lse.float()[..., None])
+    delta = (do * out.float()).sum(-1).transpose(1, 2)  # [B, H, T]
+    dp = torch.einsum("bthd,bshd->bhts", do, vf)
+    ds = (p * (dp - delta[..., None])).masked_fill_(~mask, 0.0) * scale
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf).reshape(B, S, Hkv, G, D).sum(3)
+    dv = torch.einsum("bhts,bthd->bshd", p, do).reshape(B, S, Hkv, G, D).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,

@@ -22,11 +22,13 @@
 # gradient tp times); and each shard's K3 gives only its part of dh, so the
 # hidden state enters through sum_backward, whose backward sums dh over tp.
 #
-# Over data parallelism (dp_group) each rank holds its own rows. The four
-# sums are summed over the data ranks for the values (the logged losses and
-# accuracy are the global batch's, as JAX's psum over the data axes), while
-# the gradient stays that of this rank's rows over the global sentence
-# count: the data-parallel reduction of the gradients (FSDP's
+# Over data and context parallelism (dp_group: the dp x cp ranks) each rank
+# holds its own rows, or under cp its slice of their sequence (_sharded_ce
+# :336-402 shards the rows on the batch axes and the sequence on cp). The
+# four sums are summed over those ranks for the values (the logged losses
+# and accuracy are the global batch's, as JAX's psum over the data axes),
+# while the gradient stays that of this rank's tokens over the global
+# sentence count: the reduction of the gradients over dp_shard x cp (FSDP's
 # reduce-scatter, set to sum) adds the ranks' parts.
 
 from typing import Callable, Optional, Tuple
@@ -139,9 +141,10 @@ def fused_linear_cross_entropy(
     [V, E] (or, under ``tp_group``, this rank's vocab shard of it, which
     starts at ``vocab_start``), without materialising [B, T, V] logits.
 
-    labels / sentence_lens [B, T] hold this rank's rows; num_sentence is the
-    global packed-sentence count. ``dp_group`` sums the four sums over the
-    data ranks (the values only; see sum_over). Returns (loss_per_sample,
+    labels / sentence_lens [B, T] hold this rank's rows (under cp its slice
+    of their sequence); num_sentence is the global packed-sentence count.
+    ``dp_group`` sums the four sums over the data and cp ranks (the values
+    only; see sum_over). Returns (loss_per_sample,
     loss_per_token, accuracy), f32 scalars; accuracy takes argmax ties at
     the smallest global index. Both operands are cast to compute_dtype, as
     the JAX function does; their gradients come back through the casts.

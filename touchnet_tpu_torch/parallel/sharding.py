@@ -28,12 +28,12 @@
 # num_attention_heads); GSPMD can split inside a head, the port cannot, and
 # raises a ValueError naming the flag.
 # qwen2_audio and kimi_audio have no rule table (param_rules=None in JAX):
-# they get FSDP only, and tp ranks hold the whole model.
+# they get FSDP only (the trainer refuses tp, cp and pp for them).
 #
 # FSDP2 (fully_shard) wraps each layer of every ModuleList, then the root,
-# over the dp_shard submesh (FSDP_AXES: dp_shard and cp, with cp 1 here);
-# HSDP uses the 2-D (dp_replicate, dp_shard) mesh; DDP is that mesh with
-# dp_shard 1 (replication over dp_replicate). reshard_after_forward follows
+# over the flattened (dp_shard, cp) submesh (FSDP_AXES); HSDP uses the 2-D
+# (dp_replicate, dp_shard x cp) mesh; DDP is that mesh with dp_shard x cp 1
+# (replication over dp_replicate). reshard_after_forward follows
 # --training_fsdp_reshard_after_forward (never: the gathered weights stay
 # until the backward, JAX's _reshard_policy). MixedPrecisionPolicy takes the
 # compute and reduce dtypes. The loss is this rank's rows over the global
@@ -271,7 +271,13 @@ def apply_fsdp(root: nn.Module, model: nn.Module, dp_mesh, param_dtype, reduce_d
     """fully_shard every layer of the model's ModuleLists, then ``root``
     (a module whose forward runs the whole step's forward and loss, so the
     remaining parameters are gathered for it), over dp_mesh, with the sum
-    as the data-parallel reduction."""
+    as the data-parallel reduction. The layers' parameters are gathered in
+    param_dtype; the root's (the embeddings, the final norm, the head) in
+    reduce_dtype, the dtype the one-process trainer differentiates (its f32
+    masters, or their bf16 copies under bf16 reduction), and the model
+    casts them at use: a tied embedding's lookup and head gradients, or a
+    repeated id's rows, then add up in that dtype as in one process (in
+    bf16 parameters they would add up in bf16)."""
     from torch.distributed.fsdp import FSDPModule, MixedPrecisionPolicy, fully_shard
 
     if reshard_after_forward not in RESHARD:
@@ -281,13 +287,15 @@ def apply_fsdp(root: nn.Module, model: nn.Module, dp_mesh, param_dtype, reduce_d
     # would round each layer's f32 rope frequencies to bf16
     mp = MixedPrecisionPolicy(param_dtype=param_dtype, reduce_dtype=reduce_dtype,
                               cast_forward_inputs=False)
+    root_mp = MixedPrecisionPolicy(param_dtype=reduce_dtype, reduce_dtype=reduce_dtype,
+                                   cast_forward_inputs=False)
     raf = RESHARD[reshard_after_forward]
     for mod in list(model.modules()):
         if isinstance(mod, nn.ModuleList):
             for layer in mod:
                 if any(p.numel() for p in layer.parameters()):
                     fully_shard(layer, mesh=dp_mesh, mp_policy=mp, reshard_after_forward=raf)
-    fully_shard(root, mesh=dp_mesh, mp_policy=mp, reshard_after_forward=raf)
+    fully_shard(root, mesh=dp_mesh, mp_policy=root_mp, reshard_after_forward=raf)
     for mod in root.modules():
         if isinstance(mod, FSDPModule):
             # a plain SUM on the wire (gloo takes no PREMUL_SUM), divided by 1
@@ -305,7 +313,9 @@ def reshard(root: nn.Module) -> None:
 
 
 def dp_mesh_of(mesh, dp_replicate: int):
-    """The mesh FSDP shards over: (dp_replicate, dp_shard) under HSDP or
-    DDP, dp_shard alone otherwise."""
-    return mesh["dp_replicate", "dp_shard"] if dp_replicate > 1 else mesh["dp_shard"]
-
+    """The mesh FSDP shards over: JAX's FSDP_AXES, dp_shard and cp, as one
+    dimension ("dp_shard_cp": each cp rank's gradient is the sum over its
+    own tokens, so the reduction stays a sum over both); under HSDP or DDP
+    (dp_replicate, that dimension)."""
+    flat = mesh["dp_shard", "cp"]._flatten("dp_shard_cp")
+    return mesh["dp_replicate", "dp_shard_cp"] if dp_replicate > 1 else flat
