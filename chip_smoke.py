@@ -253,12 +253,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      run resumed from its step 1 (the sharded DCP checkpoint read back by
      both ranks): step 2's loss, grad norm and dev line and each rank's
      shards of the final params, mu, nu and count equal bit for bit; cp 2
-     at 1x8192 (4096 a rank) with each rotate method, allgather (FSDP2
-     over the flattened dp_shard x cp mesh of both ranks) and alltoall (the
-     ring, 1 step): losses finite and equal on both ranks, K1, K2 and K3
+     at 1x8192 (4096 a rank) with each rotate method, 1 step each,
+     allgather (FSDP2 over the flattened dp_shard x cp mesh of both ranks)
+     and alltoall (the ring): losses finite and equal on both ranks, K1, K2 and K3
      launched by each, the cp layouts' step-1 loss and grad norm against
      one process (world 1) on the same 1x8192 batch and against each
-     other (CP_LOSS_RTOL, CP_GRAD_NORM_RTOL), step ms and peak memory.
+     other (CP_LOSS_RTOL, CP_GRAD_NORM_RTOL); pp 2 at 2x4096 (one layer a
+     stage, 2 microbatches under 1F1B, the full-logits loss on the last
+     stage, the tied embedding's gradients summed over pp in f32): K1 and
+     K2 launched on both ranks and K3 on neither, step 1's loss and grad
+     norm against one process on the same rows with the same loss
+     (PP_LOSS_RTOL, PP_GRAD_NORM_RTOL); step ms and peak memory.
 Each phase prints its wall seconds ("[phase N] wall"), and the script its
 whole ("[all phases] wall").
 Then one JSON line of per-kernel results, the card line, and the last
@@ -2384,8 +2389,13 @@ def inprocess_run(train, argv, seed_dir: Path, seed_bits: dict, failures) -> dic
 # and a dev pass after each save; its resumed run loads step 1 from a copy
 # of its checkpoint folder (hard links) and runs step 2. The cp layouts split
 # 1 x 8192 into 4096 a rank; cp 2 allgather runs FSDP2 over the flattened
-# dp_shard x cp mesh of both ranks; the ring (alltoall) runs its first step
-# alone (cut from 2 for the script's clock: step 1 is what is compared).
+# dp_shard x cp mesh of both ranks; each runs its first step alone (cut from
+# 2 for the script's clock, the allgather's to make room for pp 2: step 1 is
+# what is compared).
+# pp 2 holds one layer a stage, 2 x 4096 rows split into 2 microbatches
+# under 1F1B (the pretraining recipes' schedule); the full-logits loss on
+# the last stage (no K3 under pp, as in JAX), the tied embedding's two
+# gradients summed over pp in f32.
 TWO_RANK_LAYERS, TWO_RANK_STEPS, TWO_RANK_T = 2, 2, 4096
 TWO_RANK_CKPT = dict(training_enable_ckpt="true", training_ckpt_interval=1,
                      training_ckpt_keep_latest_k=2, training_ckpt_async_mode="disabled")
@@ -2398,13 +2408,20 @@ TWO_RANK_LAYOUTS = {
     "dp_shard 2 resumed": (TWO_RANK_T, TWO_RANK_STEPS, dict(
         training_data_parallel_shard_degree=2, training_ckpt_load_step=TWO_RANK_RESUME,
         **TWO_RANK_CKPT)),
-    "cp 2 allgather": (2 * TWO_RANK_T, TWO_RANK_STEPS, dict(
+    "cp 2 allgather": (2 * TWO_RANK_T, 1, dict(
         training_context_parallel_degree=2, training_data_parallel_shard_degree=1,
         training_context_parallel_rotate_method="allgather")),
     "cp 2 alltoall": (2 * TWO_RANK_T, 1, dict(
         training_context_parallel_degree=2, training_data_parallel_shard_degree=1,
         training_context_parallel_rotate_method="alltoall")),
+    "pp 2": (TWO_RANK_T, TWO_RANK_STEPS, dict(
+        training_pipeline_parallel_degree=2, training_data_parallel_shard_degree=1,
+        training_pipeline_parallel_schedule="1F1B", training_pipeline_parallel_microbatches=2,
+        dataset_batchsize=2)),
 }
+# the layouts that run K3 (under pp the last stage computes the full-logits
+# loss, as JAX's trainer does: K3 must launch on neither rank there)
+NO_K3 = ("pp 2",)
 # the cp layouts' step 1 against one process on the whole 1 x 8192 row (the
 # same weights and data), relative: loss/per_sample and grad_norm differ only
 # by the bf16 rounding of the attention's outputs and gradients in another
@@ -2412,6 +2429,13 @@ TWO_RANK_LAYOUTS = {
 # (allgather) and 1.0e-6 (alltoall), the grad norm 1.6e-5 (both); each
 # limit a few times its reading
 CP_LOSS_RTOL, CP_GRAD_NORM_RTOL = 5e-6, 1e-4
+# pp 2's step 1 against one process on the same 2 x 4096 rows with the same
+# full-logits loss (liger off): the microbatches of 1 x 4096 against one
+# pass over both rows, and the f32 sum over pp of the tied embedding's two
+# gradients, differ by bf16 rounding alone. On an H100 80GB HBM3 at 700 W
+# (PERF.md) the loss read 7.8e-8 and the grad norm 3.7e-6; each limit a few
+# times its reading
+PP_LOSS_RTOL, PP_GRAD_NORM_RTOL = 5e-7, 2e-5
 # the dev list of dp_shard 2 (a shard a rank): its forward under FSDP2
 # gathers every weight through gloo's host staging, ~2 s a batch, so the
 # list is kept to a few documents (20 a shard cost ~18 s a dev pass)
@@ -2460,11 +2484,13 @@ def gloo_rank_worker(argv: list) -> int:
     return 0
 
 
-def world_one_reference(train, listfile, tmp: Path, config, vocab) -> list:
-    """The cp layouts' batch (1 x 8192) in this process at world 1 (no
-    process group, no FSDP), the same weights, data and flags: its history."""
-    argv = train_argv(listfile, tmp / "world1", 2 * TWO_RANK_T, TWO_RANK_STEPS, "bfloat16", vocab,
-                      training_model_config_path=config)
+def world_one_reference(train, listfile, tmp: Path, config, vocab, seqlen: int,
+                        name: str, **extra) -> list:
+    """A layout's batch (1 x 8192 for cp, 2 x 4096 for pp with ``extra``'s
+    flags) in this process at world 1 (no process group, no FSDP), the same
+    weights, data and flags: its history."""
+    argv = train_argv(listfile, tmp / name, seqlen, TWO_RANK_STEPS, "bfloat16", vocab,
+                      training_model_config_path=config, **extra)
     trainer = train.main([str(a) for a in argv])
     hist = trainer.metrics_processor.history
     del trainer
@@ -2476,13 +2502,15 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
     """Phase 16: the layouts of TWO_RANK_LAYOUTS, one after another in one
     pair of processes on the card (a process's start and its group's set-up
     paid once): for each, losses finite and equal on both ranks, K1, K2 and
-    K3 launched on each, the step times and peak memory (max over ranks)
-    printed. dp_shard 2: saves and dev lines at steps 1 and 2; its resumed
+    K3 launched on each (pp 2: K3 on neither), the step times and peak
+    memory (max over ranks) printed. dp_shard 2: saves and dev lines at steps 1 and 2; its resumed
     run's step-2 loss, grad norm and dev line, and each rank's shards of the
     final params, mu, nu and count, equal the straight run's bit for bit.
     The cp layouts' step-1 loss and grad norm within CP_LOSS_RTOL and
     CP_GRAD_NORM_RTOL of one process on the same 1 x 8192 batch
-    (world_one_reference, run first), and of each other. Returns the launches
+    (world_one_reference, run first), and of each other; pp 2's within
+    PP_LOSS_RTOL and PP_GRAD_NORM_RTOL of one process on its 2 x 4096 rows
+    with the full-logits loss. Returns the launches
     of every rank of every layout (each run counts its own, from zero)."""
     from touchnet_tpu_torch.bin import train
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
@@ -2496,13 +2524,20 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
     devlist = write_shards(tmp / "dev", cfg.vocab_size, SEED + 1, shards=2,
                            docs=TWO_RANK_DEV_DOCS)
     print(f"[16] two ranks: Llama-3.2-1B at full width and {TWO_RANK_LAYERS} layers, "
-          f"{TWO_RANK_STEPS} steps a layout (cp 2 alltoall 1), two processes on one card over "
-          "gloo; one process on the cp layouts' batch first")
-    t0 = time.perf_counter()
-    one = world_one_reference(train, listfile, tmp, config, cfg.vocab_size)
-    print(f"  one process (world 1, no FSDP), 1x{2 * TWO_RANK_T}: losses "
-          f"{[h['loss/per_sample'] for h in one]}, grad norms {[h['grad_norm'] for h in one]}; "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{TWO_RANK_STEPS} steps a layout (the cp layouts 1), two processes on one card over "
+          "gloo; one process on the cp and pp layouts' batches first")
+    refs = {}
+    for name, seqlen, extra in (
+            ("cp", 2 * TWO_RANK_T, {}),
+            ("pp", TWO_RANK_T, dict(dataset_batchsize=2, training_enable_liger_kernel="false"))):
+        t0 = time.perf_counter()
+        refs[name] = one = world_one_reference(train, listfile, tmp, config, cfg.vocab_size,
+                                               seqlen, f"world1_{name}", **extra)
+        print(f"  one process (world 1, no FSDP), the {name} layouts' "
+              f"{extra.get('dataset_batchsize', 1)}x{seqlen}"
+              f"{' (full-logits loss)' if extra else ''}: losses "
+              f"{[h['loss/per_sample'] for h in one]}, grad norms "
+              f"{[h['grad_norm'] for h in one]}; {time.perf_counter() - t0:.1f} s")
     counts = {k: 0 for k in ("K1", "K2", "K3 fwd", "K3 bwd")}
     exps = {name: tmp / name.replace(" ", "_") for name in TWO_RANK_LAYOUTS}
     straight, resumed = exps["dp_shard 2"], exps["dp_shard 2 resumed"]
@@ -2530,7 +2565,7 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
     if any(p.returncode for p in procs):
         print("\n".join(o[-3000:] for o in outs))
     sums = {}
-    for name, (seqlen, steps, _) in TWO_RANK_LAYOUTS.items():
+    for name, (seqlen, steps, layout) in TWO_RANK_LAYOUTS.items():
         paths = [exps[name] / f"train_summary_rank{r}.json" for r in range(2)]
         if not all(p.exists() for p in paths):
             print(f"  {name}: no summary from {[str(p) for p in paths if not p.exists()]} FAIL")
@@ -2542,12 +2577,14 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
                 counts[k] += sm["launches"][k]
         losses = [[h["loss/per_sample"] for h in s["history"]] for s in both]
         first = TWO_RANK_RESUME + 1 if exps[name] == resumed else 1
-        launched = all(all(s["launches"][k] > 0 for k in ("K1", "K2", "K3 fwd", "K3 bwd"))
-                       for s in both)
+        launched = all(all(s["launches"][k] > 0 for k in ("K1", "K2")) and
+                       all((s["launches"][k] > 0) != (name in NO_K3)
+                           for k in ("K3 fwd", "K3 bwd")) for s in both)
         ok = (losses[0] == losses[1] and all(math.isfinite(x) for x in losses[0]) and launched
               and [h["step"] for h in both[0]["history"]] == list(range(first, steps + 1)))
         hist = both[0]["history"]
-        print(f"  {name} (1x{seqlen}): steps {[h['step'] for h in hist]}, losses {losses[0]} on "
+        print(f"  {name} ({layout.get('dataset_batchsize', 1)}x{seqlen}): steps "
+              f"{[h['step'] for h in hist]}, losses {losses[0]} on "
               f"both ranks: {losses[0] == losses[1]}; launches "
               f"rank 0 {both[0]['launches']}, rank 1 {both[1]['launches']}; step ms "
               f"{[round(h['time/step_s'] * 1e3, 1) for h in hist]}; peak "
@@ -2560,7 +2597,7 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
                              card, failures)
     cp = {n: sums[n][0]["history"][0] for n in ("cp 2 allgather", "cp 2 alltoall") if n in sums}
     for key, rtol in (("loss/per_sample", CP_LOSS_RTOL), ("grad_norm", CP_GRAD_NORM_RTOL)):
-        want = one[0][key]
+        want = refs["cp"][0][key]
         rels = {n: abs(h[key] - want) / abs(want) for n, h in cp.items()}
         if len(cp) == 2:
             a, b = (h[key] for h in cp.values())
@@ -2572,6 +2609,15 @@ def run_two_ranks(card, failures, tmp: Path) -> dict:
               f" (<= {rtol:g}) {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"two ranks: the cp layouts' step-1 {key}")
+    for key, rtol in (("loss/per_sample", PP_LOSS_RTOL), ("grad_norm", PP_GRAD_NORM_RTOL)):
+        want = refs["pp"][0][key]
+        got = sums["pp 2"][0]["history"][0][key] if "pp 2" in sums else float("nan")
+        rel = abs(got - want) / abs(want)
+        ok = rel <= rtol
+        print(f"  pp 2 step 1 {key}: one process {want!r}, pp 2 {got!r}; relative {rel:.3e} "
+              f"(<= {rtol:g}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"two ranks: pp 2's step-1 {key}")
     return counts
 
 

@@ -184,3 +184,58 @@ def cp_forward(rank, method, cfg_path, state, ids, pos, seg):
     with torch.no_grad():
         return (modeling_llama.forward(model, position_ids=pos, **kw).numpy(),
                 modeling_llama.forward(model, **kw).numpy())
+
+
+def train_runs(rank, runs):
+    """train_main for each run of ``runs`` in turn, in this one process (its
+    start and its group's set-up paid once). A run is a dict: "argv";
+    "state" (return every param and moment, whole); "copy" [src, dst]: rank 0
+    first copies the folder src to dst (a checkpoint to resume from);
+    "error": the run must raise a ValueError, whose message is returned.
+    Returns the runs' results in order."""
+    import shutil
+
+    out = []
+    for run in runs:
+        if run.get("copy") and rank == 0:
+            shutil.copytree(*run["copy"])
+        dist.barrier()
+        if run.get("error"):
+            from touchnet_tpu_torch.bin import train as ttrain
+
+            try:
+                ttrain.main(run["argv"], device=torch.device("cpu"))
+            except ValueError as e:
+                out.append(str(e))
+                continue
+            raise AssertionError(f"no ValueError from {run['argv']}")
+        out.append(train_main(rank, run["argv"], run.get("state", False)))
+    return out
+
+
+def golden_steps(rank, runs, batch, num_sentence):
+    """For each run (an argv seeded with a step_0 checkpoint), a Trainer on
+    the CPU and one train_step on this rank's rows of ``batch`` (its dp
+    rank's slice of the rows; the Trainer splits the sequence under cp):
+    step 1's loss_per_sample, as a float."""
+    from touchnet_tpu_torch.bin import TrainConfig
+    from touchnet_tpu_torch.bin.train import Trainer
+    from touchnet_tpu_torch.data import DataConfig
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.utils.cli import parse_args_into_dataclasses
+
+    out = []
+    for argv in runs:
+        trainer = Trainer(*parse_args_into_dataclasses([TokenizerConfig, DataConfig, TrainConfig],
+                                                       argv), device=torch.device("cpu"))
+        try:
+            pd = trainer.parallel_dims
+            rows = len(batch["input_ids"]) // pd.dp_degree
+            d = pd.dp_rank(rank)
+            mine = {k: v[d * rows:(d + 1) * rows] for k, v in batch.items()}
+            device_batch, _ = trainer._put_batch(mine)
+            trainer.step = 1
+            out.append(float(trainer.train_step(device_batch, num_sentence)["loss/per_sample"]))
+        finally:
+            trainer.close()
+    return out

@@ -24,8 +24,8 @@
 #     process; a resume at another world size raises;
 #   - one rank under FSDP2 (as on one card) against one process: bit-equal
 #     in f32 and in bf16;
-#   - pp > 1 raises naming the flag; at world 1 a degree that does not fit
-#     (tp, cp) raises from ParallelDims naming it.
+#   - at world 1 a degree that does not fit (tp, cp, pp) raises from
+#     ParallelDims naming it (pp's layouts: test_torch_pipeline.py).
 
 import gc
 import os
@@ -200,8 +200,8 @@ def test_four_rank_resume_and_export_are_exact(tmp_path, reference, tp_run):
                                   "training_pipeline_parallel_degree",
                                   "training_tensor_parallel_degree"])
 def test_unported_degrees_raise(tmp_path, flag):
-    """pp raises naming the flag (a later slice); cp 2 and tp 2 at world 1
-    (no torchrun) raise from ParallelDims naming theirs."""
+    """cp 2, pp 2 and tp 2 at world 1 (no torchrun) raise from
+    ParallelDims naming their flags."""
     with pytest.raises(ValueError, match=f"{flag}=2"):
         ttrain.main(_flags(tmp_path, "unused.list", 2, **{flag: 2}), device=torch.device("cpu"))
 

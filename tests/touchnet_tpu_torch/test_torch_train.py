@@ -396,8 +396,8 @@ def test_trainer_main_loss_drops(tmp_path):
 
 
 # the single-device modes (since the slice that ported them) run; in one
-# process every parallel degree raises: dp, tp and cp do not fit its world
-# of 1, pp is still a later slice
+# process every parallel degree raises: dp, tp, cp and pp do not fit its
+# world of 1
 SINGLE_DEVICE_MODES = ("training_gradient_accumulation_steps",
                        "training_mixed_precision_reduce", "training_enable_cpu_offload")
 

@@ -112,15 +112,37 @@
 # JAX's metrics do, the dp rank's tokens over the non-data-parallel ranks
 # (cp x tp x pp).
 #
+# Pipeline parallelism (--training_pipeline_parallel_degree S, llama and
+# touch_audio; parallel/pipeline.py): each pp rank builds the layers of its
+# stages only (modeling_llama.init_params(layers=...): the held tensors get
+# the numbers the whole model would, and keep their global names, so
+# checkpoints and exports do not depend on S) and every rank holds the
+# embeddings, the final norm, the head (and touch_audio's projector). The
+# pp ranks of one dp rank load the same rows (dp_rank is pp-free); the step
+# splits them into --training_pipeline_parallel_microbatches M (default S)
+# and runs the schedule (--training_pipeline_parallel_schedule 1F1B, GPipe
+# or Interleaved1F1B; --training_pipeline_parallel_split_points). The last
+# stage computes each microbatch's full-logits pack loss, normalised by the
+# global num_sentence (K3 does not run under pp, as in JAX); its metrics,
+# summed over dp x cp, go to every pp rank. After the backward the held
+# tensors' gradients are summed over pp in f32 (a tied embedding: the
+# lookup's part on the first stage, the head's on the last), so every pp
+# rank updates them alike; the gradient norm sums the stages' layers over pp
+# and counts those tensors once. FSDP2 wraps each stage's layers and the
+# root over the dp mesh of the rank's pp coordinate; the TP plan and
+# apply_cp act on each stage's layers. The dev pass runs the pipeline's
+# forwards alone.
+#
 # What the port does not run raises a ValueError naming the flag
-# (check_supported): pipeline parallelism and float16; so does a dp_only
-# TrainSpec (qwen2_audio, kimi_audio) at tp, cp or pp above 1
-# (check_dp_only).
+# (check_supported): float16; so does a dp_only TrainSpec (qwen2_audio,
+# kimi_audio) at tp, cp or pp above 1 (check_dp_only), and a pipeline
+# schedule or split the port does not run (parallel/pipeline.py).
 
 import copy
 import json
 import os
 import queue
+import re
 import signal
 import threading
 import time
@@ -142,6 +164,14 @@ from touchnet_tpu_torch.ops.fused_adamw import (
 from touchnet_tpu_torch.parallel.context_parallel import apply_cp, split_sequence
 from touchnet_tpu_torch.parallel.dims import MESH_AXES, ParallelDims
 from touchnet_tpu_torch.parallel.loss_parallel import fused_linear_cross_entropy
+from touchnet_tpu_torch.parallel.pipeline import (
+    Pipeline,
+    check_microbatches,
+    parse_split_points,
+    stage_layers,
+    validate_pp_composition,
+    virtual_stages_of,
+)
 from touchnet_tpu_torch.parallel.sharding import (
     apply_fsdp,
     dp_mesh_of,
@@ -188,18 +218,17 @@ _BATCH_ARRAY_KEYS = (
     "whisper_attention_mask",
 )
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# a decoder layer's tensors (a pipeline stage's); the others every pp rank holds
+_LAYER = re.compile(r"(^|\.)layers\.\d+\.")
 
 
 def check_supported(job_config: TrainConfig) -> None:
     """Raise a ValueError naming the first flag the port does not run."""
-    later = "is a later slice of touchnet_tpu_torch"
     cfg = job_config
-    if cfg.training_pipeline_parallel_degree > 1:
-        raise ValueError(f"training_pipeline_parallel_degree="
-                         f"{cfg.training_pipeline_parallel_degree}: pipeline parallelism {later}")
     if cfg.training_mixed_precision_param not in _DTYPES:
         raise ValueError(f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
-                         f"the kernels take bfloat16 or float32; float16 {later}")
+                         "the kernels take bfloat16 or float32; float16 is a later slice of "
+                         "touchnet_tpu_torch")
 
 
 def check_dp_only(spec, job_config: TrainConfig) -> None:
@@ -216,11 +245,11 @@ def check_dp_only(spec, job_config: TrainConfig) -> None:
 
 
 # flags the trainer accepts and never reads: set away from their default
-# (what the port does), each logs one warning saying so. The layout flags
-# of pipeline parallelism, which the port does not run (its schedule and
-# microbatches), and the rotate method at cp 1 are inert here as in the JAX
-# trainer on one device, and stay silent; so does async TP at tp 1 (at
-# tp > 1 it warns once: the port runs no XLA scheduler it could set).
+# (what the port does), each logs one warning saying so. The pipeline's
+# schedule, microbatch and split flags at pp 1 and the rotate method at cp
+# 1 are inert here as in the JAX trainer, and stay silent; so does async TP
+# at tp 1 (at tp > 1 it warns once: the port runs no XLA scheduler it could
+# set).
 UNREAD_FLAGS = {
     "training_compile": "the port's step runs eagerly (no torch.compile)",
     "training_enable_compiled_autograd": "the port's step runs eagerly (no compiled autograd)",
@@ -525,10 +554,15 @@ class Trainer:
         self.metrics_processor = MetricsProcessor(job_config, device,
                                                   non_data_parallel_size=pd.non_data_parallel_size)
 
+        self.pipeline = None
+        held = {}
+        if pd.pp > 1:
+            held["layers"] = self._pipeline_setup(backbone.num_hidden_layers)
         # f32 master weights from a seeded generator on the device
         gen = torch.Generator(device=device).manual_seed(job_config.training_seed)
         self.model = self.train_spec.init_params_fn(
-            self.model_config, gen, torch.float32, device, requires_grad=True, train=True)
+            self.model_config, gen, torch.float32, device, requires_grad=True, train=True,
+            **held)
         check_finite_params(self.model)
         # frozen tensors (frozen_params_re) take no gradient, no AdamW update
         # and no moments: they stay bit-unchanged, as the JAX chain zeroes
@@ -558,6 +592,9 @@ class Trainer:
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # under pp: the tensors every pp rank holds, their gradients summed over pp
+        self.pp_replicated = [self.pipeline is not None and not _LAYER.search(n)
+                              for n in self.param_names]
         num_params = self.train_spec.get_num_params_fn(self.model_config)
         num_params_wo_emb = self.train_spec.get_num_params_fn(
             self.model_config, exclude_embedding=True)
@@ -595,6 +632,29 @@ class Trainer:
         self.step = loaded["step"]
         if loaded["loaded"]:
             check_finite_params(self.model)
+
+    def _pipeline_setup(self, num_layers: int) -> list:
+        """Pipeline parallelism's checks (each a ValueError naming its flag)
+        and this rank's Pipeline; returns the global indices of the layers
+        its stages hold."""
+        cfg, pd = self.job_config, self.parallel_dims
+        validate_pp_composition(cfg)
+        if self.train_spec.pipelining_fn is None:
+            raise ValueError(f"training_pipeline_parallel_degree={pd.pp}: {self.train_spec.name} "
+                             "has no pipelining_fn (llama and touch_audio have one)")
+        schedule, split = (cfg.training_pipeline_parallel_schedule,
+                           cfg.training_pipeline_parallel_split_points)
+        V = virtual_stages_of(split, num_layers, pd.pp, schedule)
+        parse_split_points(split, num_layers, pd.pp, V)
+        M = cfg.training_pipeline_parallel_microbatches or pd.pp
+        check_microbatches(self.data_config.dataset_batchsize, M, pd.pp, V)
+        stage = pd.coords(self.rank)["pp"]
+        self.chunks = stage_layers(num_layers, pd.pp, V, stage)
+        self.pipeline = Pipeline(schedule, pd.pp, M, V, stage, self.mesh["pp"].get_group(),
+                                 self.device)
+        logger.info(f"pipeline: {schedule}, pp {pd.pp} x {V} virtual stage(s), {M} "
+                    f"microbatches; this is stage {stage}, layers {self.chunks}")
+        return [i for chunk in self.chunks for i in chunk]
 
     def _loader(self, split: str) -> "GlobalBatchLoader":
         pd = self.parallel_dims
@@ -639,10 +699,11 @@ class Trainer:
     @property
     def _fused_ce(self) -> bool:
         """Fused linear + CE (K3) under the liger flag, or under loss
-        parallel at tp > 1, as the JAX trainer (:484-497)."""
+        parallel at tp > 1, and never under pp, as the JAX trainer
+        (:484-497)."""
         cfg, pd = self.job_config, self.parallel_dims
         wanted = cfg.training_enable_liger_kernel or pd.loss_parallel_enabled
-        return wanted and self._head is not None
+        return wanted and self._head is not None and pd.pp == 1
 
     def _forward(self, batch, return_hidden: bool = False):
         cfg = self.job_config
@@ -690,6 +751,68 @@ class Trainer:
                                         acc.detach() * ntok, ntok]), self.loss_group)
         n = vals[3].clamp(min=1)
         return vals[0].float(), (vals[1] / n).float(), (vals[2] / n).float()
+
+    def _pipeline_pass(self, batch, num_sentence, train: bool = True):
+        """(loss_per_sample, loss_per_token, acc) of the global batch through
+        the pipeline: the rows split into M microbatches, the schedule's
+        forwards (and, with ``train``, backwards; then the gradients of the
+        tensors every pp rank holds summed over pp in f32). The last stage's
+        per-sample losses add up (each over the global num_sentence), its
+        per-token loss and accuracy are weighted by their tokens; the sums
+        go over dp x cp (the loss group), then to every pp rank."""
+        pipe, spec, cfg = self.pipeline, self.train_spec, self.job_config
+        rows, T = batch["labels"].shape[:2]
+        check_microbatches(rows, pipe.M, pipe.S, pipe.V, "the batch's rows")
+        b = rows // pipe.M
+        mbs = [{k: (v[m * b:(m + 1) * b] if isinstance(v, torch.Tensor) else v)
+                for k, v in batch.items()} for m in range(pipe.M)]
+        sums = torch.zeros(4, dtype=torch.float64, device=self.device)
+        last_stage = pipe.S * pipe.V - 1
+
+        def forward_fn(v, m, x):
+            t = v * pipe.S + pipe.stage
+
+            def body():
+                mb = mbs[m]
+                out = spec.pipelining_fn(
+                    self.model, self.chunks[v], x, mb, config=self.model_config,
+                    compute_dtype=self.compute_dtype,
+                    remat_mode=cfg.training_activation_checkpoint_mode,
+                    selective_ac_option=cfg.training_activation_checkpoint_selective_ac_option,
+                    first=t == 0, last=t == last_stage)
+                if t != last_stage:
+                    return out
+                loss_ps, loss_pt = spec.loss_fn(out, mb["labels"], mb["sentence_lens"],
+                                                num_sentence)
+                acc = spec.acc_fn(out, mb["labels"])
+                ntok = (mb["labels"] != -100).sum().double()
+                sums.add_(torch.stack([loss_ps.detach().double(), loss_pt.detach() * ntok,
+                                       acc.detach() * ntok, ntok]))
+                return loss_ps
+
+            return self._reparam(body)
+
+        hidden = getattr(self.model_config, "text_config", self.model_config).hidden_size
+        pipe.run(forward_fn, (b, T, hidden), self.compute_dtype, train)
+        if train:
+            self._sum_held_grads()
+        dist.all_reduce(sums, group=self.loss_group)
+        dist.all_reduce(sums, group=pipe.group)  # only the last stage's are not 0
+        n = sums[3].clamp(min=1)
+        return sums[0].float(), (sums[1] / n).float(), (sums[2] / n).float()
+
+    def _sum_held_grads(self) -> None:
+        """The gradients of the tensors every pp rank holds, summed over pp
+        in f32 (one flat buffer); a rank the loss did not reach adds zeros."""
+        held = [p for p, r in zip(self.params, self.pp_replicated) if r]
+        for p in held:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [local(p.grad) for p in held]
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=self.pipeline.group)
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
 
     def _loss_backward(self, batch, num_sentence):
         """Forward and backward of one microbatch; its metrics, detached."""
@@ -743,8 +866,13 @@ class Trainer:
         """One optimizer step; returns the step's metrics as device tensors.
         Every optimizer_impl runs the same single-pass AdamW (the JAX
         'for-loop' optax chain computes the same update)."""
-        grads, loss_ps, loss_pt, acc = self._grads_and_metrics(batch, num_sentence)
-        gnorm = global_grad_norm(grads)
+        if self.pipeline is None:
+            grads, loss_ps, loss_pt, acc = self._grads_and_metrics(batch, num_sentence)
+            gnorm = global_grad_norm(grads)
+        else:
+            loss_ps, loss_pt, acc = self._pipeline_pass(batch, num_sentence)
+            grads = _grads_of(self.params)
+            gnorm = global_grad_norm(grads, self.pipeline.group, self.pp_replicated)
         scale = torch.clamp(self.job_config.training_max_norm / (gnorm + 1e-6), max=1.0)
         finite = torch.isfinite(gnorm)
         ob = self.opt
@@ -965,8 +1093,9 @@ class Trainer:
     @torch.no_grad()
     def dev(self):
         """The dev-set pass (the JAX Trainer.dev, :1024-1072): the eval step
-        (_loss_and_acc, forward only: K1 and K3's forward on the card) over
-        every batch of datalist_dev_path (never stacked, whatever the
+        (_loss_and_acc, forward only: K1 and K3's forward on the card; under
+        pp the pipeline's forwards, _pipeline_pass) over every batch of
+        datalist_dev_path (never stacked, whatever the
         accumulation), averaged, logged as one [dev] line. Each rank reads
         its dp rank's dev stream; the ranks stop together when one runs
         dry, and each batch's metrics are the global batch's."""
@@ -982,7 +1111,11 @@ class Trainer:
                 num_sentence, ended = self._global_batch(num_sentence, bad, batch is None)
                 if ended:
                     break
-                loss_ps, loss_pt, acc = self._loss_and_acc(device_batch, num_sentence)
+                if self.pipeline is None:
+                    loss_ps, loss_pt, acc = self._loss_and_acc(device_batch, num_sentence)
+                else:
+                    loss_ps, loss_pt, acc = self._pipeline_pass(device_batch, num_sentence,
+                                                                train=False)
                 for k, v in zip(totals, (loss_ps, loss_pt, acc)):
                     totals[k] += float(v)
                 n += 1

@@ -5,7 +5,7 @@
 # check_finite_params, head_weight and the TrainSpec registration port
 # touchnet_tpu/models/llama/__init__.py:25-67. The TrainSpec's param_rules
 # is the tensor-parallel plan (parallel/sharding.apply_tp); its
-# pipelining_fn waits for pipeline parallelism.
+# pipelining_fn is one pipeline stage (pipeline_llama.stage_forward).
 
 import torch
 from torch import nn
@@ -36,6 +36,7 @@ def _register() -> None:
         get_num_params,
         init_params,
     )
+    from touchnet_tpu_torch.models.llama.pipeline_llama import stage_forward
     from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
     from touchnet_tpu_torch.parallel.sharding import apply_tp
     from touchnet_tpu_torch.utils.train_spec import TrainSpec, register_train_spec
@@ -54,6 +55,7 @@ def _register() -> None:
             get_num_params_fn=get_num_params,
             head_weight_fn=head_weight,
             param_rules=apply_tp,
+            pipelining_fn=stage_forward,
         )
     )
 

@@ -19,6 +19,8 @@
 #   model.layers.{i}.mlp.{gate,up,down}_proj.weight
 #   model.norm.weight                                          [E]
 #   lm_head.weight                                             [V, E] (absent when tied)
+# A pipeline stage's model holds its layers only (the others are
+# AbsentLayer slots without parameters), under the same global names.
 #
 # Mixed precision as in the JAX forward: the f32 master weights stay in the
 # modules and each op casts its weights to the compute dtype (.to(x.dtype)),
@@ -177,6 +179,18 @@ class LlamaDecoderLayer(nn.Module):
         return h + self.mlp(self.post_attention_layernorm(h))
 
 
+class AbsentLayer(nn.Module):
+    """The slot of a layer another pipeline stage holds: no parameters, so
+    the state dict keeps the global names of the layers this rank holds."""
+
+    def __init__(self, index: int):
+        super().__init__()
+        self.index = index
+
+    def forward(self, *args):
+        raise RuntimeError(f"layer {self.index} lives on another pipeline stage")
+
+
 class LlamaModel(nn.Module):
     def __init__(self, config: LlamaConfig):
         super().__init__()
@@ -201,13 +215,20 @@ class LlamaForCausalLM(nn.Module):
 
 
 def empty_model(config: LlamaConfig, dtype=torch.float32, device="cuda", *,
-                requires_grad: bool = False, train: bool = False) -> LlamaForCausalLM:
+                requires_grad: bool = False, train: bool = False,
+                layers=None) -> LlamaForCausalLM:
     """Model with uninitialised storage on ``device``: built on the meta
     device, so no default nn.Linear init runs over ~1B parameters. The
     default is serving's: eval mode, no gradients; a trainer passes
-    requires_grad=True, train=True."""
+    requires_grad=True, train=True. ``layers``: the global indices of the
+    layers to hold (a pipeline stage's); the others are AbsentLayer slots."""
     with torch.device("meta"):
         model = LlamaForCausalLM(config)
+    if layers is not None:
+        keep = set(layers)
+        for i in range(config.num_hidden_layers):
+            if i not in keep:
+                model.model.layers[i] = AbsentLayer(i)
     # the dtype is set on the meta device: no f32 copy of the weights is
     # ever allocated on `device` (for an 8 B model in bf16 that copy is 32 GB)
     model = model.to(dtype).to_empty(device=device)
@@ -217,24 +238,32 @@ def empty_model(config: LlamaConfig, dtype=torch.float32, device="cuda", *,
 @torch.no_grad()
 def init_params(config: LlamaConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None, *, requires_grad: bool = False,
-                train: bool = False) -> LlamaForCausalLM:
+                train: bool = False, layers=None) -> LlamaForCausalLM:
     """normal(0, initializer_range) weights, ones for norms, zero biases
     (HF LlamaPreTrainedModel._init_weights semantics, as the JAX
     init_params). Draws come from ``generator``, which must live on
     ``device`` (default: the generator's device, so the caller names the
     device through it); the numbers differ from jax.random's for the same
-    seed. requires_grad / train as empty_model."""
+    seed. requires_grad / train / layers as empty_model: a layer held
+    elsewhere is drawn and dropped, so every held tensor gets the numbers
+    the whole model would give it."""
     if device is None:
         device = generator.device
-    model = empty_model(config, dtype, device, requires_grad=requires_grad, train=train)
+    model = empty_model(config, dtype, device, requires_grad=requires_grad, train=train,
+                        layers=layers)
+    held = dict(model.named_parameters())
+    with torch.device("meta"):
+        every = LlamaForCausalLM(config).named_parameters()  # the draw order
     std = config.initializer_range
-    for name, p in model.named_parameters():
-        if name.endswith("norm.weight"):
-            p.fill_(1.0)
-        elif name.endswith(".bias"):
-            p.zero_()
-        else:
-            p.copy_(normal_init(generator, p.shape, std, dtype, device))
+    for name, meta in every:
+        p = held.get(name)
+        if name.endswith(("norm.weight", ".bias")):
+            if p is not None:
+                p.fill_(1.0 if name.endswith("norm.weight") else 0.0)
+            continue
+        w = normal_init(generator, meta.shape, std, dtype, device)
+        if p is not None:
+            p.copy_(w)
     return model
 
 
@@ -380,7 +409,19 @@ def forward(
     mp = model.model
     if inputs_embeds is None:
         inputs_embeds = embed(input_ids, mp.embed_tokens)
-    h = inputs_embeds.to(compute_dtype)
+    h = run_layers(model, inputs_embeds.to(compute_dtype), range(len(mp.layers)),
+                   segment_ids=segment_ids, position_ids=position_ids, config=config,
+                   remat_mode=remat_mode, selective_ac_option=selective_ac_option)
+    return final_logits(model, h, config, compute_dtype, return_hidden)
+
+
+def run_layers(model: LlamaForCausalLM, h: torch.Tensor, layer_ids, *,
+               segment_ids: Optional[torch.Tensor], position_ids: Optional[torch.Tensor],
+               config: LlamaConfig, remat_mode: str, selective_ac_option: str) -> torch.Tensor:
+    """h [B, T, E] in the compute dtype through the layers ``layer_ids``
+    (global indices, in order), each under the remat of its global index;
+    the whole stack in forward, a pipeline stage's in pipeline_llama."""
+    mp = model.model
     B, T, _ = h.shape
     cp = context_parallel(mp)
     if position_ids is None:  # the global positions of this rank's slice
@@ -390,8 +431,16 @@ def forward(
                                 rope_scaling=config.rope_scaling, device=h.device)
     attend = _train_attention(segment_ids, cp)
     remat = remat_layers(remat_mode, selective_ac_option, len(mp.layers))
-    for layer, save in zip(mp.layers, remat):
-        h = _run_layer(layer, save, h, position_ids, inv_freq, attend)
+    for i in layer_ids:
+        h = _run_layer(mp.layers[i], remat[i], h, position_ids, inv_freq, attend)
+    return h
+
+
+def final_logits(model: LlamaForCausalLM, h: torch.Tensor, config: LlamaConfig,
+                 compute_dtype, return_hidden: bool = False) -> torch.Tensor:
+    """The final norm, then the head's logits [B, T, V] in compute_dtype
+    (or the normed hidden state when return_hidden)."""
+    mp = model.model
     h = mp.norm(h)
     if return_hidden:
         return h

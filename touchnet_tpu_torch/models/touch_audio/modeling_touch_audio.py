@@ -64,11 +64,11 @@ def kaiming_uniform_init(generator: torch.Generator, shape, dtype=torch.float32,
 @torch.no_grad()
 def init_params(config: TouchAudioConfig, generator: torch.Generator,
                 dtype=torch.float32, device=None, *, requires_grad: bool = False,
-                train: bool = False) -> TouchAudioForCausalLM:
+                train: bool = False, layers=None) -> TouchAudioForCausalLM:
     """The projector from kaiming_uniform_init, then the Llama's weights as
-    modeling_llama.init_params draws them, both from ``generator`` (which
-    lives on ``device``; default: its device). The numbers differ from
-    jax.random's for the same seed."""
+    modeling_llama.init_params draws them (``layers``: a pipeline stage's,
+    as there), both from ``generator`` (which lives on ``device``; default:
+    its device). The numbers differ from jax.random's for the same seed."""
     if device is None:
         device = generator.device
     with torch.device("meta"):
@@ -76,7 +76,7 @@ def init_params(config: TouchAudioConfig, generator: torch.Generator,
     shape = (config.text_config.hidden_size, config.audio_config.input_size)
     model.projector.weight = nn.Parameter(kaiming_uniform_init(generator, shape, dtype, device))
     model.language_model = modeling_llama.init_params(config.text_config, generator, dtype,
-                                                      device)
+                                                      device, layers=layers)
     return model.train(train).requires_grad_(requires_grad)
 
 
@@ -100,15 +100,7 @@ def forward(
     (either term alone when the other is None) unless inputs_embeds is
     given."""
     if inputs_embeds is None:
-        parts = []
-        if input_ids is not None:
-            parts.append(embed(input_ids, model.language_model.model.embed_tokens)
-                         .to(compute_dtype))
-        if input_features is not None:
-            parts.append(rowwise_linear(input_features.to(compute_dtype), model.projector))
-        if not parts:
-            raise ValueError("touch_audio forward: needs input_ids and/or input_features")
-        inputs_embeds = parts[0] if len(parts) == 1 else parts[0] + parts[1]
+        inputs_embeds = embed_inputs(model, input_ids, input_features, compute_dtype)
     return modeling_llama.forward(
         model.language_model,
         inputs_embeds=inputs_embeds,
@@ -120,6 +112,21 @@ def forward(
         selective_ac_option=selective_ac_option,
         return_hidden=return_hidden,
     )
+
+
+def embed_inputs(model: TouchAudioForCausalLM, input_ids: Optional[torch.Tensor],
+                 input_features: Optional[torch.Tensor], compute_dtype) -> torch.Tensor:
+    """embed_tokens(input_ids) + projector(input_features) in compute_dtype
+    (either term alone when the other is None)."""
+    parts = []
+    if input_ids is not None:
+        parts.append(embed(input_ids, model.language_model.model.embed_tokens)
+                     .to(compute_dtype))
+    if input_features is not None:
+        parts.append(rowwise_linear(input_features.to(compute_dtype), model.projector))
+    if not parts:
+        raise ValueError("touch_audio forward: needs input_ids and/or input_features")
+    return parts[0] if len(parts) == 1 else parts[0] + parts[1]
 
 
 def head_weight(model: TouchAudioForCausalLM, config: TouchAudioConfig) -> torch.Tensor:

@@ -25,7 +25,8 @@
 # The JAX package's dense ring (ring_attention_jnp) is its CPU fallback;
 # here the same code runs on the CPU through the kernels' plain versions.
 #
-# Transport: torch.distributed point-to-point (batch_isend_irecv). Over a
+# Transport: torch.distributed point-to-point (batch_isend_irecv) through
+# utils/distributed.start_p2p, which the pipeline's stages share. Over a
 # gloo group the tensors travel through host buffers: gloo's send and recv
 # take CPU tensors only (two ranks on one card can only use gloo; NCCL
 # takes one rank a card). Under NCCL they go device to device.
@@ -36,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from touchnet_tpu_torch.ops import attention as attn_ops
+from touchnet_tpu_torch.utils.distributed import start_p2p
 
 
 def combine(num, den, m, out_p, lse_p):
@@ -54,26 +56,15 @@ def combine(num, den, m, out_p, lse_p):
 
 def start_rotate(tensors: List[torch.Tensor], group):
     """Start one ring step over ``group``: each tensor goes to rank p+1 and
-    its counterpart comes from rank p-1. Returns a wait() that gives the
-    received tensors, on the senders' devices."""
+    its counterpart comes from rank p-1 (utils/distributed.start_p2p: host
+    buffers over gloo). Returns a wait() that gives the received tensors,
+    on the senders' devices."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
     dst = dist.get_global_rank(group, (r + 1) % n)
     src = dist.get_global_rank(group, (r - 1) % n)
-    # gloo's point-to-point takes CPU tensors only: stage through the host
-    host = dist.get_backend(group) == "gloo"
-    sends = [t.contiguous().cpu() if host else t.contiguous() for t in tensors]
-    recvs = [torch.empty_like(t) for t in sends]
-    ops = [dist.P2POp(dist.isend, t, dst, group, tag=i) for i, t in enumerate(sends)]
-    ops += [dist.P2POp(dist.irecv, t, src, group, tag=i) for i, t in enumerate(recvs)]
-    reqs = dist.batch_isend_irecv(ops)
-
-    def wait() -> List[torch.Tensor]:
-        for req in reqs:
-            req.wait()
-        return [x.to(t.device, non_blocking=True) if host else x
-                for x, t in zip(recvs, tensors)]
-
-    return wait
+    return start_p2p([(t, dst, i) for i, t in enumerate(tensors)],
+                     [(t.shape, t.dtype, t.device, src, i) for i, t in enumerate(tensors)],
+                     group)
 
 
 class RingAttention(torch.autograd.Function):

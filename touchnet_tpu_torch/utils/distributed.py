@@ -113,6 +113,33 @@ def dist_mean(x, group=None) -> float:
     return dist_sum(x, group) / n
 
 
+def start_p2p(sends, recvs, group):
+    """Start point-to-point transfers over ``group`` (the transport of the
+    ring attention and of the pipeline): ``sends`` are (tensor, peer, tag),
+    ``recvs`` (shape, dtype, device, peer, tag), peers as global ranks.
+    Over gloo the tensors travel through host buffers (gloo's send and recv
+    abort on CUDA tensors); under NCCL they stay on the device. Returns
+    wait(), which waits for every transfer and gives the received tensors
+    on their devices."""
+    host = dist.get_backend(group) == "gloo"
+    out = [t.detach().contiguous() for t, _, _ in sends]
+    out = [t.cpu() if host else t for t in out]
+    bufs = [torch.empty(shape, dtype=dtype, device="cpu" if host else device)
+            for shape, dtype, device, _, _ in recvs]
+    ops = [dist.P2POp(dist.isend, t, peer, group, tag=tag)
+           for t, (_, peer, tag) in zip(out, sends)]
+    ops += [dist.P2POp(dist.irecv, b, peer, group, tag=tag)
+            for b, (_, _, _, peer, tag) in zip(bufs, recvs)]
+    reqs = dist.batch_isend_irecv(ops) if ops else []
+
+    def wait():
+        for req in reqs:
+            req.wait()
+        return [b.to(r[2], non_blocking=True) if host else b for b, r in zip(bufs, recvs)]
+
+    return wait
+
+
 class GarbageCollection:
     """Disable automatic Python GC and collect generation 1 every
     ``gc_freq`` steps (straggler avoidance, reference distributed.py:54-69).

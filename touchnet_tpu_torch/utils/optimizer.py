@@ -11,10 +11,12 @@
 # Over sharded gradients (DTensors: FSDP's shards, TP's) the norm is the
 # whole gradient's: each tensor's local sum of squares, summed over the mesh
 # dimensions the tensor is sharded on (a replicated dimension holds copies),
-# then the square root; every rank gets the same value.
+# then the square root; every rank gets the same value. Under pipeline
+# parallelism the stages' parts are summed over pp as well, and the
+# tensors every pp rank holds are counted once.
 
 import math
-from typing import Callable, List, NamedTuple, Optional
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -89,11 +91,30 @@ def build_optimizer(job_config: TrainConfig) -> OptimizerBundle:
                            eps=job_config.optimizer_eps, weight_decay=wd)
 
 
-def global_grad_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
+def global_grad_norm(grads: List[Optional[torch.Tensor]], pp_group=None,
+                     replicated: Sequence[bool] = ()) -> torch.Tensor:
     """sqrt of the sum of squares over every gradient, in f32 (optax
     global_norm); a None gradient counts as zero. A DTensor gradient counts
     its whole tensor: its shards' squares are summed over the mesh
-    dimensions it is sharded on."""
+    dimensions it is sharded on. Under pipeline parallelism (``pp_group``)
+    each rank holds its stages' layers, whose squares are summed over pp,
+    and the tensors every pp rank holds (``replicated``, a flag a gradient:
+    the embeddings, the final norm, the head, summed over pp already)
+    count once."""
+    if pp_group is None:
+        return torch.sqrt(_sum_of_squares(grads))
+    stage = _sum_of_squares([g for g, r in zip(grads, replicated) if not r],
+                            _device_of(grads))
+    dist.all_reduce(stage, group=pp_group)
+    return torch.sqrt(stage + _sum_of_squares([g for g, r in zip(grads, replicated) if r],
+                                              stage.device))
+
+
+def _device_of(grads) -> torch.device:
+    return next((g.device for g in grads if g is not None), torch.device("cpu"))
+
+
+def _sum_of_squares(grads: List[Optional[torch.Tensor]], device=None) -> torch.Tensor:
     from torch.distributed.tensor import DTensor
 
     plain, sharded = [], {}
@@ -106,10 +127,11 @@ def global_grad_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
             sharded.setdefault((g.device_mesh, dims), []).append(torch.sum(loc * loc))
         else:
             plain.append(torch.sum(g.float() * g.float()))
-    total = torch.stack(plain).sum() if plain else None
+    total = torch.stack(plain).sum() if plain else torch.zeros(
+        (), dtype=torch.float32, device=device if device is not None else _device_of(grads))
     for (mesh, dims), sq in sharded.items():
         part = torch.stack(sq).sum()
         for d in dims:
             dist.all_reduce(part, group=mesh.get_group(d))
-        total = part if total is None else total + part
-    return torch.sqrt(total)
+        total = total + part
+    return total

@@ -21,7 +21,11 @@
 #                                 raises on a data config the model cannot
 #                                 take (touch_audio: the feature width)
 #   additional_post_init_fn    -> hook (e.g. NaN checks, HF processor)
-#   pipelining_fn              -> pipeline-parallel stage splitter (llama)
+#   pipelining_fn              -> one pipeline stage on one microbatch:
+#                                 fn(model, layer_ids, x, batch, config=,
+#                                 compute_dtype=, remat_mode=,
+#                                 selective_ac_option=, first=, last=)
+#                                 (llama, touch_audio; parallel/pipeline.py)
 
 import re
 from dataclasses import dataclass, field
