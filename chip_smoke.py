@@ -18,19 +18,23 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      process per source, in parallel;
   3. K1 (packed flash-attention forward) against its plain version, also at
      phase 8's own shape (B1 T16384, 10 packed documents; the plain version
-     one kv head at a time);
+     one kv head at a time), and in float16 at that shape, (d16), and at
+     qwen2_audio's prefill shape, (g16) (B16 T401 H28/4 D128);
   4. K4 (ragged flash-decode) against its plain version, and two launches
-     against each other bit for bit;
+     against each other bit for bit; in float16 too at (a)'s shape, (a16);
   5. the serving slice: Llama-3.2-1B at full width (random bf16 weights
      from a seed) generates for 8 prompts, with single-shot and chunked
-     prefill; launch counts, logits against the plain-attention path,
+     prefill, and single-shot on the same weights cast to float16 (an f16
+     packed cache; K1 prefill, K4 decode); launch counts, logits against
+     the plain-attention path,
      timings and peak memory. The plain-attention path is the same code
      with the kernels' wrappers swapped for their plain versions inside
      this script (plain_kernels); the package itself has no such switch;
   6. K2 (flash-attention backward) against autograd through the plain
      forward, at the training shape's heads, and at phase 8's own shape
      (B1 T16384, 10 packed documents; the plain version one kv head at a
-     time so its f32 scores fit); at the timed shapes also each of its
+     time so its f32 scores fit), in bf16 and in float16, (d16); at the
+     timed shapes also each of its
      three kernels (delta, dkv, dq) per launch, by CUDA events the
      launcher records between them, each against its own bound; then (p),
      context parallelism's calls at cp 2 of Llama-3.2-1B's 1 x 8192 (B1
@@ -46,7 +50,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      plain versions at the training shape's vocab, and at phase 8's own
      N = 16384 rows, where the forward's blocks walk vocab splits of 14
      tiles and the backward accumulates dw over two dl row chunks (an f32
-     case forces four); argmax ties in f32 and in bf16 (the TMA + wgmma
+     case forces four), in bf16 and in float16, (d16), each with the share
+     of its dw that is exactly zero under the mean CE's cotangents (f16
+     flushes dl below 2^-24, as JAX's cast does); argmax ties in f32 and in
+     bf16 (the TMA + wgmma
      forward: two lanes of a quad, two tiles of a split, two splits), and
      two backward runs against each other bit for bit; and at the audio
      path's vocab, V=1025 (1024 BEST-RQ codes + 1: four whole 256-column
@@ -57,7 +64,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      merged by parallel/loss_parallel.combine_vocab_shards over a stacked
      shard axis (standing in for the tp group): loss, dh and dw against
      whole-vocab K3 and the plain version, a tie across the shard boundary
-     to the smaller id, and one shard's forward and backward timed;
+     to the smaller id, and one shard's forward and backward timed; the
+     same at tp 2 in float16, (o16);
+ 17. (run after 7) ops/frontend.py on the card against the host path (the
+     loaders' map functions with the native frontend), 16 rows of seeded
+     speech at each recipe's features: the SFT recipe's log-mel 128 over
+     30 s rows, and BEST-RQ's fbank 80 with stack 5 stride 4 through
+     device_frontend from a numpy batch; errors within the CPU tests'
+     tolerances (FRONTEND_*_TOL), ms a batch on the card beside the host
+     path's;
   8. the training slice: bin.train.main, the port's trainer, takes 10
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) under the recipe's
@@ -71,14 +86,17 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      --training_gradient_accumulation_steps 2 (2L, 2L, 2, 2; losses finite
      and falling), --training_mixed_precision_reduce bfloat16 (losses
      falling, step 1's loss equal to the main run's bit for bit, steps 5
-     and 10 within bounds of it) and --training_enable_cpu_offload true (its
+     and 10 within bounds of it), --training_mixed_precision_param float16
+     (f16 K1, K2, K3 a step; losses falling, step 1's within
+     STEP_BF16_LOSS of the bf16 run's) and --training_enable_cpu_offload true (its
      pinned host bytes; a sync checkpoint at step 1 alone with the time the
      loop blocked in it; losses and final params, mu, nu and count equal
      the main run's bit for bit, and so are those of a fresh run resumed
      from its step 1);
      then one step's loss, grad norm and gradients of the kernel path
-     against the plain path at B1 T4096, full width and depth, in f32 and
-     bf16;
+     against the plain path at B1 T4096, full width and depth, in f32,
+     bf16 and float16, with the share of K3's dw that is exactly zero in
+     the f16 step beside the bf16 one;
   9. the recipe's stages 0-3 on one card (run.sh:60-175, cut to dp 1):
      stage 0, python -m touchnet_tpu_torch.bin.make_data (a subprocess, 4
      workers, RawTokenizer at vocab 128256) over a jsonl of phase 8's
@@ -115,7 +133,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  10. the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on one card
      (examples/audio/pretrain/wenetspeech/run.sh, dp 1; stage 1 is skipped
      without pretrained weights, as there): Touch-Audio-1B at full width
-     and AUDIO_MAX_LAYERS (8) of its 16 layers (976,064,512 params at 16);
+     and AUDIO_MAX_LAYERS (4) of its 16 layers (976,064,512 params at 16);
      ~3600 s of seeded synthetic speech
      (voiced tones of a drifting pitch plus noise, 1-15 s, 16 kHz int16
      wavs) through make_data (a subprocess, audio+metainfo, 16 shards) and
@@ -148,14 +166,14 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      qwen2_audio.inference_qwen2_audio, run through its main; the SFT
      recipe's stage 4 with model_type qwen2_audio, then its scoring), run
      after phase 14 on its stage-3 export (the recipe's chain: the whisper
-     tower's 32 layers, the text model at phase 14's depth, f32 weights
+     tower at phase 14's SFT_TOWER_LAYERS, the text model at phase 14's depth, f32 weights
      loaded in bf16, its char-level `tokenizers` tokenizer with
      Qwen2-Audio's special ids; without that export, on one of seeded
      random bf16 weights at full depth), 32 synthetic wavs (1-15 s and one of 35 s: the tiled position
      table, T 1750), batch 16, max_length 64, bf16, the recipe's instruct;
      then trans.txt and raw_rec.txt, textnorm_zh on both sides and
      error_rate_zh --tokenizer char (a pair scored for every key). Checks
-     a hyp for every key, K1 launched (32 tower + L prefill) a batch and K4
+     a hyp for every key, K1 launched (tower + L prefill) a batch and K4
      L a decode step, no plain version called; then the first batch's
      projected audio, last prefill and first decode step on the kernel path
      against the plain path (bf16 kernel <= 1.5x the bf16 plain path's
@@ -177,7 +195,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      synthetic wavs of 1-30 s, then trans.txt, raw_rec.txt, textnorm_zh and
      error_rate_zh as phase 12; output_type both over 2 of them on the same
      loaded model. Checks a hyp for every key (audio codes under both), K1
-     launched 32 tower + L (text) or L + 6 (both stacks) an utterance and
+     launched tower + L (text) or L + 6 (both stacks) an utterance and
      K4 L (or L + 6) a decode step, no plain version called; then the first
      utterance outside the CLI, f32 kernel path against the f32 plain path
      on the same weights: the adaptor's output, the last prefill's text
@@ -192,8 +210,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      cache (SDPA on a gathered copy);
  14. (run after 11, before 12) qwen2_audio's SFT, stages 0-3 of the SFT
      recipe with model_type qwen2_audio (run_qwen2_sft): Qwen2-Audio-7B at
-     full width (the 32-layer whisper tower, vocab 156032) and the text
-     depth of sft_depth (at most 2; the disk and the card), random bf16
+     full width (the whisper tower cut to SFT_TOWER_LAYERS (16) of its 32
+     layers, vocab 156032) and the text depth of sft_depth (at most 2; the
+     disk and the card), random bf16
      weights; stage 0, seeded synthetic speech (1-15 s, txt in the char
      tokenizer's alphabet) through make_data audio+metainfo (a subprocess)
      with a dev set and data.list.raw; stage 1, an HF directory through
@@ -206,7 +225,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      sync save at the last, the model alone (no resumed run: phase 15 holds
      the SFT resume): per step its ms, label tokens/s, MFU as the reference
      counts it, the tower's and the text model's TFLOP, the data-wait share,
-     rows, launches (K1 2 x (32 + L), K2 32 + L, K3 0: no head weight, as
+     rows, launches (K1 2 x (16 + L), K2 16 + L, K3 0: no head weight, as
      in JAX); stage 3, convert_ckpt_to_hf --model_type qwen2_audio
      --tokenizer_model: the export equals the final params bit for bit;
      one step's loss, grad norm and gradients at 1 x 1200 tokens on the
@@ -215,7 +234,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      (right-padded rows);
  15. (run after 12, before 13) kimi_audio's SFT, stages 0-3 of the SFT
      recipe with model_type kimi_audio (run_kimi_sft): Kimi-Audio-7B at full
-     width (the 32-layer whisper tower, the 16-layer WhisperVQ speech
+     width (the whisper tower cut to SFT_TOWER_LAYERS (16) of its 32
+     layers, the 16-layer WhisperVQ speech
      tokenizer, frozen, the adaptor, hidden 3584, vocab 168448) cut as
      kimi_sft_depth reckons the disk and the card: text layers 28 -> 1
      (KIMI_SFT_MAX_LAYERS) and mimo layers 6 -> 1 forked after the last text
@@ -307,16 +327,18 @@ the decode case), with every timed case under "cases":
     products (gemm_yardstick) for the backward.
 
 Tolerances on the card, each against the plain version on the same inputs:
-  - bf16 kernels vs the plain version run in f32 on the same bf16-rounded
-    inputs: max abs 2e-2 and mean abs 2e-3 on out at unit-scale inputs
+  - bf16 and f16 kernels vs the plain version run in f32 on the same
+    rounded inputs: max abs 2e-2 and mean abs 2e-3 on out at unit-scale inputs
     (the kernel rounds its f32 result to bf16 once: half an ulp is up to
-    2^-9 relative, ~1.6e-2 at |out| near 4), lse 1e-3 (f32 throughout;
-    only summation order differs);
+    2^-9 relative, ~1.6e-2 at |out| near 4; f16 keeps 3 more bits, and is
+    held to the same limits), lse 1e-3 (f32 throughout; only summation
+    order differs);
   - f32 kernels: 1e-4, with TF32 off for the plain version's matmuls;
   - gradients (K2's dq, dk, dv; K3's dh, dw): the largest error relative to
-    the largest reference value, f32 1e-4 (summation order only), bf16
-    1e-2 (one bf16 rounding of each output, 2e-3 of the value, plus K2's
-    delta reading K1's bf16 out where the plain version recomputes it);
+    the largest reference value, f32 1e-4 (summation order only), bf16 and
+    f16 1e-2 (one bf16 rounding of each output, 2e-3 of the value, plus
+    K2's delta reading K1's bf16 out where the plain version recomputes
+    it);
   - K3's row statistics (lse, label logit, base-2 row max): 1e-3 absolute
     (f32 sums of E products and of 128256 exponentials in another order;
     |lse| ~ 12); argmax agreement >= 0.999 on random rows, and exactly the
@@ -460,7 +482,7 @@ def compare(name, got, want, dtype, failures, valid=None):
     err = (got - want).abs()
     mx, mean = err.max().item(), err.mean().item()
     finite = bool(torch.isfinite(got).all())
-    ok = finite and (mx <= BF16_MAX and mean <= BF16_MEAN if dtype == torch.bfloat16
+    ok = finite and (mx <= BF16_MAX and mean <= BF16_MEAN if dtype != torch.float32
                      else mx <= F32_TOL)
     print(f"  {name}: max_abs_err={mx:.3e} mean_abs_err={mean:.3e} finite={finite} "
           f"{'ok' if ok else 'FAIL'}")
@@ -780,6 +802,20 @@ def check_k1(attn, dev, gen, failures, card):
          randn(1, T, H, D, dtype=bf), randn(1, T, Hkv, D, dtype=bf),
          randn(1, T, Hkv, D, dtype=bf), seg, seg, True, 0, timed=True, grouped=True,
          runs=doc_runs(seg))
+    # float16 (the trainer's and the CLIs' float16): the main path's shape
+    # and qwen2_audio's prefill shape (G 7, D 128; 401 tokens as the kernel
+    # tests' (g))
+    f16 = torch.float16
+    case(f"(d16) main path in f16: B1 T{T} H32/8 D64 f16 causal, 10 packed documents",
+         randn(1, T, H, D, dtype=f16), randn(1, T, Hkv, D, dtype=f16),
+         randn(1, T, Hkv, D, dtype=f16), seg, seg, True, 0, timed=True, grouped=True,
+         runs=doc_runs(seg))
+    q, k, v = randn(16, 401, 28, 128, dtype=f16), randn(16, 401, 4, 128, dtype=f16), \
+        randn(16, 401, 4, 128, dtype=f16)
+    case("(g16) qwen2_audio prefill shape in f16: B16 T401 H28/4 (G7) D128 f16 causal",
+         q, k, v, None, None, True, 0, timed=True,
+         runs=lambda q, k, v: ([401] * 16, [401] * 16, k, v))
+    del q, k, v
     f32 = torch.float32
     seg = packed_segments(2, 300, dev)
     case("(e) B2 T300 H8/2 D64 f32 causal packed",
@@ -859,6 +895,8 @@ def check_k4(dec, dev, gen, failures, card, timing=True):
     plen = torch.randint(2048, 8192, (32,), generator=torch.Generator().manual_seed(SEED))
     case("(a) B32 L16 H32/8 D64 S8192 bf16 layer 7",
          32, 16, 8, 4, 64, 8192, plen.tolist(), 7936, 8000, 7, torch.bfloat16, timed=True)
+    case("(a16) B32 L16 H32/8 D64 S8192 f16 layer 7 (an f16 packed cache)",
+         32, 16, 8, 4, 64, 8192, plen.tolist(), 7936, 8000, 7, torch.float16, timed=True)
     for Hkv in (5, 7):
         case(f"(b) B3 Hkv{Hkv} G2 D128 S2048 bf16",
              3, 2, Hkv, 2, 128, 2048, [1500, 700, 1], 1536, 1600, 1, torch.bfloat16)
@@ -921,20 +959,28 @@ def run_slice(dev, card, failures):
     gen_kw = dict(eos_id=EOS, repetition_penalty=1.5, no_repeat_ngram_size=2,
                   repetition_window=NEW, compute_dtype=torch.bfloat16)
 
+    # float16 (the CLIs' --model_dtype float16): the same weights cast to
+    # f16, an f16 packed cache, K1's prefill and K4's decode in f16
+    model16 = copy.deepcopy(model).half()
+    bf, f16 = torch.bfloat16, torch.float16
     # warm cuBLAS and the allocator on a short prompt (not measured)
-    inf.generate(model, cfg, emb[:2, :128], torch.full((2,), 128, device=dev), 2, **gen_kw)
+    for m, dt in ((model, bf), (model16, f16)):
+        inf.generate(m, cfg, emb[:2, :128].to(dt), torch.full((2,), 128, device=dev), 2,
+                     **{**gen_kw, "compute_dtype": dt})
     torch.cuda.synchronize()
-
-    modes = [("single-shot", None), ("chunked 1024", 1024)]
+    modes = [("single-shot", None, bf), ("chunked 1024", 1024, bf),
+             ("single-shot f16", None, f16)]
+    models = {bf: model, f16: model16}
     outs, counts, gen_s, peaks = {}, {}, {}, {}
     # the main path: every launch count is zeroed here and read just after
     flash_attention.launches = 0
     decode_attention.launches = 0
-    for mode, chunk in modes:
+    for mode, chunk, dt in modes:
         before = (flash_attention.launches, decode_attention.launches)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = inf.generate(model, cfg, emb, plen, NEW, prefill_chunk=chunk, **gen_kw)
+        out = inf.generate(models[dt], cfg, emb.to(dt), plen, NEW, prefill_chunk=chunk,
+                           **{**gen_kw, "compute_dtype": dt})
         torch.cuda.synchronize()
         gen_s[mode] = time.perf_counter() - t0
         peaks[mode] = torch.cuda.max_memory_allocated()
@@ -944,7 +990,7 @@ def run_slice(dev, card, failures):
     main_counts = {"K1": flash_attention.launches, "K4": decode_attention.launches}
     model32 = copy.deepcopy(model).float()  # the same weights, for the f32 checks
 
-    for mode, chunk in modes:
+    for mode, chunk, dt in modes:
         out = outs[mode]
         assert out.shape == (B, NEW) and ((out >= 0) & (out < cfg.vocab_size)).all()
         # generate stops at the first all-done check after every row's eos
@@ -988,25 +1034,32 @@ def run_slice(dev, card, failures):
         def worst(a, b):
             return max(rel_l2(a[i], b[i]) for i in range(a.shape[0]))
 
-        got, prefill_ms, step_ms = forced(model, torch.bfloat16)
-        plain = forced_plain(model, torch.bfloat16)
+        # the 16-bit path (bf16, or f16 on the same weights cast) against the
+        # f32 plain path, under the bf16 limits; f32 kernel vs f32 plain on
+        # the bf16 modes
+        ty = "bf16" if dt == bf else "f16"
+        got, prefill_ms, step_ms = forced(models[dt], dt)
+        plain = forced_plain(models[dt], dt)
         ref = forced_plain(model32, torch.float32)
-        got32, _, _ = forced(model32, torch.float32)
-        finite = bool(torch.isfinite(got).all() and torch.isfinite(got32).all())
-        e32, e_kp = worst(got32, ref), worst(got, plain)
+        got32 = forced(model32, torch.float32)[0] if dt == bf else None
+        finite = bool(torch.isfinite(got).all() and (got32 is None or
+                                                      torch.isfinite(got32).all()))
+        e32 = worst(got32, ref) if got32 is not None else 0.0
+        e_kp = worst(got, plain)
         e_k, e_p = worst(got, ref), worst(plain, ref)
         e_pre = rel_l2(got[0], plain[0])
         agree = (got.argmax(-1) == plain.argmax(-1)).float().mean().item()
         ok = (finite and e32 <= F32_LOGITS_RTOL and e_k <= BF16_NOISE_RATIO * e_p
               and e_pre <= BF16_PREFILL_RTOL)
-        print(f"  {mode}: logits rel_l2 (worst of prefill + {steps} steps): "
-              f"f32 kernel vs f32 plain {e32:.3e} (<= {F32_LOGITS_RTOL:.0e}); "
-              f"vs f32 plain: bf16 kernel {e_k:.3e}, bf16 plain {e_p:.3e} "
-              f"(kernel <= {BF16_NOISE_RATIO}x plain); bf16 kernel vs bf16 plain {e_kp:.3e}, "
+        f32_note = (f"f32 kernel vs f32 plain {e32:.3e} (<= {F32_LOGITS_RTOL:.0e}); "
+                    if got32 is not None else "")
+        print(f"  {mode}: logits rel_l2 (worst of prefill + {steps} steps): {f32_note}"
+              f"vs f32 plain: {ty} kernel {e_k:.3e}, {ty} plain {e_p:.3e} "
+              f"(kernel <= {BF16_NOISE_RATIO}x plain); {ty} kernel vs {ty} plain {e_kp:.3e}, "
               f"last prefill only {e_pre:.3e} (<= {BF16_PREFILL_RTOL:.0e}); "
               f"finite={finite} {'ok' if ok else 'FAIL'}")
-        print(f"  {mode}: greedy argmax agreement, bf16 kernel vs bf16 plain "
-              f"(teacher-forced) {agree:.4f}")
+        print(f"  {mode}: greedy argmax agreement, {ty} kernel vs {ty} plain "
+              f"(teacher-forced on the generated tokens) {agree:.4f}")
         if not ok:
             failures.append(f"{mode} logits")
         print(f"  {mode}: prefill {prefill_ms:.1f} ms, decode {step_ms:.3f} ms/step, "
@@ -1016,10 +1069,14 @@ def run_slice(dev, card, failures):
     return main_counts
 
 
-GRAD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+GRAD_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 CE_STAT_TOL, ARGMAX_AGREE = 1e-3, 0.999
 STEP_F32_LOSS, STEP_F32_GNORM, STEP_F32_GRADS = 1e-5, 1e-4, 1e-4
 STEP_BF16_RATIO, STEP_BF16_LOSS = 1.5, 2e-2
+# the f16 step's grad norm, kernel path against the f16 plain path: the two
+# round P and dS (K2) in different places, ~1e-3 of the norm predicted
+# before the first card run; the limit is ten times that
+STEP_F16_GNORM = 1e-2
 TRAIN_STEPS, TRAIN_T, CHECK_T, DOC_RANGE = 10, 16384, 4096, 1000
 # the remat sweep's and the deterministic run's steps (cut from 10 for the
 # script's time: their checks read every step's loss and the launches a step)
@@ -1166,6 +1223,8 @@ def check_k2(attn, dev, gen, failures, card):
          False, False)
     case(f"(d) main path: B1 T{TRAIN_T} H32/8 D64 bf16 causal, 10 packed documents",
          1, TRAIN_T, 32, 8, 64, torch.bfloat16, True, True, timed=True, docs=10, grouped=True)
+    case(f"(d16) main path in f16: B1 T{TRAIN_T} H32/8 D64 f16 causal, 10 packed documents",
+         1, TRAIN_T, 32, 8, 64, torch.float16, True, True, timed=True, docs=10, grouped=True)
     torch.cuda.empty_cache()
     return rows
 
@@ -1450,6 +1509,10 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
         wdh, wdw = fused_ce._rows_backward_reference(h, w, labels, lse, dlse, dtl)
         e_dh = compare_grad(f"{name} dh", dh, wdh, dtype, failures)
         e_dw = compare_grad(f"{name} dw", dw, wdw, dtype, failures)
+        # the mean CE's dl = p / N rounds to the input type: in f16 what
+        # falls below 2^-24 flushes to 0 (as in JAX), where bf16 keeps it
+        zero = (dw == 0).float().mean().item(), (wdw == 0).float().mean().item()
+        print(f"  {name} dw: share exactly zero {zero[0]:.6f} (plain version {zero[1]:.6f})")
         del wdh, wdw
         dh2, dw2 = fused_ce.fused_ce_bwd(h, w, labels, lse, dlse, dtl)
         same = torch.equal(dw, dw2) and torch.equal(dh, dh2)
@@ -1474,17 +1537,19 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
                                  bound(6 * N * E * V,
                                        nbytes(h, w, labels, lse, dlse, dtl) + grad_bytes),
                                  card)}
-            if dtype == torch.bfloat16:
+            rows[name]["bwd"]["dw_zero_share"] = zero[0]
+            if dtype != torch.float32:
                 t = torch.empty((N, V), dtype=dtype, device=dev)
                 gemm = time_ms(lambda: torch.matmul(h, w.t(), out=t))
                 del t
                 rows[name]["fwd"]["gemm_ms"] = gemm
-                print(f"  {name} fwd: gemm_ms {gemm:.3f} (cuBLAS bf16 h w^T over the same rows, "
-                      f"no epilogue; informational, not a library_ms)  [{card}]")
+                print(f"  {name} fwd: gemm_ms {gemm:.3f} (cuBLAS {dtype} h w^T over the same "
+                      f"rows, no epilogue; informational, not a library_ms)  [{card}]")
                 gemm = time_ms(gemm_yardstick(h, w, chunk), 3, 1)
                 rows[name]["bwd"]["gemm_ms"] = gemm
-                print(f"  {name} bwd: gemm_ms {gemm:.3f} (cuBLAS bf16 on the three products' "
-                      f"shapes, no epilogue; informational, not a library_ms)  [{card}]")
+                print(f"  {name} bwd: gemm_ms {gemm:.3f} (cuBLAS {dtype} on the three "
+                      f"products' shapes, no epilogue; informational, not a library_ms)  "
+                      f"[{card}]")
         del h, w
         torch.cuda.empty_cache()
 
@@ -1499,6 +1564,8 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
          tie=(7, 5, 261, 128255))
     case("(d) main path: N16384 E2048 V128256 bf16", 16384, 2048, 128256, torch.bfloat16,
          timed=True, min_chunks=2)
+    case("(d16) main path in f16: N16384 E2048 V128256 f16", 16384, 2048, 128256,
+         torch.float16, timed=True, min_chunks=2)
     # the audio pretraining path's vocab: 1024 BEST-RQ codes + 1 = 4 whole
     # 256-column tiles and one live column in the fifth, the last split's
     # only tile; dl's row stride rounds 1025 up to 1032
@@ -1512,6 +1579,7 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
          tie=(1024,))
     if timing:
         rows.update(check_k3_shards(fused_ce, dev, gen, failures, card))
+        rows.update(check_k3_shards(fused_ce, dev, gen, failures, card, torch.float16, (2,)))
     return rows
 
 
@@ -1525,8 +1593,9 @@ def _stacked_reduce(t, op):
     return red.expand_as(t)
 
 
-def check_k3_shards(fused_ce, dev, gen, failures, card) -> dict:
-    """Phase 7 (o): K3 on Llama-3.2-1B's head split into 2 and 4 vocab shards
+def check_k3_shards(fused_ce, dev, gen, failures, card, dtype=torch.bfloat16,
+                    tps=(2, 4)) -> dict:
+    """Phase 7 (o): K3 on Llama-3.2-1B's head split into `tps` vocab shards
     (tensor parallelism's loss), at the main path's rows. Each shard's K3
     takes labels - its first id; the shards' statistics are merged by the
     port's own combine (parallel/loss_parallel.combine_vocab_shards) with a
@@ -1534,19 +1603,21 @@ def check_k3_shards(fused_ce, dev, gen, failures, card) -> dict:
     mean CE's loss, dh and dw are held to whole-vocab K3 and to the plain
     version under phase 7's limits; the label logit, lse and argmax too,
     rows 0-63 holding a tie across the boundary of shards 0 and 1 (the
-    smaller id must win). One shard's forward and backward are timed."""
+    smaller id must win). One shard's forward and backward are timed. In
+    `dtype` (bf16; f16 as (o16) at tp 2)."""
     from touchnet_tpu_torch.parallel.loss_parallel import combine_vocab_shards
 
     N, E, V = TRAIN_T, 2048, 128256
-    print(f"  (o) K3 on vocab shards: N{N} E{E} V{V} bf16 split over tp 2 and 4, combined by "
+    tag, ty = ("(o)", "bf16") if dtype == torch.bfloat16 else ("(o16)", "f16")
+    print(f"  {tag} K3 on vocab shards: N{N} E{E} V{V} {ty} split over tp {tps}, combined by "
           "loss_parallel.combine_vocab_shards over a stacked shard axis")
-    h = torch.randn((N, E), generator=gen, device=dev).to(torch.bfloat16)
-    w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(torch.bfloat16)
+    h = torch.randn((N, E), generator=gen, device=dev).to(dtype)
+    w = (0.02 * torch.randn((V, E), generator=gen, device=dev)).to(dtype)
     labels = torch.randint(0, V, (N,), generator=gen, device=dev, dtype=torch.int32)
     labels[::9] = -100
     valid = labels != -100
     rows = {}
-    for tp in (2, 4):
+    for tp in tps:
         vl = V // tp
         ht, wt, lab = h.clone(), w.clone(), labels.clone()
         ht[:64, 0] = 4.0  # ids vl-1 and vl: equal and dominant for rows 0-63
@@ -1588,20 +1659,21 @@ def check_k3_shards(fused_ce, dev, gen, failures, card) -> dict:
             agree = (got[3] == ref[3]).float().mean().item()
             ok = stat <= CE_STAT_TOL and agree >= ARGMAX_AGREE
             what = "the plain version" if ref_name == "plain" else "whole-vocab K3"
-            print(f"  (o) tp {tp} vs {what}: loss {got[0].item():.6f} vs {ref[0].item():.6f}, loss/lse/label logit "
-                  f"max_abs_err={stat:.3e}, argmax agreement {agree:.5f} {'ok' if ok else 'FAIL'}")
+            print(f"  {tag} tp {tp} vs {what}: loss {got[0].item():.6f} vs "
+                  f"{ref[0].item():.6f}, loss/lse/label logit max_abs_err={stat:.3e}, argmax "
+                  f"agreement {agree:.5f} {'ok' if ok else 'FAIL'}")
             if not ok:
-                failures.append(f"(o) tp {tp} statistics vs {ref_name}")
+                failures.append(f"{tag} tp {tp} statistics vs {ref_name}")
             errs.append(stat)
-            errs.append(compare_grad(f"(o) tp {tp} dh vs {ref_name}", got[4], ref[4],
-                                     torch.bfloat16, failures))
-            errs.append(compare_grad(f"(o) tp {tp} dw vs {ref_name}", got[5], ref[5],
-                                     torch.bfloat16, failures))
+            errs.append(compare_grad(f"{tag} tp {tp} dh vs {ref_name}", got[4], ref[4],
+                                     dtype, failures))
+            errs.append(compare_grad(f"{tag} tp {tp} dw vs {ref_name}", got[5], ref[5],
+                                     dtype, failures))
         tie = bool((got[3][:64] == vl - 1).all())
-        print(f"  (o) tp {tp}: rows 0-63 tie ids {vl - 1} and {vl} across the shard boundary: "
+        print(f"  {tag} tp {tp}: rows 0-63 tie ids {vl - 1} and {vl} across the shard boundary: "
               f"all pick {vl - 1}: {tie} {'ok' if tie else 'FAIL'}")
         if not tie:
-            failures.append(f"(o) tp {tp} tie across shards")
+            failures.append(f"{tag} tp {tp} tie across shards")
         del out
         # one shard's kernels at the shape each rank's K3 sees
         w0, l0 = wt[:vl].contiguous(), lab
@@ -1612,7 +1684,7 @@ def check_k3_shards(fused_ce, dev, gen, failures, card) -> dict:
         bwd = time_ms(lambda: fused_ce.fused_ce_bwd(ht, w0, l0, lse, dlse, dtl), 3, 1)
         bwd_p = time_ms(lambda: fused_ce._rows_backward_reference(ht, w0, l0, lse, dlse, dtl),
                         3, 1)
-        name = f"(o) tp {tp} vocab shard: N{N} E{E} V{vl} bf16"
+        name = f"{tag} tp {tp} vocab shard: N{N} E{E} V{vl} {ty}"
         rows[name] = {
             "fwd": timed_row(f"{name} fwd", max(errs), fwd, fwd_p, None,
                              bound(2 * N * E * vl, nbytes(ht, w0, l0, lse, tl, m2, ai)), card),
@@ -1811,7 +1883,8 @@ def remat_sweep(train, attn, listfile, tmp: Path, L, card, failures):
 # op_small with one flag added
 MODE_RUNS = (("gradient accumulation G=2", {"training_gradient_accumulation_steps": 2}),
              ("bf16 reduce", {"training_mixed_precision_reduce": "bfloat16"}),
-             ("cpu offload", {"training_enable_cpu_offload": "true"}))
+             ("cpu offload", {"training_enable_cpu_offload": "true"}),
+             ("float16 compute", {"training_mixed_precision_param": "float16"}))
 # the bf16-reduce run's losses at steps 5 and 10 against the f32-reduce
 # run's, relative. The two runs part slowly as the rounded gradients steer
 # the weights apart: 3.3e-4 at step 5 and 2.28e-2 at step 10 on an H100
@@ -1891,13 +1964,16 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
     resident run's bit for bit, with a sync checkpoint at step 1 (the
     trainer's last save skipped here), and a fresh run resumed from it equal
     to it too (the host moments saved after their last copy back, and loaded
-    in place). Each run is a main
-    path: the counts are zeroed just before it and read just after (after
-    the resume for offload); returns their sums."""
+    in place); float16 compute (f16 K1, K2, K3 and matmuls over the f32
+    masters, no loss scaler, as JAX) launches L, L, 1, 1 a step, its losses
+    finite and falling, its step-1 loss within STEP_BF16_LOSS of the bf16
+    run's (both round the same f32 weights once, into 16 bits). Each run is
+    a main path: the counts are zeroed just before it and read just after
+    (after the resume for offload); returns their sums."""
     counters = kernel_counters()
     totals = dict.fromkeys(counters, 0)
-    print(f"  single-device modes: {TRAIN_STEPS} steps at 1x{TRAIN_T} bf16 under op_small each, "
-          "full width and depth")
+    print(f"  single-device modes: {TRAIN_STEPS} steps at 1x{TRAIN_T} under op_small each (bf16 "
+          "compute but in the float16 run), full width and depth")
     for i, (mode, extra) in enumerate(MODE_RUNS):
         offload = "training_enable_cpu_offload" in extra
         exp = tmp / f"mode_{i}"
@@ -1927,6 +2003,12 @@ def mode_runs(train, listfile, tmp: Path, L, card, failures, resident) -> dict:
         if G > 1:
             ok = ok and losses[-1] < losses[0]
             note = f"losses {[round(x, 4) for x in losses]} (finite, falling)"
+        elif extra.get("training_mixed_precision_param") == "float16":
+            d1 = abs(losses[0] - resident[0][0])
+            ok = ok and losses[-1] < losses[0] and d1 <= STEP_BF16_LOSS
+            note = (f"losses {[round(x, 4) for x in losses]} (finite, falling), the bf16 run's "
+                    f"{[round(x, 4) for x in resident[0]]}; step-1 loss {losses[0]!r} vs bf16 "
+                    f"{resident[0][0]!r}: |diff| {d1:.3e} (<= {STEP_BF16_LOSS})")
         elif not offload:
             same = losses[0] == resident[0][0]
             rel = {s: abs(losses[s - 1] - resident[0][s - 1]) / resident[0][s - 1]
@@ -2038,14 +2120,15 @@ def run_training(dev, card, failures, tmp: Path):
 
     print(f"  one step at B1 T{CHECK_T}, full width and depth: kernel vs plain path")
     check_step(train, lambda dtype: train_argv(listfile, tmp / "chk", CHECK_T, 1, dtype, 128256),
-               dev, failures)
+               dev, failures, f16=True)
     return train_counts
 
 
-def check_step(train, argv_of, dev, failures, what=""):
+def check_step(train, argv_of, dev, failures, what="", f16=False):
     """One step's loss, grad norm and gradients of the kernel path against
     the plain path (plain_kernels) on the trainer built from argv_of(dtype):
-    f32 under STEP_F32_*, bf16 against the f32 plain path under STEP_BF16_*."""
+    f32 under STEP_F32_*, bf16 against the f32 plain path under STEP_BF16_*;
+    with f16, check_step_f16 too."""
     f32k = step_grads(train, argv_of("float32"), plain=False, dev=dev)
     f32p = step_grads(train, argv_of("float32"), plain=True, dev=dev)
     e_loss = abs(f32k[0] - f32p[0]) / abs(f32p[0])
@@ -2058,7 +2141,8 @@ def check_step(train, argv_of, dev, failures, what=""):
     if not ok:
         failures.append(f"{what}f32 train step")
     del f32k
-    bfk = step_grads(train, argv_of("bfloat16"), plain=False, dev=dev)
+    with k3_dw_zero_share() as z_bf:
+        bfk = step_grads(train, argv_of("bfloat16"), plain=False, dev=dev)
     bfp = step_grads(train, argv_of("bfloat16"), plain=True, dev=dev)
     e_k = ((bfk[2] - f32p[2]).norm() / f32p[2].norm()).item()
     e_p = ((bfp[2] - f32p[2]).norm() / f32p[2].norm()).item()
@@ -2073,8 +2157,71 @@ def check_step(train, argv_of, dev, failures, what=""):
           f"f32 plain {f32p[1]:.6f} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{what}bf16 train step")
+    if f16:
+        check_step_f16(train, argv_of, dev, failures, f32p, bfk, bfp, z_bf)
     del f32p, bfk, bfp
     torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def k3_dw_zero_share():
+    """While open, the share of exactly-zero entries of each K3 backward's
+    dw (the kernel's or the plain version's), in a list."""
+    from touchnet_tpu_torch.ops import fused_ce
+
+    shares = []
+    real = fused_ce.fused_ce_bwd, fused_ce._rows_backward_reference
+
+    def recorded(fn):
+        def bwd(*a, **kw):
+            dh, dw = fn(*a, **kw)
+            shares.append((dw == 0).float().mean().item())
+            return dh, dw
+        bwd.launches = getattr(fn, "launches", 0)  # the kernel wrapper counts through its name
+        return bwd
+
+    fused_ce.fused_ce_bwd, fused_ce._rows_backward_reference = (recorded(f) for f in real)
+    try:
+        yield shares
+    finally:
+        real[0].launches = fused_ce.fused_ce_bwd.launches
+        fused_ce.fused_ce_bwd, fused_ce._rows_backward_reference = real
+
+
+def check_step_f16(train, argv_of, dev, failures, f32p, bfk, bfp, z_bf):
+    """check_step's float16 half (phase 8): one step of the f16 kernel path
+    against the f16 plain path and the f32 plain path (f32p), as bf16 is
+    held: the whole gradient's error at most STEP_BF16_RATIO x the f16 plain
+    path's, the loss within STEP_BF16_LOSS of the f32 plain loss, and the
+    grad norm within STEP_F16_GNORM of the f16 plain path's; then the share
+    of K3's dw that is exactly zero in the f16 step (its dl, ~p / N, rounds
+    to f16, which flushes what falls below 2^-24) beside bf16's (z_bf, of
+    check_step's bf16 kernel step bfk; bfp its plain step)."""
+    with k3_dw_zero_share() as z_k:
+        fk = step_grads(train, argv_of("float16"), plain=False, dev=dev)
+    with k3_dw_zero_share() as z_p:
+        fp = step_grads(train, argv_of("float16"), plain=True, dev=dev)
+    e_k = ((fk[2] - f32p[2]).norm() / f32p[2].norm()).item()
+    e_p = ((fp[2] - f32p[2]).norm() / f32p[2].norm()).item()
+    e_kp = ((fk[2] - fp[2]).norm() / fp[2].norm()).item()
+    d_loss, e_gn = abs(fk[0] - f32p[0]), abs(fk[1] - fp[1]) / fp[1]
+    ok = (e_k <= STEP_BF16_RATIO * e_p and d_loss <= STEP_BF16_LOSS and
+          e_gn <= STEP_F16_GNORM and math.isfinite(fk[1]))
+    print(f"  f16: gradients rel L2 vs f32 plain: kernel {e_k:.3e}, plain {e_p:.3e} "
+          f"(kernel <= {STEP_BF16_RATIO}x plain); f16 kernel vs f16 plain {e_kp:.3e}; "
+          f"loss {fk[0]:.6f} vs f16 plain {fp[0]:.6f} and f32 plain {f32p[0]:.6f} (|diff| "
+          f"{d_loss:.2e} <= {STEP_BF16_LOSS:.0e}); grad norm {fk[1]:.6f} vs f16 plain "
+          f"{fp[1]:.6f} (rel {e_gn:.2e} <= {STEP_F16_GNORM:.0e}), bf16 {bfk[1]:.6f}, f32 plain "
+          f"{f32p[1]:.6f} {'ok' if ok else 'FAIL'}")
+    print(f"  K3 dw exactly zero (share of its entries, this step): f16 kernel {z_k}, f16 "
+          f"plain {z_p}, bf16 kernel {z_bf}; whole gradient exactly zero: f16 kernel "
+          f"{(fk[2] == 0).float().mean().item():.6f}, f16 plain "
+          f"{(fp[2] == 0).float().mean().item():.6f}, bf16 kernel "
+          f"{(bfk[2] == 0).float().mean().item():.6f}, bf16 plain "
+          f"{(bfp[2] == 0).float().mean().item():.6f}")
+    if not ok:
+        failures.append("f16 train step")
+    del fk, fp
 
 
 RECIPE_STEPS, RECIPE_INTERVAL = 10, 5
@@ -2824,12 +2971,99 @@ AUDIO_WORKERS = 12  # the recipe's num_workers (run.sh:22)
 # ~70 s of loader fill on threads that take the GIL from the launch thread
 # (12 x 2: ~23 s), and the queue depth changes no batch, so no check reads it
 AUDIO_PREFETCH = 1
-# phase 10's text depth: Touch-Audio-1B's 16 layers cut to 8 for the
-# script's clock (its checkpoints, their load and the export halve)
-AUDIO_MAX_LAYERS = 8
+# phase 10's text depth: Touch-Audio-1B's 16 layers cut for the script's
+# clock (its checkpoints, their load and the export shrink with it): 8 at
+# first, 4 since the float16 cases and phase 17 took their seconds
+AUDIO_MAX_LAYERS = 4
 # the steps of phase 10's two runs that measure what holds its step back
 # (cut from AUDIO_STEPS for the script's clock: the medians of steps 3-6)
 LOADER_STEPS = 6
+
+
+def synth_speech(rng, n: int) -> np.ndarray:
+    """n samples of 16 kHz int16 speech-like signal: voiced tones
+    (harmonics 1-5 of a pitch drifting +-30 % around 90-220 Hz, with a
+    syllable-rate envelope) plus noise, drawn from `rng`."""
+    t = np.arange(n, dtype=np.float32) / SR
+    f0 = rng.uniform(90, 220) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t
+                                                  + rng.uniform(0, 6)))
+    phase = (2 * np.pi / SR) * np.cumsum(f0, dtype=np.float64)
+    x = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.25
+    x *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * rng.uniform(1, 4) * t))
+    x += 0.01 * rng.standard_normal(n)
+    return np.clip(x * 20000, -32768, 32767).astype(np.int16)
+
+
+# phase 17: a batch of each recipe's features; the tolerances are the CPU
+# tests' (tests/touchnet_tpu/ops/test_frontend.py): fbank 2e-3 (the log of
+# a power spectrum from an f32 FFT, where a bin's power is small), log-mel
+# and the LFR stack 2e-4
+FRONTEND_ROWS, FRONTEND_FBANK_TOL, FRONTEND_LOGMEL_TOL = 16, 2e-3, 2e-4
+
+
+def check_frontend(dev, card, failures) -> None:
+    """Phase 17: ops/frontend.py on the card against the host path (the
+    loaders' map functions of data/functions.py: the native frontend, then
+    audiofeat_stack), each recipe's features on FRONTEND_ROWS rows of
+    seeded speech: (a) the SFT recipe's log-mel, 128 bins, n_fft 400, hop
+    160 (examples/audio/sft/asr/wenetspeech/run.sh:98-101) on rows of 1-30 s
+    zero-padded to 30 s as whisper features are, log_mel_spectrogram; (b)
+    BEST-RQ's fbank, 80 bins, stack 5, stride 4, normalised
+    (examples/audio/pretrain/wenetspeech/run.sh:73-78, phase 10's flags) on
+    rows of 15 s, device_frontend from a numpy batch (which it puts on the
+    card). Each within its tolerance; ms a batch on the card (the batch on
+    the card; its copy from the host apart) beside the host path's seconds
+    on one thread."""
+    from touchnet_tpu_torch.data import DataConfig, functions
+    from touchnet_tpu_torch.ops import frontend
+
+    print("[17] ops/frontend on the card vs the host path (data/functions, native frontend)")
+    rng = np.random.default_rng(SEED + 17)
+    B = FRONTEND_ROWS
+    logmel = np.zeros((B, 30 * SR), np.float32)
+    for b in range(B):
+        x = synth_speech(rng, int(rng.uniform(1.0, 30.0) * SR))
+        logmel[b, :len(x)] = x / 32768.0
+    fbank = np.stack([synth_speech(rng, 15 * SR) for _ in range(B)]).astype(np.float32) / 32768.0
+    cases = (
+        ("(a) SFT log-mel 128 over 30 s rows",
+         DataConfig(audio_feat_type="log_mel_spectrogram", audiofeat_num_mel_bins=128,
+                    audiofeat_n_fft=400, audiofeat_hop_length=160), logmel,
+         FRONTEND_LOGMEL_TOL,
+         lambda wav, cfg: frontend.log_mel_spectrogram(
+             wav, cfg.audio_resample_rate, cfg.audiofeat_n_fft, cfg.audiofeat_hop_length,
+             cfg.audiofeat_num_mel_bins),
+         lambda rows, cfg: functions.audio_compute_log_mel_spectrogram(rows, cfg)),
+        ("(b) BEST-RQ fbank 80, stack 5 stride 4, 15 s rows",
+         DataConfig(audio_feat_type="fbank", audiofeat_num_mel_bins=80, audiofeat_dither=0.0,
+                    audiofeat_stack_length=5, audiofeat_stride_length=4,
+                    audiofeat_normalize=True), fbank, FRONTEND_FBANK_TOL,
+         frontend.device_frontend,
+         lambda rows, cfg: functions.audiofeat_stack(functions.audio_compute_fbank(rows, cfg),
+                                                     cfg)),
+    )
+    for name, cfg, wav, tol, on_card, on_host in cases:
+        t0 = time.perf_counter()
+        host = [s["audiofeat"] for s in on_host(
+            ({"sample_rate": SR, "waveform": w} for w in wav), cfg)]
+        host_s = time.perf_counter() - t0
+        got = on_card(wav, cfg) if on_card is frontend.device_frontend else \
+            on_card(torch.from_numpy(wav).to(dev), cfg)
+        torch.cuda.synchronize()
+        err = max((got[b].float().cpu() - torch.from_numpy(host[b])).abs().max().item()
+                  for b in range(B))
+        ok = (got.device.type == "cuda" and tuple(got.shape) == (B, *host[0].shape)
+              and bool(torch.isfinite(got).all()) and err <= tol)
+        wav_dev = torch.from_numpy(wav).to(dev)
+        ms = time_ms(lambda: on_card(wav_dev, cfg))
+        copy_ms = time_ms(lambda: torch.from_numpy(wav).to(dev))
+        print(f"  {name}: [{B}, {wav.shape[1]}] -> {tuple(got.shape)}, max_abs_err vs host "
+              f"{err:.3e} (<= {tol:.0e}) {'ok' if ok else 'FAIL'}; card {ms:.3f} ms a batch "
+              f"(+ {copy_ms:.3f} ms to copy it from the host), host path "
+              f"{host_s * 1e3:.1f} ms a batch on one thread  [{card}]")
+        if not ok:
+            failures.append(f"frontend {name}")
+        del got, wav_dev
 
 
 def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
@@ -2849,16 +3083,8 @@ def synth_utterances(root: Path, count: int, seed: int, lo=1.0, hi=15.0,
         seconds = float(rng.uniform(lo, hi))
         if long is not None and i == long[0]:
             seconds = float(long[1])
-        n = int(seconds * SR)
-        t = np.arange(n, dtype=np.float32) / SR
-        f0 = rng.uniform(90, 220) * (1 + 0.3 * np.sin(2 * np.pi * rng.uniform(0.2, 1.0) * t
-                                                      + rng.uniform(0, 6)))
-        phase = (2 * np.pi / SR) * np.cumsum(f0, dtype=np.float64)
-        x = sum(np.sin(k * phase) / k for k in range(1, 6)) * 0.25
-        x *= 0.5 + 0.5 * np.abs(np.sin(2 * np.pi * rng.uniform(1, 4) * t))
-        x += 0.01 * rng.standard_normal(n)
         path = root / f"utt{i}.wav"
-        wavfile.write(path, SR, np.clip(x * 20000, -32768, 32767).astype(np.int16))
+        wavfile.write(path, SR, synth_speech(rng, int(seconds * SR)))
         txt = ([int(v) for v in rng.integers(3, txt_vocab, int(rng.integers(4, 30)))]
                if txt_vocab else f"utterance {i}")
         lines.append(json.dumps({"key": f"utt{i}", "wav": str(path), "txt": txt}))
@@ -4115,6 +4341,11 @@ def model_only_saves():
 # model_type qwen2_audio: make_data, the HF seed, the SFT run, the HF export) --
 
 SFT_STEPS, SFT_MAX_LAYERS = 4, 2
+# the whisper tower's depth in phases 14 and 15 (and so in 12 and 13, which
+# run their exports): 32 layers cut to 16 for the script's clock (the
+# checkpoints, the exports and their conversions, the steps); the widths,
+# the vocab and the tower's 1500 frames a row stay
+SFT_TOWER_LAYERS = 16
 SFT_UTTS, SFT_DEV_UTTS, SFT_PER_SHARD = 200, 16, 25
 # the recipe's loader is 12 workers with prefetch 12 (run.sh:22-23): in a
 # run of 4 steps they would fill 144 batches of ~40 rows (~5,800 whisper
@@ -4283,8 +4514,9 @@ def sft_step_split(trace: Path, step_ms: float, card, failures) -> None:
 
 def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     """Phase 14: stages 0-3 of the SFT recipe with model_type qwen2_audio on
-    one card, Qwen2-Audio-7B at full width (the whisper tower's 32 layers,
-    the vocab of 156032) and the text depth of sft_depth: make_data over
+    one card, Qwen2-Audio-7B at full width (the whisper tower cut to
+    SFT_TOWER_LAYERS of its 32 layers, the vocab of 156032) and the text
+    depth of sft_depth: make_data over
     synthesised speech; a seeded random bf16 HF directory through
     convert_hf_to_ckpt to step_0; bin.train.main with the recipe's stage-2
     flags (sft_argv) from it, SFT_STEPS steps whose last save holds the
@@ -4321,6 +4553,8 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
         return out
     raw = json.loads(QWEN2_CONFIG.read_text())
     raw["text_config"]["num_hidden_layers"] = L
+    tower_full = raw["audio_config"]["encoder_layers"]
+    raw["audio_config"]["encoder_layers"] = min(SFT_TOWER_LAYERS, tower_full)
     config = tmp / "qwen2_sft_config.json"
     config.write_text(json.dumps(raw))
     cfg = Qwen2AudioConfig.from_json_file(str(config))
@@ -4328,14 +4562,16 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     n_params = get_num_params(cfg)
     print(f"[14] qwen2_audio SFT, stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with "
           f"model_type qwen2_audio) on one card: {QWEN2_CONFIG.relative_to(HERE)} at full width "
-          f"(tower {ac.encoder_layers} layers d{ac.d_model}; text E={tc.hidden_size} "
+          f"(tower {ac.encoder_layers} of {tower_full} layers d{ac.d_model}; text E={tc.hidden_size} "
           f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
           f"V={tc.vocab_size}), text depth CUT {full} -> {L}; {n_params:,} params; a checkpoint "
           f"~{ckpt_bytes / 1e9:.2f} GB; temp dir {free / 1e9:.2f} GB free, the phase's cap "
           f"{SFT_DISK_CAP / 1e9:.2f} GB ({disk / 1e9:.2f} GB needed), card "
           f"{card_bytes / 1e9:.2f} GB ({need / 1e9:.2f} GB reckoned)")
     print(f"  cuts: dp 8 -> 1 (one card); text layers {full} -> {L} (sft_depth: at most "
-          f"{SFT_MAX_LAYERS}, a checkpoint's write time; disk and memory); {SFT_STEPS} steps of "
+          f"{SFT_MAX_LAYERS}, a checkpoint's write time; disk and memory); tower layers "
+          f"{tower_full} -> {ac.encoder_layers} (SFT_TOWER_LAYERS, the script's clock); "
+          f"{SFT_STEPS} steps of "
           f"30000, warmup 2 of 1000; remat none -> full and the AdamW moments in host memory "
           "(the card's memory); loader 12 workers, prefetch 12 -> "
           f"{SFT_WORKERS}, {SFT_WORKERS} (the loader's fill); checkpoints sync (the recipe's "
@@ -4759,8 +4995,9 @@ def kimi_step_split(trainer, batch, card) -> dict:
 
 def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     """Phase 15: stages 0-3 of the SFT recipe with model_type kimi_audio on
-    one card, Kimi-Audio-7B at full width (the 32-layer tower, the 16-layer
-    speech tokenizer, the adaptor, hidden 3584, vocab 168448) cut as
+    one card, Kimi-Audio-7B at full width (the tower cut to SFT_TOWER_LAYERS
+    of its 32 layers, the 16-layer speech tokenizer, the adaptor, hidden
+    3584, vocab 168448) cut as
     kimi_sft_depth says: stage 0 is phase 14's (`lists`: the same shards,
     dev list and data.list.raw); a seeded random bf16 HF directory through
     convert_hf_to_ckpt --model_type kimi_audio to step_0; bin.train.main with
@@ -4816,7 +5053,9 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     L = plan["layers"]
     print(f"[15] kimi_audio SFT, stages 0-3 (examples/audio/sft/asr/wenetspeech/run.sh with "
           f"model_type kimi_audio) on one card: {KIMI_CONFIG.relative_to(HERE)} at full width "
-          f"(tower {raw_full['speech_encoder_config']['encoder_layers']} layers d"
+          f"(tower {raw_full['speech_encoder_config']['encoder_layers']} layers, cut to "
+          f"{min(SFT_TOWER_LAYERS, raw_full['speech_encoder_config']['encoder_layers'])} for the "
+          f"script's clock (SFT_TOWER_LAYERS), d"
           f"{raw_full['speech_encoder_config']['d_model']}; speech tokenizer "
           f"{raw_full['speech_tokenizer_config']['quantize_position']} layers, frozen; text "
           f"E={raw_full['hidden_size']} H={raw_full['num_attention_heads']}/"
@@ -4837,6 +5076,9 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
         failures.append("kimi sft: no room")
         return out
     raw = kimi_sft_config(raw_full, L, KIMI_SFT_MIMO)
+    tower_full = raw_full["speech_encoder_config"]["encoder_layers"]
+    raw["speech_encoder_config"] = {**raw_full["speech_encoder_config"],
+                                    "encoder_layers": min(SFT_TOWER_LAYERS, tower_full)}
     config = tmp / "kimi_sft_config.json"
     config.write_text(json.dumps(raw))
     cfg = KimiAudioConfig.from_json_file(str(config))
@@ -5495,6 +5737,8 @@ def main() -> int:
     k2.update(k2_cp)
     with phase_clock("phase 7"):
         k3 = check_k3(fused_ce, dev, gen, failures, card)
+    with phase_clock("phase 17"):
+        check_frontend(dev, card, failures)
     with phase_clock("phase 8"), tempfile.TemporaryDirectory() as tmp:
         train_counts = run_training(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()

@@ -115,8 +115,13 @@ def test_bwd_plan(N, E, V, dtype, want):
 
 
 def test_bwd_plan_refuses_other_dtypes():
+    """f16 is planned as bf16 is (one kernel body for both 16-bit types);
+    float64 is no kernel dtype and raises."""
+    for E in (2048, 36):
+        assert ce.bwd_plan(16384, E, 128256, torch.float16) == \
+            ce.bwd_plan(16384, E, 128256, torch.bfloat16)
     with pytest.raises(ValueError):
-        ce.bwd_plan(64, 64, 64, torch.float16)
+        ce.bwd_plan(64, 64, 64, torch.float64)
 
 
 @pytest.mark.parametrize("V", [1, 7, 8, 9, 4099, 128256, 128257])
@@ -157,8 +162,12 @@ def test_fwd_plan(N, E, V, dtype, want):
 
 
 def test_fwd_plan_refuses_other_dtypes():
+    """f16 is planned as bf16 is; float64 raises."""
+    for E in (2048, 36):
+        assert ce.fwd_plan(16384, E, 128256, torch.float16, 132) == \
+            ce.fwd_plan(16384, E, 128256, torch.bfloat16, 132)
     with pytest.raises(ValueError):
-        ce.fwd_plan(64, 64, 64, torch.float16, 132)
+        ce.fwd_plan(64, 64, 64, torch.float64, 132)
 
 
 @pytest.mark.parametrize("V", [64, 4099, 128256, 151936])

@@ -34,6 +34,7 @@ def test_every_module_is_found():
         "touchnet_tpu_torch.ops._build",
         "touchnet_tpu_torch.ops.fused_ce",
         "touchnet_tpu_torch.ops.fused_adamw",
+        "touchnet_tpu_torch.ops.frontend",
         "touchnet_tpu_torch.loss.cross_entropy",
         "touchnet_tpu_torch.parallel.loss_parallel",
         "touchnet_tpu_torch.data.dataset",

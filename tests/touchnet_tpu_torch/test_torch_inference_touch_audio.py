@@ -145,6 +145,20 @@ def test_main_writes_a_hyp_for_every_key(tiny, tmp_path):
     assert all("hyp" in r and r["txt"] for r in rows)
 
 
+def test_main_in_float16_matches_the_jax_cli(tiny, tmp_path, jax_native):
+    """--model_dtype float16 (the weights cast to f16, an f16 cache, K1's
+    and K4's plain versions in f16 on the CPU): the part file equals the
+    JAX CLI's at --model_dtype float16 on the same HF directory and wavs,
+    key for key and hyp for hyp."""
+    path = cli.main(_argv(tiny, tmp_path / "port", "--model_dtype", "float16"),
+                    device=torch.device("cpu"))
+    jcli.main(_argv(tiny, tmp_path / "jax", "--model_dtype", "float16"))
+    got = [json.loads(ln) for ln in open(path)]
+    want = [json.loads(ln) for ln in open(tmp_path / "jax" / "part_0")]
+    assert [r["key"] for r in got] == [json.loads(ln)["key"] for ln in open(tiny["jsonl"])]
+    assert got == want and any(r["hyp"] for r in got)
+
+
 def test_main_needs_a_card_and_fitting_features(tiny, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="projector takes input_size 161"):
         cli.main(_argv(tiny, tmp_path, "--audiofeat_num_mel_bins", "80"),
@@ -171,8 +185,12 @@ def test_inference_utils_match_jax(tmp_path):
     assert (tmp_path / "p").read_bytes() == (tmp_path / "q").read_bytes()
     assert utils.InferenceConfig().__dict__ == jutils.InferenceConfig().__dict__
     assert utils.torch_dtype("bfloat16") is torch.bfloat16
-    with pytest.raises(ValueError, match="float16"):
-        utils.torch_dtype("float16")
+    # every name of JAX's jnp_dtype maps (float16 too); another one raises
+    for name in ("bfloat16", "float32", "float16"):
+        assert utils.torch_dtype(name) == getattr(torch, name)
+        assert jnp.dtype(jutils.jnp_dtype(name)).name == name
+    with pytest.raises(ValueError, match="float64"):
+        utils.torch_dtype("float64")
 
 
 @pytest.mark.parametrize("fault", STAGE4_FAULTS)

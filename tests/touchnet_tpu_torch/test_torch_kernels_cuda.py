@@ -2,12 +2,14 @@
 # (fused lm-head + cross-entropy, forward and backward) and K4 (flash-decode)
 # against their plain PyTorch versions on the card. These tests need a CUDA
 # card and skip elsewhere; chip_smoke.py runs the same comparison at the
-# serving and training paths' full shapes. bf16 K1 and K2 run on tensor
-# cores and f32 on FMA kernels; ATTENTION_CASES cover both at tile edges,
-# GQA groups, masks and offsets.
+# serving and training paths' full shapes. bf16 and f16 K1 and K2 run on
+# tensor cores (one kernel body for both types) and f32 on FMA kernels;
+# ATTENTION_CASES cover both routes at tile edges, GQA groups, masks and
+# offsets.
 #
-# K4's bf16 kernel streams the cache through a cp.async ring into mma.sync;
-# K3's bf16 forward and backward run on a TMA + wgmma mainloop where E is a
+# K4's bf16 and f16 kernel streams the cache through a cp.async ring into
+# mma.sync; K3's bf16 and f16 forward and backward run on a TMA + wgmma
+# mainloop where E is a
 # multiple of 8 (the cases below cover both of its sides and the kept wmma
 # tiles); the forward's blocks walk vocab splits of several tiles, which
 # the tests force at small shapes.
@@ -15,11 +17,14 @@
 # Tolerances: bf16 kernels are held to the plain version run in f32 on the
 # same bf16-rounded inputs (max abs 2e-2, mean abs 2e-3 on out at unit-scale
 # inputs: the kernel rounds out to bf16 once; lse 1e-3, f32 throughout).
+# f16 kernels are held to the same limits (f16 keeps 3 more mantissa bits
+# than bf16, so its rounding is 8x smaller: no limit is looser for f16).
 # f32 kernels are held to 1e-4 with TF32 off (FMA order differs from the
 # matmul's). Gradients (K2, K3 backward) are held relative to the largest
 # reference value: f32 1e-4 (summation order only), bf16 1e-2 (the kernel
 # rounds each output to bf16 once, 2^-9 = 2e-3 of the value, and K2's delta
-# reads K1's bf16 out where the plain version recomputes it in f32).
+# reads K1's bf16 out where the plain version recomputes it in f32); f16
+# the same 1e-2.
 
 import numpy as np
 import pytest
@@ -39,6 +44,7 @@ from touchnet_tpu_torch.ops.decode_attention import (
 )
 
 pytestmark = pytest.mark.cuda
+DTYPES = [torch.bfloat16, torch.float16, torch.float32]
 
 
 @pytest.fixture
@@ -59,7 +65,7 @@ def _check(got, want, dtype, valid=None):
         got, want = got[valid], want[valid]
     assert torch.isfinite(got).all()
     err = (got - want).abs()
-    if dtype == torch.bfloat16:
+    if dtype != torch.float32:
         assert err.max().item() <= 2e-2 and err.mean().item() <= 2e-3, err.max().item()
     else:
         assert err.max().item() <= 1e-4, err.max().item()
@@ -142,7 +148,7 @@ ATTENTION_CASES = [
 ]
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,T,S,H,Hkv,D,causal,segs,q_off,kv_off", ATTENTION_CASES)
 def test_flash_attention_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, segs,
                                 q_off, kv_off):
@@ -177,7 +183,7 @@ def test_flash_attention_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, segs,
     assert not torch.isnan(out).any() and not torch.isnan(lse).any()
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D,S,C,off", [(128, 1024, 128, 384), (64, 700, 77, 301)])
 def test_flash_prefill_on_cache_halves(dev, dtype, D, S, C, off):
     """A chunk attends the strided K/V halves of a packed cache layer, also
@@ -200,19 +206,25 @@ def test_flash_attention_rejects_what_it_cannot_run(dev):
     q = torch.zeros((1, 8, 2, 80), device=dev)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
+    # f16 is a kernel dtype (it launches); float64 is not and raises
     q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
+    n0 = flash_attention.launches
+    out, _ = flash_attention(q, q, q)
+    assert flash_attention.launches == n0 + 1 and out.dtype == torch.float16
+    q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float64)
     with pytest.raises(ValueError):
         flash_attention(q, q, q)
-    # bf16 rows move by 16-byte cp.async: a K view 2 bytes in, with a row
-    # stride of 65 elements, raises (no fallback)
-    q = torch.zeros((1, 64, 4, 64), device=dev, dtype=torch.bfloat16)
-    k = torch.zeros((1, 64, 2, 65), device=dev, dtype=torch.bfloat16)[..., 1:]
-    assert k.stride(-1) == 1 and k.shape == (1, 64, 2, 64)
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention(q, k, k)
+    # bf16 and f16 rows move by 16-byte cp.async: a K view 2 bytes in, with
+    # a row stride of 65 elements, raises (no fallback)
+    for dtype in (torch.bfloat16, torch.float16):
+        q = torch.zeros((1, 64, 4, 64), device=dev, dtype=dtype)
+        k = torch.zeros((1, 64, 2, 65), device=dev, dtype=dtype)[..., 1:]
+        assert k.stride(-1) == 1 and k.shape == (1, 64, 2, 64)
+        with pytest.raises(ValueError, match="16 bytes"):
+            flash_attention(q, k, k)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D", [64, 128])
 # L cache rows, the layer read: (k) is Kimi-Audio-7B's decode, G 7 over the
 # packed cache of both stacks (28 main rows, then 6 mimo rows), on a main
@@ -235,7 +247,7 @@ def test_decode_kernel(dev, dtype, D, Hkv, G, L, layer):
     _check(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D,G", [(64, 4), (128, 1), (128, 16), (128, 7)])
 def test_decode_kernel_balanced_splits(dev, dtype, D, G):
     """Prompt lengths with a 4x spread over an 8192-column cache (the split
@@ -283,7 +295,7 @@ def _check_grad(got, want, dtype):
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     rel = ((got - want).abs().max() / want.abs().max().clamp(min=1e-30)).item()
-    assert rel <= (1e-2 if dtype == torch.bfloat16 else 1e-4), rel
+    assert rel <= (1e-4 if dtype == torch.float32 else 1e-2), rel
 
 
 def _attention_case(dev, dtype, B, T, S, H, Hkv, D, segs, seed):
@@ -310,7 +322,7 @@ def _valid_rows(B, T, S, causal, seg, kv_seg, q_off, kv_off, dev):
     return m.any(-1)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("B,T,S,H,Hkv,D,causal,segs,q_off,kv_off",
                          ATTENTION_CASES + [(1, 130, 130, 32, 8, 64, True, "packed", 0, 0)])
 def test_flash_attention_bwd_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, segs,
@@ -335,7 +347,8 @@ def test_flash_attention_bwd_kernel(dev, dtype, B, T, S, H, Hkv, D, causal, segs
 
 @pytest.mark.parametrize("dtype,T,causal", [(torch.float32, 64, False),
                                             (torch.bfloat16, 64, False),
-                                            (torch.bfloat16, 150, True)])
+                                            (torch.bfloat16, 150, True),
+                                            (torch.float16, 150, True)])
 def test_flash_attention_bwd_gives_zero_for_rows_without_keys(dev, dtype, T, causal):
     """A row with no live key (lse = -inf from K1) gets out 0 and zero
     gradients, not NaN, and adds nothing to dk, dv."""
@@ -360,7 +373,7 @@ def test_flash_attention_bwd_gives_zero_for_rows_without_keys(dev, dtype, T, cau
     torch.testing.assert_close(dv, dv2, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_attention_autograd_goes_through_k2(dev, dtype):
     """The repair of the forward-only wrapper: on CUDA tensors that require
     grad, flash_attention's out has a grad_fn, and q, k, v get K2's
@@ -394,7 +407,7 @@ def _ce_case(dev, dtype, N, E, V, seed, tie=False, w_scale=0.1):
     return h.contiguous(), w.contiguous(), labels
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("N,E,V", [(300, 256, 1000), (64, 128, 64), (1000, 64, 4099),
                                    (1000, 36, 4099), (300, 2048, 128256)])
 def test_fused_ce_kernel(dev, dtype, N, E, V):
@@ -445,7 +458,7 @@ def test_fused_ce_argmax_tie_and_small_chunks(dev, monkeypatch):
     _check_grad(dw2, dw, torch.float32)  # the row sums split in another order
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_ce_chunked_bwd_matches_plain(dev, dtype, monkeypatch):
     """The backward over several row chunks (dw accumulated across them,
     a ragged last chunk) against the plain version, in both dtypes."""
@@ -485,14 +498,15 @@ def _force_fwd_plan(monkeypatch, **fields):
 
 
 @pytest.mark.parametrize("splits,group", [(1, 8), (3, 1), (5, 3), (17, 8)])
-def test_fused_ce_fwd_walks_vocab_splits(dev, monkeypatch, splits, group):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_fused_ce_fwd_walks_vocab_splits(dev, monkeypatch, splits, group, dtype):
     """The TMA + wgmma forward with blocks that walk several vocab tiles
     (the ring runs across tiles; the last tile is the ragged tail) in other
     raster orders: the same statistics as the plain version."""
     N, E, V = 1000, 64, 4099
-    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 5)
+    h, w, labels = _ce_case(dev, dtype, N, E, V, 5)
     _force_fwd_plan(monkeypatch, splits=splits, group=group)
-    assert fused_ce.fwd_plan(N, E, V, torch.bfloat16, 132).mainloop == "wgmma"
+    assert fused_ce.fwd_plan(N, E, V, dtype, 132).mainloop == "wgmma"
     lse, tl, m2, ai = fused_ce.fused_ce_fwd(h, w, labels)
     torch.cuda.synchronize()
     want = fused_ce._rows_reference(h, w, labels)
@@ -511,14 +525,15 @@ def test_fused_ce_fwd_walks_vocab_splits(dev, monkeypatch, splits, group):
 CE_TIES = ((4, 12), (3, 1), (7, 2), (300, 100), (2400, 40), (4098, 4096), (15, 10, 600, 2500))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("splits", [None, 1, 2])
-def test_fused_ce_fwd_ties_go_to_the_smallest_index(dev, monkeypatch, splits):
-    """bf16 argmax ties inside one thread's columns, across the lanes of a
-    quad, across two tiles of one split, across two splits and in the
-    tail: every tie gives the smallest index (None: the plan's own 17
+def test_fused_ce_fwd_ties_go_to_the_smallest_index(dev, monkeypatch, splits, dtype):
+    """bf16 and f16 argmax ties inside one thread's columns, across the
+    lanes of a quad, across two tiles of one split, across two splits and
+    in the tail: every tie gives the smallest index (None: the plan's own 17
     one-tile splits)."""
     N, E, V = 256, 64, 4099
-    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 9)
+    h, w, labels = _ce_case(dev, dtype, N, E, V, 9)
     for g, cols in enumerate(CE_TIES):  # rows 32 g.. against columns `cols`
         h[32 * g:32 * (g + 1), g + 1] = 8.0
         w[list(cols)] = 0.0
@@ -545,13 +560,14 @@ def test_fused_ce_fwd_is_bit_stable(dev, N, E, V):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 @pytest.mark.parametrize("which", ["h", "w"])
-def test_fused_ce_refuses_unaligned_bf16(dev, which, direction):
-    """A bf16 h or w that does not start on 16 bytes cannot be a TMA
-    tensor: both directions raise instead of launching."""
+def test_fused_ce_refuses_unaligned_bf16(dev, which, direction, dtype):
+    """A bf16 or f16 h or w that does not start on 16 bytes cannot be a
+    TMA tensor: both directions raise instead of launching."""
     N, E, V = 128, 64, 512
-    h, w, labels = _ce_case(dev, torch.bfloat16, N, E, V, 3)
+    h, w, labels = _ce_case(dev, dtype, N, E, V, 3)
     x = h if which == "h" else w
     moved = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)[1:].view(x.shape)
     moved.copy_(x)

@@ -1,9 +1,9 @@
 # Copyright (c) 2026 touchnet_tpu authors.
 # Copied from touchnet_tpu/bin/__init__.py: MakeDataConfig, TrainConfig and
 # CkptConverterConfig, with the same field names, defaults and validate(),
-# so the JAX recipes' flags parse as they are. Which flags the port's
-# trainer runs, and which raise as later slices, is bin/train.py's
-# check_supported. One JAX field that nothing here would read is left out,
+# so the JAX recipes' flags parse as they are; the port's trainer runs all
+# of them (bin/train.py says which raise on a layout it cannot run). One
+# JAX field that nothing here would read is left out,
 # so passing it is a parse error: CkptConverterConfig's tmp_dir. One default
 # differs: training_compile is false, since the port's step runs eagerly;
 # the trainer warns once for each flag it accepts and never reads

@@ -133,10 +133,12 @@
 # apply_cp act on each stage's layers. The dev pass runs the pipeline's
 # forwards alone.
 #
-# What the port does not run raises a ValueError naming the flag
-# (check_supported): float16; so does a dp_only TrainSpec (qwen2_audio,
-# kimi_audio) at tp, cp or pp above 1 (check_dp_only), and a pipeline
-# schedule or split the port does not run (parallel/pipeline.py).
+# --training_mixed_precision_param takes float32, bfloat16 and float16 (the
+# compute dtype of K1-K4 and the matmuls; the masters and AdamW stay f32).
+# What the port does not run raises a ValueError naming the flag: a dp_only
+# TrainSpec (qwen2_audio, kimi_audio) at tp, cp or pp above 1
+# (check_dp_only), and a pipeline schedule or split the port does not run
+# (parallel/pipeline.py).
 
 import copy
 import json
@@ -217,18 +219,11 @@ _BATCH_ARRAY_KEYS = (
     "whisper_input_features",
     "whisper_attention_mask",
 )
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# --training_mixed_precision_param's compute dtypes (the masters stay f32,
+# and there is no loss scaler in float16, as in JAX)
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 # a decoder layer's tensors (a pipeline stage's); the others every pp rank holds
 _LAYER = re.compile(r"(^|\.)layers\.\d+\.")
-
-
-def check_supported(job_config: TrainConfig) -> None:
-    """Raise a ValueError naming the first flag the port does not run."""
-    cfg = job_config
-    if cfg.training_mixed_precision_param not in _DTYPES:
-        raise ValueError(f"training_mixed_precision_param {cfg.training_mixed_precision_param}: "
-                         "the kernels take bfloat16 or float32; float16 is a later slice of "
-                         "touchnet_tpu_torch")
 
 
 def check_dp_only(spec, job_config: TrainConfig) -> None:
@@ -489,7 +484,6 @@ class Trainer:
         self.data_config = data_config
         self.tokenizer_config = tokenizer_config
         job_config.validate()
-        check_supported(job_config)
         check_dp_only(get_train_spec(job_config.training_model_name), job_config)
         init_logger(os.path.join(job_config.training_trace_dump_folder, "touchnet_train.log"))
         warn_unread(job_config)

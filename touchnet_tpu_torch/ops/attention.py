@@ -4,8 +4,9 @@
 # Port of touchnet_tpu/ops/attention.py. The Pallas forward kernels
 # _fwd_kernel_dyn (:269) and _fwd_kernel (:159) become hand-written CUDA,
 # csrc/flash_attention.cu; the six backward kernels (:528-1100) become
-# csrc/flash_attention_bwd.cu. bf16 runs on tensor cores (mma.sync, with
-# ldmatrix and cp.async), f32 on FMA kernels. Each source note says what
+# csrc/flash_attention_bwd.cu. bf16 and f16 run on tensor cores (mma.sync,
+# with ldmatrix and cp.async; one kernel body for both types), f32 on FMA
+# kernels. Each source note says what
 # bounds it on Hopper and what the design does about that. Beside them:
 #   - packed_attention_reference: the plain PyTorch version (:75-111),
 #     which also returns the row logsumexp;
@@ -124,8 +125,9 @@ def flash_attention(
     Returns (out [B,T,H,D] in q.dtype, lse [B,H,T] f32, base e).
 
     CPU tensors take the plain version. CUDA tensors take the kernel, which
-    needs D in HEAD_DIMS, bf16 or f32, H / Hkv <= MAX_GROUP and, in bf16,
-    16-byte aligned q, k, v rows (_check_aligned); anything else raises. A
+    needs D in HEAD_DIMS, bf16, f16 or f32, H / Hkv <= MAX_GROUP and, in
+    bf16 and f16, 16-byte aligned q, k, v rows (_check_aligned); anything
+    else raises (an f16 tensor never reaches the plain version). A
     row with no valid key gets out 0 and lse -inf. out is differentiable
     (K2 on the card); lse carries no gradient."""
     B, T, H, D = q.shape
@@ -145,7 +147,8 @@ def flash_attention(
     if tuple(k.shape) != (B, S, Hkv, D) or tuple(v.shape) != (B, S, Hkv, D):
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} vs q {tuple(q.shape)}")
     if q.dtype not in _build.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: bf16 or f32, all equal")
+        raise ValueError(f"dtypes q {q.dtype} k {k.dtype} v {v.dtype}: bf16, f16 or f32, "
+                         "all equal")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if H % Hkv or H // Hkv > MAX_GROUP:
@@ -167,7 +170,7 @@ def _row_strides(x: torch.Tensor) -> tuple:
 
 
 def _check_aligned(what: str, **tensors) -> None:
-    """The bf16 kernels copy 16-byte rows with cp.async: every tensor's
+    """The bf16 and f16 kernels copy 16-byte rows with cp.async: every tensor's
     start and its row strides must be 16-byte aligned. Raises otherwise
     (the kernels take no other route)."""
     for name, x in tensors.items():
@@ -180,7 +183,7 @@ def _flash_fwd(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
     """Launch K1 on validated CUDA tensors."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _check_aligned("flash_attention", q=q, k=k, v=v)
     lib = _build.load_library()
     out = torch.empty((B, T, H, D), dtype=q.dtype, device=q.device)
@@ -305,7 +308,8 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no kernel for device {q.device}")
     if q.dtype not in _build.DTYPE_CODES or any(x.dtype != q.dtype for x in (k, v, out)):
-        raise ValueError("flash_attention_bwd: q, k, v and out in one dtype, bf16 or f32")
+        raise ValueError("flash_attention_bwd: q, k, v and out in one dtype, bf16, f16 or "
+                         "f32")
     if D not in HEAD_DIMS or H % Hkv or H // Hkv > MAX_GROUP:
         raise ValueError(f"flash_attention_bwd: H={H} Hkv={Hkv} D={D}")
     if not all(x.is_contiguous() for x in (q, k, v, out, lse)):
@@ -315,7 +319,7 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
     q_seg = _segments(segment_ids, (B, T), q.device)
     kv_seg = _segments(kv_segment_ids, (B, S), q.device)
     dout = dout.to(q.dtype).contiguous()
-    if q.dtype == torch.bfloat16:
+    if q.dtype != torch.float32:
         _check_aligned("flash_attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
     lib = _build.load_library()
     handles = None

@@ -1,9 +1,12 @@
 // Copyright (c) 2026 touchnet_tpu authors.
-// Helpers shared by the attention kernels of touchnet_tpu_torch.
+// Helpers shared by the kernels of touchnet_tpu_torch: the dtype codes,
+// conversions and the tensor-core helpers, each for bf16 and f16 (one
+// kernel body per element type).
 
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -17,6 +20,7 @@ constexpr float kLn2 = 0.6931471805599453f;
 // dtype codes the Python wrappers pass
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
+constexpr int kFloat16 = 2;
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -26,6 +30,8 @@ template <>
 __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+template <>
+__device__ __forceinline__ float to_f32<__half>(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -35,6 +41,8 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) { return __float2half_rn(x); }
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -95,34 +103,50 @@ __device__ __forceinline__ void live_span(const int* seg, int begin, int end, in
 
 // ---------------------------------------------------------------------------
 // Tensor-core building blocks (sm_80+ instructions, used on sm_90a): the
-// warp-wide mma.sync m16n8k16 on bf16 with f32 accumulation, ldmatrix from
-// shared memory, and cp.async copies from global to shared memory.
+// warp-wide mma.sync m16n8k16 on bf16 or f16 with f32 accumulation,
+// ldmatrix from shared memory, and cp.async copies from global to shared
+// memory. ldmatrix and cp.async move 16-bit lanes and bytes whatever the
+// type; mma_16816<T> and pack2<T> pick the instruction and the rounding.
 //
 // Fragment layout of m16n8k16 (lane = 4 * g + t, g in [0, 8), t in [0, 4)):
-//   A 16x16 row-major, 4 registers of bf16x2: a0 (row g, cols 2t..2t+1),
+//   A 16x16 row-major, 4 registers of 16-bit pairs: a0 (row g, cols 2t..2t+1),
 //     a1 (row g+8, same cols), a2 (row g, cols 2t+8..), a3 (row g+8, cols 2t+8..)
 //   B 16x8 "col" (k contiguous per n), 2 registers: b0 (k 2t..2t+1, n g),
 //     b1 (k 2t+8.., n g)
 //   C/D 16x8 f32, 4 registers: c0, c1 (row g, cols 2t, 2t+1), c2, c3 (row g+8)
-// So the C fragments of two neighbouring n-tiles are, once packed to bf16,
-// the A fragment of one 16-deep k-step: no shuffle, no shared memory.
+// So the C fragments of two neighbouring n-tiles are, once packed to the
+// element type, the A fragment of one 16-deep k-step: no shuffle, no shared
+// memory.
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// d += a * b (bf16 operands, f32 accumulators)
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
+// d += a * b (bf16 or f16 operands, f32 accumulators)
+template <typename T>
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1);
+template <>
+__device__ __forceinline__ void mma_16816<__nv_bfloat16>(float (&d)[4], const uint32_t (&a)[4],
+                                                         uint32_t b0, uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+template <>
+__device__ __forceinline__ void mma_16816<__half>(float (&d)[4], const uint32_t (&a)[4],
+                                                  uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
-// four 8x8 bf16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+// four 8x8 matrices of 16-bit elements; lanes 8i..8i+7 give the row addresses of matrix i
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -161,15 +185,24 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // 2^x in one MUFU instruction (ex2.approx.ftz: ~2^-22 relative error,
 // results below 2^-126 flush to 0); for the bf16 kernels, whose P is
-// rounded to bf16 anyway
+// rounded to bf16 or f16 anyway
 __device__ __forceinline__ float fast_exp2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+// two f32 values rounded to nearest into one register of the element type
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 

@@ -13,15 +13,16 @@
 // the ~295 flops/byte where the tensor cores would become the limit. So the
 // design is about keeping enough cache bytes in flight on every SM.
 //
-// The bf16 kernel (decode_mma_kernel):
+// The tensor-core kernel (decode_mma_kernel<T>, one body for bf16 and f16;
+// inputs bf16, f16 or f32):
 //   - An asynchronous ring. Each block streams its split's live columns
 //     through kStages tiles of kCols columns in shared memory, filled by
 //     16-byte cp.async.cg copies (16 consecutive lanes read one 256-byte
 //     D64 column): tiles t+1 .. t+kStages-1 are in flight while tile t is
 //     computed, and one barrier a tile both publishes tile t and frees the
-//     slot the next copy refills. The tiles stay bf16 (rows padded by 16
-//     bytes so an ldmatrix's 8 rows hit 8 bank groups); nothing is
-//     converted to f32 in shared memory.
+//     slot the next copy refills. The tiles stay in the cache's type (rows
+//     padded by 16 bytes so an ldmatrix's 8 rows hit 8 bank groups);
+//     nothing is converted to f32 in shared memory.
 //   - Products on tensor cores in registers: mma.sync m16n8k16 with the G
 //     query heads padded to 16 rows (K1's fragment scheme: Q fragments held
 //     for the whole walk, K by ldmatrix, V by ldmatrix.trans, P packed from
@@ -41,6 +42,11 @@
 //     j >= plen is column max(base, plen) + (j - plen). A tile is at most
 //     two contiguous runs of the cache; the dead [plen, base) gap is never
 //     read, and columns past the split's end are zero-filled and masked.
+// f16 (the CLIs' --model_dtype float16): the kernel rounds to f16 only P,
+// for the PV product, and the output. P = exp2(s - m) lies in [0, 1]; the
+// output is a convex combination of the cache's V rows, so |out| <= max
+// |v|, an f16 value: neither can reach f16's 65504. Scores, the split
+// partials and the combine stay f32.
 // f32 keeps the FMA kernel (decode_split_kernel), the 1e-4 exactness path,
 // on the same split plan. decode_combine_kernel merges a row's splits in
 // split order (the same bits every run) and writes 0 for a row with no
@@ -57,7 +63,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kTile = 32;  // FMA kernel: kv columns per tile, one per lane in the softmax pass
 constexpr int kMaxG = 16;  // query heads per kv head
-constexpr int kCols = 64;  // bf16 kernel: kv columns per ring tile, 16 per warp
+constexpr int kCols = 64;  // tensor-core kernel: kv columns per ring tile, 16 per warp
 
 struct DecodeParams {
   const void* q;     // [B, H, D] contiguous
@@ -179,8 +185,8 @@ __global__ void __launch_bounds__(kThreads) decode_split_kernel(DecodeParams p) 
   }
 }
 
-// ring geometry of the bf16 kernel: rows of 2D + 8 elements (16 bytes of
-// padding), the 16 query rows after the ring
+// ring geometry of the tensor-core kernel (bf16 or f16): rows of 2D + 8
+// elements (16 bytes of padding), the 16 query rows after the ring
 template <int D>
 struct Ring {
   static constexpr int kLds = 2 * D + 8;
@@ -189,17 +195,16 @@ struct Ring {
   static constexpr int kStages = 3;  // D64: 54.5 KB, 4 blocks per SM (PERF.md)
   static constexpr int kTileElems = kCols * kLds;
   static constexpr size_t kBytes =
-      (size_t)(kStages * kTileElems + kMaxG * kLdq) * sizeof(__nv_bfloat16);
+      (size_t)(kStages * kTileElems + kMaxG * kLdq) * sizeof(uint16_t);
 };
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeParams p) {
-  using bf16 = __nv_bfloat16;
   using R = Ring<D>;
   constexpr int KSTEPS = D / 16, DT = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sKV = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sQ = sKV + R::kStages * R::kTileElems;
+  T* sKV = reinterpret_cast<T*>(smem_raw);
+  T* sQ = sKV + R::kStages * R::kTileElems;
 
   const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -211,9 +216,9 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeParams p) {
   const int j1 = min(live.n, j0 + p.cps);
   const int ntiles = (j1 - j0 + kCols - 1) / kCols;
 
-  const bf16* kvb = static_cast<const bf16*>(p.kv) +
+  const T* kvb = static_cast<const T*>(p.kv) +
                     ((int64_t)b * p.Hkv + hk) * (int64_t)p.S * (2 * D);
-  const bf16* qb = static_cast<const bf16*>(p.q) + ((int64_t)b * p.H + hk * p.G) * D;
+  const T* qb = static_cast<const T*>(p.q) + ((int64_t)b * p.H + hk * p.G) * D;
 
   // the G query rows, zero rows up to 16; they land with tile 0's group
   for (int i = tid; i < kMaxG * (D / 8); i += kThreads) {
@@ -222,7 +227,7 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeParams p) {
     cp_async_16(sQ + r * R::kLdq + c * 8, ok ? qb + r * D + c * 8 : qb, ok);
   }
   auto load_tile = [&](int t) {
-    bf16* dst = sKV + (t % R::kStages) * R::kTileElems;
+    T* dst = sKV + (t % R::kStages) * R::kTileElems;
     const int jt = j0 + t * kCols;
 #pragma unroll
     for (int k = 0; k < kCols * R::kChunks / kThreads; ++k) {
@@ -264,8 +269,8 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeParams p) {
         ldmatrix_x4(qf[ks], sQ + (lane & 15) * R::kLdq + ks * 16 + (lane >> 4) * 8);
     }
 
-    const bf16* tK = sKV + (t % R::kStages) * R::kTileElems + warp * 16 * R::kLds;
-    const bf16* tV = tK + D;
+    const T* tK = sKV + (t % R::kStages) * R::kTileElems + warp * 16 * R::kLds;
+    const T* tV = tK + D;
     float s[2][4];
 #pragma unroll
     for (int j = 0; j < 2; ++j)
@@ -276,8 +281,8 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeParams p) {
       // matrices: (n-tile 0, k lo), (0, k hi), (1, k lo), (1, k hi)
       uint32_t kf[4];
       ldmatrix_x4(kf, tK + ((mi >> 1) * 8 + (lane & 7)) * R::kLds + ks * 16 + (mi & 1) * 8);
-      mma_bf16_16816(s[0], qf[ks], kf[0], kf[1]);
-      mma_bf16_16816(s[1], qf[ks], kf[2], kf[3]);
+      mma_16816<T>(s[0], qf[ks], kf[0], kf[1]);
+      mma_16816<T>(s[1], qf[ks], kf[2], kf[3]);
     }
 
     // scores in base 2; columns past the split's end (last tile only) masked
@@ -317,15 +322,15 @@ __global__ void __launch_bounds__(kThreads) decode_mma_kernel(DecodeParams p) {
       }
 
     // O += P V over the warp's 16 columns: one k-step
-    const uint32_t pa[4] = {pack_bf16x2(s[0][0], s[0][1]), pack_bf16x2(s[0][2], s[0][3]),
-                            pack_bf16x2(s[1][0], s[1][1]), pack_bf16x2(s[1][2], s[1][3])};
+    const uint32_t pa[4] = {pack2<T>(s[0][0], s[0][1]), pack2<T>(s[0][2], s[0][3]),
+                            pack2<T>(s[1][0], s[1][1]), pack2<T>(s[1][2], s[1][3])};
 #pragma unroll
     for (int dj = 0; dj < DT; dj += 2) {
       // matrices: (k lo, d-tile dj), (k hi, dj), (k lo, dj+1), (k hi, dj+1)
       uint32_t vf[4];
       ldmatrix_x4_trans(vf, tV + ((mi & 1) * 8 + (lane & 7)) * R::kLds + dj * 8 + (mi >> 1) * 8);
-      mma_bf16_16816(acc[dj], pa, vf[0], vf[1]);
-      mma_bf16_16816(acc[dj + 1], pa, vf[2], vf[3]);
+      mma_16816<T>(acc[dj], pa, vf[0], vf[1]);
+      mma_16816<T>(acc[dj + 1], pa, vf[2], vf[3]);
     }
   }
   cp_async_wait<0>();
@@ -402,13 +407,13 @@ __global__ void __launch_bounds__(D) decode_combine_kernel(DecodeParams p, T* ou
 template <typename T, int D>
 cudaError_t launch(const DecodeParams& p, int B, void* out, cudaStream_t stream) {
   const dim3 grid(p.nsplit, p.Hkv, B);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+  if constexpr (!std::is_same<T, float>::value) {
     constexpr size_t smem = Ring<D>::kBytes;
     static_assert(smem >= (size_t)(4 * kMaxG * (D + 2)) * sizeof(float), "merge space");
     cudaError_t err = cudaFuncSetAttribute(
-        decode_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    decode_mma_kernel<D><<<grid, kThreads, smem, stream>>>(p);
+    decode_mma_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
   } else {
     decode_split_kernel<T, D><<<grid, kThreads, 0, stream>>>(p);
   }
@@ -439,6 +444,8 @@ extern "C" int tn_flash_decode(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == tn::kBFloat16 && D == 64) return (int)tn::launch<__nv_bfloat16, 64>(p, B, out, st);
   if (dtype == tn::kBFloat16 && D == 128) return (int)tn::launch<__nv_bfloat16, 128>(p, B, out, st);
+  if (dtype == tn::kFloat16 && D == 64) return (int)tn::launch<__half, 64>(p, B, out, st);
+  if (dtype == tn::kFloat16 && D == 128) return (int)tn::launch<__half, 128>(p, B, out, st);
   if (dtype == tn::kFloat32 && D == 64) return (int)tn::launch<float, 64>(p, B, out, st);
   if (dtype == tn::kFloat32 && D == 128) return (int)tn::launch<float, 128>(p, B, out, st);
   return (int)cudaErrorInvalidValue;

@@ -8,10 +8,19 @@
 // itself) and, when causal, q_offset + row >= kv_offset + col. Returns out
 // in the input dtype and lse in f32, base e.
 //
-// Two kernels, one per input type:
-//   - bf16 (every bf16 call): flash_fwd_mma_kernel, on the tensor cores.
+// Two kernels, by input type (inputs bf16, f16 or f32):
+//   - bf16 and f16 (every such call): flash_fwd_mma_kernel<T>, one body
+//     for both types, on the tensor cores.
 //   - f32: flash_fwd_kernel, f32 FMAs from shared memory: the exactness
 //     path behind the f32 checks (1e-4), unchanged from the first version.
+//
+// f16 (the JAX package's float16, which its kernel runs with the f32
+// softmax chain, attention.py:343): the only values the kernel rounds to
+// f16 are P, for the PV product, and out. P = exp2(s - m) lies in [0, 1],
+// so it cannot reach f16's 65504; entries below 2^-24 flush to 0, as JAX's
+// p.astype(v.dtype) does. out is the f32 sum of P V over the f32 sum of P,
+// a convex combination of rows of v, so |out| <= max |v|, itself an f16
+// value. Scores, the running max and sum, and lse stay f32.
 //
 // What bounds it on this card: the two products QK^T and PV, 4·D flops per
 // live (row, column) pair. At the training shape (T 16384, D 64, 10
@@ -20,7 +29,7 @@
 // close the products come to the tensor cores' rate. The FMA version ran
 // at ~15 TFLOP/s, two shared-memory loads per four FMAs.
 //
-// What the bf16 design does about it (mma.sync, ldmatrix, cp.async: the
+// What the tensor-core design does about it (mma.sync, ldmatrix, cp.async: the
 // sm_80 instruction set, which Hopper runs at a fraction of wgmma's peak; a
 // wgmma/TMA pipeline is later work):
 //   - One block of 4 warps per (batch, kv head, 64 query rows); the rows
@@ -32,11 +41,11 @@
 //     ~9 % faster than 8 warps x 2 blocks, and 128-column tiles at one
 //     block an SM ~20 % slower (chip_smoke.py phase 3 timings).
 //   - Warp w owns rows 16w..16w+15 whole. QK^T runs as
-//     mma.sync.m16n8k16 (bf16 in, f32 accumulate) with the warp's Q
+//     mma.sync.m16n8k16 (bf16 or f16 in, f32 accumulate) with the warp's Q
 //     fragments held in registers for the whole walk and K fragments read
 //     by ldmatrix; the online softmax (max, sum, rescale) stays in the
 //     accumulator fragments and needs only quad shuffles, no shared memory.
-//   - P is rounded to bf16 straight from the S accumulators into A
+//   - P is rounded to the input type straight from the S accumulators into A
 //     fragments (an m16n8 C fragment pair is an m16k16 A fragment) and
 //     multiplied with V read by ldmatrix.trans: the JAX reference's own
 //     precision chain (p cast to v's dtype for PV). Softmax stays f32,
@@ -291,7 +300,7 @@ cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16 and f16: tensor cores
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaRows = 64;   // query rows per block: G heads x (64 / G) positions
@@ -300,27 +309,26 @@ constexpr int kMmaWarps = 4;   // warp w owns rows 16w .. 16w + 15
 constexpr int kMmaThreads = 32 * kMmaWarps;
 
 template <int D>
-__host__ __device__ constexpr int mma_pitch() { return D + 8; }  // bf16 per shared row: 16 bytes of padding
+__host__ __device__ constexpr int mma_pitch() { return D + 8; }  // elements per shared row: 16 bytes of padding
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (kMmaRows + 4 * kMmaCols) * mma_pitch<D>() +
+  return sizeof(uint16_t) * (kMmaRows + 4 * kMmaCols) * mma_pitch<D>() +
          sizeof(int) * (2 * kMmaCols + 2 * kMmaRows + 4);
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
     flash_fwd_mma_kernel(FwdParams p) {
-  using bf16 = __nv_bfloat16;
   constexpr int LDS = mma_pitch<D>();
   constexpr int KSTEPS = D / 16;       // k-steps of QK^T
   constexpr int NT = kMmaCols / 8;     // n-tiles of S
   constexpr int DT = D / 8;            // n-tiles of O
   constexpr int CHUNKS = D / 8;        // 16-byte chunks of a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);   // [64][LDS]
-  bf16* sK = sQ + kMmaRows * LDS;                  // [2 stages][64][LDS]
-  bf16* sV = sK + 2 * kMmaCols * LDS;              // [2 stages][64][LDS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);   // [64][LDS]
+  T* sK = sQ + kMmaRows * LDS;                  // [2 stages][64][LDS]
+  T* sV = sK + 2 * kMmaCols * LDS;              // [2 stages][64][LDS]
   int* sKseg = reinterpret_cast<int*>(sV + 2 * kMmaCols * LDS);  // [2 stages][64]
   int* sRowT = sKseg + 2 * kMmaCols;               // [64] position, -1 if dead
   int* sQseg = sRowT + kMmaRows;                   // [64]
@@ -333,9 +341,9 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int nrows = p.G * p.BQ;
-  const bf16* qb = static_cast<const bf16*>(p.q) + b * p.q_sb;
-  const bf16* kb = static_cast<const bf16*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const bf16* vb = static_cast<const bf16*>(p.v) + b * p.v_sb + hk * p.v_sh;
+  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb;
+  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
+  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   if (tid == 0) {
     sSegRange[0] = INT_MAX;
@@ -361,7 +369,7 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
     const int r = i / CHUNKS, c = i % CHUNKS;
     const int t = q0 + r % p.BQ;
     const bool ok = r < nrows && t < p.T;
-    const bf16* src = ok ? qb + t * p.q_st + (hk * p.G + r / p.BQ) * p.q_sh + c * 8 : qb;
+    const T* src = ok ? qb + t * p.q_st + (hk * p.G + r / p.BQ) * p.q_sh + c * 8 : qb;
     cp_async_16(sQ + r * LDS + c * 8, src, ok);
   }
   cp_async_commit();
@@ -383,8 +391,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
   // K, V and the kv segment ids of a tile, all by cp.async, zero beyond the
   // live range (the mask reads col < kv_end, never a zero-filled id)
   auto load_kv = [&](int tile, int stage) {
-    bf16* dk = sK + stage * kMmaCols * LDS;
-    bf16* dv = sV + stage * kMmaCols * LDS;
+    T* dk = sK + stage * kMmaCols * LDS;
+    T* dv = sV + stage * kMmaCols * LDS;
     for (int i = tid; i < kMmaCols * CHUNKS; i += kMmaThreads) {
       const int c = i / CHUNKS, ch = i % CHUNKS;
       const int col = tile * kMmaCols + c;
@@ -442,8 +450,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
     if (cur + 1 < ntiles) load_kv(cur + 1, stage ^ 1);  // overlaps this tile's products
     cp_async_commit();
 
-    const bf16* tK = sK + stage * kMmaCols * LDS;
-    const bf16* tV = sV + stage * kMmaCols * LDS;
+    const T* tK = sK + stage * kMmaCols * LDS;
+    const T* tV = sV + stage * kMmaCols * LDS;
     float s[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -456,8 +464,8 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
         // matrices: (n-tile j, k lo), (j, k hi), (j+1, k lo), (j+1, k hi)
         uint32_t kf[4];
         ldmatrix_x4(kf, tK + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8);
-        mma_bf16_16816(s[j], qf[ks], kf[0], kf[1]);
-        mma_bf16_16816(s[j + 1], qf[ks], kf[2], kf[3]);
+        mma_16816<T>(s[j], qf[ks], kf[0], kf[1]);
+        mma_16816<T>(s[j + 1], qf[ks], kf[2], kf[3]);
       }
     }
 
@@ -506,25 +514,25 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
     // O += P V: two S n-tiles are one A fragment of a 16-column k-step
 #pragma unroll
     for (int kk = 0; kk < kMmaCols / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dj = 0; dj < DT; dj += 2) {
         // matrices: (k lo, d-tile dj), (k hi, dj), (k lo, dj+1), (k hi, dj+1)
         uint32_t vf[4];
         ldmatrix_x4_trans(vf, tV + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 +
                                   (mi >> 1) * 8);
-        mma_bf16_16816(acc[dj], pa, vf[0], vf[1]);
-        mma_bf16_16816(acc[dj + 1], pa, vf[2], vf[3]);
+        mma_16816<T>(acc[dj], pa, vf[0], vf[1]);
+        mma_16816<T>(acc[dj + 1], pa, vf[2], vf[3]);
       }
     }
     stage ^= 1;
   }
   cp_async_wait<0>();
 
-  bf16* out = static_cast<bf16*>(p.out);
+  T* out = static_cast<T*>(p.out);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -533,25 +541,25 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
     if (t < 0) continue;
     const int h = hk * p.G + (r0 + 8 * i) / p.BQ;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-    bf16* orow = out + (((int64_t)b * p.T + t) * p.H + h) * D;
+    T* orow = out + (((int64_t)b * p.T + t) * p.H + h) * D;
 #pragma unroll
     for (int dj = 0; dj < DT; ++dj)
       *reinterpret_cast<uint32_t*>(orow + dj * 8 + 2 * tq) =
-          pack_bf16x2(acc[dj][2 * i] * inv, acc[dj][2 * i + 1] * inv);
+          pack2<T>(acc[dj][2 * i] * inv, acc[dj][2 * i + 1] * inv);
     if (tq == 0)
       p.lse[((int64_t)b * p.H + h) * p.T + t] =
           l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : -INFINITY;
   }
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_mma(const FwdParams& p, cudaStream_t stream) {
   constexpr size_t smem = mma_smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
-  flash_fwd_mma_kernel<D><<<grid, kMmaThreads, smem, stream>>>(p);
+  flash_fwd_mma_kernel<T, D><<<grid, kMmaThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -579,7 +587,7 @@ extern "C" int tn_flash_fwd(
   if (H % Hkv != 0 || p.G > tn::kRows || B <= 0 || T <= 0 || S <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == tn::kBFloat16) {
+  if (dtype == tn::kBFloat16 || dtype == tn::kFloat16) {
     // cp.async moves 16-byte rows: pointers and row strides in 8-element units
     const int64_t strides[] = {q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
     for (int64_t x : strides)
@@ -587,8 +595,11 @@ extern "C" int tn_flash_fwd(
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
     p.BQ = tn::kMmaRows / p.G;
-    if (D == 64) return (int)tn::launch_mma<64>(p, st);
-    if (D == 128) return (int)tn::launch_mma<128>(p, st);
+    const bool bf = dtype == tn::kBFloat16;
+    if (D == 64) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 64>(p, st)
+                                 : tn::launch_mma<__half, 64>(p, st));
+    if (D == 128) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 128>(p, st)
+                                  : tn::launch_mma<__half, 128>(p, st));
     return (int)cudaErrorInvalidValue;
   }
   p.BQ = tn::kRows / p.G;

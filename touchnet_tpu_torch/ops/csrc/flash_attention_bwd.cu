@@ -20,10 +20,11 @@
 // Inputs q, k, v, out, dout are contiguous [B, T|S, heads, D]; the wrapper
 // makes dout (which autograd may hand over strided) contiguous once.
 //
-// Two routes, one per input type: bf16 (every bf16 call) runs the
-// tensor-core kernels dkv_mma_kernel and dq_mma_kernel; f32 keeps the
-// first version's FMA kernels dkv_kernel and dq_kernel, the exactness path
-// behind the f32 checks (1e-4). The delta kernel serves both.
+// Two routes, by input type (inputs bf16, f16 or f32): bf16 and f16 run
+// the tensor-core kernels dkv_mma_kernel<T> and dq_mma_kernel<T>, one body
+// for both types; f32 keeps the first version's FMA kernels dkv_kernel and
+// dq_kernel, the exactness path behind the f32 checks (1e-4). The delta
+// kernel serves all three.
 //
 // What bounds it on this card: the products. The gradients need five
 // D-deep products per live (row, column) pair (S, dP, dV, dK, dQ: 10·D
@@ -36,11 +37,26 @@
 // runs give the same bits.
 //
 // Precision (both routes): the exponentials and dP - delta stay f32; on
-// the bf16 route P and dS are rounded to bf16 only as mma operands, as
-// FlashAttention-2 does. The TPU kernels' bf16 p/ds chain, whose exp is
-// bf16 (attention.py:561, 632), is not ported.
+// the tensor-core route P and dS are rounded to the input type only as mma
+// operands, as FlashAttention-2 does. The TPU kernels' bf16 p/ds chain,
+// whose exp is bf16 (attention.py:561, 632), is not ported; for f16 the
+// TPU kernels keep that chain in f32 and round ds to k's dtype
+// (attention.py:586, 664), which is what this kernel does.
 //
-// What the bf16 design does about it (mma.sync m16n8k16 bf16 -> f32,
+// f16: the values rounded to f16 are P and dS (mma operands) and the
+// outputs dq, dk, dv. P lies in [0, 1]. Over a row, sum |dS| <= sum P
+// (|dP| + |delta|) <= 2 D max|dout| max|v|, so |dS| and |dq| are bounded
+// by the row's dout and v whatever S is; dk and dv sum a column over its
+// query rows (at most T G of them, 65536 at the training shape), each
+// weighted by P <= 1. With unit-scale activations and dout the gradient of
+// a loss averaged over the batch's tokens (|dout| far below 1e-3 at 16384
+// tokens) every one of them stays orders of magnitude below 65504. At the
+// other end, a |dS| below 2^-24 flushes to 0 in f16 where bf16 keeps it,
+// as it does in JAX's ds.astype(k.dtype): the port follows JAX's chain
+// (no loss scaling, as JAX has none).
+//
+// What the tensor-core design does about it (mma.sync m16n8k16 bf16 or
+// f16 -> f32,
 // ldmatrix and cp.async: the sm_80 instruction set; wgmma/TMA is later
 // work). Blocks run in no order on Hopper, so nothing carries across
 // blocks:
@@ -49,7 +65,7 @@
 //     computes everything transposed, with its columns as the mma rows:
 //     S^T = K Q^T, dP^T = V dO^T, then P^T and dS^T in f32 in the
 //     accumulators, and dV += P^T dO, dK += dS^T Q with P^T and dS^T packed
-//     to bf16 straight from the accumulators into A fragments. So dS never
+//     to the input type straight from the accumulators into A fragments. So dS never
 //     goes through shared memory for a transpose. K and V stay resident in
 //     shared memory; Q and dO tiles of 64 rows (G heads x 64/G positions)
 //     arrive by cp.async in two stages, from the causal diagonal on, so the
@@ -94,7 +110,7 @@ struct BwdParams {
   void* dv;            // [B, S, Hkv, D]
   int B, T, S, H, Hkv, G, D;
   int BQ;   // query positions per row tile (dq grid; both FMA kernels)
-  int BQk;  // query positions per row tile of the bf16 dkv kernel's walk
+  int BQk;  // query positions per row tile of the tensor-core dkv kernel's walk
   int causal, q_offset, kv_offset;
   float scale, scale_log2;
 };
@@ -520,7 +536,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores. Fragment layouts and helpers in common.cuh.
+// bf16 and f16: tensor cores, one body for both. Fragment layouts and
+// helpers in common.cuh.
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaWarps = 4;
@@ -531,11 +548,11 @@ constexpr int kDqRows = 64;    // query rows per dq block: warp w owns 16w .. 16
 constexpr int kDqCols = 64;    // kv columns per tile of the dq walk
 
 template <int D>
-__host__ __device__ constexpr int pitch() { return D + 8; }  // bf16 per shared row: 16 bytes of padding
+__host__ __device__ constexpr int pitch() { return D + 8; }  // elements per shared row: 16 bytes of padding
 
 template <int D>
 constexpr size_t dkv_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * kDkvCols + 4 * kDkvRows) * pitch<D>() +
+  return sizeof(uint16_t) * (2 * kDkvCols + 4 * kDkvRows) * pitch<D>() +
          sizeof(float) * 4 * kDkvRows + sizeof(int) * (4 * kDkvRows + kDkvCols + 4);
 }
 
@@ -546,19 +563,18 @@ constexpr size_t dkv_mma_smem_bytes() {
 // operand from the query tile in shared memory:
 //   S^T = K Q^T, dP^T = V dO^T, P^T = exp2(S^T - lse), dS^T = P^T (dP^T - delta),
 //   dV += P^T dO, dK += dS^T Q.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
-  using bf16 = __nv_bfloat16;
   constexpr int LDS = pitch<D>();
   constexpr int KSTEPS = D / 16;
   constexpr int NR = kDkvRows / 8;  // n-tiles over the query rows
   constexpr int DT = D / 8;
   constexpr int CHUNKS = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS]
-  bf16* sV = sK + kDkvCols * LDS;                 // [64][LDS]
-  bf16* sQ = sV + kDkvCols * LDS;                 // [2 stages][64][LDS]
-  bf16* sDO = sQ + 2 * kDkvRows * LDS;            // [2 stages][64][LDS]
+  T* sK = reinterpret_cast<T*>(smem_raw);  // [64][LDS]
+  T* sV = sK + kDkvCols * LDS;                 // [64][LDS]
+  T* sQ = sV + kDkvCols * LDS;                 // [2 stages][64][LDS]
+  T* sDO = sQ + 2 * kDkvRows * LDS;            // [2 stages][64][LDS]
   float* sLse = reinterpret_cast<float*>(sDO + 2 * kDkvRows * LDS);  // [2][64] base e
   float* sDelta = sLse + 2 * kDkvRows;            // [2][64]
   int* sRowT = reinterpret_cast<int*>(sDelta + 2 * kDkvRows);  // [2][64]
@@ -574,10 +590,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
   const int b = blockIdx.z;
   const int nrows = p.G * p.BQk;
   const int64_t kv_row = (int64_t)p.Hkv * D;  // elements between two kv positions
-  const bf16* qb = static_cast<const bf16*>(p.q) + (int64_t)b * p.T * p.H * D;
-  const bf16* gb = static_cast<const bf16*>(p.dout) + (int64_t)b * p.T * p.H * D;
-  const bf16* kb = static_cast<const bf16*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
-  const bf16* vb = static_cast<const bf16*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
+  const T* qb = static_cast<const T*>(p.q) + (int64_t)b * p.T * p.H * D;
+  const T* gb = static_cast<const T*>(p.dout) + (int64_t)b * p.T * p.H * D;
+  const T* kb = static_cast<const T*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
+  const T* vb = static_cast<const T*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
 
   if (tid == 0) {
     sSegRange[0] = INT_MAX;
@@ -622,8 +638,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
   // masks it)
   auto load_rows = [&](int tile, int stage) {
     const int q0 = t_begin + tile * p.BQk;
-    bf16* dq_ = sQ + stage * kDkvRows * LDS;
-    bf16* dg = sDO + stage * kDkvRows * LDS;
+    T* dq_ = sQ + stage * kDkvRows * LDS;
+    T* dg = sDO + stage * kDkvRows * LDS;
     for (int i = tid; i < kDkvRows * CHUNKS; i += kMmaThreads) {
       const int r = i / CHUNKS, ch = i % CHUNKS;
       const int t = q0 + r % p.BQk;
@@ -674,8 +690,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
     if (cur + 1 < ntiles) load_rows(cur + 1, stage ^ 1);  // overlaps this tile's products
     cp_async_commit();
 
-    const bf16* tQ = sQ + stage * kDkvRows * LDS;
-    const bf16* tG = sDO + stage * kDkvRows * LDS;
+    const T* tQ = sQ + stage * kDkvRows * LDS;
+    const T* tG = sDO + stage * kDkvRows * LDS;
     const float* lse = sLse + stage * kDkvRows;  // base e
     const float* dl = sDelta + stage * kDkvRows;
     const int* rowt = sRowT + stage * kDkvRows;
@@ -697,10 +713,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
         const int off = (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8;
         ldmatrix_x4(qf, tQ + off);
         ldmatrix_x4(gf, tG + off);
-        mma_bf16_16816(st[j], ka, qf[0], qf[1]);
-        mma_bf16_16816(st[j + 1], ka, qf[2], qf[3]);
-        mma_bf16_16816(dpt[j], va, gf[0], gf[1]);
-        mma_bf16_16816(dpt[j + 1], va, gf[2], gf[3]);
+        mma_16816<T>(st[j], ka, qf[0], qf[1]);
+        mma_16816<T>(st[j + 1], ka, qf[2], qf[3]);
+        mma_16816<T>(dpt[j], va, gf[0], gf[1]);
+        mma_16816<T>(dpt[j + 1], va, gf[2], gf[3]);
       }
     }
 #pragma unroll
@@ -724,32 +740,32 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
     // dV += P^T dO and dK += dS^T Q: two n-tiles of rows are one k-step
 #pragma unroll
     for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-      const uint32_t pa[4] = {pack_bf16x2(st[2 * kk][0], st[2 * kk][1]),
-                              pack_bf16x2(st[2 * kk][2], st[2 * kk][3]),
-                              pack_bf16x2(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack_bf16x2(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t sa[4] = {pack_bf16x2(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack_bf16x2(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack_bf16x2(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack_bf16x2(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+      const uint32_t pa[4] = {pack2<T>(st[2 * kk][0], st[2 * kk][1]),
+                              pack2<T>(st[2 * kk][2], st[2 * kk][3]),
+                              pack2<T>(st[2 * kk + 1][0], st[2 * kk + 1][1]),
+                              pack2<T>(st[2 * kk + 1][2], st[2 * kk + 1][3])};
+      const uint32_t sa[4] = {pack2<T>(dpt[2 * kk][0], dpt[2 * kk][1]),
+                              pack2<T>(dpt[2 * kk][2], dpt[2 * kk][3]),
+                              pack2<T>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
+                              pack2<T>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
 #pragma unroll
       for (int dj = 0; dj < DT; dj += 2) {
         uint32_t gf[4], qf[4];
         const int off = (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 + (mi >> 1) * 8;
         ldmatrix_x4_trans(gf, tG + off);
         ldmatrix_x4_trans(qf, tQ + off);
-        mma_bf16_16816(dv[dj], pa, gf[0], gf[1]);
-        mma_bf16_16816(dv[dj + 1], pa, gf[2], gf[3]);
-        mma_bf16_16816(dk[dj], sa, qf[0], qf[1]);
-        mma_bf16_16816(dk[dj + 1], sa, qf[2], qf[3]);
+        mma_16816<T>(dv[dj], pa, gf[0], gf[1]);
+        mma_16816<T>(dv[dj + 1], pa, gf[2], gf[3]);
+        mma_16816<T>(dk[dj], sa, qf[0], qf[1]);
+        mma_16816<T>(dk[dj + 1], sa, qf[2], qf[3]);
       }
     }
     stage ^= 1;
   }
   cp_async_wait<0>();
 
-  bf16* dkb = static_cast<bf16*>(p.dk) + (int64_t)b * p.S * kv_row + hk * D;
-  bf16* dvb = static_cast<bf16*>(p.dv) + (int64_t)b * p.S * kv_row + hk * D;
+  T* dkb = static_cast<T*>(p.dk) + (int64_t)b * p.S * kv_row + hk * D;
+  T* dvb = static_cast<T*>(p.dv) + (int64_t)b * p.S * kv_row + hk * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int col = kv0 + c_loc[i];
@@ -758,34 +774,33 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
     for (int dj = 0; dj < DT; ++dj) {
       const int64_t off = col * kv_row + dj * 8 + 2 * tq;
       *reinterpret_cast<uint32_t*>(dkb + off) =
-          pack_bf16x2(dk[dj][2 * i] * p.scale, dk[dj][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvb + off) = pack_bf16x2(dv[dj][2 * i], dv[dj][2 * i + 1]);
+          pack2<T>(dk[dj][2 * i] * p.scale, dk[dj][2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvb + off) = pack2<T>(dv[dj][2 * i], dv[dj][2 * i + 1]);
     }
   }
 }
 
 template <int D>
 constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * kDqRows + 4 * kDqCols) * pitch<D>() +
+  return sizeof(uint16_t) * (2 * kDqRows + 4 * kDqCols) * pitch<D>() +
          sizeof(int) * (2 * kDqCols + 2 * kDqRows + 4);
 }
 
 // dq: one block per (64 query rows, kv head, batch), K1's grid and row
 // packing. Q and dO fragments stay in registers; per kv tile it recomputes
 //   S = Q K^T, dP = dO V^T, P = exp2(S - lse), dS = P (dP - delta), dQ += dS K.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
-  using bf16 = __nv_bfloat16;
   constexpr int LDS = pitch<D>();
   constexpr int KSTEPS = D / 16;
   constexpr int NT = kDqCols / 8;
   constexpr int DT = D / 8;
   constexpr int CHUNKS = D / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS]
-  bf16* sDO = sQ + kDqRows * LDS;                 // [64][LDS]
-  bf16* sK = sDO + kDqRows * LDS;                 // [2 stages][64][LDS]
-  bf16* sV = sK + 2 * kDqCols * LDS;              // [2 stages][64][LDS]
+  T* sQ = reinterpret_cast<T*>(smem_raw);  // [64][LDS]
+  T* sDO = sQ + kDqRows * LDS;                 // [64][LDS]
+  T* sK = sDO + kDqRows * LDS;                 // [2 stages][64][LDS]
+  T* sV = sK + 2 * kDqCols * LDS;              // [2 stages][64][LDS]
   int* sKseg = reinterpret_cast<int*>(sV + 2 * kDqCols * LDS);  // [2][64]
   int* sRowT = sKseg + 2 * kDqCols;               // [64]
   int* sQseg = sRowT + kDqRows;                   // [64]
@@ -799,10 +814,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
   const int b = blockIdx.z;
   const int nrows = p.G * p.BQ;
   const int64_t kv_row = (int64_t)p.Hkv * D;
-  const bf16* qb = static_cast<const bf16*>(p.q) + (int64_t)b * p.T * p.H * D;
-  const bf16* gb = static_cast<const bf16*>(p.dout) + (int64_t)b * p.T * p.H * D;
-  const bf16* kb = static_cast<const bf16*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
-  const bf16* vb = static_cast<const bf16*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
+  const T* qb = static_cast<const T*>(p.q) + (int64_t)b * p.T * p.H * D;
+  const T* gb = static_cast<const T*>(p.dout) + (int64_t)b * p.T * p.H * D;
+  const T* kb = static_cast<const T*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
+  const T* vb = static_cast<const T*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
 
   if (tid == 0) {
     sSegRange[0] = INT_MAX;
@@ -849,8 +864,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
 
   // as K1's: K, V and the kv segment ids of a tile by cp.async
   auto load_kv = [&](int tile, int stage) {
-    bf16* dk_ = sK + stage * kDqCols * LDS;
-    bf16* dv_ = sV + stage * kDqCols * LDS;
+    T* dk_ = sK + stage * kDqCols * LDS;
+    T* dv_ = sV + stage * kDqCols * LDS;
     for (int i = tid; i < kDqCols * CHUNKS; i += kMmaThreads) {
       const int c = i / CHUNKS, ch = i % CHUNKS;
       const int col = tile * kDqCols + c;
@@ -912,8 +927,8 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
     if (cur + 1 < ntiles) load_kv(cur + 1, stage ^ 1);
     cp_async_commit();
 
-    const bf16* tK = sK + stage * kDqCols * LDS;
-    const bf16* tV = sV + stage * kDqCols * LDS;
+    const T* tK = sK + stage * kDqCols * LDS;
+    const T* tV = sV + stage * kDqCols * LDS;
     float s[NT][4], dp[NT][4];
 #pragma unroll
     for (int j = 0; j < NT; ++j)
@@ -927,10 +942,10 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
         const int off = (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8;
         ldmatrix_x4(kf, tK + off);
         ldmatrix_x4(vf, tV + off);
-        mma_bf16_16816(s[j], qf[ks], kf[0], kf[1]);
-        mma_bf16_16816(s[j + 1], qf[ks], kf[2], kf[3]);
-        mma_bf16_16816(dp[j], gf[ks], vf[0], vf[1]);
-        mma_bf16_16816(dp[j + 1], gf[ks], vf[2], vf[3]);
+        mma_16816<T>(s[j], qf[ks], kf[0], kf[1]);
+        mma_16816<T>(s[j + 1], qf[ks], kf[2], kf[3]);
+        mma_16816<T>(dp[j], gf[ks], vf[0], vf[1]);
+        mma_16816<T>(dp[j + 1], gf[ks], vf[2], vf[3]);
       }
     }
 #pragma unroll
@@ -953,34 +968,34 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
     // dQ += dS K: two n-tiles of columns are one k-step
 #pragma unroll
     for (int kk = 0; kk < kDqCols / 16; ++kk) {
-      const uint32_t sa[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t sa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
       for (int dj = 0; dj < DT; dj += 2) {
         uint32_t kf[4];
         ldmatrix_x4_trans(kf, tK + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 +
                                   (mi >> 1) * 8);
-        mma_bf16_16816(acc[dj], sa, kf[0], kf[1]);
-        mma_bf16_16816(acc[dj + 1], sa, kf[2], kf[3]);
+        mma_16816<T>(acc[dj], sa, kf[0], kf[1]);
+        mma_16816<T>(acc[dj + 1], sa, kf[2], kf[3]);
       }
     }
     stage ^= 1;
   }
   cp_async_wait<0>();
 
-  bf16* dqb = static_cast<bf16*>(p.dq);
+  T* dqb = static_cast<T*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = t_row[i];
     if (t < 0) continue;
     const int h = hk * p.G + (r0 + 8 * i) / p.BQ;
-    bf16* row = dqb + (((int64_t)b * p.T + t) * p.H + h) * D;
+    T* row = dqb + (((int64_t)b * p.T + t) * p.H + h) * D;
 #pragma unroll
     for (int dj = 0; dj < DT; ++dj)
       *reinterpret_cast<uint32_t*>(row + dj * 8 + 2 * tq) =
-          pack_bf16x2(acc[dj][2 * i] * p.scale, acc[dj][2 * i + 1] * p.scale);
+          pack2<T>(acc[dj][2 * i] * p.scale, acc[dj][2 * i + 1] * p.scale);
   }
 }
 
@@ -990,32 +1005,32 @@ inline cudaError_t mark(cudaEvent_t* events, int i, cudaStream_t stream) {
   return events ? cudaEventRecord(events[i], stream) : cudaSuccess;
 }
 
-template <int D>
+template <typename T, int D>
 cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream, cudaEvent_t* ev) {
   const int64_t rows = (int64_t)p.B * p.T * p.H;
   cudaError_t err = mark(ev, 0, stream);
   if (err != cudaSuccess) return err;
-  delta_kernel<__nv_bfloat16><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
+  delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(ev, 1, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_kv = dkv_mma_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dkv_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dkv_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_kv);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((p.S + kDkvCols - 1) / kDkvCols, p.Hkv, p.B);
-  dkv_mma_kernel<D><<<grid_kv, kMmaThreads, smem_kv, stream>>>(p);
+  dkv_mma_kernel<T, D><<<grid_kv, kMmaThreads, smem_kv, stream>>>(p);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(ev, 2, stream);
   if (err != cudaSuccess) return err;
 
   constexpr size_t smem_q = dq_mma_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dq_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(dq_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem_q);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
-  dq_mma_kernel<D><<<grid_q, kMmaThreads, smem_q, stream>>>(p);
+  dq_mma_kernel<T, D><<<grid_q, kMmaThreads, smem_q, stream>>>(p);
   err = cudaGetLastError();
   return err == cudaSuccess ? mark(ev, 3, stream) : err;
 }
@@ -1072,14 +1087,17 @@ extern "C" int tn_flash_bwd(
   p.scale_log2 = scale * tn::kLog2e;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaEvent_t* ev = reinterpret_cast<cudaEvent_t*>(events);
-  if (dtype == tn::kBFloat16) {
+  if (dtype == tn::kBFloat16 || dtype == tn::kFloat16) {
     // cp.async moves 16-byte rows of the contiguous inputs
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
     p.BQ = tn::kDqRows / p.G;
     p.BQk = tn::kDkvRows / p.G;
-    if (D == 64) return (int)tn::launch_mma<64>(p, st, ev);
-    if (D == 128) return (int)tn::launch_mma<128>(p, st, ev);
+    const bool bf = dtype == tn::kBFloat16;
+    if (D == 64) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 64>(p, st, ev)
+                                 : tn::launch_mma<__half, 64>(p, st, ev));
+    if (D == 128) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 128>(p, st, ev)
+                                  : tn::launch_mma<__half, 128>(p, st, ev));
     return (int)cudaErrorInvalidValue;
   }
   p.BQ = p.BQk = tn::kTile / p.G;

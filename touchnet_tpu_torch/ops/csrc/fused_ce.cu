@@ -18,7 +18,20 @@
 // What bounds it on this card: the products. At N=16384, E=2048, V=128256
 // the forward is 8.6 TFLOP and the backward 26 TFLOP (recompute, dh, dw).
 //
-// bf16 operands with 16-byte aligned rows (E a multiple of 8; the wrapper
+// Inputs bf16, f16 or f32. Every 16-bit path is one body for bf16 and f16
+// (the element type T: wmma fragments, wgmma's operand type, the tensor
+// map's data type, the packing of dl and dh). In f16 the kernel rounds to
+// f16 only what JAX's kernel rounds (fused_ce.py:216): dl, and the outputs
+// dh and (in the wrapper, from the f32 sum) dw. Logits, lse and every row
+// statistic stay f32, so no f16 logit can overflow. Over a row, sum_v |dl|
+// <= |dlse| + |dtl|, so |dh| <= (|dlse| + |dtl|) max |w|, and |dw| <= sum_r
+// (|dlse_r| + |dtl_r|) max |h|: for a loss averaged over the batch's tokens
+// the row gradients sum to about 1, so both stay near the scale of w and h,
+// far from 65504. At the other end dl = dlse p is ~1/N of p: at N 16384 and
+// V 128256 most of it lies below f16's 2^-24 and flushes to 0 where bf16
+// keeps it, as it does in JAX; the port follows JAX (no loss scaling).
+//
+// 16-bit operands with 16-byte aligned rows (E a multiple of 8; the wrapper
 // chooses by shape, ops/fused_ce.fwd_plan and bwd_plan) run on one Hopper
 // mainloop, ce_gemm, in both directions. A block owns a 128-row tile and a
 // run of 256-column tiles (one tile in the backward, a vocab split in the
@@ -28,7 +41,7 @@
 // follow a slab counter over the block's whole run, so the next tile's
 // first slabs load while the consumers run the last tile's epilogue); two
 // consumer warpgroups each issue wgmma m64n256k16 on their 64 rows (bf16
-// in, f32 accumulators in registers), keeping one slab's products in
+// or f16 in, f32 accumulators in registers), keeping one slab's products in
 // flight while they wait for the next slab. Operands are read in place in
 // either majorness (wgmma transposes through the descriptor, hopper.cuh):
 // the logits t = h w^T read h and w K-major; dh = dl w reads dl K-major and
@@ -41,13 +54,13 @@
 //     sum and the label logit; the running (max, sum, label logit, argmax)
 //     of the thread's two rows stay in registers across the split's tiles,
 //     and the four lanes holding a row merge once at the end;
-//   - DlogitsOp forms dl in f32 and casts it to bf16 once, DhOp stores
-//     bf16 dh, DwOp adds into the f32 dw.
+//   - DlogitsOp forms dl in f32 and casts it to T once, DhOp stores dh
+//     in T, DwOp adds into the f32 dw.
 //
 // The 64x64 tile kernels stay for the other shapes: f32 operands on FMAs
 // (mma_tile, 4x4 per thread; TF32 would round them), the exactness path,
-// and bf16 with E not a multiple of 8, which TMA cannot describe, on
-// nvcuda::wmma 16x16x16 fragments (mma_tile_tc).
+// and bf16 or f16 with E not a multiple of 8, which TMA cannot describe,
+// on nvcuda::wmma 16x16x16 fragments (mma_tile_tc<T>).
 //
 // The choices the TPU kernel's sequential grid does not force on it:
 //   - Row tile x vocab split. A block per row tile that walked the whole
@@ -84,7 +97,7 @@ constexpr int kTile = 64;     // output tile: 64 x 64
 constexpr int kKC = 32;       // K chunk per shared-memory stage
 constexpr int kLds = kTile + 1;  // padded row of a stage: s[kk * kLds + r]
 constexpr int kThreads = 256;    // thread (ty, tx) owns rows ty + 16i, cols tx + 16j
-// bf16 stages of the tensor-core path: a k-contiguous operand is stored
+// bf16 / f16 stages of the tensor-core path: a k-contiguous operand is stored
 // [64][kKC + 8], an r-contiguous one [kKC][64 + 8] (16-byte row padding,
 // as wmma's ldm wants a multiple of 8 halves)
 constexpr int kLdK = kKC + 8;
@@ -105,9 +118,9 @@ struct RowLoader {
     }
   }
   static constexpr bool kKContig = true;
-  // bf16 stage [64][kLdK]; one 16-byte vector per thread when the rows are
-  // 16-byte aligned (vec), element by element at the edges
-  __device__ void load_bf16(__nv_bfloat16* s, int r0, int k0, bool vec) const {
+  // 16-bit stage [64][kLdK]; one 16-byte vector per thread when the rows
+  // are 16-byte aligned (vec), element by element at the edges
+  __device__ void load_lp(T* s, int r0, int k0, bool vec) const {
     const int r = threadIdx.x / 4, kv = (threadIdx.x % 4) * 8;
     const int gr = r0 + r, gk = k0 + kv;
     if (vec && gr < rows && gk + 8 <= K) {
@@ -117,7 +130,7 @@ struct RowLoader {
     }
     for (int e = 0; e < 8; ++e)
       s[r * kLdK + kv + e] = (gr < rows && gk + e < K) ? x[gr * ld + gk + e]
-                                                       : __float2bfloat16(0.f);
+                                                       : from_f32<T>(0.f);
   }
 };
 
@@ -135,8 +148,8 @@ struct ColLoader {
     }
   }
   static constexpr bool kKContig = false;
-  // bf16 stage [kKC][kLdR], vectors as RowLoader's
-  __device__ void load_bf16(__nv_bfloat16* s, int r0, int k0, bool vec) const {
+  // 16-bit stage [kKC][kLdR], vectors as RowLoader's
+  __device__ void load_lp(T* s, int r0, int k0, bool vec) const {
     const int kk = threadIdx.x / 8, rv = (threadIdx.x % 8) * 8;
     const int gr = r0 + rv, gk = k0 + kk;
     if (vec && gk < K && gr + 8 <= rows) {
@@ -146,7 +159,7 @@ struct ColLoader {
     }
     for (int e = 0; e < 8; ++e)
       s[kk * kLdR + rv + e] = (gk < K && gr + e < rows) ? x[(int64_t)gk * ld + gr + e]
-                                                        : __float2bfloat16(0.f);
+                                                        : from_f32<T>(0.f);
   }
 };
 
@@ -184,18 +197,19 @@ __device__ __forceinline__ void mma_tile(float (&acc)[4][4], const LA& a, const 
   }
 }
 
-// The same product for bf16 operands on tensor cores: wmma 16x16x16 bf16
-// fragments with f32 accumulation (bf16 x bf16 products are exact in f32,
-// so this differs from the FMA path only in summation order). Warp w owns
-// rows 16 (w / 2) and columns 32 (w % 2) + {0, 16}; the tile goes through
-// an f32 shared staging into the same acc[i][j] layout as mma_tile.
-template <class LA, class LB>
+// The same product for bf16 or f16 operands (T) on tensor cores: wmma
+// 16x16x16 fragments of T with f32 accumulation (bf16 x bf16 and f16 x f16
+// products are exact in f32, so this differs from the FMA path only in
+// summation order). Warp w owns rows 16 (w / 2) and columns 32 (w % 2) +
+// {0, 16}; the tile goes through an f32 shared staging into the same
+// acc[i][j] layout as mma_tile.
+template <typename T, class LA, class LB>
 __device__ __forceinline__ void mma_tile_tc(float (&acc)[4][4], const LA& a, const LB& b,
                                             int m0, int n0, int K) {
   using namespace nvcuda;
   constexpr int kStage = kTile * kLdK > kKC * kLdR ? kTile * kLdK : kKC * kLdR;
-  __shared__ __align__(32) __nv_bfloat16 sA[kStage];
-  __shared__ __align__(32) __nv_bfloat16 sB[kStage];
+  __shared__ __align__(32) T sA[kStage];
+  __shared__ __align__(32) T sB[kStage];
   __shared__ __align__(32) float sC[kTile * kLdC];
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int warp = threadIdx.x / 32, wm = warp / 2, wn = warp % 2;
@@ -205,20 +219,20 @@ __device__ __forceinline__ void mma_tile_tc(float (&acc)[4][4], const LA& a, con
   static_assert(kTile * kKC == 8 * kThreads, "one 8-element vector per thread and stage");
   const bool vec = vec_ok(a.x, a.ld) && vec_ok(b.x, b.ld);
   for (int k0 = 0; k0 < K; k0 += kKC) {
-    a.load_bf16(sA, m0, k0, vec);
-    b.load_bf16(sB, n0, k0, vec);
+    a.load_lp(sA, m0, k0, vec);
+    b.load_lp(sB, n0, k0, vec);
     __syncthreads();
 #pragma unroll
     for (int ks = 0; ks < kKC; ks += 16) {
       using ALayout = std::conditional_t<LA::kKContig, wmma::row_major, wmma::col_major>;
       using BLayout = std::conditional_t<LB::kKContig, wmma::col_major, wmma::row_major>;
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, ALayout> fa;
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, ALayout> fa;
       if constexpr (LA::kKContig) wmma::load_matrix_sync(fa, sA + wm * 16 * kLdK + ks, kLdK);
       else wmma::load_matrix_sync(fa, sA + ks * kLdR + wm * 16, kLdR);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         const int n = wn * 32 + j * 16;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, BLayout> fb;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, BLayout> fb;
         if constexpr (LB::kKContig) wmma::load_matrix_sync(fb, sB + n * kLdK + ks, kLdK);
         else wmma::load_matrix_sync(fb, sB + ks * kLdR + n, kLdR);
         wmma::mma_sync(c[j], fa, fb, c[j]);
@@ -238,12 +252,13 @@ __device__ __forceinline__ void mma_tile_tc(float (&acc)[4][4], const LA& a, con
   __syncthreads();  // sC is read before the next tile's store
 }
 
-// the tile product for element type T: tensor cores for bf16, FMAs for f32
+// the tile product for element type T: tensor cores for bf16 and f16, FMAs
+// for f32
 template <typename T, class LA, class LB>
 __device__ __forceinline__ void tile_product(float (&acc)[4][4], const LA& a, const LB& b,
                                              int m0, int n0, int K) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) mma_tile_tc(acc, a, b, m0, n0, K);
-  else mma_tile(acc, a, b, m0, n0, K);
+  if constexpr (std::is_same<T, float>::value) mma_tile(acc, a, b, m0, n0, K);
+  else mma_tile_tc<T>(acc, a, b, m0, n0, K);
 }
 
 __device__ __forceinline__ void zero(float (&acc)[4][4]) {
@@ -530,7 +545,8 @@ struct TileRun {
 
 // For each column tile of the block's run: C[m, n] = sum_k A[m, k] B[n, k]
 // over 128 x 256, then the epilogue on the accumulators. Op gives the
-// operands' majorness (kAmn, kBmn), the block's run (tiles), the K extent,
+// operands' element type (Elem: bf16 or f16) and majorness (kAmn, kBmn),
+// the block's run (tiles), the K extent,
 // and an epilogue object per consumer thread: constructed with the thread's
 // first row, called after every tile (epilogue) and once after the last
 // (finish).
@@ -597,8 +613,8 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
         wgmma_fence();
 #pragma unroll
         for (int ks = 0; ks < kGemmBK / 16; ++ks)
-          wgmma_m64n256k16<Op::kAmn, Op::kBmn>(acc, operand_desc<Op::kAmn>(a, ks),
-                                               operand_desc<Op::kBmn>(b, ks));
+          wgmma_m64n256k16<typename Op::Elem, Op::kAmn, Op::kBmn>(
+              acc, operand_desc<Op::kAmn>(a, ks), operand_desc<Op::kBmn>(b, ks));
         wgmma_commit();
         wgmma_wait<1>();  // slab it - 1's products are done: its slot is free
         if (k > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % kGemmStages]);
@@ -619,8 +635,10 @@ __global__ void __launch_bounds__(kGemmThreads, 1)
 // is one block per (row tile, split): raster groups of `group` row tiles,
 // row tiles fastest within a group, so the blocks in flight share a few
 // stretches of w and the h rows of one group through L2.
+template <typename T>
 struct RowStatsOp {
   using Params = FwdParams;
+  using Elem = T;
   static constexpr int kAmn = 0, kBmn = 0;
   __device__ static TileRun tiles(const Params& p) {
     const int row_tiles = (p.N + kGemmBM - 1) / kGemmBM;
@@ -710,24 +728,30 @@ struct RowStatsOp {
   }
 };
 
-// One output tile per block for the backward's three products.
+// One output tile per block for the backward's three products, in element
+// type T.
+template <typename T>
 struct BwdTileOp {
   using Params = BwdParams;
+  using Elem = T;
   int r;
   __device__ BwdTileOp(const Params&, const TileRun&, int row) : r(row) {}
   __device__ void finish(const Params&) {}
 };
 
 // dl[r, v] = dlse[r] exp(t[r, v] - lse[r]) + dtl[r] [v == label[r]], in f32,
-// cast to bf16 once; t = h w^T of the chunk's rows. Grid (row tiles, vocab
+// cast to T once; t = h w^T of the chunk's rows. Grid (row tiles, vocab
 // tiles): the blocks in flight share one stretch of w through L2.
-struct DlogitsOp : BwdTileOp {
+template <typename T>
+struct DlogitsOp : BwdTileOp<T> {
+  using Params = BwdParams;
   static constexpr int kAmn = 0, kBmn = 0;
-  using BwdTileOp::BwdTileOp;
+  using BwdTileOp<T>::BwdTileOp;
+  using BwdTileOp<T>::r;
   __device__ static TileRun tiles(const Params&) { return {(int)blockIdx.x, (int)blockIdx.y, 1}; }
   __device__ static int k_extent(const Params& p) { return p.E; }
   __device__ void epilogue(const float (&acc)[128], const Params& p, int c) const {
-    __nv_bfloat16* dl = static_cast<__nv_bfloat16*>(p.dl);
+    T* dl = static_cast<T*>(p.dl);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = r + 8 * i;
@@ -735,7 +759,7 @@ struct DlogitsOp : BwdTileOp {
       const int gr = p.c0 + row;
       const int lab = p.labels[gr];
       const float lse2 = p.lse[gr] * kLog2e, dlse = p.dlse[gr], dtl = p.dtl[gr];
-      __nv_bfloat16* out = dl + (int64_t)row * p.ldl;
+      T* out = dl + (int64_t)row * p.ldl;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int col = c + 8 * j;  // even; col + 1 <= ldl - 1 whenever col < V
@@ -744,20 +768,23 @@ struct DlogitsOp : BwdTileOp {
         float g1 = dlse * exp2f(acc[4 * j + 2 * i + 1] * kLog2e - lse2);
         if (col == lab) g0 += dtl;
         if (col + 1 == lab) g1 += dtl;
-        *reinterpret_cast<uint32_t*>(out + col) = pack_bf16x2(g0, g1);
+        *reinterpret_cast<uint32_t*>(out + col) = pack2<T>(g0, g1);
       }
     }
   }
 };
 
 // dh[c0 + r, e] = sum_v dl[r, v] w[v, e]. Grid (E tiles, row tiles).
-struct DhOp : BwdTileOp {
+template <typename T>
+struct DhOp : BwdTileOp<T> {
+  using Params = BwdParams;
   static constexpr int kAmn = 0, kBmn = 1;
-  using BwdTileOp::BwdTileOp;
+  using BwdTileOp<T>::BwdTileOp;
+  using BwdTileOp<T>::r;
   __device__ static TileRun tiles(const Params&) { return {(int)blockIdx.y, (int)blockIdx.x, 1}; }
   __device__ static int k_extent(const Params& p) { return p.V; }
   __device__ void epilogue(const float (&acc)[128], const Params& p, int c) const {
-    __nv_bfloat16* dh = static_cast<__nv_bfloat16*>(p.dh) + (int64_t)p.c0 * p.E;
+    T* dh = static_cast<T*>(p.dh) + (int64_t)p.c0 * p.E;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = r + 8 * i;
@@ -767,16 +794,19 @@ struct DhOp : BwdTileOp {
         const int col = c + 8 * j;  // E is a multiple of 8
         if (col < p.E)
           *reinterpret_cast<uint32_t*>(dh + (int64_t)row * p.E + col) =
-              pack_bf16x2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+              pack2<T>(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
       }
     }
   }
 };
 
 // dw[v, e] (+)= sum_r dl[r, v] h[c0 + r, e]. Grid (E tiles, vocab tiles).
-struct DwOp : BwdTileOp {
+template <typename T>
+struct DwOp : BwdTileOp<T> {
+  using Params = BwdParams;
   static constexpr int kAmn = 1, kBmn = 1;
-  using BwdTileOp::BwdTileOp;
+  using BwdTileOp<T>::BwdTileOp;
+  using BwdTileOp<T>::r;
   __device__ static TileRun tiles(const Params&) { return {(int)blockIdx.y, (int)blockIdx.x, 1}; }
   __device__ static int k_extent(const Params& p) { return p.rows; }
   __device__ void epilogue(const float (&acc)[128], const Params& p, int c) const {
@@ -811,11 +841,12 @@ cudaError_t launch_gemm(const CUtensorMap& a, const CUtensorMap& b, const typena
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_bwd_wgmma(BwdParams p, int chunk, cudaStream_t stream) {
-  const auto* h = static_cast<const __nv_bfloat16*>(p.h);
+  const auto* h = static_cast<const T*>(p.h);
   CUtensorMap w_k, w_mn;  // w read K-major (logits) and MN-major (dh)
-  if (!bf16_tensor_map(&w_k, p.w, p.E, p.V, p.E, 64, kGemmBN) ||
-      !bf16_tensor_map(&w_mn, p.w, p.E, p.V, p.E, 64, 64))
+  if (!tensor_map<T>(&w_k, p.w, p.E, p.V, p.E, 64, kGemmBN) ||
+      !tensor_map<T>(&w_mn, p.w, p.E, p.V, p.E, 64, 64))
     return cudaErrorInvalidValue;
   const int vt_m = (p.V + kGemmBM - 1) / kGemmBM, vt_n = (p.V + kGemmBN - 1) / kGemmBN;
   const int et_n = (p.E + kGemmBN - 1) / kGemmBN;
@@ -826,18 +857,18 @@ cudaError_t launch_bwd_wgmma(BwdParams p, int chunk, cudaStream_t stream) {
     // the chunk's rows only: boxes past them read zeros, never the stale
     // dl rows of an earlier, longer chunk
     CUtensorMap h_k, h_mn, dl_k, dl_mn;
-    const __nv_bfloat16* hc = h + (int64_t)c0 * p.E;
-    if (!bf16_tensor_map(&h_k, hc, p.E, p.rows, p.E, 64, kGemmBM) ||
-        !bf16_tensor_map(&h_mn, hc, p.E, p.rows, p.E, 64, 64) ||
-        !bf16_tensor_map(&dl_k, p.dl, p.V, p.rows, p.ldl, 64, kGemmBM) ||
-        !bf16_tensor_map(&dl_mn, p.dl, p.V, p.rows, p.ldl, 64, 64))
+    const T* hc = h + (int64_t)c0 * p.E;
+    if (!tensor_map<T>(&h_k, hc, p.E, p.rows, p.E, 64, kGemmBM) ||
+        !tensor_map<T>(&h_mn, hc, p.E, p.rows, p.E, 64, 64) ||
+        !tensor_map<T>(&dl_k, p.dl, p.V, p.rows, p.ldl, 64, kGemmBM) ||
+        !tensor_map<T>(&dl_mn, p.dl, p.V, p.rows, p.ldl, 64, 64))
       return cudaErrorInvalidValue;
     const int rt = (p.rows + kGemmBM - 1) / kGemmBM;
-    cudaError_t err = launch_gemm<DlogitsOp>(h_k, w_k, p, dim3(rt, vt_n), stream);
+    cudaError_t err = launch_gemm<DlogitsOp<T>>(h_k, w_k, p, dim3(rt, vt_n), stream);
     if (err != cudaSuccess) return err;
-    err = launch_gemm<DhOp>(dl_k, w_mn, p, dim3(et_n, rt), stream);
+    err = launch_gemm<DhOp<T>>(dl_k, w_mn, p, dim3(et_n, rt), stream);
     if (err != cudaSuccess) return err;
-    err = launch_gemm<DwOp>(dl_mn, h_mn, p, dim3(et_n, vt_m), stream);
+    err = launch_gemm<DwOp<T>>(dl_mn, h_mn, p, dim3(et_n, vt_m), stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -848,13 +879,14 @@ cudaError_t launch_fwd_combine(const FwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_fwd_wgmma(const FwdParams& p, cudaStream_t stream) {
   CUtensorMap h_k, w_k;
-  if (!bf16_tensor_map(&h_k, p.h, p.E, p.N, p.E, 64, kGemmBM) ||
-      !bf16_tensor_map(&w_k, p.w, p.E, p.V, p.E, 64, kGemmBN))
+  if (!tensor_map<T>(&h_k, p.h, p.E, p.N, p.E, 64, kGemmBM) ||
+      !tensor_map<T>(&w_k, p.w, p.E, p.V, p.E, 64, kGemmBN))
     return cudaErrorInvalidValue;
   const int row_tiles = (p.N + kGemmBM - 1) / kGemmBM;
-  cudaError_t err = launch_gemm<RowStatsOp>(h_k, w_k, p, dim3(row_tiles * p.splits), stream);
+  cudaError_t err = launch_gemm<RowStatsOp<T>>(h_k, w_k, p, dim3(row_tiles * p.splits), stream);
   if (err != cudaSuccess) return err;
   return launch_fwd_combine(p, stream);
 }
@@ -907,17 +939,20 @@ extern "C" int tn_ce_fwd(const void* h, const void* w, const int* labels,
   if (p.tiles_per_split * (splits - 1) >= vtiles)
     return (int)cudaErrorInvalidValue;  // an empty split would leave rows unset
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mainloop == 1) {  // TMA + wgmma: bf16, rows of h and w on 16 bytes
+  if (mainloop == 1) {  // TMA + wgmma: bf16 or f16, rows of h and w on 16 bytes
     const bool aligned =
         ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w)) & 15) == 0;
     const int row_tiles = (N + tn::kGemmBM - 1) / tn::kGemmBM;
-    if (dtype != tn::kBFloat16 || E % 8 != 0 || !aligned || (int64_t)row_tiles * splits > INT_MAX)
+    if ((dtype != tn::kBFloat16 && dtype != tn::kFloat16) || E % 8 != 0 || !aligned ||
+        (int64_t)row_tiles * splits > INT_MAX)
       return (int)cudaErrorInvalidValue;
     p.group = min(group, row_tiles);
-    return (int)tn::launch_fwd_wgmma(p, st);
+    return (int)(dtype == tn::kBFloat16 ? tn::launch_fwd_wgmma<__nv_bfloat16>(p, st)
+                                        : tn::launch_fwd_wgmma<__half>(p, st));
   }
   if (mainloop != 0 || splits > 65535) return (int)cudaErrorInvalidValue;
   if (dtype == tn::kBFloat16) return (int)tn::launch_fwd<__nv_bfloat16>(p, st);
+  if (dtype == tn::kFloat16) return (int)tn::launch_fwd<__half>(p, st);
   if (dtype == tn::kFloat32) return (int)tn::launch_fwd<float>(p, st);
   return (int)cudaErrorInvalidValue;
 }
@@ -933,15 +968,18 @@ extern "C" int tn_ce_bwd(const void* h, const void* w, const int* labels,
     return (int)cudaErrorInvalidValue;
   tn::BwdParams p{h, w, labels, lse, dlse, dtl, dh, dw, dl_scratch, N, E, V, ldl, 0, 0, 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (mainloop == 1) {  // TMA + wgmma: bf16, rows of h, w and dl on 16 bytes
+  if (mainloop == 1) {  // TMA + wgmma: bf16 or f16, rows of h, w and dl on 16 bytes
     const bool aligned = ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(w) |
                            reinterpret_cast<uintptr_t>(dl_scratch)) & 15) == 0;
-    if (dtype != tn::kBFloat16 || E % 8 != 0 || ldl % 8 != 0 || !aligned)
+    if ((dtype != tn::kBFloat16 && dtype != tn::kFloat16) || E % 8 != 0 || ldl % 8 != 0 ||
+        !aligned)
       return (int)cudaErrorInvalidValue;
-    return (int)tn::launch_bwd_wgmma(p, chunk, st);
+    return (int)(dtype == tn::kBFloat16 ? tn::launch_bwd_wgmma<__nv_bfloat16>(p, chunk, st)
+                                        : tn::launch_bwd_wgmma<__half>(p, chunk, st));
   }
   if (mainloop != 0) return (int)cudaErrorInvalidValue;
   if (dtype == tn::kBFloat16) return (int)tn::launch_bwd<__nv_bfloat16>(p, chunk, st);
+  if (dtype == tn::kFloat16) return (int)tn::launch_bwd<__half>(p, chunk, st);
   if (dtype == tn::kFloat32) return (int)tn::launch_bwd<float>(p, chunk, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,13 @@
 // tensor-map encoder (fetched from the driver at run time, so the library
 // links against the CUDA runtime alone).
 //
+// Element types: bf16 and f16 (2 bytes each, so every layout below holds
+// for both); the wgmma instruction and the tensor map's data type follow the
+// element type T of wgmma_m64n256k16<T> and tensor_map<T>.
+//
 // Layouts. Every operand tile is loaded by TMA with 128-byte swizzling in
-// boxes whose inner extent is 64 bf16 (one 128-byte line), and is read by
-// wgmma through a descriptor of the same swizzle:
+// boxes whose inner extent is 64 elements (one 128-byte line), and is read
+// by wgmma through a descriptor of the same swizzle:
 //   - K-major (K contiguous in memory): a box {64 k, R rows} is R lines of
 //     128 bytes, 8 lines to a 1024-byte swizzle atom. Descriptor: SBO = 1024
 //     (the next 8 rows), LBO unused; a 16-deep k-step advances the start
@@ -23,6 +27,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -108,46 +114,56 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 }
 
 // d[64 x 256] += A[64 x 16] B[16 x 256], both from shared memory through
-// descriptors; TA / TB = 1 reads that operand MN-major (transposed)
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"
-      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
-      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65,"
-      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81,"
-      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110,"
-      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123,"
-      "%124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
-        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
-        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
-        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
-        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
-        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),
-        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),
-        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),
-        "+f"(d[127])
+// descriptors; TA / TB = 1 reads that operand MN-major (transposed); AB is
+// the operands' type in the instruction ("bf16" or "f16")
+#define TN_WGMMA_M64N256K16(AB) \
+  asm volatile(                                                                                   \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " {"                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17,"           \
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33,"           \
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"           \
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65,"           \
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81,"           \
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97,"           \
+      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110,"               \
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123,"             \
+      "%124, %125, %126, %127"                                                                    \
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"                                                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),       \
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),                \
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),             \
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),             \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),             \
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),             \
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),             \
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),             \
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),             \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),             \
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),             \
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),             \
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),             \
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),             \
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),             \
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),             \
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),          \
+        "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]),       \
+        "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),       \
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]),       \
+        "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]),       \
+        "+f"(d[127])                                                                              \
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+
+template <typename T, int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, uint64_t db) {
+  if constexpr (std::is_same<T, __half>::value) {
+    TN_WGMMA_M64N256K16("f16");
+  } else {
+    static_assert(std::is_same<T, __nv_bfloat16>::value, "wgmma operands: bf16 or f16");
+    TN_WGMMA_M64N256K16("bf16");
+  }
 }
+#undef TN_WGMMA_M64N256K16
 
 // ---------------------------------------------------------------------------
 // host side
@@ -172,18 +188,23 @@ inline TensorMapEncodeFn tensor_map_encoder() {
   return fn;
 }
 
-// the tensor map of a bf16 matrix [outer, inner] with rows `ld` elements
-// apart, read in boxes {box_inner, box_outer} with 128-byte swizzling and
-// zeros beyond its edges; false if the driver refuses it
-inline bool bf16_tensor_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
-                            uint64_t ld, uint32_t box_inner, uint32_t box_outer) {
+// the tensor map of a bf16 or f16 (T) matrix [outer, inner] with rows `ld`
+// elements apart, read in boxes {box_inner, box_outer} with 128-byte
+// swizzling and zeros beyond its edges; false if cuTensorMapEncodeTiled refuses it
+template <typename T>
+inline bool tensor_map(CUtensorMap* map, const void* base, uint64_t inner, uint64_t outer,
+                       uint64_t ld, uint32_t box_inner, uint32_t box_outer) {
+  static_assert(sizeof(T) == 2, "a 16-bit element type");
+  constexpr CUtensorMapDataType type = std::is_same<T, __half>::value
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const TensorMapEncodeFn encode = tensor_map_encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {ld * 2};
   const cuuint32_t box[2] = {box_inner, box_outer};
   const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
+  return encode(map, type, 2, const_cast<void*>(base), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

@@ -3,7 +3,8 @@
 #
 # Port of touchnet_tpu/ops/decode_attention.py. The Pallas kernel _kernel
 # (:85) becomes a hand-written CUDA split-KV decode, csrc/
-# decode_attention.cu (bf16: a cp.async ring feeding mma.sync; f32: FMAs);
+# decode_attention.cu (bf16 and f16: a cp.async ring feeding mma.sync, one
+# kernel body for both; f32: FMAs);
 # its source note says what bounds it on Hopper and what the design does
 # about that. The TPU kernel's host-side block table (live_block_map,
 # block_geometry) has no counterpart: split_plan gives every split the same
@@ -29,7 +30,7 @@ NEG_INF = -1e30
 DECODE_BLOCK = 512
 HEAD_DIMS = (64, 128)
 MAX_GROUP = 16  # query heads per kv head (csrc/decode_attention.cu kMaxG)
-SPLIT_ALIGN = 64  # the bf16 kernel's ring tile (csrc kCols): a split's budget is whole tiles
+SPLIT_ALIGN = 64  # the tensor-core kernel's ring tile (csrc kCols): a split's budget is whole tiles
 _SPLIT_BLOCKS_PER_SM = 16  # blocks the grid would hold on each SM if every column were live
 _MIN_SPLIT_COLS = 256
 
@@ -111,9 +112,9 @@ def decode_attention(
 
     With a rank-5 cache the kernel reads layer ``layer_idx`` in place
     through a pointer offset: the caller never slices or copies the cache.
-    CUDA tensors need a contiguous cache, D in HEAD_DIMS, bf16 or f32 and
-    H / Hkv <= MAX_GROUP; anything else raises. A row with no valid column
-    gets 0."""
+    CUDA tensors need a contiguous cache, D in HEAD_DIMS, bf16, f16 or f32
+    and H / Hkv <= MAX_GROUP; anything else raises. A row with no valid
+    column gets 0."""
     B, H, D = q.shape
     if kv_cache.dim() == 4:
         kv_cache, layer_idx = kv_cache[None], 0
@@ -131,7 +132,7 @@ def decode_attention(
     if Bc != B or D2 != 2 * D:
         raise ValueError(f"cache {tuple(kv_cache.shape)} vs q {tuple(q.shape)}")
     if q.dtype not in _build.DTYPE_CODES or kv_cache.dtype != q.dtype:
-        raise ValueError(f"dtypes q {q.dtype} cache {kv_cache.dtype}: bf16 or f32, equal")
+        raise ValueError(f"dtypes q {q.dtype} cache {kv_cache.dtype}: bf16, f16 or f32, equal")
     if D not in HEAD_DIMS:
         raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
     if H % Hkv or H // Hkv > MAX_GROUP:

@@ -4,8 +4,9 @@
 # Port of touchnet_tpu/ops/fused_ce.py. The Pallas kernels _fwd_kernel (:86)
 # and _bwd_kernel (:175) become csrc/fused_ce.cu; its source note says what
 # bounds it on Hopper and how it tiles rows and vocab. fwd_plan and bwd_plan
-# choose each direction's mainloop by shape (bf16 with E a multiple of 8:
-# TMA + wgmma; other bf16: wmma tiles; f32: FMA tiles) and the forward's
+# choose each direction's mainloop by shape (bf16 or f16 with E a multiple
+# of 8: TMA + wgmma; other bf16 or f16: wmma tiles; f32: FMA tiles; the two
+# 16-bit types share every plan and one kernel body) and the forward's
 # grid. Beside them:
 #   - _rows_reference: the plain PyTorch version (:287-301), which
 #     materialises the [N, V] f32 logits;
@@ -75,7 +76,8 @@ def _check(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> None:
     if labels.shape != (h.shape[0],):
         raise ValueError(f"fused_ce_rows: labels {tuple(labels.shape)} for {h.shape[0]} rows")
     if h.dtype not in _build.DTYPE_CODES or w.dtype != h.dtype:
-        raise ValueError(f"fused_ce_rows: dtypes h {h.dtype} w {w.dtype}: bf16 or f32, equal")
+        raise ValueError(f"fused_ce_rows: dtypes h {h.dtype} w {w.dtype}: bf16, f16 or f32, "
+                         "equal")
     if not (h.is_contiguous() and w.is_contiguous()):
         raise ValueError("fused_ce_rows: h and w must be contiguous")
     if w.device != h.device or labels.device != h.device:
@@ -89,14 +91,14 @@ def _sms(device) -> int:
 
 
 def _mainloop(E: int, dtype: torch.dtype, what: str) -> str:
-    """bf16 whose rows TMA can describe (E a multiple of 8 elements, so
-    16-byte rows): the TMA + wgmma mainloop; other bf16 the wmma tiles; f32
-    the FMA tiles."""
-    if dtype == torch.bfloat16:
+    """bf16 or f16 whose rows TMA can describe (E a multiple of 8 elements,
+    so 16-byte rows): the TMA + wgmma mainloop; other bf16 or f16 the wmma
+    tiles; f32 the FMA tiles."""
+    if dtype in (torch.bfloat16, torch.float16):
         return "wgmma" if E % 8 == 0 else "wmma"
     if dtype == torch.float32:
         return "fma"
-    raise ValueError(f"{what}: dtype {dtype}: bf16 or f32")
+    raise ValueError(f"{what}: dtype {dtype}: bf16, f16 or f32")
 
 
 def split_tiles(tiles: int, splits: int) -> int:
@@ -168,7 +170,7 @@ def fused_ce_fwd(h, w, labels) -> tuple:
     labels = labels.to(torch.int32).contiguous()
     plan = fwd_plan(N, E, V, h.dtype, _sms(h.device))
     if plan.mainloop == "wgmma" and (h.data_ptr() | w.data_ptr()) % 16:
-        raise ValueError("fused_ce_fwd: bf16 h and w must start on 16 bytes")
+        raise ValueError("fused_ce_fwd: 16-bit h and w must start on 16 bytes")
     f32 = dict(dtype=torch.float32, device=h.device)
     part = torch.empty((3, plan.splits, N), **f32)
     pai = torch.empty((plan.splits, N), dtype=torch.int32, device=h.device)
@@ -212,10 +214,10 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(N: int, E: int, V: int, dtype: torch.dtype) -> BwdPlan:
-    """How K3's backward runs for this shape: bf16 whose rows TMA can
-    describe (E a multiple of 8 elements, so 16-byte rows) takes the TMA +
-    wgmma mainloop in 128-row tiles; other bf16 the wmma tiles and f32 the
-    FMA tiles, 64 rows each."""
+    """How K3's backward runs for this shape: bf16 or f16 whose rows TMA
+    can describe (E a multiple of 8 elements, so 16-byte rows) takes the TMA
+    + wgmma mainloop in 128-row tiles; other bf16 or f16 the wmma tiles and
+    f32 the FMA tiles, 64 rows each."""
     mainloop = _mainloop(E, dtype, "fused_ce_bwd")
     row_tile = WGMMA_ROW_TILE if mainloop == "wgmma" else _TILE
     ldl = dl_stride(V)
@@ -234,7 +236,7 @@ def fused_ce_bwd(h, w, labels, lse, dlse, dtl) -> tuple:
     lse, dlse, dtl = (x.float().contiguous() for x in (lse, dlse, dtl))
     plan = bwd_plan(N, E, V, h.dtype)
     if plan.mainloop == "wgmma" and (h.data_ptr() | w.data_ptr()) % 16:
-        raise ValueError("fused_ce_bwd: bf16 h and w must start on 16 bytes")
+        raise ValueError("fused_ce_bwd: 16-bit h and w must start on 16 bytes")
     dl = torch.empty((plan.chunk, plan.ldl), dtype=h.dtype, device=h.device)
     dh = torch.empty_like(h)
     dw = torch.empty((V, E), dtype=torch.float32, device=h.device)
@@ -296,7 +298,7 @@ def fused_ce_rows(h: torch.Tensor, w: torch.Tensor,
                   labels: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Fused lm-head + CE row statistics without materialising logits (K3).
 
-    h [N, E] and w [V, E] in one dtype (bf16 or f32); labels [N] int, where
+    h [N, E] and w [V, E] in one dtype (bf16, f16 or f32); labels [N] int, where
     anything outside [0, V) (padding, ignore_index) gives true_logit 0.
     Returns (lse, true_logit, m2 = row max in base 2, argmax) in f32 / int32;
     argmax ties go to the smallest index."""

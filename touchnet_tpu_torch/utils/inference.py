@@ -143,13 +143,14 @@ def prefetch_map(
 
 
 def torch_dtype(name: str):
-    """The torch dtype of --model_dtype: bfloat16 or float32 (the kernels'
-    dtypes; float16 raises)."""
+    """The torch dtype of --model_dtype: bfloat16, float32 or float16 (the
+    JAX CLIs' jnp_dtype; each is a dtype of K1 and K4). Another name raises
+    a ValueError."""
     import torch
 
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
     if name not in dtypes:
-        raise ValueError(f"model_dtype {name!r}: bfloat16 or float32")
+        raise ValueError(f"model_dtype {name!r}: bfloat16, float32 or float16")
     return dtypes[name]
 
 

@@ -32,7 +32,8 @@ from touchnet_tpu_torch.utils.distributed import dist_max, rank_and_world
 from touchnet_tpu_torch.utils.logging import _process_index, logger
 
 # bf16 dense peak, a spec constant and not a measurement: NVIDIA H100 SXM
-# datasheet, 989 TFLOP/s at the card's 700 W limit
+# datasheet, 989 TFLOP/s at the card's 700 W limit (the f16 dense peak is
+# the same, so MFU keeps it under --training_mixed_precision_param float16)
 GPU_PEAK_FLOPS = {"H100": 989e12}
 _GIB = 1024**3
 
