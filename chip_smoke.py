@@ -65,7 +65,8 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      shard axis (standing in for the tp group): loss, dh and dw against
      whole-vocab K3 and the plain version, a tie across the shard boundary
      to the smaller id, and one shard's forward and backward timed; the
-     same at tp 2 in float16, (o16);
+     same at tp 2 in float16, (o16); and (q), touch_audio's SFT head
+     (phase 18): N16384 E4096 V128256 bf16, timed, and a tie at E4096;
  17. (run after 7) ops/frontend.py on the card against the host path (the
      loaders' map functions with the native frontend), 16 rows of seeded
      speech at each recipe's features: the SFT recipe's log-mel 128 over
@@ -152,16 +153,19 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      --model_type touch_audio: the export equals the final params bit for
      bit; then one step at 1x4096, kernel path against plain path, under
      phase 8's limits;
- 11. the ASR CLI (python -m touchnet_tpu_torch.models.touch_audio.
-     inference_touch_audio, run through its main; the SFT recipe's stage
-     4): a Touch-Audio-7B HF export of seeded random bf16 weights at full
-     width and ASR_MAX_LAYERS (8) of its 32 text layers (fewer when the
-     temp dir cannot hold it twice, never below 8, said so), 32 synthetic
-     wavs, batch 16, max_length 64, bf16, fbank
-     80 x stack 5 stride 4: a part file with a hyp for every key, K1 and
-     K4 launched; the first batch's prefill and first decode step on the
-     kernel path against the plain path (bf16 both, rel L2 <= 5e-2, the
-     serving limit); prefill ms, decode ms/step and peak memory;
+ 11. (run after 18, on its stage-3 export) the ASR CLI (python -m
+     touchnet_tpu_torch.models.touch_audio.inference_touch_audio, run
+     through its main; the SFT recipe's stage 4 with model_type
+     touch_audio and stage4_argv's flags: bf16, batch 16, an empty
+     instruct, the export's config and tokenizer; plus max_length 64 and
+     fbank 80 x stack 5 stride 4, which the recipe's stage 4 does not pass):
+     phase 18's Touch-Audio-7B export (full width, phase 18's 2 text
+     layers, its trained f32 weights loaded in bf16), 32 synthetic wavs,
+     then trans.txt, raw_rec.txt, textnorm_zh and error_rate_zh as phase
+     12: a part file with a hyp for every key, K1 and K4 launched, a pair
+     scored for every key; the first batch's prefill and first decode step
+     on the kernel path against the plain path (bf16 both, rel L2 <= 5e-2,
+     the serving limit); prefill ms, decode ms/step and peak memory;
  12. qwen2_audio's ASR stage (python -m touchnet_tpu_torch.models.
      qwen2_audio.inference_qwen2_audio, run through its main; the SFT
      recipe's stage 4 with model_type qwen2_audio, then its scoring), run
@@ -208,9 +212,9 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      tower's non-causal MHA (library SDPA), (j) the G 7 prefill (SDPA with
      enable_gqa), (k) the G 7 decode on a main and a mimo row of the 34-row
      cache (SDPA on a gathered copy);
- 14. (run after 11, before 12) qwen2_audio's SFT, stages 0-3 of the SFT
+ 14. (run after 10, before 12) qwen2_audio's SFT, stages 0-3 of the SFT
      recipe with model_type qwen2_audio (run_qwen2_sft): Qwen2-Audio-7B at
-     full width (the whisper tower cut to SFT_TOWER_LAYERS (16) of its 32
+     full width (the whisper tower cut to SFT_TOWER_LAYERS (8) of its 32
      layers, vocab 156032) and the text depth of sft_depth (at most 2; the
      disk and the card), random bf16
      weights; stage 0, seeded synthetic speech (1-15 s, txt in the char
@@ -228,13 +232,15 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      rows, launches (K1 2 x (16 + L), K2 16 + L, K3 0: no head weight, as
      in JAX); stage 3, convert_ckpt_to_hf --model_type qwen2_audio
      --tokenizer_model: the export equals the final params bit for bit;
-     one step's loss, grad norm and gradients at 1 x 1200 tokens on the
-     kernel path against the plain path, under phase 8's limits; K2 (l) at
+     step 1's loss, grad norm and gradients on the first rows of its batch
+     (1200 positions, SFT_CHECK_SEQLEN) and its weights before the update,
+     kernel path against the plain path in bf16 and in f32, under phase 8's
+     limits (first_step_checked); K2 (l) at
      the tower's training shape and K1 and K2 (m) at the text layers'
      (right-padded rows);
  15. (run after 12, before 13) kimi_audio's SFT, stages 0-3 of the SFT
      recipe with model_type kimi_audio (run_kimi_sft): Kimi-Audio-7B at full
-     width (the whisper tower cut to SFT_TOWER_LAYERS (16) of its 32
+     width (the whisper tower cut to SFT_TOWER_LAYERS (8) of its 32
      layers, the 16-layer WhisperVQ speech
      tokenizer, frozen, the adaptor, hidden 3584, vocab 168448) cut as
      kimi_sft_depth reckons the disk and the card: text layers 28 -> 1
@@ -257,10 +263,50 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      seed, the mimo stack (no gradient reaches it) equal to the seed times
      prod(1 - lr_t wd), every other tensor moved; stage 3,
      convert_ckpt_to_hf --model_type kimi_audio --tokenizer_model: the
-     export equals the final params bit for bit; one step's loss, grad norm
-     and gradients at 1 x 1200 tokens on the kernel path against the plain
-     path, under phase 8's limits; K1 and K2 (n) at the tower's training
-     shape (non-causal, no segment ids).
+     export equals the final params bit for bit; step 1's loss, grad norm
+     and gradients on the first rows of its batch (1200 positions) before
+     the update, kernel path against the plain path in bf16 and in f32,
+     under phase 8's limits (first_step_checked); K1 and K2 (n) at the
+     tower's training shape (non-causal, no segment ids).
+ 18. (run after 13, before 11) touch_audio's SFT, stages 1-3 of the SFT
+     recipe with model_type touch_audio (run_touch_sft): Touch-Audio-7B at
+     full width (E 4096, H 32/8, D 128, MLP 14336, V 128256, untied head,
+     the projector from 400) and TOUCH_SFT_LAYERS (2) of its 32 text layers
+     (a full-depth step's f32 state is 128 GB), random bf16 weights; stage
+     0 is phase 14's (its shards and dev list); features fbank 80 x stack
+     5 stride 4 (the recipe's log-mel 128 x stack 7 is 896 wide against the
+     projector's 400); stage 1, an HF text backbone with its lm_head
+     through convert_hf_to_ckpt --model_type touch_audio to step_0 (the
+     params at init equal the HF tensors upcast and the converter's
+     projector, bit for bit); stage 2, bin.train.main with the recipe's
+     stage-2 flags (touch_sft_argv: sft_argv's cuts but the recipe's remat
+     none and the moments on the card; the touch_audio datapipe's dynamic
+     batches of right-padded rows under 2 x 8192 tokens; liger on: K3 at
+     the head), TOUCH_SFT_STEPS (4) steps with one sync save at the last,
+     the model alone, a dev pass after it: per step its loss, ms, tokens/s,
+     MFU (the metrics line's), peak memory, the data-wait share, rows and
+     launches (K1 L, K2 L, K3 1 + 1 every step); step 1's loss, grad norm
+     and gradients on the first rows of its batch (TOUCH_CHECK_TOKENS
+     positions) and its weights before the update, kernel path against the
+     plain path in bf16 and in f32 (phase 8's bf16
+     limits: the loss within STEP_BF16_LOSS of the f32 plain loss, the
+     gradients' rel L2 to the f32 plain path at most STEP_BF16_RATIO times
+     the bf16 plain path's, the grad norm within STEP_F16_GNORM of the bf16
+     plain path's); stage 3, convert_ckpt_to_hf --model_type touch_audio
+     --tokenizer_model: the export reloads equal to the final params bit
+     for bit; seconds a stage;
+ 18b. (after 11) the ASR closed loop, JAX's test_asr_task_metric_closed_loop
+     (tests/touchnet_tpu/bin/test_task_metric_loop.py) through the port's
+     entry points (closed_loop): 96 training and 8 test utterances of a tone
+     language (each character a pure tone) through bin.make_data, packed
+     touch_audio SFT for 200 steps with JAX's flags (f32, 1 x 256, lr 5e-3),
+     convert_ckpt_to_hf, then the CLI, textnorm_zh and error_rate_zh on the
+     seed's weights and on the trained export; at world 1 (JAX's: dp_shard
+     4 x tp 2) and on the tiny config's width in one head of 64
+     (loop_config: K1 and K4 take D 64 and 128, not the tiny config's 16):
+     CER at step 0 >= 60, trained <= 50 and below half of step 0's (JAX's
+     margins); K1, K2 and K4 on their f32 bodies (JAX's flags leave liger
+     off, so K3 does not run);
  16. (last) two ranks on the one card: Llama-3.2-1B at full width and
      TWO_RANK_LAYERS (2) layers, 2 steps of bin.train.main a layout, in one
      pair of processes over a gloo process group on cuda:0 (gloo takes CUDA
@@ -291,11 +337,11 @@ line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving, training, the single-device
 modes, the recipe run with its generate from the export, the audio recipe
 run, the ASR CLI and the qwen2_audio and kimi_audio ASR stages; K4:
-serving, that generate, the ASR CLI and the two ASR stages; K2, K3:
-training, the modes, the recipe run (its torchrun process), the
-audio recipe run and phase 16's ranks (every layout); K1 and K2
-also qwen2_audio's and kimi_audio's SFT runs), each path driven with the
-counts set to 0 just before it.
+serving, that generate, the ASR CLI, the two ASR stages and the closed
+loop; K2, K3: training, the modes, the recipe run (its torchrun process),
+the audio recipe run, phase 16's ranks (every layout) and touch_audio's
+SFT run; K1 and K2 also qwen2_audio's and kimi_audio's SFT runs and the
+closed loop), each path driven with the counts set to 0 just before it.
 Its other numbers are those of its case at the training path's shape (K4:
 the decode case), with every timed case under "cases":
   - bound_ms: the larger of its operations over 989 TFLOP/s (bf16 tensor
@@ -1566,6 +1612,12 @@ def check_k3(fused_ce, dev, gen, failures, card, timing=True):
          timed=True, min_chunks=2)
     case("(d16) main path in f16: N16384 E2048 V128256 f16", 16384, 2048, 128256,
          torch.float16, timed=True, min_chunks=2)
+    # touch_audio's SFT head (phase 18): Touch-Audio-7B's E 4096 and V 128256
+    # at the recipe's 2 x 8192 rows, and ties at that width
+    case("(q) touch_audio SFT head: N16384 E4096 V128256 bf16", 16384, 4096, 128256,
+         torch.bfloat16, timed=True)
+    case("(q) argmax tie N256 E4096 V128256 bf16", 256, 4096, 128256, torch.bfloat16,
+         tie=(7, 5, 261, 128255))
     # the audio pretraining path's vocab: 1024 BEST-RQ codes + 1 = 4 whole
     # 256-column tiles and one live column in the fifth, the last split's
     # only tile; dl's row stride rounds 1025 up to 1032
@@ -2291,6 +2343,25 @@ def run_cli(module: str, args: list, failures, what: str) -> float:
     return secs
 
 
+def run_main(module: str, args: list, failures, what: str) -> float:
+    """<module>.main(args) in this process, as python -m <module> <args>
+    runs it; returns its seconds. A raise is a failure, with its message
+    printed. The recipe phases run the converters so: a subprocess pays
+    torch's import again, 20-30 s a call on the card's host (a whole run of
+    this script, converters as subprocesses, on an H100's host), and python
+    -m runs this same main; make_data, the scoring tools and phase 9's
+    torchrun keep their command lines."""
+    import importlib
+
+    t0 = time.perf_counter()
+    try:
+        importlib.import_module(module).main([str(a) for a in args])
+    except Exception as e:  # the recipe's stage failed: the script goes on
+        print(f"  {what}: {module}.main raised {e!r}")
+        failures.append(f"recipe {what}")
+    return time.perf_counter() - t0
+
+
 def recipe_stage0(tmp: Path, failures) -> Path:
     """Stage 0 (run.sh:60-84): jsonl -> shards through make_data, on
     pre-tokenized ids (RawTokenizer at the model's vocab), 4 workers. The
@@ -2349,12 +2420,12 @@ def recipe_stage1(cfg, config: Path, exp: Path, tmp: Path, dev, failures) -> dic
     want = bits_checksums({k: v.float() for k, v in sd.items()})
     del model, sd
     torch.cuda.empty_cache()
-    secs = run_cli("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
-                   ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
-                    config, "--model_type", "causal_lm"], failures, "stage 1")
+    secs = run_main("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+                    ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
+                     config, "--model_type", "causal_lm"], failures, "stage 1")
     seed = exp / "checkpoint" / "step_0"
     print(f"  stage 1: HF seed (random bf16 weights, seed {SEED + 2}) {nbytes} bytes written in "
-          f"{write_s:.2f} s; convert_hf_to_ckpt (subprocess) -> step_0, "
+          f"{write_s:.2f} s; convert_hf_to_ckpt (in-process main) -> step_0, "
           f"{tree_bytes(seed) if seed.exists() else 0} bytes (f32), in {secs:.2f} s")
     return want
 
@@ -2377,9 +2448,9 @@ def recipe_stage3(cfg, config: Path, exp: Path, final: dict, model, dev, card,
     from touchnet_tpu_torch.ops.decode_attention import decode_attention
     from touchnet_tpu_torch.utils.safetensors_io import read_safetensors
 
-    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
-                   ["--ckpt_dir", exp, "--step", -1, "--config", config,
-                    "--model_type", "causal_lm"], failures, "stage 3")
+    secs = run_main("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+                    ["--ckpt_dir", exp, "--step", -1, "--config", config,
+                     "--model_type", "causal_lm"], failures, "stage 3")
     out = exp / "checkpoint_hf" / f"step-{RECIPE_STEPS}"
     t0 = time.perf_counter()
     tensors = read_safetensors(str(out / "model.safetensors"))
@@ -2389,7 +2460,7 @@ def recipe_stage3(cfg, config: Path, exp: Path, final: dict, model, dev, card,
     exported = LlamaConfig.from_json_file(str(out / "config.json"))
     ok = not differ and exported.rope_scaling == cfg.rope_scaling and \
         exported.to_dict() == {**cfg.to_dict(), "attn_implementation": "flash"}
-    print(f"  stage 3: convert_ckpt_to_hf --step -1 --config (subprocess) -> {out.name}, "
+    print(f"  stage 3: convert_ckpt_to_hf --step -1 --config (in-process main) -> {out.name}, "
           f"{tree_bytes(out)} bytes, in {secs:.2f} s (read back in {read_s:.2f} s); its "
           f"{len(bits)} tensors equal the final params bit for bit: {not differ} "
           f"(differ in {differ[:5] or 'none'}); config.json round-trips with rope_scaling "
@@ -3303,7 +3374,7 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     if not same:
         failures.append("audio recipe: resume not bit-equal")
 
-    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+    secs = run_main("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
                    ["--ckpt_dir", exp, "--step", -1, "--config", config,
                     "--model_type", "touch_audio"], failures, "audio stage 3")
     out = exp / "checkpoint_hf" / f"step-{AUDIO_STEPS}"
@@ -3313,7 +3384,7 @@ def run_audio_recipe(dev, card, failures, tmp: Path) -> dict:
     differ = sorted(k for k in final if bits.get(k) != final[k]) + sorted(set(bits) - set(final))
     exported = TouchAudioConfig.from_json_file(str(out / "config.json"))
     ok = not differ and exported.to_dict() == cfg.to_dict()
-    print(f"  stage 3: convert_ckpt_to_hf --model_type touch_audio --step -1 (subprocess) -> "
+    print(f"  stage 3: convert_ckpt_to_hf --model_type touch_audio --step -1 (in-process main) -> "
           f"{out.name}, {tree_bytes(out)} bytes in {secs:.2f} s; its {len(bits)} tensors "
           f"equal the final params bit for bit, config.json round-trips: {not differ} "
           f"{'ok' if ok else 'FAIL'}")
@@ -3390,116 +3461,59 @@ def held_steps(train, listfile, tmp: Path, dev, card, config):
 
 # -- phase 11: the ASR inference CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4) --
 
-ASR_UTTS, ASR_BATCH, ASR_NEW, ASR_MIN_LAYERS = 32, 16, 64, 8
-# phase 11's text depth: Touch-Audio-7B's 32 layers cut to 8 for the
-# script's clock (the 16 GB export's write and load, the decode)
-ASR_MAX_LAYERS = 8
-# Llama-3's bos / eos / pad ids, for the RawTokenizer the CLI runs with (the
-# Llama-3.2 tokenizer is not in the repo)
-ASR_TOKENS = {"bos": 128000, "eos": 128001, "pad": 128004}
+ASR_UTTS, ASR_BATCH, ASR_NEW = 32, 16, 64
 # the decode timing: greedy steps after the prefill, kernel path
 ASR_TIMED_STEPS = 32
 
 
-def asr_depth(cfg, free: int, get_num_params) -> int:
-    """Phase 11's text layers: ASR_MAX_LAYERS (at most the full depth) when
-    `free` holds the bf16 export (get_num_params(cfg) parameters) twice (the
-    file, and room to spare) plus 2 GiB, else the most layers that fit,
-    never below ASR_MIN_LAYERS (0: none fit). Only the text model is cut."""
-    c = copy.deepcopy(cfg)
-    top = min(ASR_MAX_LAYERS, cfg.text_config.num_hidden_layers)
-    for layers in range(top, ASR_MIN_LAYERS - 1, -1):
-        c.text_config.num_hidden_layers = layers
-        if 2 * 2 * get_num_params(c) + 2**31 <= free:
-            return layers
-    return 0
-
-
-def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
-    """Phase 11: the touch_audio ASR CLI (python -m
-    touchnet_tpu_torch.models.touch_audio.inference_touch_audio, run
-    in-process through its main) on a Touch-Audio-7B HF export of seeded
-    random bf16 weights: 32 synthesised wavs, batch 16, max_length 64,
-    bf16, fbank 80 x stack 5 stride 4 (the recipe's stage 4 passes no
-    feature flags: the defaults give 161-wide features against the
-    projector's 400). Checks a part file with a hyp for every key and K1 and
-    K4 launched; then the first batch's prefill and first decode step on
-    the kernel path against plain_kernels() under the serving limit, and
-    prefill ms, decode ms/step and peak memory. Returns the launches of the
-    CLI run (the main path)."""
+def run_asr_cli(dev, card, failures, tmp: Path, export) -> dict:
+    """Phase 11: the SFT recipe's stage 4 with model_type touch_audio on
+    phase 18's export (Touch-Audio-7B at full width and phase 18's text
+    depth, its trained f32 weights loaded in bf16, config.json and the
+    tokenizer beside them): python -m touchnet_tpu_torch.models.touch_audio.
+    inference_touch_audio, run in-process through its main, with
+    stage4_argv's flags (bf16, batch 16, an empty instruct, the config and
+    the tokenizer the export's) plus max_length 64 and fbank 80 x stack 5
+    stride 4 (the recipe's stage 4 passes no feature flags: the defaults
+    give 161-wide features against the projector's 400), over 32
+    synthesised wavs; then trans.txt, raw_rec.txt, textnorm_zh and
+    error_rate_zh as the recipe scores. Checks a part file with a hyp for
+    every key and K1 and K4 launched; then the first batch's prefill and
+    first decode step on the kernel path against plain_kernels() under the
+    serving limit, and prefill ms, decode ms/step and peak memory. Returns
+    the launches of the CLI run (the main path)."""
     import torch.nn.functional as F
 
     from touchnet_tpu_torch.data import DataConfig
     from touchnet_tpu_torch.models.llama import inference_llama as inf
-    from touchnet_tpu_torch.models.touch_audio import convert
     from touchnet_tpu_torch.models.touch_audio import inference_touch_audio as cli
     from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
         TouchAudioConfig,
     )
-    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import (
-        get_num_params,
-        init_params,
-    )
+    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import get_num_params
     from touchnet_tpu_torch.ops.attention import flash_attention
     from touchnet_tpu_torch.ops.decode_attention import decode_attention
     from touchnet_tpu_torch.tokenizer import TokenizerConfig
     from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
     from touchnet_tpu_torch.utils.inference import AudioJsonlDataset, pad_right
-    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
 
-    cfg = TouchAudioConfig.from_json_file(str(ASR_CONFIG))
-    tc = cfg.text_config
-    full = tc.num_hidden_layers
-    free = shutil.disk_usage(tmp).free
-    L = asr_depth(cfg, free, get_num_params)
-    config = ASR_CONFIG
-    if L == 0:
-        print(f"[11] ASR CLI: {free / 1e9:.2f} GB free in the temp dir, too little for a "
-              f"{ASR_MIN_LAYERS}-layer export FAIL")
-        failures.append("asr cli: no room for the export")
+    if export is None:
+        print("[11] ASR CLI: phase 18 left no export FAIL")
+        failures.append("asr cli: no export")
         return {}
-    if L != full:
-        raw = json.loads(ASR_CONFIG.read_text())
-        raw["text_config"]["num_hidden_layers"] = L
-        config = tmp / "asr_config.json"
-        config.write_text(json.dumps(raw))
-        cfg = TouchAudioConfig.from_json_file(str(config))
-        tc = cfg.text_config
-    depth = (f"CUT to {L} of {full} layers ("
-             + ("the script's clock)" if L == ASR_MAX_LAYERS else "too little room)"))
-    print(f"[11] ASR CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4, touch_audio): "
-          f"{ASR_CONFIG.relative_to(HERE)}: L={L} E={tc.hidden_size} "
-          f"H={tc.num_attention_heads}/{tc.num_key_value_heads} D={tc.head_dim} "
-          f"V={tc.vocab_size}, {get_num_params(cfg):,} params, bf16, {depth}; temp dir "
-          f"{free / 1e9:.2f} GB free")
-
-    hf = tmp / "asr_hf"
-    hf.mkdir()
-    t0 = time.perf_counter()
-    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED + 20), torch.bfloat16,
-                        dev)
-    state = convert.params_to_hf_state_dict(cfg, model.state_dict())
-    init_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    nbytes = write_safetensors(state, str(hf / "model.safetensors"))
-    (hf / "config.json").write_text(json.dumps(convert.hf_config_dict(cfg, "bfloat16")))
-    write_s = time.perf_counter() - t0
-    del model, state
-    torch.cuda.empty_cache()
+    cfg = TouchAudioConfig.from_json_file(str(export / "config.json"))
+    tc = cfg.text_config
+    L = tc.num_hidden_layers
+    print(f"[11] ASR CLI (examples/audio/sft/asr/wenetspeech/run.sh stage 4, touch_audio) on "
+          f"phase 18's export {export.name} ({tree_bytes(export)} bytes, f32): L={L} "
+          f"E={tc.hidden_size} H={tc.num_attention_heads}/{tc.num_key_value_heads} "
+          f"D={tc.head_dim} V={tc.vocab_size}, {get_num_params(cfg):,} params, loaded in bf16; "
+          f"CUT to phase 18's {L} of 32 text layers (8 before phase 18 trained this export)")
     jsonl, total = synth_utterances(tmp / "asr_wav", ASR_UTTS, SEED + 21)
-    print(f"  HF export of seeded random bf16 weights: {nbytes} bytes ({nbytes / 1e9:.2f} GB) "
-          f"written in {write_s:.2f} s (drawn in {init_s:.2f} s); {ASR_UTTS} wavs, "
-          f"{total:.1f} s of audio")
-
-    tok_flags = {"tokenizer_type": "RawTokenizer", "tokenizer_raw_vocab_size": tc.vocab_size,
-                 **{f"tokenizer_raw_{k}_id": v for k, v in ASR_TOKENS.items()}}
-    feat_flags = {"audio_feat_type": "fbank", "audiofeat_num_mel_bins": 80,
-                  "audiofeat_stack_length": 5, "audiofeat_stride_length": 4,
-                  "audiofeat_dither": 0.0}
-    args = {"model_path": hf, "training_model_config_path": config, "data_list": jsonl,
-            "output_dir": tmp / "asr_out", "model_dtype": "bfloat16", "batch_size": ASR_BATCH,
-            "max_length": ASR_NEW, "num_workers": 16, "prefetch": 8,
-            **tok_flags, **feat_flags}
+    print(f"  {ASR_UTTS} wavs, {total:.1f} s of audio")
+    argv = stage4_argv("touch_audio", export, jsonl, tmp / "asr_out") + \
+        ["--max_length", str(ASR_NEW)] + [x for k, v in TOUCH_FEATS.items()
+                                          for x in (f"--{k}", str(v))]
     loaded = {}
     real_load = cli.load_params
 
@@ -3515,7 +3529,7 @@ def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
     flash_attention.launches = decode_attention.launches = 0
     try:
         t0 = time.perf_counter()
-        path = cli.main([x for k, v in args.items() for x in (f"--{k}", str(v))])
+        path = cli.main(argv)
         cli_s = time.perf_counter() - t0
     finally:
         cli.load_params = real_load
@@ -3524,24 +3538,26 @@ def run_asr_cli(dev, card, failures, tmp: Path) -> dict:
     rows = [json.loads(ln) for ln in open(path)]
     keys = [json.loads(ln)["key"] for ln in open(jsonl)]
     batches = -(-ASR_UTTS // ASR_BATCH)
-    ok = ([r["key"] for r in rows] == keys and all(isinstance(r.get("hyp"), list) for r in rows)
+    ok = ([r["key"] for r in rows] == keys and all(isinstance(r.get("hyp"), str) for r in rows)
           and counts["K1"] == batches * L and 0 < counts["K4"] <= batches * ASR_NEW * L)
-    print(f"  CLI: {cli_s:.2f} s in all ({loaded['s']:.2f} s loading the export onto the card); "
-          f"{path} has {len(rows)} lines, a hyp for every key: "
-          f"{[r['key'] for r in rows] == keys}; first hyp {rows[0]['hyp'][:8]}...; launches "
-          f"K1={counts['K1']} (want {batches}x{L}, single-shot prefill) K4={counts['K4']} "
-          f"(<= {batches}x{ASR_NEW}x{L}); peak {peak:.2f} GiB allocated "
+    print(f"  CLI (stage4_argv: {' '.join(argv[2:])}): {cli_s:.2f} s in all ({loaded['s']:.2f} "
+          f"s loading the export onto the card); {path} has {len(rows)} lines, a hyp for every "
+          f"key: {[r['key'] for r in rows] == keys}; first hyp {rows[0]['hyp'][:16]!r}; "
+          f"launches K1={counts['K1']} (want {batches}x{L}, single-shot prefill) "
+          f"K4={counts['K4']} (<= {batches}x{ASR_NEW}x{L}); peak {peak:.2f} GiB allocated "
           f"{'ok' if ok else 'FAIL'}  [{card}]")
     if not ok:
         failures.append("asr cli: output / launches")
+    score_cer(tmp / "asr_out", write_ark(path, tmp / "asr_out"), failures, "touch_audio asr")
 
     # the first batch again, outside the CLI: prefill and the first decode
     # step, kernel path against plain_kernels(), and the timings
     model = loaded.pop("model")
     lm = model.language_model
-    tok = build_tokenizer(TokenizerConfig(**tok_flags))
+    tok = build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
+                                          tokenizer_model=str(export)))
     proj, bos_emb = cli.prompt_parts(model, tok)
-    data_cfg = DataConfig(**feat_flags)
+    data_cfg = DataConfig(**TOUCH_FEATS)
     samples = [AudioJsonlDataset.load(s) for s in AudioJsonlDataset(str(jsonl)).samples]
     prompts = [cli.make_prompt(cli.compute_features(s, data_cfg), proj, bos_emb)
                for s in samples[:ASR_BATCH]]
@@ -3611,13 +3627,14 @@ CHAR_BLOCKS = ((0x20, 0x7F), (0x4E00, 0xA000), (0x3400, 0x4DC0), (0xAC00, 0xD7A4
 
 
 def write_char_tokenizer(root: Path, vocab_size: int, specials: dict, eos: str,
-                         first_chars: str = "") -> Path:
+                         first_chars: str = "", bos: str = None, pad: str = None) -> Path:
     """An HF tokenizer directory (tokenizer.json, tokenizer_config.json): a
     `tokenizers` WordLevel model over single characters, with `specials` at
     their ids and every other id below vocab_size one character (those of
     first_chars first, then CHAR_BLOCKS); text splits into characters
-    after the special tokens, and decoding joins them. eos is also the pad
-    and the unknown token (Qwen2's tokenizer has no bos). The port's
+    after the special tokens, and decoding joins them. eos is also the
+    unknown token, and the pad unless `pad` names another special; no bos
+    unless `bos` names one (Qwen2's tokenizer has none). The port's
     HuggingFaceTokenizer loads it."""
     from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers
 
@@ -3636,8 +3653,8 @@ def write_char_tokenizer(root: Path, vocab_size: int, specials: dict, eos: str,
     root.mkdir(parents=True, exist_ok=True)
     tok.save(str(root / "tokenizer.json"))
     (root / "tokenizer_config.json").write_text(json.dumps({
-        "tokenizer_class": "PreTrainedTokenizerFast", "eos_token": eos, "pad_token": eos,
-        "bos_token": None, "unk_token": eos, "model_max_length": 1 << 20}))
+        "tokenizer_class": "PreTrainedTokenizerFast", "eos_token": eos, "pad_token": pad or eos,
+        "bos_token": bos, "unk_token": eos, "model_max_length": 1 << 20}))
     return root
 
 
@@ -4342,17 +4359,18 @@ def model_only_saves():
 
 SFT_STEPS, SFT_MAX_LAYERS = 4, 2
 # the whisper tower's depth in phases 14 and 15 (and so in 12 and 13, which
-# run their exports): 32 layers cut to 16 for the script's clock (the
-# checkpoints, the exports and their conversions, the steps); the widths,
-# the vocab and the tower's 1500 frames a row stay
-SFT_TOWER_LAYERS = 16
+# run their exports): 32 layers cut to 16, then to 8 when phases 18 and 18b
+# came, for the script's clock (the steps, the checkpoints, the exports);
+# the widths, the vocab and the tower's 1500 frames a row stay
+SFT_TOWER_LAYERS = 8
 SFT_UTTS, SFT_DEV_UTTS, SFT_PER_SHARD = 200, 16, 25
 # the recipe's loader is 12 workers with prefetch 12 (run.sh:22-23): in a
 # run of 4 steps they would fill 144 batches of ~40 rows (~5,800 whisper
 # features) on threads that take the GIL from the launch thread (phase 10's
 # first step: 73 s of loader fill); cut to 2 and 2
 SFT_WORKERS = 2
-# the kernel-vs-plain step: 1 x 1200 tokens of the same shards (~3 rows)
+# the kernel-vs-plain check: the first rows of step 1's batch that hold
+# 1200 positions (~3 rows; first_step_checked)
 SFT_CHECK_SEQLEN = 1200
 # the card's share of the step that is not the params, gradients or logits:
 # the tower's saved layer inputs under remat full, one layer's recompute
@@ -4522,8 +4540,9 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     flags (sft_argv) from it, SFT_STEPS steps whose last save holds the
     model alone (phase 15 holds the SFT resume); convert_ckpt_to_hf on that
     save, held to the final params bit for bit (the run removes step_0 once
-    its init has read it, so one checkpoint is on disk at a time); one step
-    at a small batch on the kernel path against plain_kernels(); K2 (l) and
+    its init has read it, so one checkpoint is on disk at a time); step 1's
+    first rows on the kernel path against plain_kernels() before its update
+    (first_step_checked); K2 (l) and
     K1 and K2 (m). Returns the launches of the run (the main path), the
     kernel rows, the export and the stage-0 lists."""
     from touchnet_tpu_torch.bin import train
@@ -4598,12 +4617,12 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     seed_bits = bits_checksums({k: v.float() for k, v in state.items()})
     del model, state
     torch.cuda.empty_cache()
-    secs = run_cli("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+    secs = run_main("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
                    ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
                     config, "--model_type", "qwen2_audio"], failures, "qwen2 sft stage 1")
     step0 = exp / "checkpoint" / "step_0"
     print(f"  stage 1: HF seed (random bf16 weights, seed {SEED + 43}) {n_bytes} bytes; "
-          f"convert_hf_to_ckpt --model_type qwen2_audio (subprocess) -> step_0, "
+          f"convert_hf_to_ckpt --model_type qwen2_audio (in-process main) -> step_0, "
           f"{tree_bytes(step0) if step0.exists() else 0} bytes (f32), in {secs:.2f} s; stage 1 "
           f"{time.perf_counter() - t0:.1f} s")
     shutil.rmtree(hf)  # its tensors are in step_0 now
@@ -4613,7 +4632,7 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     # stage 2: one run, whose last save (the trainer's cadence; its step-1
     # save skipped here) holds the model alone, which stage 3 exports
     counters = kernel_counters()
-    steps, devs, init_bits = [], [], []
+    steps, devs, init_bits, check = [], [], [], {}
     real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train)
 
     def counted_step(self, batch, num_sentence):
@@ -4645,7 +4664,8 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
         for c in counters.values():
             c.launches = 0
         with count_plain_calls() as plain_calls, timed_saves(train) as saves, \
-                saves_where(lambda step, force: force), model_only_saves(), HostPeak() as host:
+                saves_where(lambda step, force: force), model_only_saves(), HostPeak() as host, \
+                first_step_checked(train, SFT_CHECK_SEQLEN, plain_calls, check):
             t0 = time.perf_counter()
             # the profiler traces the last step (the recipe's freq 100 would
             # trace none of 4)
@@ -4668,6 +4688,7 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
           f"HF tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
     if not seeded:
         failures.append("qwen2 sft: not started from the seed")
+    report_step_check(check, "qwen2 sft", failures, card)
     tower_p = whisper_encoder.get_num_params(ac)
     text_p = n_params - tower_p
     losses = [h["loss/per_sample"] for h in hist]
@@ -4722,7 +4743,7 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
 
     # stage 3: the run's last save -> HF (with the tokenizer, as
     # run.sh:144-152 passes --tokenizer_model)
-    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+    secs = run_main("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
                    ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
                     "qwen2_audio", "--tokenizer_model", tok_dir], failures, "qwen2 sft stage 3")
     export = exp / "checkpoint_hf" / f"step-{SFT_STEPS}"
@@ -4735,7 +4756,7 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
     want_cfg["text_config"]["attn_implementation"] = "flash"
     ok = not differ and exported == want_cfg and (export / "tokenizer.json").exists()
     print(f"  stage 3: convert_ckpt_to_hf --step -1 --config --model_type qwen2_audio "
-          f"--tokenizer_model (subprocess) -> {export.name}, {tree_bytes(export)} bytes in "
+          f"--tokenizer_model (in-process main) -> {export.name}, {tree_bytes(export)} bytes in "
           f"{secs:.2f} s; its {len(bits)} tensors equal the final params bit for bit: "
           f"{not differ} (differ in {differ[:5] or 'none'}); config.json round-trips, the "
           f"tokenizer beside it {'ok' if ok else 'FAIL'}")
@@ -4743,28 +4764,14 @@ def run_qwen2_sft(dev, card, failures, tmp: Path) -> dict:
         failures.append("qwen2 sft: export")
     shutil.rmtree(exp / "checkpoint", ignore_errors=True)
 
-    # one step on the kernel path against the plain path: 1 x SFT_CHECK_SEQLEN
-    # tokens of the same shards, no checkpoint, dev pass or offload (no
-    # optimizer step is taken)
-    t0 = time.perf_counter()
-    print(f"  one step at 1 x {SFT_CHECK_SEQLEN} tokens of the same shards, full width, "
-          f"{L} text layers, remat full: kernel vs plain path")
-    check_step(train, lambda dtype: sft_argv(
-        listfile, tmp / "sft_chk", config, tok_dir, dtype, dataset_batchsize=1,
-        dataset_text_seqlen=SFT_CHECK_SEQLEN, dataloader_num_workers=1,
-        training_enable_ckpt="false", training_enable_tensorboard="false",
-        training_enable_profiling="false", training_enable_cpu_offload="false"),
-        dev, failures, "qwen2 sft ")
-    check_s = time.perf_counter() - t0
-
     t0 = time.perf_counter()
     first_step = steps[0]
     k1_rows, k2_rows = sft_kernel_rows(attn, dev, failures, card, first_step["rows"],
                                        first_step["L"], first_step["seg"].to(dev))
     rows_s = time.perf_counter() - t0
-    print(f"  phase 14: stage 0 {stage0_s:.1f} s, the run {run_s:.1f} s, kernel vs plain step "
-          f"{check_s:.1f} s, kernel rows {rows_s:.1f} s, all {time.perf_counter() - t_phase:.1f} "
-          f"s; step {step_ms:.1f} ms, peak {peak:.2f} GiB, launches {counts}  [{card}]")
+    print(f"  phase 14: stage 0 {stage0_s:.1f} s, the run {run_s:.1f} s, kernel rows "
+          f"{rows_s:.1f} s, all {time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, "
+          f"peak {peak:.2f} GiB, launches {counts}  [{card}]")
     out.update(counts=counts, k1=k1_rows, k2=k2_rows, export=export,
                lists=(listfile, devlist))
     return out
@@ -5008,8 +5015,9 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     test_torch_kimi_audio_sft.py holds this one on the CPU); after the last step the speech tokenizer bit-equal to
     the seed, the mimo stack equal to the seed times prod(1 - lr_t wd), every
     other tensor moved; convert_ckpt_to_hf on that save, held to the final
-    params bit for bit; one step at a small batch on the kernel path against
-    plain_kernels(); K1 and K2 (n). Returns the launches of the two runs (the
+    params bit for bit; step 1's first rows on the kernel path against
+    plain_kernels() before its update (first_step_checked); K1 and K2 (n).
+    Returns the launches of the two runs (the
     main path), the kernel rows and the export."""
     import wave
 
@@ -5115,13 +5123,13 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     mimo_seed = {k: state[k].cpu() for k in mimo_names}  # bf16, exact in f32
     del model, state
     torch.cuda.empty_cache()
-    secs = run_cli("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+    secs = run_main("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
                    ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
                     config, "--model_type", "kimi_audio"], failures, "kimi sft stage 1")
     step0 = exp / "checkpoint" / "step_0"
     stage1_s = time.perf_counter() - t0
     print(f"  stage 1: HF seed (random bf16 weights, seed {SEED + 50}) {n_bytes} bytes; "
-          f"convert_hf_to_ckpt --model_type kimi_audio (subprocess) -> step_0, "
+          f"convert_hf_to_ckpt --model_type kimi_audio (in-process main) -> step_0, "
           f"{tree_bytes(step0) if step0.exists() else 0} bytes (f32), in {secs:.2f} s; stage 1 "
           f"{stage1_s:.1f} s")
     shutil.rmtree(hf)  # its tensors are in step_0 now
@@ -5129,7 +5137,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     # stage 2: one run, saving its last step (the trainer's cadence) with the
     # model alone, which stage 3 exports
     counters = kernel_counters()
-    steps, devs, init_bits, sizes = [], [], [], {}
+    steps, devs, init_bits, sizes, check = [], [], [], {}, {}
     real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train)
 
     def counted_step(self, batch, num_sentence):
@@ -5167,7 +5175,8 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
         with count_plain_calls() as plain_calls, timed_saves(train) as saves:
             t0 = time.perf_counter()
             with HostPeak() as host1, model_only_saves(), \
-                    saves_where(lambda step, force: step == KIMI_SFT_STEPS):
+                    saves_where(lambda step, force: step == KIMI_SFT_STEPS), \
+                    first_step_checked(train, SFT_CHECK_SEQLEN, plain_calls, check):
                 first = train.main(kimi_sft_argv(listfile, exp, config, tok_dir, budget, **flags,
                                                  training_profiling_freq=KIMI_SFT_STEPS),
                                    device=dev)
@@ -5204,6 +5213,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
           f"HF tensors upcast to f32 bit for bit: {seeded} {'ok' if seeded else 'FAIL'}")
     if not seeded:
         failures.append("kimi sft: not started from the seed")
+    report_step_check(check, "kimi sft", failures, card)
     ok = tok_same and mimo_err <= 1e-6 and not still
     print(f"  after step {KIMI_SFT_STEPS}: the {len(tok_names)} speech_tokenizer.* tensors "
           f"bit-equal to the seed: {tok_same}; the {len(mimo_names)} mimo tensors (no gradient) "
@@ -5270,7 +5280,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
         failures.append("kimi sft: saves")
 
     # stage 3: the run's last save -> HF, with the tokenizer
-    secs = run_cli("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+    secs = run_main("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
                    ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
                     "kimi_audio", "--tokenizer_model", tok_dir], failures, "kimi sft stage 3")
     export = exp / "checkpoint_hf" / f"step-{KIMI_SFT_STEPS}"
@@ -5281,7 +5291,7 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
     exported = KimiAudioConfig.from_json_file(str(export / "config.json")).to_dict()
     ok = not differ and exported == cfg.to_dict() and (export / "tokenizer.json").exists()
     print(f"  stage 3: convert_ckpt_to_hf --step -1 --config --model_type kimi_audio "
-          f"--tokenizer_model (subprocess) -> {export.name}, {tree_bytes(export)} bytes in "
+          f"--tokenizer_model (in-process main) -> {export.name}, {tree_bytes(export)} bytes in "
           f"{secs:.2f} s; its {len(bits)} tensors equal the final params bit for bit: "
           f"{not differ} (differ in {differ[:5] or 'none'}); config.json round-trips, the "
           f"tokenizer beside it {'ok' if ok else 'FAIL'}")
@@ -5289,29 +5299,604 @@ def run_kimi_sft(dev, card, failures, tmp: Path, lists) -> dict:
         failures.append("kimi sft: export")
     shutil.rmtree(exp / "checkpoint", ignore_errors=True)
 
-    # one step on the kernel path against the plain path: 1 x SFT_CHECK_SEQLEN
-    # tokens of the same shards, no checkpoint, dev pass or offload
-    t0 = time.perf_counter()
-    print(f"  one step at 1 x {SFT_CHECK_SEQLEN} tokens of the same shards, full width, "
-          f"{L} text layers, remat full: kernel vs plain path")
-    check_step(train, lambda dtype: kimi_sft_argv(
-        listfile, tmp / "kimi_sft_chk", config, tok_dir, 8192, dtype,
-        dataset_text_seqlen=SFT_CHECK_SEQLEN, dataloader_num_workers=1,
-        training_enable_ckpt="false", training_enable_tensorboard="false",
-        training_enable_profiling="false", training_enable_cpu_offload="false"),
-        dev, failures, "kimi sft ")
-    check_s = time.perf_counter() - t0
-
     t0 = time.perf_counter()
     k1_rows, k2_rows = kimi_sft_rows(attn, dev, failures, card, steps[0]["rows"])
     rows_s = time.perf_counter() - t0
     print(f"  phase 15: stage 0 {stage0_s:.1f} s{' (shared)' if shared else ''}, stage 1 "
           f"{stage1_s:.1f} s, the run {run1_s:.1f} s, stage 3 "
-          f"{secs:.1f} s, kernel vs plain step {check_s:.1f} s, kernel rows {rows_s:.1f} s, all "
+          f"{secs:.1f} s, kernel rows {rows_s:.1f} s, all "
           f"{time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, peak {peak:.2f} GiB, "
           f"launches {counts}  [{card}]")
     out.update(counts=counts, k1=k1_rows, k2=k2_rows, export=export, split=split)
     return out
+
+
+# -- phase 18: touch_audio's SFT stages 1-3 (examples/audio/sft/asr/wenetspeech/run.sh with
+# model_type touch_audio: the HF seed, the SFT run, the HF export) --
+
+# Touch-Audio-7B's text depth in phase 18, and so in phase 11, which runs its
+# export: 2 of 32 layers. A full-depth step holds 8.0 B parameters x 16
+# bytes (f32 params, gradients and two moments) = 128 GB against the card's
+# 80 (the recipe runs it at dp 8, run.sh:37); at 2 layers the step keeps its
+# width, its vocab-wide embedding and head (1.05 B of the 1.49 B parameters)
+# and its batches, and a checkpoint of the model is 5.95 GB
+TOUCH_SFT_LAYERS, TOUCH_SFT_STEPS = 2, 4
+# step 1's kernel-vs-plain check takes the first rows of its batch that hold
+# this many positions: the plain K3 keeps [N, V] f32 logits and their
+# gradient (2 x 2.1 GB at 4096 rows; at the batch's 16384 rows it ran out of
+# an 80 GB H100's memory beside the run's 23.8 GB of state)
+TOUCH_CHECK_TOKENS = 4096
+# Llama-3's special tokens at their ids (Touch-Audio-7B's backbone is
+# Llama-3-8B-shaped; its tokenizer is not in the repo)
+TOUCH_BOS, TOUCH_EOS = "<|begin_of_text|>", "<|end_of_text|>"
+TOUCH_PAD = "<|finetune_right_pad_id|>"
+TOUCH_SPECIALS = {TOUCH_BOS: 128000, TOUCH_EOS: 128001, TOUCH_PAD: 128004}
+# the card's features: the SFT recipe's log-mel 128 with the default stack 7
+# is 896 wide, Touch-Audio-7B's projector takes 400; fbank 80 x stack 5
+# stride 4 is the audio pretraining recipe's (its run.sh:73-78) and 400 wide
+TOUCH_FEATS = {"audio_feat_type": "fbank", "audiofeat_num_mel_bins": 80,
+               "audiofeat_stack_length": 5, "audiofeat_stride_length": 4}
+
+
+def touch_sft_argv(listfile, exp, config, tok_dir, **extra) -> list:
+    """The recipe's stage-2 flags with model_type touch_audio (sft_argv's,
+    which cut dp 8 -> 1, the steps, sync checkpoints, the log cadence and
+    the loader), and phase 18's: TOUCH_FEATS, TOUCH_SFT_STEPS steps, and the
+    recipe's remat none with the moments on the card (phase 14's full remat
+    and host moments are its cuts for the card's memory); `extra` adds or
+    replaces flags."""
+    return sft_argv(listfile, exp, config, tok_dir, datapipe_type="touch_audio",
+                    training_model_name="touch_audio",
+                    training_description="wenetspeech asr sft (touch_audio)",
+                    training_activation_checkpoint_mode="none",
+                    training_enable_cpu_offload="false", lr_scheduler_steps=TOUCH_SFT_STEPS,
+                    **TOUCH_FEATS, **extra)
+
+
+def step_check(trainer, batch, num_sentence: float, tokens: int) -> dict:
+    """One step's loss, grad norm and gradients on the first rows of
+    `batch` (as many as hold `tokens` positions, at least one; a row a
+    sentence, as the dynamic batchers make them) and the trainer's weights,
+    no update: in f32 on the plain path (plain_kernels), the reference, then
+    on the trainer's own path and the plain path in its compute dtype and on
+    its own path in f32. Returns {name: (loss, grad norm)} for "f32 plain",
+    "kernel", "plain" and "f32 kernel", and {"e_" + name}: the gradients'
+    relative L2 distance to the f32 plain path's (each pass's gradients are
+    dropped once compared). .grad is cleared; the kernel launches of the
+    comparison are taken back off their counts."""
+    from touchnet_tpu_torch.utils.optimizer import global_grad_norm
+
+    rows = max(1, tokens // batch["labels"].shape[1])
+    sub = {k: (v[:rows] if torch.is_tensor(v) else v) for k, v in batch.items()}
+    counters = kernel_counters()
+    launched = {k: c.launches for k, c in counters.items()}
+    out, ref = {"rows": rows, "T": batch["labels"].shape[1]}, None
+    saved = trainer.compute_dtype
+    for name, dtype, route in (("f32 plain", torch.float32, plain_kernels),
+                               ("kernel", saved, contextlib.nullcontext),
+                               ("plain", saved, plain_kernels),
+                               ("f32 kernel", torch.float32, contextlib.nullcontext)):
+        trainer.compute_dtype = dtype
+        try:
+            with route():
+                grads, loss, _, _ = trainer._grads_and_metrics(sub, min(num_sentence, rows))
+        finally:
+            trainer.compute_dtype = saved
+        for p in trainer.params:
+            p.grad = None
+        out[name] = (loss.item(), global_grad_norm(grads).item())
+        if ref is None:
+            ref = grads
+        else:
+            out["e_" + name] = grads_rel_l2(grads, ref)
+        del grads
+    for k, c in counters.items():
+        c.launches = launched[k]
+    return out
+
+
+@contextlib.contextmanager
+def first_step_checked(train, tokens: int, plain_calls: dict, check: dict):
+    """While open, a Trainer's first train_step runs step_check on its batch
+    first (`check` gets the result and the peak memory it took); the plain
+    versions' calls it makes are taken back off `plain_calls`, which
+    count_plain_calls keeps for the run."""
+    real = train.Trainer.train_step
+
+    def train_step(self, batch, num_sentence):
+        if not check:
+            seen = dict(plain_calls)
+            torch.cuda.reset_peak_memory_stats()
+            check.update(step_check(self, batch, num_sentence, tokens))
+            check["peak"] = torch.cuda.max_memory_allocated() / 2**30
+            plain_calls.clear()
+            plain_calls.update(seen)
+        return real(self, batch, num_sentence)
+
+    train.Trainer.train_step = train_step
+    try:
+        yield
+    finally:
+        train.Trainer.train_step = real
+
+
+def report_step_check(check: dict, what: str, failures, card) -> None:
+    """step_check's result under phase 8's limits: f32 kernel against f32
+    plain (STEP_F32_*), and the run's dtype held to the f32 plain path (its
+    loss within STEP_BF16_LOSS, its gradients' error at most
+    STEP_BF16_RATIO times the plain path's in that dtype) with its grad norm
+    within STEP_F16_GNORM of that plain path's."""
+    if not check:
+        print(f"  {what}: no kernel-vs-plain check ran FAIL")
+        failures.append(f"{what}: kernel vs plain step")
+        return
+    (fl, fn), (kl, kn), (pl, pn), (f32l, f32n) = (
+        check[k] for k in ("f32 plain", "kernel", "plain", "f32 kernel"))
+    ok32 = (abs(f32l - fl) / abs(fl) <= STEP_F32_LOSS and abs(f32n - fn) / fn <= STEP_F32_GNORM
+            and check["e_f32 kernel"] <= STEP_F32_GRADS)
+    e_n = abs(kn - pn) / pn
+    ok = (ok32 and abs(kl - fl) <= STEP_BF16_LOSS and math.isfinite(kn) and e_n <= STEP_F16_GNORM
+          and check["e_kernel"] <= STEP_BF16_RATIO * check["e_plain"])
+    print(f"  {what}: step 1's first {check['rows']} rows x {check['T']} and its weights before "
+          f"the update, kernel path vs plain path (phase 8's limits): f32 loss {f32l:.6f} vs "
+          f"{fl:.6f} (rel {abs(f32l - fl) / abs(fl):.2e} <= {STEP_F32_LOSS:.0e}), grad norm "
+          f"{f32n:.6f} vs {fn:.6f} (rel {abs(f32n - fn) / fn:.2e} <= {STEP_F32_GNORM:.0e}), "
+          f"gradients rel L2 {check['e_f32 kernel']:.2e} (<= {STEP_F32_GRADS:.0e}); bf16 loss "
+          f"kernel {kl:.6f}, plain {pl:.6f} (|kernel - f32 plain| {abs(kl - fl):.2e} <= "
+          f"{STEP_BF16_LOSS:.0e}), grad norm {kn:.6f} vs {pn:.6f} (rel {e_n:.2e} <= "
+          f"{STEP_F16_GNORM:.0e}), gradients rel L2 vs f32 plain: kernel "
+          f"{check['e_kernel']:.3e}, plain {check['e_plain']:.3e} (kernel <= "
+          f"{STEP_BF16_RATIO}x plain); peak {check['peak']:.2f} GiB {'ok' if ok else 'FAIL'}  "
+          f"[{card}]")
+    if not ok:
+        failures.append(f"{what}: kernel vs plain step")
+
+
+def grads_rel_l2(got: list, want: list) -> float:
+    """Relative L2 distance of two gradient lists as one vector."""
+    num = sum(((g.float() - w.float()) ** 2).sum() for g, w in zip(got, want) if w is not None)
+    den = sum((w.float() ** 2).sum() for w in want if w is not None)
+    return math.sqrt(float(num) / float(den))
+
+
+def run_touch_sft(dev, card, failures, tmp: Path, lists) -> dict:
+    """Phase 18: stages 1-3 of the SFT recipe with model_type touch_audio on
+    one card, Touch-Audio-7B at full width (E 4096, H 32/8, D 128, MLP 14336,
+    V 128256, the projector from 400) and TOUCH_SFT_LAYERS of its 32 text
+    layers: stage 0 is phase 14's (`lists`: the same audio+metainfo shards
+    and dev list); stage 1, an HF text backbone of seeded random bf16
+    weights with its own lm_head through convert_hf_to_ckpt --model_type
+    touch_audio to step_0 (the language model at init equal to the HF
+    tensors upcast, bit for bit; the projector the converter's draw);
+    stage 2, bin.train.main with the recipe's flags (touch_sft_argv: the
+    touch_audio datapipe's dynamic batches of right-padded rows under 2 x
+    8192 tokens, K3 under --training_enable_liger_kernel true), each step
+    launching K1 L, K2 L and K3 once each way; step 1's loss, grad norm and
+    gradients against the plain path in bf16 and in f32 on the first rows
+    of its batch and its weights before the update (step_check), under
+    phase 8's bf16 limits; one save, at
+    the last step, holding the model alone; stage 3, convert_ckpt_to_hf
+    --tokenizer_model: the export equals the final params bit for bit.
+    Returns the run's launches and the export."""
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.models.llama import convert as llama_convert
+    from touchnet_tpu_torch.models.llama import modeling_llama
+    from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+        TouchAudioConfig,
+    )
+    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import (
+        get_num_params,
+        kaiming_uniform_init,
+    )
+    from touchnet_tpu_torch.utils.safetensors_io import read_safetensors, write_safetensors
+
+    t_phase = time.perf_counter()
+    raw = json.loads(ASR_CONFIG.read_text())
+    full = raw["text_config"]["num_hidden_layers"]
+    L = raw["text_config"]["num_hidden_layers"] = min(TOUCH_SFT_LAYERS, full)
+    config = tmp / "touch_sft_config.json"
+    config.write_text(json.dumps(raw))
+    cfg = TouchAudioConfig.from_json_file(str(config))
+    tc = cfg.text_config
+    n_params = get_num_params(cfg)
+    listfile, devlist = lists
+    free = shutil.disk_usage(tmp).free
+    print(f"[18] touch_audio SFT, stages 1-3 (examples/audio/sft/asr/wenetspeech/run.sh with "
+          f"model_type touch_audio) on one card: {ASR_CONFIG.relative_to(HERE)} at full width "
+          f"(E={tc.hidden_size} H={tc.num_attention_heads}/{tc.num_key_value_heads} "
+          f"D={tc.head_dim} MLP={tc.intermediate_size} V={tc.vocab_size}, untied head; projector "
+          f"from {cfg.audio_config.input_size}), text depth CUT {full} -> {L}; {n_params:,} "
+          f"params; step_0 and the model's save {4 * n_params / 1e9:.2f} GB each, the HF seed "
+          f"{2 * (n_params - tc.hidden_size * cfg.audio_config.input_size) / 1e9:.2f} GB; temp "
+          f"dir {free / 1e9:.2f} GB free")
+    print(f"  cuts: dp 8 -> 1 (one card); text layers {full} -> {L} (a full-depth step holds "
+          f"{get_num_params(TouchAudioConfig.from_json_file(str(ASR_CONFIG))) * 16 / 1e9:.1f} GB "
+          f"of f32 params, gradients and moments against the card's 80); features log-mel 128 "
+          f"x stack 7 (896 wide, the projector takes 400) -> fbank 80 x stack 5 stride 4 (the "
+          f"audio pretraining recipe's, 400 wide); {TOUCH_SFT_STEPS} steps of 30000, warmup 2 "
+          f"of 1000; loader 12 workers, prefetch 12 -> {SFT_WORKERS}, {SFT_WORKERS}; "
+          f"checkpoints sync, one save, at the last step, holding the model alone (stage 3 "
+          f"reads nothing else); log every step (100); stage 0 the shards and dev list of "
+          f"phase 14 (shared)")
+
+    # stage 1: an HF text backbone of seeded random bf16 weights -> step_0
+    t0 = time.perf_counter()
+    exp, hf = tmp / "touch_sft_exp", tmp / "touch_sft_hf"
+    hf.mkdir()
+    lm = modeling_llama.init_params(tc, torch.Generator(device=dev).manual_seed(SEED + 60),
+                                    torch.bfloat16, dev)
+    state = llama_convert.params_to_hf_state_dict(tc, lm.state_dict())
+    n_bytes = write_safetensors(state, str(hf / "model.safetensors"))
+    (hf / "config.json").write_text(json.dumps(llama_convert.hf_config_dict(tc, "bfloat16")))
+    seed_bits = bits_checksums({f"language_model.{k}": v.float() for k, v in state.items()})
+    # the converter draws the projector from torch.Generator().manual_seed(0)
+    seed_bits.update(bits_checksums({"projector.weight": kaiming_uniform_init(
+        torch.Generator().manual_seed(0), (tc.hidden_size, cfg.audio_config.input_size))}))
+    del lm, state
+    torch.cuda.empty_cache()
+    secs = run_main("touchnet_tpu_torch.bin.convert_hf_to_ckpt",
+                   ["--ckpt_dir", exp, "--huggingface_model", hf, "--training_model_config_path",
+                    config, "--model_type", "touch_audio"], failures, "touch sft stage 1")
+    step0 = exp / "checkpoint" / "step_0"
+    stage1_s = time.perf_counter() - t0
+    print(f"  stage 1: HF text backbone (random bf16 weights, seed {SEED + 60}, lm_head apart "
+          f"from the embedding) {n_bytes} bytes; convert_hf_to_ckpt --model_type touch_audio "
+          f"(in-process main) -> step_0, {tree_bytes(step0) if step0.exists() else 0} bytes (f32), "
+          f"in {secs:.2f} s; stage 1 {stage1_s:.1f} s")
+    shutil.rmtree(hf)  # its tensors are in step_0 now
+    tok_dir = write_char_tokenizer(tmp / "touch_sft_tokenizer", tc.vocab_size, TOUCH_SPECIALS,
+                                   TOUCH_EOS, bos=TOUCH_BOS, pad=TOUCH_PAD)
+
+    # stage 2: one run, whose last save holds the model alone
+    counters = kernel_counters()
+    steps, devs, init_bits, check = [], [], [], {}
+    real = (train.Trainer.train_step, train.Trainer.dev, train.Trainer.train)
+
+    def counted_step(self, batch, num_sentence):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.reset_peak_memory_stats()
+        res = real[0](self, batch, num_sentence)
+        steps.append({"launches": {k: c.launches - before[k] for k, c in counters.items()},
+                      "rows": batch["input_features"].shape[0],
+                      "T": batch["input_features"].shape[1],
+                      "padded": int((batch["attention_mask"] == 0).sum()),
+                      "peak": torch.cuda.max_memory_allocated() / 2**30})
+        return res
+
+    def counted_dev(self):
+        before = {k: c.launches for k, c in counters.items()}
+        real[1](self)
+        devs.append({k: c.launches - before[k] for k, c in counters.items()})
+
+    def checked_train(self):
+        init_bits.append(bits_checksums(self.model.state_dict()))
+        # the init has read step_0: off the disk with it
+        shutil.rmtree(exp / "checkpoint" / f"step_{self.step}")
+        return real[2](self)
+
+    train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = (
+        counted_step, counted_dev, checked_train)
+    torch.cuda.empty_cache()
+    try:
+        # the main path: every launch count is zeroed here and read after it
+        for c in counters.values():
+            c.launches = 0
+        with count_plain_calls() as plain_calls, timed_saves(train) as saves, \
+                saves_where(lambda step, force: force), model_only_saves(), \
+                first_step_checked(train, TOUCH_CHECK_TOKENS, plain_calls, check):
+            t0 = time.perf_counter()
+            run = train.main(touch_sft_argv(listfile, exp, config, tok_dir,
+                                            datalist_dev_path=devlist), device=dev)
+            run_s = time.perf_counter() - t0
+    finally:
+        train.Trainer.train_step, train.Trainer.dev, train.Trainer.train = real
+    counts = {k: c.launches for k, c in counters.items()}
+    hist = run.metrics_processor.history
+    dev_hist = run.metrics_processor.dev_history
+    final = bits_checksums(run.model.state_dict())
+    del run
+    free_caches()  # page-cache room for stage 3's read-back of the export
+
+    seeded = bool(init_bits) and init_bits[0] == seed_bits
+    print(f"  stage 2 starts from step_0: the params at init ({len(seed_bits)} tensors) equal the "
+          f"HF tensors upcast to f32 and the converter's projector, bit for bit: {seeded} "
+          f"{'ok' if seeded else 'FAIL'}")
+    if not seeded:
+        failures.append("touch sft: not started from the seed")
+    report_step_check(check, "touch sft", failures, card)
+    losses = [h["loss/per_sample"] for h in hist]
+    # the model's work over every position a step computes (the metrics
+    # line's tokens/s and MFU count label tokens only, as the reference's)
+    per_pos = 6 * get_num_params(cfg, exclude_embedding=True)
+    for h, s in zip(hist, steps):
+        la = s["launches"]
+        pos = s["rows"] * s["T"]
+        tflop = pos * (per_pos + 12 * L * tc.num_attention_heads * tc.head_dim * s["T"]) / 1e12
+        print(f"  step {h['step']}: loss {h['loss/per_sample']:.4f}, {h['time/step_s'] * 1e3:.1f} "
+              f"ms, {h['throughput/tps']:,.0f} label tokens/s, MFU "
+              f"{h.get('throughput/mfu_pct', float('nan')):.3f}% (the metrics line's); over all "
+              f"{pos} positions {tflop:.1f} TFLOP ({tflop / h['time/step_s']:.1f} TFLOP/s, "
+              f"{100 * tflop / h['time/step_s'] / (PEAK_BF16_FLOPS / 1e12):.1f}% of the bf16 "
+              f"peak); peak {s['peak']:.2f} GiB; data wait {h['time/data_loading_pct']:.1f}%; "
+              f"{s['rows']} rows x {s['T']} ({s['padded']} padded positions); launches K1 "
+              f"{la['K1']} K2 {la['K2']} K3 {la['K3 fwd']}+{la['K3 bwd']}  [{card}]")
+    want_step = {"K1": L, "K2": L, "K3 fwd": 1, "K3 bwd": 1}
+    ok = (len(steps) == TOUCH_SFT_STEPS and all(s["launches"] == want_step for s in steps)
+          and len(devs) == 1 and devs[0]["K1"] > 0 and devs[0]["K1"] % L == 0
+          and devs[0]["K3 fwd"] == devs[0]["K1"] // L and devs[0]["K2"] == devs[0]["K3 bwd"] == 0
+          and not plain_calls and len(losses) == TOUCH_SFT_STEPS
+          and all(math.isfinite(x) for x in losses))
+    print(f"  launches a step (remat none): want K1 {L}, K2 {L}, K3 1 + 1 (the touch_audio "
+          f"TrainSpec has a head weight: liger on runs K3, as the JAX trainer's fused loss); "
+          f"dev pass {devs}; over the run {counts}; plain versions called in the run: "
+          f"{plain_calls or 'none'}; losses finite {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("touch sft: launches / losses")
+    # steps 2 to the last but one: no check, save, dev pass or set-up in them
+    timed = hist[1:TOUCH_SFT_STEPS - 1]
+    step_ms = statistics.median(h["time/step_s"] for h in timed) * 1e3
+    tps = statistics.median(h["throughput/tps"] for h in timed)
+    mfu = statistics.median(h.get("throughput/mfu_pct", float("nan")) for h in timed)
+    wait = statistics.median(h["time/data_loading_pct"] for h in timed)
+    ckpt = tree_bytes(exp / "checkpoint" / f"step_{TOUCH_SFT_STEPS}")
+    ok = sorted(saves) == [TOUCH_SFT_STEPS]
+    print(f"  step {step_ms:.1f} ms, {tps:,.0f} label tokens/s, MFU {mfu:.3f}%, data wait "
+          f"{wait:.1f}% (medians of steps 2-{TOUCH_SFT_STEPS - 1}); peak "
+          f"{max(s['peak'] for s in steps[1:]):.2f} "
+          f"GiB allocated (step 1 {steps[0]['peak']:.2f}); rows a batch "
+          f"{[s['rows'] for s in steps]}; dev line "
+          f"{[(d['step'], round(d['loss_per_sample'], 4)) for d in dev_hist]}; the last save "
+          "(sync, the model alone), the loop blocked " +
+          ", ".join(f"{ms:.1f} ms ({ckpt} bytes in {w:.2f} s)"
+                    for _, (ms, w) in sorted(saves.items()))
+          + f"; the run {run_s:.1f} s {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("touch sft: saves")
+
+    # stage 3: the run's last save -> HF, with the tokenizer (run.sh:144-152)
+    t0 = time.perf_counter()
+    secs = run_main("touchnet_tpu_torch.bin.convert_ckpt_to_hf",
+                   ["--ckpt_dir", exp, "--step", -1, "--config", config, "--model_type",
+                    "touch_audio", "--tokenizer_model", tok_dir], failures, "touch sft stage 3")
+    shutil.rmtree(exp / "checkpoint", ignore_errors=True)
+    export = exp / "checkpoint_hf" / f"step-{TOUCH_SFT_STEPS}"
+    tensors = read_safetensors(str(export / "model.safetensors"))
+    bits = bits_checksums(tensors)
+    del tensors
+    differ = sorted(k for k in final if bits.get(k) != final[k]) + sorted(set(bits) - set(final))
+    exported = TouchAudioConfig.from_json_file(str(export / "config.json")).to_dict()
+    ok = not differ and exported == cfg.to_dict() and (export / "tokenizer.json").exists()
+    stage3_s = time.perf_counter() - t0
+    print(f"  stage 3: convert_ckpt_to_hf --step -1 --config --model_type touch_audio "
+          f"--tokenizer_model (in-process main) -> {export.name}, {tree_bytes(export)} bytes in "
+          f"{secs:.2f} s; its {len(bits)} tensors reload equal to the final params bit for bit: "
+          f"{not differ} (differ in {differ[:5] or 'none'}); config.json round-trips, the "
+          f"tokenizer beside it {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("touch sft: export")
+    print(f"  phase 18: stage 1 {stage1_s:.1f} s, stage 2 {run_s:.1f} s, stage 3 {stage3_s:.1f} "
+          f"s, all {time.perf_counter() - t_phase:.1f} s; step {step_ms:.1f} ms, launches "
+          f"{counts}  [{card}]")
+    return {"counts": counts, "export": export}
+
+
+# -- phase 18b: the ASR closed loop (tests/touchnet_tpu/bin/test_task_metric_loop.py: the SFT
+# recipe's stages 0-4 on a tone language, each character a pure tone) --
+
+TONE_CHARS = "一二三四五六"
+TONE_HZ = (400, 650, 900, 1150, 1400, 1650)
+LOOP_STEPS, LOOP_TRAIN, LOOP_TEST = 200, 96, 8
+# JAX's margins (test_task_metric_loop.py:228-232): the seed's weights
+# transcribe held-out tones at a CER of at least 60, the trained ones at 50
+# or less and below half the seed's
+LOOP_CER0_MIN, LOOP_CER_MAX = 60.0, 50.0
+
+
+def synth_tone(text: str, rng, seconds: float = 0.3) -> np.ndarray:
+    """`seconds` of each character's tone, light noise, int16 PCM
+    (test_task_metric_loop._synth)."""
+    segs = [0.3 * np.sin(2 * np.pi * TONE_HZ[TONE_CHARS.index(ch)]
+                         * np.arange(int(SR * seconds)) / SR) for ch in text]
+    wav = np.concatenate(segs) if segs else np.zeros(0)
+    wav = wav + rng.standard_normal(wav.shape) * 0.005
+    return (wav * 32767 * 0.5).astype(np.int16)
+
+
+def tone_jsonl(root: Path, n: int, rng, prefix: str, extra=(), chars=(3, 6),
+               seconds=(0.3, 0.3)) -> str:
+    """n utterances of chars[0] to chars[1] - 1 distinct characters with
+    their tones of seconds[0]-seconds[1] a character (the defaults and the
+    draws' order are test_task_metric_loop._make_jsonl's: the same rng gives
+    JAX's utterances), then `extra` (key, seconds, text) ones sounding the
+    first character (silence without text), under root with a jsonl of
+    {key, wav, txt} lines; returns the jsonl's path."""
+    from scipy.io import wavfile
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    utts = []
+    for i in range(n):
+        k = rng.integers(*chars)
+        text = "".join(TONE_CHARS[j] for j in rng.permutation(len(TONE_CHARS))[:k])
+        secs = seconds[0] if seconds[0] == seconds[1] else rng.uniform(*seconds)
+        utts.append((f"{prefix}{i}", synth_tone(text, rng, secs), text))
+    for key, secs, text in extra:
+        wav = synth_tone(TONE_CHARS[0], rng, secs) if text else np.zeros(int(SR * secs), np.int16)
+        utts.append((f"{prefix}{key}", wav, text))
+    with open(root / "data.jsonl", "w", encoding="utf8") as f:
+        for key, wav, text in utts:
+            wavfile.write(root / f"{key}.wav", SR, wav)
+            f.write(json.dumps({"key": key, "wav": str(root / f"{key}.wav"), "txt": text},
+                               ensure_ascii=False) + "\n")
+    return str(root / "data.jsonl")
+
+
+def tone_tokenizer_dir(root: Path) -> str:
+    """The closed loop's hermetic char-level HF tokenizer
+    (test_task_metric_loop._char_tokenizer_dir): [PAD] 0, [BOS] 1, [EOS] 2,
+    [UNK] 3, then the tone characters."""
+    from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers
+    from transformers import PreTrainedTokenizerFast
+
+    vocab = {"[PAD]": 0, "[BOS]": 1, "[EOS]": 2, "[UNK]": 3}
+    for ch in TONE_CHARS:
+        vocab[ch] = len(vocab)
+    tok = Tokenizer(models.WordLevel(vocab=vocab, unk_token="[UNK]"))
+    tok.pre_tokenizer = pre_tokenizers.Split(Regex("."), behavior="isolated")
+    tok.decoder = decoders.Fuse()
+    PreTrainedTokenizerFast(tokenizer_object=tok, pad_token="[PAD]", bos_token="[BOS]",
+                            eos_token="[EOS]", unk_token="[UNK]").save_pretrained(root)
+    return str(root)
+
+
+def decode_and_score(model_dir, config, test_jsonl, tok_dir, work: Path, tag: str,
+                     device) -> tuple:
+    """Stage 4 on the port (test_task_metric_loop._decode_and_score): the
+    touch_audio CLI at JAX's flags (batch 8, 8 new tokens), the part file's
+    ref and hyp through textnorm_zh with the recipe's flags, then
+    error_rate_zh's char CER. Returns (CER, stats)."""
+    from touchnet_tpu_torch.bin.error_rate_zh import score_pairs
+    from touchnet_tpu_torch.bin.textnorm_zh import main as textnorm_main
+    from touchnet_tpu_torch.models.touch_audio.inference_touch_audio import main as infer_main
+
+    part = infer_main(["--model_path", str(model_dir), "--training_model_config_path",
+                       str(config), "--data_list", str(test_jsonl), "--output_dir",
+                       str(work / f"out_{tag}"), "--batch_size", "8", "--max_length", "8",
+                       "--tokenizer_type", "HuggingFaceTokenizer", "--tokenizer_model", tok_dir],
+                      device=device)
+    raw = {"ref": work / f"ref_{tag}", "hyp": work / f"hyp_{tag}"}
+    with open(part, encoding="utf8") as f, open(raw["ref"], "w", encoding="utf8") as rf, \
+            open(raw["hyp"], "w", encoding="utf8") as hf:
+        for line in f:
+            r = json.loads(line)
+            rf.write(f"{r['key']}\t{r['txt']}\n")
+            hf.write(f"{r['key']}\t{r['hyp']}\n")
+    texts = {}
+    for side, path in raw.items():
+        textnorm_main(["--to_upper", "--to_banjiao", "--remove_fillers", "--remove_erhua",
+                       "--format", "ark", str(path), f"{path}.norm"])
+        texts[side] = {}
+        for line in open(f"{path}.norm", encoding="utf8"):
+            key, _, text = line.rstrip("\n").partition("\t")
+            texts[side][key] = text
+    return score_pairs([(k, r, texts["hyp"].get(k, "")) for k, r in texts["ref"].items()],
+                       tokenizer="char")
+
+
+def closed_loop(tmp: Path, config, device, steps: int = LOOP_STEPS) -> dict:
+    """JAX's closed loop through the port's entry points at world 1 (JAX's
+    test runs dp_shard 4 x tp 2): bin.make_data over LOOP_TRAIN tone
+    utterances; packed touch_audio SFT for `steps` steps with JAX's flags
+    (1 x 256, f32, lr 5e-3, warmup 10, no augmentation, the full-logits
+    loss: the flags leave liger off); convert_ckpt_to_hf; then
+    decode_and_score of LOOP_TEST held-out utterances on the seed's weights
+    (the trainer's own init from training_seed 0) and on the trained
+    export. Returns {"cer0", "stats0", "cer", "stats", "train_s", "losses"}."""
+    from touchnet_tpu_torch.bin import convert_ckpt_to_hf
+    from touchnet_tpu_torch.bin import train
+    from touchnet_tpu_torch.bin.make_data import main as make_data
+    from touchnet_tpu_torch.models.touch_audio import convert
+    from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+        TouchAudioConfig,
+    )
+    from touchnet_tpu_torch.models.touch_audio.modeling_touch_audio import init_params
+    from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
+
+    rng = np.random.default_rng(0)
+    tok_dir = tone_tokenizer_dir(tmp / "tok")
+    train_jsonl = tone_jsonl(tmp / "train", LOOP_TRAIN, rng, "tr")
+    test_jsonl = tone_jsonl(tmp / "test", LOOP_TEST, rng, "te")
+    make_data(["--save_dir", str(tmp / "shards"), "--jsonl_path", train_jsonl,
+               "--num_utt_per_shard", "4", "--num_workers", "1", "--datatypes",
+               "audio+metainfo"])
+    exp = tmp / "exp"
+    args = {
+        "tokenizer_type": "HuggingFaceTokenizer", "tokenizer_model": tok_dir,
+        "datapipe_type": "touch_audio", "dataset_enable_pack": "true",
+        "datalist_path": tmp / "shards" / "data.list", "datalist_epoch": 10000,
+        "dataset_batchsize": 1, "dataset_audio_seqlen": 256, "dataset_text_seqlen": 256,
+        "audio_min_length_in_ms_for_filter": 10, "audio_speed_perturb": "false",
+        "audiofeat_spec_aug": "false", "audiofeat_spec_sub": "false",
+        "dataloader_num_workers": 1, "training_model_name": "touch_audio",
+        "training_model_config_path": config, "training_trace_dump_folder": exp,
+        "training_log_freq": 50, "training_seed": 0,
+        "training_mixed_precision_param": "float32",
+        "training_activation_checkpoint_mode": "none", "training_enable_ckpt": "true",
+        "training_ckpt_interval": steps, "lr_scheduler_steps": steps,
+        "lr_scheduler_warmup_steps": 10, "optimizer_lr": 5e-3,
+    }
+    t0 = time.perf_counter()
+    trainer = train.main([x for k, v in args.items() for x in (f"--{k}", str(v))],
+                         device=device)
+    train_s = time.perf_counter() - t0
+    if trainer.step != steps:
+        raise RuntimeError(f"closed loop: the run ended at step {trainer.step} of {steps}")
+    losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
+    del trainer
+    trained = convert_ckpt_to_hf.main(["--ckpt_dir", str(exp), "--step", str(steps),
+                                       "--config", str(config), "--model_type", "touch_audio"])
+    mcfg = TouchAudioConfig.from_json_file(str(config))
+    seed = init_params(mcfg, torch.Generator(device=device).manual_seed(0), torch.float32, device)
+    step0 = tmp / "hf_step0"
+    step0.mkdir()
+    write_safetensors({k: v.cpu() for k, v in
+                       convert.params_to_hf_state_dict(mcfg, seed.state_dict()).items()},
+                      str(step0 / "model.safetensors"))
+    cer0, stats0 = decode_and_score(step0, config, test_jsonl, tok_dir, tmp, "step0", device)
+    cer, stats = decode_and_score(trained, config, test_jsonl, tok_dir, tmp, "trained", device)
+    return {"cer0": cer0, "stats0": stats0, "cer": cer, "stats": stats, "train_s": train_s,
+            "losses": losses}
+
+
+def loop_config(root: Path) -> Path:
+    """Phase 18b's model: tests/assets/config/tiny_touch_audio.json with its
+    width (E 64) in one head of 64 (H 1/1, D 64: K1 and K4 take D 64 and
+    128, the tiny config's 16 they refuse); input 161, V 64, 2 layers and
+    MLP 128 as there. Written under root."""
+    raw = json.loads((HERE / "tests/assets/config/tiny_touch_audio.json").read_text())
+    raw["text_config"].update(num_attention_heads=1, num_key_value_heads=1)
+    path = root / "loop_config.json"
+    path.write_text(json.dumps(raw))
+    return path
+
+
+def run_closed_loop(dev, card, failures, tmp: Path) -> dict:
+    """Phase 18b: closed_loop on the card at loop_config's model (f32, as
+    JAX's), printing the config, the seconds, both CERs and the launches;
+    fails unless JAX's margins hold. K1, K2 and K4 run their f32 bodies
+    (JAX's flags leave liger off: K3 does not run). Returns the launches."""
+    from touchnet_tpu_torch.ops import attention as attn
+    from touchnet_tpu_torch.ops import decode_attention as dec
+    from touchnet_tpu_torch.ops import fused_ce
+
+    t0 = time.perf_counter()
+    config = loop_config(tmp)
+    print(f"[18b] the ASR closed loop (tests/touchnet_tpu/bin/test_task_metric_loop.py) through "
+          f"the port's entry points: {LOOP_TRAIN} training and {LOOP_TEST} test utterances of "
+          f"the tone language, make_data, packed touch_audio SFT for {LOOP_STEPS} steps with "
+          f"JAX's flags (f32, 1 x 256, lr 5e-3), convert_ckpt_to_hf, the CLI, textnorm_zh and "
+          f"error_rate_zh on the seed's weights and the trained ones; world 1 (JAX's: dp_shard "
+          f"4 x tp 2); the model {config.read_text()} (the tiny config's width in one head of "
+          f"64: K1 and K4 take D 64 and 128)")
+    counters = {"K1": attn.flash_attention, "K2": attn.flash_attention_bwd,
+                "K3 fwd": fused_ce.fused_ce_fwd, "K3 bwd": fused_ce.fused_ce_bwd,
+                "K4": dec.decode_attention}
+    # the main path: every launch count is zeroed here and read after it
+    for c in counters.values():
+        c.launches = 0
+    out = closed_loop(tmp, config, dev)
+    counts = {k: c.launches for k, c in counters.items()}
+    cer0, cer = out["cer0"], out["cer"]
+    ok = (out["stats0"]["utts"] == out["stats"]["utts"] == LOOP_TEST and cer0 >= LOOP_CER0_MIN
+          and cer <= LOOP_CER_MAX and cer < cer0 / 2 and counts["K1"] > 0 and counts["K2"] > 0
+          and counts["K4"] > 0)
+    print(f"  CER on the seed's weights {cer0:.2f} (>= {LOOP_CER0_MIN:.0f}), trained "
+          f"{cer:.2f} (<= {LOOP_CER_MAX:.0f} and < half the seed's); losses every 50 steps "
+          f"{[round(x, 4) for x in out['losses']]}; training {out['train_s']:.1f} s; launches "
+          f"{counts}; phase {time.perf_counter() - t0:.1f} s {'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        failures.append("closed loop: margins / launches")
+    return counts
 
 
 def profile_group(kernel: str) -> str:
@@ -5606,17 +6191,17 @@ def tune(_build, dev, card) -> int:
 
 
 def run_audio_phases(dev, card, failures) -> tuple:
-    """Phases 10, 11, 14, 12, 15 and 13, in this order: 10 and 11 each in a
+    """Phases 10, 14, 12, 15, 13, 18, 11 and 18b, in this order: 10 in a
     temporary directory of its own, the SFT recipe's chains in one: 14
     (qwen2_audio's stages 0-3), 12 (its stage 4 on 14's export, once the
-    checkpoints are gone), then 15 (kimi_audio's stages 1-3 on 14's stage-0
-    shards, once 14's export is gone) and 13 (its stage 4 on 15's export).
-    Returns their launch counts and the kernel rows of phases 12-15."""
+    checkpoints are gone), 15 (kimi_audio's stages 1-3 on 14's stage-0
+    shards, once 14's export is gone), 13 (its stage 4 on 15's export), 18
+    (touch_audio's stages 1-3 on the same shards, once 15's export is gone)
+    and 11 (its stage 4 on 18's export); then 18b, the closed loop, in a
+    directory of its own. Returns their launch counts and the kernel rows
+    of phases 12-15."""
     with phase_clock("phase 10"), tempfile.TemporaryDirectory() as tmp:
         audio_counts = run_audio_recipe(dev, card, failures, Path(tmp))
-    torch.cuda.empty_cache()
-    with phase_clock("phase 11"), tempfile.TemporaryDirectory() as tmp:
-        asr_counts = run_asr_cli(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         with phase_clock("phase 14"):
@@ -5633,14 +6218,25 @@ def run_audio_phases(dev, card, failures) -> tuple:
         with phase_clock("phase 13"):
             kimi_counts, k1_kimi, k4_kimi = run_kimi_cli(dev, card, failures, Path(tmp),
                                                          kimi_sft["export"])
+            shutil.rmtree(Path(tmp) / "kimi_sft_exp", ignore_errors=True)  # the disk, for 18
+        torch.cuda.empty_cache()
+        with phase_clock("phase 18"):
+            touch = (run_touch_sft(dev, card, failures, Path(tmp), sft["lists"])
+                     if sft["lists"] is not None else {"counts": {}, "export": None})
+        torch.cuda.empty_cache()
+        with phase_clock("phase 11"):
+            asr_counts = run_asr_cli(dev, card, failures, Path(tmp), touch["export"])
+    torch.cuda.empty_cache()
+    with phase_clock("phase 18b"), tempfile.TemporaryDirectory() as tmp:
+        loop_counts = run_closed_loop(dev, card, failures, Path(tmp))
     torch.cuda.empty_cache()
     for rows in (k1_kimi, sft["k1"], kimi_sft["k1"]):
         k1_rows.update(rows)
     k4_rows.update(k4_kimi)
     return {"audio recipe": audio_counts, "ASR CLI": asr_counts, "qwen2_audio ASR": qwen2_counts,
             "kimi_audio ASR": kimi_counts, "qwen2_audio SFT": sft["counts"],
-            "kimi_audio SFT": kimi_sft["counts"]}, k1_rows, {**sft["k2"], **kimi_sft["k2"]}, \
-        k4_rows
+            "kimi_audio SFT": kimi_sft["counts"], "touch_audio SFT": touch["counts"],
+            "closed loop": loop_counts}, k1_rows, {**sft["k2"], **kimi_sft["k2"]}, k4_rows
 
 
 def kernels_line(counts, k1, k2, k3, k4) -> dict:
@@ -5754,24 +6350,29 @@ def main() -> int:
     audio_counts = paths["audio recipe"]
     for name in ("K1", "K2", "K3 fwd", "K3 bwd"):
         for path, got in (("training", train_counts), ("recipe run", recipe_counts),
-                          ("audio recipe", audio_counts), ("two ranks", paths["two ranks"])):
+                          ("audio recipe", audio_counts), ("two ranks", paths["two ranks"]),
+                          ("touch_audio SFT", paths["touch_audio SFT"])):
             if not got.get(name):
                 failures.append(f"{name} never launched on the {path} path")
         counts[name] = counts.get(name, 0) + train_counts.get(name, 0) + \
             recipe_counts.get(name, 0) + audio_counts.get(name, 0) + \
-            paths["two ranks"].get(name, 0)
-    for name in ("K1", "K2"):  # K3 stays off on the SFT paths (phases 14 and 15 check it)
-        for path in ("qwen2_audio SFT", "kimi_audio SFT"):
+            paths["two ranks"].get(name, 0) + paths["touch_audio SFT"].get(name, 0)
+    # K3 stays off on the qwen2_audio and kimi_audio SFT paths (no head weight;
+    # phases 14 and 15 check it) and in the closed loop (JAX's flags leave
+    # liger off)
+    for name in ("K1", "K2"):
+        for path in ("qwen2_audio SFT", "kimi_audio SFT", "closed loop"):
             if not paths[path].get(name):
                 failures.append(f"{name} never launched on the {path} path")
             counts[name] += paths[path].get(name, 0)
     for name in ("K1", "K4"):
-        for path in ("ASR CLI", "qwen2_audio ASR", "kimi_audio ASR"):
+        for path in ("ASR CLI", "qwen2_audio ASR", "kimi_audio ASR", "closed loop"):
             if not paths[path].get(name):
                 failures.append(f"{name} never launched on the {path} path")
     if not recipe_counts.get("K4"):
         failures.append("K4 never launched on the recipe run's export path")
-    counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0)
+    counts["K4"] = counts.get("K4", 0) + recipe_counts.get("K4", 0) + \
+        paths["closed loop"].get("K4", 0)
     for name in ("K1", "K4"):
         counts[name] += sum(paths[p].get(name, 0)
                             for p in ("ASR CLI", "qwen2_audio ASR", "kimi_audio ASR"))

@@ -7,7 +7,9 @@
 #     codebook within a few ulps (JAX replays torch's generator);
 #   - each batcher's arrays against JAX's on the same samples: equal
 #     (batch_audio_packed, batch_pairaudio_pairtext_packed, batch_audio,
-#     batch_pairaudio_pairtext; online codes and offline ones);
+#     batch_pairaudio_pairtext; online codes and offline ones), but for
+#     batch_pairaudio_pairtext's sentence_lens, the port's a row's label
+#     count and JAX's one less (a reference fault, ROADMAP.md §3);
 #   - touch_audio_datapipe's batches against JAX's on the same shards (speed
 #     perturb off: the JAX draws come from the module-level random): equal;
 #   - a resume test on each packed batcher, through the threaded loader
@@ -131,6 +133,11 @@ def test_batchers_match_jax(name, packed, text, offline):
                                        _TextTok() if text else tok))
         want = list(getattr(jproc, name)(iter(copy.deepcopy(samples)), JDataConfig(**kw),
                                          jtok))
+        if name == "batch_pairaudio_pairtext":
+            # the port's sentence_lens is a row's label count, len(ids) + 1;
+            # JAX's is len(ids) (a reference fault the port does not copy)
+            for w in want:
+                w["sentence_lens"] = w["sentence_lens"] + w["attention_mask"]
         _equal_batches(got, want)
 
 

@@ -14,7 +14,11 @@
 # stage-2 argv with model_type kimi_audio, the case (n) in the kernels line.
 # Phase 6's (p): the varlen runs that express the allgather call, and the
 # rows and columns with a live pair that its bytes count (live_extent,
-# live_bytes: a chunk that causality masks whole reads nothing).
+# live_bytes: a chunk that causality masks whole reads nothing). Phases 18
+# and 18b's: the stage-2 argv with model_type touch_audio, the tone data
+# and tokenizer against JAX's closed loop's, Llama-3's specials in the char
+# tokenizer, loop_config, step_check and report_step_check on a CPU
+# trainer, and (q) in the kernels line.
 
 import copy
 import importlib.util
@@ -274,36 +278,6 @@ def test_profile_groups_of_the_k3_kernels(kernel, group):
     run ce_gemm<Op>, so the epilogue class decides, ahead of cuBLAS's
     "gemm"."""
     assert chip_smoke.profile_group(kernel) == group
-
-
-def test_asr_depth_cuts_only_the_text_model_without_room():
-    """Phase 11 takes ASR_MAX_LAYERS (8) text layers when the temp dir holds
-    that bf16 export twice plus 2 GiB, and none (0) when not even 8 fit; the
-    rule cuts only the text model, which a larger ASR_MAX_LAYERS would show
-    (one layer fewer per export's worth of room less); the tower keeps its
-    32 layers."""
-    from touchnet_tpu_torch.models.qwen2_audio.configuration_qwen2_audio import (
-        Qwen2AudioConfig,
-    )
-    from touchnet_tpu_torch.models.qwen2_audio.modeling_qwen2_audio import get_num_params
-
-    cfg = Qwen2AudioConfig.from_json_file(str(chip_smoke.QWEN2_CONFIG))
-    full = 2 * 2 * get_num_params(cfg) + 2**31  # 35.3 GB for 8,283,699,200 params
-    assert chip_smoke.asr_depth(cfg, full, get_num_params) == chip_smoke.ASR_MAX_LAYERS == 8
-    cap = chip_smoke.ASR_MAX_LAYERS
-    try:
-        chip_smoke.ASR_MAX_LAYERS = 28
-        assert chip_smoke.asr_depth(cfg, full, get_num_params) == 28
-        cut = chip_smoke.asr_depth(cfg, full - 1, get_num_params)
-    finally:
-        chip_smoke.ASR_MAX_LAYERS = cap
-    assert cut == 27 and cfg.text_config.num_hidden_layers == 28
-    c8 = copy.deepcopy(cfg)
-    c8.text_config.num_hidden_layers = 8
-    least = 2 * 2 * get_num_params(c8) + 2**31
-    assert chip_smoke.asr_depth(cfg, least, get_num_params) == 8
-    assert chip_smoke.asr_depth(cfg, least - 1, get_num_params) == 0
-    assert cfg.audio_config.encoder_layers == 32
 
 
 def test_char_tokenizer_has_qwen2_audios_special_ids(tmp_path):
@@ -648,3 +622,174 @@ def test_cp_runs_cover_the_allgather_mask():
     covered = sum(q * (k - q) + q * (q + 1) // 2 for q, k in zip(q_runs, k_runs))
     want = _dense(seg[:, T:].numpy(), seg.numpy(), True, T, 0, T, 2 * T)
     assert covered == want == chip_smoke.live_pairs(seg[:, T:], seg, True, T, 0, T, 2 * T)
+
+
+# -- phases 18 and 18b ---------------------------------------------------------------
+
+def test_touch_sft_argv_is_the_recipes_stage2_but_the_named_cuts():
+    """Every flag of run.sh's stage 2 with model_type touch_audio is in
+    touch_sft_argv with the recipe's value, except sft_argv's cuts (dp,
+    loader, sync saves, log cadence, steps) and the features: fbank 80 x
+    stack 5 stride 4 (the recipe's log-mel 128 x stack 7 is 896 wide against
+    Touch-Audio-7B's 400); the remat stays the recipe's none and the moments
+    stay on the card."""
+    recipe = _run_sh_stage2()
+    argv = chip_smoke.touch_sft_argv("L", "E", "C", "T")
+    got = dict(zip((a[2:] for a in argv[::2]), argv[1::2]))
+    resolved = {"${pretrained_tokenizer_dir}": "T", "${model_type}": "touch_audio",
+                "data/${train_set}/data.list": "L", "${bs}": "2", "${max_seq_len}": "8192",
+                "${num_workers}": "12", "${prefetch}": "12", "${seed}": "2025",
+                "config/${model_config}.json": "C", "exp/${exp_id}": "E", "${cp}": "1",
+                "${tp}": "1", "${dp}": "8", "${pp}": "1", "${liger}": "true",
+                "${param_dtype}": "bfloat16",
+                "wenetspeech asr sft (${model_type})": "wenetspeech asr sft (touch_audio)"}
+    cuts = {"training_data_parallel_shard_degree": "1", "dataloader_num_workers": "2",
+            "dataloader_prefetch_factor": "2", "training_ckpt_async_mode": "disabled",
+            "training_log_freq": "1", "lr_scheduler_steps": "4",
+            "lr_scheduler_warmup_steps": "2", "audio_feat_type": "fbank",
+            "audiofeat_num_mel_bins": "80"}
+    differ = {}
+    for k, v in recipe.items():
+        if k == "datalist_dev_path":  # phase 18 passes its dev list through extra
+            assert k not in got
+            continue
+        want = resolved.get(v, v)
+        try:
+            same = float(got[k]) == float(want)
+        except ValueError:
+            same = got[k].lower() == want.lower()
+        if not same:
+            differ[k] = got[k]
+    assert differ == cuts
+    assert {k: got[k] for k in set(got) - set(recipe)} == {
+        "training_enable_cpu_offload": "false", "audiofeat_stack_length": "5",
+        "audiofeat_stride_length": "4"}
+
+
+def test_tone_data_and_tokenizer_are_the_jax_closed_loops(tmp_path):
+    """tone_jsonl with its defaults draws JAX's closed-loop utterances from
+    the same rng (test_task_metric_loop._make_jsonl: texts and wavs equal),
+    and tone_tokenizer_dir tokenizes as _char_tokenizer_dir does."""
+    from scipy.io import wavfile
+
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+
+    spec = importlib.util.spec_from_file_location(
+        "test_task_metric_loop",
+        os.path.join(ROOT, "tests", "touchnet_tpu", "bin", "test_task_metric_loop.py"))
+    jloop = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jloop)
+    ours = chip_smoke.tone_jsonl(tmp_path / "ours", 6, np.random.default_rng(0), "tr")
+    theirs = jloop._make_jsonl(tmp_path / "theirs", 6, np.random.default_rng(0), "tr")
+    for a, b in zip(open(ours, encoding="utf8"), open(theirs, encoding="utf8"), strict=True):
+        a, b = json.loads(a), json.loads(b)
+        assert a["key"] == b["key"] and a["txt"] == b["txt"] and 3 <= len(a["txt"]) <= 5
+        assert np.array_equal(wavfile.read(a["wav"])[1], wavfile.read(b["wav"])[1])
+    toks = [build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
+                                            tokenizer_model=d))
+            for d in (chip_smoke.tone_tokenizer_dir(tmp_path / "t1"),
+                      jloop._char_tokenizer_dir(tmp_path / "t2"))]
+    text = chip_smoke.TONE_CHARS[::-1]
+    assert toks[0].tokenize(text, add_special_tokens=False) == \
+        toks[1].tokenize(text, add_special_tokens=False) == [9, 8, 7, 6, 5, 4]
+    assert [(t.bos, t.eos, t.pad) for t in toks] == [(1, 2, 0)] * 2
+
+
+def test_char_tokenizer_takes_llama3s_bos_and_pad(tmp_path):
+    """Phase 18's tokenizer: Llama-3's bos, eos and pad at their ids, one
+    character every other id below 128256."""
+    from touchnet_tpu_torch.tokenizer import TokenizerConfig
+    from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+
+    root = chip_smoke.write_char_tokenizer(
+        tmp_path / "tok", 128256, chip_smoke.TOUCH_SPECIALS, chip_smoke.TOUCH_EOS,
+        bos=chip_smoke.TOUCH_BOS, pad=chip_smoke.TOUCH_PAD)
+    tok = build_tokenizer(TokenizerConfig(tokenizer_type="HuggingFaceTokenizer",
+                                          tokenizer_model=str(root)))
+    assert (tok.bos, tok.eos, tok.pad) == (128000, 128001, 128004)
+    assert tok.vocab_size == 128256
+    ids = tok.tokenize("utterance 7", add_special_tokens=False)
+    assert len(ids) == 11 and max(ids) < 95 and tok.detokenize(ids) == "utterance 7"
+
+
+def test_loop_config_is_the_tiny_width_in_one_head(tmp_path):
+    from touchnet_tpu_torch.models.touch_audio.configuration_touch_audio import (
+        TouchAudioConfig,
+    )
+
+    tiny = TouchAudioConfig.from_json_file(
+        os.path.join(ROOT, "tests/assets/config/tiny_touch_audio.json"))
+    cfg = TouchAudioConfig.from_json_file(str(chip_smoke.loop_config(tmp_path)))
+    tc = cfg.text_config
+    assert (tc.hidden_size, tc.num_attention_heads, tc.num_key_value_heads, tc.head_dim) == \
+        (64, 1, 1, 64)
+    assert tiny.text_config.head_dim == 16
+    assert (tc.vocab_size, tc.num_hidden_layers, tc.intermediate_size) == (64, 2, 128)
+    assert cfg.audio_config.input_size == 161 and not tc.tie_word_embeddings
+    for c in (cfg, tiny):
+        c.text_config.num_attention_heads = c.text_config.num_key_value_heads = 0
+        c.text_config.head_dim = 0
+    assert cfg.to_dict() == tiny.to_dict()
+
+
+def test_step_check_leaves_the_trainer_as_it_was(tmp_path):
+    """Phase 18's step-1 check on a CPU trainer (bf16, the tiny touch_audio
+    config under liger, a batch of one sentence a row): the first rows that
+    hold `tokens` positions; the kernel path (on the CPU the wrappers' plain
+    route) and the plain path within 1e-5 in bf16 and in f32, bf16 within
+    its rounding of f32, report_step_check passing them; no
+    launch counted, .grad cleared, the compute dtype the run's again; a
+    train step on the whole batch after it equals one without it."""
+    from test_torch_touch_audio import _flags, _shards, _trainer
+
+    argv = _flags(tmp_path, _shards(tmp_path, 12), 4, training_mixed_precision_param="bfloat16",
+                  dataset_enable_pack="false", dataset_batchsize=1, dataset_audio_seqlen=300,
+                  dataset_text_seqlen=300)
+    met = []
+    for checked in (True, False):
+        trainer = _trainer(argv)
+        try:
+            batch, ns = trainer._put_batch(next(iter(trainer.dataloader)))
+            rows, T = batch["labels"].shape
+            assert ns == rows > 2
+            if checked:
+                counts = {k: c.launches for k, c in chip_smoke.kernel_counters().items()}
+                got = chip_smoke.step_check(trainer, batch, ns, 2 * T + 1)
+                assert (got["rows"], got["T"]) == (2, T)
+                assert {k: c.launches for k, c in chip_smoke.kernel_counters().items()} == counts
+                assert trainer.compute_dtype == torch.bfloat16
+                assert all(p.grad is None for p in trainer.params)
+                # the wrappers' CPU route: K2's formula against autograd
+                # through the plain forward, the same to f32 rounding
+                np.testing.assert_allclose(got["kernel"], got["plain"], rtol=1e-5)
+                np.testing.assert_allclose(got["f32 kernel"], got["f32 plain"], rtol=1e-5)
+                np.testing.assert_allclose(got["e_kernel"], got["e_plain"], rtol=1e-2)
+                assert got["e_f32 kernel"] < 1e-5
+                (bl, bn), (fl, fn) = got["plain"], got["f32 plain"]
+                assert abs(bl - fl) < 2e-2 and abs(bn - fn) / fn < 2e-2
+                assert 0 < got["e_plain"] < 2e-2
+                failures = []
+                chip_smoke.report_step_check({**got, "peak": 0.0}, "cpu", failures, "CPU")
+                assert failures == []
+            met.append({k: float(v) for k, v in trainer.train_step(batch, ns).items()})
+        finally:
+            trainer.close()
+    assert met[0] == met[1]
+
+
+def test_kernels_line_carries_the_touch_audio_head_case():
+    """K3's (q), touch_audio's SFT head, lands under both K3 rows' cases;
+    their main case stays (d)."""
+    def case(ms):
+        return {"max_abs_err": 1e-3, "ms": ms, "plain_ms": 2 * ms, "library_ms": None,
+                "bound_ms": ms / 2, "bound_by": "operations", "tflops": 1.0}
+
+    k3 = {"(d) main": {"fwd": case(13.0), "bwd": case(44.0)},
+          "(q) touch_audio SFT head": {"fwd": case(28.0), "bwd": case(86.0)}}
+    counts = {"K1": 600, "K2": 400, "K3 fwd": 9, "K3 bwd": 8, "K4": 20000}
+    rows = chip_smoke.kernels_line(counts, {"(d) main": case(2.0)}, {"(d) main": case(6.8)}, k3,
+                                   {"(a) decode": case(0.2)})["kernels"]
+    assert rows[2]["cases"]["(q) touch_audio SFT head"]["ms"] == 28.0
+    assert rows[3]["cases"]["(q) touch_audio SFT head"]["ms"] == 86.0
+    assert rows[2]["ms"] == 13.0 and rows[3]["launches"] == 8

@@ -5,11 +5,13 @@
 # JAX ones; they hold one look-ahead sample and yield a batch only when the
 # sample just pulled does not fit (or at the end), so the port's root
 # datapipe, which counts a sample when the next one is pulled, resumes them
-# exactly. Two changes: a batch's feature width is the frontend's width
+# exactly. Three changes: a batch's feature width is the frontend's width
 # times the stack (functions.feature_width: num_ceps for mfcc, where the
-# JAX buffer takes the mel bins and then fails to broadcast), and the
-# datapipe raises at setup when a BestRQ tokenizer's input size is not that
-# width.
+# JAX buffer takes the mel bins and then fails to broadcast); the datapipe
+# raises at setup when a BestRQ tokenizer's input size is not that width;
+# and batch_pairaudio_pairtext's sentence_lens is a row's label count,
+# len(ids) + 1, as the packed batcher's, where JAX's (:223, :237) divides
+# those len(ids) + 1 labels by len(ids).
 #
 # TouchAudio batchers: packed + dynamic batching for audio pretrain (BEST-RQ
 # NTP) and audio-text SFT (ASR pairs).
@@ -245,7 +247,8 @@ def batch_pairaudio_pairtext(data, config: DataConfig, tokenizer: BaseTokenizer)
         labels[audio_len:] = np.asarray(list(sample["input_ids"]) + [tokenizer.eos],
                                         np.int32)
         mask = np.ones(total_len, np.int32)
-        slens = np.full(total_len, text_len, np.int32)
+        # the row's label count (ids and eos), as the packed batcher's
+        slens = np.full(total_len, text_len + 1, np.int32)
         if (len(feats_buf) + 1) * max_len > budget and feats_buf:
             yield {
                 "input_ids": _pad_stack(ids_buf, pad),
