@@ -4,7 +4,7 @@
 
     python3 chip_smoke.py              # the phases below
     python3 chip_smoke.py --profile    # only the step profile, op_small beside full
-                                       # (profile_training)
+                                       # and op_small compiled (profile_training)
     python3 chip_smoke.py --faults     # faulty kernel copies must fail (check_faults)
     python3 chip_smoke.py --tune       # K3/K4 registers, and times their design variants
                                        # (K3 forward: splits, raster group, ring depth)
@@ -78,7 +78,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      packed Llama-3.2-1B steps at 1x16384 (the recipe's batch geometry,
      examples/text/pretrain/fineweb-edu/run.sh:46) under the recipe's
      remat op_small on TouchDataset shards this script writes (seeded,
-     learnable documents); then the remat sweep: 5 of the same steps
+     learnable documents); then the remat sweep: 3 of the same steps
      (SWEEP_STEPS) under none, op_small and full, each with its step time,
      tokens/s, MFU, peak memory and K1 launches per step, and op_small once
      more under --training_deterministic true (no op may raise); then the trainer's
@@ -97,7 +97,16 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      then one step's loss, grad norm and gradients of the kernel path
      against the plain path at B1 T4096, full width and depth, in f32,
      bf16 and float16, with the share of K3's dw that is exactly zero in
-     the f16 step beside the bf16 one;
+     the f16 step beside the bf16 one, and the bf16 step compiled (its
+     gradients' error to the f32 plain path at most COMPILED_GRAD_RATIO x
+     the eager one's). After the main run, the same 10 steps with
+     --training_compile true (compiled_run: every block one graph with K1
+     and K2 as custom ops, the fused loss with K3's): step 1's loss within
+     COMPILED_LOSS_RTOL of the eager run's, the losses falling, the same
+     launches a step, no graph break, and the compile seconds, step ms,
+     tokens/s, MFU and peak beside the eager run's. Every compile of the
+     script is cold: main points inductor's and Triton's caches at a fresh
+     temporary directory, which the processes it starts share;
   9. the recipe's stages 0-3 on one card (run.sh:60-175, cut to dp 1):
      stage 0, python -m touchnet_tpu_torch.bin.make_data (a subprocess, 4
      workers, RawTokenizer at vocab 128256) over a jsonl of phase 8's
@@ -107,7 +116,10 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      hf_config_dict) through convert_hf_to_ckpt to step_0; an in-process
      Trainer from step_0 (no process group: its params at init equal the
      HF tensors upcast, bit for bit) for the first 3 of the 10 steps;
-     stage 2 as torchrun --standalone --nproc_per_node 1 -m
+     both runs compiled, as run.sh:142 asks (--training_compile true in
+     RECIPE_LAYOUT); the torchrun process's summary gives its NCCL flight
+     recorder (the buffer and the dump prefix under comm_trace/) and its
+     graphs; stage 2 as torchrun --standalone --nproc_per_node 1 -m
      touchnet_tpu_torch.bin.train with the recipe's layout flags
      (dp_shard -1, loss parallel; FSDP2 at world 1 over NCCL), 10 steps at
      1x16384 with its checkpoint flags (interval 5 here, keep 2, async),
@@ -134,7 +146,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
  10. the BEST-RQ audio pretraining recipe's stages 0, 2 and 3 on one card
      (examples/audio/pretrain/wenetspeech/run.sh, dp 1; stage 1 is skipped
      without pretrained weights, as there): Touch-Audio-1B at full width
-     and AUDIO_MAX_LAYERS (4) of its 16 layers (976,064,512 params at 16);
+     and AUDIO_MAX_LAYERS (2) of its 16 layers (976,064,512 params at 16);
      ~3600 s of seeded synthetic speech
      (voiced tones of a drifting pitch plus noise, 1-15 s, 16 kHz int16
      wavs) through make_data (a subprocess, audio+metainfo, 16 shards) and
@@ -214,7 +226,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      cache (SDPA on a gathered copy);
  14. (run after 10, before 12) qwen2_audio's SFT, stages 0-3 of the SFT
      recipe with model_type qwen2_audio (run_qwen2_sft): Qwen2-Audio-7B at
-     full width (the whisper tower cut to SFT_TOWER_LAYERS (8) of its 32
+     full width (the whisper tower cut to SFT_TOWER_LAYERS (4) of its 32
      layers, vocab 156032) and the text depth of sft_depth (at most 2; the
      disk and the card), random bf16
      weights; stage 0, seeded synthetic speech (1-15 s, txt in the char
@@ -240,7 +252,7 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      (right-padded rows);
  15. (run after 12, before 13) kimi_audio's SFT, stages 0-3 of the SFT
      recipe with model_type kimi_audio (run_kimi_sft): Kimi-Audio-7B at full
-     width (the whisper tower cut to SFT_TOWER_LAYERS (8) of its 32
+     width (the whisper tower cut to SFT_TOWER_LAYERS (4) of its 32
      layers, the 16-layer WhisperVQ speech
      tokenizer, frozen, the adaptor, hidden 3584, vocab 168448) cut as
      kimi_sft_depth reckons the disk and the card: text layers 28 -> 1
@@ -321,17 +333,21 @@ Phases, one or more lines each; any failure raises and exits non-zero:
      shards of the final params, mu, nu and count equal bit for bit; cp 2
      at 1x8192 (4096 a rank) with each rotate method, 1 step each,
      allgather (FSDP2 over the flattened dp_shard x cp mesh of both ranks)
-     and alltoall (the ring): losses finite and equal on both ranks, K1, K2 and K3
-     launched by each, the cp layouts' step-1 loss and grad norm against
-     one process (world 1) on the same 1x8192 batch and against each
-     other (CP_LOSS_RTOL, CP_GRAD_NORM_RTOL); pp 2 at 2x4096 (one layer a
+     and alltoall (the ring; compiled, its attention between two graphs):
+     losses finite and equal on both ranks, K1, K2 and K3 launched by
+     each, the cp layouts' step-1 loss and grad norm against one process
+     (world 1) on the same 1x8192 batch and against each other
+     (CP_LOSS_RTOL, CP_GRAD_NORM_RTOL); pp 2 at 2x4096 (one layer a
      stage, 2 microbatches under 1F1B, the full-logits loss on the last
      stage, the tied embedding's gradients summed over pp in f32): K1 and
      K2 launched on both ranks and K3 on neither, step 1's loss and grad
      norm against one process on the same rows with the same loss
      (PP_LOSS_RTOL, PP_GRAD_NORM_RTOL); step ms and peak memory.
-Each phase prints its wall seconds ("[phase N] wall"), and the script its
-whole ("[all phases] wall").
+Phases 9, 10, 14, 15 and 18 pass the recipes' --training_compile true, so
+their runs compile; their kernel-vs-plain checks (step_check, check_step
+but its compiled pass) run the kernels and the plain versions eagerly, and
+nothing compiles a plain version. Each phase prints its wall seconds
+("[phase N] wall"), and the script its whole ("[all phases] wall").
 Then one JSON line of per-kernel results, the card line, and the last
 line {"ok": true, "device": {...}}. A kernel's "launches" is its count over
 the main paths that run it (K1: serving, training, the single-device
@@ -963,7 +979,7 @@ def plain_kernels():
     wrappers the model code calls (flash_attention, which flash_prefill also
     goes through and whose backward is K2; decode_attention; fused_ce_rows)
     are their plain versions, which take the same arguments, run on the
-    card and are differentiable."""
+    card and are differentiable; compiled functions run eagerly."""
     from touchnet_tpu_torch.ops import attention as attn
     from touchnet_tpu_torch.ops import decode_attention as dec
     from touchnet_tpu_torch.ops import fused_ce
@@ -973,7 +989,10 @@ def plain_kernels():
     dec.decode_attention = dec.decode_attention_reference
     fused_ce.fused_ce_rows = fused_ce.fused_ce_rows_reference
     try:
-        yield
+        # a compiled trainer runs its blocks eagerly meanwhile: nothing
+        # compiles a plain version on the card
+        with torch.compiler.set_stance("force_eager"):
+            yield
     finally:
         attn.flash_attention, dec.decode_attention, fused_ce.fused_ce_rows = saved
 
@@ -1124,9 +1143,10 @@ STEP_BF16_RATIO, STEP_BF16_LOSS = 1.5, 2e-2
 # before the first card run; the limit is ten times that
 STEP_F16_GNORM = 1e-2
 TRAIN_STEPS, TRAIN_T, CHECK_T, DOC_RANGE = 10, 16384, 4096, 1000
-# the remat sweep's and the deterministic run's steps (cut from 10 for the
-# script's time: their checks read every step's loss and the launches a step)
-SWEEP_STEPS = 5
+# the remat sweep's and the deterministic run's steps (cut from 10, then from
+# 5, for the script's time: their checks read every step's loss and the
+# launches a step)
+SWEEP_STEPS = 3
 
 
 def compare_grad(name, got, want, dtype, failures):
@@ -1836,10 +1856,12 @@ def count_plain_calls():
             setattr(m, n, fn)
 
 
-def step_grads(train, argv, plain, dev):
+def step_grads(train, argv, plain, dev, eager=True):
     """One step's (loss, grad norm, flat f32 gradient) through the port's
     Trainer built from `argv`: the first batch of the loader, loss and
-    backward as train_step runs them, no optimizer update."""
+    backward as train_step runs them, no optimizer update. With `eager` a
+    trainer that `argv` compiles runs its blocks eagerly (a kernel-vs-plain
+    check; check_step's compiled pass runs them compiled)."""
     from touchnet_tpu_torch.bin import TrainConfig
     from touchnet_tpu_torch.data import DataConfig
     from touchnet_tpu_torch.tokenizer import TokenizerConfig
@@ -1852,7 +1874,8 @@ def step_grads(train, argv, plain, dev):
     it = iter(trainer.dataloader)
     batch, num_sentence = trainer._put_batch(next(it))
     trainer.close()
-    with plain_kernels() if plain else contextlib.nullcontext():
+    stance = torch.compiler.set_stance("force_eager" if eager else "default")
+    with stance, plain_kernels() if plain else contextlib.nullcontext():
         loss, _, _ = trainer._loss_and_acc(batch, num_sentence)
         loss.backward()
     # a tensor the loss does not reach (kimi_audio's mimo stack) has none
@@ -2166,21 +2189,81 @@ def run_training(dev, card, failures, tmp: Path):
     resident = losses, bits_checksums({**trainer.model.state_dict(), **trainer._opt_state()})
     del trainer
     torch.cuda.empty_cache()
+    eager = dict(losses=losses, launches=(k1, k2, k3f, k3b), step=(step_ms, tps, mfu),
+                 peak=peak, first_ms=hist[0]["time/step_s"] * 1e3)
+    for name, n in compiled_run(train, argv, counters, eager, card, failures).items():
+        train_counts[name] += n
     remat_sweep(train, attn, listfile, tmp, L, card, failures)
     for name, n in mode_runs(train, listfile, tmp, L, card, failures, resident).items():
         train_counts[name] += n
 
     print(f"  one step at B1 T{CHECK_T}, full width and depth: kernel vs plain path")
     check_step(train, lambda dtype: train_argv(listfile, tmp / "chk", CHECK_T, 1, dtype, 128256),
-               dev, failures, f16=True)
+               dev, failures, f16=True, compiled=True)
     return train_counts
 
 
-def check_step(train, argv_of, dev, failures, what="", f16=False):
+# phase 8's compiled run: its step 1 (the same batch and weights as the eager
+# run's) within this of the eager step 1's loss, relative: inductor fuses the
+# block's elementwise chains and keeps their f32 intermediates where eager
+# rounds each op's output to bf16, and sums in another order
+COMPILED_LOSS_RTOL = 2e-3
+# the compiled bf16 step's gradients' relative L2 to the f32 plain path's, at
+# most this times the eager bf16 kernel step's (check_step)
+COMPILED_GRAD_RATIO = 1.1
+
+
+def compiled_run(train, argv, counters, eager: dict, card, failures) -> dict:
+    """Phase 8's main run again with --training_compile true (the recipes'
+    flag): every block one graph with K1 and K2 as custom ops, the fused
+    loss with K3's. Step 1's loss within COMPILED_LOSS_RTOL of the eager
+    run's (same seed, data and weights), the losses falling, K1, K2 and K3
+    launched as often a step as eagerly, no plain version called, no graph
+    break; prints the compile seconds, step ms, tokens/s, MFU and peak
+    memory beside the eager run's. Returns its launches (a main path: the
+    counts are zeroed before it and read after)."""
+    for c in counters:
+        c.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with count_plain_calls() as plain_calls:
+        trainer = train.main([str(a) for a in argv] + ["--training_compile", "true"])
+    launches = tuple(c.launches for c in counters)
+    hist = trainer.metrics_processor.history
+    losses = [h["loss/per_sample"] for h in hist]
+    summary = trainer._compile_summary()
+    step_ms, tps, mfu = step_stats(trainer)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rel = abs(losses[0] - eager["losses"][0]) / abs(eager["losses"][0])
+    ok = (rel <= COMPILED_LOSS_RTOL and launches == eager["launches"] and not plain_calls
+          and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+          and summary["graph_breaks"] == 0 and trainer.step == len(eager["losses"]))
+    print(f"  compiled (--training_compile true): step 1 loss {losses[0]:.6f} vs eager "
+          f"{eager['losses'][0]:.6f} (rel {rel:.2e} <= {COMPILED_LOSS_RTOL:g}); losses "
+          f"{[round(x, 4) for x in losses]}; launches K1/K2/K3 fwd/K3 bwd {launches} (eager "
+          f"{eager['launches']}); plain versions called: {plain_calls or 'none'}; graphs "
+          f"{summary['unique_graphs']}, graph breaks {summary['graph_breaks']}, cache entries "
+          f"{summary['cache_entries']} {'ok' if ok else 'FAIL'}")
+    print(f"  compiled vs eager: compile {summary['seconds']:.1f} s (step 1 {hist[0]['time/step_s'] * 1e3:.1f} "
+          f"ms vs eager {eager['first_ms']:.1f}); step {step_ms:.1f} vs {eager['step'][0]:.1f} ms "
+          f"(median of steps 3-{trainer.step}), {tps:,.0f} vs {eager['step'][1]:,.0f} tokens/s, "
+          f"MFU {mfu:.2f}% vs {eager['step'][2]:.2f}%, peak {peak:.2f} vs {eager['peak']:.2f} GiB "
+          f"allocated  [{card}]")
+    if not ok:
+        failures.append("compiled training run")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(zip(("K1", "K2", "K3 fwd", "K3 bwd"), launches))
+
+
+def check_step(train, argv_of, dev, failures, what="", f16=False, compiled=False):
     """One step's loss, grad norm and gradients of the kernel path against
     the plain path (plain_kernels) on the trainer built from argv_of(dtype):
     f32 under STEP_F32_*, bf16 against the f32 plain path under STEP_BF16_*;
-    with f16, check_step_f16 too."""
+    with f16, check_step_f16 too; with compiled, the bf16 kernel path
+    compiled (--training_compile true), its gradients' error to the f32
+    plain path at most COMPILED_GRAD_RATIO times the eager bf16 kernel
+    path's."""
     f32k = step_grads(train, argv_of("float32"), plain=False, dev=dev)
     f32p = step_grads(train, argv_of("float32"), plain=True, dev=dev)
     e_loss = abs(f32k[0] - f32p[0]) / abs(f32p[0])
@@ -2209,6 +2292,18 @@ def check_step(train, argv_of, dev, failures, what="", f16=False):
           f"f32 plain {f32p[1]:.6f} {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(f"{what}bf16 train step")
+    if compiled:
+        bfc = step_grads(train, argv_of("bfloat16") + ["--training_compile", "true"],
+                         plain=False, dev=dev, eager=False)
+        e_c = ((bfc[2] - f32p[2]).norm() / f32p[2].norm()).item()
+        ok = e_c <= COMPILED_GRAD_RATIO * e_k and math.isfinite(bfc[1])
+        print(f"  bf16 compiled: gradients rel L2 vs f32 plain {e_c:.3e} (<= "
+              f"{COMPILED_GRAD_RATIO} x eager kernel {e_k:.3e}); loss {bfc[0]:.6f} vs eager "
+              f"{bfk[0]:.6f}; grad norm {bfc[1]:.6f} vs eager {bfk[1]:.6f} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{what}bf16 compiled train step")
+        del bfc
     if f16:
         check_step_f16(train, argv_of, dev, failures, f32p, bfk, bfp, z_bf)
     del f32p, bfk, bfp
@@ -2502,10 +2597,12 @@ RECIPE_LAYOUT = dict(training_fsdp_reshard_after_forward="default",
                      training_tensor_parallel_degree=1, training_data_parallel_shard_degree=-1,
                      training_enable_loss_parallel="true", training_pipeline_parallel_degree=1,
                      training_pipeline_parallel_schedule="1F1B", training_tb_rank_0_only="true",
-                     training_print_args="true")
+                     training_print_args="true", training_compile="true")
 # the in-process run beside the launcher's: its first steps, no checkpoints;
 # their losses bit-equal (FSDP2's root unit holds f32 parameters, so the tied
-# embedding's two gradients add up in f32 on both paths)
+# embedding's two gradients add up in f32 on both paths); both compiled, as
+# run.sh:142 asks (the in-process run's graphs fill the compile cache the
+# launcher's process then reads)
 INPROC_STEPS = 3
 
 
@@ -2631,7 +2728,7 @@ TWO_RANK_LAYOUTS = {
         training_context_parallel_rotate_method="allgather")),
     "cp 2 alltoall": (2 * TWO_RANK_T, 1, dict(
         training_context_parallel_degree=2, training_data_parallel_shard_degree=1,
-        training_context_parallel_rotate_method="alltoall")),
+        training_context_parallel_rotate_method="alltoall", training_compile="true")),
     "pp 2": (TWO_RANK_T, TWO_RANK_STEPS, dict(
         training_pipeline_parallel_degree=2, training_data_parallel_shard_degree=1,
         training_pipeline_parallel_schedule="1F1B", training_pipeline_parallel_microbatches=2,
@@ -2645,7 +2742,9 @@ NO_K3 = ("pp 2",)
 # by the bf16 rounding of the attention's outputs and gradients in another
 # order. On an H100 80GB HBM3 at 700 W (PERF.md) the loss read 0
 # (allgather) and 1.0e-6 (alltoall), the grad norm 1.6e-5 (both); each
-# limit a few times its reading
+# limit a few times its reading. cp 2 alltoall runs compiled (the one
+# process eager, as the compiled step keeps the model's bf16 casts): its
+# loss read 2.3e-6, its grad norm 6.3e-6
 CP_LOSS_RTOL, CP_GRAD_NORM_RTOL = 5e-6, 1e-4
 # pp 2's step 1 against one process on the same 2 x 4096 rows with the same
 # full-logits loss (liger off): the microbatches of 1 x 4096 against one
@@ -2943,6 +3042,16 @@ def run_recipe(dev, card, failures, tmp: Path) -> dict:
     hist1, dev1 = run1["history"], run1["dev_history"]
     print(f"  torchrun command: {secs1:.1f} s (with the launcher's start, the process group, "
           "FSDP2's wrap and the model's build)")
+    fr, comp = run1["flight_recorder"], run1["compile"]
+    want_fr = {"buffer_size": 20000, "dump_on_timeout": True,
+               "dump_prefix": str(exp / "comm_trace" / "nccl_trace_rank_")}
+    ok = fr == want_fr and comp["enabled"] and comp["graph_breaks"] == 0
+    print(f"  the torchrun process's NCCL flight recorder (--training_trace_buf_size's default): "
+          f"{fr}; compiled: {comp['unique_graphs']} graphs, graph breaks "
+          f"{comp['graph_breaks']}, cache entries {comp['cache_entries']}, compile "
+          f"{comp['seconds']:.1f} s {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("recipe run: flight recorder / compile")
 
     losses1 = [h["loss/per_sample"] for h in hist1]
     lin = [h["loss/per_sample"] for h in inproc]
@@ -3044,11 +3153,13 @@ AUDIO_WORKERS = 12  # the recipe's num_workers (run.sh:22)
 AUDIO_PREFETCH = 1
 # phase 10's text depth: Touch-Audio-1B's 16 layers cut for the script's
 # clock (its checkpoints, their load and the export shrink with it): 8 at
-# first, 4 since the float16 cases and phase 17 took their seconds
-AUDIO_MAX_LAYERS = 4
+# first, 4 since the float16 cases and phase 17 took their seconds, 2 since
+# the compiled runs (cold compiles) took theirs
+AUDIO_MAX_LAYERS = 2
 # the steps of phase 10's two runs that measure what holds its step back
-# (cut from AUDIO_STEPS for the script's clock: the medians of steps 3-6)
-LOADER_STEPS = 6
+# (cut from AUDIO_STEPS, then from 6, for the script's clock: the medians of
+# steps 3-4)
+LOADER_STEPS = 4
 
 
 def synth_speech(rng, n: int) -> np.ndarray:
@@ -4360,9 +4471,10 @@ def model_only_saves():
 SFT_STEPS, SFT_MAX_LAYERS = 4, 2
 # the whisper tower's depth in phases 14 and 15 (and so in 12 and 13, which
 # run their exports): 32 layers cut to 16, then to 8 when phases 18 and 18b
-# came, for the script's clock (the steps, the checkpoints, the exports);
-# the widths, the vocab and the tower's 1500 frames a row stay
-SFT_TOWER_LAYERS = 8
+# came, then to 4 when the compiled runs' cold compiles came, for the
+# script's clock (the steps, the checkpoints, the exports); the widths, the
+# vocab and the tower's 1500 frames a row stay
+SFT_TOWER_LAYERS = 4
 SFT_UTTS, SFT_DEV_UTTS, SFT_PER_SHARD = 200, 16, 25
 # the recipe's loader is 12 workers with prefetch 12 (run.sh:22-23): in a
 # run of 4 steps they would fill 144 batches of ~40 rows (~5,800 whisper
@@ -5363,7 +5475,9 @@ def step_check(trainer, batch, num_sentence: float, tokens: int) -> dict:
     "kernel", "plain" and "f32 kernel", and {"e_" + name}: the gradients'
     relative L2 distance to the f32 plain path's (each pass's gradients are
     dropped once compared). .grad is cleared; the kernel launches of the
-    comparison are taken back off their counts."""
+    comparison are taken back off their counts. A compiled trainer's blocks
+    run eagerly here (the check is of the kernels against their plain
+    versions; phase 8 holds the compiled step to the eager one)."""
     from touchnet_tpu_torch.utils.optimizer import global_grad_norm
 
     rows = max(1, tokens // batch["labels"].shape[1])
@@ -5372,24 +5486,25 @@ def step_check(trainer, batch, num_sentence: float, tokens: int) -> dict:
     launched = {k: c.launches for k, c in counters.items()}
     out, ref = {"rows": rows, "T": batch["labels"].shape[1]}, None
     saved = trainer.compute_dtype
-    for name, dtype, route in (("f32 plain", torch.float32, plain_kernels),
-                               ("kernel", saved, contextlib.nullcontext),
-                               ("plain", saved, plain_kernels),
-                               ("f32 kernel", torch.float32, contextlib.nullcontext)):
-        trainer.compute_dtype = dtype
-        try:
-            with route():
-                grads, loss, _, _ = trainer._grads_and_metrics(sub, min(num_sentence, rows))
-        finally:
-            trainer.compute_dtype = saved
-        for p in trainer.params:
-            p.grad = None
-        out[name] = (loss.item(), global_grad_norm(grads).item())
-        if ref is None:
-            ref = grads
-        else:
-            out["e_" + name] = grads_rel_l2(grads, ref)
-        del grads
+    with torch.compiler.set_stance("force_eager"):
+        for name, dtype, route in (("f32 plain", torch.float32, plain_kernels),
+                                   ("kernel", saved, contextlib.nullcontext),
+                                   ("plain", saved, plain_kernels),
+                                   ("f32 kernel", torch.float32, contextlib.nullcontext)):
+            trainer.compute_dtype = dtype
+            try:
+                with route():
+                    grads, loss, _, _ = trainer._grads_and_metrics(sub, min(num_sentence, rows))
+            finally:
+                trainer.compute_dtype = saved
+            for p in trainer.params:
+                p.grad = None
+            out[name] = (loss.item(), global_grad_norm(grads).item())
+            if ref is None:
+                ref = grads
+            else:
+                out["e_" + name] = grads_rel_l2(grads, ref)
+            del grads
     for k, c in counters.items():
         c.launches = launched[k]
     return out
@@ -5911,13 +6026,12 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     """`python3 chip_smoke.py --profile`: torch.profiler over `steps`
     training steps of phase 8's configuration (1x16384 bf16) under each
     remat mode of PROFILE_MODES, each after `warmup` steps, through the
-    Trainer's own train_step on the same batches. Prints, per mode, the
-    device time of each group of kernels per step, the device's busy share
-    of the window and the peak memory of forward + backward alone and of
-    the whole step, side by side, then the twenty largest kernels of the
-    first mode."""
-    from torch.profiler import ProfilerActivity, profile
-
+    Trainer's own train_step on the same batches, then op_small compiled
+    (--training_compile true; its warmups include the compile). Prints, per
+    run, the kernels a step, the device time of each group of kernels per
+    step, the device's busy share of the window and the peak memory of
+    forward + backward alone and of the whole step, side by side, then the
+    twenty largest kernels of the first and of the compiled run."""
     from touchnet_tpu_torch.bin import TrainConfig, train
     from touchnet_tpu_torch.data import DataConfig
     from touchnet_tpu_torch.models.llama.configuration_llama import LlamaConfig
@@ -5928,55 +6042,26 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     listfile = write_shards(tmp / "shards", cfg.vocab_size, SEED)
     argv = train_argv(listfile, tmp / "exp", TRAIN_T, steps + warmup, "bfloat16",
                       cfg.vocab_size)
-    tok, data, job = parse_args_into_dataclasses([TokenizerConfig, DataConfig, TrainConfig],
-                                                 argv)
-    trainer = train.Trainer(tok, data, job, dev)
-    it = iter(trainer.dataloader)
-    batches = [trainer._put_batch(next(it)) for _ in range(steps + warmup)]
-    trainer.close()
-    results = {}
-    for mode in PROFILE_MODES:
-        # the step reads the mode from the job config at every forward
-        trainer.job_config.training_activation_checkpoint_mode = mode
-        for batch, n in batches[:warmup]:
-            trainer.train_step(batch, n)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for batch, n in batches[warmup:]:
-                trainer.train_step(batch, n)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-        busy, end = 0, -math.inf
-        for a, b in spans:  # the union of the kernels' intervals
-            busy += max(0, b - max(a, end))
-            end = max(end, b)
-        by_name = {}
-        for e in kernels:
-            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-        groups = {}
-        for name, us in by_name.items():
-            g = profile_group(name)
-            groups[g] = groups.get(g, 0) + us
-        # where the step's peak memory is set: forward + backward alone,
-        # then the whole step (the same, plus clipping and AdamW)
-        batch, n = batches[-1]
-        torch.cuda.reset_peak_memory_stats()
-        trainer._loss_and_acc(batch, n)[0].backward()
-        torch.cuda.synchronize()
-        fb_peak = torch.cuda.max_memory_allocated() / 2**30
-        for p in trainer.params:
-            p.grad = None
-        torch.cuda.reset_peak_memory_stats()
-        trainer.train_step(batch, n)
-        torch.cuda.synchronize()
-        results[mode] = dict(wall_us=wall_us, busy=busy, n=len(kernels), by_name=by_name,
-                             groups=groups, total=sum(by_name.values()), fb_peak=fb_peak,
-                             step_peak=torch.cuda.max_memory_allocated() / 2**30)
-    print(f"[profile] {steps} steps at 1x{TRAIN_T} bf16 after {warmup} warmups, remat "
-          f"{' | '.join(PROFILE_MODES)}  [{card}]")
+    results, batches = {}, None
+    for compiled in ("false", "true"):
+        tok, data, job = parse_args_into_dataclasses(
+            [TokenizerConfig, DataConfig, TrainConfig],
+            [str(a) for a in argv] + ["--training_compile", compiled])
+        trainer = train.Trainer(tok, data, job, dev)
+        if batches is None:
+            it = iter(trainer.dataloader)
+            batches = [trainer._put_batch(next(it)) for _ in range(steps + warmup)]
+        trainer.close()
+        for mode in (PROFILE_MODES if compiled == "false" else ("op_small",)):
+            # the step reads the mode from the job config at every forward
+            trainer.job_config.training_activation_checkpoint_mode = mode
+            label = mode + (" compiled" if compiled == "true" else "")
+            results[label] = profile_steps(trainer, batches, steps, warmup)
+        del trainer
+        free_caches()
+    labels = list(results)
+    print(f"[profile] {steps} steps at 1x{TRAIN_T} bf16 after {warmup} warmups: "
+          f"{' | '.join(labels)}  [{card}]")
     print("  ms/step under the profiler: " + " | ".join(
         f"{r['wall_us'] / steps / 1e3:.1f}" for r in results.values()) +
         "; kernels/step: " + " | ".join(f"{r['n'] // steps}" for r in results.values()) +
@@ -5985,15 +6070,63 @@ def profile_training(dev, card, tmp: Path, steps=2, warmup=2):
     print("  peak GiB allocated, forward + backward alone: " + " | ".join(
         f"{r['fb_peak']:.2f}" for r in results.values()) + "; the whole step: " + " | ".join(
         f"{r['step_peak']:.2f}" for r in results.values()))
-    first = results[PROFILE_MODES[0]]
+    first = results[labels[0]]
     names = sorted({g for r in results.values() for g in r["groups"]},
                    key=lambda g: -first["groups"].get(g, 0))
     for g in names:
         print(f"  {g}: " + " | ".join(
             f"{r['groups'].get(g, 0) / steps / 1e3:.1f} ms/step "
             f"({100 * r['groups'].get(g, 0) / r['total']:.1f}%)" for r in results.values()))
-    for name, us in sorted(first["by_name"].items(), key=lambda x: -x[1])[:20]:
-        print(f"  {us / steps / 1e3:9.2f} ms/step  {name[:110]}")
+    for label in (labels[0], labels[-1]):
+        print(f"  the largest kernels, {label}:")
+        for name, us in sorted(results[label]["by_name"].items(), key=lambda x: -x[1])[:20]:
+            print(f"  {us / steps / 1e3:9.2f} ms/step  {name[:110]}")
+
+
+def profile_steps(trainer, batches, steps, warmup) -> dict:
+    """`warmup` train steps, then torch.profiler over `steps` more: the
+    window's wall, device busy time (the union of the kernels' intervals),
+    kernel count and device time by kernel and by group; then the peak
+    memory of forward + backward alone and of a whole step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for batch, n in batches[:warmup]:
+        trainer.train_step(batch, n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for batch, n in batches[warmup:]:
+            trainer.train_step(batch, n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0, -math.inf
+    for a, b in spans:  # the union of the kernels' intervals
+        busy += max(0, b - max(a, end))
+        end = max(end, b)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    groups = {}
+    for name, us in by_name.items():
+        g = profile_group(name)
+        groups[g] = groups.get(g, 0) + us
+    # where the step's peak memory is set: forward + backward alone,
+    # then the whole step (the same, plus clipping and AdamW)
+    batch, n = batches[-1]
+    torch.cuda.reset_peak_memory_stats()
+    trainer._loss_and_acc(batch, n)[0].backward()
+    torch.cuda.synchronize()
+    fb_peak = torch.cuda.max_memory_allocated() / 2**30
+    for p in trainer.params:
+        p.grad = None
+    torch.cuda.reset_peak_memory_stats()
+    trainer.train_step(batch, n)
+    torch.cuda.synchronize()
+    return dict(wall_us=wall_us, busy=busy, n=len(kernels), by_name=by_name, groups=groups,
+                total=sum(by_name.values()), fb_peak=fb_peak,
+                step_peak=torch.cuda.max_memory_allocated() / 2**30)
 
 
 @contextlib.contextmanager
@@ -6271,10 +6404,27 @@ def kernels_line(counts, k1, k2, k3, k4) -> dict:
 
 
 def main() -> int:
-    t_start = time.perf_counter()
+    """_main with cold compiles: torch.compile's caches (inductor's, and
+    Triton's kernels) in a fresh temporary directory, which the processes
+    this script starts inherit and which goes at the end with inductor's
+    compile workers."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    cache = tempfile.mkdtemp(prefix="chip_smoke_compile_")
+    os.environ["TORCHINDUCTOR_CACHE_DIR"] = os.path.join(cache, "inductor")
+    os.environ["TRITON_CACHE_DIR"] = os.path.join(cache, "triton")
+    try:
+        return _main()
+    finally:
+        from torch._inductor import async_compile
+
+        async_compile.shutdown_compile_workers()
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def _main() -> int:
+    t_start = time.perf_counter()
     sys.path.insert(0, str(HERE))
     import touchnet_tpu_torch
     from touchnet_tpu_torch.ops import _build
@@ -6392,6 +6542,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--gloo-rank"]:
+    if sys.argv[1:2] == ["--gloo-rank"]:  # a process of phase 16, in main's compile cache
         sys.exit(gloo_rank_worker(sys.argv[2:]))
     sys.exit(main())

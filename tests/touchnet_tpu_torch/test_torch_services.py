@@ -20,6 +20,7 @@
 #     for bit in every case.
 
 import gc
+import json
 import os
 import subprocess
 import sys
@@ -214,14 +215,21 @@ def test_gc_freq(tmp_path, monkeypatch):
     assert gc.isenabled()
 
 
+# (flags, the flags warned as unread, whether the step runs compiled).
+# training_compile and training_trace_buf_size are read: compile compiles
+# the step (its losses within rtol 1e-5 of the eager ones: inductor orders
+# some sums otherwise), and a trace buffer sizes NCCL's flight recorder,
+# which a run without a process group never starts (losses bit-equal, no
+# comm_trace folder); compiled autograd stays a warned no-op, as in JAX.
 UNREAD_CASES = {
-    "defaults": ({}, ()),
-    "compile": ({"training_compile": "true"}, ("training_compile",)),
+    "defaults": ({}, (), False),
+    "compile": ({"training_compile": "true"}, (), True),
     "compiled_autograd": ({"training_enable_compiled_autograd": "true"},
-                          ("training_enable_compiled_autograd",)),
-    "trace_buf_size": ({"training_trace_buf_size": 100}, ("training_trace_buf_size",)),
+                          ("training_enable_compiled_autograd",), False),
+    "trace_buf_size": ({"training_trace_buf_size": 100}, (), False),
     "all three": ({"training_compile": "true", "training_enable_compiled_autograd": "true",
-                   "training_trace_buf_size": 100}, tuple(ttrain.UNREAD_FLAGS)),
+                   "training_trace_buf_size": 100}, ("training_enable_compiled_autograd",),
+                  True),
     "layout flags at degree 1": ({
         "training_context_parallel_rotate_method": "alltoall",
         "training_fsdp_reshard_after_forward": "always",
@@ -229,7 +237,7 @@ UNREAD_CASES = {
         "training_pipeline_parallel_microbatches": 4,
         "training_pipeline_parallel_split_points": "layers.1",
         "training_enable_loss_parallel": "true",
-        "training_enable_async_tensor_parallel": "true"}, ()),
+        "training_enable_async_tensor_parallel": "true"}, (), False),
 }
 
 
@@ -244,14 +252,28 @@ def default_losses(tmp_path_factory):
 @pytest.mark.parametrize("case", list(UNREAD_CASES))
 def test_unread_flags_warn_once_and_change_nothing(tmp_path, default_losses, case):
     listfile, want = default_losses
-    flags, warned = UNREAD_CASES[case]
+    flags, warned, compiled = UNREAD_CASES[case]
     trainer = ttrain.main(_flags(tmp_path, listfile, 2, **flags), device=torch.device("cpu"))
     losses = [h["loss/per_sample"] for h in trainer.metrics_processor.history]
-    assert losses == want and len(losses) == 2
+    assert len(losses) == 2
+    if compiled:
+        np.testing.assert_allclose(losses, want, rtol=1e-5)
+    else:
+        assert losses == want
+    assert trainer.compiled == compiled
+    summary = json.loads((tmp_path / "exp" / "train_summary_rank0.json").read_text())
+    assert summary["compile"]["enabled"] == compiled
+    if compiled:
+        assert summary["compile"]["graph_breaks"] == 0 and summary["compile"]["seconds"] > 0
+    assert summary["flight_recorder"]["buffer_size"] == 0  # no NCCL group here
+    assert not (tmp_path / "exp" / "comm_trace").exists()
     log = (tmp_path / "exp" / "touchnet_train.log").read_text().splitlines()
+    assert any("training_compile:" in ln for ln in log) == compiled
     for name in ttrain.UNREAD_FLAGS:
         lines = [ln for ln in log if " WARNING " in ln and f"{name}=" in ln]
         assert len(lines) == (name in warned), (name, lines)
         if lines:
             assert ttrain.UNREAD_FLAGS[name] in lines[0] and "changes nothing" in lines[0]
+    for name in ("training_compile", "training_trace_buf_size"):
+        assert not [ln for ln in log if " WARNING " in ln and f"{name}=" in ln]
     assert not [ln for ln in log if " WARNING " in ln and "parallel" in ln]

@@ -197,22 +197,41 @@ def test_residual_saving_remat_matches_jax(remat, opt):
         assert err <= 1e-5 * np.abs(ref).max(), (name, err, np.abs(ref).max())
 
 
-class _CountRecompute(TorchDispatchMode):
-    """Counts, while open, the K1 op calls and the tagged projection
-    matmuls that run. Opened around backward(): a residual the checkpoint
-    policy saved is handed back by the checkpoint's own mode, above this
-    one, and never reaches it."""
+PROJ = dict(zip(tmodel.LlamaDecoderLayer.DOTS,
+                ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj", "self_attn.o_proj",
+                 "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj")))
+_MATMULS = {tmodel.torch.ops.aten.mm.default: 1, tmodel.torch.ops.aten.mm.out: 1,
+            tmodel.torch.ops.aten.addmm.default: 2, tmodel.torch.ops.aten.addmm.out: 2}
 
-    def __init__(self):
+
+class _CountRecompute(TorchDispatchMode):
+    """Counts, while open, the K1 op calls and the projections' forward
+    matmuls that run, eager or from a compiled graph (which calls both
+    through the dispatcher). Opened around backward(): a residual the
+    checkpoint policy saved is handed back by the checkpoint's own mode,
+    above this one, and never reaches it. A forward projection is the
+    matmul whose right operand is a layer weight transposed (f32 compute:
+    the weight's own storage, strides (1, in)); the backward's dx product
+    takes the weight untransposed and its dw product no weight."""
+
+    def __init__(self, model):
         super().__init__()
         self.flash = 0
         self.dots = {}
+        self.weights = {}
+        for layer in model.model.layers:
+            for name, path in PROJ.items():
+                w = layer.get_submodule(path).weight
+                self.weights[w.untyped_storage().data_ptr()] = name
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func is tmodel.attn_ops.FLASH_FWD_OP:
             self.flash += 1
-        elif func in tmodel._MATMULS and tmodel._TAG.name:
-            self.dots[tmodel._TAG.name] = self.dots.get(tmodel._TAG.name, 0) + 1
+        elif func in _MATMULS:
+            w = args[_MATMULS[func]]
+            name = self.weights.get(w.untyped_storage().data_ptr())
+            if name is not None and w.stride(0) == 1 and w.stride(1) != 1:
+                self.dots[name] = self.dots.get(name, 0) + 1
         return func(*args, **(kwargs or {}))
 
 
@@ -233,7 +252,7 @@ def test_remat_recompute_counts(remat, opt):
         segment_ids=torch.from_numpy(batch["attention_mask"]),
         position_ids=torch.from_numpy(batch["position_ids"]), config=tcfg,
         compute_dtype=torch.float32, remat_mode=remat, selective_ac_option=opt)
-    with _CountRecompute() as counts:
+    with _CountRecompute(model) as counts:
         logits.square().mean().backward()
     want_flash = {"full": L, "op": -(-L // 2) if opt == "full_every_2" else 0}.get(remat, 0)
     assert counts.flash == want_flash, counts.flash

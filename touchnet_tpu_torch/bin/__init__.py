@@ -5,9 +5,16 @@
 # of them (bin/train.py says which raise on a layout it cannot run). One
 # JAX field that nothing here would read is left out,
 # so passing it is a parse error: CkptConverterConfig's tmp_dir. One default
-# differs: training_compile is false, since the port's step runs eagerly;
-# the trainer warns once for each flag it accepts and never reads
-# (bin/train.py warn_unread), and true is one of those.
+# differs: training_compile is false. True compiles the step as the
+# reference does (each decoder and encoder layer one torch.compile graph of
+# its checkpoint and block, K1 and K2 inside as custom ops, and the pack
+# loss; bin/train.py); false is the eager step. The default stays false
+# because every recipe passes true, while the CPU test suites, which build
+# trainers in hundreds of tests, would otherwise compile in each of them.
+# training_trace_buf_size sizes NCCL's flight recorder (the reference's
+# meaning; utils/distributed.flight_recorder_env). The trainer warns once
+# for each flag it accepts and never reads (bin/train.py warn_unread):
+# training_enable_compiled_autograd, a no-op in JAX too.
 #
 # Entry-point configurations.
 #
@@ -62,9 +69,11 @@ class TrainConfig:
     training_tb_rank_0_only: bool = field(default=True)
     training_trace_buf_size: int = field(
         default=20000,
-        metadata={"help": "JAX: XLA debug dump cap (reference: NCCL flight-recorder "
-                          "buffer); the port writes no such trace, and another value logs a "
-                          "warning"},
+        metadata={"help": "NCCL flight-recorder buffer (the reference's; JAX: an XLA dump "
+                          "under <training_trace_dump_folder>/comm_trace): the last N "
+                          "collectives, dumped into <training_trace_dump_folder>/comm_trace/ "
+                          "on a collective's timeout and when the step watchdog fires; 0 "
+                          "turns it off; over gloo there is none"},
     )
     training_trace_dump_folder: str = field(default="./exp")
     training_init_timeout_seconds: int = field(default=300)
@@ -84,13 +93,18 @@ class TrainConfig:
     )
     training_compile: bool = field(
         default=False,
-        metadata={"help": "the port's step runs eagerly: true (the recipes' value; the JAX "
-                          "trainer's default, whose step is always jitted) logs a warning "
-                          "and changes nothing"},
+        metadata={"help": "true (the recipes' value; the JAX trainer's default, whose step "
+                          "is always jitted) compiles every decoder and encoder layer, its "
+                          "activation checkpoint included, into one torch.compile graph with "
+                          "K1 and K2 as custom ops, and the pack loss (K3 inside under liger "
+                          "or loss parallel); the dev pass runs the same graphs. The first "
+                          "step includes the compile. false (the port's default, so the CPU "
+                          "tests do not compile) runs the step eagerly"},
     )
     training_enable_compiled_autograd: bool = field(
-        default=False, metadata={"help": "not read: true logs a warning (the step runs "
-                                         "eagerly)"})
+        default=False, metadata={"help": "not read: true logs a warning (the backward "
+                                         "runs without compiled autograd; a no-op in JAX "
+                                         "too)"})
     training_enable_liger_kernel: bool = field(
         default=False,
         metadata={"help": "TPU: fused chunked linear+cross-entropy — the "

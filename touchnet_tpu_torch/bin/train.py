@@ -133,6 +133,23 @@
 # apply_cp act on each stage's layers. The dev pass runs the pipeline's
 # forwards alone.
 #
+# --training_compile true compiles the step as the reference does (TP -> AC
+# -> compile -> FSDP): parallel/sharding.apply_compile gives every trainable
+# decoder and encoder layer one torch.compile graph of its checkpoint and
+# block, in which K1 and K2 run as custom ops, and the pack loss (the
+# full-logits cross_entropy_loss, or the fused linear + CE with K3 as custom
+# ops) is compiled too; the dev pass runs the same graphs (with grad
+# enabled, see dev; under FSDP2 no_grad graphs of their own).
+# num_sentence enters a compiled loss as a device
+# tensor, so its value is no guard. Batches whose shapes change every step
+# (the SFT loaders' dynamic_batch: datapipes other than causal_lm without
+# packing) compile with symbolic sizes from the first call, so a resumed
+# process takes the graph an uninterrupted one has. A frame past dynamo's
+# recompile limit raises (fail_on_recompile_limit_hit) instead of running
+# eagerly; a failed compile raises. The summary records the compiled
+# frames, graph breaks, cache entries and compile seconds. The default
+# (false) is the eager step.
+#
 # --training_mixed_precision_param takes float32, bfloat16 and float16 (the
 # compute dtype of K1-K4 and the matmuls; the masters and AdamW stay f32).
 # What the port does not run raises a ValueError naming the flag: a dp_only
@@ -175,9 +192,12 @@ from touchnet_tpu_torch.parallel.pipeline import (
     virtual_stages_of,
 )
 from touchnet_tpu_torch.parallel.sharding import (
+    apply_compile,
     apply_fsdp,
+    configure_compile,
     dp_mesh_of,
     local,
+    mark_rows_dynamic,
     on_host,
     reshard,
     sum_forward,
@@ -190,6 +210,7 @@ from touchnet_tpu_torch.utils.cli import dump_config_json, parse_args_into_datac
 from touchnet_tpu_torch.utils.distributed import (
     GarbageCollection,
     StepWatchdog,
+    flight_recorder_state,
     init_distributed,
     local_cuda_device,
     rank_and_world,
@@ -240,16 +261,15 @@ def check_dp_only(spec, job_config: TrainConfig) -> None:
 
 
 # flags the trainer accepts and never reads: set away from their default
-# (what the port does), each logs one warning saying so. The pipeline's
+# (what the port does), each logs one warning saying so; the JAX trainer
+# too only logs compiled autograd as a no-op (:334-337). The pipeline's
 # schedule, microbatch and split flags at pp 1 and the rotate method at cp
 # 1 are inert here as in the JAX trainer, and stay silent; so does async TP
 # at tp 1 (at tp > 1 it warns once: the port runs no XLA scheduler it could
 # set).
 UNREAD_FLAGS = {
-    "training_compile": "the port's step runs eagerly (no torch.compile)",
-    "training_enable_compiled_autograd": "the port's step runs eagerly (no compiled autograd)",
-    "training_trace_buf_size": "the port writes no XLA comm trace (the JAX trainer's dump "
-                               "under <training_trace_dump_folder>/comm_trace)",
+    "training_enable_compiled_autograd": "the port's backward runs without compiled autograd "
+                                         "(as the JAX trainer, which logs it as a no-op)",
 }
 
 
@@ -493,7 +513,9 @@ class Trainer:
         self.device = device
         started_here = not dist.is_initialized()
         # under a process group the model is wrapped in FSDP2, even at world 1
-        self.fsdp = init_distributed(device, job_config.training_init_timeout_seconds)
+        self.fsdp = init_distributed(device, job_config.training_init_timeout_seconds,
+                                     trace_buf_size=job_config.training_trace_buf_size,
+                                     dump_folder=job_config.training_trace_dump_folder)
         self._owns_group = started_here and self.fsdp  # close() ends it
         self.rank, self.world = rank_and_world()
         self.parallel_dims = ParallelDims(
@@ -581,8 +603,11 @@ class Trainer:
         # the module holding the head (its tp group and vocab shard)
         self._head = None if head_w is None else next(
             m for m in self.model.modules() if getattr(m, "weight", None) is head_w)
+        self._setup_compile()
         if self.fsdp:
             self._parallelize()
+        else:
+            self._compile()
         named = [(n, p) for n, p in self.model.named_parameters() if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -667,13 +692,87 @@ class Trainer:
         if pd.cp > 1:
             apply_cp(self.model, self.mesh["cp"].get_group(),
                      cfg.training_context_parallel_rotate_method)
+        self._compile()
+        # compiled, the layers too are gathered in the dtype one process
+        # differentiates and cast at use inside the graph, as one process
+        # casts its masters: one graph for both, so world 1 under FSDP2
+        # keeps one process's bits (with bf16 parameters the graph, and
+        # inductor's reductions in it, would differ); the all-gathers move
+        # twice the bytes of bf16
+        param_dtype = self.reduce_dtype if self.compiled else self.compute_dtype
         apply_fsdp(self._reparam, self.model, dp_mesh_of(self.mesh, pd.dp_replicate),
-                   param_dtype=self.compute_dtype, reduce_dtype=self.reduce_dtype,
+                   param_dtype=param_dtype, reduce_dtype=self.reduce_dtype,
                    reshard_after_forward=cfg.training_fsdp_reshard_after_forward)
         logger.info(f"FSDP2 over dp_replicate {pd.dp_replicate} x dp_shard {pd.dp_shard} x cp "
                     f"{pd.cp} (reshard_after_forward {cfg.training_fsdp_reshard_after_forward}, "
-                    f"params {self.compute_dtype}, reduce {self.reduce_dtype}, sum), tp {pd.tp}"
+                    f"params {param_dtype}, reduce {self.reduce_dtype}, sum), tp {pd.tp}"
                     + (f", cp {cfg.training_context_parallel_rotate_method}" if pd.cp > 1 else ""))
+
+    def _setup_compile(self) -> None:
+        """--training_compile: torch.compile's settings for this trainer
+        (parallel/sharding.configure_compile: its caches and counters
+        reset, so the summary counts this run's graphs) and the pack losses
+        the step calls, compiled or not."""
+        self.compiled = self.job_config.training_compile
+        self._loss_fn = self.train_spec.loss_fn
+        self._fused_loss = fused_linear_cross_entropy
+        self.compile_seconds0 = 0.0
+        self.dynamic_rows = False
+        self.compiled_layers = {}
+        if not self.compiled:
+            return
+        configure_compile()
+        dc = self.data_config
+        # symbolic rows and lengths from the first call where every batch has
+        # its own shape (the dynamic batchers'; packed batches are fixed)
+        self.dynamic_rows = not (dc.datapipe_type == "causal_lm" or dc.dataset_enable_pack)
+        self._loss_fn = torch.compile(self._loss_fn)
+        self._fused_loss = torch.compile(fused_linear_cross_entropy)
+        self.compile_seconds0 = _compile_seconds()
+
+    def _compile(self) -> None:
+        """The compiled blocks (parallel/sharding.apply_compile), after the
+        TP plan and cp, before FSDP. A block holds no graph break, except
+        under cp, whose attention (the ring's point-to-point through host
+        buffers, the allgather's collectives) is the graph's boundary, and
+        under tp, whose collectives run eagerly between graphs."""
+        if not self.compiled:
+            return
+        fullgraph = self.parallel_dims.cp == 1 and self.parallel_dims.tp == 1
+        self.compiled_layers = apply_compile(self.model, fullgraph=fullgraph,
+                                             dynamic_rows=self.dynamic_rows)
+        names = {cls.__name__: n for cls, n in self.compiled_layers.items()}
+        logger.info(f"training_compile: layers compiled {names} (fullgraph "
+                    f"{fullgraph}, dynamic rows {self.dynamic_rows}) and the pack loss; the first "
+                    "step includes the compile")
+
+    def _compile_summary(self) -> dict:
+        """What dynamo compiled for this trainer: frames compiled (each
+        first compile and recompile of a function, and the resume frames
+        after a graph break), graph breaks by reason, the cache entries of
+        the compiled functions (a recompile adds one) and the seconds spent
+        compiling (dynamo's frames and the lazy backward compiles)."""
+        if not self.compiled:
+            return {"enabled": False}
+        from torch._dynamo.eval_frame import _debug_get_cache_entry_list
+        from torch._dynamo.utils import counters
+
+        fns = {"loss": self.train_spec.loss_fn, "fused_loss": fused_linear_cross_entropy}
+        for cls in self.compiled_layers:
+            fns[cls.__name__] = cls.checkpointed_block
+        entries = {k: len(_debug_get_cache_entry_list(f.__code__)) for k, f in fns.items()}
+        breaks = dict(counters["graph_break"])
+        return {
+            "enabled": True,
+            "dynamic": self.dynamic_rows,
+            "frames": counters["frames"]["ok"],
+            "unique_graphs": counters["stats"]["unique_graphs"],
+            "graph_breaks": sum(breaks.values()),
+            "graph_break_reasons": breaks,
+            "cache_entries": entries,
+            "recompiles": sum(max(0, n - 1) for n in entries.values()),
+            "seconds": _compile_seconds() - self.compile_seconds0,
+        }
 
     def _model_state(self) -> Dict[str, torch.Tensor]:
         """The model's tensors by name, as the checkpoint holds them (under
@@ -724,16 +823,31 @@ class Trainer:
             return self._reparam(lambda: self._local_loss_and_acc(batch, num_sentence))
         return self._local_loss_and_acc(batch, num_sentence)
 
+    def _num_sentence(self, num_sentence):
+        """A compiled loss takes the global sentence count as a device
+        tensor (a float would be a guard, recompiled every step); an eager
+        one the float."""
+        if not self.compiled:
+            return num_sentence
+        return torch.full((), num_sentence, dtype=torch.float32, device=self.device)
+
     def _local_loss_and_acc(self, batch, num_sentence):
+        num_sentence = self._num_sentence(num_sentence)
+        if self.dynamic_rows:  # the batch arrays as the blocks and the loss see them
+            mark_rows_dynamic(*(t for t in batch.values() if t is not None))
         if self._fused_ce:
             hidden = self._forward(batch, return_hidden=True)
+            if self.dynamic_rows:
+                mark_rows_dynamic(hidden)
             head = self._head
-            return fused_linear_cross_entropy(
+            return self._fused_loss(
                 hidden, local(head.weight), batch["labels"], batch["sentence_lens"],
                 num_sentence, compute_dtype=self.compute_dtype, tp_group=tp_group(head),
                 vocab_start=vocab_start(head), dp_group=self.loss_group)
         logits = self._forward(batch)
-        loss_ps, loss_pt = self.train_spec.loss_fn(
+        if self.dynamic_rows:
+            mark_rows_dynamic(logits)
+        loss_ps, loss_pt = self._loss_fn(
             logits, batch["labels"], batch["sentence_lens"], num_sentence)
         acc = self.train_spec.acc_fn(logits, batch["labels"])
         if self.loss_group is None:
@@ -762,6 +876,7 @@ class Trainer:
                 for k, v in batch.items()} for m in range(pipe.M)]
         sums = torch.zeros(4, dtype=torch.float64, device=self.device)
         last_stage = pipe.S * pipe.V - 1
+        num_sentence = self._num_sentence(num_sentence)
 
         def forward_fn(v, m, x):
             t = v * pipe.S + pipe.stage
@@ -776,8 +891,8 @@ class Trainer:
                     first=t == 0, last=t == last_stage)
                 if t != last_stage:
                     return out
-                loss_ps, loss_pt = spec.loss_fn(out, mb["labels"], mb["sentence_lens"],
-                                                num_sentence)
+                loss_ps, loss_pt = self._loss_fn(out, mb["labels"], mb["sentence_lens"],
+                                                 num_sentence)
                 acc = spec.acc_fn(out, mb["labels"])
                 ntok = (mb["labels"] != -100).sum().double()
                 sums.add_(torch.stack([loss_ps.detach().double(), loss_pt.detach() * ntok,
@@ -1008,8 +1123,9 @@ class Trainer:
 
     def _write_summary(self) -> None:
         """<dump>/train_summary_rank<R>.json: this process's logged lines,
-        dev lines, kernel launches and checkpoint times, for a caller that
-        ran the trainer in another process (torchrun)."""
+        dev lines, kernel launches, checkpoint times, what it compiled
+        (_compile_summary) and its NCCL flight recorder's settings, for a
+        caller that ran the trainer in another process (torchrun)."""
         from touchnet_tpu_torch.ops import attention, fused_ce
 
         mp = self.metrics_processor
@@ -1021,6 +1137,8 @@ class Trainer:
                          "K3 fwd": fused_ce.fused_ce_fwd.launches,
                          "K3 bwd": fused_ce.fused_ce_bwd.launches},
             "checkpoint_times": {str(k): v for k, v in self.checkpointer.times.items()},
+            "compile": self._compile_summary(),
+            "flight_recorder": flight_recorder_state(),
         }
         path = os.path.join(self.job_config.training_trace_dump_folder,
                             f"train_summary_rank{self.rank}.json")
@@ -1084,7 +1202,6 @@ class Trainer:
             self.step, self._model_state(), self._opt_state(), force=force,
             before_stage=self.offload.synchronize if self.offload is not None else None)
 
-    @torch.no_grad()
     def dev(self):
         """The dev-set pass (the JAX Trainer.dev, :1024-1072): the eval step
         (_loss_and_acc, forward only: K1 and K3's forward on the card; under
@@ -1092,7 +1209,16 @@ class Trainer:
         datalist_dev_path (never stacked, whatever the
         accumulation), averaged, logged as one [dev] line. Each rank reads
         its dp rank's dev stream; the ranks stop together when one runs
-        dry, and each batch's metrics are the global batch's."""
+        dry, and each batch's metrics are the global batch's. Under no_grad,
+        except a compiled step without FSDP, whose pass runs its training
+        graphs with grad enabled and drops each batch's graph with its
+        metrics: under no_grad dynamo would compile every graph once more
+        (FSDP2 keeps no_grad: a forward that records for a backward that
+        never comes would leave its units waiting for that backward)."""
+        with torch.enable_grad() if self.compiled and not self.fsdp else torch.no_grad():
+            self._dev()
+
+    def _dev(self):
         dev_loader = self._loader("dev")
         totals = {"loss_per_sample": 0.0, "loss_per_token": 0.0, "acc": 0.0}
         n = 0
@@ -1112,6 +1238,7 @@ class Trainer:
                                                                 train=False)
                 for k, v in zip(totals, (loss_ps, loss_pt, acc)):
                     totals[k] += float(v)
+                del loss_ps, loss_pt, acc  # and with them any graph they record
                 n += 1
         finally:
             dev_loader.shutdown()
@@ -1128,6 +1255,16 @@ class Trainer:
             self.metrics_processor.close()
             if self._owns_group:
                 dist.destroy_process_group()
+
+
+def _compile_seconds() -> float:
+    """Seconds dynamo has spent compiling in this process: its frames
+    (tracing, AOTAutograd, the forward graphs' inductor compiles) and the
+    backward graphs, compiled at their first backward."""
+    from torch._dynamo.utils import compilation_time_metrics
+
+    return sum(sum(compilation_time_metrics.get(k, ()))
+               for k in ("_compile.compile_inner", "compile_fx.<locals>.bw_compiler"))
 
 
 def main(argv: Optional[list] = None, device: Optional[torch.device] = None) -> Trainer:

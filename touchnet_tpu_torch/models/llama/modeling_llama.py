@@ -38,16 +38,29 @@
 #                           names are in the set and re-run otherwise (as
 #                           JAX re-runs the kernel for a residual it lacks);
 #   dot_q/k/v/o, dot_gate/up/down   the projections' matmuls. A bare aten.mm
-#                           carries no name, so the layer sets a tag around
-#                           each projection (_tagged) and the policy reads
-#                           it; the recompute runs the same code, sets the
-#                           same tags, and so decides the same way.
+#                           carries no name, so the policy names each matmul
+#                           by its place in the block: the layer class's
+#                           DOTS lists the projections in the order the
+#                           block runs them, and a fresh policy for every
+#                           checkpointed call counts the matmuls it meets
+#                           (the forward's and a recompute's apart). The
+#                           count is made wherever the policy runs: while
+#                           the eager forward runs, or while a compiled
+#                           graph is traced (a tag set by Python code
+#                           around each projection would be set while
+#                           dynamo traces, and read by no one).
 # Everything else (norms, rope, casts, the SwiGLU product) is recomputed.
+#
+# The checkpoint runs inside the layer's forward (run_block), so that
+# FSDP2's hooks, on the layer's __call__, stay outside it and outside a
+# compiled block: with --training_compile true, parallel/sharding.
+# apply_compile gives each layer a torch.compile of its class's
+# checkpointed_block (remat_block: the checkpoint and the block in one
+# graph, the reference's AC -> compile order), and K1 and K2 run in that
+# graph as custom ops.
 
-import contextlib
 import functools
-import threading
-from typing import Callable, FrozenSet, List, Optional
+from typing import Callable, FrozenSet, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +85,7 @@ from touchnet_tpu_torch.parallel.sharding import (
     embed,
     head_logits,
     local,
+    mark_rows_dynamic,
     sum_backward,
     sum_forward,
     tp_group,
@@ -120,32 +134,18 @@ class LlamaMLP(nn.Module):
         return sum_forward(_proj(self.down_proj, F.silu(g) * u, "dot_down"), group)
 
 
-class _Tag(threading.local):
-    name: Optional[str] = None
-
-
-_TAG = _Tag()
-
-
-@contextlib.contextmanager
-def _tagged(name: str):
-    """While open, the matmuls this thread dispatches carry ``name`` for
-    the checkpoint policy (_save_policy)."""
-    prev, _TAG.name = _TAG.name, name
-    try:
-        yield
-    finally:
-        _TAG.name = prev
-
-
 def _proj(mod: nn.Linear, x: torch.Tensor, name: str) -> torch.Tensor:
+    """x w^T (+ b) in x's dtype: one matmul, the projection ``name`` (the
+    layer class's DOTS lists it at its place in the block)."""
     b = None if mod.bias is None else local(mod.bias).to(x.dtype)
-    w = local(mod.weight).to(x.dtype)
-    with _tagged(name):
-        return linear(x, w, b)
+    return linear(x, local(mod.weight).to(x.dtype), b)
 
 
 class LlamaDecoderLayer(nn.Module):
+    # the projections' residual names in the order the block runs their
+    # matmuls (the selective-checkpoint policy's names, _save_policy)
+    DOTS = ("dot_q", "dot_k", "dot_v", "dot_o", "dot_gate", "dot_up", "dot_down")
+
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
@@ -155,8 +155,21 @@ class LlamaDecoderLayer(nn.Module):
                                                      config.rms_norm_eps)
         self.mlp = LlamaMLP(config)
 
-    def forward(self, h: torch.Tensor, position_ids: torch.Tensor,
-                inv_freq: torch.Tensor, attend: Callable) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, position_ids: torch.Tensor, inv_freq: torch.Tensor,
+                attend: Callable, remat: Optional[FrozenSet[str]] = None) -> torch.Tensor:
+        """The block, checkpointed as ``remat`` says (remat_layers' choice for
+        this layer; None keeps every activation), compiled when apply_compile
+        gave the layer a compiled block (run_block)."""
+        return run_block(self, remat, h, position_ids, inv_freq, attend)
+
+    def checkpointed_block(self, save, *args):
+        """remat_block of this class: what apply_compile compiles (a code
+        object per layer class, so each class's graphs are a frame of their
+        own)."""
+        return remat_block(self, save, *args)
+
+    def block(self, h: torch.Tensor, position_ids: torch.Tensor,
+              inv_freq: torch.Tensor, attend: Callable) -> torch.Tensor:
         """Pre-norm block. ``attend(q, k, v) -> [B, Tq, H, Dh]`` is the
         attention step after rope (in serving the KV-cache write and the
         kernel call, supplied by inference_llama.forward_step; in training
@@ -350,29 +363,66 @@ def remat_layers(remat_mode: str, selective_ac_option: str,
     return [first if i % k == 0 else rest for i in range(num_layers)]
 
 
-def _save_policy(names: FrozenSet[str]) -> Callable:
-    """The selective-checkpoint policy of a save set: MUST_SAVE for K1's op
-    when both flash names are in the set and for a matmul whose tag is;
-    everything else is recomputed."""
+def _save_policy(names: FrozenSet[str], dots: Tuple[str, ...]) -> Callable:
+    """The selective-checkpoint policy of a save set, for one checkpointed
+    call of a block whose matmuls are the projections ``dots`` in order:
+    MUST_SAVE for K1's op when both flash names are in the set and for the
+    i-th matmul when dots[i] is; everything else is recomputed. The
+    matmuls are counted apart in the forward and in a recompute (where a
+    torch version asks the policy again), so both name them alike."""
     save_flash = set(FLASH_NAMES) <= names
+    seen = {False: 0, True: 0}
 
     def policy(ctx, op, *args, **kwargs):
         if op is attn_ops.FLASH_FWD_OP:
             keep = save_flash
+        elif op in _MATMULS:
+            i = seen[ctx.is_recompute]
+            seen[ctx.is_recompute] = i + 1
+            keep = i < len(dots) and dots[i] in names
         else:
-            keep = op in _MATMULS and _TAG.name in names
+            keep = False
         return CheckpointPolicy.MUST_SAVE if keep else CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
 
 
-def _run_layer(layer: "LlamaDecoderLayer", save: Optional[FrozenSet[str]], *args):
+def _sac_contexts(names: FrozenSet[str], dots: Tuple[str, ...]):
+    """A checkpoint's context_fn: a fresh policy (fresh counts) per call."""
+    return create_selective_checkpoint_contexts(_save_policy(names, dots))
+
+
+def remat_block(layer: nn.Module, save: Optional[FrozenSet[str]], *args) -> torch.Tensor:
+    """layer.block(*args) under the layer's checkpointing: none (save None),
+    the whole block recomputed (FULL) or the selective policy of the save
+    set. What apply_compile compiles, whole: dynamo takes the checkpoint
+    into the graph, and AOTAutograd runs the policy while it traces (the
+    context_fn is a partial of a module-level function and constants,
+    which dynamo guards as constants)."""
     if save is None:
-        return layer(*args)
+        return layer.block(*args)
     if not save:
-        return checkpoint(layer, *args, use_reentrant=False)
-    context_fn = functools.partial(create_selective_checkpoint_contexts, _save_policy(save))
-    return checkpoint(layer, *args, use_reentrant=False, context_fn=context_fn)
+        return checkpoint(layer.block, *args, use_reentrant=False)
+    context_fn = functools.partial(_sac_contexts, save, type(layer).DOTS)
+    return checkpoint(layer.block, *args, use_reentrant=False, context_fn=context_fn)
+
+
+def run_block(layer: nn.Module, save: Optional[FrozenSet[str]], *args) -> torch.Tensor:
+    """remat_block, through the layer's compiled checkpointed_block when
+    apply_compile gave it one (the activations' batch and sequence dims
+    symbolic when it asked for dynamic rows)."""
+    compiled = getattr(layer, "compiled_block", None)
+    if compiled is None:
+        return remat_block(layer, save, *args)
+    if layer.dynamic_rows:
+        mark_rows_dynamic(*args)
+    return compiled(layer, save, *args)
+
+
+def _run_layer(layer: nn.Module, save: Optional[FrozenSet[str]], *args) -> torch.Tensor:
+    """One training layer: its __call__ (FSDP2's hooks, when it is a unit),
+    then its checkpointed, maybe compiled, block."""
+    return layer(*args, remat=save)
 
 
 def _train_attention(segment_ids: Optional[torch.Tensor], cp=None) -> Callable:

@@ -33,14 +33,20 @@
 
 import math
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, FrozenSet, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from touchnet_tpu_torch.models.common import normal_init
-from touchnet_tpu_torch.models.llama.modeling_llama import _proj, _run_layer, remat_layers
+from touchnet_tpu_torch.models.llama.modeling_llama import (
+    _proj,
+    _run_layer,
+    remat_block,
+    remat_layers,
+    run_block,
+)
 from touchnet_tpu_torch.ops import attention as attn_ops
 
 
@@ -105,6 +111,10 @@ class WhisperAttention(nn.Module):
 
 
 class WhisperEncoderLayer(nn.Module):
+    # the projections' residual names in the order the block runs their
+    # matmuls (modeling_llama._save_policy's names)
+    DOTS = ("dot_q", "dot_k", "dot_v", "dot_o", "dot_gate", "dot_down")
+
     def __init__(self, config: WhisperEncoderConfig):
         super().__init__()
         d, eps = config.d_model, config.layer_norm_eps
@@ -115,7 +125,17 @@ class WhisperEncoderLayer(nn.Module):
         self.fc1 = nn.Linear(d, config.encoder_ffn_dim, bias=True)
         self.fc2 = nn.Linear(config.encoder_ffn_dim, d, bias=True)
 
-    def forward(self, h: torch.Tensor, attend: Callable) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, attend: Callable,
+                remat: Optional[FrozenSet[str]] = None) -> torch.Tensor:
+        """The block under ``remat`` (modeling_llama.run_block: checkpointed,
+        and compiled when apply_compile gave the layer a compiled block)."""
+        return run_block(self, remat, h, attend)
+
+    def checkpointed_block(self, save, *args):
+        """remat_block of this class (modeling_llama.LlamaDecoderLayer's twin)."""
+        return remat_block(self, save, *args)
+
+    def block(self, h: torch.Tensor, attend: Callable) -> torch.Tensor:
         """Pre-LN block (the JAX forward's layer, :157-196); the projections
         carry the JAX tower's residual names, as the Llama's do. ``attend(q,
         k, v) -> [B, T, H, hd]`` is the attention (the tower's is

@@ -21,9 +21,16 @@
 #     residual names). The wrapper raises on a shape or dtype the kernels do
 #     not take and never falls back to the plain version.
 #   - flash_attention_bwd: K2's wrapper (dq, dk, dv from the forward's
-#     residuals, or from a context-parallel ring's final out and lse); its
-#     plain version, flash_attention_bwd_reference, computes the kernel's
-#     formula from the same inputs in f32.
+#     residuals, or from a context-parallel ring's final out and lse),
+#     through the custom op touchnet_tpu_torch::flash_attention_bwd
+#     (FLASH_BWD_OP), whose CUDA implementation launches K2 and whose CPU
+#     implementation is the plain version, flash_attention_bwd_reference:
+#     the kernel's formula from the same inputs in f32.
+#   Both ops have fake implementations (shapes only, valid for symbolic B
+#     and T), so torch.compile traces a block through them: the compiled
+#     graph calls the ops, and the ops the kernels. The launch counts stay
+#     in the op bodies, which run at every call, compiled or not (a count
+#     in code that dynamo traces would run once, while tracing).
 #   - flash_prefill: the chunked-prefill entry (the role of
 #     flash_prefill_grouped, :1983): a chunk's queries attend the halves of
 #     the packed KV cache, passed as strided views, never copied.
@@ -216,8 +223,16 @@ def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 @_flash_fwd_op.register_kernel("cpu")
 def _flash_fwd_cpu(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
-    return packed_attention_reference(q, k, v, q_seg, causal, scale, kv_seg, q_offset,
-                                      kv_offset)
+    out, lse = packed_attention_reference(q, k, v, q_seg, causal, scale, kv_seg, q_offset,
+                                          kv_offset)
+    return out.contiguous(), lse.contiguous()  # the kernel's layout, as the fake says
+
+
+@_flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, q_seg, kv_seg, causal, scale, q_offset, kv_offset):
+    """The shapes a compiled graph traces with (B and T may be symbolic)."""
+    B, T, H, D = q.shape
+    return q.new_empty((B, T, H, D)), q.new_empty((B, H, T), dtype=torch.float32)
 
 
 def _flash_fwd_setup(ctx, inputs, output):
@@ -229,12 +244,14 @@ def _flash_fwd_setup(ctx, inputs, output):
 
 
 def _flash_fwd_backward(ctx, dout, _dlse):
-    """K2 from the forward's residuals (the plain backward on the CPU)."""
+    """K2 from the forward's residuals (the plain backward on the CPU),
+    through K2's op, so that a compiled graph's backward calls it too."""
     q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
     causal, scale, q_offset, kv_offset = ctx.args
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    dq, dk, dv = flash_attention_bwd(q, k, v, q_seg, kv_seg, out, lse, dout,
-                                     causal, scale, q_offset, kv_offset)
+    dq, dk, dv = FLASH_BWD_OP(q.contiguous(), k.contiguous(), v.contiguous(), q_seg, kv_seg,
+                              out.contiguous(), lse.contiguous(),
+                              dout.to(q.dtype).contiguous(), causal, scale, q_offset,
+                              kv_offset)
     return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -293,14 +310,18 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
     CPU tensors take the plain version. CUDA tensors take the kernel, with
     flash_attention's conditions; q, k, v and out must be contiguous, and
     dout is made contiguous here (autograd may hand it over strided). dk
-    and dv are summed over the G query heads of their kv head. ``events``:
-    four torch.cuda.Event(enable_timing=True) the kernel records before its
-    delta pass, after it, after the dk/dv kernel and after the dq kernel
-    (their times; the trainer passes none)."""
+    and dv are summed over the G query heads of their kv head. Both go
+    through the custom op touchnet_tpu_torch::flash_attention_bwd
+    (FLASH_BWD_OP). ``events``: four torch.cuda.Event(enable_timing=True)
+    the kernel records before its delta pass, after it, after the dk/dv
+    kernel and after the dq kernel (their times; the trainer passes none,
+    and a call with events launches K2 outside the op)."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     if scale is None:
         scale = 1.0 / math.sqrt(D)
+    if segment_ids is not None and kv_segment_ids is None:
+        kv_segment_ids = segment_ids
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(
             q, k, v, segment_ids, kv_segment_ids, out, lse, dout, causal, scale,
@@ -314,11 +335,21 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
         raise ValueError(f"flash_attention_bwd: H={H} Hkv={Hkv} D={D}")
     if not all(x.is_contiguous() for x in (q, k, v, out, lse)):
         raise ValueError("flash_attention_bwd: q, k, v, out and lse must be contiguous")
-    if segment_ids is not None and kv_segment_ids is None:
-        kv_segment_ids = segment_ids
     q_seg = _segments(segment_ids, (B, T), q.device)
     kv_seg = _segments(kv_segment_ids, (B, S), q.device)
     dout = dout.to(q.dtype).contiguous()
+    if events is not None:
+        return _flash_bwd(q, k, v, q_seg, kv_seg, out, lse, dout, causal, float(scale),
+                          int(q_offset), int(kv_offset), events)
+    return FLASH_BWD_OP(q, k, v, q_seg, kv_seg, out, lse, dout, causal, float(scale),
+                        int(q_offset), int(kv_offset))
+
+
+def _flash_bwd(q, k, v, q_seg, kv_seg, out, lse, dout, causal, scale, q_offset, kv_offset,
+               events=None):
+    """Launch K2 on validated, contiguous CUDA tensors."""
+    B, T, H, D = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
     if q.dtype != torch.float32:
         _check_aligned("flash_attention_bwd", q=q, k=k, v=v, out=out, dout=dout)
     lib = _build.load_library()
@@ -347,6 +378,33 @@ def flash_attention_bwd(q, k, v, segment_ids, kv_segment_ids, out, lse, dout,
     return dq, dk, dv
 
 
+@torch.library.custom_op("touchnet_tpu_torch::flash_attention_bwd", mutates_args=(),
+                         device_types="cuda")
+def _flash_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_seg: Optional[torch.Tensor], kv_seg: Optional[torch.Tensor],
+                  out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor, causal: bool,
+                  scale: float, q_offset: int, kv_offset: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 on contiguous CUDA tensors (its callers make them so)."""
+    return _flash_bwd(q, k, v, q_seg, kv_seg, out, lse, dout, causal, scale, q_offset,
+                      kv_offset)
+
+
+@_flash_bwd_op.register_kernel("cpu")
+def _flash_bwd_cpu(q, k, v, q_seg, kv_seg, out, lse, dout, causal, scale, q_offset,
+                   kv_offset):
+    grads = flash_attention_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, dout, causal,
+                                          scale, q_offset, kv_offset)
+    return tuple(g.contiguous() for g in grads)
+
+
+@_flash_bwd_op.register_fake
+def _flash_bwd_fake(q, k, v, q_seg, kv_seg, out, lse, dout, causal, scale, q_offset,
+                    kv_offset):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+
+FLASH_BWD_OP = torch.ops.touchnet_tpu_torch.flash_attention_bwd.default
 flash_attention_bwd.launches = 0
 
 

@@ -11,9 +11,13 @@
 #   - _rows_reference: the plain PyTorch version (:287-301), which
 #     materialises the [N, V] f32 logits;
 #   - _rows_backward_reference: the plain backward (:337-347);
-#   - fused_ce_rows: the wrapper (:358), an autograd Function. CPU tensors
-#     take the two plain versions; CUDA tensors launch the kernels or raise
-#     on what the kernels do not take. Unlike the JAX wrapper there is no
+#   - fused_ce_rows: the wrapper (:358), the custom op
+#     touchnet_tpu_torch::fused_ce_fwd with its backward the op
+#     touchnet_tpu_torch::fused_ce_bwd (register_autograd), each with a fake
+#     implementation, so that a compiled loss traces through them. CPU
+#     tensors take the two plain versions; CUDA tensors launch the kernels
+#     or raise on what the kernels do not take; the plans (fwd_plan,
+#     bwd_plan) are made inside the op bodies, at run time. Unlike the JAX wrapper there is no
 #     shape the kernel declines: it masks a ragged vocab tail itself.
 
 from typing import NamedTuple, Tuple
@@ -257,18 +261,74 @@ def fused_ce_bwd(h, w, labels, lse, dlse, dtl) -> tuple:
 fused_ce_bwd.launches = 0
 
 
-class _FusedCERows(torch.autograd.Function):
+@torch.library.custom_op("touchnet_tpu_torch::fused_ce_fwd", mutates_args=(),
+                         device_types="cuda")
+def _ce_fwd_op(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3's forward on CUDA tensors."""
+    return fused_ce_fwd(h, w, labels)
+
+
+@_ce_fwd_op.register_kernel("cpu")
+def _ce_fwd_cpu(h, w, labels):
+    return tuple(x.contiguous() for x in _rows_reference(h, w, labels))
+
+
+@_ce_fwd_op.register_fake
+def _ce_fwd_fake(h, w, labels):
+    N = h.shape[0]
+    f32 = [h.new_empty((N,), dtype=torch.float32) for _ in range(3)]
+    return (*f32, h.new_empty((N,), dtype=torch.int32))
+
+
+@torch.library.custom_op("touchnet_tpu_torch::fused_ce_bwd", mutates_args=(),
+                         device_types="cuda")
+def _ce_bwd_op(h: torch.Tensor, w: torch.Tensor, labels: torch.Tensor, lse: torch.Tensor,
+               dlse: torch.Tensor, dtl: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's backward on CUDA tensors."""
+    return fused_ce_bwd(h, w, labels, lse, dlse, dtl)
+
+
+@_ce_bwd_op.register_kernel("cpu")
+def _ce_bwd_cpu(h, w, labels, lse, dlse, dtl):
+    return tuple(x.contiguous() for x in _rows_backward_reference(h, w, labels, lse, dlse, dtl))
+
+
+@_ce_bwd_op.register_fake
+def _ce_bwd_fake(h, w, labels, lse, dlse, dtl):
+    return torch.empty_like(h), torch.empty_like(w)
+
+
+def _ce_setup(ctx, inputs, output):
+    h, w, labels = inputs
+    lse, _tl, m2, ai = output
+    ctx.save_for_backward(h, w, labels, lse)
+    ctx.mark_non_differentiable(m2, ai)
+
+
+def _ce_backward(ctx, dlse, dtl, _dm2, _dai):
     """lse and true_logit carry gradients to h and w; m2 and argmax do not."""
+    h, w, labels, lse = ctx.saved_tensors
+    if dlse is None:
+        dlse = torch.zeros_like(lse)
+    if dtl is None:
+        dtl = torch.zeros_like(lse)
+    dh, dw = CE_BWD_OP(h, w, labels, lse, dlse.float().contiguous(), dtl.float().contiguous())
+    return dh, dw, None
+
+
+_ce_fwd_op.register_autograd(_ce_backward, setup_context=_ce_setup)
+CE_FWD_OP = torch.ops.touchnet_tpu_torch.fused_ce_fwd.default
+CE_BWD_OP = torch.ops.touchnet_tpu_torch.fused_ce_bwd.default
+
+
+class _PlainCERows(torch.autograd.Function):
+    """The plain versions of K3's two directions as one autograd Function,
+    on any device (chip_smoke holds the kernels to it on the card)."""
 
     @staticmethod
-    def forward(ctx, h, w, labels, plain):
-        ctx.plain = plain or h.device.type == "cpu"
-        if ctx.plain:
-            lse, tl, m2, ai = _rows_reference(h, w, labels)
-        elif h.device.type == "cuda":
-            lse, tl, m2, ai = fused_ce_fwd(h, w, labels)
-        else:
-            raise ValueError(f"fused_ce_rows: no kernel for device {h.device}")
+    def forward(ctx, h, w, labels):
+        lse, tl, m2, ai = _rows_reference(h, w, labels)
         ctx.save_for_backward(h, w, labels, lse)
         ctx.mark_non_differentiable(m2, ai)
         return lse, tl, m2, ai
@@ -280,18 +340,15 @@ class _FusedCERows(torch.autograd.Function):
             dlse = torch.zeros_like(lse)
         if dtl is None:
             dtl = torch.zeros_like(lse)
-        if ctx.plain:
-            dh, dw = _rows_backward_reference(h, w, labels, lse, dlse, dtl)
-        else:
-            dh, dw = fused_ce_bwd(h, w, labels, lse, dlse, dtl)
-        return dh, dw, None, None
+        dh, dw = _rows_backward_reference(h, w, labels, lse, dlse, dtl)
+        return dh, dw, None
 
 
 def fused_ce_rows_reference(h: torch.Tensor, w: torch.Tensor,
                             labels: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """The plain version of fused_ce_rows on any device (the same autograd
+    """The plain version of fused_ce_rows on any device (an autograd
     Function over _rows_reference and _rows_backward_reference)."""
-    return _FusedCERows.apply(h, w, labels, True)
+    return _PlainCERows.apply(h, w, labels)
 
 
 def fused_ce_rows(h: torch.Tensor, w: torch.Tensor,
@@ -301,5 +358,11 @@ def fused_ce_rows(h: torch.Tensor, w: torch.Tensor,
     h [N, E] and w [V, E] in one dtype (bf16, f16 or f32); labels [N] int, where
     anything outside [0, V) (padding, ignore_index) gives true_logit 0.
     Returns (lse, true_logit, m2 = row max in base 2, argmax) in f32 / int32;
-    argmax ties go to the smallest index."""
-    return _FusedCERows.apply(h, w, labels, False)
+    argmax ties go to the smallest index. Through the custom op
+    touchnet_tpu_torch::fused_ce_fwd (CE_FWD_OP; its backward the op
+    touchnet_tpu_torch::fused_ce_bwd): the kernels on CUDA tensors, the
+    plain versions on CPU tensors; other devices raise. Both ops have fake
+    implementations, so a compiled loss calls them from its graph."""
+    if h.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"fused_ce_rows: no kernel for device {h.device}")
+    return CE_FWD_OP(h, w, labels)

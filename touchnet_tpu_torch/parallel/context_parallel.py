@@ -101,7 +101,11 @@ class ContextParallel:
     def rank(self) -> int:
         return dist.get_rank(self.group)
 
+    @torch.compiler.disable
     def attend(self, q, k, v, seg):
+        """cp_local_attn over the group. A compiled block's graph ends here
+        (--training_compile): the ring's point-to-point through host buffers
+        cannot be traced, and the allgather runs eagerly alike."""
         return cp_local_attn(q, k, v, seg, cp=self.size, rotate_method=self.rotate_method,
                              group=self.group)
 

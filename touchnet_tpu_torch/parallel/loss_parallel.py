@@ -53,11 +53,16 @@ def group_all_reduce(group) -> Callable:
     def all_reduce(t: torch.Tensor, op: str) -> torch.Tensor:
         if op == "sum":
             return sum_forward(t, group)
-        t = t.detach().clone()
-        dist.all_reduce(t, op=_OPS[op], group=group)
-        return t
+        return _reduce_statistic(t, op, group)
 
     return all_reduce
+
+
+@torch.compiler.disable  # eager inside a compiled loss, as sum_forward
+def _reduce_statistic(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    t = t.detach().clone()
+    dist.all_reduce(t, op=_OPS[op], group=group)
+    return t
 
 
 def combine_vocab_shards(lse, tl, m2, ai, vocab_start, all_reduce: Callable) -> tuple:
@@ -104,8 +109,9 @@ def sum_over(sums: tuple, group) -> tuple:
     """The four sums summed over ``group`` in one f64 all-reduce (the
     counts stay exact), their gradients this rank's own: sum_forward's
     backward is the identity, and the data-parallel reduction of the
-    gradients adds the ranks' parts."""
-    if group is None:
+    gradients adds the ranks' parts. Over one rank (or none) the sums
+    themselves, so a compiled loss is one process's graph."""
+    if group is None or dist.get_world_size(group) == 1:
         return sums
     vals = sum_forward(torch.stack([s.double() for s in sums]), group)
     return tuple(v.to(s.dtype) for s, v in zip(sums, vals))

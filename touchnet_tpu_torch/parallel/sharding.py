@@ -1,6 +1,7 @@
 # Copyright (c) 2026 touchnet_tpu authors.
-# The parallel plan of the port's trainer: tensor parallelism, then FSDP2
-# (HSDP, DDP) over the data-parallel ranks.
+# The parallel plan of the port's trainer: tensor parallelism, then the
+# compiled blocks (--training_compile), then FSDP2 (HSDP, DDP) over the
+# data-parallel ranks.
 #
 # Port of touchnet_tpu/parallel/sharding.py: the rule table (:33-50)
 # becomes the plan apply_tp lays out, and FSDP_AXES / BATCH_AXES (:29-31)
@@ -88,22 +89,49 @@ class _GatherLast(torch.autograd.Function):
         return g.chunk(n, dim=-1)[r].contiguous(), None
 
 
+# A compiled block or loss (--training_compile) runs these collectives
+# eagerly, between its graphs: traced into a graph over NCCL, the loss's
+# _SumForward gave every gradient as zero (the card's world 1, phase 9),
+# while over gloo it traced right. Without a group, or over a group of one
+# rank, each is the identity, which a graph takes in without a break.
+@torch.compiler.disable
+def _sum_forward(x, group):
+    return _SumForward.apply(x, group)
+
+
+@torch.compiler.disable
+def _sum_backward(x, group):
+    return _SumBackward.apply(x, group)
+
+
+@torch.compiler.disable
+def _gather_last(x, group):
+    return _GatherLast.apply(x, group)
+
+
+def _alone(group) -> bool:
+    return group is None or dist.get_world_size(group) == 1
+
+
 def sum_forward(x: torch.Tensor, group) -> torch.Tensor:
     """x summed over ``group``; the backward is the identity (every rank
-    computes the same function of the sum). Identity without a group."""
-    return x if group is None else _SumForward.apply(x, group)
+    computes the same function of the sum). Identity without a group or
+    over one rank."""
+    return x if _alone(group) else _sum_forward(x, group)
 
 
 def sum_backward(x: torch.Tensor, group) -> torch.Tensor:
     """x itself; the backward sums the gradient over ``group`` (each rank's
-    shard of the weights gives a part of dx). Identity without a group."""
-    return x if group is None else _SumBackward.apply(x, group)
+    shard of the weights gives a part of dx). Identity without a group or
+    over one rank."""
+    return x if _alone(group) else _sum_backward(x, group)
 
 
 def gather_last(x: torch.Tensor, group) -> torch.Tensor:
     """The ranks' x concatenated on the last dim in rank order; the
-    backward takes this rank's slice."""
-    return x if group is None else _GatherLast.apply(x, group)
+    backward takes this rank's slice. Identity without a group or over one
+    rank."""
+    return x if _alone(group) else _gather_last(x, group)
 
 
 # -- local shards ---------------------------------------------------------------
@@ -259,6 +287,77 @@ def apply_tp(model: nn.Module, tp_mesh, log=print) -> None:
     if kept:
         log(f"tensor parallel {tp}: replicated where tp does not divide the dimension: "
             + ", ".join(kept))
+
+
+# -- the compiled blocks ------------------------------------------------------------
+
+def configure_compile() -> None:
+    """torch.compile's settings for the compiled step, for this process:
+    dynamo's caches and counters reset (what follows is one trainer's); a
+    frame past the recompile limit raises, and so does a failed compile
+    (no eager fallback); a Python float reaching a graph (a norm's eps) is
+    a constant, never an input (under symbolic sizes dynamo would pass it
+    as a host scalar tensor, for which inductor writes a CPU kernel); and
+    inductor keeps the model's casts to the compute dtype (it would drop a
+    bf16 round trip inside a fused kernel, so FSDP2's bf16 parameters and
+    one process's casts of its f32 masters would give other bits)."""
+    import torch._dynamo
+    import torch._inductor.config
+    from torch._dynamo.utils import counters
+
+    torch._dynamo.reset()
+    counters.clear()
+    torch._dynamo.config.fail_on_recompile_limit_hit = True
+    torch._dynamo.config.suppress_errors = False
+    torch._dynamo.config.specialize_float = True
+    torch._dynamo.config.automatic_dynamic_shapes = True
+    torch._inductor.config.emulate_precision_casts = True
+
+
+def mark_rows_dynamic(*tensors) -> None:
+    """Make the batch and sequence dims (0 and 1) of each tensor of two or
+    more dims symbolic in the graph it enters (dynamo's
+    maybe_mark_dynamic; the widths stay static): the SFT loaders' batches
+    change both every step, and a graph compiled so from the first call is
+    the one every process, resumed or not, runs."""
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and t.dim() >= 2:
+            torch._dynamo.maybe_mark_dynamic(t, 0)
+            torch._dynamo.maybe_mark_dynamic(t, 1)
+
+
+def apply_compile(model: nn.Module, *, fullgraph: bool = True,
+                  dynamic_rows: bool = False) -> dict:
+    """Give every trainable LlamaDecoderLayer and WhisperEncoderLayer of
+    ``model`` a torch.compile of its class's checkpointed_block
+    (modeling_llama.remat_block): the layer's checkpoint and its block in
+    one graph, in which K1 and K2 run as custom ops (the reference's
+    apply_compile, after the TP plan and AC, before FSDP). Each class is
+    one compiled function, whose graphs all its layers share. Between
+    them the two classes make every stack of the four families: llama's and touch_audio's layers, qwen2_audio's language
+    model and audio tower, kimi_audio's layers, mimo layers and whisper
+    tower. A layer without a trainable parameter (kimi_audio's frozen
+    WhisperVQ tokenizer, run under no_grad with its dense block-causal
+    attention) stays eager. ``fullgraph``: a graph break raises (False
+    where a block holds a collective dynamo cannot take: the cp
+    attention, the tp collectives); ``dynamic_rows``: each block's
+    activations enter with symbolic batch and sequence dims
+    (mark_rows_dynamic, modeling_llama.run_block), for batches whose shapes
+    change every step. Returns {class: layers compiled}."""
+    from touchnet_tpu_torch.models.llama.modeling_llama import LlamaDecoderLayer
+    from touchnet_tpu_torch.models.whisper_encoder import WhisperEncoderLayer
+
+    compiled, counts = {}, {}
+    for mod in model.modules():
+        if isinstance(mod, (LlamaDecoderLayer, WhisperEncoderLayer)) and any(
+                p.requires_grad for p in mod.parameters()):
+            cls = type(mod)
+            if cls not in compiled:
+                compiled[cls] = torch.compile(cls.checkpointed_block, fullgraph=fullgraph)
+            mod.compiled_block = compiled[cls]
+            mod.dynamic_rows = dynamic_rows
+            counts[cls] = counts.get(cls, 0) + 1
+    return counts
 
 
 # -- FSDP2 --------------------------------------------------------------------------

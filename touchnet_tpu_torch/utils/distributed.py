@@ -10,7 +10,11 @@
 # MASTER_PORT), on cuda:LOCAL_RANK over NCCL, or over gloo when the caller
 # passes the CPU device (the tests). Without torchrun's environment there is
 # no process group: world 1, as before. The XLA-flag helpers have no
-# counterpart.
+# counterpart; --training_trace_buf_size, which the JAX trainer turns into
+# an XLA dump under <training_trace_dump_folder>/comm_trace (:54-64), sizes
+# NCCL's flight recorder here, as in the reference (flight_recorder_env):
+# the last N collectives of every NCCL group, dumped into comm_trace/ when
+# a collective times out and when the step watchdog fires.
 
 import datetime
 import faulthandler
@@ -54,10 +58,73 @@ def local_cuda_device() -> torch.device:
     return torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
 
 
-def init_distributed(device: torch.device, timeout_s: float = 300.0) -> bool:
+# the NCCL flight recorder's variables, each under the names torch reads
+# for it: the first is the one every torch since 2.3 reads, the second the
+# later TORCH_FR_* name, where there is one. A variable set under either
+# name is the user's and is left alone.
+FR_BUFFER_SIZE = ("TORCH_NCCL_TRACE_BUFFER_SIZE", "TORCH_FR_BUFFER_SIZE")
+FR_DUMP_ON_TIMEOUT = ("TORCH_NCCL_DUMP_ON_TIMEOUT",)
+FR_DUMP_FILE = ("TORCH_NCCL_DEBUG_INFO_TEMP_FILE", "TORCH_FR_DUMP_TEMP_FILE")
+
+
+def flight_recorder_env(trace_buf_size: int, dump_folder: str, backend: str,
+                        environ=os.environ) -> dict:
+    """Size NCCL's flight recorder before the process group starts (the
+    reference's --training_trace_buf_size): a nonzero size sets
+    TORCH_NCCL_TRACE_BUFFER_SIZE to it, TORCH_NCCL_DUMP_ON_TIMEOUT to 1 and
+    the dump-file prefix to <dump_folder>/comm_trace/nccl_trace_rank_
+    (the folder is made), each unless ``environ`` holds it already under
+    one of its names. 0 leaves the recorder off; another backend than NCCL
+    has none, and gets a log line saying so. Returns what it set."""
+    if trace_buf_size <= 0:
+        return {}
+    if backend != "nccl":
+        logger.info(f"training_trace_buf_size={trace_buf_size}: the flight recorder is "
+                    f"NCCL's; the {backend} process group records nothing")
+        return {}
+    prefix = os.path.join(dump_folder, "comm_trace", "nccl_trace_rank_")  # + <rank>
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    wanted = ((FR_BUFFER_SIZE, str(trace_buf_size)), (FR_DUMP_ON_TIMEOUT, "1"),
+              (FR_DUMP_FILE, prefix))
+    done = {}
+    for names, value in wanted:
+        if not any(n in environ for n in names):
+            environ[names[0]] = done[names[0]] = value
+    return done
+
+
+def flight_recorder_state(environ=os.environ) -> dict:
+    """The recorder's settings in effect: buffer size (0: off) and dump
+    prefix, whichever of their names set them."""
+    def first(names):
+        return next((environ[n] for n in names if n in environ), None)
+
+    return {"buffer_size": int(first(FR_BUFFER_SIZE) or 0),
+            "dump_on_timeout": first(FR_DUMP_ON_TIMEOUT) == "1",
+            "dump_prefix": first(FR_DUMP_FILE)}
+
+
+def dump_flight_recorder(path: str) -> bool:
+    """Write the NCCL flight recorder's trace (torch's pickled dump) to
+    ``path``; False when this process records nothing (no NCCL group or a
+    buffer of 0)."""
+    if not (dist.is_initialized() and dist.get_backend() == "nccl"
+            and flight_recorder_state()["buffer_size"] > 0):
+        return False
+    from torch._C import _distributed_c10d as c10d
+
+    dump = getattr(c10d, "_dump_nccl_trace", None) or getattr(c10d, "_dump_fr_trace")
+    with open(path, "wb") as f:
+        f.write(dump())
+    return True
+
+
+def init_distributed(device: torch.device, timeout_s: float = 300.0, *,
+                     trace_buf_size: int = 0, dump_folder: str = ".") -> bool:
     """Start the process group from torchrun's environment (env://): NCCL
     with this process on ``device`` (cuda:LOCAL_RANK), or gloo when
-    ``device`` is the CPU. A group that is already up (a test's FileStore
+    ``device`` is the CPU, the flight recorder sized first
+    (flight_recorder_env). A group that is already up (a test's FileStore
     rendezvous) is kept. Returns whether there is a group: False without
     torchrun's environment, where the trainer runs as one process."""
     if dist.is_initialized():
@@ -69,6 +136,7 @@ def init_distributed(device: torch.device, timeout_s: float = 300.0) -> bool:
         backend = "nccl"
     else:
         backend = "gloo"
+    flight_recorder_env(trace_buf_size, dump_folder, backend)
     kwargs = dict(backend=backend, timeout=datetime.timedelta(seconds=timeout_s))
     if device.type == "cuda":
         kwargs["device_id"] = device
@@ -186,9 +254,11 @@ class StepWatchdog:
 
     When a training-loop iteration stays armed past ``timeout_s``, a
     watcher thread dumps every Python thread's stack (faulthandler) to
-    ``{dump_folder}/comm_trace/stuck_step_<time>.txt`` and logs an error;
-    with ``abort`` (training_abort_on_timeout) it then ends the process
-    with exit code 124, so a supervisor can restart it from the last
+    ``{dump_folder}/comm_trace/stuck_step_<time>.txt``, the NCCL flight
+    recorder's trace beside it (``nccl_trace_<time>.pkl``, where the
+    process records one) and logs an error; with ``abort``
+    (training_abort_on_timeout) it then ends the process with exit code
+    124, so a supervisor can restart it from the last
     checkpoint. The reference tightens its process-group timeouts to the
     same end (set_pg_timeouts, touchnet/utils/distributed.py:399-423)."""
 
@@ -221,9 +291,14 @@ class StepWatchdog:
                 continue
             self.fired += 1
             os.makedirs(self.dump_folder, exist_ok=True)
-            path = os.path.join(self.dump_folder, f"stuck_step_{int(time.time())}.txt")
+            stamp = int(time.time())
+            path = os.path.join(self.dump_folder, f"stuck_step_{stamp}.txt")
             with open(path, "w") as f:
                 faulthandler.dump_traceback(file=f)
+            try:  # the stacks are written; a failed dump must not stop the abort
+                dump_flight_recorder(os.path.join(self.dump_folder, f"nccl_trace_{stamp}.pkl"))
+            except Exception:
+                logger.exception("the NCCL flight recorder's dump failed")
             logger.error(f"train step exceeded {self.timeout_s}s "
                          f"(training_train_timeout_seconds); thread dump: {path}")
             if self.abort:
