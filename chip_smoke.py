@@ -7,7 +7,8 @@
                                        # and op_small compiled (profile_training)
     python3 chip_smoke.py --faults     # faulty kernel copies must fail (check_faults)
     python3 chip_smoke.py --tune       # K3/K4 registers, and times their design variants
-                                       # (K3 forward: splits, raster group, ring depth)
+                                       # (K3 forward: splits, raster group, ring depth),
+                                       # and K1/K2's (tune_attention)
     python3 chip_smoke.py --two-ranks  # only phase 16 (two ranks on the card over gloo)
 
 Phases, one or more lines each; any failure raises and exits non-zero:
@@ -4438,7 +4439,8 @@ def run_kimi_cli(dev, card, failures, tmp: Path, export) -> tuple:
 # first group whose key a kernel's name holds; K3's come before cuBLAS's).
 # Both directions of K3 run the mainloop ce_gemm<Op>: its epilogue class,
 # which the demangled name holds, says which.
-PROFILE_GROUPS = (("K1", ("flash_fwd",)), ("K2", ("dkv_", "dq_mma", "dq_kernel", "delta_kernel")),
+PROFILE_GROUPS = (("K1", ("flash_fwd",)),
+                  ("K2", ("dkv_", "dq_tc_kernel", "dq_kernel", "delta_kernel", "delta16_kernel")),
                   ("K3 fwd", ("ce_fwd", "RowStatsOp")),
                   ("K3 bwd, TMA + wgmma mainloop (ce_gemm)", ("DlogitsOp", "DhOp", "DwOp")),
                   ("K3 bwd, 64x64 tiles", ("ce_bwd_dlogits", "ce_gemm_")),
@@ -6219,6 +6221,30 @@ K3_TUNE = {
          "return {(int)blockIdx.y, (int)blockIdx.x, 1}; }"),
         ("fused_ce.cu", "dim3(rt, vt_n)", "dim3(vt_n, rt)")],
 }
+# K1 and K2 at (d): the committed kernels; K1 and K2's dq kernel with the
+# per-element masks of this design's first version (&& chains that read
+# each column's segment id: a branch per element, where the committed mask
+# is branch-free); K1 with 64-column kv tiles
+K12_TUNE = {
+    "committed": [],
+    "short-circuit masks (K1, dq)": [
+        ("flash_attention.cu",
+         "          const bool ok = (c + (e & 1) < lim[i]) &\n"
+         "                          (!seg_check | (((e & 1) ? ks.y : ks.x) == seg_row[i]));",
+         "          const int col = kv0 + c + (e & 1);\n"
+         "          const bool ok = t_row[i] >= 0 && col < kv_end &&\n"
+         "                          (!seg_check || kseg[c + (e & 1)] == seg_row[i]) &&\n"
+         "                          (!p.causal || p.q_offset + t_row[i] >= p.kv_offset + col);"),
+        ("flash_attention_bwd.cu",
+         "        const bool ok = whole | ((c + (e & 1) < lim[i]) &\n"
+         "                                 (!seg_check | (((e & 1) ? ks.y : ks.x) == seg_row[i])));",
+         "        const int col = kv0 + c + (e & 1);\n"
+         "        const bool ok = whole || (t_row[i] >= 0 && col < kv_end &&\n"
+         "                                  (!seg_check || kseg[c + (e & 1)] == seg_row[i]) &&\n"
+         "                                  (!p.causal || p.q_offset + t_row[i] >= p.kv_offset + col));")],
+    "K1 kv tiles of 64 columns": [
+        ("flash_attention.cu", "constexpr int kTcCols = 128;", "constexpr int kTcCols = 64;")],
+}
 K3_FWD_PLANS = {  # fields of fused_ce.FwdPlan replaced in the committed plan
     "committed plan": {},
     "32 splits of 16 tiles": {"splits": 32},
@@ -6229,9 +6255,11 @@ K3_FWD_PLANS = {  # fields of fused_ce.FwdPlan replaced in the committed plan
 }
 
 
-def ptxas_report(_build, sources=("decode_attention.cu", "fused_ce.cu")) -> None:
+def ptxas_report(_build, sources=("decode_attention.cu", "fused_ce.cu", "flash_attention.cu",
+                                  "flash_attention_bwd.cu")) -> None:
     """Registers, spills and static shared memory of every kernel of
-    `sources`, as `nvcc -Xptxas -v` reports them with the build's flags."""
+    `sources`, as `nvcc -Xptxas -v` reports them with the build's flags,
+    and any advisory that ptxas serialized a kernel's wgmma (C7514)."""
     with tempfile.TemporaryDirectory() as tmp:
         for src in sources:
             res = subprocess.run(
@@ -6244,14 +6272,17 @@ def ptxas_report(_build, sources=("decode_attention.cu", "fused_ce.cu")) -> None
                     kernel = line.split("'")[1]
                 elif kernel and ("registers" in line or "spill" in line):
                     print(f"[ptxas] {src} {kernel}: {line.split(':', 1)[-1].strip()}")
+                elif "C7514" in line:
+                    print(f"[ptxas] {src}: {line.split(':', 1)[-1].strip()}")
 
 
 def tune(_build, dev, card) -> int:
     """`python3 chip_smoke.py --tune`: the kernels' registers (ptxas_report),
     then times the variants above at the main paths' shapes (K4 case (a),
-    K3 forward and backward at N16384), each source variant built with
-    variant_library, in one process on one card; prints each variant's
-    median ms and whether it gives the committed variant's bits."""
+    K3 forward and backward at N16384, K1 and K2 at (d): tune_attention),
+    each source variant built with variant_library, in one process on one
+    card; prints each variant's median ms and whether it gives the
+    committed variant's bits (K1/K2: its largest difference)."""
     from touchnet_tpu_torch.ops import decode_attention as dec
     from touchnet_tpu_torch.ops import fused_ce
 
@@ -6320,7 +6351,82 @@ def tune(_build, dev, card) -> int:
               f"{fused_ce.split_run(plan, V, 0)[1]} tiles, raster group {plan.group}): "
               f"{ms:.3f} ms; statistics within {diff:.2e} of the committed plan's, argmax "
               f"equal: {torch.equal(out[3], ref[1][3])}  [{card}]")
+    del h, w, labels, lse, dlse, out, fwd, ref
+    tune_attention(dev, torch.Generator(device=dev).manual_seed(SEED), card)
     return 0
+
+
+def tune_attention(dev, gen, card) -> None:
+    """--tune's K1 and K2 part: each K12_TUNE variant (built with
+    variant_library) at (d), K1's ms and K2's delta, dk/dv and dq ms, twice
+    in mirrored order; then (p)'s allgather call timed alone (time_ms, as
+    phase 6 times it) and as 20 calls back to back, where the host's part of
+    a call (the Python wrapper, the op's dispatch, the tensor maps) overlaps
+    the previous call's kernel, and the same for a call whose every pair is
+    masked (no tile to walk: the launch and host floor of a call)."""
+    from touchnet_tpu_torch.ops import _build
+    from touchnet_tpu_torch.ops import attention as attn
+
+    bf = torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(bf)
+
+    T, H, Hkv, D = TRAIN_T, 32, 8, 64
+    seg = packed_segments(1, T, dev, docs=10)
+    q, k, v, g = randn(1, T, H, D), randn(1, T, Hkv, D), randn(1, T, Hkv, D), randn(1, T, H, D)
+    ref = None
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    names = list(K12_TUNE)
+    for name in names + names[::-1]:
+        with variant_library(_build, K12_TUNE[name]):
+            out, lse = attn.flash_attention(q, k, v, seg, True, None, seg)
+            grads = attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g, True)
+            ref = (out, grads) if ref is None else ref
+            diff = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip((out, *grads), (ref[0], *ref[1])))
+            ms = time_ms(lambda: attn.flash_attention(q, k, v, seg, True, None, seg))
+            parts = []
+            for _ in range(7):
+                attn.flash_attention_bwd(q, k, v, seg, seg, out, lse, g, True, events=events)
+                torch.cuda.synchronize()
+                parts.append([events[i].elapsed_time(events[i + 1]) for i in range(3)])
+            parts = [statistics.median(x) for x in zip(*parts)]
+            print(f"[tune] K1/K2 (d) B1 T{T} H32/8 D64 bf16 causal, 10 documents, {name}: K1 "
+                  f"{ms:.3f} ms; K2 delta {parts[0]:.3f}, dk/dv {parts[1]:.3f}, dq "
+                  f"{parts[2]:.3f} ms; max diff to the committed variant {diff:.2e}  [{card}]")
+    del q, k, v, g, out, lse, grads, ref
+
+    def back_to_back(fn, n=20):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    T = CP_T
+    seg = packed_segments(1, 2 * T, dev, docs=CP_DOCS)
+    q, g = randn(1, T, H, D), randn(1, T, H, D)
+    k, v = randn(1, 2 * T, Hkv, D), randn(1, 2 * T, Hkv, D)
+    q_seg = seg[:, T:].contiguous()
+    out, lse = attn.flash_attention(q, k, v, q_seg, True, None, seg, T, 0)
+    calls = {
+        "K1 allgather @4096 over 8192 keys":
+            lambda: attn.flash_attention(q, k, v, q_seg, True, None, seg, T, 0),
+        "K2 allgather": lambda: attn.flash_attention_bwd(q, k, v, q_seg, seg, out, lse, g, True,
+                                                         None, T, 0),
+        "K1 every pair masked (queries @0 over keys @4096)":
+            lambda: attn.flash_attention(q, k[:, T:], v[:, T:], q_seg, True, None,
+                                         seg[:, T:].contiguous(), 0, T),
+    }
+    for name, fn in calls.items():
+        print(f"[tune] (p) {name}, B1 T{T} H32/8 D64 bf16: alone {time_ms(fn):.3f} ms, back to "
+              f"back {back_to_back(fn):.3f} ms a call  [{card}]")
 
 
 def run_audio_phases(dev, card, failures) -> tuple:
@@ -6387,10 +6493,11 @@ def kernels_line(counts, k1, k2, k3, k4) -> dict:
                 "cases": cases}
 
     return {"kernels": [
-        row("flash_attention_fwd (K1)", "flash_attention.cu",
+        row("flash_attention_fwd (K1: TMA + wgmma, flash_fwd_tc_kernel)", "flash_attention.cu",
             "touchnet_tpu/ops/attention.py:269", counts["K1"], k1, "(d)"),
-        row("flash_attention_bwd (K2: delta, dkv, dq)", "flash_attention_bwd.cu",
-            "touchnet_tpu/ops/attention.py:778", counts["K2"], k2, "(d)"),
+        row("flash_attention_bwd (K2: delta, then TMA + wgmma dkv_tc_kernel and dq_tc_kernel)",
+            "flash_attention_bwd.cu", "touchnet_tpu/ops/attention.py:778", counts["K2"], k2,
+            "(d)"),
         row("fused_ce_fwd (K3 forward: TMA + wgmma mainloop, ce_gemm<RowStatsOp>, and the "
             "combine)", "fused_ce.cu", "touchnet_tpu/ops/fused_ce.py:86",
             counts["K3 fwd"], {n: v["fwd"] for n, v in k3.items()}, "(d)"),

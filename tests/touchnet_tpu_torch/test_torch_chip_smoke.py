@@ -191,9 +191,9 @@ def test_stage4_argv_is_the_recipes(model_type):
 
 
 def test_fault_and_tune_edits_match_the_kernel_sources():
-    """Every faulty copy (FAULTS) and tuning variant (K3_TUNE, the K4 ring
-    depth) edits text that the kernel sources still hold: a stale edit
-    would make --faults or --tune raise on the card."""
+    """Every faulty copy (FAULTS) and tuning variant (K3_TUNE, K12_TUNE, the
+    K4 ring depth) edits text that the kernel sources still hold: a stale
+    edit would make --faults or --tune raise on the card."""
     csrc = os.path.join(os.path.dirname(_PATH), "touchnet_tpu_torch", "ops", "csrc")
 
     def text(name):
@@ -201,7 +201,8 @@ def test_fault_and_tune_edits_match_the_kernel_sources():
             return f.read()
 
     edits = [(f, right) for _, f, right, _, _ in chip_smoke.FAULTS]
-    edits += [(f, right) for v in chip_smoke.K3_TUNE.values() for f, right, _ in v]
+    edits += [(f, right) for tune in (chip_smoke.K3_TUNE, chip_smoke.K12_TUNE)
+              for v in tune.values() for f, right, _ in v]
     edits.append(("decode_attention.cu", "static constexpr int kStages = 3;"))
     for fname, right in edits:
         assert right in text(fname), (fname, right)
@@ -277,6 +278,24 @@ def test_profile_groups_of_the_k3_kernels(kernel, group):
     """--profile's groups by demangled kernel name: both directions of K3
     run ce_gemm<Op>, so the epilogue class decides, ahead of cuBLAS's
     "gemm"."""
+    assert chip_smoke.profile_group(kernel) == group
+
+
+@pytest.mark.parametrize("kernel,group", [
+    (f"void {_NS}flash_fwd_tc_kernel<__nv_bfloat16, 64>(CUtensorMap_st, CUtensorMap_st, "
+     f"CUtensorMap_st, {_NS}FwdParams)", "K1"),
+    (f"void {_NS}flash_fwd_kernel<float, 64>({_NS}FwdParams)", "K1"),
+    (f"void {_NS}delta16_kernel<__nv_bfloat16>({_NS}BwdParams)", "K2"),
+    (f"void {_NS}dkv_tc_kernel<__half, 128>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+     f"CUtensorMap_st, {_NS}BwdParams)", "K2"),
+    (f"void {_NS}dq_tc_kernel<__nv_bfloat16, 64>(CUtensorMap_st, CUtensorMap_st, "
+     f"CUtensorMap_st, CUtensorMap_st, {_NS}BwdParams)", "K2"),
+    (f"void {_NS}delta_kernel<float>({_NS}BwdParams)", "K2"),
+    (f"void {_NS}dq_kernel<float, 64>({_NS}BwdParams)", "K2"),
+])
+def test_profile_groups_of_the_attention_kernels(kernel, group):
+    """Every K1 and K2 kernel of either route lands in its own group, none
+    in "elementwise and other"."""
     assert chip_smoke.profile_group(kernel) == group
 
 

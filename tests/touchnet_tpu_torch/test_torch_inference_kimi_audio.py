@@ -42,6 +42,7 @@ from touchnet_tpu_torch.models.kimi_audio import inference_kimi_audio as cli
 from touchnet_tpu_torch.models.kimi_audio.configuration_kimi_audio import KimiAudioConfig
 from touchnet_tpu_torch.tokenizer import TokenizerConfig
 from touchnet_tpu_torch.tokenizer.tokenizer import build_tokenizer
+from touchnet_tpu_torch.utils.inference import InferenceConfig
 from touchnet_tpu_torch.utils.safetensors_io import write_safetensors
 from test_torch_audio_frontend import synth_wave, write_audio_jsonl
 from test_torch_kimi_audio import TINY, jax_tree
@@ -116,6 +117,7 @@ def test_main_matches_the_jax_cli(tiny, tmp_path, monkeypatch, output_type):
 
 
 STAGE4_FAULTS = ["none", "no_config", "no_tokenizer", "wrong_model_type"]
+STAGE4_MAX_LENGTH = 6  # test_stage4_flags' default of new tokens
 
 
 def run_stage4(cli_module, model_type: str, export, jsonl, tmp_path, fault: str,
@@ -152,7 +154,11 @@ def run_stage4(cli_module, model_type: str, export, jsonl, tmp_path, fault: str,
 @pytest.mark.parametrize("fault", STAGE4_FAULTS)
 def test_stage4_flags(tiny, tmp_path, fault, monkeypatch):
     """run.sh:172-181 as written: the config and the tokenizer come from the
-    export; a missing one raises naming its flag."""
+    export; a missing one raises naming its flag. The argv stays stage 4's;
+    only the CLI's default of new tokens is lowered, so the tiny model does
+    not decode 512 tokens for each utterance."""
+    monkeypatch.setattr(InferenceConfig.__dataclass_fields__["max_length"], "default",
+                        STAGE4_MAX_LENGTH)
     rows = run_stage4(cli, "kimi_audio", tiny["hf"], tiny["jsonl"], tmp_path, fault,
                       monkeypatch)
     if rows is not None:

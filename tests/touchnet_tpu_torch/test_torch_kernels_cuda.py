@@ -3,7 +3,7 @@
 # against their plain PyTorch versions on the card. These tests need a CUDA
 # card and skip elsewhere; chip_smoke.py runs the same comparison at the
 # serving and training paths' full shapes. bf16 and f16 K1 and K2 run on
-# tensor cores (one kernel body for both types) and f32 on FMA kernels;
+# TMA + wgmma (one kernel body for both types) and f32 on FMA kernels;
 # ATTENTION_CASES cover both routes at tile edges, GQA groups, masks and
 # offsets.
 #
@@ -104,8 +104,8 @@ def _segments_of(kind, B, T, rng):
     return seg
 
 
-# bf16 K1/K2 run on tensor cores in 64-row / 64-column tiles: the cases
-# below cover ragged tile edges, GQA groups 1-8 and an odd one (G 3), D 128,
+# bf16 and f16 K1/K2 run on TMA + wgmma in 128-row tiles: the cases
+# below cover ragged tile edges, GQA groups 1-8 and odd ones (G 3, G 7), D 128,
 # offsets, document boundaries inside the causal diagonal tile and wholly
 # live tiles (the unmasked fast path)
 ATTENTION_CASES = [
@@ -122,10 +122,10 @@ ATTENTION_CASES = [
     (1, 520, 520, 8, 2, 64, True, "long", 0, 0),
     (1, 400, 400, 32, 8, 64, True, None, 0, 0),
     # the qwen2_audio ASR path: (f) the whisper tower's causal MHA at D64
-    # over 1500 frames (23 tiles and a 28-row tail) and over 1750 (a 35 s
+    # over 1500 frames (11 tiles and a 92-row tail) and over 1750 (a 35 s
     # utterance: the tiled position table); (g) Qwen2-Audio-7B's prefill,
-    # 28 query heads over 4 kv heads (G 7: 9 positions a 64-row block, one
-    # dead row), D128, and G 7 over packed documents
+    # 28 query heads over 4 kv heads (G 7: 18 positions a 128-row block,
+    # two dead rows), D128, and G 7 over packed documents
     (2, 1500, 1500, 20, 20, 64, True, None, 0, 0),
     (1, 1750, 1750, 20, 20, 64, True, None, 0, 0),
     (3, 401, 401, 28, 4, 128, True, None, 0, 0),
@@ -145,6 +145,23 @@ ATTENTION_CASES = [
     # trims the ragged last block (1500 = 23 x 64 + 28); the text layers are
     # (m)'s shape
     (3, 1500, 1500, 20, 20, 64, False, None, 0, 0),
+    # the TMA + wgmma tiles: 128 rows a block (G heads x 128 / G positions,
+    # one 4-D TMA box) and 128-column (64 at D128 in dq) kv tiles. T around
+    # the 128-row tile at G 4 (32 positions a block); G 3 and G 7 with dead
+    # rows at the tile's end (126 of 128); B 3 with T not a tile multiple, so
+    # the box's zero fill past T is tested in each batch row; a causal case
+    # with both offsets nonzero and S != T at D128
+    (1, 127, 127, 8, 2, 64, True, None, 0, 0),
+    (2, 128, 128, 16, 4, 64, True, "packed", 0, 0),
+    (1, 129, 129, 8, 2, 128, False, None, 0, 0),
+    (2, 255, 255, 8, 2, 64, True, "packed", 0, 0),
+    (1, 300, 300, 6, 2, 64, True, "packed", 0, 0),
+    (2, 260, 260, 14, 2, 64, True, "packed", 0, 0),
+    (1, 200, 200, 21, 3, 128, True, None, 0, 0),
+    (3, 190, 190, 8, 2, 64, True, "packed", 0, 0),
+    (3, 150, 150, 4, 1, 128, False, "packed", 0, 0),
+    (2, 150, 333, 8, 2, 128, True, None, 200, 17),
+    (1, 96, 400, 12, 4, 128, True, "packed", 350, 40),
 ]
 
 
@@ -511,9 +528,11 @@ def test_fused_ce_chunked_bwd_matches_plain(dev, dtype, monkeypatch):
     assert torch.equal(dw2, dw) and torch.equal(dh2, dh)  # chunks in order: same bits
 
 
-def test_flash_attention_bwd_is_bit_stable(dev):
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64), (torch.bfloat16, 128),
+                                     (torch.float16, 64), (torch.float16, 128)])
+def test_flash_attention_bwd_is_bit_stable(dev, dtype, D):
     """No atomics: two K2 runs on the same inputs give the same bits."""
-    q, k, v, g, seg, kv_seg = _attention_case(dev, torch.bfloat16, 1, 700, 700, 32, 8, 64,
+    q, k, v, g, seg, kv_seg = _attention_case(dev, dtype, 1, 700, 700, 32, 8, D,
                                               "packed", 21)
     out, lse = flash_attention(q, k, v, seg, True, None, kv_seg)
     first = flash_attention_bwd(q, k, v, seg, kv_seg, out, lse, g, True)

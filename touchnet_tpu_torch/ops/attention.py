@@ -4,9 +4,9 @@
 # Port of touchnet_tpu/ops/attention.py. The Pallas forward kernels
 # _fwd_kernel_dyn (:269) and _fwd_kernel (:159) become hand-written CUDA,
 # csrc/flash_attention.cu; the six backward kernels (:528-1100) become
-# csrc/flash_attention_bwd.cu. bf16 and f16 run on tensor cores (mma.sync,
-# with ldmatrix and cp.async; one kernel body for both types), f32 on FMA
-# kernels. Each source note says what
+# csrc/flash_attention_bwd.cu. bf16 and f16 run on TMA + wgmma (a producer
+# warp feeding two consumer warpgroups; one kernel body for both types), f32
+# on FMA kernels. Each source note says what
 # bounds it on Hopper and what the design does about that. Beside them:
 #   - packed_attention_reference: the plain PyTorch version (:75-111),
 #     which also returns the row logsumexp;
@@ -51,7 +51,7 @@ from touchnet_tpu_torch.ops import _build
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (64, 128)  # head dims the kernel is built for
-MAX_GROUP = 64  # query heads per kv head (the kernel's 64-row tile)
+MAX_GROUP = 64  # query heads per kv head (the f32 kernels' 64-row tile)
 
 
 def _mask(B, T, S, device, segment_ids, kv_segment_ids, causal, q_offset, kv_offset):
@@ -177,8 +177,8 @@ def _row_strides(x: torch.Tensor) -> tuple:
 
 
 def _check_aligned(what: str, **tensors) -> None:
-    """The bf16 and f16 kernels copy 16-byte rows with cp.async: every tensor's
-    start and its row strides must be 16-byte aligned. Raises otherwise
+    """The bf16 and f16 kernels read their tiles by TMA: every tensor's start
+    and its row strides must be 16-byte aligned. Raises otherwise
     (the kernels take no other route)."""
     for name, x in tensors.items():
         if x.data_ptr() % 16 or any(st % 8 for st in _row_strides(x)):

@@ -61,9 +61,9 @@ __device__ __forceinline__ float warp_sum(float x) {
 // The first and last index in [begin, end) whose segment id lies in
 // [lo, hi]: (INT_MAX, -1) when there is none. `seg` is the row's ids, or
 // nullptr for one segment (id 1). The whole block calls it: one strided,
-// coalesced pass of independent loads, so a block of a late document finds
-// its first live tile without walking the dead ones before it. `span` is
-// two ints of shared memory.
+// coalesced pass of independent 16-byte loads, so a block of a late
+// document finds its first live tile without walking the dead ones before
+// it. `span` is two ints of shared memory.
 __device__ __forceinline__ void live_span(const int* seg, int begin, int end, int lo, int hi,
                                           int* span, int& first, int& last) {
   if (threadIdx.x == 0) {
@@ -78,13 +78,27 @@ __device__ __forceinline__ void live_span(const int* seg, int begin, int end, in
       l = end - 1;
     }
   } else {
-#pragma unroll 4
-    for (int i = begin + threadIdx.x; i < end; i += blockDim.x) {
-      const int s = seg[i];
+    auto see = [&](int s, int i) {
       if (s >= lo && s <= hi) {
         f = min(f, i);
         l = max(l, i);
       }
+    };
+    // the ids before the first 16-byte boundary and after the last one one
+    // at a time (at most 3 each), the others 4 to a load
+    const int mis = (int)((reinterpret_cast<uintptr_t>(seg + begin) >> 2) & 3);
+    const int head = min(end - begin, (4 - mis) & 3);
+    const int vb = begin + head, nv = max(0, end - vb) / 4, ve = vb + 4 * nv;
+    if ((int)threadIdx.x < head) see(seg[begin + threadIdx.x], begin + threadIdx.x);
+    if ((int)threadIdx.x < end - ve) see(seg[ve + threadIdx.x], ve + threadIdx.x);
+    const int4* v = reinterpret_cast<const int4*>(seg + vb);
+#pragma unroll 4
+    for (int j = threadIdx.x; j < nv; j += blockDim.x) {
+      const int4 x = v[j];
+      see(x.x, vb + 4 * j);
+      see(x.y, vb + 4 * j + 1);
+      see(x.z, vb + 4 * j + 2);
+      see(x.w, vb + 4 * j + 3);
     }
   }
 #pragma unroll

@@ -9,8 +9,8 @@
 // in the input dtype and lse in f32, base e.
 //
 // Two kernels, by input type (inputs bf16, f16 or f32):
-//   - bf16 and f16 (every such call): flash_fwd_mma_kernel<T>, one body
-//     for both types, on the tensor cores.
+//   - bf16 and f16 (every such call): flash_fwd_tc_kernel<T, D>, one body
+//     for both types, on TMA and wgmma.
 //   - f32: flash_fwd_kernel, f32 FMAs from shared memory: the exactness
 //     path behind the f32 checks (1e-4), unchanged from the first version.
 //
@@ -25,49 +25,60 @@
 // What bounds it on this card: the two products QK^T and PV, 4·D flops per
 // live (row, column) pair. At the training shape (T 16384, D 64, 10
 // documents) that is ~0.2 ms of bf16 tensor-core time against ~0.05 ms of
-// bytes, so the kernel is bound by operations, and what matters is how
-// close the products come to the tensor cores' rate. The FMA version ran
-// at ~15 TFLOP/s, two shared-memory loads per four FMAs.
+// bytes, so the kernel is bound by operations. Beside the products, each
+// 128 x 128 tile costs 16K exponentials and, on a masked tile, 16K masks:
+// at D 64 about as long as the tile's products on the tensor cores, so the
+// design keeps the tensor cores busy while they run, and keeps the mask
+// cheap.
 //
-// What the tensor-core design does about it (mma.sync, ldmatrix, cp.async: the
-// sm_80 instruction set, which Hopper runs at a fraction of wgmma's peak; a
-// wgmma/TMA pipeline is later work):
-//   - One block of 4 warps per (batch, kv head, 64 query rows); the rows
-//     are the G = H/Hkv query heads of the kv head x (64 / G) positions,
-//     so each K/V tile is loaded once for the whole GQA group. Small blocks,
-//     four (D 64) or two (D 128) to an SM, because the walk is bound by
-//     latency (barrier, copies, exponentials) more than by the products: on
-//     an H100 80GB HBM3 (700 W), 4 warps x 4 blocks ran the training shape
-//     ~9 % faster than 8 warps x 2 blocks, and 128-column tiles at one
-//     block an SM ~20 % slower (chip_smoke.py phase 3 timings).
-//   - Warp w owns rows 16w..16w+15 whole. QK^T runs as
-//     mma.sync.m16n8k16 (bf16 or f16 in, f32 accumulate) with the warp's Q
-//     fragments held in registers for the whole walk and K fragments read
-//     by ldmatrix; the online softmax (max, sum, rescale) stays in the
-//     accumulator fragments and needs only quad shuffles, no shared memory.
-//   - P is rounded to the input type straight from the S accumulators into A
-//     fragments (an m16n8 C fragment pair is an m16k16 A fragment) and
-//     multiplied with V read by ldmatrix.trans: the JAX reference's own
-//     precision chain (p cast to v's dtype for PV). Softmax stays f32,
-//     base 2, log2(e) folded into the scale.
-//   - K/V tiles of 64 columns and their segment ids arrive by cp.async
-//     (16 and 4 bytes a thread) into two stages: the next tile's copy
-//     overlaps this tile's products, and the walk has one barrier a tile.
-//     Shared rows are padded by 16 bytes so an ldmatrix's 8 rows hit 8
-//     different bank groups.
+// The design:
+//   - One block of three warpgroups per (batch, kv head, 128 query rows).
+//     The rows are BQ = 128 / G positions x the G = H / Hkv query heads of
+//     the kv head (row r: position r / G, head r % G), one TMA box {64, G,
+//     BQ, 1} of the 4-D map {D, H, T, B} over q, so each K/V tile is loaded
+//     once for the whole GQA group; the map's batch dim zero-fills past T
+//     inside each batch row. D 128 is two 64-column boxes side by side;
+//     rows past G x BQ (G 3, 7: 126 of 128) are zeroed once.
+//   - Warp 0 of warpgroup 0 (its registers cut to 40 by setmaxnreg) loads
+//     Q once and keeps a ring of 128-column K/V tiles (3 stages at D 64, 2
+//     at D 128) in flight by TMA, 128-byte swizzled, completed on
+//     mbarriers. It reads each tile's kv segment ids itself and hands them
+//     over with the tile, with two flags: every column in the rows' one
+//     segment, and every pair live.
+//   - Warpgroups 1 and 2 (232 registers each thread) own 64 rows each. S =
+//     Q K^T is an SS wgmma m64n128k16 (K read K-major); the online softmax
+//     stays in the accumulators (row max and sum by quad shuffles, base 2,
+//     log2 e folded into the scale); P is rounded to the input type
+//     straight from the S accumulators into the A operand of an RS wgmma
+//     for O += P V, V read MN-major through the transposed descriptor: no
+//     copy. Tile it's S and tile it - 1's P V are two wgmma groups in
+//     flight together, so the softmax of one tile overlaps the other's
+//     product; the loop peels its first and last tiles so that every wait
+//     completes a known group (ptxas keeps wgmma asynchronous).
 //   - No host-side block map (the TPU kernel's _kv_block_map sort): one
 //     coalesced pass over the kv segment ids (live_span) finds the first
 //     and last column, up to the causal diagonal, whose segment falls in
 //     the range of the block's query segments; the block walks only those
-//     tiles. A tile whose pairs are all live (one segment on both sides,
-//     wholly below the diagonal) skips the per-element mask; any other tile
-//     masks each element after QK^T.
+//     tiles. A tile whose pairs are all live skips the mask; the others
+//     mask branch-free: a column limit per row (range and causal diagonal)
+//     and, only where the tile's ids are not all the rows' segment, the
+//     segment compare (a mask of && chains branches per element, which
+//     costs this kernel half again its time: the times below).
 //   - K and V are read through strides, so the chunked-prefill path passes
 //     the two halves of the packed [B, Hkv, S, 2D] cache without a copy;
-//     cp.async needs 16-byte aligned rows, which the wrapper checks.
+//     TMA needs a 16-byte aligned base and strides in 16-byte units, which
+//     the wrapper and the entry check.
 //   - Rows with no live key write out = 0 and lse = -inf, never NaN.
+//
+// Times (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --tune): at the
+// training shape (B1 T16384 H32/8 D64 bf16 causal, 10 documents) 0.865-
+// 0.934 ms, 21-23 % of the bound, where the mma.sync body this design
+// replaced took 2.371 ms and FlashAttention-2 takes 0.855-0.888
+// (chip_smoke.py phase 3); with short-circuit masks 1.420-1.549 ms, with
+// 64-column tiles 0.955-0.998.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace tn {
 namespace {
@@ -300,82 +311,94 @@ cudaError_t launch(const FwdParams& p, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f16: tensor cores
+// bf16 and f16: TMA + wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaRows = 64;   // query rows per block: G heads x (64 / G) positions
-constexpr int kMmaCols = 64;   // kv columns per tile
-constexpr int kMmaWarps = 4;   // warp w owns rows 16w .. 16w + 15
-constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kTcRows = 128;     // query rows per block: two consumer warpgroups of 64
+constexpr int kTcThreads = 384;  // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr int kTcCols = 128;     // kv columns per tile
+constexpr int kSegWhole = 1;     // a tile's flags: its columns all in the rows' one segment,
+constexpr int kWhole = 2;        // and every pair of it live: no mask
 
 template <int D>
-__host__ __device__ constexpr int mma_pitch() { return D + 8; }  // elements per shared row: 16 bytes of padding
+struct FwdTc {
+  static constexpr int kChunks = D / 64;                    // 64-column chunks of a row
+  static constexpr int kStages = D == 64 ? 3 : 2;           // K/V ring
+  static constexpr uint32_t kQBytes = kChunks * kTcRows * 128;
+  static constexpr uint32_t kKVRegion = kTcCols * 128;      // one chunk of a K or V tile
+  static constexpr uint32_t kStageBytes = 2 * kChunks * kKVRegion;  // K then V
+  static constexpr size_t kSmem = 1024 + kQBytes + kStages * kStageBytes +
+                                  8 * (1 + 2 * kStages) +
+                                  sizeof(int) * (kStages * (kTcCols + 1) + 2 * kTcRows + 4);
+};
 
-template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(uint16_t) * (kMmaRows + 4 * kMmaCols) * mma_pitch<D>() +
-         sizeof(int) * (2 * kMmaCols + 2 * kMmaRows + 4);
-}
-
+// One block per (128 query rows, kv head, batch): rows (position, head) =
+// BQ positions x the G query heads of the kv head, as one TMA box of the
+// 4-D map {D, H, T, B}. Thread 0 loads Q first thing; warp 0 of warpgroup
+// 0 keeps a ring of K/V tiles in flight (with each tile's kv segment ids
+// and flags, which it reads itself); warpgroups 1 and 2 each own 64 rows:
+// S = Q K^T (SS wgmma), the online softmax in the accumulators, O += P V
+// (RS wgmma, P from the S accumulators, V read MN-major).
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
-    flash_fwd_mma_kernel(FwdParams p) {
-  constexpr int LDS = mma_pitch<D>();
-  constexpr int KSTEPS = D / 16;       // k-steps of QK^T
-  constexpr int NT = kMmaCols / 8;     // n-tiles of S
-  constexpr int DT = D / 8;            // n-tiles of O
-  constexpr int CHUNKS = D / 8;        // 16-byte chunks of a row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);   // [64][LDS]
-  T* sK = sQ + kMmaRows * LDS;                  // [2 stages][64][LDS]
-  T* sV = sK + 2 * kMmaCols * LDS;              // [2 stages][64][LDS]
-  int* sKseg = reinterpret_cast<int*>(sV + 2 * kMmaCols * LDS);  // [2 stages][64]
-  int* sRowT = sKseg + 2 * kMmaCols;               // [64] position, -1 if dead
-  int* sQseg = sRowT + kMmaRows;                   // [64]
-  int* sSegRange = sQseg + kMmaRows;               // [2] min, max query segment
-  int* sSpan = sSegRange + 2;                      // [2] first, last live column
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                        const __grid_constant__ CUtensorMap map_k,
+                        const __grid_constant__ CUtensorMap map_v, const FwdParams p) {
+  using L = FwdTc<D>;
+  constexpr int ST = L::kStages;
+  extern __shared__ uint8_t fwd_smem[];
+  uint8_t* sQ = fwd_smem + ((1024 - (smem_u32(fwd_smem) & 1023)) & 1023);
+  uint8_t* sKV = sQ + L::kQBytes;  // stage s: K chunks, then V chunks
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + ST * L::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+  int* sKseg = reinterpret_cast<int*>(empty + ST);  // [ST][kTcCols]
+  int* sFlags = sKseg + ST * kTcCols;               // [ST] kSegWhole | kWhole
+  int* sRowT = sFlags + ST;                         // [128] position, -1 if dead
+  int* sQseg = sRowT + kTcRows;                     // [128]
+  int* sSegRange = sQseg + kTcRows;                 // [2] min, max query segment
+  int* sSpan = sSegRange + 2;                       // [2] first, last live column
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3;  // fragment row group, thread in quad
-  const int q0 = blockIdx.x * p.BQ;
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.BQ;  // the longest causal walks first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int nrows = p.G * p.BQ;
-  const T* qb = static_cast<const T*>(p.q) + b * p.q_sb;
-  const T* kb = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* vb = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
   if (tid == 0) {
     sSegRange[0] = INT_MAX;
     sSegRange[1] = INT_MIN;
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);   // the producer's arrive, plus the TMA bytes
+      mbar_init(&empty[s], 8);  // one arrive per consumer warp
+    }
+    mbar_fence_init();
+    // Q at once: its load overlaps the block's set-up and span pass
+    mbar_expect_tx(q_full, L::kChunks * nrows * 128);
+    for (int c = 0; c < L::kChunks; ++c)
+      tma_load_4d(sQ + c * kTcRows * 128, &map_q, q_full, c * 64, hk * p.G, q0, b);
   }
+  // rows past the box (G x BQ < 128) are never loaded: zeros, not garbage
+  for (int i = nrows * 8 + tid; i < kTcRows * 8; i += kTcThreads)
+    for (int c = 0; c < L::kChunks; ++c)
+      reinterpret_cast<int4*>(sQ + c * kTcRows * 128)[i] = make_int4(0, 0, 0, 0);
+  fence_proxy_async();
   __syncthreads();
-  if (tid < kMmaRows) {
+  if (tid < kTcRows) {
     const int r = tid;
     int t = -1, seg = 0;
-    if (r < nrows) {
-      const int tt = q0 + r % p.BQ;
-      if (tt < p.T) {
-        t = tt;
-        seg = p.q_seg ? p.q_seg[(int64_t)b * p.T + t] : 1;
-        atomicMin(&sSegRange[0], seg);
-        atomicMax(&sSegRange[1], seg);
-      }
+    if (r < nrows && q0 + r / p.G < p.T) {
+      t = q0 + r / p.G;
+      seg = p.q_seg ? p.q_seg[(int64_t)b * p.T + t] : 1;
+      atomicMin(&sSegRange[0], seg);
+      atomicMax(&sSegRange[1], seg);
     }
     sRowT[r] = t;
     sQseg[r] = seg;
   }
-  for (int i = tid; i < kMmaRows * CHUNKS; i += kMmaThreads) {  // Q, zero rows if dead
-    const int r = i / CHUNKS, c = i % CHUNKS;
-    const int t = q0 + r % p.BQ;
-    const bool ok = r < nrows && t < p.T;
-    const T* src = ok ? qb + t * p.q_st + (hk * p.G + r / p.BQ) * p.q_sh + c * 8 : qb;
-    cp_async_16(sQ + r * LDS + c * 8, src, ok);
-  }
-  cp_async_commit();
   __syncthreads();
   const int seg_lo = sSegRange[0], seg_hi = sSegRange[1];
-
   // live kv columns: [0, kv_end); causal cuts at the block's last query
   int kv_end = p.S;
   if (p.causal) {
@@ -385,106 +408,132 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
   int first, last;  // the live columns' span: no walk over the tiles before it
   live_span(p.kv_seg ? p.kv_seg + (int64_t)b * p.S : nullptr, 0, kv_end, seg_lo, seg_hi,
             sSpan, first, last);
-  const int ntiles = last < 0 ? 0 : last / kMmaCols + 1;
-  const int tile0 = last < 0 ? 0 : first / kMmaCols;
+  const int ntiles = last < 0 ? 0 : last / kTcCols + 1;
+  const int tile0 = last < 0 ? 0 : first / kTcCols;
 
-  // K, V and the kv segment ids of a tile, all by cp.async, zero beyond the
-  // live range (the mask reads col < kv_end, never a zero-filled id)
-  auto load_kv = [&](int tile, int stage) {
-    T* dk = sK + stage * kMmaCols * LDS;
-    T* dv = sV + stage * kMmaCols * LDS;
-    for (int i = tid; i < kMmaCols * CHUNKS; i += kMmaThreads) {
-      const int c = i / CHUNKS, ch = i % CHUNKS;
-      const int col = tile * kMmaCols + c;
-      const bool ok = col < kv_end;
-      cp_async_16(dk + c * LDS + ch * 8, ok ? kb + col * p.k_ss + ch * 8 : kb, ok);
-      cp_async_16(dv + c * LDS + ch * 8, ok ? vb + col * p.v_ss + ch * 8 : vb, ok);
+  if (tid < 128) {  // producer
+    setmaxnreg_dec<40>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    for (int j = tile0, it = 0; j < ntiles; ++j, ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);  // the first lap passes
+      const int kv0 = j * kTcCols;
+      // the tile's flags: every column before kv_end in the rows' one
+      // segment (kSegWhole), and also every pair live (kWhole)
+      bool seg_whole = seg_lo == seg_hi;
+      for (int c = lane; c < kTcCols; c += 32) {
+        const int col = kv0 + c;
+        int seg = INT_MIN;  // beyond the live range: matches no row
+        if (col < kv_end) {
+          seg = p.kv_seg ? p.kv_seg[(int64_t)b * p.S + col] : 1;
+          seg_whole = seg_whole && seg == seg_lo;
+        }
+        sKseg[s * kTcCols + c] = seg;
+      }
+      seg_whole = __all_sync(0xffffffffu, seg_whole);
+      if (lane == 0)
+        sFlags[s] = (seg_whole ? kSegWhole : 0) |
+                    (seg_whole && kv0 + kTcCols <= kv_end &&
+                             (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kTcCols - 1)
+                         ? kWhole
+                         : 0);
+      __syncwarp();
+      if (lane == 0) {  // the arrive releases the ids and the flag with the tile
+        uint8_t* st = sKV + s * L::kStageBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_4d(st + c * L::kKVRegion, &map_k, &full[s], c * 64, kv0, hk, b);
+          tma_load_4d(st + (L::kChunks + c) * L::kKVRegion, &map_v, &full[s], c * 64, kv0, hk,
+                      b);
+        }
+      }
     }
-    if (tid < kMmaCols) {
-      const int col = tile * kMmaCols + tid;
-      int* dst = sKseg + stage * kMmaCols + tid;
-      if (p.kv_seg)
-        cp_async_4(dst, col < kv_end ? p.kv_seg + (int64_t)b * p.S + col : p.kv_seg,
-                   col < kv_end);
-      else
-        *dst = 1;
-    }
-  };
+    return;
+  }
 
-  int stage = 0;
-  if (tile0 < ntiles) load_kv(tile0, 0);
-  cp_async_commit();
-
-  // this warp's Q fragments, for the whole walk
-  cp_async_wait<1>();
-  __syncthreads();
-  const int mi = lane >> 3;  // which 8x8 matrix of an ldmatrix.x4 this lane addresses
-  uint32_t qf[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks)
-    ldmatrix_x4(qf[ks], sQ + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8);
-
-  const int r0 = warp * 16 + g;  // this thread's two rows: r0 and r0 + 8
+  // consumers: warpgroup cw owns rows [64 cw, 64 cw + 64) of the block
+  setmaxnreg_inc<232>();
+  constexpr int NS = kTcCols / 2;  // S accumulators a thread
+  constexpr int NO = D / 2;        // O accumulators a thread
+  const int cw = tid / 128 - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, tq = lane & 3;
+  const int r0 = cw * 64 + warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
   const int t_row[2] = {sRowT[r0], sRowT[r0 + 8]};
   const int seg_row[2] = {sQseg[r0], sQseg[r0 + 8]};
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[DT][4];
+  float o[NO];
 #pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  mbar_wait(q_full, 0);
 
-  // every tile of the live span; a tile of another segment inside it is
-  // masked whole (p = 0)
-  for (int cur = tile0; cur < ntiles; ++cur) {
-    cp_async_wait<0>();  // this tile's group has landed
-    const int kv0 = cur * kMmaCols;
-    const int* kseg = sKseg + stage * kMmaCols;
-    bool whole = true;  // this thread's column is live for every row
-    if (tid < kMmaCols) whole = kv0 + tid < kv_end && kseg[tid] == seg_lo && seg_lo == seg_hi;
-    // the one barrier of a tile: every warp sees this tile and is done with
-    // the previous one (whose stage the next copy refills), and learns
-    // whether all of this tile's pairs are live (then no element needs a mask)
-    const bool full_cur = __syncthreads_and(whole) &&
-        (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kMmaCols - 1);
-    if (cur + 1 < ntiles) load_kv(cur + 1, stage ^ 1);  // overlaps this tile's products
-    cp_async_commit();
+  // Tile it's S = Q K^T and the previous tile's O += P V run as two wgmma
+  // groups in flight at once: the softmax of tile it overlaps the product
+  // of tile it - 1, and O is rescaled once that product is done. The first
+  // tile's S and the last tile's P V are peeled off the loop, so that every
+  // wait in it completes a known group (ptxas then keeps wgmma asynchronous).
+  float sc[NS];
+  uint32_t pa[kTcCols / 16][4];
+  const int n = ntiles - tile0;
 
-    const T* tK = sK + stage * kMmaCols * LDS;
-    const T* tV = sV + stage * kMmaCols * LDS;
-    float s[NT][4];
+  // S = Q K^T of tile it into sc, one committed group
+  auto issue_qk = [&](int it) {
+    const int s = it % ST;
+    mbar_wait(&full[s], (it / ST) & 1);
+    const uint8_t* tk = sKV + s * L::kStageBytes;
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_ss<T, kTcCols, 0, 0>(
+          sc, wgmma_desc(sQ + (ks / 4) * kTcRows * 128 + cw * 8192 + (ks % 4) * 32, 16, 1024),
+          wgmma_desc(tk + (ks / 4) * L::kKVRegion + (ks % 4) * 32, 16, 1024), ks > 0);
+    wgmma_commit();
+  };
+  // O += P V of tile it, one committed group
+  auto issue_pv = [&](int it) {
+    const uint8_t* tv = sKV + (it % ST) * L::kStageBytes + L::kChunks * L::kKVRegion;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        // matrices: (n-tile j, k lo), (j, k hi), (j+1, k lo), (j+1, k hi)
-        uint32_t kf[4];
-        ldmatrix_x4(kf, tK + (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8);
-        mma_16816<T>(s[j], qf[ks], kf[0], kf[1]);
-        mma_16816<T>(s[j + 1], qf[ks], kf[2], kf[3]);
-      }
-    }
-
+    for (int kk = 0; kk < kTcCols / 16; ++kk)
+      wgmma_rs<T, D, 1>(o, pa[kk], wgmma_desc(tv + kk * 2048, L::kKVRegion, 1024), 1);
+    wgmma_commit();
+  };
+  // mask, running max and sum of tile it (S in sc); P = exp2(S - max) in
+  // sc; returns the rescale of the rows' earlier sums in alpha
+  auto softmax = [&](int it, float (&alpha)[2]) {
+    const int s = it % ST;
+    const int kv0 = (tile0 + it) * kTcCols;
+    const int* kseg = sKseg + s * kTcCols;
+    const int flags = sFlags[s];
     float mx[2] = {m[0], m[1]};
+    if (flags & kWhole) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+      for (int e = 0; e < NS; ++e) {
+        sc[e] *= p.scale_log2;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], sc[e]);
+      }
+    } else {
+      // branch-free mask: columns [0, lim) of the tile are in range and,
+      // when causal, not past the row's diagonal; the segment ids are
+      // compared unless every column of the tile is in the rows' one segment
+      const bool seg_check = !(flags & kSegWhole);
+      int lim[2];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[j][e] * p.scale_log2;
-        if (!full_cur) {
-          const int c = j * 8 + 2 * tq + (e & 1);
-          const int col = kv0 + c;
-          const int t = t_row[e >> 1];
-          const bool ok = t >= 0 && col < kv_end && seg_row[e >> 1] == kseg[c] &&
-                          (!p.causal || p.q_offset + t >= p.kv_offset + col);
-          x = ok ? x : -INFINITY;
+      for (int i = 0; i < 2; ++i) {
+        const int diag = p.causal ? p.q_offset + t_row[i] - p.kv_offset - kv0 + 1 : kTcCols;
+        lim[i] = t_row[i] < 0 ? 0 : min(kv_end - kv0, diag);
+      }
+#pragma unroll
+      for (int jn = 0; jn < kTcCols / 8; ++jn) {
+        const int c = 8 * jn + 2 * tq;
+        const int2 ks = *reinterpret_cast<const int2*>(kseg + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e >> 1;
+          const bool ok = (c + (e & 1) < lim[i]) &
+                          (!seg_check | (((e & 1) ? ks.y : ks.x) == seg_row[i]));
+          const float x = ok ? sc[4 * jn + e] * p.scale_log2 : -INFINITY;
+          sc[4 * jn + e] = x;
+          mx[i] = fmaxf(mx[i], x);
         }
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
     }
     float m_use[2];
@@ -493,44 +542,64 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
       mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       m_use[i] = mx[i] == -INFINITY ? 0.f : mx[i];  // no inf - inf
-      const float alpha = fast_exp2(m[i] - m_use[i]);
+      alpha[i] = fast_exp2(m[i] - m_use[i]);
       m[i] = mx[i];
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < DT; ++j) {
-        acc[j][2 * i] *= alpha;
-        acc[j][2 * i + 1] *= alpha;
-      }
+      l[i] *= alpha[i];
     }
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = fast_exp2(s[j][e] - m_use[e >> 1]);
-        l[e >> 1] += s[j][e];  // this thread's part; the quad sums at the end
-      }
+    for (int e = 0; e < NS; ++e) {
+      sc[e] = fast_exp2(sc[e] - m_use[(e >> 1) & 1]);
+      l[(e >> 1) & 1] += sc[e];  // this thread's part; the quad sums at the end
     }
+  };
+  // P in the input type, straight from the accumulators: column blocks 2kk
+  // and 2kk + 1 are the A operand of k-step kk of P V
+  auto pack_p = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < kTcCols / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) pa[kk][h] = pack2<T>(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+  };
+  auto release = [&](int it) {  // this warp is done with tile it's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % ST]);
+  };
 
-    // O += P V: two S n-tiles are one A fragment of a 16-column k-step
+  if (n > 0) {
+    float alpha[2];
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    softmax(0, alpha);
+    pack_p();
+    for (int it = 1; it < n; ++it) {
+      wgmma_fence();
+      issue_qk(it);
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // S of tile it is done; P V of tile it - 1 may still run
+      fence_regs(sc);
+      softmax(it, alpha);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      release(it - 1);
 #pragma unroll
-    for (int kk = 0; kk < kMmaCols / 16; ++kk) {
-      const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dj = 0; dj < DT; dj += 2) {
-        // matrices: (k lo, d-tile dj), (k hi, dj), (k lo, dj+1), (k hi, dj+1)
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, tV + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 +
-                                  (mi >> 1) * 8);
-        mma_16816<T>(acc[dj], pa, vf[0], vf[1]);
-        mma_16816<T>(acc[dj + 1], pa, vf[2], vf[3]);
+      for (int jn = 0; jn < D / 8; ++jn) {
+        o[4 * jn] *= alpha[0];
+        o[4 * jn + 1] *= alpha[0];
+        o[4 * jn + 2] *= alpha[1];
+        o[4 * jn + 3] *= alpha[1];
       }
+      pack_p();
     }
-    stage ^= 1;
+    wgmma_fence();
+    issue_pv(n - 1);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    release(n - 1);
   }
-  cp_async_wait<0>();
 
   T* out = static_cast<T*>(p.out);
 #pragma unroll
@@ -539,27 +608,37 @@ __global__ void __launch_bounds__(kMmaThreads, D == 64 ? 4 : 2)
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     const int t = t_row[i];
     if (t < 0) continue;
-    const int h = hk * p.G + (r0 + 8 * i) / p.BQ;
+    const int h = hk * p.G + (r0 + 8 * i) % p.G;
     const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
     T* orow = out + (((int64_t)b * p.T + t) * p.H + h) * D;
 #pragma unroll
-    for (int dj = 0; dj < DT; ++dj)
-      *reinterpret_cast<uint32_t*>(orow + dj * 8 + 2 * tq) =
-          pack2<T>(acc[dj][2 * i] * inv, acc[dj][2 * i + 1] * inv);
+    for (int jn = 0; jn < D / 8; ++jn)
+      *reinterpret_cast<uint32_t*>(orow + 8 * jn + 2 * tq) =
+          pack2<T>(o[4 * jn + 2 * i] * inv, o[4 * jn + 2 * i + 1] * inv);
     if (tq == 0)
-      p.lse[((int64_t)b * p.H + h) * p.T + t] =
-          l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : -INFINITY;
+      p.lse[((int64_t)b * p.H + h) * p.T + t] = l[i] > 0.f ? m[i] * kLn2 + logf(l[i]) : -INFINITY;
   }
 }
 
 template <typename T, int D>
-cudaError_t launch_mma(const FwdParams& p, cudaStream_t stream) {
-  constexpr size_t smem = mma_smem_bytes<D>();
+cudaError_t launch_tc(const FwdParams& p, cudaStream_t stream) {
+  using L = FwdTc<D>;
+  CUtensorMap map_q, map_k, map_v;
+  const int64_t q_st[3] = {p.q_sh, p.q_st, p.q_sb};
+  const int64_t k_st[3] = {p.k_ss, p.k_sh, p.k_sb};
+  const int64_t v_st[3] = {p.v_ss, p.v_sh, p.v_sb};
+  if (!tensor_map_4d<T>(&map_q, p.q, {(uint64_t)D, (uint64_t)p.H, (uint64_t)p.T, (uint64_t)p.B},
+                        q_st, {64u, (uint32_t)p.G, (uint32_t)p.BQ, 1u}) ||
+      !tensor_map_4d<T>(&map_k, p.k, {(uint64_t)D, (uint64_t)p.S, (uint64_t)p.Hkv, (uint64_t)p.B},
+                        k_st, {64u, (uint32_t)kTcCols, 1u, 1u}) ||
+      !tensor_map_4d<T>(&map_v, p.v, {(uint64_t)D, (uint64_t)p.S, (uint64_t)p.Hkv, (uint64_t)p.B},
+                        v_st, {64u, (uint32_t)kTcCols, 1u, 1u}))
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
-  flash_fwd_mma_kernel<T, D><<<grid, kMmaThreads, smem, stream>>>(p);
+  flash_fwd_tc_kernel<T, D><<<grid, kTcThreads, L::kSmem, stream>>>(map_q, map_k, map_v, p);
   return cudaGetLastError();
 }
 
@@ -588,18 +667,18 @@ extern "C" int tn_flash_fwd(
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == tn::kBFloat16 || dtype == tn::kFloat16) {
-    // cp.async moves 16-byte rows: pointers and row strides in 8-element units
+    // TMA needs a 16-byte aligned base and row strides in 16-byte units
     const int64_t strides[] = {q_sb, q_st, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
     for (int64_t x : strides)
       if (x % 8 != 0) return (int)cudaErrorMisalignedAddress;
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
-    p.BQ = tn::kMmaRows / p.G;
+    p.BQ = tn::kTcRows / p.G;
     const bool bf = dtype == tn::kBFloat16;
-    if (D == 64) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 64>(p, st)
-                                 : tn::launch_mma<__half, 64>(p, st));
-    if (D == 128) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 128>(p, st)
-                                  : tn::launch_mma<__half, 128>(p, st));
+    if (D == 64) return (int)(bf ? tn::launch_tc<__nv_bfloat16, 64>(p, st)
+                                 : tn::launch_tc<__half, 64>(p, st));
+    if (D == 128) return (int)(bf ? tn::launch_tc<__nv_bfloat16, 128>(p, st)
+                                  : tn::launch_tc<__half, 128>(p, st));
     return (int)cudaErrorInvalidValue;
   }
   p.BQ = tn::kRows / p.G;

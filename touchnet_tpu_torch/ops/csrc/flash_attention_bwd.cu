@@ -21,10 +21,10 @@
 // makes dout (which autograd may hand over strided) contiguous once.
 //
 // Two routes, by input type (inputs bf16, f16 or f32): bf16 and f16 run
-// the tensor-core kernels dkv_mma_kernel<T> and dq_mma_kernel<T>, one body
-// for both types; f32 keeps the first version's FMA kernels dkv_kernel and
-// dq_kernel, the exactness path behind the f32 checks (1e-4). The delta
-// kernel serves all three.
+// the TMA + wgmma kernels dkv_tc_kernel<T, D> and dq_tc_kernel<T, D> after
+// delta16_kernel<T>, one body for both types; f32 keeps the first
+// version's FMA kernels delta_kernel, dkv_kernel and dq_kernel, the
+// exactness path behind the f32 checks (1e-4).
 //
 // What bounds it on this card: the products. The gradients need five
 // D-deep products per live (row, column) pair (S, dP, dV, dK, dQ: 10·D
@@ -34,10 +34,11 @@
 // against ~0.1 ms of bytes: operations bound it. The FMA version ran at
 // ~12 TFLOP/s. The split is kept because it needs no atomics: every
 // gradient element is written once by one block, in a fixed order, so two
-// runs give the same bits.
+// runs give the same bits. As in K1, each tile's exponentials (and masks)
+// cost about as much as its products at D 64.
 //
 // Precision (both routes): the exponentials and dP - delta stay f32; on
-// the tensor-core route P and dS are rounded to the input type only as mma
+// the 16-bit route P and dS are rounded to the input type only as wgmma
 // operands, as FlashAttention-2 does. The TPU kernels' bf16 p/ds chain,
 // whose exp is bf16 (attention.py:561, 632), is not ported; for f16 the
 // TPU kernels keep that chain in f32 and round ds to k's dtype
@@ -55,39 +56,50 @@
 // as it does in JAX's ds.astype(k.dtype): the port follows JAX's chain
 // (no loss scaling, as JAX has none).
 //
-// What the tensor-core design does about it (mma.sync m16n8k16 bf16 or
-// f16 -> f32,
-// ldmatrix and cp.async: the sm_80 instruction set; wgmma/TMA is later
-// work). Blocks run in no order on Hopper, so nothing carries across
-// blocks:
-//   - dkv kernel: one block of 4 warps per (batch, kv head, 64 kv
-//     columns), two blocks to an SM; warp w owns columns 16w..16w+15. It
-//     computes everything transposed, with its columns as the mma rows:
-//     S^T = K Q^T, dP^T = V dO^T, then P^T and dS^T in f32 in the
-//     accumulators, and dV += P^T dO, dK += dS^T Q with P^T and dS^T packed
-//     to the input type straight from the accumulators into A fragments. So dS never
-//     goes through shared memory for a transpose. K and V stay resident in
-//     shared memory; Q and dO tiles of 64 rows (G heads x 64/G positions)
-//     arrive by cp.async in two stages, from the causal diagonal on, so the
-//     GQA sum happens in the block's dk/dv registers.
-//   - dq kernel: K1's grid and row packing (4 warps, 64 rows = G heads x
-//     64/G positions), two blocks to an SM; Q and dO fragments stay in
-//     registers, K and V tiles of 64 columns arrive by cp.async in two
-//     stages; dQ += dS K with dS packed from the accumulators and K read by
-//     ldmatrix.trans.
-//   - Registers (~210 a thread at D 64) hold two blocks of 4 warps to an
-//     SM: on an H100 80GB HBM3 (700 W) that ran the training shape ~9 %
-//     faster than one block of 8 warps (chip_smoke.py phase 6 timings).
+// The design (TMA + wgmma on sm_90a; blocks run in no order on Hopper, so
+// nothing carries across blocks). Both kernels have K1's shape: three
+// warpgroups a block, warp 0 of the first (40 registers) a producer that
+// keeps a ring of tiles in flight by TMA on mbarriers (128-byte swizzled,
+// 4-D tensor maps over the contiguous inputs, zeros past each batch row's
+// end) and reads the metadata the consumers need with each tile (segment
+// ids, positions, lse, delta, a flag for a wholly live tile); warpgroups
+// 1 and 2 (232 registers) compute 64 rows each:
+//   - dkv kernel: one block per (batch, kv head, 128 kv columns), computed
+//     transposed with the columns as the wgmma rows: S^T = K Q^T and dP^T =
+//     V dO^T are SS wgmma (K and V resident, Q and dO K-major), P^T and dS^T
+//     are formed in f32 in the accumulators, and dV += P^T dO, dK += dS^T Q
+//     are RS wgmma with P^T and dS^T packed straight from the accumulators
+//     (dO and Q read MN-major through the transposed descriptor), so dS
+//     never goes through shared memory. Q and dO arrive in tiles of 128
+//     rows at D 64, 64 at D 128 (G heads x rows / G positions, one 4-D box
+//     each, as K1's packing), 3 stages, from the causal diagonal on, so the
+//     GQA sum happens in the block's dk/dv accumulators. A warpgroup's
+//     tiles run one after another (the two warpgroups interleave): holding
+//     a second tile's S^T and dP^T beside dK, dV, P^T and dS^T needs more
+//     than its 232 registers at 128 rows, and at 64 rows, where they fit,
+//     that overlap ran the training shape slower than this on the card
+//     (fewer, wider products win).
+//   - dq kernel: K1's grid and 128-row packing; Q and dO resident, K and V
+//     tiles of 128 columns (64 at D 128) streamed; S and dP by SS wgmma,
+//     dQ += dS K by RS wgmma with K read MN-major; a tile's S and dP run
+//     beside the previous tile's dQ product.
 //   - Both walk only the span of tiles whose segment ids fall in the range
-//     of the block's own (one coalesced pass, live_span, as K1), bring each
-//     tile's segment ids and row statistics by cp.async with its data (one
-//     barrier a tile), skip the per-element mask on a tile whose pairs are
-//     all live, and give rows with lse = -inf zero gradients.
-//   - Shared rows are padded by 16 bytes so an ldmatrix's 8 rows hit 8
-//     different bank groups; cp.async needs 16-byte aligned inputs, which
-//     the wrapper checks.
+//     of the block's own (one coalesced pass, live_span, as K1), skip the
+//     mask on a tile whose pairs are all live, mask the others
+//     branch-free, and give rows with lse = -inf zero gradients (their lse
+//     enters as +inf, so p = 0 without a mask).
+//   - delta: 8 lanes a row, 16 bytes a lane a step (the f32 route keeps a
+//     warp a row).
+//   - TMA needs 16-byte aligned bases, which the wrapper checks.
+// Times (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py --tune): at the
+// training shape (B1 T16384 H32/8 D64 bf16 causal, 10 documents) delta
+// 0.064 ms, dk/dv 1.200 (33 % of its bound), dq 0.890 (33 %): 2.15 ms,
+// where the mma.sync bodies this design replaced took 6.952 ms and
+// FlashAttention-2 takes 2.470-2.563 (chip_smoke.py phase 6); dq with
+// short-circuit masks 1.749-1.762 ms.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace tn {
 namespace {
@@ -133,6 +145,35 @@ __global__ void delta_kernel(BwdParams p) {
     const int t = (int)(bt % p.T);
     const int b = (int)(bt / p.T);
     p.delta[((int64_t)b * p.H + h) * p.T + t] = acc;
+  }
+}
+
+// the same for bf16 and f16: 8 lanes a row, each reading 16 bytes (8
+// elements) of out and of dout a step, so a warp reads 4 rows in full
+// 128-byte lines
+template <typename T>
+__global__ void delta16_kernel(BwdParams p) {
+  const int64_t row = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 8;
+  const int sub = threadIdx.x & 7;
+  const int64_t rows = (int64_t)p.B * p.T * p.H;
+  float acc = 0.f;
+  if (row < rows) {
+    const uint4* o = reinterpret_cast<const uint4*>(static_cast<const T*>(p.out) + row * p.D);
+    const uint4* g = reinterpret_cast<const uint4*>(static_cast<const T*>(p.dout) + row * p.D);
+    for (int c = sub; c < p.D / 8; c += 8) {
+      const uint4 ov = o[c], gv = g[c];
+      const T* oe = reinterpret_cast<const T*>(&ov);
+      const T* ge = reinterpret_cast<const T*>(&gv);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) acc = fmaf(to_f32(oe[k]), to_f32(ge[k]), acc);
+    }
+  }
+#pragma unroll
+  for (int off = 4; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && sub == 0) {
+    const int h = (int)(row % p.H);
+    const int64_t bt = row / p.H;
+    p.delta[((int64_t)(bt / p.T) * p.H + h) * p.T + bt % p.T] = acc;
   }
 }
 
@@ -536,69 +577,112 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(BwdParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and f16: tensor cores, one body for both. Fragment layouts and
-// helpers in common.cuh.
+// bf16 and f16: TMA + wgmma, one body for both. Three warpgroups a block:
+// warp 0 of warpgroup 0 loads (TMA for the tiles, plain loads for the row
+// and column metadata it hands over with them), warpgroups 1 and 2 compute
+// 64 rows each. Every tile is 128-byte swizzled, in 64-column chunks of 128
+// lines (hopper.cuh).
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaWarps = 4;
-constexpr int kMmaThreads = 32 * kMmaWarps;
-constexpr int kDkvCols = 64;   // kv columns per dkv block: warp w owns 16w .. 16w + 15
-constexpr int kDkvRows = 64;   // query rows per tile of the dkv walk: G heads x 64/G
-constexpr int kDqRows = 64;    // query rows per dq block: warp w owns 16w .. 16w + 15
-constexpr int kDqCols = 64;    // kv columns per tile of the dq walk
+constexpr int kTcThreads = 384;
+constexpr int kDkvCols = 128;  // kv columns per dkv block: two warpgroups of 64
+constexpr int kDqRows = 128;   // query rows per dq block: two warpgroups of 64
+constexpr int kSegWhole = 1;   // a dq tile's flags, as K1's: its columns all in the rows'
+constexpr int kWhole = 2;      // one segment, and every pair of it live
 
 template <int D>
-__host__ __device__ constexpr int pitch() { return D + 8; }  // elements per shared row: 16 bytes of padding
+struct DkvTc {
+  static constexpr int kChunks = D / 64;
+  static constexpr int kRows = D == 64 ? 128 : 64;  // query rows a tile of the walk
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kKVRegion = kDkvCols * 128;
+  static constexpr uint32_t kRowRegion = kRows * 128;
+  static constexpr uint32_t kKVBytes = 2 * kChunks * kKVRegion;     // K, V resident
+  static constexpr uint32_t kStageBytes = 2 * kChunks * kRowRegion;  // Q, dO
+  static constexpr size_t kSmem = 1024 + kKVBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages) +
+                                  sizeof(int) * (kStages * (4 * kRows + 1) + kDkvCols + 4);
+};
 
 template <int D>
-constexpr size_t dkv_mma_smem_bytes() {
-  return sizeof(uint16_t) * (2 * kDkvCols + 4 * kDkvRows) * pitch<D>() +
-         sizeof(float) * 4 * kDkvRows + sizeof(int) * (4 * kDkvRows + kDkvCols + 4);
+struct DqTc {
+  static constexpr int kChunks = D / 64;
+  static constexpr int kCols = D == 64 ? 128 : 64;  // kv columns a tile of the walk
+  static constexpr int kStages = 3;
+  static constexpr uint32_t kRowRegion = kDqRows * 128;
+  static constexpr uint32_t kKVRegion = kCols * 128;
+  static constexpr uint32_t kQBytes = 2 * kChunks * kRowRegion;      // Q, dO resident
+  static constexpr uint32_t kStageBytes = 2 * kChunks * kKVRegion;   // K, V
+  static constexpr size_t kSmem = 1024 + kQBytes + kStages * kStageBytes + 8 * (1 + 2 * kStages) +
+                                  sizeof(int) * (kStages * (kCols + 1) + 4 * kDqRows + 4);
+};
+
+// the descriptor of k-step ks of a K-major operand whose rows start at `rows`
+// inside 64-column chunks `region` bytes apart
+__device__ __forceinline__ uint64_t kmajor_desc(const uint8_t* rows, uint32_t region, int ks) {
+  return wgmma_desc(rows + (ks / 4) * region + (ks % 4) * 32, 16, 1024);
 }
 
-// dk, dv: one block per (64 kv columns, kv head, batch). Computed
-// transposed, with the block's kv columns as the mma rows, so every
-// product takes its A operand from registers (K and V by ldmatrix from the
-// resident tile, P^T and dS^T straight from the accumulators) and its B
-// operand from the query tile in shared memory:
-//   S^T = K Q^T, dP^T = V dO^T, P^T = exp2(S^T - lse), dS^T = P^T (dP^T - delta),
-//   dV += P^T dO, dK += dS^T Q.
+// dk, dv: one block per (128 kv columns, kv head, batch), computed
+// transposed with the block's columns as the wgmma rows. K and V stay
+// resident; the producer streams Q and dO tiles of kRows query rows (G
+// heads x kRows / G positions, one 4-D TMA box each) from the causal
+// diagonal on, with each row's position, segment id, lse (base 2) and
+// delta. Per tile, warpgroup cw (columns 64 cw ..):
+//   S^T = K Q^T, dP^T = V dO^T          (SS wgmma, N = kRows)
+//   P^T = exp2(S^T - lse), dS^T = P^T (dP^T - delta)   (f32, in registers)
+//   dV += P^T dO, dK += dS^T Q           (RS wgmma, dO and Q read MN-major)
+// The G query heads of the kv head pass through the same block, so the GQA
+// sum is the accumulation itself.
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
-  constexpr int LDS = pitch<D>();
-  constexpr int KSTEPS = D / 16;
-  constexpr int NR = kDkvRows / 8;  // n-tiles over the query rows
-  constexpr int DT = D / 8;
-  constexpr int CHUNKS = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sK = reinterpret_cast<T*>(smem_raw);  // [64][LDS]
-  T* sV = sK + kDkvCols * LDS;                 // [64][LDS]
-  T* sQ = sV + kDkvCols * LDS;                 // [2 stages][64][LDS]
-  T* sDO = sQ + 2 * kDkvRows * LDS;            // [2 stages][64][LDS]
-  float* sLse = reinterpret_cast<float*>(sDO + 2 * kDkvRows * LDS);  // [2][64] base e
-  float* sDelta = sLse + 2 * kDkvRows;            // [2][64]
-  int* sRowT = reinterpret_cast<int*>(sDelta + 2 * kDkvRows);  // [2][64]
-  int* sQseg = sRowT + 2 * kDkvRows;              // [2][64]
-  int* sKseg = sQseg + 2 * kDkvRows;              // [64]
-  int* sSegRange = sKseg + kDkvCols;              // [2] min, max kv segment
-  int* sSpan = sSegRange + 2;                     // [2] first, last live query position
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dkv_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                  const __grid_constant__ CUtensorMap map_do,
+                  const __grid_constant__ CUtensorMap map_k,
+                  const __grid_constant__ CUtensorMap map_v, const BwdParams p) {
+  using L = DkvTc<D>;
+  constexpr int ST = L::kStages, NR = L::kRows;
+  extern __shared__ uint8_t dkv_smem[];
+  uint8_t* sKV = dkv_smem + ((1024 - (smem_u32(dkv_smem) & 1023)) & 1023);  // K, then V
+  uint8_t* sRows = sKV + L::kKVBytes;  // stage s: Q chunks, then dO chunks
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(sRows + ST * L::kStageBytes);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + ST;
+  float* sLse2 = reinterpret_cast<float*>(empty + ST);  // [ST][NR] base 2, +inf: p = 0
+  float* sDelta = sLse2 + ST * NR;                       // [ST][NR]
+  int* sRowT = reinterpret_cast<int*>(sDelta + ST * NR);  // [ST][NR] position, -1 if dead
+  int* sQseg = sRowT + ST * NR;                           // [ST][NR]
+  int* sWhole = sQseg + ST * NR;                          // [ST]
+  int* sKseg = sWhole + ST;                               // [128]
+  int* sSegRange = sKseg + kDkvCols;                      // [2] min, max kv segment
+  int* sSpan = sSegRange + 2;                             // [2] first, last live position
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3, mi = lane >> 3;
+  const int tid = threadIdx.x;
   const int kv0 = blockIdx.x * kDkvCols;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int nrows = p.G * p.BQk;
-  const int64_t kv_row = (int64_t)p.Hkv * D;  // elements between two kv positions
-  const T* qb = static_cast<const T*>(p.q) + (int64_t)b * p.T * p.H * D;
-  const T* gb = static_cast<const T*>(p.dout) + (int64_t)b * p.T * p.H * D;
-  const T* kb = static_cast<const T*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
-  const T* vb = static_cast<const T*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
 
   if (tid == 0) {
     sSegRange[0] = INT_MAX;
     sSegRange[1] = INT_MIN;
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+    // K and V at once: their load overlaps the block's set-up and span pass
+    mbar_expect_tx(kv_full, L::kKVBytes);
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(sKV + c * L::kKVRegion, &map_k, kv_full, c * 64, kv0, hk, b);
+      tma_load_4d(sKV + (L::kChunks + c) * L::kKVRegion, &map_v, kv_full, c * 64, kv0, hk, b);
+    }
   }
+  // rows past the box (G x BQk < kRows) are never loaded: zeros in every stage
+  for (int i = nrows * 8 + tid; i < NR * 8; i += kTcThreads)
+    for (int c = 0; c < ST * 2 * L::kChunks; ++c)
+      reinterpret_cast<int4*>(sRows + c * L::kRowRegion)[i] = make_int4(0, 0, 0, 0);
+  fence_proxy_async();
   __syncthreads();
   if (tid < kDkvCols) {
     const int col = kv0 + tid;
@@ -610,21 +694,11 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
     }
     sKseg[tid] = seg;
   }
-  for (int i = tid; i < kDkvCols * CHUNKS; i += kMmaThreads) {
-    const int c = i / CHUNKS, ch = i % CHUNKS;
-    const int col = kv0 + c;
-    const bool ok = col < p.S;
-    cp_async_16(sK + c * LDS + ch * 8, ok ? kb + col * kv_row + ch * 8 : kb, ok);
-    cp_async_16(sV + c * LDS + ch * 8, ok ? vb + col * kv_row + ch * 8 : vb, ok);
-  }
-  cp_async_commit();
   __syncthreads();
   const int seg_lo = sSegRange[0], seg_hi = sSegRange[1];
   const bool cols_whole = kv0 + kDkvCols <= p.S && seg_lo == seg_hi;
-
   // the query tiles that can see the block's columns: from the causal
-  // diagonal on, within the span of positions in the columns' segments, in
-  // steps of BQk positions
+  // diagonal on, within the span of positions in the columns' segments
   int t_first = 0;
   if (p.causal) t_first = max(0, p.kv_offset + kv0 - p.q_offset);
   int first, last;
@@ -633,223 +707,230 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dkv_mma_kernel(BwdParams p) {
   const int t_begin = last < 0 ? 0 : (first / p.BQk) * p.BQk;
   const int ntiles = last < 0 ? 0 : (last - t_begin) / p.BQk + 1;
 
-  // Q, dO and the row statistics (segment id, lse, delta) of a query tile,
-  // all by cp.async, zero where a row is dead (its position, from sRowT,
-  // masks it)
-  auto load_rows = [&](int tile, int stage) {
-    const int q0 = t_begin + tile * p.BQk;
-    T* dq_ = sQ + stage * kDkvRows * LDS;
-    T* dg = sDO + stage * kDkvRows * LDS;
-    for (int i = tid; i < kDkvRows * CHUNKS; i += kMmaThreads) {
-      const int r = i / CHUNKS, ch = i % CHUNKS;
-      const int t = q0 + r % p.BQk;
-      const bool ok = r < nrows && t < p.T;
-      const int64_t off = ((int64_t)t * p.H + hk * p.G + r / p.BQk) * D + ch * 8;
-      cp_async_16(dq_ + r * LDS + ch * 8, ok ? qb + off : qb, ok);
-      cp_async_16(dg + r * LDS + ch * 8, ok ? gb + off : gb, ok);
-    }
-    if (tid < kDkvRows) {
-      const int r = tid, t = q0 + r % p.BQk;
-      const bool ok = r < nrows && t < p.T;
-      const int i = stage * kDkvRows + r;
-      const int64_t o = ((int64_t)b * p.H + hk * p.G + r / p.BQk) * p.T + t;
-      sRowT[i] = ok ? t : -1;
-      cp_async_4(sLse + i, ok ? p.lse + o : p.lse, ok);
-      cp_async_4(sDelta + i, ok ? p.delta + o : p.delta, ok);
-      if (p.q_seg)
-        cp_async_4(sQseg + i, ok ? p.q_seg + (int64_t)b * p.T + t : p.q_seg, ok);
-      else
-        sQseg[i] = 1;
-    }
-  };
-
-  int stage = 0;
-  if (ntiles > 0) load_rows(0, 0);
-  cp_async_commit();
-
-  const int c_loc[2] = {warp * 16 + g, warp * 16 + g + 8};  // this thread's columns
-  const int c_seg[2] = {sKseg[c_loc[0]], sKseg[c_loc[1]]};
-  float dk[DT][4], dv[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
-
-  // every query tile of the live span; a tile of another segment inside it
-  // is masked whole (p = 0)
-  for (int cur = 0; cur < ntiles; ++cur) {
-    cp_async_wait<0>();  // this tile's rows (and, first time, K and V) have landed
-    const int q0 = t_begin + cur * p.BQk;
-    bool whole = true;  // this thread's row is live for every column
-    if (tid < kDkvRows)
-      whole = sRowT[stage * kDkvRows + tid] >= 0 && sQseg[stage * kDkvRows + tid] == seg_lo;
-    // the one barrier of a tile, as K1's: this tile visible, the previous
-    // one done with (its stage is refilled next), all pairs live or not
-    const bool full_cur = __syncthreads_and(whole) && cols_whole &&
-        (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kDkvCols - 1);
-    if (cur + 1 < ntiles) load_rows(cur + 1, stage ^ 1);  // overlaps this tile's products
-    cp_async_commit();
-
-    const T* tQ = sQ + stage * kDkvRows * LDS;
-    const T* tG = sDO + stage * kDkvRows * LDS;
-    const float* lse = sLse + stage * kDkvRows;  // base e
-    const float* dl = sDelta + stage * kDkvRows;
-    const int* rowt = sRowT + stage * kDkvRows;
-    const int* rseg = sQseg + stage * kDkvRows;
-
-    float st[NR][4], dpt[NR][4];
-#pragma unroll
-    for (int j = 0; j < NR; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, sK + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(va, sV + (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NR; j += 2) {
-        uint32_t qf[4], gf[4];
-        const int off = (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8;
-        ldmatrix_x4(qf, tQ + off);
-        ldmatrix_x4(gf, tG + off);
-        mma_16816<T>(st[j], ka, qf[0], qf[1]);
-        mma_16816<T>(st[j + 1], ka, qf[2], qf[3]);
-        mma_16816<T>(dpt[j], va, gf[0], gf[1]);
-        mma_16816<T>(dpt[j + 1], va, gf[2], gf[3]);
+  if (tid < 128) {  // producer
+    setmaxnreg_dec<40>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    for (int it = 0; it < ntiles; ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      const int q0 = t_begin + it * p.BQk;
+      // every live row of the tile in the columns' one segment (a dead row
+      // has zero Q and dO and lse +inf, so it adds nothing unmasked)
+      bool whole = true;
+      for (int r = lane; r < NR; r += 32) {
+        const int t = q0 + r / p.G;
+        const bool ok = r < nrows && t < p.T;
+        const int64_t o = ((int64_t)b * p.H + hk * p.G + r % p.G) * p.T + t;
+        const int seg = ok ? (p.q_seg ? p.q_seg[(int64_t)b * p.T + t] : 1) : 0;
+        const float lse = ok ? p.lse[o] : -INFINITY;
+        sLse2[s * NR + r] = lse == -INFINITY ? INFINITY : lse * kLog2e;
+        sDelta[s * NR + r] = ok ? p.delta[o] : 0.f;
+        sRowT[s * NR + r] = ok ? t : -1;
+        sQseg[s * NR + r] = seg;
+        whole = whole && (!ok || seg == seg_lo);
+      }
+      whole = __all_sync(0xffffffffu, whole);
+      if (lane == 0)
+        sWhole[s] = whole && cols_whole &&
+                    (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kDkvCols - 1);
+      __syncwarp();
+      if (lane == 0) {
+        uint8_t* st = sRows + s * L::kStageBytes;
+        mbar_expect_tx(&full[s], 2 * L::kChunks * nrows * 128);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_4d(st + c * L::kRowRegion, &map_q, &full[s], c * 64, hk * p.G, q0, b);
+          tma_load_4d(st + (L::kChunks + c) * L::kRowRegion, &map_do, &full[s], c * 64,
+                      hk * p.G, q0, b);
+        }
       }
     }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  constexpr int NA = NR / 2;  // S^T and dP^T accumulators a thread
+  constexpr int NO = D / 2;   // dK and dV accumulators a thread
+  const int cw = tid / 128 - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, tq = lane & 3;
+  const int c0 = cw * 64 + warp * 16 + (lane >> 2);  // this thread's columns: c0 and c0 + 8
+  const int c_seg[2] = {sKseg[c0], sKseg[c0 + 8]};
+  int t_min[2];  // the first query position that sees each of this thread's columns
 #pragma unroll
-    for (int j = 0; j < NR; ++j) {
+  for (int i = 0; i < 2; ++i) {
+    const int col = kv0 + c0 + 8 * i;
+    t_min[i] = col >= p.S ? INT_MAX : p.causal ? max(0, p.kv_offset + col - p.q_offset) : 0;
+  }
+  const uint8_t* tKc = sKV + cw * 8192;                         // this warpgroup's K rows
+  const uint8_t* tVc = sKV + L::kChunks * L::kKVRegion + cw * 8192;
+  float dk[NO], dv[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s = it % ST;
+    mbar_wait(&full[s], (it / ST) & 1);
+    const uint8_t* tQ = sRows + s * L::kStageBytes;
+    const uint8_t* tG = tQ + L::kChunks * L::kRowRegion;
+    float st[NA], dpt[NA];
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss<T, NR, 0, 0>(st, kmajor_desc(tKc, L::kKVRegion, ks),
+                            kmajor_desc(tQ, L::kRowRegion, ks), ks > 0);
+      wgmma_ss<T, NR, 0, 0>(dpt, kmajor_desc(tVc, L::kKVRegion, ks),
+                            kmajor_desc(tG, L::kRowRegion, ks), ks > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    const float* lse2 = sLse2 + s * NR;
+    const float* dl = sDelta + s * NR;
+    const int* rowt = sRowT + s * NR;
+    const int* rseg = sQseg + s * NR;
+    const bool whole = sWhole[s];
+    uint32_t pa[NR / 16][4], sa[NR / 16][4];
+#pragma unroll
+    for (int jn = 0; jn < NR / 8; ++jn) {
+      const int r = 8 * jn + 2 * tq;  // this thread's query rows r, r + 1 of block jn
+      const float2 lr = *reinterpret_cast<const float2*>(lse2 + r);
+      const float2 dr = *reinterpret_cast<const float2*>(dl + r);
+      const int2 rt = *reinterpret_cast<const int2*>(rowt + r);
+      const int2 rs = *reinterpret_cast<const int2*>(rseg + r);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = j * 8 + 2 * tq + (e & 1);  // query row of the tile
-        const int ci = e >> 1;                   // which of this thread's columns
-        float pr = fast_exp2(fmaf(st[j][e], p.scale_log2, -lse[r] * kLog2e));
-        if (!full_cur) {
-          const int t = rowt[r];
-          const int col = kv0 + c_loc[ci];
-          const bool ok = t >= 0 && col < p.S && rseg[r] == c_seg[ci] && lse[r] != -INFINITY &&
-                          (!p.causal || p.q_offset + t >= p.kv_offset + col);
-          pr = ok ? pr : 0.f;
-        }
-        st[j][e] = pr;
-        dpt[j][e] = pr * (dpt[j][e] - dl[r]);
+        const int i = e >> 1;  // which of this thread's columns
+        const bool hi = e & 1;
+        float pr = fast_exp2(fmaf(st[4 * jn + e], p.scale_log2, -(hi ? lr.y : lr.x)));
+        // branch-free: the row's position at or past the column's first
+        // visible one (a dead row's -1 never is), and the same segment
+        const bool ok = whole | (((hi ? rt.y : rt.x) >= t_min[i]) & ((hi ? rs.y : rs.x) == c_seg[i]));
+        pr = ok ? pr : 0.f;
+        st[4 * jn + e] = pr;
+        dpt[4 * jn + e] = pr * (dpt[4 * jn + e] - (hi ? dr.y : dr.x));
       }
     }
-    // dV += P^T dO and dK += dS^T Q: two n-tiles of rows are one k-step
+    // query-row blocks 2kk and 2kk + 1 are the A operand of k-step kk
 #pragma unroll
-    for (int kk = 0; kk < kDkvRows / 16; ++kk) {
-      const uint32_t pa[4] = {pack2<T>(st[2 * kk][0], st[2 * kk][1]),
-                              pack2<T>(st[2 * kk][2], st[2 * kk][3]),
-                              pack2<T>(st[2 * kk + 1][0], st[2 * kk + 1][1]),
-                              pack2<T>(st[2 * kk + 1][2], st[2 * kk + 1][3])};
-      const uint32_t sa[4] = {pack2<T>(dpt[2 * kk][0], dpt[2 * kk][1]),
-                              pack2<T>(dpt[2 * kk][2], dpt[2 * kk][3]),
-                              pack2<T>(dpt[2 * kk + 1][0], dpt[2 * kk + 1][1]),
-                              pack2<T>(dpt[2 * kk + 1][2], dpt[2 * kk + 1][3])};
+    for (int kk = 0; kk < NR / 16; ++kk)
 #pragma unroll
-      for (int dj = 0; dj < DT; dj += 2) {
-        uint32_t gf[4], qf[4];
-        const int off = (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 + (mi >> 1) * 8;
-        ldmatrix_x4_trans(gf, tG + off);
-        ldmatrix_x4_trans(qf, tQ + off);
-        mma_16816<T>(dv[dj], pa, gf[0], gf[1]);
-        mma_16816<T>(dv[dj + 1], pa, gf[2], gf[3]);
-        mma_16816<T>(dk[dj], sa, qf[0], qf[1]);
-        mma_16816<T>(dk[dj + 1], sa, qf[2], qf[3]);
+      for (int h = 0; h < 4; ++h) {
+        pa[kk][h] = pack2<T>(st[8 * kk + 2 * h], st[8 * kk + 2 * h + 1]);
+        sa[kk][h] = pack2<T>(dpt[8 * kk + 2 * h], dpt[8 * kk + 2 * h + 1]);
       }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NR / 16; ++kk) {
+      wgmma_rs<T, D, 1>(dv, pa[kk], wgmma_desc(tG + kk * 2048, L::kRowRegion, 1024), 1);
+      wgmma_rs<T, D, 1>(dk, sa[kk], wgmma_desc(tQ + kk * 2048, L::kRowRegion, 1024), 1);
     }
-    stage ^= 1;
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk);
+    fence_regs(dv);
+    fence_regs(pa);
+    fence_regs(sa);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  cp_async_wait<0>();
 
+  const int64_t kv_row = (int64_t)p.Hkv * D;  // elements between two kv positions
   T* dkb = static_cast<T*>(p.dk) + (int64_t)b * p.S * kv_row + hk * D;
   T* dvb = static_cast<T*>(p.dv) + (int64_t)b * p.S * kv_row + hk * D;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int col = kv0 + c_loc[i];
+    const int col = kv0 + c0 + 8 * i;
     if (col >= p.S) continue;
 #pragma unroll
-    for (int dj = 0; dj < DT; ++dj) {
-      const int64_t off = col * kv_row + dj * 8 + 2 * tq;
+    for (int jn = 0; jn < D / 8; ++jn) {
+      const int64_t off = col * kv_row + 8 * jn + 2 * tq;
       *reinterpret_cast<uint32_t*>(dkb + off) =
-          pack2<T>(dk[dj][2 * i] * p.scale, dk[dj][2 * i + 1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvb + off) = pack2<T>(dv[dj][2 * i], dv[dj][2 * i + 1]);
+          pack2<T>(dk[4 * jn + 2 * i] * p.scale, dk[4 * jn + 2 * i + 1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvb + off) = pack2<T>(dv[4 * jn + 2 * i], dv[4 * jn + 2 * i + 1]);
     }
   }
 }
 
-template <int D>
-constexpr size_t dq_mma_smem_bytes() {
-  return sizeof(uint16_t) * (2 * kDqRows + 4 * kDqCols) * pitch<D>() +
-         sizeof(int) * (2 * kDqCols + 2 * kDqRows + 4);
-}
-
-// dq: one block per (64 query rows, kv head, batch), K1's grid and row
-// packing. Q and dO fragments stay in registers; per kv tile it recomputes
-//   S = Q K^T, dP = dO V^T, P = exp2(S - lse), dS = P (dP - delta), dQ += dS K.
+// dq: one block per (128 query rows, kv head, batch), K1's grid and row
+// packing. Q and dO stay resident; the producer streams K and V tiles of
+// kCols columns with their segment ids. Per tile, warpgroup cw (rows 64 cw ..):
+//   S = Q K^T, dP = dO V^T (SS wgmma), P = exp2(S - lse), dS = P (dP - delta),
+//   dQ += dS K (RS wgmma, K read MN-major).
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
-  constexpr int LDS = pitch<D>();
-  constexpr int KSTEPS = D / 16;
-  constexpr int NT = kDqCols / 8;
-  constexpr int DT = D / 8;
-  constexpr int CHUNKS = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sQ = reinterpret_cast<T*>(smem_raw);  // [64][LDS]
-  T* sDO = sQ + kDqRows * LDS;                 // [64][LDS]
-  T* sK = sDO + kDqRows * LDS;                 // [2 stages][64][LDS]
-  T* sV = sK + 2 * kDqCols * LDS;              // [2 stages][64][LDS]
-  int* sKseg = reinterpret_cast<int*>(sV + 2 * kDqCols * LDS);  // [2][64]
-  int* sRowT = sKseg + 2 * kDqCols;               // [64]
-  int* sQseg = sRowT + kDqRows;                   // [64]
-  int* sSegRange = sQseg + kDqRows;               // [2]
-  int* sSpan = sSegRange + 2;                     // [2] first, last live column
+__global__ void __launch_bounds__(kTcThreads, 1)
+    dq_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_do,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const BwdParams p) {
+  using L = DqTc<D>;
+  constexpr int ST = L::kStages, NC = L::kCols;
+  extern __shared__ uint8_t dq_smem[];
+  uint8_t* sQG = dq_smem + ((1024 - (smem_u32(dq_smem) & 1023)) & 1023);  // Q, then dO
+  uint8_t* sKV = sQG + L::kQBytes;  // stage s: K chunks, then V chunks
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKV + ST * L::kStageBytes);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+  int* sKseg = reinterpret_cast<int*>(empty + ST);  // [ST][NC]
+  int* sFlags = sKseg + ST * NC;                    // [ST] kSegWhole | kWhole
+  int* sRowT = sFlags + ST;                         // [128]
+  int* sQseg = sRowT + kDqRows;                     // [128]
+  float* sLse2 = reinterpret_cast<float*>(sQseg + kDqRows);  // [128]
+  float* sDelta = sLse2 + kDqRows;                           // [128]
+  int* sSegRange = reinterpret_cast<int*>(sDelta + kDqRows);  // [2]
+  int* sSpan = sSegRange + 2;                                 // [2]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tq = lane & 3, mi = lane >> 3;
-  const int q0 = blockIdx.x * p.BQ;
+  const int tid = threadIdx.x;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * p.BQ;  // the longest causal walks first
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
   const int nrows = p.G * p.BQ;
-  const int64_t kv_row = (int64_t)p.Hkv * D;
-  const T* qb = static_cast<const T*>(p.q) + (int64_t)b * p.T * p.H * D;
-  const T* gb = static_cast<const T*>(p.dout) + (int64_t)b * p.T * p.H * D;
-  const T* kb = static_cast<const T*>(p.k) + (int64_t)b * p.S * kv_row + hk * D;
-  const T* vb = static_cast<const T*>(p.v) + (int64_t)b * p.S * kv_row + hk * D;
 
   if (tid == 0) {
     sSegRange[0] = INT_MAX;
     sSegRange[1] = INT_MIN;
+    mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_fence_init();
+    // Q and dO at once, as K1's Q
+    mbar_expect_tx(q_full, 2 * L::kChunks * nrows * 128);
+    for (int c = 0; c < L::kChunks; ++c) {
+      tma_load_4d(sQG + c * L::kRowRegion, &map_q, q_full, c * 64, hk * p.G, q0, b);
+      tma_load_4d(sQG + (L::kChunks + c) * L::kRowRegion, &map_do, q_full, c * 64, hk * p.G,
+                  q0, b);
+    }
   }
+  for (int i = nrows * 8 + tid; i < kDqRows * 8; i += kTcThreads)
+    for (int c = 0; c < 2 * L::kChunks; ++c)
+      reinterpret_cast<int4*>(sQG + c * L::kRowRegion)[i] = make_int4(0, 0, 0, 0);
+  fence_proxy_async();
   __syncthreads();
   if (tid < kDqRows) {
+    const int r = tid;
     int t = -1, seg = 0;
-    if (tid < nrows) {
-      const int tt = q0 + tid % p.BQ;
-      if (tt < p.T) {
-        t = tt;
-        seg = p.q_seg ? p.q_seg[(int64_t)b * p.T + t] : 1;
-        atomicMin(&sSegRange[0], seg);
-        atomicMax(&sSegRange[1], seg);
-      }
+    float lse2 = INFINITY, dl = 0.f;  // a dead row: p = 0, even where a tile skips the mask
+    if (r < nrows && q0 + r / p.G < p.T) {
+      t = q0 + r / p.G;
+      seg = p.q_seg ? p.q_seg[(int64_t)b * p.T + t] : 1;
+      atomicMin(&sSegRange[0], seg);
+      atomicMax(&sSegRange[1], seg);
+      const int64_t o = ((int64_t)b * p.H + hk * p.G + r % p.G) * p.T + t;
+      const float lse = p.lse[o];
+      lse2 = lse == -INFINITY ? INFINITY : lse * kLog2e;
+      dl = p.delta[o];
     }
-    sRowT[tid] = t;
-    sQseg[tid] = seg;
+    sRowT[r] = t;
+    sQseg[r] = seg;
+    sLse2[r] = lse2;
+    sDelta[r] = dl;
   }
-  for (int i = tid; i < kDqRows * CHUNKS; i += kMmaThreads) {
-    const int r = i / CHUNKS, ch = i % CHUNKS;
-    const int t = q0 + r % p.BQ;
-    const bool ok = r < nrows && t < p.T;
-    const int64_t off = ((int64_t)t * p.H + hk * p.G + r / p.BQ) * D + ch * 8;
-    cp_async_16(sQ + r * LDS + ch * 8, ok ? qb + off : qb, ok);
-    cp_async_16(sDO + r * LDS + ch * 8, ok ? gb + off : gb, ok);
-  }
-  cp_async_commit();
   __syncthreads();
   const int seg_lo = sSegRange[0], seg_hi = sSegRange[1];
-
   int kv_end = p.S;
   if (p.causal) {
     const int t_last = min(q0 + p.BQ, p.T) - 1;
@@ -858,144 +939,173 @@ __global__ void __launch_bounds__(kMmaThreads, 2) dq_mma_kernel(BwdParams p) {
   int first, last;
   live_span(p.kv_seg ? p.kv_seg + (int64_t)b * p.S : nullptr, 0, kv_end, seg_lo, seg_hi,
             sSpan, first, last);
-  const int ntiles = last < 0 ? 0 : last / kDqCols + 1;
+  const int ntiles = last < 0 ? 0 : last / NC + 1;
+  const int tile0 = last < 0 ? 0 : first / NC;
 
-  const int tile0 = last < 0 ? 0 : first / kDqCols;
-
-  // as K1's: K, V and the kv segment ids of a tile by cp.async
-  auto load_kv = [&](int tile, int stage) {
-    T* dk_ = sK + stage * kDqCols * LDS;
-    T* dv_ = sV + stage * kDqCols * LDS;
-    for (int i = tid; i < kDqCols * CHUNKS; i += kMmaThreads) {
-      const int c = i / CHUNKS, ch = i % CHUNKS;
-      const int col = tile * kDqCols + c;
-      const bool ok = col < kv_end;
-      cp_async_16(dk_ + c * LDS + ch * 8, ok ? kb + col * kv_row + ch * 8 : kb, ok);
-      cp_async_16(dv_ + c * LDS + ch * 8, ok ? vb + col * kv_row + ch * 8 : vb, ok);
-    }
-    if (tid < kDqCols) {
-      const int col = tile * kDqCols + tid;
-      int* dst = sKseg + stage * kDqCols + tid;
-      if (p.kv_seg)
-        cp_async_4(dst, col < kv_end ? p.kv_seg + (int64_t)b * p.S + col : p.kv_seg,
-                   col < kv_end);
-      else
-        *dst = 1;
-    }
-  };
-
-  int stage = 0;
-  if (tile0 < ntiles) load_kv(tile0, 0);
-  cp_async_commit();
-
-  cp_async_wait<1>();  // Q and dO have landed
-  __syncthreads();
-  uint32_t qf[KSTEPS][4], gf[KSTEPS][4];
-#pragma unroll
-  for (int ks = 0; ks < KSTEPS; ++ks) {
-    const int off = (warp * 16 + (lane & 15)) * LDS + ks * 16 + (lane >> 4) * 8;
-    ldmatrix_x4(qf[ks], sQ + off);
-    ldmatrix_x4(gf[ks], sDO + off);
-  }
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  int t_row[2], seg_row[2];
-  float lse2[2], dl[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = r0 + 8 * i;
-    t_row[i] = sRowT[r];
-    seg_row[i] = sQseg[r];
-    const int64_t o = ((int64_t)b * p.H + hk * p.G + r / p.BQ) * p.T + t_row[i];
-    // a dead row gets +inf, so p = 0 even where a tile skips the mask
-    lse2[i] = t_row[i] >= 0 ? p.lse[o] * kLog2e : INFINITY;
-    dl[i] = t_row[i] >= 0 ? p.delta[o] : 0.f;
-  }
-  float acc[DT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int cur = tile0; cur < ntiles; ++cur) {
-    cp_async_wait<0>();
-    const int kv0 = cur * kDqCols;
-    const int* kseg = sKseg + stage * kDqCols;
-    bool whole = true;
-    if (tid < kDqCols) whole = kv0 + tid < kv_end && kseg[tid] == seg_lo && seg_lo == seg_hi;
-    const bool full_cur = __syncthreads_and(whole) &&  // the one barrier, as K1's
-        (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + kDqCols - 1);
-    if (cur + 1 < ntiles) load_kv(cur + 1, stage ^ 1);
-    cp_async_commit();
-
-    const T* tK = sK + stage * kDqCols * LDS;
-    const T* tV = sV + stage * kDqCols * LDS;
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KSTEPS; ++ks) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        uint32_t kf[4], vf[4];
-        const int off = (j * 8 + (mi >> 1) * 8 + (lane & 7)) * LDS + ks * 16 + (mi & 1) * 8;
-        ldmatrix_x4(kf, tK + off);
-        ldmatrix_x4(vf, tV + off);
-        mma_16816<T>(s[j], qf[ks], kf[0], kf[1]);
-        mma_16816<T>(s[j + 1], qf[ks], kf[2], kf[3]);
-        mma_16816<T>(dp[j], gf[ks], vf[0], vf[1]);
-        mma_16816<T>(dp[j + 1], gf[ks], vf[2], vf[3]);
+  if (tid < 128) {  // producer, as K1's
+    setmaxnreg_dec<40>();
+    if (tid >= 32) return;
+    const int lane = tid;
+    for (int j = tile0, it = 0; j < ntiles; ++j, ++it) {
+      const int s = it % ST;
+      mbar_wait(&empty[s], ((it / ST) & 1) ^ 1);
+      const int kv0 = j * NC;
+      bool seg_whole = seg_lo == seg_hi;
+      for (int c = lane; c < NC; c += 32) {
+        const int col = kv0 + c;
+        int seg = INT_MIN;
+        if (col < kv_end) {
+          seg = p.kv_seg ? p.kv_seg[(int64_t)b * p.S + col] : 1;
+          seg_whole = seg_whole && seg == seg_lo;
+        }
+        sKseg[s * NC + c] = seg;
+      }
+      seg_whole = __all_sync(0xffffffffu, seg_whole);
+      if (lane == 0)
+        sFlags[s] = (seg_whole ? kSegWhole : 0) |
+                    (seg_whole && kv0 + NC <= kv_end &&
+                             (!p.causal || p.q_offset + q0 >= p.kv_offset + kv0 + NC - 1)
+                         ? kWhole
+                         : 0);
+      __syncwarp();
+      if (lane == 0) {
+        uint8_t* st = sKV + s * L::kStageBytes;
+        mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int c = 0; c < L::kChunks; ++c) {
+          tma_load_4d(st + c * L::kKVRegion, &map_k, &full[s], c * 64, kv0, hk, b);
+          tma_load_4d(st + (L::kChunks + c) * L::kKVRegion, &map_v, &full[s], c * 64, kv0, hk,
+                      b);
+        }
       }
     }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  constexpr int NA = NC / 2;  // S and dP accumulators a thread
+  constexpr int NO = D / 2;   // dQ accumulators a thread
+  const int cw = tid / 128 - 1;
+  const int lane = tid & 31, warp = (tid & 127) >> 5, tq = lane & 3;
+  const int r0 = cw * 64 + warp * 16 + (lane >> 2);  // this thread's rows: r0 and r0 + 8
+  const int t_row[2] = {sRowT[r0], sRowT[r0 + 8]};
+  const int seg_row[2] = {sQseg[r0], sQseg[r0 + 8]};
+  const float lse2[2] = {sLse2[r0], sLse2[r0 + 8]};
+  const float dl[2] = {sDelta[r0], sDelta[r0 + 8]};
+  const uint8_t* tQc = sQG + cw * 8192;
+  const uint8_t* tGc = sQG + L::kChunks * L::kRowRegion + cw * 8192;
+  float acc[NO];
 #pragma unroll
-    for (int j = 0; j < NT; ++j) {
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+
+  // As K1's loop: tile it's S and dP run beside the previous tile's
+  // dQ += dS K, so forming dS overlaps that product; the first tile's
+  // products and the last tile's dQ are peeled off the loop.
+  float sc[NA], dp[NA];
+  uint32_t sa[NC / 16][4];
+  const int n = ntiles - tile0;
+  auto issue_s = [&](int it) {  // S = Q K^T and dP = dO V^T of tile it, one group
+    const int s = it % ST;
+    mbar_wait(&full[s], (it / ST) & 1);
+    const uint8_t* tK = sKV + s * L::kStageBytes;
+    const uint8_t* tV = tK + L::kChunks * L::kKVRegion;
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      wgmma_ss<T, NC, 0, 0>(sc, kmajor_desc(tQc, L::kRowRegion, ks),
+                            kmajor_desc(tK, L::kKVRegion, ks), ks > 0);
+      wgmma_ss<T, NC, 0, 0>(dp, kmajor_desc(tGc, L::kRowRegion, ks),
+                            kmajor_desc(tV, L::kKVRegion, ks), ks > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_dq = [&](int it) {  // dQ += dS K of tile it, one group
+    const uint8_t* tK = sKV + (it % ST) * L::kStageBytes;
+#pragma unroll
+    for (int kk = 0; kk < NC / 16; ++kk)
+      wgmma_rs<T, D, 1>(acc, sa[kk], wgmma_desc(tK + kk * 2048, L::kKVRegion, 1024), 1);
+    wgmma_commit();
+  };
+  auto form_ds = [&](int it) {  // dS of tile it into sc, in f32
+    const int s = it % ST;
+    const int kv0 = (tile0 + it) * NC;
+    const int* kseg = sKseg + s * NC;
+    const int flags = sFlags[s];
+    // K1's branch-free mask: columns [0, lim) of the tile in range and
+    // visible, the segment ids compared unless the tile is in one segment
+    const bool whole = flags & kWhole, seg_check = !(flags & kSegWhole);
+    int lim[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int diag = p.causal ? p.q_offset + t_row[i] - p.kv_offset - kv0 + 1 : NC;
+      lim[i] = t_row[i] < 0 ? 0 : min(kv_end - kv0, diag);
+    }
+#pragma unroll
+    for (int jn = 0; jn < NC / 8; ++jn) {
+      const int c = 8 * jn + 2 * tq;
+      const int2 ks = *reinterpret_cast<const int2*>(kseg + c);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        float pr = fast_exp2(fmaf(s[j][e], p.scale_log2, -lse2[i]));
-        if (!full_cur) {
-          const int c = j * 8 + 2 * tq + (e & 1);
-          const int col = kv0 + c;
-          const bool ok = t_row[i] >= 0 && col < kv_end && seg_row[i] == kseg[c] &&
-                          lse2[i] != -INFINITY &&
-                          (!p.causal || p.q_offset + t_row[i] >= p.kv_offset + col);
-          pr = ok ? pr : 0.f;
-        }
-        s[j][e] = pr * (dp[j][e] - dl[i]);  // dS
+        float pr = fast_exp2(fmaf(sc[4 * jn + e], p.scale_log2, -lse2[i]));
+        const bool ok = whole | ((c + (e & 1) < lim[i]) &
+                                 (!seg_check | (((e & 1) ? ks.y : ks.x) == seg_row[i])));
+        pr = ok ? pr : 0.f;
+        sc[4 * jn + e] = pr * (dp[4 * jn + e] - dl[i]);
       }
     }
-    // dQ += dS K: two n-tiles of columns are one k-step
+  };
+  auto pack_ds = [&]() {  // column blocks 2kk and 2kk + 1: the A operand of k-step kk
 #pragma unroll
-    for (int kk = 0; kk < kDqCols / 16; ++kk) {
-      const uint32_t sa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
-                              pack2<T>(s[2 * kk][2], s[2 * kk][3]),
-                              pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+    for (int kk = 0; kk < NC / 16; ++kk)
 #pragma unroll
-      for (int dj = 0; dj < DT; dj += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4_trans(kf, tK + (kk * 16 + (mi & 1) * 8 + (lane & 7)) * LDS + dj * 8 +
-                                  (mi >> 1) * 8);
-        mma_16816<T>(acc[dj], sa, kf[0], kf[1]);
-        mma_16816<T>(acc[dj + 1], sa, kf[2], kf[3]);
-      }
+      for (int h = 0; h < 4; ++h) sa[kk][h] = pack2<T>(sc[8 * kk + 2 * h], sc[8 * kk + 2 * h + 1]);
+  };
+  auto release = [&](int it) {  // this warp is done with tile it's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % ST]);
+  };
+
+  if (n > 0) {
+    wgmma_fence();
+    issue_s(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    form_ds(0);
+    pack_ds();
+    for (int it = 1; it < n; ++it) {
+      wgmma_fence();
+      issue_s(it);
+      issue_dq(it - 1);
+      wgmma_wait<1>();  // S and dP of tile it are done; dQ of tile it - 1 may still run
+      fence_regs(sc);
+      fence_regs(dp);
+      form_ds(it);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(sa);
+      release(it - 1);
+      pack_ds();
     }
-    stage ^= 1;
+    wgmma_fence();
+    issue_dq(n - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(sa);
+    release(n - 1);
   }
-  cp_async_wait<0>();
 
   T* dqb = static_cast<T*>(p.dq);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int t = t_row[i];
     if (t < 0) continue;
-    const int h = hk * p.G + (r0 + 8 * i) / p.BQ;
+    const int h = hk * p.G + (r0 + 8 * i) % p.G;
     T* row = dqb + (((int64_t)b * p.T + t) * p.H + h) * D;
 #pragma unroll
-    for (int dj = 0; dj < DT; ++dj)
-      *reinterpret_cast<uint32_t*>(row + dj * 8 + 2 * tq) =
-          pack2<T>(acc[dj][2 * i] * p.scale, acc[dj][2 * i + 1] * p.scale);
+    for (int jn = 0; jn < D / 8; ++jn)
+      *reinterpret_cast<uint32_t*>(row + 8 * jn + 2 * tq) =
+          pack2<T>(acc[4 * jn + 2 * i] * p.scale, acc[4 * jn + 2 * i + 1] * p.scale);
   }
 }
 
@@ -1006,31 +1116,52 @@ inline cudaError_t mark(cudaEvent_t* events, int i, cudaStream_t stream) {
 }
 
 template <typename T, int D>
-cudaError_t launch_mma(const BwdParams& p, cudaStream_t stream, cudaEvent_t* ev) {
+cudaError_t launch_tc(const BwdParams& p, cudaStream_t stream, cudaEvent_t* ev) {
+  using KV = DkvTc<D>;
+  using Q = DqTc<D>;
+  // q, dout [B, T, H, D] and k, v [B, S, Hkv, D], contiguous
+  const uint64_t qdims[4] = {(uint64_t)D, (uint64_t)p.H, (uint64_t)p.T, (uint64_t)p.B};
+  const uint64_t kdims[4] = {(uint64_t)D, (uint64_t)p.S, (uint64_t)p.Hkv, (uint64_t)p.B};
+  const int64_t q_st[3] = {D, (int64_t)p.H * D, (int64_t)p.T * p.H * D};
+  const int64_t k_st[3] = {(int64_t)p.Hkv * D, D, (int64_t)p.S * p.Hkv * D};
+  const uint32_t box_rows_kv[4] = {64u, (uint32_t)p.G, (uint32_t)p.BQk, 1u};
+  const uint32_t box_rows_q[4] = {64u, (uint32_t)p.G, (uint32_t)p.BQ, 1u};
+  const uint32_t box_cols_kv[4] = {64u, (uint32_t)kDkvCols, 1u, 1u};
+  const uint32_t box_cols_q[4] = {64u, (uint32_t)Q::kCols, 1u, 1u};
+  CUtensorMap m_q_kv, m_do_kv, m_k_kv, m_v_kv, m_q_q, m_do_q, m_k_q, m_v_q;
+  if (!tensor_map_4d<T>(&m_q_kv, p.q, qdims, q_st, box_rows_kv) ||
+      !tensor_map_4d<T>(&m_do_kv, p.dout, qdims, q_st, box_rows_kv) ||
+      !tensor_map_4d<T>(&m_k_kv, p.k, kdims, k_st, box_cols_kv) ||
+      !tensor_map_4d<T>(&m_v_kv, p.v, kdims, k_st, box_cols_kv) ||
+      !tensor_map_4d<T>(&m_q_q, p.q, qdims, q_st, box_rows_q) ||
+      !tensor_map_4d<T>(&m_do_q, p.dout, qdims, q_st, box_rows_q) ||
+      !tensor_map_4d<T>(&m_k_q, p.k, kdims, k_st, box_cols_q) ||
+      !tensor_map_4d<T>(&m_v_q, p.v, kdims, k_st, box_cols_q))
+    return cudaErrorInvalidValue;
+
   const int64_t rows = (int64_t)p.B * p.T * p.H;
   cudaError_t err = mark(ev, 0, stream);
   if (err != cudaSuccess) return err;
-  delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(p);
+  delta16_kernel<T><<<(unsigned)((rows + 31) / 32), 256, 0, stream>>>(p);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(ev, 1, stream);
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem_kv = dkv_mma_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dkv_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_kv);
+  err = cudaFuncSetAttribute(dkv_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)KV::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid_kv((p.S + kDkvCols - 1) / kDkvCols, p.Hkv, p.B);
-  dkv_mma_kernel<T, D><<<grid_kv, kMmaThreads, smem_kv, stream>>>(p);
+  dkv_tc_kernel<T, D><<<grid_kv, kTcThreads, KV::kSmem, stream>>>(m_q_kv, m_do_kv, m_k_kv,
+                                                                   m_v_kv, p);
   err = cudaGetLastError();
   if (err == cudaSuccess) err = mark(ev, 2, stream);
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem_q = dq_mma_smem_bytes<D>();
-  err = cudaFuncSetAttribute(dq_mma_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_q);
+  err = cudaFuncSetAttribute(dq_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Q::kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid_q((p.T + p.BQ - 1) / p.BQ, p.Hkv, p.B);
-  dq_mma_kernel<T, D><<<grid_q, kMmaThreads, smem_q, stream>>>(p);
+  dq_tc_kernel<T, D><<<grid_q, kTcThreads, Q::kSmem, stream>>>(m_q_q, m_do_q, m_k_q, m_v_q, p);
   err = cudaGetLastError();
   return err == cudaSuccess ? mark(ev, 3, stream) : err;
 }
@@ -1088,16 +1219,21 @@ extern "C" int tn_flash_bwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaEvent_t* ev = reinterpret_cast<cudaEvent_t*>(events);
   if (dtype == tn::kBFloat16 || dtype == tn::kFloat16) {
-    // cp.async moves 16-byte rows of the contiguous inputs
-    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout) % 16 != 0)
+    // TMA reads the contiguous inputs from 16-byte aligned bases
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out | (uintptr_t)dout) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
     p.BQ = tn::kDqRows / p.G;
-    p.BQk = tn::kDkvRows / p.G;
     const bool bf = dtype == tn::kBFloat16;
-    if (D == 64) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 64>(p, st, ev)
-                                 : tn::launch_mma<__half, 64>(p, st, ev));
-    if (D == 128) return (int)(bf ? tn::launch_mma<__nv_bfloat16, 128>(p, st, ev)
-                                  : tn::launch_mma<__half, 128>(p, st, ev));
+    if (D == 64) {
+      p.BQk = tn::DkvTc<64>::kRows / p.G;
+      return (int)(bf ? tn::launch_tc<__nv_bfloat16, 64>(p, st, ev)
+                      : tn::launch_tc<__half, 64>(p, st, ev));
+    }
+    if (D == 128) {
+      p.BQk = tn::DkvTc<128>::kRows / p.G;
+      return (int)(bf ? tn::launch_tc<__nv_bfloat16, 128>(p, st, ev)
+                      : tn::launch_tc<__half, 128>(p, st, ev));
+    }
     return (int)cudaErrorInvalidValue;
   }
   p.BQ = p.BQk = tn::kTile / p.G;

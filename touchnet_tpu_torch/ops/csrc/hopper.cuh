@@ -1,12 +1,22 @@
 // Copyright (c) 2026 touchnet_tpu authors.
-// Hopper (sm_90a) building blocks of the port's GEMM mainloops: mbarriers,
-// TMA tile loads, wgmma on shared-memory descriptors, and the host-side
+// Hopper (sm_90a) building blocks of the port's GEMM and attention
+// mainloops: mbarriers, TMA tile loads (2-D and 4-D), wgmma on shared-
+// memory descriptors (SS) and with A from registers (RS), and the host-side
 // tensor-map encoder (fetched from the driver at run time, so the library
 // links against the CUDA runtime alone).
 //
 // Element types: bf16 and f16 (2 bytes each, so every layout below holds
 // for both); the wgmma instruction and the tensor map's data type follow the
-// element type T of wgmma_m64n256k16<T> and tensor_map<T>.
+// element type T of the wgmma_* templates and tensor_map<T>.
+//
+// Register fragments (every wgmma shape m64nNk16 here): thread i of the
+// warpgroup (warp w = i / 32, lane) holds accumulator rows 16 w + lane / 4
+// (d[4j], d[4j + 1]) and + 8 (d[4j + 2], d[4j + 3]) at columns 8 j +
+// 2 (lane % 4) and + 1, as mma.sync's m16n8 C fragments, one per 8-column
+// block j. The A operand of an RS wgmma is mma.sync's m16k16 A fragment
+// per warp, so the accumulators of column blocks 2kk and 2kk + 1, packed to
+// the element type in order, are the A operand of k-step kk: a product's
+// f32 result feeds the next product without a shuffle or shared memory.
 //
 // Layouts. Every operand tile is loaded by TMA with 128-byte swizzling in
 // boxes whose inner extent is 64 elements (one 128-byte line), and is read
@@ -78,6 +88,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
         "r"(c0), "r"(c1) : "memory");
 }
 
+// TMA: the box at coordinates (c0 innermost .. c3) of a 4-D `map`
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+        "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// order this thread's earlier generic-proxy writes to shared memory before
+// later async-proxy accesses (TMA writes, wgmma reads) of it
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // a wgmma descriptor of a 128-byte-swizzled tile (layout type 1)
 __device__ __forceinline__ uint64_t wgmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
@@ -102,6 +128,17 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for the A operand of an RS wgmma: called after the wait that
+// completes it, so the compiler keeps the registers until then (the
+// tensor cores read them asynchronously)
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 template <int R>
@@ -165,6 +202,98 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t da, u
 }
 #undef TN_WGMMA_M64N256K16
 
+// d[64 x N] (+)= A[64 x 16] B[16 x N] for N 64 and 128, the attention
+// kernels' shapes. SS: A and B from shared memory through descriptors, TA /
+// TB = 1 reading that operand MN-major. RS: A from registers (four 32-bit
+// registers of element pairs, the fragment of the note above), B through a
+// descriptor. scale_d = 0 overwrites d (the first k-step of a product),
+// 1 accumulates into it.
+#define TN_WGMMA_SS_N64(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {"\
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"\
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+
+#define TN_WGMMA_RS_N64(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " {"\
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"\
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+
+#define TN_WGMMA_SS_N128(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {"\
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"\
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),\
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),\
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),\
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+
+#define TN_WGMMA_RS_N128(AB) \
+  asm volatile( \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " {"\
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"\
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n" \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),\
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),\
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),\
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),\
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),\
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),\
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),\
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
+
+template <typename T, int N, int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_ss: N 64 or 128");
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  static_assert(f16 || std::is_same<T, __nv_bfloat16>::value, "wgmma operands: bf16 or f16");
+  if constexpr (N == 64) {
+    if constexpr (f16) { TN_WGMMA_SS_N64("f16"); } else { TN_WGMMA_SS_N64("bf16"); }
+  } else {
+    if constexpr (f16) { TN_WGMMA_SS_N128("f16"); } else { TN_WGMMA_SS_N128("bf16"); }
+  }
+}
+
+template <typename T, int N, int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N 64 or 128");
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  static_assert(f16 || std::is_same<T, __nv_bfloat16>::value, "wgmma operands: bf16 or f16");
+  if constexpr (N == 64) {
+    if constexpr (f16) { TN_WGMMA_RS_N64("f16"); } else { TN_WGMMA_RS_N64("bf16"); }
+  } else {
+    if constexpr (f16) { TN_WGMMA_RS_N128("f16"); } else { TN_WGMMA_RS_N128("bf16"); }
+  }
+}
+#undef TN_WGMMA_SS_N64
+#undef TN_WGMMA_RS_N64
+#undef TN_WGMMA_SS_N128
+#undef TN_WGMMA_RS_N128
+
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
@@ -206,6 +335,36 @@ inline bool tensor_map(CUtensorMap* map, const void* base, uint64_t inner, uint6
   const cuuint32_t elem_strides[2] = {1, 1};
   return encode(map, type, 2, const_cast<void*>(base), dims, strides,
                 box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the tensor map of a 4-D bf16 or f16 (T) tensor: dims[0] innermost and
+// contiguous, strides[i] the elements between two indices of dims[i + 1]
+// (a 0 stride, which the wrappers give a dim of size 1, is replaced by the
+// dense one), read in boxes box[0..3] with 128-byte swizzling (box[0] = 64)
+// and zeros beyond the edges; false if cuTensorMapEncodeTiled refuses it
+template <typename T>
+inline bool tensor_map_4d(CUtensorMap* map, const void* base, const uint64_t (&dims)[4],
+                          const int64_t (&strides)[3], const uint32_t (&box)[4]) {
+  static_assert(sizeof(T) == 2, "a 16-bit element type");
+  constexpr CUtensorMapDataType type = std::is_same<T, __half>::value
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const TensorMapEncodeFn encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  cuuint64_t st[3];
+  uint64_t dense = dims[0];
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t e = strides[i] > 0 ? (uint64_t)strides[i] : dense;
+    st[i] = e * 2;
+    dense = e * dims[i + 1];
+  }
+  const cuuint64_t gdims[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint32_t gbox[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, type, 4, const_cast<void*>(base), gdims, st, gbox, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
